@@ -1,0 +1,84 @@
+"""Dense panel of a stock universe (`factorvae_tpu/data/panel.py`).
+
+    values: (I, D, C+1) float32, NaN where an (instrument, day) row is
+            absent; the last column is the label
+    valid:  (D, I) bool, the row exists on that trading day
+    dates:  (D,) numpy datetime64[D]
+    instruments: (I,) str
+
+pandas is imported only by `load_frame` and `build_panel`, which read the
+reference's pickle schema; the scoring path never needs it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+
+
+def to_day(d) -> np.datetime64:
+    return np.datetime64(str(d)[:10], "D")
+
+
+@dataclasses.dataclass
+class Panel:
+    values: np.ndarray        # (I, D, C+1) float32
+    valid: np.ndarray         # (D, I) bool
+    dates: np.ndarray         # (D,) datetime64[D]
+    instruments: np.ndarray   # (I,) str
+
+    @property
+    def num_days(self) -> int:
+        return len(self.dates)
+
+    @property
+    def num_instruments(self) -> int:
+        return len(self.instruments)
+
+    @property
+    def num_features(self) -> int:
+        return self.values.shape[-1] - 1
+
+    def locate(self, start: Optional[str], end: Optional[str]) -> tuple:
+        """Day-index range [lo, hi) of the dates in [start, end] (both
+        inclusive; None leaves that side open)."""
+        lo = 0 if start is None else int(np.searchsorted(self.dates, to_day(start), "left"))
+        hi = (len(self.dates) if end is None
+              else int(np.searchsorted(self.dates, to_day(end), "right")))
+        return lo, max(lo, hi)
+
+
+def load_frame(path: str, select_feature: Optional[Sequence[str]] = None,
+               max_columns: int = 159):
+    """Read a reference-schema pickle: keep the first 159 columns and name
+    the last one 'LABEL0'."""
+    import pandas as pd
+
+    df = pd.read_pickle(path)
+    if isinstance(df.columns, pd.MultiIndex):
+        df.columns = [c[-1] for c in df.columns]
+    df = df.iloc[:, :max_columns]
+    df = df.rename(columns={df.columns[-1]: "LABEL0"})
+    if select_feature is not None:
+        df = df[list(select_feature) + ["LABEL0"]]
+    return df
+
+
+def build_panel(df) -> Panel:
+    """Densify a MultiIndex (datetime, instrument) frame to a Panel."""
+    if list(df.index.names) != ["datetime", "instrument"]:
+        raise ValueError(f"expected (datetime, instrument) index, got {df.index.names}")
+    df = df.sort_index()
+    dates = df.index.get_level_values(0).unique().sort_values()
+    instruments = df.index.get_level_values(1).unique().sort_values()
+    rows = dates.get_indexer(df.index.get_level_values(0))
+    cols = instruments.get_indexer(df.index.get_level_values(1))
+    values = np.full((len(instruments), len(dates), df.shape[1]), np.nan, np.float32)
+    values[cols, rows] = df.to_numpy(dtype=np.float32)
+    valid = np.zeros((len(dates), len(instruments)), bool)
+    valid[rows, cols] = True
+    return Panel(values=values, valid=valid,
+                 dates=np.asarray(dates.values, dtype="datetime64[D]"),
+                 instruments=np.asarray(instruments))

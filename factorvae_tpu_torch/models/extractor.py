@@ -1,0 +1,42 @@
+"""Per-stock feature extractor (`factorvae_tpu/models/extractor.py`).
+
+LayerNorm(C) -> Linear(C->C) -> LeakyReLU -> 1-layer GRU over T -> last
+hidden state: the per-stock latent (N, H).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from factorvae_tpu_torch.config import ModelConfig
+from factorvae_tpu_torch.models.layers import GRU, Dense, layer_norm
+
+
+class FeatureExtractor(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.gru_layers != 1:
+            raise NotImplementedError(
+                "factorvae_tpu_torch ports the 1-layer GRU only "
+                f"(gru_layers={cfg.gru_layers})")
+        self.cfg = cfg
+        self.layer_norm = layer_norm(cfg.num_features)
+        self.proj = Dense(cfg.num_features, cfg.num_features)
+        self.gru = GRU(cfg.num_features, cfg.hidden_size)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.layer_norm.reset_parameters()
+        self.proj.reset_parameters(self.cfg.torch_init, generator)
+        self.gru.reset_parameters(self.cfg.torch_init, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (N, T, C) -> (N, H). Padded stocks give latents that the
+        masked reductions downstream ignore."""
+        x = self.layer_norm(x)
+        x = self.proj(x)
+        x = F.leaky_relu(x, negative_slope=self.cfg.leaky_relu_slope)
+        return self.gru(x)

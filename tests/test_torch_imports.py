@@ -1,0 +1,114 @@
+"""Guards of the PyTorch port: what it imports, that the JAX weights carry
+across without loss, and that `chip_smoke.py` refuses to run without a GPU
+instead of falling back to the CPU."""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+from factorvae_tpu import config as jconfig
+from factorvae_tpu.models.factorvae import load_model as jload_model
+from factorvae_tpu_torch import config as tconfig
+from factorvae_tpu_torch.models.factorvae import FactorVAE
+from factorvae_tpu_torch.params import flax_to_torch, torch_to_flax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_PROBE = r"""
+import importlib, pkgutil, sys
+import numpy as np
+import factorvae_tpu_torch as pkg
+
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+
+from factorvae_tpu_torch.data.loader import PanelDataset
+from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+from factorvae_tpu_torch.eval.predict import predict_panel
+from factorvae_tpu_torch.models.factorvae import load_model
+from factorvae_tpu_torch import config
+
+cfg = config.Config(model=config.ModelConfig(num_features=6, hidden_size=4,
+                    num_factors=3, num_portfolios=5, seq_len=4))
+ds = PanelDataset(synthetic_panel_dense(12, 5, 6), seq_len=4, device="cpu")
+scores = predict_panel(load_model(cfg, device="cpu"), cfg, ds,
+                       ds.split_days(None, None), stochastic=False)
+assert scores.shape == (12, 8) and np.isfinite(scores[:, :5]).all()
+
+def banned(mod):
+    top = mod.split(".")[0]
+    return (top in ("jax", "jaxlib", "flax", "pandas", "factorvae_tpu")
+            or mod.startswith("factorvae_tpu."))
+
+print(len(names), sorted(m for m in sys.modules if banned(m)))
+"""
+
+
+def test_port_imports_no_jax_flax_pandas_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, banned = proc.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 20
+    assert banned.strip() == "[]"
+
+
+def test_flax_tree_round_trips_bitwise_through_the_port():
+    cfg = jconfig.ModelConfig(num_features=12, hidden_size=8, num_factors=4,
+                              num_portfolios=10, seq_len=6)
+    _, params = jload_model(jconfig.Config(model=cfg), n_max=8)
+    state = flax_to_torch(params)
+    model = FactorVAE(tconfig.ModelConfig(num_features=12, hidden_size=8,
+                                          num_factors=4, num_portfolios=10, seq_len=6))
+    model.load_state_dict(state)            # strict: every leaf used exactly once
+    assert set(state) == set(model.state_dict())
+    back = torch_to_flax(model.state_dict())
+    want = jax.tree_util.tree_flatten_with_path(params)[0]
+    got = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in got] == \
+        [jax.tree_util.keystr(p) for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        b = np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, jax.tree_util.keystr(path)
+        assert np.array_equal(a, b), jax.tree_util.keystr(path)
+    # the inner tree alone maps the same way
+    inner = flax_to_torch(params["params"]["model"])
+    assert all(np.array_equal(inner[k].numpy(), state[k].numpy()) for k in state)
+
+
+def test_flax_to_torch_refuses_an_incomplete_tree():
+    cfg = jconfig.ModelConfig(num_features=12, hidden_size=8, num_factors=4,
+                              num_portfolios=10, seq_len=6)
+    _, params = jload_model(jconfig.Config(model=cfg), n_max=8)
+    state = flax_to_torch(params)
+    state.pop("factor_predictor.query")
+    model = FactorVAE(tconfig.ModelConfig(num_features=12, hidden_size=8,
+                                          num_factors=4, num_portfolios=10, seq_len=6))
+    with pytest.raises(RuntimeError, match="factor_predictor.query"):
+        model.load_state_dict(state)
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "script_alone"])
+def test_chip_smoke_fails_without_a_gpu(tmp_path, alone):
+    """No CUDA device (this host), or the script copied away from the
+    repository: a non-zero exit and never an "ok" result line."""
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "no CUDA device" in proc.stderr or "Error" in proc.stderr

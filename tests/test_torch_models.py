@@ -1,0 +1,238 @@
+"""The port's config, masked ops and model modules against the JAX package.
+
+Weights come from the JAX `load_model` factory and are copied in with
+`params.flax_to_torch`; inputs are made with numpy. Every module is run on
+the JAX side with its Pallas kernels (interpret mode on the CPU) and with
+the XLA path. Tolerance: f32 with rtol=1e-5, atol=1e-6, the repo's
+torch-oracle tolerance (tests/test_models.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from factorvae_tpu import config as jconfig
+from factorvae_tpu import presets as jpresets
+from factorvae_tpu.models.decoder import FactorDecoder as JDecoder
+from factorvae_tpu.models.encoder import FactorEncoder as JEncoder
+from factorvae_tpu.models.extractor import FeatureExtractor as JExtractor
+from factorvae_tpu.models.factorvae import FactorVAE as JFactorVAE
+from factorvae_tpu.models.factorvae import load_model as jload_model
+from factorvae_tpu.models.predictor import FactorPredictor as JPredictor
+from factorvae_tpu.ops.masked import masked_mean as jmasked_mean
+from factorvae_tpu.ops.masked import masked_softmax as jmasked_softmax
+from factorvae_tpu_torch import config as tconfig
+from factorvae_tpu_torch import presets as tpresets
+from factorvae_tpu_torch.models.factorvae import FactorVAE, load_model
+from factorvae_tpu_torch.ops.masked import masked_mean, masked_softmax
+from factorvae_tpu_torch.params import flax_to_torch
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+C, T, H, K, M, N, B = 12, 6, 8, 4, 10, 16, 3
+PALLAS = pytest.mark.parametrize("pallas", [True, False], ids=["pallas", "xla"])
+
+
+def _jcfg(pallas: bool) -> jconfig.ModelConfig:
+    return jconfig.ModelConfig(num_features=C, hidden_size=H, num_factors=K,
+                               num_portfolios=M, seq_len=T,
+                               use_pallas_gru=pallas, use_pallas_attention=pallas)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """(JAX model-level param tree, the port's FactorVAE with those weights)."""
+    _, params = jload_model(jconfig.Config(model=_jcfg(False)), n_max=8)
+    tree = params["params"]["model"]
+    cfg = tconfig.ModelConfig(num_features=C, hidden_size=H, num_factors=K,
+                              num_portfolios=M, seq_len=T)
+    model = FactorVAE(cfg)
+    model.load_state_dict(flax_to_torch(params))
+    return tree, model.eval()
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _inputs(seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, N, T, C)).astype(np.float32)
+    mask = rng.random((B, N)) > 0.2
+    mask[:, -2:] = False
+    return rng, x, mask
+
+
+class TestConfig:
+    def test_fields_and_defaults_match_the_jax_config(self):
+        for jtp, ttp in ((jconfig.ModelConfig, tconfig.ModelConfig),
+                         (jconfig.DataConfig, tconfig.DataConfig),
+                         (jconfig.TrainConfig, tconfig.TrainConfig),
+                         (jconfig.MeshConfig, tconfig.MeshConfig)):
+            jd = {f.name: f.default for f in dataclasses.fields(jtp)}
+            td = {f.name: f.default for f in dataclasses.fields(ttp)}
+            for name in ("use_pallas_attention", "use_pallas_gru"):
+                jd.pop(name, None)      # no kernel switch in the port
+            assert jd == td
+
+    def test_json_round_trip_and_jax_config_loads(self):
+        cfg = tpresets.get_preset("csi300-k60")
+        assert tconfig.Config.from_json(cfg.to_json()) == cfg
+        jcfg = jpresets.get_preset("csi300-k60")
+        loaded = tconfig.Config.from_json(jcfg.to_json())
+        assert dataclasses.replace(loaded.model, compute_dtype="float32") == cfg.model
+        assert loaded.train == cfg.train and loaded.data == cfg.data
+        assert cfg.model.dtype == torch.float32
+
+    def test_presets_have_the_jax_widths(self):
+        assert set(tpresets.PRESETS) == set(jpresets.PRESETS)
+        for name, cfg in tpresets.PRESETS.items():
+            jm = dataclasses.asdict(jpresets.PRESETS[name].model)
+            tm = dataclasses.asdict(cfg.model)
+            for key in ("num_features", "hidden_size", "num_factors",
+                        "num_portfolios", "seq_len"):
+                assert jm[key] == tm[key], (name, key)
+            assert tm["compute_dtype"] == "float32"
+        flag = tpresets.get_preset("flagship").model
+        assert (flag.num_features, flag.seq_len, flag.hidden_size,
+                flag.num_factors, flag.num_portfolios) == (158, 20, 64, 96, 128)
+
+
+class TestMaskedOps:
+    def test_masked_softmax_and_mean(self, rng):
+        x = rng.normal(size=(4, 7)).astype(np.float32)
+        mask = rng.random((4, 7)) > 0.3
+        mask[2] = False                               # fully masked row
+        for dim in (0, 1):
+            got = masked_softmax(_t(x), _t(mask), dim=dim).numpy()
+            want = np.asarray(jmasked_softmax(jnp.asarray(x), jnp.asarray(mask), axis=dim))
+            np.testing.assert_allclose(got, want, **TOL)
+        assert (masked_softmax(_t(x), _t(mask), dim=1).numpy()[2] == 0).all()
+        for dim in (None, 1):
+            np.testing.assert_allclose(
+                masked_mean(_t(x), _t(mask), dim=dim).numpy(),
+                np.asarray(jmasked_mean(jnp.asarray(x), jnp.asarray(mask), axis=dim)), **TOL)
+
+
+class TestModules:
+    @PALLAS
+    def test_extractor(self, weights, pallas):
+        tree, model = weights
+        _, x, _ = _inputs()
+        flat = x.reshape(B * N, T, C)
+        want = JExtractor(_jcfg(pallas)).apply(
+            {"params": tree["feature_extractor"]}, jnp.asarray(flat))
+        got = model.feature_extractor(_t(flat)).detach().numpy()
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+    @PALLAS
+    def test_predictor(self, weights, pallas):
+        tree, model = weights
+        rng, _, mask = _inputs()
+        latent = rng.normal(size=(B, N, H)).astype(np.float32)
+        mask[1] = False                                 # an all-padding day
+        jp = JPredictor(_jcfg(pallas))
+        v = {"params": tree["factor_predictor"]}
+        want_b = jp.apply(v, jnp.asarray(latent), jnp.asarray(mask),
+                          method=JPredictor.day_batched)
+        got_b = model.factor_predictor.day_batched(_t(latent), _t(mask))
+        want_1 = jp.apply(v, jnp.asarray(latent[0]), jnp.asarray(mask[0]))
+        got_1 = model.factor_predictor(_t(latent[0]), _t(mask[0]))
+        for got, want in ((got_b, want_b), (got_1, want_1)):
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
+
+    def test_decoder(self, weights):
+        tree, model = weights
+        rng = np.random.default_rng(5)
+        latent = rng.normal(size=(B, N, H)).astype(np.float32)
+        fmu = rng.normal(size=(B, K)).astype(np.float32)
+        fsig = np.abs(rng.normal(size=(B, K))).astype(np.float32)
+        fsig[0, 1] = 0.0                                # the zero-sigma guard
+        want = JDecoder(_jcfg(False)).apply(
+            {"params": tree["factor_decoder"]}, jnp.asarray(latent),
+            jnp.asarray(fmu), jnp.asarray(fsig), method=JDecoder.distribution)
+        dec = model.factor_decoder
+        got = dec.distribution(_t(latent), _t(fmu), _t(fsig))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
+        mu, sigma = got
+        mean, _ = dec(_t(latent), _t(fmu), _t(fsig), sample=False)
+        assert torch.equal(mean, mu)
+
+    def test_stochastic_decoder_takes_eps(self, weights):
+        _, model = weights
+        rng = np.random.default_rng(6)
+        latent = _t(rng.normal(size=(B, N, H)).astype(np.float32))
+        fmu = _t(rng.normal(size=(B, K)).astype(np.float32))
+        fsig = _t(np.abs(rng.normal(size=(B, K))).astype(np.float32))
+        eps = _t(rng.normal(size=(B, N)).astype(np.float32))
+        dec = model.factor_decoder
+        sample, (mu, sigma) = dec(latent, fmu, fsig, sample=True, eps=eps)
+        assert torch.equal(sample, mu + eps * sigma)
+        zero, _ = dec(latent, fmu, fsig, sample=True, eps=torch.zeros_like(eps))
+        mean, _ = dec(latent, fmu, fsig, sample=False)
+        assert torch.equal(zero, mean)
+        with pytest.raises(ValueError):
+            dec(latent, fmu, fsig, sample=True)        # no eps, no generator
+        g1, g2 = (torch.Generator().manual_seed(9) for _ in range(2))
+        assert torch.equal(dec(latent, fmu, fsig, generator=g1)[0],
+                           dec(latent, fmu, fsig, generator=g2)[0])
+
+    def test_encoder(self, weights):
+        tree, model = weights
+        rng, _, mask = _inputs(7)
+        latent = rng.normal(size=(B, N, H)).astype(np.float32)
+        returns = rng.normal(size=(B, N)).astype(np.float32)
+        je = JEncoder(_jcfg(False))
+        v = {"params": tree["factor_encoder"]}
+        want_b = je.apply(v, jnp.asarray(latent), jnp.asarray(returns),
+                          jnp.asarray(mask), method=JEncoder.day_batched)
+        want_1 = je.apply(v, jnp.asarray(latent[0]), jnp.asarray(returns[0]),
+                          jnp.asarray(mask[0]))
+        enc = model.factor_encoder
+        got_b = enc.day_batched(_t(latent), _t(returns), _t(mask))
+        got_1 = enc(_t(latent[0]), _t(returns[0]), _t(mask[0]))
+        for got, want in ((got_b, want_b), (got_1, want_1)):
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
+
+
+class TestPrediction:
+    @PALLAS
+    def test_prediction_and_day_batched_prediction(self, weights, pallas):
+        tree, model = weights
+        _, x, mask = _inputs(11)
+        jm = JFactorVAE(_jcfg(pallas))
+        v = {"params": tree}
+        want_b = jm.apply(v, jnp.asarray(x), jnp.asarray(mask), stochastic=False,
+                          method=JFactorVAE.day_batched_prediction)
+        want_1 = jm.apply(v, jnp.asarray(x[0]), jnp.asarray(mask[0]),
+                          stochastic=False, method=JFactorVAE.prediction)
+        with torch.no_grad():
+            got_b = model.day_batched_prediction(_t(x), _t(mask), stochastic=False)
+            got_1 = model.prediction(_t(x[0]), _t(mask[0]), stochastic=False)
+        for got, want in ((got_b, want_b), (got_1, want_1)):
+            got, want = got.numpy(), np.asarray(want)
+            assert np.array_equal(np.isnan(got), np.isnan(want))
+            np.testing.assert_allclose(got, want, **TOL)
+
+    def test_load_model_is_seeded_and_refuses_unported_options(self):
+        cfg = tconfig.Config(model=tconfig.ModelConfig(
+            num_features=C, hidden_size=H, num_factors=K, num_portfolios=M, seq_len=T))
+        a, b = load_model(cfg, device="cpu"), load_model(cfg, device="cpu")
+        for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
+            assert ka == kb and torch.equal(va, vb)
+        bound = 1.0 / np.sqrt(C)
+        w = a.feature_extractor.proj.weight.detach()
+        assert float(w.abs().max()) <= bound and float(w.std()) > bound / 4
+        with pytest.raises(NotImplementedError):
+            FactorVAE(dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+        with pytest.raises(NotImplementedError):
+            FactorVAE(dataclasses.replace(cfg.model, gru_layers=2))
+        json.dumps(cfg.to_dict())
