@@ -27,8 +27,28 @@ Phases, each printed as one JSON line:
               counters are set to 0 just before this tick and must be above
               0 after it. The same days are scored on the CPU, where the
               plain versions run, and compared.
-6. kernels -- one line {"kernels": [...]} with each kernel's error, times,
-              bound and launches.
+6. K2      -- the GRU backward kernel (K2, and K3's T > 24 case) against
+              its plain version for dxi, dWh and db: one flagship training
+              day (304 x 20 x 64), 8 days (2432 rows), the alpha360-k60 shape
+              (T = 60, H = 60) and H = 37 with a ragged tile; a bitwise
+              repeat; kernel, plain and cuDNN nn.GRU backward times and the
+              bound at one flagship day and at the alpha360-k60 shape.
+7. K5      -- the attention backward kernel against its plain version at
+              B = 1 and 8, N = 304, K = 96, H = 64 with padded rows, an
+              all-masked day, a NaN latent row (its day gets zero gradient)
+              and a keep-mask; csi800-k60 width (N = 800, H = 60) and
+              H = 37; a bitwise repeat; kernel and plain times; bound.
+8. train   -- Trainer.fit for one epoch of the flagship preset
+              (days_per_step = 1) on the 80-day panel: 50 train days, 20
+              validation days. The counters of K1, K2, K4 and K5 are set to 0
+              just before the fit and must be above 0 after it; every loss
+              finite. The same run with dropout_rate = 0 and recon_loss =
+              "nll" takes its first 8 steps on the card and on the CPU from
+              the same weights: per-step losses and the parameters after 8
+              steps are compared. CUDA-event times of one step's stages.
+9. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+              bound and launches (in the train phase; K1 and K4 also in the
+              slice phase).
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero. Times come from CUDA events. The bounds use the
@@ -60,6 +80,29 @@ SLICE_TOL = 1e-5       # scores on the card vs scores on the CPU
 LIBRARY_TOL = 1e-4     # cuDNN's GRU vs K1's plain version (read 6.6e-6); this
                        # only shows that the timed library call computes K1's
                        # function, it does not hold a kernel of the port
+# The backward kernels against their plain versions. Gradients of inputs
+# (dxi, dlatent) are held on max |a - b|; gradients of weights, which sum over
+# every row and step (up to 48,640 terms at 8 days), on max |a - b| / max(1,
+# max |b|).
+K2_TOL = 1e-5
+K5_TOL = 1e-5
+# Card vs CPU, 8 deterministic training steps from the same weights: each
+# step's loss (relative; read 2.8e-7, so the starting limit of 1e-4 is
+# tightened to 1e-5), the first step's gradients (max |a - b| / max |b| per
+# parameter; read 5.8e-6 at most, so the starting limit of 1e-4 is tightened
+# to 5e-5) and every parameter after the 8th update (absolute; read
+# 7.8e-6, Adam's step divides by sqrt(v) and so magnifies rounding in small
+# gradients). A parameter whose first-step gradient on the CPU is at most
+# ZERO_GRAD_ATOL everywhere is held apart: such a gradient is zero up to
+# rounding (the portfolio bias: the softmax over stocks is invariant to a
+# per-portfolio shift, |g| ~ 1e-9 against 1e-19 in f64), both devices feed
+# Adam rounding noise, and Adam turns noise into steps of order lr. Its
+# gradient on the card must be as small, and the parameter is held to the
+# sum of the 8 steps' learning rates.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 5e-5
+TRAIN_PARAM_ATOL = 1e-5
+ZERO_GRAD_ATOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -342,6 +385,320 @@ def phase_slice(torch, seed: int, counters) -> dict:
             "chunk_stage_ms": breakdown}
 
 
+def _grad_errors(got, want, names) -> dict:
+    """max |a - b| for the first (an input's gradient), max |a - b| / max(1,
+    max |b|) for the rest (weight gradients summed over rows)."""
+    errs = {}
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        err = float((g - w).abs().max())
+        errs[name] = err if i == 0 else err / max(1.0, float(w.abs().max()))
+    return errs
+
+
+def _gru_bwd_inputs(torch, g, n, t, h):
+    xi = torch.randn(n, t, 3 * h, device="cuda", generator=g) * 0.5
+    wh = (torch.rand(h, 3 * h, device="cuda", generator=g) * 2 - 1) / h ** 0.5
+    bh = (torch.rand(3 * h, device="cuda", generator=g) * 2 - 1) / h ** 0.5
+    dh = torch.randn(n, h, device="cuda", generator=g) * 0.1
+    return xi, wh, bh, dh
+
+
+def phase_k2(torch, seed: int) -> dict:
+    from factorvae_tpu_torch.ops.kernels.gru import gru_bwd, gru_bwd_plain
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    names = ("dxi", "dWh", "db")
+    cases = {}
+    for label, (n, t, h) in {"flagship_day": (304, 20, 64), "flagship_8_days": (2432, 20, 64),
+                             "alpha360_k60_T60": (304, 60, 60),
+                             "odd_h37": (333, 7, 37)}.items():
+        args = _gru_bwd_inputs(torch, g, n, t, h)
+        got, want = gru_bwd(*args), gru_bwd_plain(*args)
+        again = gru_bwd(*args)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in got), f"K2 {label}: non-finite")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K2 {label}: a repeated call is not bitwise equal")
+        errs = _grad_errors(got, want, names)
+        check(max(errs.values()) <= K2_TOL, f"K2 {label}: errors {errs} > {K2_TOL}")
+        cases[label] = {"shape": [n, t, h], "errors": errs}
+
+    timing = {label: _k2_timing(torch, g, *shape)
+              for label, shape in (("flagship_day", (304, 20, 64)),
+                                   ("alpha360_k60_T60", (304, 60, 60)))}
+    flagship = timing["flagship_day"]
+    return {"phase": "K2", "cases": cases, "tolerance": K2_TOL,
+            "max_abs_err": max(max(c["errors"].values()) for c in cases.values()),
+            "bitwise_repeat": True, **flagship,
+            "library": "torch.nn.GRU (cuDNN) backward over xi with an identity input "
+                       "weight, forward graph retained: K2's function plus the "
+                       "gradient of a 3H x 3H input product",
+            "timing": timing}
+
+
+def _k2_timing(torch, g, n, t, h) -> dict:
+    """Kernel, plain and cuDNN backward times of one (N, T, H) shape, and
+    the bound."""
+    from factorvae_tpu_torch.ops.kernels.gru import gru_bwd, gru_bwd_plain
+
+    args = _gru_bwd_inputs(torch, g, n, t, h)
+    xi, wh, bh, dh = args
+    kernel_ms = cuda_ms(torch, lambda: gru_bwd(*args))
+    plain_ms = cuda_ms(torch, lambda: gru_bwd_plain(*args))
+    # cuDNN's GRU backward on K1's inputs (identity input weight, as in the
+    # K1 phase), timed alone with the forward's graph retained. It also
+    # computes the gradient of the identity input product.
+    gru = torch.nn.GRU(3 * h, h, batch_first=True).cuda()
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(torch.eye(3 * h, device="cuda"))
+        gru.bias_ih_l0.zero_()
+        gru.weight_hh_l0.copy_(wh.t())
+        gru.bias_hh_l0.copy_(bh)
+    xi_r = xi.clone().requires_grad_()
+    out = gru(xi_r)[1][0]
+    wrt = (xi_r, gru.weight_hh_l0, gru.bias_hh_l0)
+    lib = torch.autograd.grad(out, wrt, dh, retain_graph=True)
+    library_err = float((lib[0] - gru_bwd_plain(*args)[0]).abs().max())
+    check(library_err <= LIBRARY_TOL, f"K2: cuDNN GRU backward differs by {library_err}")
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, wrt, dh, retain_graph=True))
+    # least work: the recompute's h . Wh, the walk's dg . Wh^T and h^T . dg
+    # (2*N*T*H*3H each) and ~30 elementwise steps per (row, step, unit)
+    flops = 3 * 2.0 * n * t * h * 3 * h + 30.0 * n * t * h
+    n_bytes = 4.0 * (2 * n * t * 3 * h + n * h + 2 * (3 * h * h + 3 * h))
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    return {"shape": [n, t, h], "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_err": library_err,
+            "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_k5(torch, seed: int) -> dict:
+    from factorvae_tpu_torch.ops.kernels.attention import (
+        attention_bwd,
+        attention_bwd_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    names = ("dlatent", "dquery", "dWk", "dbk", "dWv", "dbv")
+    cases, timed = {}, None
+    for label, (b, n, k, h, n_real) in {"flagship_day": (1, 304, 96, 64, 300),
+                                        "flagship_8_days": (8, 304, 96, 64, 300),
+                                        "csi800_k60": (2, 800, 60, 60, 790),
+                                        "odd_h37": (3, 70, 6, 37, 66)}.items():
+        latent, mask, *weights = _k4_inputs(torch, g, b, n, k, h, n_real)
+        keep = (torch.rand(b, k, n, device="cuda", generator=g) > 0.1).float() / 0.9
+        if b == 8:               # an all-masked day (5) and a NaN latent row (day 2)
+            mask[5] = False
+            latent[2, 7, 3] = float("nan")
+            mask[2, 7] = True
+        dctx = torch.randn(b, k, h, device="cuda", generator=g) * 0.1
+        errs = {}
+        for kp_label, kp in (("", None), ("keep_", keep)):
+            args = (latent, mask, *weights, dctx)
+            got = attention_bwd(*args, keep=kp)
+            want = attention_bwd_plain(*args, keep=kp)
+            again = attention_bwd(*args, keep=kp)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(x).all()) for x in got), f"K5 {label}: non-finite")
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"K5 {label}: a repeated call is not bitwise equal")
+            if b == 8:
+                check(bool((got[0][2] == 0).all()) and bool((got[0][5] == 0).all()),
+                      f"K5 {label}: the guarded and the empty day got a gradient")
+                check(bool((got[0][0] != 0).any()), f"K5 {label}: day 0 got none")
+            for name, err in _grad_errors(got, want, names).items():
+                errs[kp_label + name] = err
+        check(max(errs.values()) <= K5_TOL, f"K5 {label}: errors {errs} > {K5_TOL}")
+        cases[label] = {"shape": [b, n, k, h], "errors": errs}
+        if timed is None:
+            timed = (latent, mask, *weights, dctx, keep)
+
+    latent, mask, q, wk, bk, wv, bv, dctx, keep = timed
+    b, n, h = latent.shape
+    k = q.shape[0]
+    kernel_ms = cuda_ms(torch, lambda: attention_bwd(*timed[:-1], keep=keep))
+    plain_ms = cuda_ms(torch, lambda: attention_bwd_plain(*timed[:-1], keep=keep))
+    # The least work, over this run's valid rows (masked rows need none):
+    # per valid row and head the value product and bias (2H^2 + H), the
+    # score as L . (Wk q) (2H), da = value . dctx (2H), L^T dz and L^T a
+    # (4H), dL = dz u + a w (4H) and ten scalar steps; per (day, head)
+    # w = Wv dctx and the dWv outer product (4H^2); per head u = Wk q, dq,
+    # dWk (5H^2). The kernel computes the key product as K4 writes it
+    # (2H^2 + H instead of 2H per row and head): reported beside it.
+    n_valid = int(mask.sum())
+    per_row = 2.0 * h * h + 13.0 * h + 10.0
+    flops = k * n_valid * per_row + b * k * (4.0 * h * h + 2 * h) + k * (5.0 * h * h + 5 * h)
+    flops_as_written = flops + k * n_valid * (2.0 * h * h - h)
+    n_bytes = (4.0 * (2 * b * n * h + b * k * n + 2 * k * (2 * h * h + 3 * h) + b * k * h)
+               + b * n)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    return {"phase": "K5", "cases": cases, "tolerance": K5_TOL,
+            "max_abs_err": max(max(c["errors"].values()) for c in cases.values()),
+            "bitwise_repeat": True, "shape": [b, n, k, h], "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes this function",
+            "valid_rows": n_valid, "flops": flops, "flops_as_written": flops_as_written,
+            "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_as_written": bound_ms(n_bytes, flops_as_written)[0]}
+
+
+def _train_stage_breakdown(torch, trainer, state, steps: int = 12) -> dict:
+    """CUDA-event times of one training step's stages, averaged over
+    `steps` steps after one warm-up step."""
+    from factorvae_tpu_torch.train.loop import batch_for
+
+    order = trainer._order(trainer.train_days, True, 7)
+    model, opt, ds = state.model, state.optimizer, trainer.ds
+    names = ("gather", "forward (K1, K4, losses)", "backward (K2, K5)",
+             "optimizer (Adam + schedule)")
+    totals = dict.fromkeys(names, 0.0)
+    for i in range(steps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        days = order[i % order.shape[0]]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        x, y, mask = batch_for(ds, days)
+        ev[1].record()
+        out = model.day_batched_forward(x, y, mask, train=True, generator=state.generator)
+        loss = out.loss.sum()
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        state.scheduler.step()
+        ev[4].record()
+        ev[4].synchronize()
+        if i:
+            for j, name in enumerate(names):
+                totals[name] += ev[j].elapsed_time(ev[j + 1]) / steps
+    totals["whole step"] = sum(totals[nm] for nm in names)
+    return totals
+
+
+def phase_train(torch, seed: int, counters) -> dict:
+    import tempfile
+
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.train.loop import train_step
+    from factorvae_tpu_torch.train.state import learning_rate_at
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    base = get_preset("flagship")
+    m = base.model
+    panel = synthetic_panel_dense(80, 300, m.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    save_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    cfg = dataclasses.replace(
+        base,
+        data=dataclasses.replace(base.data, start_time=dates[0], fit_end_time=dates[49],
+                                 val_start_time=dates[50], val_end_time=dates[69]),
+        train=dataclasses.replace(base.train, seed=seed, num_epochs=1, days_per_step=1,
+                                  checkpoint_every=0, save_dir=save_dir.name))
+    dataset = PanelDataset(panel, seq_len=m.seq_len, device="cuda")
+    check(dataset.n_max == 304, f"n_max {dataset.n_max} != 304")
+    trainer = Trainer(cfg, dataset, device="cuda")
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, summary = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the training path")
+    rec = summary["history"][0]
+    for key in ("train_loss", "train_recon", "train_kl", "val_loss", "val_recon", "val_kl"):
+        check(np.isfinite(rec[key]), f"train: {key} = {rec[key]} is not finite")
+    check(rec["skipped_steps"] == 0, f"train: {rec['skipped_steps']} steps skipped")
+    check(os.path.exists(os.path.join(save_dir.name, cfg.checkpoint_name(), "weights.pt")),
+          "train: no best-validation weights written")
+    # the same epoch again from a fresh state: the first one in a process
+    # also pays one-time set-up (torch.optim imports torch._dynamo when the
+    # first optimizer is built; first launches of each cuBLAS shape)
+    t0 = time.perf_counter()
+    _, warm = trainer.fit()
+    torch.cuda.synchronize()
+    warm_fit_s = time.perf_counter() - t0
+    save_dir.cleanup()
+    stages = _train_stage_breakdown(torch, trainer, state)
+
+    # deterministic parity: the same run with dropout 0 and the NLL loss, 8
+    # steps on the card and on the CPU from the same weights
+    det = dataclasses.replace(cfg, model=dataclasses.replace(m, dropout_rate=0.0,
+                                                             recon_loss="nll"))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ds = dataset if device == "cuda" else PanelDataset(panel, seq_len=m.seq_len,
+                                                           device="cpu")
+        tr = Trainer(det, ds, device=device)
+        st = tr.init_state()
+        order = tr._order(tr.train_days, True, 0)
+        losses, grads = [], None
+        for i in range(8):
+            aux = train_step(st, ds, order[i], guard=True)
+            losses.append(aux["loss_sum"] / aux["days"])
+            if i == 0:
+                grads = {k: p.grad.detach().cpu() for k, p in st.model.named_parameters()}
+        runs[device] = (torch.stack(losses).cpu().numpy(), grads,
+                        {k: v.detach().cpu() for k, v in st.model.state_dict().items()},
+                        st.scheduler.get_last_lr()[0])
+    (loss_gpu, g_gpu, p_gpu, _), (loss_cpu, g_cpu, p_cpu, _) = runs["cuda"], runs["cpu"]
+    loss_rel = float(np.max(np.abs(loss_gpu - loss_cpu) / np.abs(loss_cpu)))
+    g_max = {k: float(g.abs().max()) for k, g in g_cpu.items()}
+    zero_grad = sorted(k for k, m in g_max.items() if m <= ZERO_GRAD_ATOL)
+    grad_errs = {k: float((g_gpu[k] - g_cpu[k]).abs().max()) / g_max[k]
+                 for k in g_cpu if k not in zero_grad}
+    param_errs = {k: float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu}
+    lr_sum = sum(learning_rate_at(det.train, trainer.total_steps, i) for i in range(8))
+    held = {k: v for k, v in param_errs.items() if k not in zero_grad}
+    check(bool(np.isfinite(loss_gpu).all()), "train parity: non-finite loss on the card")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"train parity: losses differ by {loss_rel} (relative) > {TRAIN_LOSS_RTOL}")
+    check(max(grad_errs.values()) <= TRAIN_GRAD_RTOL,
+          f"train parity: first-step gradients differ: {grad_errs} > {TRAIN_GRAD_RTOL}")
+    check(max(held.values()) <= TRAIN_PARAM_ATOL,
+          f"train parity: parameters differ: {held} > {TRAIN_PARAM_ATOL}")
+    for k in zero_grad:
+        card_g = float(g_gpu[k].abs().max())
+        check(card_g <= ZERO_GRAD_ATOL and param_errs[k] <= lr_sum,
+              f"train parity: {k} (zero gradient) has |g| {card_g} on the card and "
+              f"moved by {param_errs[k]} (lr sum {lr_sum})")
+
+    epoch_s = warm["history"][0]["seconds"]
+    windows = int(sum(dataset.valid[d].sum() for d in trainer.train_days))
+    return {"phase": "train", "config": "flagship C158/T20/H64/K96/M128, f32, "
+                                        "days_per_step=1, dropout 0.1, mse",
+            "splits": {"train": [dates[0], dates[49]], "val": [dates[50], dates[69]],
+                       "train_days": len(trainer.train_days),
+                       "val_days": len(trainer.val_days)},
+            "launches": launches, "epoch": rec, "fit_s": fit_s,
+            "epoch_s_first": rec["seconds"], "warm_fit_s": warm_fit_s,
+            # an epoch's wall, validation included, as the trainer's `seconds`
+            "epoch_s": epoch_s, "train_windows": windows,
+            "train_windows_per_s": windows / epoch_s,
+            "step_stage_ms": stages,
+            "parity": {"steps": 8, "config": "dropout_rate=0, recon_loss=nll",
+                       "losses_cuda": loss_gpu.tolist(), "losses_cpu": loss_cpu.tolist(),
+                       "loss_max_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+                       "grad_max_rel_err": max(grad_errs.values()),
+                       "grad_rtol": TRAIN_GRAD_RTOL,
+                       "grad_errors_top": dict(sorted(grad_errs.items(),
+                                                      key=lambda kv: -kv[1])[:5]),
+                       "param_max_abs_err": max(held.values()),
+                       "param_atol": TRAIN_PARAM_ATOL,
+                       "param_errors_top": dict(sorted(param_errs.items(),
+                                                       key=lambda kv: -kv[1])[:5]),
+                       "zero_grad_atol": ZERO_GRAD_ATOL,
+                       "zero_grad_params": {k: {"cpu_grad_max": g_max[k],
+                                                "card_grad_max": float(g_gpu[k].abs().max()),
+                                                "param_err": param_errs[k]}
+                                            for k in zero_grad},
+                       "zero_grad_bound": lr_sum}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -355,8 +712,8 @@ def main(argv=None) -> int:
               "GPU (nothing was run)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from factorvae_tpu_torch.ops.kernels.attention import attention_fwd
-    from factorvae_tpu_torch.ops.kernels.gru import gru_fwd
+    from factorvae_tpu_torch.ops.kernels.attention import attention_bwd, attention_fwd
+    from factorvae_tpu_torch.ops.kernels.gru import gru_bwd, gru_fwd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -365,7 +722,10 @@ def main(argv=None) -> int:
     phases = []
     for fn in (lambda: phase_device(torch), phase_build,
                lambda: phase_k1(torch, args.seed), lambda: phase_k4(torch, args.seed),
-               lambda: phase_slice(torch, args.seed, (gru_fwd, attention_fwd))):
+               lambda: phase_slice(torch, args.seed, (gru_fwd, attention_fwd)),
+               lambda: phase_k2(torch, args.seed), lambda: phase_k5(torch, args.seed),
+               lambda: phase_train(torch, args.seed,
+                                   (gru_fwd, gru_bwd, attention_fwd, attention_bwd))):
         t0 = time.perf_counter()
         out = fn()
         out["wall_s"] = time.perf_counter() - t0
@@ -373,17 +733,23 @@ def main(argv=None) -> int:
         emit(out)
 
     by = {ph["phase"]: ph for ph in phases}
-    launches = by["slice"]["launches"]
+    launches = by["train"]["launches"]
     rows = []
     for name, ph, src, replaces in (
             ("gru_fwd", by["K1"], "factorvae_tpu_torch/csrc/gru_fwd.cu",
              "factorvae_tpu/ops/pallas/gru.py:417"),
+            ("gru_bwd", by["K2"], "factorvae_tpu_torch/csrc/gru_bwd.cu",
+             "factorvae_tpu/ops/pallas/gru.py:480 (T <= 24) and "
+             "factorvae_tpu/ops/pallas/gru.py:533 (T > 24)"),
             ("attention_fwd", by["K4"], "factorvae_tpu_torch/csrc/attention_fwd.cu",
-             "factorvae_tpu/ops/pallas/attention.py:104")):
+             "factorvae_tpu/ops/pallas/attention.py:104"),
+            ("attention_bwd", by["K5"], "factorvae_tpu_torch/csrc/attention_bwd.cu",
+             "factorvae_tpu/ops/pallas/attention_grad.py:112")):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
+                     "launches_serving": by["slice"]["launches"].get(name, 0),
                      "max_abs_err": ph["max_abs_err"], "tolerance": ph["tolerance"],
-                     "ms": ph["ms"], "kernel_ms": ph["ms"],
+                     "ms": ph["ms"],
                      "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
                      "bound_by": ph["bound_by"], "library_ms": ph["library_ms"]})
     kernels = {"kernels": rows}

@@ -116,6 +116,13 @@ class Config:
     def to_json(self, **kw: Any) -> str:
         return json.dumps(self.to_dict(), **kw)
 
+    def checkpoint_name(self) -> str:
+        """The reference's parameter-encoding name,
+        ``{run_name}_factor_{K}_hdn_{H}_port_{M}_seed_{seed}``."""
+        return (f"{self.train.run_name}_factor_{self.model.num_factors}"
+                f"_hdn_{self.model.hidden_size}_port_{self.model.num_portfolios}"
+                f"_seed_{self.train.seed}")
+
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
         def _load(tp, sub):

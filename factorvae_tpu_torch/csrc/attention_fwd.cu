@@ -41,90 +41,17 @@
 // the value rows and accumulates the context per warp; the (K, N, H) key
 // and value stacks never touch device memory. The algebra is not rewritten
 // (s = L.(Wk.q) + bk.q would halve the work), so nan_to_num and the guard
-// keep exactly the meaning they have in the TPU kernel.
+// keep exactly the meaning they have in the TPU kernel. Pass 1 and the
+// softmax live in attention_common.cuh, so that the backward (K5,
+// attention_bwd.cu) recomputes this kernel's own weights.
 
-#include <cfloat>
 #include <cuda_runtime.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxH = 64;     // largest hidden size (2 columns per lane)
-constexpr int kTile = 8;             // valid rows per warp step
-constexpr float kNegInf = -1e30f;
-
-__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float nan_to_num_f(float v) {
-  if (isnan(v)) return 0.0f;
-  if (isinf(v)) return v > 0.0f ? FLT_MAX : -FLT_MAX;
-  return v;
-}
-
-__device__ __forceinline__ float component(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-// Stage the warp's tile of valid rows (zeros past the list's end and in
-// the padding columns [h, hp)) into `tile` (kTile, hp).
-__device__ __forceinline__ void stage_tile(const float* lat, const int* idx,
-                                           int g, int nv, int h, int hp,
-                                           int lane, float* tile) {
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) {
-    const bool ok = g + t < nv;
-    const float* src = ok ? lat + (size_t)idx[g + t] * h : lat;
-    for (int i = lane; i < hp; i += 32) tile[t * hp + i] = ok && i < h ? src[i] : 0.0f;
-  }
-  __syncwarp();
-}
-
-// tile (kTile, hp) times a head matrix W (hp rows of H, rows >= h zero),
-// plus bias: out[t][s] for the lane's columns j = lane + 32*s.
-template <int S>
-__device__ __forceinline__ void tile_times(const float* tile, const float* w,
-                                           const float* bias, int h, int hp,
-                                           int lane, float out[kTile][S]) {
-#pragma unroll
-  for (int t = 0; t < kTile; ++t)
-#pragma unroll
-    for (int s = 0; s < S; ++s) out[t][s] = 0.0f;
-  for (int i = 0; i < hp; i += 4) {
-    float4 l[kTile];
-#pragma unroll
-    for (int t = 0; t < kTile; ++t)
-      l[t] = *reinterpret_cast<const float4*>(tile + t * hp + i);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float wv[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const int j = lane + 32 * s;
-        wv[s] = j < h ? w[(i + c) * h + j] : 0.0f;
-      }
-#pragma unroll
-      for (int t = 0; t < kTile; ++t) {
-        const float lc = component(l[t], c);
-#pragma unroll
-        for (int s = 0; s < S; ++s) out[t][s] = fmaf(lc, wv[s], out[t][s]);
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int j = lane + 32 * s;
-    const float b = j < h ? bias[j] : 0.0f;
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) out[t][s] += b;
-  }
-}
+using namespace attn;
 
 template <int S>
 __global__ void __launch_bounds__(kThreads)
@@ -150,10 +77,6 @@ attention_fwd_kernel(const float* __restrict__ latent,
   float* ctx_s = bv_s + hp;                  // (kWarps, hp) per-warp ctx
   float* s_s = ctx_s + kWarps * hp;          // (N,) scores, then weights
   int* idx_s = reinterpret_cast<int*>(s_s + n);  // (N,) valid rows
-  __shared__ float red_f[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ float shared_val;
-  __shared__ int shared_bad;
   __shared__ int shared_nv;
 
   const int day = blockIdx.x / k_heads;
@@ -161,31 +84,9 @@ attention_fwd_kernel(const float* __restrict__ latent,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const unsigned char* m = mask + (size_t)day * n;
 
-  if (warp == 0) {            // compact the valid rows, in order
-    int base = 0;
-    for (int r0 = 0; r0 < n; r0 += 32) {
-      const int r = r0 + lane;
-      const bool v = r < n && m[r];
-      const unsigned bal = __ballot_sync(0xffffffffu, v);
-      if (v) idx_s[base + __popc(bal & ((1u << lane) - 1u))] = r;
-      base += __popc(bal);
-    }
-    if (lane == 0) shared_nv = base;
-  }
-  const size_t hh = (size_t)h * h;
-  for (int i = tid; i < hp * h; i += kThreads) {
-    const bool ok = i < h * h;
-    wk_s[i] = ok ? wk[head * hh + i] : 0.0f;
-    wv_s[i] = ok ? wv[head * hh + i] : 0.0f;
-  }
-  for (int i = tid; i < hp; i += kThreads) {
-    const bool ok = i < h;
-    q_s[i] = ok ? q[(size_t)head * h + i] : 0.0f;
-    bk_s[i] = ok ? bk[(size_t)head * h + i] : 0.0f;
-    bv_s[i] = ok ? bv[(size_t)head * h + i] : 0.0f;
-  }
+  compact_rows(mask + (size_t)day * n, n, idx_s, &shared_nv);
+  stage_head(q, wk, bk, wv, bv, head, h, hp, q_s, wk_s, bk_s, wv_s, bv_s);
   __syncthreads();
 
   const int nv = shared_nv;
@@ -193,73 +94,12 @@ attention_fwd_kernel(const float* __restrict__ latent,
   const float* kp = keep ? keep + ((size_t)day * k_heads + head) * n : nullptr;
   float* out_row = out + ((size_t)day * k_heads + head) * h;
   float* tile = tile_s + warp * kTile * hp;
-  const float scale = sqrtf((float)h + 1e-6f);
 
-  // ---- pass 1: scores of the valid stocks --------------------------------
-  float mx = kNegInf;
-  int bad = 0;
-  for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
-    stage_tile(lat, idx_s, g, nv, h, hp, lane, tile);
-    float key[kTile][S];
-    tile_times<S>(tile, wk_s, bk_s, h, hp, lane, key);
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      float part = 0.0f;
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        if (lane + 32 * s < h) part = fmaf(key[t][s], q_s[lane + 32 * s], part);
-      float sc = warp_sum(part) / scale;
-      if (g + t >= nv) continue;
-      if (kp) sc = sc * kp[idx_s[g + t]];
-      sc = isnan(sc) ? sc : fmaxf(sc, 0.0f);   // ReLU that keeps NaN
-      if (!isfinite(sc)) bad = 1;
-      else mx = fmaxf(mx, sc);
-      if (lane == 0) s_s[g + t] = sc;
-    }
-    __syncwarp();
-  }
-  if (lane == 0) {
-    red_f[warp] = mx;
-    red_i[warp] = bad;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float v = kNegInf;
-    int b = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      v = fmaxf(v, red_f[w]);
-      b |= red_i[w];
-    }
-    shared_val = v;
-    shared_bad = b;
-  }
-  __syncthreads();
-  if (shared_bad || nv == 0) {   // the guard, or a fully masked day
+  // pass 1 and the softmax: s_s holds the weights of the valid stocks
+  if (!head_softmax<S>(lat, idx_s, nv, kp, wk_s, bk_s, q_s, h, hp, tile, s_s, s_s)) {
     for (int j = tid; j < h; j += kThreads) out_row[j] = 0.0f;
     return;
   }
-  mx = shared_val;
-
-  // ---- softmax over the valid stocks -------------------------------------
-  float sum = 0.0f;
-  for (int r = tid; r < nv; r += kThreads) {
-    const float e = expf(s_s[r] - mx);
-    s_s[r] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  __syncthreads();            // every red_f read above is done
-  if (lane == 0) red_f[warp] = sum;
-  __syncthreads();
-  if (tid == 0) {
-    float v = 0.0f;
-    for (int w = 0; w < kWarps; ++w) v += red_f[w];
-    shared_val = v;
-  }
-  __syncthreads();
-  const float denom = shared_val;
-  for (int r = tid; r < nv; r += kThreads) s_s[r] = s_s[r] / denom;
-  __syncthreads();
 
   // ---- pass 2: ctx = a . nan_to_num(value) --------------------------------
   float acc[S];

@@ -3,7 +3,8 @@
 The whole panel is padded to `n_max` stocks and moved to the device once;
 a batch is a tensor of day indices, and the window gather runs on the
 device (`windows.gather_days`). This is the JAX package's "hbm" residency;
-the host-streaming residency is not ported yet.
+the host-streaming residency is not ported yet. `epoch_order` visits days in
+the JAX package's order, so both packages train on the same sequence.
 """
 
 from __future__ import annotations
@@ -58,6 +59,20 @@ class PanelDataset:
         lo, hi = self.panel.locate(start, end)
         days = np.arange(lo, hi, dtype=np.int32)
         return days[self.valid[days].any(axis=1)]
+
+    def epoch_order(self, days: np.ndarray, shuffle: bool, seed: int, epoch: int,
+                    pad_to: int = 0) -> np.ndarray:
+        """Day order for one epoch: shuffled with numpy's
+        `default_rng((seed, epoch))`, as the JAX package shuffles, then padded
+        with -1 (a day of weight 0) to a multiple of `pad_to`."""
+        order = np.array(days)
+        if shuffle:
+            np.random.default_rng((seed, epoch)).shuffle(order)
+        if pad_to:
+            rem = (-len(order)) % pad_to
+            if rem:
+                order = np.concatenate([order, np.full(rem, -1, order.dtype)])
+        return order
 
     def gather(self, days: torch.Tensor):
         """(x, y, mask) for a batch of valid day indices on the device."""

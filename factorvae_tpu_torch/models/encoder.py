@@ -2,9 +2,9 @@
 
 Stock latents -> M portfolio weights (softmax over the stocks, masked) ->
 portfolio returns y_p = W^T y -> mu and softplus sigma heads: the posterior
-(mu, sigma) of the K factors. Not on the serving path; ported so that the
-whole parameter tree has a home. Only the forward is ported; the loss waits
-for the training slice.
+(mu, sigma) of the K factors. The training forward
+(`models/factorvae.FactorVAE.day_batched_forward`) uses it; the serving path
+does not.
 """
 
 from __future__ import annotations

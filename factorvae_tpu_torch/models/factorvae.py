@@ -1,14 +1,23 @@
-"""The FactorVAE model, inference half (`factorvae_tpu/models/factorvae.py`).
+"""The FactorVAE model (`factorvae_tpu/models/factorvae.py`).
 
+`forward` and `day_batched_forward` are the training forward: extractor ->
+posterior encoder (with the day's returns) -> decoder sample -> prior
+predictor, and the loss reconstruction + kl_weight * KL(posterior || prior).
 `prediction` and `day_batched_prediction` run extractor -> prior predictor
--> decoder, i.e. score stocks without future returns. The training forward
-and its losses come with the training slice. `load_model` builds the model
-from a Config with random weights drawn from `config.train.seed`, or loads a
-weights directory written by `params.save_weights`.
+-> decoder, i.e. score stocks without future returns. `load_model` builds the
+model from a Config with random weights drawn from `config.train.seed`, or
+loads a weights directory written by `params.save_weights`.
+
+Loss notes, as in the reference: 'mse' is the MSE between the single
+reparameterized sample and the labels (a mean over stocks) while the KL is a
+sum over K; 'nll' is the analytic Gaussian reconstruction likelihood. The
+decoder's noise `eps` and the predictor's keep-mask `keep` are optional
+tensor arguments, else drawn from `generator`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -19,6 +28,23 @@ from factorvae_tpu_torch.models.decoder import FactorDecoder
 from factorvae_tpu_torch.models.encoder import FactorEncoder
 from factorvae_tpu_torch.models.extractor import FeatureExtractor
 from factorvae_tpu_torch.models.predictor import FactorPredictor
+from factorvae_tpu_torch.ops.kl import gaussian_kl_sum
+from factorvae_tpu_torch.ops.masked import masked_gaussian_nll, masked_mse
+
+
+@dataclasses.dataclass
+class FactorVAEOutput:
+    """The training forward's outputs; per day where the fields have a day
+    axis."""
+
+    loss: torch.Tensor
+    recon_loss: torch.Tensor
+    kl: torch.Tensor
+    reconstruction: torch.Tensor     # (..., N) sampled returns, 0 on padding
+    factor_mu: torch.Tensor          # (..., K) posterior mean
+    factor_sigma: torch.Tensor       # (..., K) posterior std
+    pred_mu: torch.Tensor            # (..., K) prior mean
+    pred_sigma: torch.Tensor         # (..., K) prior std
 
 
 class FactorVAE(nn.Module):
@@ -41,6 +67,59 @@ class FactorVAE(nn.Module):
 
     def _stochastic(self, stochastic: Optional[bool]) -> bool:
         return self.cfg.stochastic_inference if stochastic is None else stochastic
+
+    def forward(self, x: torch.Tensor, returns: torch.Tensor,
+                mask: Optional[torch.Tensor] = None, *, train: bool = False,
+                eps: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> FactorVAEOutput:
+        """One day: x (N, T, C), returns (N,), mask (N,) (None: all valid);
+        eps (N,) and keep (K, N) as in `day_batched_forward`."""
+        if mask is None:
+            mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        out = self.day_batched_forward(
+            x[None], returns[None], mask[None], train=train,
+            eps=None if eps is None else eps[None],
+            keep=None if keep is None else keep[None], generator=generator)
+        return FactorVAEOutput(**{f.name: getattr(out, f.name)[0]
+                                  for f in dataclasses.fields(out)})
+
+    def day_batched_forward(self, x: torch.Tensor, returns: torch.Tensor,
+                            mask: torch.Tensor, *, train: bool = False,
+                            eps: Optional[torch.Tensor] = None,
+                            keep: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None
+                            ) -> FactorVAEOutput:
+        """x (B, N, T, C), returns/mask (B, N) -> per-day losses (B,).
+
+        The per-stock extractor runs on the flattened (B*N) rows; the
+        portfolio softmax, attention and losses stay per day. A label that
+        is not finite leaves the loss and is zeroed before the encoder. The
+        decoder samples with `eps` (B, N), the predictor's dropout (train
+        only) uses `keep` (B, K, N); either is drawn from `generator` when
+        not given, eps first."""
+        cfg = self.cfg
+        b, n = x.shape[0], x.shape[1]
+        loss_mask = mask & torch.isfinite(returns)
+        returns = torch.where(loss_mask, returns, 0.0)
+        latent = self.feature_extractor(
+            x.reshape((b * n,) + tuple(x.shape[2:]))).reshape(b, n, -1)
+        factor_mu, factor_sigma = self.factor_encoder.day_batched(latent, returns, mask)
+        sample, (recon_mu, recon_sigma) = self.factor_decoder(
+            latent, factor_mu, factor_sigma, sample=True, eps=eps, generator=generator)
+        pred_mu, pred_sigma = self.factor_predictor.day_batched(
+            latent, mask, train=train, keep=keep, generator=generator)
+        if cfg.recon_loss == "mse":
+            recon = masked_mse(sample, returns, loss_mask, dim=-1)
+        elif cfg.recon_loss == "nll":
+            recon = masked_gaussian_nll(recon_mu, recon_sigma, returns, loss_mask, dim=-1)
+        else:
+            raise ValueError(f"unknown recon_loss {cfg.recon_loss!r}")
+        kl = gaussian_kl_sum(factor_mu, factor_sigma, pred_mu, pred_sigma, dim=-1)
+        return FactorVAEOutput(
+            loss=recon + cfg.kl_weight * kl, recon_loss=recon, kl=kl,
+            reconstruction=torch.where(mask, sample, 0.0),
+            factor_mu=factor_mu, factor_sigma=factor_sigma,
+            pred_mu=pred_mu, pred_sigma=pred_sigma)
 
     def prediction(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
                    stochastic: Optional[bool] = None,

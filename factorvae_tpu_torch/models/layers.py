@@ -2,8 +2,8 @@
 (`factorvae_tpu/models/layers.py`).
 
 The GRU's input projection for all T steps is one matmul outside the
-recurrence, as in the JAX package; the recurrence itself is the K1 kernel
-(`ops/kernels/gru.py`).
+recurrence, as in the JAX package; the recurrence itself is the
+differentiable `ops/kernels/gru.gru` (forward K1, backward K2).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from factorvae_tpu_torch.ops.kernels.gru import gru_fwd
+from factorvae_tpu_torch.ops.kernels.gru import gru
 
 # flax's lecun_normal draws a normal truncated at 2 std, rescaled so the
 # truncated distribution keeps variance 1/fan_in.
@@ -108,4 +108,4 @@ class GRU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xi = self.input_proj(x)          # (N, T, 3H) in one matmul
-        return gru_fwd(xi, self.hidden_kernel, self.hidden_bias)
+        return gru(xi, self.hidden_kernel, self.hidden_bias)

@@ -1,11 +1,14 @@
 """Prior factor predictor: K-head attention over the stock cross-section
 (`factorvae_tpu/models/predictor.py`).
 
-The attention runs through the K4 kernel (`ops/kernels/attention.py`) for
-all days and heads at once. Kept from the reference: scores divided by
-sqrt(H + 1e-6), the order dropout -> ReLU -> softmax over stocks, a zero
-context for a head with a non-finite score, one learned query per head.
-Dropout is a training feature and waits for the training slice.
+The attention runs through the differentiable `ops/kernels/attention.attention`
+(forward K4, backward K5) for all days and heads at once. Kept from the
+reference: scores divided by sqrt(H + 1e-6), the order dropout -> ReLU ->
+softmax over stocks, a zero context for a head with a non-finite score, one
+learned query per head. Training dropout is an explicit (B, K, N) keep-mask,
+Bernoulli(1 - p) / (1 - p), passed in by the caller or drawn from a
+`torch.Generator`, as the JAX package's `_dropout_mask` draws it outside its
+kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from torch import nn
 
 from factorvae_tpu_torch.config import ModelConfig
 from factorvae_tpu_torch.models.layers import Dense, init_bias, init_weight
-from factorvae_tpu_torch.ops.kernels.attention import attention_fwd
+from factorvae_tpu_torch.ops.kernels.attention import attention
 
 
 class FactorPredictor(nn.Module):
@@ -56,9 +59,31 @@ class FactorPredictor(nn.Module):
         mu, sigma = self.day_batched(latent[None], mask[None])
         return mu[0], sigma[0]
 
-    def day_batched(self, latent: torch.Tensor, mask: torch.Tensor):
-        """latent (B, N, H), mask (B, N) -> ((B, K), (B, K))."""
-        context = attention_fwd(latent.contiguous(), mask.contiguous(),
-                                self.query, self.key_kernel, self.key_bias,
-                                self.value_kernel, self.value_bias)
+    def keep_mask(self, shape, device, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Score dropout as an inverted-scale keep-mask: Bernoulli(1 - p)
+        / (1 - p) of `shape`, drawn from `generator`."""
+        if generator is None:
+            raise ValueError("training dropout needs `keep` or a torch.Generator")
+        keep_p = 1.0 - self.cfg.dropout_rate
+        u = torch.rand(shape, generator=generator, device=device)
+        return (u < keep_p).to(torch.float32) / keep_p
+
+    def day_batched(self, latent: torch.Tensor, mask: torch.Tensor, *,
+                    train: bool = False, keep: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+        """latent (B, N, H), mask (B, N) -> ((B, K), (B, K)).
+
+        With train=True and dropout_rate > 0 the scores go through a keep-mask
+        (B, K, N): `keep` when given, else one drawn from `generator`. At
+        eval, or with dropout_rate == 0, no mask is used or drawn."""
+        if train and self.cfg.dropout_rate > 0.0:
+            if keep is None:
+                b, n = latent.shape[0], latent.shape[1]
+                keep = self.keep_mask((b, self.cfg.num_factors, n), latent.device,
+                                      generator)
+        else:
+            keep = None
+        context = attention(latent.contiguous(), mask.contiguous(), self.query,
+                            self.key_kernel, self.key_bias, self.value_kernel,
+                            self.value_bias, keep)
         return self._heads(context)

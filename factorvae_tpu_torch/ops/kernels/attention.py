@@ -1,18 +1,23 @@
-"""K-head cross-section attention forward (K4): the CUDA kernel and its
-plain version.
+"""K-head cross-section attention: forward (K4) and backward (K5) CUDA
+kernels, their plain versions, and the autograd Function that joins them.
 
-Replaces the Pallas TPU kernel `_head_kernel` of
+Replaces the Pallas TPU kernels `_head_kernel` of
 `factorvae_tpu/ops/pallas/attention.py` (`multihead_cross_section_attention`,
-which the JAX predictor reaches through `attention_grad.fused_attention` and
-vmaps over days). This kernel takes the day axis directly. The CUDA source is
-`factorvae_tpu_torch/csrc/attention_fwd.cu`; its header comment says what
-bounds the kernel on an H100 (the f32 key and value products) and how the
-design meets it (one block per (day, head), head weights and scores in
-shared memory, the (K, N, H) key/value stacks never written out).
+K4, `csrc/attention_fwd.cu`) and `_bwd_kernel` of
+`factorvae_tpu/ops/pallas/attention_grad.py` (`_bwd_pallas`, K5,
+`csrc/attention_bwd.cu`), which the JAX predictor reaches through the custom
+VJP `fused_attention` and vmaps over days. These kernels take the day axis
+directly. Each source's header comment says what bounds the kernel on an
+H100 and how the design meets it (one block per (day, head), head weights
+and scores in shared memory, the (K, N, H) key/value stacks never written
+out; the backward recomputes the forward's scores and softmax with the
+forward's own device code).
 
-`attention_fwd` launches the kernel for CUDA tensors and runs
-`attention_fwd_plain` for CPU tensors; there is no fallback between the two.
-The serving path passes no keep-mask; the training slice will.
+`attention_fwd` and `attention_bwd` launch their kernels for CUDA tensors
+and run `attention_fwd_plain` / `attention_bwd_plain` for CPU tensors; there
+is no fallback between the two. `attention` is the differentiable op:
+forward K4, backward K5. The training path passes the dropout keep-mask;
+the serving path passes none.
 """
 
 from __future__ import annotations
@@ -26,6 +31,28 @@ from factorvae_tpu_torch import _build
 from factorvae_tpu_torch.ops.masked import masked_softmax
 
 
+def _forward_parts(latent, mask, query, w_key, b_key, w_val, b_val, keep):
+    """The forward's intermediates, batched over days: keys (B, K, N, H),
+    nan_to_num'd values (B, K, N, H), scores s after the keep-mask and before
+    the ReLU (B, K, N), softmax weights a (zero for a guarded head), the
+    guard `bad` (B, K, 1) and the score scale."""
+    h = latent.shape[-1]
+    keys = torch.einsum("bnh,khj->bknj", latent, w_key) + b_key[None, :, None, :]
+    values = torch.einsum("bnh,khj->bknj", latent, w_val) + b_val[None, :, None, :]
+    scale = torch.sqrt(torch.tensor(float(h), dtype=torch.float32,
+                                    device=latent.device) + 1e-6)
+    s = torch.einsum("kh,bknh->bkn", query, keys) / scale
+    if keep is not None:
+        s = s * keep
+    scores = torch.relu(s)
+    valid = mask[:, None, :]
+    attn = masked_softmax(scores, valid, dim=-1)
+    bad = torch.any(~torch.isfinite(torch.where(valid, scores, 0.0)),
+                    dim=-1, keepdim=True)
+    attn = torch.where(bad, 0.0, attn)
+    return keys, torch.nan_to_num(values), s, attn, bad, scale
+
+
 def attention_fwd_plain(latent, mask, query, w_key, b_key, w_val, b_val,
                         keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """latent (B, N, H), mask (B, N) bool, query (K, H), w_key/w_val
@@ -35,32 +62,97 @@ def attention_fwd_plain(latent, mask, query, w_key, b_key, w_val, b_val,
     `day_batched` in the JAX package): scores -> keep-mask -> ReLU ->
     masked softmax over stocks, a head with a non-finite valid score gives
     a zero context, values pass through nan_to_num."""
-    h = latent.shape[-1]
-    keys = torch.einsum("bnh,khj->bknj", latent, w_key) + b_key[None, :, None, :]
-    values = torch.einsum("bnh,khj->bknj", latent, w_val) + b_val[None, :, None, :]
-    scale = torch.sqrt(torch.tensor(float(h), dtype=torch.float32,
-                                    device=latent.device) + 1e-6)
-    scores = torch.einsum("kh,bknh->bkn", query, keys) / scale
-    if keep is not None:
-        scores = scores * keep
-    scores = torch.relu(scores)
-    valid = mask[:, None, :]
-    attn = masked_softmax(scores, valid, dim=-1)
-    bad = torch.any(~torch.isfinite(torch.where(valid, scores, 0.0)),
-                    dim=-1, keepdim=True)
-    attn = torch.where(bad, 0.0, attn)
-    ctx = torch.einsum("bkn,bknh->bkh", attn, torch.nan_to_num(values))
+    _, values, _, attn, bad, _ = _forward_parts(latent, mask, query, w_key, b_key,
+                                                w_val, b_val, keep)
+    ctx = torch.einsum("bkn,bknh->bkh", attn, values)
     return torch.where(bad, 0.0, ctx)
 
 
-def _lib():
-    lib = _build.load("attention_fwd")
+def attention_bwd_plain(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
+                        keep: Optional[torch.Tensor] = None):
+    """The VJP of `attention_fwd_plain` for the cotangent dctx (B, K, H) ->
+    (dlatent (B, N, H), dquery (K, H), dw_key (K, H, H), db_key (K, H),
+    dw_val (K, H, H), db_val (K, H)).
+
+    The math of the TPU kernel (`attention_grad.py` `_bwd_kernel`) with the
+    day axis as a batch axis: keys, values and the softmax recomputed;
+    dz = 1[s > 0] (t - a sum t) / scale * keep with t = a (value . dctx).
+    A head caught by the guard, and a masked row, give exactly zero to every
+    gradient (a select, so a non-finite latent there cannot leak in through
+    0 * NaN); the mask and the keep-mask get no gradient."""
+    keys, values, s, a, bad, scale = _forward_parts(latent, mask, query, w_key, b_key,
+                                                    w_val, b_val, keep)
+    da = torch.where(bad, 0.0, torch.einsum("bknh,bkh->bkn", values, dctx))
+    t = a * da
+    dr = t - a * t.sum(dim=-1, keepdim=True)
+    dz = torch.where(s > 0, dr, 0.0) / scale
+    if keep is not None:
+        dz = dz * keep
+    dkey = dz[..., None] * query[None, :, None, :]                  # (B, K, N, H)
+    dv = a[..., None] * dctx[:, :, None, :]                          # (B, K, N, H)
+    row = mask[:, None, :, None]
+    lat0 = torch.where(mask[..., None], latent, 0.0)
+    per_day = bad[..., None]                                        # (B, K, 1, 1)
+    dw_key = torch.where(per_day, 0.0, torch.einsum("bnh,bknj->bkhj", lat0, dkey)).sum(0)
+    dw_val = torch.where(per_day, 0.0, torch.einsum("bnh,bknj->bkhj", lat0, dv)).sum(0)
+    dquery = torch.where(bad, 0.0, torch.einsum(
+        "bknh,bkn->bkh", torch.where(row, keys, 0.0), dz)).sum(0)
+    dlatent = (torch.einsum("bknj,khj->bnh", dkey, w_key)
+               + torch.einsum("bknj,khj->bnh", dv, w_val))
+    return dlatent, dquery, dw_key, dkey.sum(dim=(0, 2)), dw_val, dv.sum(dim=(0, 2))
+
+
+def _validate(name, latent, mask, query, w_key, b_key, w_val, b_val, keep,
+              dctx=None) -> None:
+    if latent.ndim != 3:
+        raise ValueError(f"{name}: latent must be (B, N, H); got {tuple(latent.shape)}")
+    b, n, h = latent.shape
+    k = query.shape[0]
+    args = {"mask": mask, "query": query, "w_key": w_key, "b_key": b_key,
+            "w_val": w_val, "b_val": b_val, "keep": keep, "dctx": dctx}
+    expect = {"mask": (b, n), "query": (k, h), "w_key": (k, h, h),
+              "b_key": (k, h), "w_val": (k, h, h), "b_val": (k, h),
+              "keep": (b, k, n), "dctx": (b, k, h)}
+    args = {key: a for key, a in args.items() if a is not None}
+    for key, a in args.items():
+        if tuple(a.shape) != expect[key]:
+            raise ValueError(f"{name}: {key} must be {expect[key]}; got {tuple(a.shape)}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"{name}: mask must be bool; got {mask.dtype}")
+    if latent.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors; got {latent.device}")
+    if latent.device.type == "cpu":
+        return
+    for key, a in args.items():
+        if key != "mask" and a.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32; got {a.dtype}")
+        if a.device != latent.device:
+            raise ValueError(f"{name}: {key} is on {a.device}, latent on {latent.device}")
+
+
+def _lib(name: str):
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        lib.attention_fwd.argtypes = ([ctypes.c_void_p] * 9
-                                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.attention_fwd.restype = ctypes.c_int
-        lib.attention_fwd_max_hidden.restype = ctypes.c_int
+        if name == "attention_fwd":
+            lib.attention_fwd.argtypes = ([ctypes.c_void_p] * 9
+                                          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            lib.attention_fwd.restype = ctypes.c_int
+        else:
+            lib.attention_bwd.argtypes = ([ctypes.c_void_p] * 16
+                                          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            lib.attention_bwd.restype = ctypes.c_int
+            lib.attention_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+            lib.attention_bwd_scratch_floats.restype = ctypes.c_longlong
+        getattr(lib, f"{name}_max_hidden").restype = ctypes.c_int
         lib._typed = True
+    return lib
+
+
+def _cuda_lib(name: str, h: int):
+    lib = _lib(name)
+    cap = getattr(lib, f"{name}_max_hidden")()
+    if h > cap:
+        raise ValueError(f"{name}: hidden size {h} exceeds the kernel's maximum {cap}")
     return lib
 
 
@@ -69,43 +161,13 @@ def attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val,
     """Fused K-head attention over each day's stocks -> ctx (B, K, H) f32.
 
     Shapes as in `attention_fwd_plain`."""
-    if latent.ndim != 3:
-        raise ValueError(f"latent must be (B, N, H); got {tuple(latent.shape)}")
-    b, n, h = latent.shape
-    k = query.shape[0]
-    expect = {"mask": (b, n), "query": (k, h), "w_key": (k, h, h),
-              "b_key": (k, h), "w_val": (k, h, h), "b_val": (k, h)}
-    if keep is not None:
-        expect["keep"] = (b, k, n)
-    args = {"mask": mask, "query": query, "w_key": w_key, "b_key": b_key,
-            "w_val": w_val, "b_val": b_val, "keep": keep}
-    for name, shape in expect.items():
-        if tuple(args[name].shape) != shape:
-            raise ValueError(f"attention_fwd: {name} must be {shape}; got "
-                             f"{tuple(args[name].shape)}")
-    if mask.dtype != torch.bool:
-        raise TypeError(f"attention_fwd: mask must be bool; got {mask.dtype}")
+    _validate("attention_fwd", latent, mask, query, w_key, b_key, w_val, b_val, keep)
     if latent.device.type == "cpu":
         return attention_fwd_plain(latent, mask, query, w_key, b_key, w_val,
                                    b_val, keep)
-    if latent.device.type != "cuda":
-        raise ValueError(
-            f"attention_fwd runs on cuda or cpu tensors; got {latent.device}")
-    floats = {"latent": latent, "query": query, "w_key": w_key, "b_key": b_key,
-              "w_val": w_val, "b_val": b_val}
-    if keep is not None:
-        floats["keep"] = keep
-    for name, a in floats.items():
-        if a.dtype != torch.float32:
-            raise TypeError(f"attention_fwd: {name} must be float32; got {a.dtype}")
-    for name, a in list(floats.items()) + [("mask", mask)]:
-        if a.device != latent.device:
-            raise ValueError(
-                f"attention_fwd: {name} is on {a.device}, latent on {latent.device}")
-    lib = _lib()
-    if h > lib.attention_fwd_max_hidden():
-        raise ValueError(f"attention_fwd: hidden size {h} exceeds the kernel's "
-                         f"maximum {lib.attention_fwd_max_hidden()}")
+    b, n, h = latent.shape
+    k = query.shape[0]
+    lib = _cuda_lib("attention_fwd", h)
     out = torch.empty((b, k, h), dtype=torch.float32, device=latent.device)
     if b == 0 or k == 0 or n == 0:
         return out.zero_()
@@ -126,3 +188,66 @@ def attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val,
 
 
 attention_fwd.launches = 0
+
+
+def attention_bwd(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
+                  keep: Optional[torch.Tensor] = None):
+    """The attention's VJP for the cotangent dctx (B, K, H) -> (dlatent,
+    dquery, dw_key, db_key, dw_val, db_val), f32; shapes as in
+    `attention_bwd_plain`. One launch is the three kernels of
+    `csrc/attention_bwd.cu`."""
+    _validate("attention_bwd", latent, mask, query, w_key, b_key, w_val, b_val,
+              keep, dctx)
+    if latent.device.type == "cpu":
+        return attention_bwd_plain(latent, mask, query, w_key, b_key, w_val,
+                                   b_val, dctx, keep)
+    b, n, h = latent.shape
+    k = query.shape[0]
+    lib = _cuda_lib("attention_bwd", h)
+    outs = [torch.zeros(tuple(a.shape), dtype=torch.float32, device=latent.device)
+            for a in (latent, query, w_key, b_key, w_val, b_val)]
+    if b == 0 or k == 0 or n == 0:
+        return tuple(outs)
+    tensors = [t.contiguous() for t in (latent, mask, query, w_key, b_key,
+                                        w_val, b_val, dctx)]
+    keep_c = keep.contiguous() if keep is not None else None
+    scratch = torch.zeros(lib.attention_bwd_scratch_floats(b, n, k, h),
+                          dtype=torch.float32, device=latent.device)
+    ptrs = [t.data_ptr() for t in tensors[:2]]
+    ptrs.append(keep_c.data_ptr() if keep_c is not None else None)
+    ptrs += [t.data_ptr() for t in tensors[2:]]
+    ptrs += [o.data_ptr() for o in outs] + [scratch.data_ptr()]
+    with torch.cuda.device(latent.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.attention_bwd(*ptrs, b, n, k, h, stream)
+    if err != 0:
+        raise RuntimeError(f"attention_bwd launch failed at B={b}, N={n}, K={k}, "
+                           f"H={h}: cudaError {err}")
+    attention_bwd.launches += 1
+    return tuple(outs)
+
+
+attention_bwd.launches = 0
+
+
+class _AttentionFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, latent, mask, query, w_key, b_key, w_val, b_val, keep):
+        ctx.save_for_backward(latent, mask, query, w_key, b_key, w_val, b_val, keep)
+        return attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val, keep)
+
+    @staticmethod
+    def backward(ctx, dctx):
+        latent, mask, query, w_key, b_key, w_val, b_val, keep = ctx.saved_tensors
+        dlatent, dquery, dw_key, db_key, dw_val, db_val = attention_bwd(
+            latent, mask, query, w_key, b_key, w_val, b_val, dctx, keep)
+        return dlatent, None, dquery, dw_key, db_key, dw_val, db_val, None
+
+
+def attention(latent, mask, query, w_key, b_key, w_val, b_val,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable `attention_fwd`: the forward is K4, the backward K5
+    (the plain versions on the CPU). The mask and keep-mask get no
+    gradient."""
+    return _AttentionFunction.apply(latent, mask, query, w_key, b_key, w_val,
+                                    b_val, keep)

@@ -35,3 +35,19 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
     else:
         total, count = torch.sum(kept, dim=dim), torch.sum(mask, dim=dim)
     return torch.where(count > 0, total / torch.clamp(count, min=1), 0.0)
+
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+               dim=None) -> torch.Tensor:
+    """Masked mean-squared error; with an all-true mask, `F.mse_loss` as
+    the reference applies it to its one reparameterized sample."""
+    return masked_mean((pred - target) ** 2, mask, dim=dim)
+
+
+def masked_gaussian_nll(mu: torch.Tensor, sigma: torch.Tensor, target: torch.Tensor,
+                        mask: torch.Tensor, eps: float = 1e-12, dim=None) -> torch.Tensor:
+    """Masked mean Gaussian negative log-likelihood (the paper's analytic
+    reconstruction term)."""
+    var = sigma ** 2 + eps
+    nll = 0.5 * (torch.log(2.0 * torch.pi * var) + (target - mu) ** 2 / var)
+    return masked_mean(nll, mask, dim=dim)

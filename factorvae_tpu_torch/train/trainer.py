@@ -1,0 +1,159 @@
+"""The trainer (`factorvae_tpu/train/trainer.py`): config + data +
+model + optimizer in an epoch loop with best-validation selection and
+resumable checkpoints.
+
+    trainer = Trainer(config, dataset, device="cuda")
+    state, summary = trainer.fit()
+    metrics = trainer.evaluate(state.model)
+
+The dataset lives on `device` (`PanelDataset(..., device=...)`); every step
+gathers its day batch there. Days are visited in the JAX package's order
+(`PanelDataset.epoch_order`), so from the same weights both packages take
+the same steps. The train noise (the decoder's sample, the predictor's
+dropout) comes from one `torch.Generator` seeded from `train.seed`; the
+validation noise of epoch e from its own generator seeded from (seed, e).
+
+Ported: the finite guard, best-validation weights (`params.save_weights`
+under `config.checkpoint_name()`), full-state checkpoints every
+`checkpoint_every` epochs and resume. Not ported (ROADMAP Queue 1): the
+rollback recovery (`recover_after` is not read), fleets, mixed precision,
+streaming residency, the mesh.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from factorvae_tpu_torch.config import Config
+from factorvae_tpu_torch.models.factorvae import FactorVAE
+from factorvae_tpu_torch.params import save_weights
+from factorvae_tpu_torch.train.checkpoint import Checkpointer
+from factorvae_tpu_torch.train.loop import eval_epoch, train_epoch
+from factorvae_tpu_torch.train.state import TrainState, make_optimizer, seed_for
+
+_TRAIN_NOISE, _EVAL_NOISE = 1, 2      # stream ids of seed_for
+
+
+class Trainer:
+    def __init__(self, config: Config, dataset, device="cuda"):
+        self.cfg = config
+        self.ds = dataset
+        self.device = torch.device(device)
+        if dataset.device.type != self.device.type:
+            raise ValueError(f"the dataset lives on {dataset.device}, the trainer "
+                             f"runs on {self.device}")
+        if (config.train.compute_dtype or config.model.compute_dtype) != "float32":
+            raise NotImplementedError("factorvae_tpu_torch trains in float32 only "
+                                      "(mixed precision is not ported)")
+        self.train_days = dataset.split_days(config.data.start_time,
+                                             config.data.fit_end_time)
+        self.val_days = dataset.split_days(config.data.val_start_time,
+                                           config.data.val_end_time)
+        if len(self.train_days) == 0:
+            raise ValueError("empty training split")
+        self.batch_days = max(1, config.train.days_per_step)
+        self.steps_per_epoch = -(-len(self.train_days) // self.batch_days)
+        self.total_steps = self.steps_per_epoch * config.train.num_epochs
+
+    def init_state(self) -> TrainState:
+        """A model with weights drawn from `train.seed` (bitwise
+        `load_model`'s), Adam, the schedule and the noise generator."""
+        cfg = self.cfg
+        model = FactorVAE(cfg.model)
+        model.reset_parameters(torch.Generator().manual_seed(cfg.train.seed))
+        model.to(self.device)
+        optimizer, scheduler = make_optimizer(model.parameters(), cfg.train,
+                                              self.total_steps)
+        generator = torch.Generator(device=self.device).manual_seed(
+            seed_for(cfg.train.seed, _TRAIN_NOISE))
+        return TrainState(model, optimizer, scheduler, generator)
+
+    def _order(self, days, shuffle: bool, epoch: int) -> torch.Tensor:
+        order = self.ds.epoch_order(days, shuffle=shuffle, seed=self.cfg.train.seed,
+                                    epoch=epoch, pad_to=self.batch_days)
+        return torch.as_tensor(order.reshape(-1, self.batch_days).astype(np.int64),
+                               device=self.device)
+
+    def _eval_generator(self, epoch: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            seed_for(self.cfg.train.seed, _EVAL_NOISE, epoch))
+
+    def fit(self, state: Optional[TrainState] = None, resume: bool = False,
+            num_epochs: Optional[int] = None):
+        """Train the first `num_epochs` epochs of the configured schedule
+        (default: all of them; the cosine horizon stays the config's, so a
+        partial run and its resume equal an unbroken run). With resume=True
+        and no `state`, continue from the newest checkpoint. Returns (state,
+        {"history": [per-epoch records], "best_val": float})."""
+        cfg = self.cfg
+        epochs = cfg.train.num_epochs if num_epochs is None else num_epochs
+        ckpt = None
+        if cfg.train.checkpoint_every:
+            ckpt = Checkpointer(os.path.join(cfg.train.save_dir,
+                                             f"{cfg.checkpoint_name()}_ckpt"),
+                                keep=cfg.train.keep_checkpoints)
+        start_epoch, best_val = 0, float("inf")
+        if state is None:
+            state = self.init_state()
+            if resume and ckpt is not None and ckpt.latest_step() is not None:
+                meta = ckpt.restore(state)
+                start_epoch = int(meta["epoch"]) + 1
+                best_val = float(meta["best_val"])
+        val_order = (self._order(self.val_days, False, 0)
+                     if len(self.val_days) else None)
+        history = []
+        for epoch in range(start_epoch, epochs):
+            t0 = time.perf_counter()
+            train_m = train_epoch(state, self.ds, self._order(self.train_days, True, epoch),
+                                  guard=cfg.train.finite_guard)
+            rec = {"epoch": epoch, "train_loss": train_m["loss"],
+                   "train_recon": train_m["recon"], "train_kl": train_m["kl"]}
+            if val_order is not None:
+                val_m = eval_epoch(state.model, self.ds, val_order,
+                                   self._eval_generator(epoch))
+                rec.update(val_loss=val_m["loss"], val_recon=val_m["recon"],
+                           val_kl=val_m["kl"])
+                selection = val_m["loss"]
+            else:       # no validation split: select on the train loss
+                rec.update(val_loss=float("nan"), val_recon=float("nan"),
+                           val_kl=float("nan"))
+                selection = train_m["loss"]
+            seconds = time.perf_counter() - t0
+            rec.update(lr=state.scheduler.get_last_lr()[0], step=state.step,
+                       seconds=seconds, days_per_sec=train_m["days"] / max(seconds, 1e-9))
+            if "skipped_steps" in train_m:
+                rec["skipped_steps"] = train_m["skipped_steps"]
+            history.append(rec)
+            if selection < best_val:
+                best_val = selection
+                save_weights(state.model, cfg,
+                             os.path.join(cfg.train.save_dir, cfg.checkpoint_name()))
+            if ckpt is not None and (epoch % max(1, cfg.train.checkpoint_every) == 0
+                                     or epoch == epochs - 1):
+                ckpt.save(epoch, state, {"epoch": epoch, "best_val": best_val,
+                                         "config": cfg.to_dict()})
+        return state, {"history": history, "best_val": best_val}
+
+    def evaluate(self, model, start=None, end=None, seed: int = 0) -> dict:
+        """Validation-style metrics of `model` over a date range (default:
+        the validation split)."""
+        days = self.ds.split_days(
+            self.cfg.data.val_start_time if start is None else start,
+            self.cfg.data.val_end_time if end is None else end)
+        if len(days) == 0:
+            raise ValueError("no trading days in the requested range")
+        generator = torch.Generator(device=self.device).manual_seed(
+            seed_for(seed, _EVAL_NOISE))
+        return eval_epoch(model, self.ds, self._order(days, False, 0), generator)
+
+    def score(self, model, start=None, end=None, **kw):
+        """Prediction scores DataFrame (`eval.predict.generate_prediction_scores`)."""
+        from factorvae_tpu_torch.eval.predict import generate_prediction_scores
+
+        return generate_prediction_scores(model, self.cfg, self.ds, start=start,
+                                          end=end, **kw)

@@ -7,7 +7,9 @@ PyTorch, without the repo's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerance: f32 with rtol=1e-5, atol=1e-5. The kernels sum their products
-in another order than cuBLAS does for the plain versions.
+in another order than cuBLAS does for the plain versions. Weight gradients,
+which sum over every row (and step), are held on max |a - b| <= 1e-5 *
+max(1, max |b|).
 """
 
 from __future__ import annotations
@@ -16,8 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from factorvae_tpu_torch.ops.kernels.attention import attention_fwd, attention_fwd_plain
-from factorvae_tpu_torch.ops.kernels.gru import gru_fwd, gru_fwd_plain
+from factorvae_tpu_torch.ops.kernels.attention import (
+    attention,
+    attention_bwd,
+    attention_bwd_plain,
+    attention_fwd,
+    attention_fwd_plain,
+)
+from factorvae_tpu_torch.ops.kernels.gru import gru, gru_bwd, gru_bwd_plain, gru_fwd, gru_fwd_plain
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -39,6 +47,13 @@ def _to(dev, *arrays):
 def _close(got, want):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+def _close_sum(got, want):
+    """A gradient summed over many rows: max |a - b| <= 1e-5 * max(1, max |b|)."""
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("n,t,h", [(9728, 20, 64), (1001, 20, 60), (37, 6, 8),
@@ -123,3 +138,129 @@ def test_predict_panel_on_the_card_matches_the_cpu(dev):
         scores[str(d)] = predict_panel(load_model(cfg, device=d), cfg, ds,
                                        ds.split_days(None, None), stochastic=False)
     np.testing.assert_allclose(scores["cuda"], scores["cpu"], **TOL)
+
+
+@pytest.mark.parametrize("n,t,h", [(304, 20, 64), (2432, 20, 64), (304, 60, 60),
+                                   (72, 60, 8), (333, 7, 37), (5, 3, 4)])
+def test_gru_bwd_kernel_matches_plain_and_repeats_bitwise(dev, n, t, h):
+    rng = np.random.default_rng(n * t + h)
+    xi, wh, bh, dh = _to(dev, (rng.normal(size=(n, t, 3 * h)) * 0.5).astype(np.float32),
+                         (rng.normal(size=(h, 3 * h)) * 0.3).astype(np.float32),
+                         (rng.normal(size=(3 * h,)) * 0.1).astype(np.float32),
+                         rng.normal(size=(n, h)).astype(np.float32))
+    before = gru_bwd.launches
+    got = gru_bwd(xi, wh, bh, dh)
+    assert gru_bwd.launches == before + 1
+    want = gru_bwd_plain(xi, wh, bh, dh)
+    _close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        _close_sum(g, w)
+    again = gru_bwd(xi, wh, bh, dh)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gru_function_runs_k1_then_k2(dev):
+    rng = np.random.default_rng(0)
+    xi, wh, bh = (a.requires_grad_() for a in _to(
+        dev, (rng.normal(size=(40, 6, 24)) * 0.5).astype(np.float32),
+        (rng.normal(size=(8, 24)) * 0.3).astype(np.float32),
+        (rng.normal(size=(24,)) * 0.1).astype(np.float32)))
+    dh = torch.randn(40, 8, device=dev)
+    f0, b0 = gru_fwd.launches, gru_bwd.launches
+    grads = torch.autograd.grad(gru(xi, wh, bh), (xi, wh, bh), dh)
+    assert (gru_fwd.launches, gru_bwd.launches) == (f0 + 1, b0 + 1)
+    for g, w in zip(grads, gru_bwd_plain(xi.detach(), wh.detach(), bh.detach(), dh)):
+        _close_sum(g, w)
+
+
+def test_backward_kernels_refuse_what_they_cannot_run(dev):
+    with pytest.raises(ValueError, match="exceeds"):
+        gru_bwd(torch.zeros(2, 3, 195, device=dev), torch.zeros(65, 195, device=dev),
+                torch.zeros(195, device=dev), torch.zeros(2, 65, device=dev))
+    with pytest.raises(ValueError, match="exceeds"):
+        attention_bwd(torch.zeros(1, 4, 65, device=dev),
+                      torch.ones(1, 4, dtype=torch.bool, device=dev),
+                      torch.zeros(2, 65, device=dev), torch.zeros(2, 65, 65, device=dev),
+                      torch.zeros(2, 65, device=dev), torch.zeros(2, 65, 65, device=dev),
+                      torch.zeros(2, 65, device=dev), torch.zeros(1, 2, 65, device=dev))
+
+
+@pytest.mark.parametrize("b,n,k,h", [(1, 304, 96, 64), (8, 304, 96, 64), (3, 10, 4, 8),
+                                     (2, 800, 60, 60), (3, 70, 6, 37)])
+@pytest.mark.parametrize("with_keep", [False, True], ids=["no_keep", "keep_mask"])
+def test_attention_bwd_kernel_matches_plain_and_repeats_bitwise(dev, b, n, k, h, with_keep):
+    rng = np.random.default_rng(b * n + h + 1)
+    latent = rng.normal(size=(b, n, h)).astype(np.float32)
+    mask = rng.random((b, n)) > 0.2
+    if b > 1:
+        mask[0] = False                               # an all-padding day
+        latent[1, 3, 0] = np.nan                      # the guard zeroes day 1
+        mask[1, 3] = True
+    weights = [rng.normal(size=(k, h)).astype(np.float32)]
+    for shape in ((k, h, h), (k, h), (k, h, h), (k, h)):
+        weights.append((rng.normal(size=shape) / np.sqrt(h)).astype(np.float32))
+    args = _to(dev, latent, mask, *weights, (rng.normal(size=(b, k, h)) * 0.1).astype(np.float32))
+    keep = None
+    if with_keep:
+        keep = _to(dev, ((rng.random((b, k, n)) > 0.1) / 0.9).astype(np.float32))[0]
+    before = attention_bwd.launches
+    got = attention_bwd(*args, keep=keep)
+    assert attention_bwd.launches == before + 1
+    want = attention_bwd_plain(*args, keep=keep)
+    _close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        _close_sum(g, w)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    if b > 1:
+        assert bool((got[0][0] == 0).all()) and bool((got[0][1] == 0).all())
+    again = attention_bwd(*args, keep=keep)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_attention_function_runs_k4_then_k5(dev):
+    rng = np.random.default_rng(1)
+    b, n, k, h = 2, 30, 5, 8
+    latent, *weights = (a.requires_grad_() for a in _to(
+        dev, rng.normal(size=(b, n, h)).astype(np.float32),
+        rng.normal(size=(k, h)).astype(np.float32),
+        (rng.normal(size=(k, h, h)) / 3).astype(np.float32),
+        (rng.normal(size=(k, h)) / 3).astype(np.float32),
+        (rng.normal(size=(k, h, h)) / 3).astype(np.float32),
+        (rng.normal(size=(k, h)) / 3).astype(np.float32)))
+    mask = torch.from_numpy(rng.random((b, n)) > 0.2).to(dev)
+    dctx = torch.randn(b, k, h, device=dev)
+    f0, b0 = attention_fwd.launches, attention_bwd.launches
+    grads = torch.autograd.grad(attention(latent, mask, *weights), (latent, *weights), dctx)
+    assert (attention_fwd.launches, attention_bwd.launches) == (f0 + 1, b0 + 1)
+    want = attention_bwd_plain(latent.detach(), mask, *(w.detach() for w in weights), dctx)
+    for g, w in zip(grads, want):
+        _close_sum(g, w)
+
+
+def test_trainer_on_the_card_tracks_the_cpu(dev, tmp_path):
+    """Two epochs of a small deterministic run (dropout 0, NLL loss) from the
+    same weights: per-epoch losses on the card within rtol 1e-4 of the CPU's."""
+    import dataclasses
+
+    from factorvae_tpu_torch import config
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    panel = synthetic_panel_dense(40, 13, 12, seed=1)
+    dates = [str(d) for d in panel.dates]
+    cfg = config.Config(
+        model=config.ModelConfig(num_features=12, hidden_size=8, num_factors=4,
+                                 num_portfolios=10, seq_len=6, dropout_rate=0.0,
+                                 recon_loss="nll"),
+        data=config.DataConfig(seq_len=6, start_time=dates[0], fit_end_time=dates[27],
+                               val_start_time=dates[28], val_end_time=dates[39]),
+        train=config.TrainConfig(num_epochs=2, days_per_step=4, lr=1e-3, seed=5,
+                                 checkpoint_every=0))
+    hist = {}
+    for d in ("cpu", dev):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, save_dir=str(tmp_path / str(d))))
+        _, out = Trainer(c, PanelDataset(panel, seq_len=6, device=d), device=d).fit()
+        hist[str(d)] = [(r["train_loss"], r["val_loss"]) for r in out["history"]]
+    np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)

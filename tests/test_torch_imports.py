@@ -1,4 +1,6 @@
-"""Guards of the PyTorch port: what it imports, that the JAX weights carry
+"""Guards of the PyTorch port: what it imports (every module, the training
+ones included, and a scoring pass and a training epoch run with no JAX,
+Flax, pandas or JAX-package module loaded), that the JAX weights carry
 across without loss, and that `chip_smoke.py` refuses to run without a GPU
 instead of falling back to the CPU."""
 
@@ -42,6 +44,20 @@ ds = PanelDataset(synthetic_panel_dense(12, 5, 6), seq_len=4, device="cpu")
 scores = predict_panel(load_model(cfg, device="cpu"), cfg, ds,
                        ds.split_days(None, None), stochastic=False)
 assert scores.shape == (12, 8) and np.isfinite(scores[:, :5]).all()
+
+import tempfile
+from factorvae_tpu_torch.train.trainer import Trainer
+
+with tempfile.TemporaryDirectory() as save_dir:
+    tcfg = config.Config(model=cfg.model, data=config.DataConfig(seq_len=4),
+                         train=config.TrainConfig(num_epochs=1, checkpoint_every=1,
+                                                  save_dir=save_dir))
+    state, out = Trainer(tcfg, ds, device="cpu").fit()
+    assert state.step == len(ds.split_days(None, None))
+    assert np.isfinite(out["history"][0]["train_loss"])
+assert {"factorvae_tpu_torch.train.trainer", "factorvae_tpu_torch.train.loop",
+        "factorvae_tpu_torch.train.state", "factorvae_tpu_torch.train.checkpoint",
+        "factorvae_tpu_torch.ops.kl"} <= set(names)
 
 def banned(mod):
     top = mod.split(".")[0]

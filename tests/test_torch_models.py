@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,12 +26,21 @@ from factorvae_tpu.models.extractor import FeatureExtractor as JExtractor
 from factorvae_tpu.models.factorvae import FactorVAE as JFactorVAE
 from factorvae_tpu.models.factorvae import load_model as jload_model
 from factorvae_tpu.models.predictor import FactorPredictor as JPredictor
+from factorvae_tpu.ops.kl import gaussian_kl_sum as jgaussian_kl_sum
+from factorvae_tpu.ops.masked import masked_gaussian_nll as jmasked_gaussian_nll
 from factorvae_tpu.ops.masked import masked_mean as jmasked_mean
+from factorvae_tpu.ops.masked import masked_mse as jmasked_mse
 from factorvae_tpu.ops.masked import masked_softmax as jmasked_softmax
 from factorvae_tpu_torch import config as tconfig
 from factorvae_tpu_torch import presets as tpresets
 from factorvae_tpu_torch.models.factorvae import FactorVAE, load_model
-from factorvae_tpu_torch.ops.masked import masked_mean, masked_softmax
+from factorvae_tpu_torch.ops.kl import gaussian_kl_sum
+from factorvae_tpu_torch.ops.masked import (
+    masked_gaussian_nll,
+    masked_mean,
+    masked_mse,
+    masked_softmax,
+)
 from factorvae_tpu_torch.params import flax_to_torch
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -119,6 +129,34 @@ class TestMaskedOps:
                 np.asarray(jmasked_mean(jnp.asarray(x), jnp.asarray(mask), axis=dim)), **TOL)
 
 
+class TestLosses:
+    def test_masked_mse_nll_and_kl_match_jax(self, rng):
+        pred, target = (rng.normal(size=(3, 9)).astype(np.float32) for _ in range(2))
+        sigma = np.abs(rng.normal(size=(3, 9))).astype(np.float32)
+        sigma[0, 0] = 0.0                              # var = eps
+        mask = rng.random((3, 9)) > 0.3
+        mask[2] = False
+        for d in range(3):
+            args = (pred[d], target[d], mask[d])
+            np.testing.assert_allclose(masked_mse(*map(_t, args)).numpy(),
+                                       np.asarray(jmasked_mse(*args)), **TOL)
+            nll = (pred[d], sigma[d], target[d], mask[d])
+            np.testing.assert_allclose(masked_gaussian_nll(*map(_t, nll)).numpy(),
+                                       np.asarray(jmasked_gaussian_nll(*nll)), **TOL)
+        np.testing.assert_allclose(
+            masked_mse(_t(pred), _t(target), _t(mask), dim=-1).numpy(),
+            [float(jmasked_mse(pred[d], target[d], mask[d])) for d in range(3)], **TOL)
+        mu1, mu2 = (rng.normal(size=(2, K)).astype(np.float32) for _ in range(2))
+        s1, s2 = (np.abs(rng.normal(size=(2, K))).astype(np.float32) + 0.1 for _ in range(2))
+        s2[0, 1] = 0.0                                 # the prior-sigma guard
+        got = gaussian_kl_sum(*map(_t, (mu1, s1, mu2, s2)), dim=-1).numpy()
+        want = [float(jgaussian_kl_sum(mu1[d], s1[d], mu2[d], s2[d])) for d in range(2)]
+        np.testing.assert_allclose(got, want, **TOL)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(gaussian_kl_sum(*map(_t, (mu1, s1, mu2, s2))).numpy(),
+                                   float(jgaussian_kl_sum(mu1, s1, mu2, s2)), **TOL)
+
+
 class TestModules:
     @PALLAS
     def test_extractor(self, weights, pallas):
@@ -201,6 +239,92 @@ class TestModules:
         for got, want in ((got_b, want_b), (got_1, want_1)):
             for g, w in zip(got, want):
                 np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
+
+
+class TestTrainingForward:
+    """The training forward and its losses against the JAX
+    `day_batched_forward`, with the JAX kernels on (Pallas, interpret mode)
+    and off (XLA). 'nll' takes no noise, so recon, kl and loss compare
+    directly; with 'mse' the port takes eps from numpy and its recon is held
+    against the JAX decoder's own distribution with that eps."""
+
+    def _inputs(self, seed):
+        rng, x, mask = _inputs(seed)
+        returns = rng.normal(size=(B, N)).astype(np.float32)
+        returns[0, 2] = np.nan                        # a missing label on a valid row
+        mask[0, 2] = True
+        mask[2] = False                               # an all-padding day
+        return rng, x, returns, mask
+
+    def _jax(self, tree, recon_loss, pallas, x, returns, mask):
+        cfg = dataclasses.replace(_jcfg(pallas), recon_loss=recon_loss, dropout_rate=0.0)
+        k = jax.random.PRNGKey(0)
+        return JFactorVAE(cfg).apply(
+            {"params": tree}, jnp.asarray(x), jnp.asarray(returns), jnp.asarray(mask),
+            train=True, rngs={"sample": k, "dropout": k},
+            method=JFactorVAE.day_batched_forward)
+
+    @PALLAS
+    def test_nll_losses_match_jax(self, weights, pallas):
+        tree, model = weights
+        rng, x, returns, mask = self._inputs(13)
+        want = self._jax(tree, "nll", pallas, x, returns, mask)
+        port = FactorVAE(dataclasses.replace(model.cfg, recon_loss="nll",
+                                             dropout_rate=0.0))
+        port.load_state_dict(model.state_dict())
+        eps = _t(rng.normal(size=(B, N)).astype(np.float32))
+        with torch.no_grad():
+            got = port.day_batched_forward(_t(x), _t(returns), _t(mask), train=True, eps=eps)
+        for name in ("loss", "recon_loss", "kl", "factor_mu", "factor_sigma",
+                     "pred_mu", "pred_sigma"):
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(want, name)), **TOL, err_msg=name)
+        assert np.isfinite(got.loss.numpy()).all()
+        one = port(_t(x[0]), _t(returns[0]), _t(mask[0]), train=True, eps=eps[0])
+        np.testing.assert_allclose(one.loss.detach().numpy(), got.loss[0].numpy(), **TOL)
+
+    @PALLAS
+    def test_mse_with_numpy_eps_matches_jax_distribution(self, weights, pallas):
+        tree, model = weights
+        rng, x, returns, mask = self._inputs(17)
+        want = self._jax(tree, "mse", pallas, x, returns, mask)
+        eps = rng.normal(size=(B, N)).astype(np.float32)
+        with torch.no_grad():
+            got = model.day_batched_forward(_t(x), _t(returns), _t(mask), train=False,
+                                            eps=_t(eps))
+        latent = JExtractor(_jcfg(pallas)).apply(
+            {"params": tree["feature_extractor"]},
+            jnp.asarray(x.reshape(B * N, T, C))).reshape(B, N, H)
+        mu, sigma = JDecoder(_jcfg(pallas)).apply(
+            {"params": tree["factor_decoder"]}, latent, want.factor_mu, want.factor_sigma,
+            method=JDecoder.distribution)
+        loss_mask = mask & np.isfinite(returns)
+        y0 = np.where(loss_mask, returns, 0.0)
+        recon = [float(jmasked_mse(mu[d] + eps[d] * sigma[d], y0[d], loss_mask[d]))
+                 for d in range(B)]
+        np.testing.assert_allclose(got.recon_loss.numpy(), recon, **TOL)
+        np.testing.assert_allclose(got.kl.numpy(), np.asarray(want.kl), **TOL)
+        np.testing.assert_allclose(got.loss.numpy(), np.asarray(recon) + np.asarray(want.kl),
+                                   **TOL)
+
+    def test_keep_mask_is_used_only_in_training(self, weights):
+        _, model = weights
+        rng, x, returns, mask = self._inputs(19)
+        eps = _t(rng.normal(size=(B, N)).astype(np.float32))
+        keep = _t(((rng.random((B, K, N)) > 0.1) / 0.9).astype(np.float32))
+        with torch.no_grad():
+            plain = model.day_batched_forward(_t(x), _t(returns), _t(mask), eps=eps)
+            ev = model.day_batched_forward(_t(x), _t(returns), _t(mask), eps=eps, keep=keep)
+            tr = model.day_batched_forward(_t(x), _t(returns), _t(mask), train=True,
+                                           eps=eps, keep=keep)
+        assert torch.equal(plain.loss, ev.loss)        # no mask at eval
+        assert not torch.equal(plain.pred_mu, tr.pred_mu)
+        g1, g2 = (torch.Generator().manual_seed(4) for _ in range(2))
+        a = model.factor_predictor.keep_mask((B, K, N), "cpu", g1)
+        assert torch.equal(a, model.factor_predictor.keep_mask((B, K, N), "cpu", g2))
+        assert set(np.unique(a.numpy())) <= {0.0, np.float32(1 / 0.9)}
+        with pytest.raises(ValueError):
+            model.day_batched_forward(_t(x), _t(returns), _t(mask), train=True, eps=eps)
 
 
 class TestPrediction:
