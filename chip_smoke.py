@@ -1,38 +1,50 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 0] [--out FILE]
+    python3 chip_smoke.py [--seed 0] [--out FILE] [--only K1,K2]
 
-Phases, each printed as one JSON line:
+Phases, each printed as one JSON line (`--only` runs device, build and the
+named phases, and prints neither the kernels line nor the result):
 
 1. device  -- the card (`nvidia-smi` name and power limit); no CUDA device
               means exit 1 at once, with no result.
 2. build   -- nvcc builds every kernel of `factorvae_tpu_torch/csrc/` for
               sm_90a, in parallel; the build seconds and ptxas reports.
-3. K1      -- the GRU forward kernel against its plain PyTorch version on
-              the card at the flagship serving shape (N = 32 days x 304
-              stocks, T = 20, H = 64) and at ragged shapes with H = 60 and
-              H = 37; kernel, plain and cuDNN nn.GRU times (nn.GRU on
-              xi with an identity input weight, checked against the
-              plain version), and the analytic bound.
+3. K1      -- the GRU forward kernel, its serving and its residual
+              (training) variant, against the plain PyTorch version on the
+              card: the flagship serving chunk (N = 32 days x 304 stocks,
+              T = 20, H = 64), one flagship training day (304 x 20 x 64), the
+              alpha360-k60 shape (304 x 60 x 60) and ragged shapes with H = 60
+              and H = 37; bitwise repeats, and the residual variant's h
+              bitwise the serving variant's. At the first three shapes:
+              kernel, plain and cuDNN nn.GRU times (nn.GRU on xi with an
+              identity input weight, checked against the plain version)
+              and the bound.
 4. K4      -- the K-head attention kernel against its plain version at
               B = 32, N = 304, K = 96, H = 64, with padded rows, an
               all-masked day, a NaN latent row (the guard) and a keep-mask,
-              and at the csi800-k60 width (N = 800, H = 60) and H = 37.
+              and at the csi800-k60 width (N = 800, H = 60) and H = 37;
+              times and bounds at B = 32 and at one training day (B = 1).
 5. slice   -- a flagship-width FactorVAE (C158/T20/H64/K96/M128, random
               weights from --seed) on an 80-day synthetic panel of 300
               stocks (padded to 304), admitted to the port's ModelRegistry;
               the ScoringDaemon answers a day with `top`, a 34-day range
               (the last chunk is -1-padded), ping and stats. The launch
-              counters are set to 0 just before this tick and must be above
-              0 after it. The same days are scored on the CPU, where the
-              plain versions run, and compared.
-6. K2      -- the GRU backward kernel (K2, and K3's T > 24 case) against
-              its plain version for dxi, dWh and db: one flagship training
-              day (304 x 20 x 64), 8 days (2432 rows), the alpha360-k60 shape
-              (T = 60, H = 60) and H = 37 with a ragged tile; a bitwise
-              repeat; kernel, plain and cuDNN nn.GRU backward times and the
-              bound at one flagship day and at the alpha360-k60 shape.
+              counters are set to 0 just before this tick: K1's serving
+              variant and K4 must be above 0 after it, K1's residual
+              variant and every backward kernel at 0. The same days are
+              scored on the CPU, where the plain versions run, and compared.
+6. K2      -- the GRU backward (K2, and K3's T > 24 case) against its plain
+              version for dxi, dWh and db: gru_bwd alone (its own residual
+              forward, the walk, the dWh kernel), the walk from given
+              residuals, and the dWh kernel alone, at one flagship training
+              day (304 x 20 x 64), 8 days (2432 rows), the alpha360-k60
+              shape (T = 60, H = 60) and H = 37 with a ragged tile; bitwise
+              repeats. At one day and at the alpha360-k60 shape: kernel,
+              plain and cuDNN nn.GRU backward times and the bound; the pair
+              (residual forward + walk, what a training step runs) against
+              cuDNN's forward + backward; the dWh kernel against
+              torch.matmul.
 7. K5      -- the attention backward kernel against its plain version at
               B = 1 and 8, N = 304, K = 96, H = 64 with padded rows, an
               all-masked day, a NaN latent row (its day gets zero gradient)
@@ -40,21 +52,28 @@ Phases, each printed as one JSON line:
               H = 37; a bitwise repeat; kernel and plain times; bound.
 8. train   -- Trainer.fit for one epoch of the flagship preset
               (days_per_step = 1) on the 80-day panel: 50 train days, 20
-              validation days. The counters of K1, K2, K4 and K5 are set to 0
-              just before the fit and must be above 0 after it; every loss
-              finite. The same run with dropout_rate = 0 and recon_loss =
-              "nll" takes its first 8 steps on the card and on the CPU from
-              the same weights: per-step losses and the parameters after 8
-              steps are compared. CUDA-event times of one step's stages.
+              validation days. Every launch counter is set to 0 just before
+              the fit and must be above 0 after it: K1's residual variant,
+              the walk and the dWh kernel once per train step, K1's serving
+              variant once per validation batch; every loss finite. The same
+              run with dropout_rate = 0 and recon_loss = "nll" takes its
+              first 8 steps on the card and on the CPU from the same
+              weights: per-step losses and the parameters after 8 steps are
+              compared. CUDA-event times of one step's stages.
 9. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; K1 and K4 also in the
               slice phase).
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
-the script exits non-zero. Times come from CUDA events. The bounds use the
-H100 SXM data-sheet rates: 67 TFLOP/s f32 on CUDA cores (no tensor cores in
-these kernels) and 3.35 TB/s of HBM, over the least work and bytes the
-function needs on this run's inputs.
+the script exits non-zero. Times come from CUDA events: `ms` around 20
+calls from Python, and `graph_ms` around 20 replays of a CUDA graph of one
+call, which leaves out the host's launch gaps (a port kernel that cannot be
+captured fails the run; a cuDNN yardstick that cannot gets a null). The
+bounds use the H100 SXM data-sheet rates over the least work and bytes the
+function needs on this run's inputs: 3.35 TB/s of HBM, 67 TFLOP/s f32
+outside the tensor cores, and for the GRU's matrix products, which its
+kernels run on the tensor cores at f32 accuracy as three TF32 products
+each (3xTF32), 495 TFLOP/s of TF32, so 165 TFLOP/s of f32-accurate product.
 """
 
 from __future__ import annotations
@@ -70,6 +89,7 @@ import time
 import numpy as np
 
 F32_PEAK = 67e12       # FLOP/s, f32 outside the tensor cores (H100 SXM)
+TF32_PEAK = 495e12     # FLOP/s, TF32 on the tensor cores, dense (H100 SXM)
 HBM_RATE = 3.35e12     # bytes/s (H100 SXM)
 # Limits on max |a - b|. The kernels sum in another order than the plain
 # versions (cuBLAS on the card, the CPU's BLAS for the slice); every
@@ -114,9 +134,20 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / HBM_RATE, flops / F32_PEAK
+def bound_ms(n_bytes: float, flops: float, tf32_flops: float = 0.0) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM's
+    rate, the f32 operations over the f32 rate and the TF32 tensor-core
+    operations over theirs."""
+    t_bytes = n_bytes / HBM_RATE
+    t_ops = max(flops / F32_PEAK, tf32_flops / TF32_PEAK)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gru_bound_ms(n_bytes: float, product_flops: float, elementwise_flops: float) -> tuple:
+    """`bound_ms` of a GRU function: its matrix products at f32 accuracy on
+    the tensor cores, three TF32 products each (3xTF32), as its kernels
+    compute them; its elementwise steps at the f32 rate."""
+    return bound_ms(n_bytes, elementwise_flops, 3.0 * product_flops)
 
 
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -131,6 +162,36 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int = 20, library: bool = False):
+    """CUDA-event time of one call of `fn` replayed from a CUDA graph: the
+    card's time without the host's launch gaps, which `cuda_ms` includes
+    when the host is slower than the card. A capture failure raises, but for
+    a `library` yardstick, which gets (None, reason)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+    except RuntimeError as exc:
+        if not library:
+            raise
+        torch.cuda.synchronize()
+        return None, str(exc).splitlines()[0][:200]
+    return cuda_ms(torch, graph.replay, reps=reps), None
+
+
+def _timed(torch, fn, library: bool = False) -> dict:
+    """Both clocks of one call: `ms` as called from Python (CUDA events
+    around 20 calls) and `graph_ms` replayed from a CUDA graph."""
+    ms = cuda_ms(torch, fn)
+    g_ms, why = graph_ms(torch, fn, library=library)
+    out = {"ms": ms, "graph_ms": g_ms}
+    if why:
+        out["graph_error"] = why
+    return out
 
 
 def phase_device(torch) -> dict:
@@ -158,51 +219,112 @@ def phase_build() -> dict:
     return {"phase": "build", "seconds": seconds, "ptxas": ptxas}
 
 
-def phase_k1(torch, seed: int) -> dict:
-    from factorvae_tpu_torch.ops.kernels.gru import gru_fwd, gru_fwd_plain
+def _gru_inputs(torch, g, n, t, h):
+    xi = torch.randn(n, t, 3 * h, device="cuda", generator=g) * 0.5
+    wh = (torch.rand(h, 3 * h, device="cuda", generator=g) * 2 - 1) / h ** 0.5
+    bh = (torch.rand(3 * h, device="cuda", generator=g) * 2 - 1) / h ** 0.5
+    return xi, wh, bh
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    flagship = (32 * 304, 20, 64)
-    cases, timed = {}, None
-    for label, (n, t, h) in {"flagship": flagship, "ragged_h60": (1001, 20, 60),
-                             "odd_h37": (333, 7, 37)}.items():
-        xi = torch.randn(n, t, 3 * h, device="cuda", generator=g) * 0.5
-        wh = (torch.rand(h, 3 * h, device="cuda", generator=g) * 2 - 1) / h ** 0.5
-        bh = (torch.rand(3 * h, device="cuda", generator=g) * 2 - 1) / h ** 0.5
-        got, want = gru_fwd(xi, wh, bh), gru_fwd_plain(xi, wh, bh)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"K1 {label}: non-finite output")
-        err = float((got - want).abs().max())
-        check(err <= K1_TOL, f"K1 {label}: max_abs_err {err} > {K1_TOL}")
-        cases[label] = {"shape": [n, t, h], "max_abs_err": err}
-        timed = timed or (xi, wh, bh)
 
-    n, t, h = flagship
-    xi, wh, bh = timed
-    kernel_ms = cuda_ms(torch, lambda: gru_fwd(*timed))
-    plain_ms = cuda_ms(torch, lambda: gru_fwd_plain(*timed))
-    # cuDNN's GRU on K1's own inputs: an identity input weight makes its
-    # input projection return xi unchanged, so it computes K1's function,
-    # plus one (N*T, 3H) x (3H, 3H) product that its API cannot skip.
+def _cudnn_gru(torch, wh, bh):
+    """cuDNN's GRU on K1's own inputs: an identity input weight makes its
+    input projection return xi unchanged, so it computes K1's function, plus
+    one (N*T, 3H) x (3H, 3H) product that its API cannot skip."""
+    h = wh.shape[0]
     gru = torch.nn.GRU(3 * h, h, batch_first=True).cuda()
     with torch.no_grad():
         gru.weight_ih_l0.copy_(torch.eye(3 * h, device="cuda"))
         gru.bias_ih_l0.zero_()
         gru.weight_hh_l0.copy_(wh.t())
         gru.bias_hh_l0.copy_(bh)
-        library_err = float((gru(xi)[1][0] - gru_fwd_plain(*timed)).abs().max())
-        library_ms = cuda_ms(torch, lambda: gru(xi))
-    check(library_err <= LIBRARY_TOL, f"K1: cuDNN GRU differs by {library_err}")
-    flops = 2.0 * n * t * h * 3 * h + 10.0 * n * t * h
+    return gru
+
+
+def _k1_bound(n, t, h, residuals=False) -> tuple:
+    """The least work of K1 at (N, T, H): the h . Wh products and ~10
+    elementwise steps per (row, step, unit) against xi, the weights and h;
+    the training variant also writes hseq and gseq."""
+    product, elementwise = 2.0 * n * t * h * 3 * h, 10.0 * n * t * h
     n_bytes = 4.0 * (n * t * 3 * h + 3 * h * h + 3 * h + n * h)
-    b_ms, b_by = bound_ms(n_bytes, flops)
+    if residuals:
+        n_bytes += 4.0 * n * t * 4 * h
+    return product + elementwise, n_bytes, *gru_bound_ms(n_bytes, product, elementwise)
+
+
+def phase_k1(torch, seed: int) -> dict:
+    from factorvae_tpu_torch.ops.kernels.gru import (
+        gru_fwd,
+        gru_fwd_plain,
+        gru_fwd_residuals,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = {"flagship": (32 * 304, 20, 64), "flagship_day": (304, 20, 64),
+              "alpha360_k60_T60": (304, 60, 60), "ragged_h60": (1001, 20, 60),
+              "odd_h37": (333, 7, 37)}
+    cases, inputs = {}, {}
+    for label, (n, t, h) in shapes.items():
+        args = inputs[label] = _gru_inputs(torch, g, n, t, h)
+        got, want = gru_fwd(*args), gru_fwd_plain(*args)
+        again = gru_fwd(*args)
+        res, res_want = gru_fwd_residuals(*args), gru_fwd_plain(*args, keep_residuals=True)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K1 {label}: non-finite output")
+        check(torch.equal(got, again), f"K1 {label}: a repeated call is not bitwise equal")
+        check(torch.equal(got, res[0]),
+              f"K1 {label}: the residual variant's h differs from the serving variant's")
+        err = float((got - want).abs().max())
+        res_errs = {name: float((a - b).abs().max())
+                    for name, a, b in zip(("h", "hseq", "gseq"), res, res_want)}
+        check(err <= K1_TOL and max(res_errs.values()) <= K1_TOL,
+              f"K1 {label}: max_abs_err {err}, residual variant {res_errs} > {K1_TOL}")
+        cases[label] = {"shape": [n, t, h], "max_abs_err": err,
+                        "residual_errors": res_errs}
+
+    timing = {}
+    for label in ("flagship", "flagship_day", "alpha360_k60_T60"):
+        n, t, h = shapes[label]
+        xi, wh, bh = args = inputs[label]
+        gru = _cudnn_gru(torch, wh, bh)
+        with torch.no_grad():
+            library_err = float((gru(xi)[1][0] - gru_fwd_plain(*args)).abs().max())
+            library_ms = cuda_ms(torch, lambda: gru(xi))
+        check(library_err <= LIBRARY_TOL, f"K1 {label}: cuDNN GRU differs by {library_err}")
+        flops, n_bytes, b_ms, b_by = _k1_bound(n, t, h)
+        r_flops, r_bytes, r_ms, r_by = _k1_bound(n, t, h, residuals=True)
+        with torch.no_grad():
+            library_graph_ms = graph_ms(torch, lambda: gru(xi), library=True)[0]
+        timing[label] = {
+            "shape": [n, t, h], **_timed(torch, lambda: gru_fwd(*args)),
+            "plain_ms": cuda_ms(torch, lambda: gru_fwd_plain(*args)),
+            "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+            "library_max_abs_err": library_err,
+            "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+            "residuals": {**_timed(torch, lambda: gru_fwd_residuals(*args)),
+                          "plain_ms": cuda_ms(torch, lambda: gru_fwd_plain(
+                              *args, keep_residuals=True)),
+                          "bytes": r_bytes, "bound_ms": r_ms, "bound_by": r_by,
+                          "residual_mb": 4.0 * n * t * 4 * h / 1e6}}
+        timing[label]["library_ratio"] = timing[label]["ms"] / library_ms
+    serving, day = timing["flagship"], timing["flagship_day"]
     return {"phase": "K1", "cases": cases, "tolerance": K1_TOL,
-            "max_abs_err": max(v["max_abs_err"] for v in cases.values()),
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "max_abs_err": max(max(v["max_abs_err"], *v["residual_errors"].values())
+                               for v in cases.values()),
+            "bitwise_repeat": True,
+            **{k: serving[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms", "flops",
+                                       "bytes", "bound_ms", "bound_by")},
+            "residuals_row": {"max_abs_err": max(max(v["residual_errors"].values())
+                                                 for v in cases.values()),
+                              "tolerance": K1_TOL,
+                              "ms": day["residuals"]["ms"],
+                              "graph_ms": day["residuals"]["graph_ms"],
+                              "plain_ms": day["residuals"]["plain_ms"],
+                              "library_ms": day["library_ms"],
+                              "bound_ms": day["residuals"]["bound_ms"],
+                              "bound_by": day["residuals"]["bound_by"]},
             "library": "torch.nn.GRU (cuDNN) over xi with an identity input "
                        "weight: K1's function plus a 3H x 3H input product",
-            "library_max_abs_err": library_err,
-            "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by}
+            "timing": timing}
 
 
 def _k4_inputs(torch, g, b, n, k, h, n_real):
@@ -264,7 +386,26 @@ def phase_k4(torch, seed: int) -> dict:
     err = max(errs.values())
     check(err <= K4_TOL, f"K4: max_abs_err {errs} > {K4_TOL}")
 
-    kernel_ms = cuda_ms(torch, lambda: attention_fwd(latent, mask, *weights))
+    serving = _k4_timing(torch, latent, mask, weights)
+    # one flagship training day, the shape of 70 of the 73 launches of the
+    # train and slice phases
+    day = _k4_inputs(torch, g, 1, n, k, h, n_real)
+    return {"phase": "K4", "shape": [b, n, k, h], "errors": errs,
+            "max_abs_err": err, "tolerance": K4_TOL, **serving,
+            "library": "none: no single PyTorch call computes this function",
+            "flagship_day": {"shape": [1, n, k, h],
+                             **_k4_timing(torch, day[0], day[1], day[2:])}}
+
+
+def _k4_timing(torch, latent, mask, weights) -> dict:
+    from factorvae_tpu_torch.ops.kernels.attention import (
+        attention_fwd,
+        attention_fwd_plain,
+    )
+
+    b, n, h = latent.shape
+    k = weights[0].shape[0]
+    kernel = _timed(torch, lambda: attention_fwd(latent, mask, *weights))
     plain_ms = cuda_ms(torch, lambda: attention_fwd_plain(latent, mask, *weights))
     # The least work of the function, counted over this run's valid rows
     # (masked rows need none): the score needs only L . (Wk[k] . q[k]) +
@@ -280,10 +421,7 @@ def phase_k4(torch, seed: int) -> dict:
     flops_as_written = k * n_valid * (per_row - 2.0 * h + 2.0 * h * h + h)
     n_bytes = 4.0 * (b * n * h + k * (2 * h * h + 3 * h) + b * k * h) + b * n
     b_ms, b_by = bound_ms(n_bytes, flops)
-    return {"phase": "K4", "shape": [b, n, k, h], "errors": errs,
-            "max_abs_err": err, "tolerance": K4_TOL, "ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "library": "none: no single PyTorch call computes this function",
+    return {**kernel, "plain_ms": plain_ms, "library_ms": None,
             "valid_rows": n_valid, "flops": flops,
             "flops_as_written": flops_as_written, "bytes": n_bytes,
             "bound_ms": b_ms, "bound_by": b_by,
@@ -321,7 +459,7 @@ def _stage_breakdown(torch, model, dataset, days) -> dict:
         return {name: cuda_ms(torch, fn, reps=10, warmup=2) for name, fn in stages.items()}
 
 
-def phase_slice(torch, seed: int, counters) -> dict:
+def phase_slice(torch, seed: int, counters, idle) -> dict:
     from factorvae_tpu_torch.data.loader import PanelDataset
     from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
     from factorvae_tpu_torch.eval.predict import predict_panel
@@ -348,14 +486,16 @@ def phase_slice(torch, seed: int, counters) -> dict:
 
     daemon.handle_batch([day_req])     # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    for c in counters:
+    for c in counters + idle:
         c.launches = 0
     t0 = time.perf_counter()
     responses = daemon.handle_batch(requests)
     tick_ms = (time.perf_counter() - t0) * 1e3
-    launches = {c.__name__: c.launches for c in counters}
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    launches = {c.__name__: c.launches for c in counters + idle}
+    for c in counters:
+        check(c.launches > 0, f"{c.__name__} was not launched on the main path")
+    for c in idle:     # scoring keeps no residuals and runs no backward
+        check(c.launches == 0, f"{c.__name__} was launched by a scoring tick")
 
     check(all(r["ok"] for r in responses), f"a request failed: {responses}")
     check(responses[0]["n"] == 10, "top-10 day request did not return 10 scores")
@@ -404,7 +544,14 @@ def _gru_bwd_inputs(torch, g, n, t, h):
 
 
 def phase_k2(torch, seed: int) -> dict:
-    from factorvae_tpu_torch.ops.kernels.gru import gru_bwd, gru_bwd_plain
+    from factorvae_tpu_torch.ops.kernels.gru import (
+        gru_bwd,
+        gru_bwd_plain,
+        gru_dwh,
+        gru_dwh_plain,
+        gru_fwd_residuals,
+        gru_walk_plain,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     names = ("dxi", "dWh", "db")
@@ -413,13 +560,32 @@ def phase_k2(torch, seed: int) -> dict:
                              "alpha360_k60_T60": (304, 60, 60),
                              "odd_h37": (333, 7, 37)}.items():
         args = _gru_bwd_inputs(torch, g, n, t, h)
+        xi, wh, bh, dh = args
         got, want = gru_bwd(*args), gru_bwd_plain(*args)
         again = gru_bwd(*args)
+        # the training path: the walk from the residual variant's residuals
+        _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+        from_res = gru_bwd(*args, residuals=(hseq, gseq))
+        want_res = gru_bwd_plain(*args, residuals=(hseq, gseq))
+        # the dWh kernel alone, on the plain walk's dxi and dg_n
+        dxi_p, dgn_p = gru_walk_plain(xi, wh, hseq, gseq, dh)
+        dw = gru_dwh(hseq, dxi_p, dgn_p)
+        dw_again = gru_dwh(hseq, dxi_p, dgn_p)
+        dw_want = gru_dwh_plain(hseq, dxi_p, dgn_p)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(x).all()) for x in got), f"K2 {label}: non-finite")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"K2 {label}: a repeated call is not bitwise equal")
+        check(all(torch.equal(a, b) for a, b in zip(got, from_res)),
+              f"K2 {label}: the walk from given residuals differs from gru_bwd's own")
+        check(all(torch.equal(a, b) for a, b in zip(dw, dw_again)),
+              f"K2 {label}: a repeated dWh call is not bitwise equal")
         errs = _grad_errors(got, want, names)
+        errs.update({"residuals_" + k: v for k, v in
+                     _grad_errors(from_res, want_res, names).items()})
+        errs.update({"dwh_kernel_" + k: v for k, v in
+                     _grad_errors((dxi_p,) + dw, (dxi_p,) + dw_want, names).items()
+                     if k != "dxi"})
         check(max(errs.values()) <= K2_TOL, f"K2 {label}: errors {errs} > {K2_TOL}")
         cases[label] = {"shape": [n, t, h], "errors": errs}
 
@@ -429,7 +595,14 @@ def phase_k2(torch, seed: int) -> dict:
     flagship = timing["flagship_day"]
     return {"phase": "K2", "cases": cases, "tolerance": K2_TOL,
             "max_abs_err": max(max(c["errors"].values()) for c in cases.values()),
-            "bitwise_repeat": True, **flagship,
+            "bitwise_repeat": True,
+            **{k: flagship[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms", "flops",
+                                        "bytes", "bound_ms", "bound_by")},
+            "dwh_row": {"max_abs_err": max(v for c in cases.values()
+                                           for k, v in c["errors"].items()
+                                           if k.startswith("dwh_kernel_")),
+                        "tolerance": K2_TOL,
+                        **flagship["dwh"]},
             "library": "torch.nn.GRU (cuDNN) backward over xi with an identity input "
                        "weight, forward graph retained: K2's function plus the "
                        "gradient of a 3H x 3H input product",
@@ -437,38 +610,84 @@ def phase_k2(torch, seed: int) -> dict:
 
 
 def _k2_timing(torch, g, n, t, h) -> dict:
-    """Kernel, plain and cuDNN backward times of one (N, T, H) shape, and
-    the bound."""
-    from factorvae_tpu_torch.ops.kernels.gru import gru_bwd, gru_bwd_plain
+    """At one (N, T, H): gru_bwd (its own residual forward, the walk, dWh),
+    the plain version and cuDNN's GRU backward; the pair of the training
+    path (residual forward + walk from its residuals) against cuDNN's
+    forward + backward; the dWh kernel; each with its bound."""
+    from factorvae_tpu_torch.ops.kernels.gru import (
+        gru_bwd,
+        gru_bwd_plain,
+        gru_dwh,
+        gru_dwh_plain,
+        gru_fwd_residuals,
+    )
 
     args = _gru_bwd_inputs(torch, g, n, t, h)
     xi, wh, bh, dh = args
-    kernel_ms = cuda_ms(torch, lambda: gru_bwd(*args))
+    kernel = _timed(torch, lambda: gru_bwd(*args))
     plain_ms = cuda_ms(torch, lambda: gru_bwd_plain(*args))
     # cuDNN's GRU backward on K1's inputs (identity input weight, as in the
     # K1 phase), timed alone with the forward's graph retained. It also
     # computes the gradient of the identity input product.
-    gru = torch.nn.GRU(3 * h, h, batch_first=True).cuda()
-    with torch.no_grad():
-        gru.weight_ih_l0.copy_(torch.eye(3 * h, device="cuda"))
-        gru.bias_ih_l0.zero_()
-        gru.weight_hh_l0.copy_(wh.t())
-        gru.bias_hh_l0.copy_(bh)
+    gru = _cudnn_gru(torch, wh, bh)
     xi_r = xi.clone().requires_grad_()
     out = gru(xi_r)[1][0]
     wrt = (xi_r, gru.weight_hh_l0, gru.bias_hh_l0)
     lib = torch.autograd.grad(out, wrt, dh, retain_graph=True)
     library_err = float((lib[0] - gru_bwd_plain(*args)[0]).abs().max())
     check(library_err <= LIBRARY_TOL, f"K2: cuDNN GRU backward differs by {library_err}")
-    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, wrt, dh, retain_graph=True))
-    # least work: the recompute's h . Wh, the walk's dg . Wh^T and h^T . dg
-    # (2*N*T*H*3H each) and ~30 elementwise steps per (row, step, unit)
-    flops = 3 * 2.0 * n * t * h * 3 * h + 30.0 * n * t * h
+    library = _timed(torch, lambda: torch.autograd.grad(out, wrt, dh, retain_graph=True),
+                     library=True)
+    # least work of the function with a recompute, as the standalone call
+    # computes it (its own residual forward, then the walk): the recompute's
+    # h . Wh, the walk's dg . Wh^T and h^T . dg (2*N*T*H*3H each) and ~30
+    # elementwise steps per (row, step, unit)
+    product, elementwise = 3 * 2.0 * n * t * h * 3 * h, 30.0 * n * t * h
+    flops = product + elementwise
     n_bytes = 4.0 * (2 * n * t * 3 * h + n * h + 2 * (3 * h * h + 3 * h))
-    b_ms, b_by = bound_ms(n_bytes, flops)
-    return {"shape": [n, t, h], "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_max_abs_err": library_err,
-            "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by}
+    b_ms, b_by = gru_bound_ms(n_bytes, product, elementwise)
+
+    # the pair: what a training step runs, against cuDNN's forward+backward
+    def pair():
+        h_out, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+        return h_out, gru_bwd(*args, residuals=(hseq, gseq))
+
+    def library_pair():
+        return torch.autograd.grad(gru(xi_r)[1][0], wrt, dh)
+
+    # three H x 3H products per row and step and ~40 elementwise steps,
+    # against xi read twice, dxi written, dh, the weights and the residuals
+    # written once and read once
+    pair_flops = product + 40.0 * n * t * h
+    pair_bytes = n_bytes + 4.0 * (n * h + 2 * n * t * 4 * h)
+    pair_b_ms, pair_b_by = gru_bound_ms(pair_bytes, product, 40.0 * n * t * h)
+
+    # the dWh kernel alone, on the residuals and a walk's outputs
+    _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+    dxi, _, _ = gru_bwd(*args, residuals=(hseq, gseq))
+    dgn = torch.randn(n, t, h, device="cuda", generator=g) * 0.1
+    dg = torch.cat([dxi[..., :2 * h], dgn], dim=-1).reshape(-1, 3 * h)
+    hflat = hseq.reshape(-1, h)
+    dwh_flops = 2.0 * n * t * h * 3 * h + n * t * 3 * h
+    dwh_bytes = 4.0 * (n * t * 4 * h + 3 * h * h + 3 * h)
+    dwh_b_ms, dwh_b_by = gru_bound_ms(dwh_bytes, 2.0 * n * t * h * 3 * h, n * t * 3 * h)
+    lib_pair = _timed(torch, library_pair, library=True)
+    return {"shape": [n, t, h], **kernel, "plain_ms": plain_ms,
+            "library_ms": library["ms"], "library_graph_ms": library["graph_ms"],
+            "library_max_abs_err": library_err,
+            "library_ratio": kernel["ms"] / library["ms"],
+            "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+            "pair": {**_timed(torch, pair),
+                     "library_ms": lib_pair["ms"], "library_graph_ms": lib_pair["graph_ms"],
+                     "library": "torch.nn.GRU (cuDNN) forward + backward, as above",
+                     "flops": pair_flops, "bytes": pair_bytes, "bound_ms": pair_b_ms,
+                     "bound_by": pair_b_by},
+            "dwh": {**_timed(torch, lambda: gru_dwh(hseq, dxi, dgn)),
+                    "plain_ms": cuda_ms(torch, lambda: gru_dwh_plain(hseq, dxi, dgn)),
+                    "library_ms": cuda_ms(torch, lambda: torch.matmul(hflat.T, dg)),
+                    "library": "torch.matmul(hseq^T, dg): dWh alone, without db",
+                    "flops": dwh_flops, "bytes": dwh_bytes, "bound_ms": dwh_b_ms,
+                    "bound_by": dwh_b_by}}
 
 
 def phase_k5(torch, seed: int) -> dict:
@@ -515,7 +734,7 @@ def phase_k5(torch, seed: int) -> dict:
     latent, mask, q, wk, bk, wv, bv, dctx, keep = timed
     b, n, h = latent.shape
     k = q.shape[0]
-    kernel_ms = cuda_ms(torch, lambda: attention_bwd(*timed[:-1], keep=keep))
+    kernel = _timed(torch, lambda: attention_bwd(*timed[:-1], keep=keep))
     plain_ms = cuda_ms(torch, lambda: attention_bwd_plain(*timed[:-1], keep=keep))
     # The least work, over this run's valid rows (masked rows need none):
     # per valid row and head the value product and bias (2H^2 + H), the
@@ -533,7 +752,7 @@ def phase_k5(torch, seed: int) -> dict:
     b_ms, b_by = bound_ms(n_bytes, flops)
     return {"phase": "K5", "cases": cases, "tolerance": K5_TOL,
             "max_abs_err": max(max(c["errors"].values()) for c in cases.values()),
-            "bitwise_repeat": True, "shape": [b, n, k, h], "ms": kernel_ms,
+            "bitwise_repeat": True, "shape": [b, n, k, h], **kernel,
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes this function",
             "valid_rows": n_valid, "flops": flops, "flops_as_written": flops_as_written,
@@ -609,6 +828,14 @@ def phase_train(torch, seed: int, counters) -> dict:
     launches = {c.__name__: c.launches for c in counters}
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the training path")
+    # every training step's forward keeps the residuals its backward walks
+    # from; validation (no_grad) runs the variant that keeps none
+    steps = trainer.steps_per_epoch
+    val_batches = -(-len(trainer.val_days) // trainer.batch_days)
+    check(launches["gru_fwd_residuals"] == launches["gru_bwd"] == launches["gru_dwh"]
+          == steps, f"train: {steps} steps but launches {launches}")
+    check(launches["gru_fwd"] == val_batches,
+          f"train: {val_batches} validation batches but launches {launches}")
     rec = summary["history"][0]
     for key in ("train_loss", "train_recon", "train_kl", "val_loss", "val_recon", "val_kl"):
         check(np.isfinite(rec[key]), f"train: {key} = {rec[key]} is not finite")
@@ -703,6 +930,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None, help="also write every phase here (JSON)")
+    p.add_argument("--only", default=None,
+                   help="comma-separated phases to run after device and build "
+                        "(e.g. K1,K2); prints no kernels line and no result")
     args = p.parse_args(argv)
 
     import torch
@@ -713,24 +943,39 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from factorvae_tpu_torch.ops.kernels.attention import attention_bwd, attention_fwd
-    from factorvae_tpu_torch.ops.kernels.gru import gru_bwd, gru_fwd
+    from factorvae_tpu_torch.ops.kernels.gru import (
+        gru_bwd,
+        gru_dwh,
+        gru_fwd,
+        gru_fwd_residuals,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
 
+    steps = {
+        "device": lambda: phase_device(torch), "build": phase_build,
+        "K1": lambda: phase_k1(torch, args.seed), "K4": lambda: phase_k4(torch, args.seed),
+        "slice": lambda: phase_slice(torch, args.seed, (gru_fwd, attention_fwd),
+                                     (gru_fwd_residuals, gru_bwd, gru_dwh, attention_bwd)),
+        "K2": lambda: phase_k2(torch, args.seed), "K5": lambda: phase_k5(torch, args.seed),
+        "train": lambda: phase_train(torch, args.seed,
+                                     (gru_fwd, gru_fwd_residuals, gru_bwd, gru_dwh,
+                                      attention_fwd, attention_bwd))}
+    names = list(steps)
+    if args.only:
+        names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
     phases = []
-    for fn in (lambda: phase_device(torch), phase_build,
-               lambda: phase_k1(torch, args.seed), lambda: phase_k4(torch, args.seed),
-               lambda: phase_slice(torch, args.seed, (gru_fwd, attention_fwd)),
-               lambda: phase_k2(torch, args.seed), lambda: phase_k5(torch, args.seed),
-               lambda: phase_train(torch, args.seed,
-                                   (gru_fwd, gru_bwd, attention_fwd, attention_bwd))):
+    for name in names:
         t0 = time.perf_counter()
-        out = fn()
+        out = steps[name]()
         out["wall_s"] = time.perf_counter() - t0
         phases.append(out)
         emit(out)
+    if args.only:
+        _write(args.out, {"phases": phases})
+        return 0
 
     by = {ph["phase"]: ph for ph in phases}
     launches = by["train"]["launches"]
@@ -738,9 +983,14 @@ def main(argv=None) -> int:
     for name, ph, src, replaces in (
             ("gru_fwd", by["K1"], "factorvae_tpu_torch/csrc/gru_fwd.cu",
              "factorvae_tpu/ops/pallas/gru.py:417"),
+            ("gru_fwd_residuals", by["K1"]["residuals_row"],
+             "factorvae_tpu_torch/csrc/gru_fwd.cu",
+             "factorvae_tpu/ops/pallas/gru.py:417 (the forward of gru_scan's VJP)"),
             ("gru_bwd", by["K2"], "factorvae_tpu_torch/csrc/gru_bwd.cu",
              "factorvae_tpu/ops/pallas/gru.py:480 (T <= 24) and "
              "factorvae_tpu/ops/pallas/gru.py:533 (T > 24)"),
+            ("gru_dwh", by["K2"]["dwh_row"], "factorvae_tpu_torch/csrc/gru_bwd.cu",
+             "factorvae_tpu/ops/pallas/gru.py:480 and :533 (their dWh and db)"),
             ("attention_fwd", by["K4"], "factorvae_tpu_torch/csrc/attention_fwd.cu",
              "factorvae_tpu/ops/pallas/attention.py:104"),
             ("attention_bwd", by["K5"], "factorvae_tpu_torch/csrc/attention_bwd.cu",
@@ -748,20 +998,25 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "launches_serving": by["slice"]["launches"].get(name, 0),
-                     "max_abs_err": ph["max_abs_err"], "tolerance": ph["tolerance"],
-                     "ms": ph["ms"],
+                     "max_abs_err": ph["max_abs_err"],
+                     "tolerance": ph["tolerance"],
+                     "ms": ph["ms"], "graph_ms": ph.get("graph_ms"),
                      "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
                      "bound_by": ph["bound_by"], "library_ms": ph["library_ms"]})
     kernels = {"kernels": rows}
     emit(kernels)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as fh:
-            json.dump({"phases": phases, **kernels}, fh, indent=1)
+    _write(args.out, {"phases": phases, **kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _write(path, obj) -> None:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(obj, fh, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,250 +1,303 @@
-// GRU recurrence backward (K2, and K3's T > 24 case) for Hopper, f32 on CUDA
-// cores.
+// GRU recurrence backward (K2, and K3's T > 24 case) for Hopper, f32
+// accuracy (the walk's product on the tensor cores).
 //
 // Replaces the Pallas TPU kernels `_bwd_kernel` (launched by `_bwd_full`,
 // T <= 24) and `_bwd_seg_kernel` (launched by `_bwd_segmented`, T > 24) of
 // factorvae_tpu/ops/pallas/gru.py. Both compute the same function: given the
 // forward's inputs xi (N, T, 3H), Wh (H, 3H), b (3H) and the cotangent dh
 // (N, H) of the last hidden state, they return dxi (N, T, 3H), dWh (H, 3H)
-// and db (3H), by re-running the recurrence and walking t backwards through
-// the hand-derived gate VJP of `_backward_walk` (gates [r | z | n]):
+// and db (3H) through the hand-derived gate VJP of `_backward_walk` (gates
+// [r | z | n]):
 //
 //   dz = dh (h_prev - n)      dn = dh (1 - z)       dtanh = dn (1 - n^2)
 //   dr = dtanh g_n            dg_n = dtanh r
 //   dg_r = dr r (1 - r)       dg_z = dz z (1 - z)
 //   dxi_t = [dg_r | dg_z | dtanh]      dg = [dg_r | dg_z | dg_n]
-//   dh_prev = dh z + dg . Wh^T     dWh += h_prev^T . dg     db += sum dg
+//   dh_prev = dh z + dg . Wh^T     dWh = sum h_prev^T . dg     db = sum dg
 //
 // The TPU code splits T <= 24 from T > 24 only because the backward's
-// (T, rows, H) blocks had to fit VMEM; the segmented variant checkpoints h at
-// segment starts and carries dh across grid steps. None of that is a fact of
-// this card, so one kernel serves every T: each block takes a tile of kRows
-// rows, re-runs the recurrence once writing h before each step and the
-// pre-activations g = h . Wh + b to a global scratch (N, T, H) + (N, T, 3H)
-// (1.6 + 4.7 MB for one flagship day: it stays in the 50 MB L2), then walks
-// t = T-1 .. 0 carrying dh in shared memory. There are no segments and no
-// carry between blocks.
+// (T, rows, H) blocks had to fit VMEM; none of that is a fact of this card,
+// so one path serves every T. It does not re-run the recurrence: it reads
+// the residuals that K1's training variant (gru_fwd.cu) wrote, h before
+// each step, hseq (N, T, H), and g of each step, gseq (N, T, 3H). Two
+// kernels:
 //
-// Bound: at one flagship day (N = 304, T = 20, H = 64) the three products
-// per step (h . Wh in the recompute, dg . Wh^T and h^T . dg in the walk) are
-// 3 * 2*N*T*H*3H = 0.45 GFLOP against 9.3 MB of xi and dxi, so the f32
-// CUDA-core rate bounds it. Design: Wh (for h . Wh) and its transpose (for
-// dg . Wh^T) sit in shared memory, so every product reads its weight operand
-// conflict-free along the lanes and its row operand as a broadcast (float4
-// where the layout allows); each thread keeps one gate column of dWh (H
-// values) in registers for the whole walk. At one day the grid is 19 blocks
-// on 132 SMs, far from the bound; that is left for a later version.
+// 1. The walk, t = T-1 .. 0, keeps one product on its serial chain:
+//    dh_prev = dh z + dg . Wh^T. It writes dxi and dg_n (N, T, H), the one
+//    block where dg differs from dxi. Its tile and cluster split are the
+//    forward's (gru_common.cuh): CTA `rank` owns H/c hidden units, computes
+//    their gate VJP, stores its three columns of dg into every CTA's shared
+//    memory, and after one cluster barrier computes dh_prev for its units
+//    from the full dg and its rows of Wh, on the tensor cores (3xTF32, as in
+//    the forward: its units are the M side, the tile's rows the n8 side).
+//    xi, g and h_prev of step t-1 are copied into shared memory with
+//    cp.async between the arrive and the wait of step t's barrier.
+// 2. dWh = hseq^T . dg and db = sum dg over all N*T rows, after the walk,
+//    off the serial chain: (H x N*T) . (N*T x 3H). Each of at most 132
+//    blocks takes a contiguous range of rows, stages 32 rows at a time in
+//    shared memory with cp.async and keeps a 4 x 12 tile of dWh per thread
+//    in registers; it writes its partial to its own slot, and a second
+//    kernel sums the slots in block order. Deterministic, no atomics.
 //
-// Deterministic reductions: the rows of a block sum into its registers in a
-// fixed order; each block writes its partial dWh and db to its own slot of
-// `part`, and a second kernel sums the slots in block order. No atomics.
+// Bound: the walk is 2*N*T*H*3H FLOPs (dg . Wh^T) against its residual and
+// gradient bytes and is held back by the same latency as the forward (T
+// dependent steps, a cluster barrier each); the dWh product is another
+// 2*N*T*H*3H FLOPs, 0.15 GFLOP at one flagship day (N = 304, T = 20, H =
+// 64), 0.0009 ms at f32 accuracy on the tensor cores (3xTF32, 165 TFLOP/s),
+// so its 6.3 MB of inputs bound it at 0.0019 ms. Why not wgmma: see
+// gru_fwd.cu.
 
-#include <cuda_runtime.h>
+#include "gru_common.cuh"
 
 namespace {
 
-constexpr int kRows = 16;       // rows per block
-constexpr int kMaxH = 64;       // largest hidden size
-constexpr int kRowsPerThread = (kRows + 2) / 3;   // dh product, >= 3 groups
+using namespace gru;
 
-__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+// ---- the walk ---------------------------------------------------------------
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// Shared memory in floats: tiles of `rows`, units of width <= umax. The dg
+// and residual buffers are double only for a cluster: peers store into dg,
+// and the next step's residuals are staged while the cluster barrier
+// completes.
+__host__ __device__ __forceinline__ int walk_smem_floats(int h, int rows, int umax,
+                                                         int csize) {
+  return (csize > 1 ? 2 : 1) * rows * mma_ld(3 * h)   // dg (rows, ldg)
+         + round16(umax) * mma_ld(3 * h) // Wh rows of this CTA's units
+         + rows * kThreads               // the product's partial sums
+         + rows * umax                   // dh z of this CTA's units
+         + (csize > 1 ? 2 : 1) * rows * 7 * umax;  // xi, g (3 umax each) and
+                                                   // h_prev (umax) of a step
 }
 
-__global__ void gru_bwd_kernel(const float* __restrict__ xi,
-                               const float* __restrict__ wh,
-                               const float* __restrict__ bh,
-                               const float* __restrict__ dh,
-                               float* __restrict__ dxi,
-                               float* __restrict__ hseq,    // (N, T, H)
-                               float* __restrict__ gseq,    // (N, T, 3H)
-                               float* __restrict__ part,    // (blocks, H*3H + 3H)
-                               int n_rows, int t_len, int h) {
+// The plan of dg . Wh^T for a CTA that owns `units` hidden units.
+__host__ __device__ inline MmaPlan walk_plan(int h, int units) { return mma_plan(units, 3 * h); }
+
+template <int R, bool kAReg>
+__global__ void __launch_bounds__(kThreads)
+gru_walk_kernel(const float* __restrict__ xi, const float* __restrict__ wh,
+                const float* __restrict__ hseq, const float* __restrict__ gseq,
+                const float* __restrict__ dh, float* __restrict__ dxi,
+                float* __restrict__ dgn, int n_rows, int t_len, int h, int csize) {
   extern __shared__ float4 smem4[];
   const int h3 = 3 * h;
-  const int hp = round4(h);
-  const int h3p = round4(h3);
+  const int ldg = mma_ld(h3);
+  const int rank = blockIdx.x % csize;
+  const int u0 = unit_begin(rank, h, csize);
+  const int un = unit_begin(rank + 1, h, csize) - u0;
+  const int umax = (h + csize - 1) / csize;
+  const int ncol = 3 * un;
+  const MmaPlan pl = walk_plan(h, un);
+  const int ldp = pl.mt * 16;
+
   float* smem = reinterpret_cast<float*>(smem4);
-  float* w_s = smem;                 // (hp, 3H): Wh, rows >= h zero
-  float* wt_s = w_s + hp * h3;       // (h3p, hp): Wh^T, zero padded
-  float* h_s = wt_s + h3p * hp;      // (kRows, hp): h (before the step)
-  float* dh_s = h_s + kRows * hp;    // (kRows, hp): dL/dh
-  float* g_s = dh_s + kRows * hp;    // (kRows, h3p): g, then dg
-  float* b_s = g_s + kRows * h3p;    // (3H,)
+  const int nbuf = csize > 1 ? 2 : 1;
+  float* dg_buf = smem;                        // nbuf x (R, ldg), cols >= 3H zero
+  float* w_s = dg_buf + nbuf * R * ldg;        // (round16(umax), ldg)
+  float* p_s = w_s + round16(umax) * ldg;      // (kg, R, ldp)
+  float* dhz_s = p_s + R * kThreads;           // (R, un)
+  float* s_buf = dhz_s + R * umax;             // nbuf x [xi (R, ncol), g (R, ncol),
+                                               //         h_prev (R, un)]
 
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int rows = (int)min((long long)kRows, (long long)n_rows - row0);
+  const long long row0 = (long long)(blockIdx.x / csize) * R;
+  const int rows = (int)min((long long)R, (long long)n_rows - row0);
+  auto gcol = [&](int jj) { return (jj / un) * h + u0 + jj % un; };
 
-  for (int i = tid; i < hp * h3; i += nthr) w_s[i] = i < h * h3 ? wh[i] : 0.0f;
-  for (int i = tid; i < h3p * hp; i += nthr) {
-    const int j = i / hp;
-    const int k = i - j * hp;
-    wt_s[i] = (j < h3 && k < h) ? wh[k * h3 + j] : 0.0f;
+  for (int i = tid; i < nbuf * R * ldg; i += kThreads) dg_buf[i] = 0.0f;
+  for (int i = tid; i < pl.mt * 16 * ldg; i += kThreads) {
+    const int m = i / ldg;
+    const int k = i - m * ldg;
+    if (m < un && k < h3) copy_f32(w_s + i, wh + (u0 + m) * h3 + k);
+    else w_s[i] = 0.0f;
   }
-  for (int i = tid; i < h3; i += nthr) b_s[i] = bh[i];
-  for (int i = tid; i < kRows * hp; i += nthr) h_s[i] = 0.0f;
-  __syncthreads();
 
-  // ---- recompute: the forward recurrence (K1's arithmetic), keeping h
-  //      before each step and g = h . Wh + b for the walk ----------------------
-  for (int t = 0; t < t_len; ++t) {
-    for (int j = tid; j < h3; j += nthr) {
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < hp; k += 4) {
-        const float w0 = w_s[k * h3 + j];
-        const float w1 = w_s[(k + 1) * h3 + j];
-        const float w2 = w_s[(k + 2) * h3 + j];
-        const float w3 = w_s[(k + 3) * h3 + j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 hv = *reinterpret_cast<const float4*>(h_s + r * hp + k);
-          acc[r] = fmaf(hv.x, w0, acc[r]);
-          acc[r] = fmaf(hv.y, w1, acc[r]);
-          acc[r] = fmaf(hv.z, w2, acc[r]);
-          acc[r] = fmaf(hv.w, w3, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float g = acc[r] + b_s[j];
-        g_s[r * h3p + j] = g;
-        if (r < rows) gseq[((row0 + r) * t_len + t) * h3 + j] = g;
+  const Share st = share(ncol);    // this thread's xi and g copies: one column
+  const int st_col = gcol(st.col);
+  const Share ew = share(un);      // this thread's gate items (and h_prev copies)
+  const int u = ew.col;
+  const int c = u0 + u;
+  auto step_buf = [&](int t) { return s_buf + (t & (nbuf - 1)) * R * 7 * umax; };
+  auto stage = [&](int t) {        // xi, g and h_prev of step t, this CTA's part
+    float* x_s = step_buf(t);
+    float* g_s = x_s + R * 3 * umax;
+    float* hp_s = g_s + R * 3 * umax;
+    if (st.on) {
+      for (int r = st.first; r < rows; r += st.step) {
+        const long long at = ((row0 + r) * t_len + t) * (long long)h3 + st_col;
+        copy_f32(x_s + r * ncol + st.col, xi + at);
+        copy_f32(g_s + r * ncol + st.col, gseq + at);
       }
     }
-    __syncthreads();
-    for (int i = tid; i < rows * h; i += nthr) {
-      const int r = i / h;
-      const int c = i - r * h;
-      const long long at = (row0 + r) * t_len + t;
-      const float* x = xi + at * h3;
-      const float* g = g_s + r * h3p;
-      const float rg = sigmoid_f(x[c] + g[c]);
-      const float zg = sigmoid_f(x[h + c] + g[h + c]);
-      const float ng = tanhf(x[2 * h + c] + rg * g[2 * h + c]);
-      float* hc = h_s + r * hp + c;
-      hseq[at * h + c] = *hc;
-      *hc = (1.0f - zg) * ng + zg * *hc;
+    if (ew.on) {
+      for (int r = ew.first; r < rows; r += ew.step)
+        copy_f32(hp_s + r * un + u, hseq + ((row0 + r) * t_len + t) * (long long)h + c);
     }
-    __syncthreads();
-  }
-
-  // ---- the walk -------------------------------------------------------------
-  for (int i = tid; i < kRows * h3p; i += nthr) g_s[i] = 0.0f;
-  for (int i = tid; i < kRows * hp; i += nthr) {
-    const int r = i / hp;
-    const int c = i - r * hp;
-    h_s[i] = 0.0f;
-    dh_s[i] = (r < rows && c < h) ? dh[(row0 + r) * h + c] : 0.0f;
-  }
-  float dw_acc[kMaxH];            // this thread's gate column j = tid of dWh
-#pragma unroll
-  for (int k = 0; k < kMaxH; ++k) dw_acc[k] = 0.0f;
-  float db_acc = 0.0f;
-  const int ngrp = nthr / h;      // >= 3: nthr >= 3H
-  const int kcol = tid % h;
-  const int grp = tid / h;
-  __syncthreads();
+  };
+  if (t_len > 0) stage(t_len - 1);
+  cp_async_wait_all();
+  cluster_barrier(csize);   // every peer has started and zeroed its dg
+  AFrags fr;
+  if (kAReg) load_a_frags(w_s, ldg, pl, fr);
 
   for (int t = t_len - 1; t >= 0; --t) {
-    // the gate VJP, elementwise: dxi, dg, the direct part dh z of dh_prev
-    for (int i = tid; i < rows * h; i += nthr) {
-      const int r = i / h;
-      const int c = i - r * h;
-      const long long at = (row0 + r) * t_len + t;
-      const float* x = xi + at * h3;
-      const float* g = gseq + at * h3;
-      const float hprev = hseq[at * h + c];
-      const float dhv = dh_s[r * hp + c];
-      const float rg = sigmoid_f(x[c] + g[c]);
-      const float zg = sigmoid_f(x[h + c] + g[h + c]);
-      const float gn = g[2 * h + c];
-      const float ng = tanhf(x[2 * h + c] + rg * gn);
-      const float dz = dhv * (hprev - ng);
-      const float dn = dhv * (1.0f - zg);
-      const float dtanh = dn * (1.0f - ng * ng);
-      const float dr = dtanh * gn;
-      const float dghn = dtanh * rg;
-      const float dghr = dr * rg * (1.0f - rg);
-      const float dghz = dz * zg * (1.0f - zg);
-      float* dx = dxi + at * h3;
-      dx[c] = dghr;
-      dx[h + c] = dghz;
-      dx[2 * h + c] = dtanh;
-      float* dg = g_s + r * h3p;
-      dg[c] = dghr;
-      dg[h + c] = dghz;
-      dg[2 * h + c] = dghn;
-      h_s[r * hp + c] = hprev;
-      dh_s[r * hp + c] = dhv * zg;
-    }
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();        // step t's residuals and step t+1's partials are in
+    float* dg_nxt = dg_buf + (t & (nbuf - 1)) * R * ldg;
+    const float* x_s = step_buf(t);
+    const float* g_s = x_s + R * 3 * umax;
+    const float* hp_s = g_s + R * 3 * umax;
 
-    // dh_prev += dg . Wh^T: thread (kcol, grp) owns rows grp, grp+ngrp, ...
-    if (grp < ngrp) {
-      float acc[kRowsPerThread];
-#pragma unroll
-      for (int m = 0; m < kRowsPerThread; ++m) acc[m] = 0.0f;
-      for (int j = 0; j < h3p; j += 4) {
-        const float w0 = wt_s[j * hp + kcol];
-        const float w1 = wt_s[(j + 1) * hp + kcol];
-        const float w2 = wt_s[(j + 2) * hp + kcol];
-        const float w3 = wt_s[(j + 3) * hp + kcol];
-#pragma unroll
-        for (int m = 0; m < kRowsPerThread; ++m) {
-          const int r = grp + m * ngrp;
-          if (r < kRows) {
-            const float4 d = *reinterpret_cast<const float4*>(g_s + r * h3p + j);
-            acc[m] = fmaf(d.x, w0, acc[m]);
-            acc[m] = fmaf(d.y, w1, acc[m]);
-            acc[m] = fmaf(d.z, w2, acc[m]);
-            acc[m] = fmaf(d.w, w3, acc[m]);
-          }
+    // the gate VJP of this CTA's units: dxi, dg_n, dg to every CTA, dh z
+    if (ew.on) {
+      for (int r = ew.first; r < rows; r += ew.step) {
+        float dhv;
+        if (t == t_len - 1) {
+          dhv = dh[(row0 + r) * h + c];
+        } else {
+          float acc = 0.0f;
+          for (int s = 0; s < pl.kg; ++s) acc += p_s[(s * R + r) * ldp + u];
+          dhv = dhz_s[r * un + u] + acc;
         }
-      }
-#pragma unroll
-      for (int m = 0; m < kRowsPerThread; ++m) {
-        const int r = grp + m * ngrp;
-        if (r < kRows) dh_s[r * hp + kcol] += acc[m];
+        const float* x = x_s + r * ncol;
+        const float* g = g_s + r * ncol;
+        const float hprev = hp_s[r * un + u];
+        const float rg = sigmoid_f(x[u] + g[u]);
+        const float zg = sigmoid_f(x[un + u] + g[un + u]);
+        const float gn = g[2 * un + u];
+        const float ng = tanhf(x[2 * un + u] + rg * gn);
+        const float dz = dhv * (hprev - ng);
+        const float dn = dhv * (1.0f - zg);
+        const float dtanh = dn * (1.0f - ng * ng);
+        const float dr = dtanh * gn;
+        const float dghn = dtanh * rg;
+        const float dghr = dr * rg * (1.0f - rg);
+        const float dghz = dz * zg * (1.0f - zg);
+        const long long at = (row0 + r) * t_len + t;
+        float* dx = dxi + at * h3;
+        dx[c] = dghr;
+        dx[h + c] = dghz;
+        dx[2 * h + c] = dtanh;
+        dgn[at * h + c] = dghn;
+        if (t > 0) {
+          float* dg = dg_nxt + r * ldg;
+          store_cluster(dg + c, dghr, csize);
+          store_cluster(dg + h + c, dghz, csize);
+          store_cluster(dg + 2 * h + c, dghn, csize);
+        }
+        dhz_s[r * un + u] = dhv * zg;
       }
     }
-    // dWh[:, j] += h_prev^T . dg[:, j] and db[j] += sum dg[:, j], j = tid
-    if (tid < h3) {
-      for (int r = 0; r < kRows; ++r) {
-        const float d = g_s[r * h3p + tid];
-        db_acc += d;
-#pragma unroll
-        for (int k = 0; k < kMaxH; k += 4) {
-          if (k < hp) {
-            const float4 hv = *reinterpret_cast<const float4*>(h_s + r * hp + k);
-            dw_acc[k] = fmaf(hv.x, d, dw_acc[k]);
-            dw_acc[k + 1] = fmaf(hv.y, d, dw_acc[k + 1]);
-            dw_acc[k + 2] = fmaf(hv.z, d, dw_acc[k + 2]);
-            dw_acc[k + 3] = fmaf(hv.w, d, dw_acc[k + 3]);
-          }
-        }
-      }
+    if (t == 0) break;
+    if (csize > 1) {         // dg of step t is whole in every CTA after the
+      cluster_arrive();      // barrier; step t-1's residuals are staged meanwhile
+      stage(t - 1);
+      cluster_wait();
+    } else {
+      __syncthreads();
+      stage(t - 1);
     }
-    __syncthreads();
-  }
-
-  // this block's partial dWh (H, 3H) and db (3H) into its own slot
-  if (tid < h3) {
-    float* slot = part + (size_t)blockIdx.x * (h * h3 + h3);
-#pragma unroll
-    for (int k = 0; k < kMaxH; ++k)
-      if (k < h) slot[k * h3 + tid] = dw_acc[k];
-    slot[h * h3 + tid] = db_acc;
+    // dg . Wh^T for this CTA's units, into per-k-group partial sums
+    mma_product<R / 8, kAReg>(w_s, ldg, fr, dg_nxt, ldg, pl, p_s, ldp);
   }
 }
 
-// Sum the blocks' partial (dWh, db) slots in block order.
-__global__ void gru_bwd_reduce_kernel(const float* __restrict__ part, int blocks,
+template <int R>
+int launch_walk(const float* xi, const float* wh, const float* hseq, const float* gseq,
+                const float* dh, float* dxi, float* dgn, int n_rows, int t_len, int h,
+                int cluster, cudaStream_t stream) {
+  const int tiles = (n_rows + R - 1) / R;
+  const int smem =
+      (int)sizeof(float) * walk_smem_floats(h, R, (h + cluster - 1) / cluster, cluster);
+  return launch_clustered(a_in_registers(h, cluster, walk_plan) ? gru_walk_kernel<R, true>
+                                                                : gru_walk_kernel<R, false>,
+                          tiles * cluster, cluster, smem, stream, xi, wh, hseq, gseq, dh, dxi,
+                          dgn, n_rows, t_len, h, cluster);
+}
+
+// ---- dWh and db -------------------------------------------------------------
+
+constexpr int kDwThreads = 256;
+constexpr int kDwRows = 32;        // rows staged in shared memory per pass
+constexpr int kDwMaxBlocks = 132;  // one per SM
+
+long long dwh_blocks(long long m_rows) {
+  const long long b = (m_rows + kDwRows - 1) / kDwRows;
+  return b < kDwMaxBlocks ? b : kDwMaxBlocks;
+}
+
+// Thread (kq, jq) = (tid / 16, tid % 16) owns dWh[4 kq + a, jq + 16 c] for
+// a < 4, c < 12 (H <= 64, 3H <= 192) and, for kq = 0, db[jq + 16 c].
+__global__ void __launch_bounds__(kDwThreads)
+gru_dwh_kernel(const float* __restrict__ hseq, const float* __restrict__ dxi,
+               const float* __restrict__ dgn, float* __restrict__ part,
+               long long m_rows, long long rows_per_block, int h) {
+  __shared__ float4 hs4[kDwRows * kMaxH / 4];
+  __shared__ float ds[kDwRows * 3 * kMaxH];
+  float* hs = reinterpret_cast<float*>(hs4);
+  const int h3 = 3 * h;
+  const int tid = threadIdx.x;
+  const int kq = tid / 16;
+  const int jq = tid % 16;
+  float acc[4][12];
+  float dbacc[12];
+#pragma unroll
+  for (int c = 0; c < 12; ++c) {
+    dbacc[c] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[a][c] = 0.0f;
+  }
+  const long long m0 = (long long)blockIdx.x * rows_per_block;
+  const long long m1 = min(m_rows, m0 + rows_per_block);
+  for (long long c0 = m0; c0 < m1; c0 += kDwRows) {
+    const int nr = (int)min((long long)kDwRows, m1 - c0);
+    __syncthreads();        // the last pass has read its rows
+    for (int i = tid; i < kDwRows * kMaxH; i += kDwThreads) {
+      const int r = i / kMaxH;
+      const int k = i - r * kMaxH;
+      if (r < nr && k < h) copy_f32(hs + i, hseq + (c0 + r) * h + k);
+      else hs[i] = 0.0f;
+    }
+    for (int i = tid; i < kDwRows * 3 * kMaxH; i += kDwThreads) {
+      const int r = i / (3 * kMaxH);
+      const int j = i - r * 3 * kMaxH;
+      if (r < nr && j < 2 * h) copy_f32(ds + i, dxi + (c0 + r) * h3 + j);
+      else if (r < nr && j < h3) copy_f32(ds + i, dgn + (c0 + r) * h + j - 2 * h);
+      else ds[i] = 0.0f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      const float4 hv = hs4[r * (kMaxH / 4) + kq];
+      const float* d = ds + r * 3 * kMaxH + jq;
+#pragma unroll
+      for (int c = 0; c < 12; ++c) {
+        const float dv = d[16 * c];
+        acc[0][c] = fmaf(hv.x, dv, acc[0][c]);
+        acc[1][c] = fmaf(hv.y, dv, acc[1][c]);
+        acc[2][c] = fmaf(hv.z, dv, acc[2][c]);
+        acc[3][c] = fmaf(hv.w, dv, acc[3][c]);
+      }
+      if (kq == 0) {
+#pragma unroll
+        for (int c = 0; c < 12; ++c) dbacc[c] += d[16 * c];
+      }
+    }
+  }
+  float* slot = part + (size_t)blockIdx.x * (h * h3 + h3);
+#pragma unroll
+  for (int c = 0; c < 12; ++c) {
+    const int j = jq + 16 * c;
+    if (j >= h3) continue;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      if (4 * kq + a < h) slot[(4 * kq + a) * h3 + j] = acc[a][c];
+    if (kq == 0) slot[h * h3 + j] = dbacc[c];
+  }
+}
+
+// Sum the blocks' partial (dWh, db) slots in block order, one thread per
+// output (neighbouring threads read neighbouring floats of a slot).
+__global__ void gru_dwh_reduce_kernel(const float* __restrict__ part, int blocks,
                                       int h, float* __restrict__ dwh,
                                       float* __restrict__ db) {
   const int h3 = 3 * h;
@@ -252,54 +305,52 @@ __global__ void gru_bwd_reduce_kernel(const float* __restrict__ part, int blocks
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= len) return;
   float s = 0.0f;
+#pragma unroll 8
   for (int b = 0; b < blocks; ++b) s += part[(size_t)b * len + e];
   if (e < h * h3) dwh[e] = s;
   else db[e - h * h3] = s;
-}
-
-int smem_bytes(int h) {
-  const int hp = round4(h);
-  const int h3 = 3 * h;
-  const int h3p = round4(h3);
-  return (int)sizeof(float) *
-         (hp * h3 + h3p * hp + 2 * kRows * hp + kRows * h3p + h3);
 }
 
 }  // namespace
 
 extern "C" int gru_bwd_max_hidden() { return kMaxH; }
 
-// Floats of scratch the wrapper allocates: h before each step (N, T, H),
-// g (N, T, 3H), and one partial (dWh, db) slot per block.
-extern "C" long long gru_bwd_scratch_floats(int n_rows, int t_len, int h) {
-  const long long blocks = (n_rows + kRows - 1) / kRows;
-  return (long long)n_rows * t_len * 4 * h + blocks * (3LL * h * h + 3 * h);
+// The walk: dxi (N, T, 3H) and dg_n (N, T, H) from xi, Wh, the residuals
+// hseq and gseq, and dh (N, H). Launches on `stream`; returns the
+// cudaError_t (0 = ok). `rows` and `cluster` as in gru_fwd.
+extern "C" int gru_walk(const float* xi, const float* wh, const float* hseq,
+                        const float* gseq, const float* dh, float* dxi, float* dgn,
+                        int n_rows, int t_len, int h, int rows, int cluster, void* stream) {
+  if (!valid_shape(h, rows, cluster) || t_len < 0) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || t_len == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return rows == 8 ? launch_walk<8>(xi, wh, hseq, gseq, dh, dxi, dgn, n_rows, t_len, h,
+                                    cluster, st)
+                   : launch_walk<16>(xi, wh, hseq, gseq, dh, dxi, dgn, n_rows, t_len, h,
+                                     cluster, st);
 }
 
-// Launches on `stream`; returns the cudaError_t of the launches (0 = ok).
-extern "C" int gru_bwd(const float* xi, const float* wh, const float* bh,
-                       const float* dh, float* dxi, float* dwh, float* db,
-                       float* scratch, int n_rows, int t_len, int h,
-                       void* stream) {
-  if (h <= 0 || h > kMaxH || n_rows <= 0 || t_len < 0) return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(h);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch does not report it
-    return (int)err;
-  }
+// Floats of scratch gru_dwh needs for m_rows = N * T rows: one partial
+// (dWh, db) slot per block.
+extern "C" long long gru_dwh_scratch_floats(long long m_rows, int h) {
+  return dwh_blocks(m_rows) * (3LL * h * h + 3 * h);
+}
+
+// dWh (H, 3H) = hseq^T . [dxi_r | dxi_z | dg_n] and db (3H) = its column sums,
+// over m_rows = N * T rows. Launches on `stream`; returns the cudaError_t.
+extern "C" int gru_dwh(const float* hseq, const float* dxi, const float* dgn,
+                       float* dwh, float* db, float* scratch, long long m_rows,
+                       int h, void* stream) {
+  if (h <= 0 || h > kMaxH || m_rows <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = (n_rows + kRows - 1) / kRows;
-  float* hseq = scratch;
-  float* gseq = hseq + (size_t)n_rows * t_len * h;
-  float* part = gseq + (size_t)n_rows * t_len * 3 * h;
-  const int threads = ((3 * h + 31) / 32) * 32;
-  gru_bwd_kernel<<<blocks, threads, smem, st>>>(xi, wh, bh, dh, dxi, hseq, gseq,
-                                               part, n_rows, t_len, h);
-  err = cudaGetLastError();
+  const long long blocks = dwh_blocks(m_rows);
+  const long long per_block = (m_rows + blocks - 1) / blocks;
+  gru_dwh_kernel<<<(int)blocks, kDwThreads, 0, st>>>(hseq, dxi, dgn, scratch, m_rows,
+                                                      per_block, h);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = 3 * h * h + 3 * h;
-  gru_bwd_reduce_kernel<<<(len + 255) / 256, 256, 0, st>>>(part, blocks, h, dwh, db);
+  gru_dwh_reduce_kernel<<<(len + 255) / 256, 256, 0, st>>>(scratch, (int)blocks, h, dwh,
+                                                           db);
   return (int)cudaGetLastError();
 }

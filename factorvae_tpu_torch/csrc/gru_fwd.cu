@@ -1,4 +1,4 @@
-// GRU recurrence forward (K1) for Hopper, f32 on CUDA cores.
+// GRU recurrence forward (K1) for Hopper, f32 accuracy on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of
 // factorvae_tpu/ops/pallas/gru.py (launched by `_forward_impl`, public
@@ -10,126 +10,232 @@
 //   n  = tanh(x_n + r * g_n)                 (b_n is inside g_n, before r *)
 //   h' = (1 - z) * n + z * h
 //
-// over t = 0..T-1 from h = 0, and writes only the last h.
+// over t = 0..T-1 from h = 0, and writes the last h. Its training variant
+// also writes, as it goes, the residuals the backward walk (gru_bwd.cu)
+// reads: h before each step, hseq (N, T, H), and g of each step, gseq (N, T,
+// 3H). Both variants are one template, so their h is bitwise the same.
 //
 // Inputs: xi (N, T, 3H) row-major, read in place (no per-gate transpose);
 // Wh (H, 3H); b (3H). Output: h (N, H).
 //
-// Bound: at the flagship serving shape (N = 32 days x 304 stocks, T = 20,
-// H = 64) the h . Wh products are 2*N*T*H*3H = 4.8 GFLOP against 149 MB of
-// xi, so the f32 CUDA-core rate bounds it. Design: one block holds kRows
-// rows; Wh and b are staged once in shared memory (49,152 B at H = 64, so
-// the launch asks for dynamic shared memory above the 48 KB static limit),
-// h stays in shared memory for all T steps, and each thread owns one gate
-// column for all kRows rows, so every Wh element read from shared memory
-// feeds kRows FMAs; h is read as float4 broadcasts (its rows and Wh's rows
-// are zero-padded to a multiple of 4), so one load of h feeds 4 FMAs. The
-// ragged last tile is masked. Tensor cores are left for a later version.
+// Bound: 2*N*T*H*3H FLOPs of h . Wh, each done as three TF32 products
+// (495 TFLOP/s dense on an H100 SXM, so 165 TFLOP/s at f32 accuracy),
+// against 4*N*T*3H bytes of xi (plus 16*N*T*H bytes of residuals in
+// training). Bytes bound it: 0.0014 ms at one flagship training day (N = 304,
+// T = 20, H = 64; 0.0033 ms with the residuals) and 0.045 ms at a 32-day
+// serving chunk (N = 9,728). Latency, not either rate, holds it back: T
+// dependent steps, each a small product, the gates and a barrier.
+//
+// Design (the launch shape comes from the wrapper's rule,
+// `ops/kernels/gru.py:launch_shape`):
+// - A tile of R = 8 or 16 rows is split over a thread-block cluster of c = 1,
+//   2 or 4 CTAs: CTA `rank` owns H/c hidden units and their three gate
+//   columns of Wh, computes that slice of g and of h', and stores its slice
+//   of h' into every CTA's shared memory (st.shared::cluster); one cluster
+//   barrier per step then gives every CTA the full h for the next product.
+//   At one flagship day 8-row tiles x c = 4 make 152 CTAs, where 16-row
+//   tiles alone made 19; at the serving chunk 16-row tiles x c = 1 make 608.
+// - The step product g^T = Wh^T . h^T runs on mma.sync.m16n8k8 with TF32
+//   inputs split 3 ways (a = a_hi + a_lo; a_hi b_hi + a_hi b_lo + a_lo b_hi),
+//   which keeps f32 accuracy: Wh^T's gate columns are the M side, so an
+//   8-row tile fills the n8 side and no half tile is wasted. Operands sit in
+//   shared memory with row strides of 4 mod 8 floats (conflict-free
+//   fragment loads); Wh's fragments stay in registers for all T steps when
+//   each warp has one task (at one day). Partial sums over k-groups meet in
+//   shared memory and the gate threads add them in a fixed order.
+// - xi of step t+1 is copied into shared memory with cp.async between the
+//   arrive and the wait of step t's cluster barrier, so the copy overlaps
+//   the barrier and step t+1's product (a double buffer, since the
+//   cluster's barrier no longer orders this CTA's own readers). Without a
+//   cluster xi has one buffer and is staged right after the CTA's barrier.
+// - h is double-buffered in a cluster: a peer may store step t's h' while
+//   this CTA still reads step t-1's h.
+// Why not wgmma: it takes 64-row tiles, which at one training day would
+// leave 5 CTAs for 132 SMs; this is a latency-bound recurrence, not a
+// throughput-bound product.
 
-#include <cuda_runtime.h>
+#include "gru_common.cuh"
 
 namespace {
 
-constexpr int kRows = 16;   // rows per block
-constexpr int kMaxH = 64;   // largest hidden size (3H = 192 threads)
+using namespace gru;
 
-__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// Shared memory in floats: tiles of `rows`, units of width <= umax. The h
+// and xi buffers are double only for a cluster: peers store into h, and the
+// next xi is staged while the cluster barrier completes.
+__host__ __device__ __forceinline__ int fwd_smem_floats(int h, int rows, int umax,
+                                                        int csize) {
+  const int nbuf = csize > 1 ? 2 : 1;
+  return nbuf * rows * mma_ld(h)          // h (rows, ldh), cols >= h zero
+         + round16(3 * umax) * mma_ld(h)  // Wh^T of this CTA's columns
+         + rows * kThreads                // the product's partial sums
+         + nbuf * rows * 3 * umax         // xi of a step, this CTA's columns
+         + 3 * umax;                      // b, this CTA's columns
 }
 
-__global__ void gru_fwd_kernel(const float* __restrict__ xi,
-                               const float* __restrict__ wh,
-                               const float* __restrict__ bh,
-                               float* __restrict__ h_out,
-                               int n_rows, int t_len, int h) {
+// The plan of the step product of a CTA that owns `units` hidden units.
+__host__ __device__ inline MmaPlan fwd_plan(int h, int units) { return mma_plan(3 * units, h); }
+
+template <int R, bool kResiduals, bool kAReg>
+__global__ void __launch_bounds__(kThreads)
+gru_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ wh,
+               const float* __restrict__ bh, float* __restrict__ h_out,
+               float* __restrict__ hseq, float* __restrict__ gseq,
+               int n_rows, int t_len, int h, int csize) {
   extern __shared__ float4 smem4[];
   const int h3 = 3 * h;
-  const int hp = round4(h);
+  const int ldh = mma_ld(h);
+  const int rank = blockIdx.x % csize;
+  const int u0 = unit_begin(rank, h, csize);
+  const int un = unit_begin(rank + 1, h, csize) - u0;   // this CTA's units
+  const int umax = (h + csize - 1) / csize;
+  const int ncol = 3 * un;                              // [r | z | n] of them
+  const MmaPlan pl = fwd_plan(h, un);
+  const int ldp = pl.mt * 16;
+
   float* smem = reinterpret_cast<float*>(smem4);
-  float* w_s = smem;               // (hp, 3H), rows >= h zero
-  float* h_s = w_s + hp * h3;      // (kRows, hp): the running hidden state
-  float* b_s = h_s + kRows * hp;   // (3H,)
-  float* g_s = b_s + h3;           // (kRows, 3H): h . Wh + b of this step
+  const int nbuf = csize > 1 ? 2 : 1;
+  float* h_buf = smem;                            // nbuf x (R, ldh)
+  float* w_s = h_buf + nbuf * R * ldh;            // (round16(3 umax), ldh)
+  float* p_s = w_s + round16(3 * umax) * ldh;     // (kg, R, ldp)
+  float* x_buf = p_s + R * kThreads;              // nbuf x (R, ncol)
+  float* b_s = x_buf + nbuf * R * 3 * umax;       // (ncol,)
 
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int rows = (int)min((long long)kRows, (long long)n_rows - row0);
+  const long long row0 = (long long)(blockIdx.x / csize) * R;
+  const int rows = (int)min((long long)R, (long long)n_rows - row0);
 
-  for (int i = tid; i < hp * h3; i += nthr) w_s[i] = i < h * h3 ? wh[i] : 0.0f;
-  for (int i = tid; i < h3; i += nthr) b_s[i] = bh[i];
-  for (int i = tid; i < kRows * hp; i += nthr) h_s[i] = 0.0f;
-  __syncthreads();
+  // column jj of this CTA's [r | z | n] block -> column of Wh, b and xi
+  auto gcol = [&](int jj) { return (jj / un) * h + u0 + jj % un; };
 
+  for (int i = tid; i < nbuf * R * ldh; i += kThreads) h_buf[i] = 0.0f;
+  for (int i = tid; i < pl.mt * 16 * ldh; i += kThreads) {
+    const int k = i / ldp;           // coalesced over the columns of Wh
+    const int m = i - k * ldp;
+    if (m < ncol && k < h) copy_f32(w_s + m * ldh + k, wh + k * h3 + gcol(m));
+    else w_s[m * ldh + k] = 0.0f;
+  }
+  for (int i = tid; i < ncol; i += kThreads) copy_f32(b_s + i, bh + gcol(i));
+
+  const Share st = share(ncol);      // this thread's xi copies: one column
+  const int st_col = gcol(st.col);
+  auto x_step = [&](int t) { return x_buf + (t & (nbuf - 1)) * R * 3 * umax; };
+  auto stage = [&](int t) {          // xi_t of this CTA's columns into its buffer
+    if (!st.on) return;
+    float* x_s = x_step(t);
+    for (int r = st.first; r < rows; r += st.step)
+      copy_f32(x_s + r * ncol + st.col, xi + ((row0 + r) * t_len + t) * (long long)h3 + st_col);
+  };
+  const Share ew = share(un);        // this thread's gate items: one unit
+  const int u = ew.col;
+  const int c = u0 + u;
+
+  if (t_len > 0) stage(0);
+  cp_async_wait_all();
+  cluster_barrier(csize);   // every peer has started and zeroed its h
+  AFrags fr;
+  if (kAReg) load_a_frags(w_s, ldh, pl, fr);
+  float bias[3] = {0.0f, 0.0f, 0.0f};
+  if (ew.on) {
+    bias[0] = b_s[u];
+    bias[1] = b_s[un + u];
+    bias[2] = b_s[2 * un + u];
+  }
+
+  int cur = 0;
   for (int t = 0; t < t_len; ++t) {
-    for (int j = tid; j < h3; j += nthr) {
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < hp; k += 4) {
-        const float w0 = w_s[k * h3 + j];
-        const float w1 = w_s[(k + 1) * h3 + j];
-        const float w2 = w_s[(k + 2) * h3 + j];
-        const float w3 = w_s[(k + 3) * h3 + j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 hv = *reinterpret_cast<const float4*>(h_s + r * hp + k);
-          acc[r] = fmaf(hv.x, w0, acc[r]);
-          acc[r] = fmaf(hv.y, w1, acc[r]);
-          acc[r] = fmaf(hv.z, w2, acc[r]);
-          acc[r] = fmaf(hv.w, w3, acc[r]);
+    const float* h_cur = h_buf + cur * R * ldh;
+    float* h_nxt = h_buf + (nbuf == 2 ? cur ^ 1 : cur) * R * ldh;
+    mma_product<R / 8, kAReg>(w_s, ldh, fr, h_cur, ldh, pl, p_s, ldp);
+    cp_async_wait_all();
+    __syncthreads();
+
+    if (ew.on) {
+      for (int r = ew.first; r < rows; r += ew.step) {
+        float gr = 0.0f, gz = 0.0f, gn = 0.0f;
+        for (int s = 0; s < pl.kg; ++s) {
+          const float* p = p_s + (s * R + r) * ldp;
+          gr += p[u];
+          gz += p[un + u];
+          gn += p[2 * un + u];
         }
+        gr += bias[0];
+        gz += bias[1];
+        gn += bias[2];
+        const float* x = x_step(t) + r * ncol;
+        const float rg = sigmoid_f(x[u] + gr);
+        const float zg = sigmoid_f(x[un + u] + gz);
+        const float ng = tanhf(x[2 * un + u] + rg * gn);
+        const float hprev = h_cur[r * ldh + c];
+        if (kResiduals) {
+          const long long at = (row0 + r) * t_len + t;
+          hseq[at * h + c] = hprev;
+          float* g = gseq + at * h3;
+          g[c] = gr;
+          g[h + c] = gz;
+          g[2 * h + c] = gn;
+        }
+        store_cluster(h_nxt + r * ldh + c, (1.0f - zg) * ng + zg * hprev, csize);
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) g_s[r * h3 + j] = acc[r] + b_s[j];
     }
-    __syncthreads();
-    for (int i = tid; i < rows * h; i += nthr) {
-      const int r = i / h;
-      const int c = i - r * h;
-      const float* x = xi + ((row0 + r) * t_len + t) * (long long)h3;
-      const float* g = g_s + r * h3;
-      const float rg = sigmoid_f(x[c] + g[c]);
-      const float zg = sigmoid_f(x[h + c] + g[h + c]);
-      const float ng = tanhf(x[2 * h + c] + rg * g[2 * h + c]);
-      float* hc = h_s + r * hp + c;
-      *hc = (1.0f - zg) * ng + zg * *hc;
+    if (csize > 1) {         // stage xi_{t+1} while the barrier completes
+      cluster_arrive();
+      if (t + 1 < t_len) stage(t + 1);
+      cluster_wait();
+      cur ^= 1;
+    } else {
+      __syncthreads();
+      if (t + 1 < t_len) stage(t + 1);
     }
-    __syncthreads();
   }
-  for (int i = tid; i < rows * h; i += nthr) {
-    const int r = i / h;
-    h_out[row0 * h + i] = h_s[r * hp + (i - r * h)];
+
+  const float* h_fin = h_buf + cur * R * ldh;
+  if (ew.on) {
+    for (int r = ew.first; r < rows; r += ew.step)
+      h_out[(row0 + r) * h + c] = h_fin[r * ldh + c];
   }
+}
+
+template <int R, bool kResiduals>
+int launch(const float* xi, const float* wh, const float* bh, float* h_out,
+           float* hseq, float* gseq, int n_rows, int t_len, int h, int cluster,
+           cudaStream_t stream) {
+  const int tiles = (n_rows + R - 1) / R;
+  const int smem = (int)sizeof(float) *
+                   fwd_smem_floats(h, R, (h + cluster - 1) / cluster, cluster);
+  return launch_clustered(a_in_registers(h, cluster, fwd_plan)
+                              ? gru_fwd_kernel<R, kResiduals, true>
+                              : gru_fwd_kernel<R, kResiduals, false>,
+                          tiles * cluster, cluster, smem, stream, xi, wh, bh, h_out, hseq, gseq,
+                          n_rows, t_len, h, cluster);
+}
+
+template <int R>
+int launch_rows(const float* xi, const float* wh, const float* bh, float* h_out,
+                float* hseq, float* gseq, int n_rows, int t_len, int h,
+                int cluster, cudaStream_t st) {
+  return hseq != nullptr
+             ? launch<R, true>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h, cluster, st)
+             : launch<R, false>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h, cluster, st);
 }
 
 }  // namespace
 
 extern "C" int gru_fwd_max_hidden() { return kMaxH; }
 
-extern "C" int gru_fwd_smem_bytes(int h) {
-  const int hp = round4(h);
-  return (int)sizeof(float) * (3 * hp * h + kRows * hp + 3 * h + kRows * 3 * h);
-}
-
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+// `hseq` and `gseq` null: the serving variant, which writes only h_out. Else
+// the training variant, which also writes hseq (N, T, H) and gseq (N, T, 3H).
+// `rows` (8 or 16) and `cluster` (1, 2 or 4) are the launch shape.
 extern "C" int gru_fwd(const float* xi, const float* wh, const float* bh,
-                       float* h_out, int n_rows, int t_len, int h,
-                       void* stream) {
-  if (h <= 0 || h > kMaxH) return (int)cudaErrorInvalidValue;
+                       float* h_out, float* hseq, float* gseq, int n_rows,
+                       int t_len, int h, int rows, int cluster, void* stream) {
+  if (!valid_shape(h, rows, cluster) || t_len < 0 || (hseq == nullptr) != (gseq == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return 0;
-  const int smem = gru_fwd_smem_bytes(h);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch does not report it
-    return (int)err;
-  }
-  const int threads = ((3 * h + 31) / 32) * 32;
-  const int blocks = (n_rows + kRows - 1) / kRows;
-  gru_fwd_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      xi, wh, bh, h_out, n_rows, t_len, h);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return rows == 8 ? launch_rows<8>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h,
+                                    cluster, st)
+                   : launch_rows<16>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h,
+                                     cluster, st);
 }

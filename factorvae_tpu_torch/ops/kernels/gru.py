@@ -4,23 +4,65 @@ plain versions, and the autograd Function that joins them.
 Replaces the Pallas TPU kernels of `factorvae_tpu/ops/pallas/gru.py`
 (`gru_scan`): `_fwd_kernel` (K1, `csrc/gru_fwd.cu`) and the two backward
 kernels `_bwd_kernel` (K2, T <= 24) and `_bwd_seg_kernel` (K3, T > 24),
-which one CUDA kernel serves at every T (`csrc/gru_bwd.cu`). Each source's
+which one CUDA path serves at every T (`csrc/gru_bwd.cu`). Each source's
 header comment says what bounds the kernel on an H100 and how its design
 meets it.
 
-`gru_fwd` and `gru_bwd` launch their kernels for CUDA tensors and run
-`gru_fwd_plain` / `gru_bwd_plain` for CPU tensors; there is no fallback
-between the two. `gru` is the differentiable recurrence: forward K1,
-backward K2.
+Wrappers, each with its own launch count:
+
+- `gru_fwd`: the last hidden state (serving and validation).
+- `gru_fwd_residuals`: the same recurrence that also returns the residuals
+  the backward walk reads: h before each step and g = h . Wh + b of each
+  step.
+- `gru_bwd`: the walk back through time (dxi, and dg_n, the one block where
+  dg differs from dxi), then `gru_dwh`; without residuals it first runs
+  `gru_fwd_residuals`.
+- `gru_dwh`: dWh and db, summed over every row and step.
+
+Each launches its kernel for CUDA tensors and runs its plain version
+(`*_plain`) for CPU tensors; there is no fallback between the two. `gru` is
+the differentiable recurrence: forward K1 (the residual variant when a
+gradient will be needed), backward the walk and `gru_dwh`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from factorvae_tpu_torch import _build
+
+TILE_ROWS = (16, 8)      # rows per tile the kernels take, preferred first
+CLUSTERS = (1, 2, 4)     # CTAs per cluster the kernels take
+
+
+def launch_shape(n_rows: int, h_dim: int, num_sms: int) -> tuple:
+    """(rows per tile, CTAs per cluster) of the GRU kernels for N rows on a
+    card of `num_sms` SMs: the first of 16-row tiles alone, 8-row tiles
+    alone, then 16- and 8-row tiles split over 2 and over 4 CTAs, whose grid
+    has a CTA for every SM; else the widest split. A cluster never has more
+    CTAs than hidden units."""
+    shape = None
+    for c in CLUSTERS:
+        if c > h_dim:
+            break
+        for rows in TILE_ROWS:
+            shape = (rows, c)
+            if -(-n_rows // rows) * c >= num_sms:
+                return shape
+    return shape
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _shape(xi: torch.Tensor) -> tuple:
+    """`launch_shape` for xi (N, T, 3H) on the card that holds it."""
+    return launch_shape(xi.shape[0], xi.shape[-1] // 3, _num_sms(xi.device.index))
 
 
 def _gates(x: torch.Tensor, g: torch.Tensor, h_dim: int):
@@ -31,42 +73,40 @@ def _gates(x: torch.Tensor, g: torch.Tensor, h_dim: int):
     return r, z, n
 
 
-def gru_fwd_plain(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
-    """xi (N, T, 3H), w_h (H, 3H), b_h (3H,) -> last hidden state (N, H).
+def gru_fwd_plain(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
+                  keep_residuals: bool = False):
+    """xi (N, T, 3H), w_h (H, 3H), b_h (3H,) -> last hidden state (N, H);
+    with `keep_residuals`, (h, hseq (N, T, H), gseq (N, T, 3H)): h before
+    each step and g = h . Wh + b of each step.
 
     The recurrence written out in PyTorch, gates in torch order [r | z | n]
     as in the TPU kernel: n = tanh(x_n + r * (h . Wh_n + b_n))."""
     n, t_len, h3 = xi.shape
     h_dim = h3 // 3
     h = torch.zeros((n, h_dim), dtype=xi.dtype, device=xi.device)
+    if keep_residuals:
+        hseq = xi.new_empty((n, t_len, h_dim))
+        gseq = torch.empty_like(xi)
     for t in range(t_len):
-        r, z, nn_ = _gates(xi[:, t], h @ w_h + b_h, h_dim)
+        g = h @ w_h + b_h
+        if keep_residuals:
+            hseq[:, t] = h
+            gseq[:, t] = g
+        r, z, nn_ = _gates(xi[:, t], g, h_dim)
         h = (1.0 - z) * nn_ + z * h
-    return h
+    return (h, hseq, gseq) if keep_residuals else h
 
 
-def gru_bwd_plain(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
-                  dh: torch.Tensor):
-    """The VJP of `gru_fwd_plain`: (xi, w_h, b_h, dh (N, H)) -> (dxi (N, T,
-    3H), dw_h (H, 3H), db_h (3H,)).
-
-    Recompute-BPTT, the hand-derived gate VJP of the TPU kernels'
-    `_backward_walk`: re-run the recurrence keeping h before each step, then
-    walk t backwards carrying dh."""
-    n, t_len, h3 = xi.shape
-    h_dim = h3 // 3
-    h = torch.zeros((n, h_dim), dtype=xi.dtype, device=xi.device)
-    h_before = []
-    for t in range(t_len):
-        h_before.append(h)
-        r, z, nn_ = _gates(xi[:, t], h @ w_h + b_h, h_dim)
-        h = (1.0 - z) * nn_ + z * h
+def gru_walk_plain(xi: torch.Tensor, w_h: torch.Tensor, hseq: torch.Tensor,
+                   gseq: torch.Tensor, dh: torch.Tensor):
+    """The walk t = T-1 .. 0 from the forward's residuals: (dxi (N, T, 3H),
+    dgn (N, T, H)), through the hand-derived gate VJP of the TPU kernels'
+    `_backward_walk`, carrying dh (N, H)."""
+    h_dim = hseq.shape[-1]
     dxi = torch.empty_like(xi)
-    dw_h = torch.zeros_like(w_h)
-    db_h = torch.zeros_like(b_h)
-    for t in range(t_len - 1, -1, -1):
-        h_prev = h_before[t]
-        g = h_prev @ w_h + b_h
+    dgn = torch.empty_like(hseq)
+    for t in range(xi.shape[1] - 1, -1, -1):
+        h_prev, g = hseq[:, t], gseq[:, t]
         r, z, nn_ = _gates(xi[:, t], g, h_dim)
         dz = dh * (h_prev - nn_)
         dn = dh * (1.0 - z)
@@ -76,60 +116,125 @@ def gru_bwd_plain(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
         dghr = dr * r * (1.0 - r)                   # d(x_r + g_r)
         dghz = dz * z * (1.0 - z)                   # d(x_z + g_z)
         dxi[:, t] = torch.cat([dghr, dghz, dtanh], dim=1)
-        dg = torch.cat([dghr, dghz, dghn], dim=1)
-        dh = dh * z + dg @ w_h.T
-        dw_h = dw_h + h_prev.T @ dg
-        db_h = db_h + dg.sum(dim=0)
-    return dxi, dw_h, db_h
+        dgn[:, t] = dghn
+        dh = dh * z + torch.cat([dghr, dghz, dghn], dim=1) @ w_h.T
+    return dxi, dgn
+
+
+def gru_dwh_plain(hseq: torch.Tensor, dxi: torch.Tensor, dgn: torch.Tensor):
+    """dWh (H, 3H) = sum over rows and steps of h_prev^T . dg, and db (3H,)
+    = sum of dg, where dg = [dxi_r | dxi_z | dg_n]."""
+    h_dim = hseq.shape[-1]
+    dg = torch.cat([dxi[..., :2 * h_dim], dgn], dim=-1).reshape(-1, 3 * h_dim)
+    return hseq.reshape(-1, h_dim).T @ dg, dg.sum(dim=0)
+
+
+def gru_bwd_plain(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
+                  dh: torch.Tensor, residuals=None):
+    """The VJP of `gru_fwd_plain`: (xi, w_h, b_h, dh (N, H)) -> (dxi (N, T,
+    3H), dw_h (H, 3H), db_h (3H,)). `residuals` = (hseq, gseq) from
+    `gru_fwd_plain(..., keep_residuals=True)`; without them the recurrence
+    is run again first (recompute-BPTT)."""
+    if residuals is None:
+        _, hseq, gseq = gru_fwd_plain(xi, w_h, b_h, keep_residuals=True)
+    else:
+        hseq, gseq = residuals
+    dxi, dgn = gru_walk_plain(xi, w_h, hseq, gseq, dh)
+    return (dxi, *gru_dwh_plain(hseq, dxi, dgn))
 
 
 def _check(name: str, xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
-           dh: torch.Tensor = None) -> None:
+           **more) -> None:
     if xi.ndim != 3 or xi.shape[-1] % 3:
         raise ValueError(f"{name}: xi must be (N, T, 3H); got {tuple(xi.shape)}")
-    n, _, h3 = xi.shape
+    n, t_len, h3 = xi.shape
     h_dim = h3 // 3
     if tuple(w_h.shape) != (h_dim, h3) or tuple(b_h.shape) != (h3,):
         raise ValueError(
             f"{name}: w_h must be ({h_dim}, {h3}) and b_h ({h3},); got "
             f"{tuple(w_h.shape)} and {tuple(b_h.shape)}")
+    want = {"dh": (n, h_dim), "hseq": (n, t_len, h_dim), "gseq": (n, t_len, h3)}
     tensors = {"xi": xi, "w_h": w_h, "b_h": b_h}
-    if dh is not None:
-        if tuple(dh.shape) != (n, h_dim):
-            raise ValueError(f"{name}: dh must be ({n}, {h_dim}); got {tuple(dh.shape)}")
-        tensors["dh"] = dh
-    if xi.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu tensors; got {xi.device}")
-    if xi.device.type == "cpu":
+    for key, a in more.items():
+        if tuple(a.shape) != want[key]:
+            raise ValueError(f"{name}: {key} must be {want[key]}; got {tuple(a.shape)}")
+        tensors[key] = a
+    _check_device(name, tensors)
+
+
+def _check_device(name: str, tensors: dict) -> None:
+    first = next(iter(tensors.values()))
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors; got {first.device}")
+    if first.device.type == "cpu":
         return
     for key, a in tensors.items():
         if a.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32; got {a.dtype}")
-        if a.device != xi.device:
-            raise ValueError(f"{name}: {key} is on {a.device}, xi on {xi.device}")
+        if a.device != first.device:
+            raise ValueError(f"{name}: {key} is on {a.device}, not {first.device}")
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "gru_fwd": {"gru_fwd": ([_P] * 6 + [_I] * 5 + [_P], _I),
+                "gru_fwd_max_hidden": ([], _I)},
+    "gru_bwd": {"gru_walk": ([_P] * 7 + [_I] * 5 + [_P], _I),
+                "gru_dwh": ([_P] * 6 + [_L, _I, _P], _I),
+                "gru_dwh_scratch_floats": ([_L, _I], _L),
+                "gru_bwd_max_hidden": ([], _I)},
+}
 
 
 def _lib(name: str):
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        if name == "gru_fwd":
-            lib.gru_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            lib.gru_fwd.restype = ctypes.c_int
-        else:
-            lib.gru_bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            lib.gru_bwd.restype = ctypes.c_int
-            lib.gru_bwd_scratch_floats.argtypes = [ctypes.c_int] * 3
-            lib.gru_bwd_scratch_floats.restype = ctypes.c_longlong
-        getattr(lib, f"{name}_max_hidden").restype = ctypes.c_int
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         lib._typed = True
     return lib
 
 
-def _check_hidden(name: str, lib, h_dim: int) -> None:
-    cap = getattr(lib, f"{name}_max_hidden")()
+def _check_hidden(name: str, lib, lib_name: str, h_dim: int) -> None:
+    cap = getattr(lib, f"{lib_name}_max_hidden")()
     if h_dim > cap:
         raise ValueError(
             f"{name}: hidden size {h_dim} exceeds the kernel's maximum {cap}")
+
+
+def _stream(device) -> int:
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_if(err: int, name: str, n: int, t_len: int, h_dim: int, shape) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed at N={n}, T={t_len}, H={h_dim}, "
+                           f"(rows, cluster)={shape}: cudaError {err}")
+
+
+def _fwd_launch(name: str, xi, w_h, b_h, residuals: bool, shape: tuple):
+    """K1 on CUDA tensors at launch shape (rows, cluster): (h, hseq, gseq,
+    launched), hseq and gseq None without `residuals`. Counts nothing."""
+    n, t_len, h3 = xi.shape
+    h_dim = h3 // 3
+    lib = _lib("gru_fwd")
+    _check_hidden(name, lib, "gru_fwd", h_dim)
+    xi, w_h, b_h = xi.contiguous(), w_h.contiguous(), b_h.contiguous()
+    out = xi.new_empty((n, h_dim))
+    hseq = gseq = None
+    if residuals:
+        hseq = xi.new_empty((n, t_len, h_dim))
+        gseq = torch.empty_like(xi)
+    if n == 0:
+        return out, hseq, gseq, False
+    err = lib.gru_fwd(xi.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), out.data_ptr(),
+                      hseq.data_ptr() if residuals else None,
+                      gseq.data_ptr() if residuals else None,
+                      n, t_len, h_dim, *shape, _stream(xi.device))
+    _raise_if(err, name, n, t_len, h_dim, shape)
+    return out, hseq, gseq, True
 
 
 def gru_fwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
@@ -137,57 +242,102 @@ def gru_fwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Ten
     _check("gru_fwd", xi, w_h, b_h)
     if xi.device.type == "cpu":
         return gru_fwd_plain(xi, w_h, b_h)
-    n, t_len, h3 = xi.shape
-    h_dim = h3 // 3
-    lib = _lib("gru_fwd")
-    _check_hidden("gru_fwd", lib, h_dim)
-    xi, w_h, b_h = xi.contiguous(), w_h.contiguous(), b_h.contiguous()
-    out = torch.empty((n, h_dim), dtype=torch.float32, device=xi.device)
-    if n == 0:
-        return out
-    with torch.cuda.device(xi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gru_fwd(xi.data_ptr(), w_h.data_ptr(), b_h.data_ptr(),
-                          out.data_ptr(), n, t_len, h_dim, stream)
-    if err != 0:
-        raise RuntimeError(f"gru_fwd launch failed: cudaError {err}")
-    gru_fwd.launches += 1
+    out, _, _, launched = _fwd_launch("gru_fwd", xi, w_h, b_h, False, _shape(xi))
+    gru_fwd.launches += launched
     return out
 
 
 gru_fwd.launches = 0
 
 
-def gru_bwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, dh: torch.Tensor):
-    """The recurrence's VJP: (xi (N, T, 3H), w_h (H, 3H), b_h (3H,), dh
-    (N, H)) -> (dxi, dw_h, db_h), f32. One launch (the walk and the
-    deterministic reduction of the blocks' partial dWh/db) for any T."""
-    _check("gru_bwd", xi, w_h, b_h, dh)
+def gru_fwd_residuals(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor):
+    """`gru_fwd` that also returns the residuals of the backward walk: (h
+    (N, H), hseq (N, T, H), gseq (N, T, 3H)), h before each step and g =
+    h . Wh + b of each step. The kernel's training variant: its h is
+    bitwise `gru_fwd`'s."""
+    _check("gru_fwd_residuals", xi, w_h, b_h)
     if xi.device.type == "cpu":
-        return gru_bwd_plain(xi, w_h, b_h, dh)
+        return gru_fwd_plain(xi, w_h, b_h, keep_residuals=True)
+    out, hseq, gseq, launched = _fwd_launch("gru_fwd_residuals", xi, w_h, b_h, True,
+                                            _shape(xi))
+    gru_fwd_residuals.launches += launched
+    return out, hseq, gseq
+
+
+gru_fwd_residuals.launches = 0
+
+
+def gru_dwh(hseq: torch.Tensor, dxi: torch.Tensor, dgn: torch.Tensor):
+    """(dWh (H, 3H), db (3H,)) from hseq (N, T, H), dxi (N, T, 3H) and dg_n
+    (N, T, H): one kernel over all N*T rows into per-block partials, one
+    that sums them in block order (deterministic, no atomics)."""
+    n, t_len, h_dim = hseq.shape
+    if tuple(dxi.shape) != (n, t_len, 3 * h_dim) or tuple(dgn.shape) != tuple(hseq.shape):
+        raise ValueError(f"gru_dwh: hseq {tuple(hseq.shape)}, dxi {tuple(dxi.shape)} and "
+                         f"dgn {tuple(dgn.shape)} must be (N, T, H), (N, T, 3H), (N, T, H)")
+    _check_device("gru_dwh", {"hseq": hseq, "dxi": dxi, "dgn": dgn})
+    if hseq.device.type == "cpu":
+        return gru_dwh_plain(hseq, dxi, dgn)
+    lib = _lib("gru_bwd")
+    _check_hidden("gru_dwh", lib, "gru_bwd", h_dim)
+    hseq, dxi, dgn = hseq.contiguous(), dxi.contiguous(), dgn.contiguous()
+    dw_h = hseq.new_zeros((h_dim, 3 * h_dim))
+    db_h = hseq.new_zeros((3 * h_dim,))
+    m_rows = n * t_len
+    if m_rows == 0:
+        return dw_h, db_h
+    scratch = hseq.new_empty((lib.gru_dwh_scratch_floats(m_rows, h_dim),))
+    err = lib.gru_dwh(hseq.data_ptr(), dxi.data_ptr(), dgn.data_ptr(), dw_h.data_ptr(),
+                      db_h.data_ptr(), scratch.data_ptr(), m_rows, h_dim,
+                      _stream(hseq.device))
+    _raise_if(err, "gru_dwh", n, t_len, h_dim, None)
+    gru_dwh.launches += 1
+    return dw_h, db_h
+
+
+gru_dwh.launches = 0
+
+
+def _walk_launch(xi, w_h, hseq, gseq, dh, shape: tuple):
+    """The walk on checked CUDA tensors with N, T > 0 at launch shape (rows,
+    cluster): (dxi (N, T, 3H), dg_n (N, T, H)). Counts nothing."""
     n, t_len, h3 = xi.shape
     h_dim = h3 // 3
     lib = _lib("gru_bwd")
-    _check_hidden("gru_bwd", lib, h_dim)
-    xi, w_h, b_h, dh = (a.contiguous() for a in (xi, w_h, b_h, dh))
+    xi, w_h, dh = xi.contiguous(), w_h.contiguous(), dh.contiguous()
+    hseq, gseq = hseq.contiguous(), gseq.contiguous()
     dxi = torch.empty_like(xi)
-    dw_h = torch.zeros_like(w_h)
-    db_h = torch.zeros_like(b_h)
-    if n == 0:
-        return dxi, dw_h, db_h
-    scratch = torch.empty(lib.gru_bwd_scratch_floats(n, t_len, h_dim),
-                          dtype=torch.float32, device=xi.device)
-    with torch.cuda.device(xi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gru_bwd(xi.data_ptr(), w_h.data_ptr(), b_h.data_ptr(),
-                          dh.data_ptr(), dxi.data_ptr(), dw_h.data_ptr(),
-                          db_h.data_ptr(), scratch.data_ptr(), n, t_len, h_dim,
-                          stream)
-    if err != 0:
-        raise RuntimeError(f"gru_bwd launch failed at N={n}, T={t_len}, "
-                           f"H={h_dim}: cudaError {err}")
+    dgn = torch.empty_like(hseq)
+    err = lib.gru_walk(xi.data_ptr(), w_h.data_ptr(), hseq.data_ptr(), gseq.data_ptr(),
+                       dh.data_ptr(), dxi.data_ptr(), dgn.data_ptr(), n, t_len, h_dim,
+                       *shape, _stream(xi.device))
+    _raise_if(err, "gru_bwd", n, t_len, h_dim, shape)
+    return dxi, dgn
+
+
+def gru_bwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, dh: torch.Tensor,
+            *, residuals=None):
+    """The recurrence's VJP: (xi (N, T, 3H), w_h (H, 3H), b_h (3H,), dh
+    (N, H)) -> (dxi, dw_h, db_h), f32, for any T. `residuals` = (hseq,
+    gseq) from `gru_fwd_residuals`; without them one `gru_fwd_residuals`
+    launch makes them. Then the walk (counted here) and `gru_dwh`."""
+    more = {"dh": dh}
+    if residuals is not None:
+        more.update(hseq=residuals[0], gseq=residuals[1])
+    _check("gru_bwd", xi, w_h, b_h, **more)
+    if xi.device.type == "cpu":
+        return gru_bwd_plain(xi, w_h, b_h, dh, residuals=residuals)
+    n, t_len, h3 = xi.shape
+    _check_hidden("gru_bwd", _lib("gru_bwd"), "gru_bwd", h3 // 3)
+    if n == 0 or t_len == 0:
+        return torch.zeros_like(xi), torch.zeros_like(w_h), torch.zeros_like(b_h)
+    if residuals is None:
+        _, hseq, gseq = gru_fwd_residuals(xi, w_h, b_h)
+    else:
+        hseq, gseq = residuals
+    dxi, dgn = _walk_launch(xi, w_h, hseq, gseq, dh, _shape(xi))
     gru_bwd.launches += 1
-    return dxi, dw_h, db_h
+    return (dxi, *gru_dwh(hseq, dxi, dgn))
 
 
 gru_bwd.launches = 0
@@ -195,16 +345,23 @@ gru_bwd.launches = 0
 
 class _GRUFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xi, w_h, b_h):
-        ctx.save_for_backward(xi, w_h, b_h)
-        return gru_fwd(xi, w_h, b_h)
+    def forward(ctx, xi, w_h, b_h, keep_residuals):
+        if not keep_residuals:
+            return gru_fwd(xi, w_h, b_h)
+        h, hseq, gseq = gru_fwd_residuals(xi, w_h, b_h)
+        ctx.save_for_backward(xi, w_h, b_h, hseq, gseq)
+        return h
 
     @staticmethod
     def backward(ctx, dh):
-        return gru_bwd(*ctx.saved_tensors, dh)
+        xi, w_h, b_h, hseq, gseq = ctx.saved_tensors
+        return (*gru_bwd(xi, w_h, b_h, dh, residuals=(hseq, gseq)), None)
 
 
 def gru(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
-    """Differentiable `gru_fwd`: the forward is K1, the backward K2 (the
-    plain versions on the CPU)."""
-    return _GRUFunction.apply(xi, w_h, b_h)
+    """Differentiable `gru_fwd`. When autograd will need a gradient (grad
+    mode on and an input that requires one) the forward is the residual
+    variant and the backward walks from its residuals; under `no_grad` or
+    `inference_mode` it is the serving variant, and nothing is kept."""
+    keep = torch.is_grad_enabled() and any(a.requires_grad for a in (xi, w_h, b_h))
+    return _GRUFunction.apply(xi, w_h, b_h, keep)

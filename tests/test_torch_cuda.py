@@ -25,7 +25,19 @@ from factorvae_tpu_torch.ops.kernels.attention import (
     attention_fwd,
     attention_fwd_plain,
 )
-from factorvae_tpu_torch.ops.kernels.gru import gru, gru_bwd, gru_bwd_plain, gru_fwd, gru_fwd_plain
+from factorvae_tpu_torch.ops.kernels import gru as gru_module
+from factorvae_tpu_torch.ops.kernels.gru import (
+    gru,
+    gru_bwd,
+    gru_bwd_plain,
+    gru_dwh,
+    gru_dwh_plain,
+    gru_fwd,
+    gru_fwd_plain,
+    gru_fwd_residuals,
+    gru_walk_plain,
+    launch_shape,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -160,15 +172,19 @@ def test_gru_bwd_kernel_matches_plain_and_repeats_bitwise(dev, n, t, h):
 
 
 def test_gru_function_runs_k1_then_k2(dev):
+    """With a gradient to take, the Function launches K1's residual variant
+    and walks from its residuals: no serving-variant launch, one walk, one
+    dWh kernel."""
     rng = np.random.default_rng(0)
     xi, wh, bh = (a.requires_grad_() for a in _to(
         dev, (rng.normal(size=(40, 6, 24)) * 0.5).astype(np.float32),
         (rng.normal(size=(8, 24)) * 0.3).astype(np.float32),
         (rng.normal(size=(24,)) * 0.1).astype(np.float32)))
     dh = torch.randn(40, 8, device=dev)
-    f0, b0 = gru_fwd.launches, gru_bwd.launches
+    counters = (gru_fwd, gru_fwd_residuals, gru_bwd, gru_dwh)
+    before = [c.launches for c in counters]
     grads = torch.autograd.grad(gru(xi, wh, bh), (xi, wh, bh), dh)
-    assert (gru_fwd.launches, gru_bwd.launches) == (f0 + 1, b0 + 1)
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 1, 1, 1]
     for g, w in zip(grads, gru_bwd_plain(xi.detach(), wh.detach(), bh.detach(), dh)):
         _close_sum(g, w)
 
@@ -264,3 +280,117 @@ def test_trainer_on_the_card_tracks_the_cpu(dev, tmp_path):
         _, out = Trainer(c, PanelDataset(panel, seq_len=6, device=d), device=d).fit()
         hist[str(d)] = [(r["train_loss"], r["val_loss"]) for r in out["history"]]
     np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)
+
+
+GRU_SHAPES = [(304, 20, 64), (2432, 20, 64), (304, 60, 60), (333, 7, 37)]
+GRU_IDS = ["one_day", "eight_days", "T60_H60", "ragged_H37"]
+
+
+def _gru_inputs(dev, n, t, h, seed):
+    rng = np.random.default_rng(seed)
+    return _to(dev, (rng.normal(size=(n, t, 3 * h)) * 0.5).astype(np.float32),
+               (rng.normal(size=(h, 3 * h)) * 0.3).astype(np.float32),
+               (rng.normal(size=(3 * h,)) * 0.1).astype(np.float32),
+               rng.normal(size=(n, h)).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,t,h", GRU_SHAPES, ids=GRU_IDS)
+def test_gru_residual_variant_matches_plain_and_repeats_bitwise(dev, n, t, h):
+    xi, wh, bh, _ = _gru_inputs(dev, n, t, h, 11)
+    before = gru_fwd_residuals.launches
+    got = gru_fwd_residuals(xi, wh, bh)
+    assert gru_fwd_residuals.launches == before + 1
+    for g, w in zip(got, gru_fwd_plain(xi, wh, bh, keep_residuals=True)):
+        _close(g, w)
+    again = gru_fwd_residuals(xi, wh, bh)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], gru_fwd(xi, wh, bh))     # the serving variant's h
+
+
+@pytest.mark.parametrize("n,t,h", GRU_SHAPES, ids=GRU_IDS)
+def test_gru_walk_from_residuals_matches_plain_and_repeats_bitwise(dev, n, t, h):
+    xi, wh, bh, dh = _gru_inputs(dev, n, t, h, 12)
+    _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+    before = gru_bwd.launches
+    got = gru_bwd(xi, wh, bh, dh, residuals=(hseq, gseq))
+    assert gru_bwd.launches == before + 1
+    want = gru_bwd_plain(xi, wh, bh, dh, residuals=(hseq, gseq))
+    _close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        _close_sum(g, w)
+    again = gru_bwd(xi, wh, bh, dh, residuals=(hseq, gseq))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n,t,h", GRU_SHAPES, ids=GRU_IDS)
+def test_gru_dwh_kernel_matches_plain_and_repeats_bitwise(dev, n, t, h):
+    xi, wh, bh, dh = _gru_inputs(dev, n, t, h, 13)
+    _, hseq, gseq = gru_fwd_plain(xi, wh, bh, keep_residuals=True)
+    dxi, dgn = gru_walk_plain(xi, wh, hseq, gseq, dh)
+    before = gru_dwh.launches
+    got = gru_dwh(hseq, dxi, dgn)
+    assert gru_dwh.launches == before + 1
+    for g, w in zip(got, gru_dwh_plain(hseq, dxi, dgn)):
+        _close_sum(g, w)
+    again = gru_dwh(hseq, dxi, dgn)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(16, 1), (8, 1), (8, 2), (16, 4), (8, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("n,t,h", [(304, 20, 64), (333, 7, 37)], ids=["one_day", "ragged_H37"])
+def test_gru_cluster_path_matches_plain(dev, n, t, h, shape):
+    """Every tile and cluster shape the kernels take computes the plain
+    function, forward (both variants) and walk, and repeats bitwise."""
+    xi, wh, bh, dh = _gru_inputs(dev, n, t, h, 14)
+    fwd = gru_module._fwd_launch("gru_fwd", xi, wh, bh, False, shape)[0]
+    _close(fwd, gru_fwd_plain(xi, wh, bh))
+    assert torch.equal(fwd, gru_module._fwd_launch("gru_fwd", xi, wh, bh, False, shape)[0])
+    res = gru_module._fwd_launch("gru_fwd_residuals", xi, wh, bh, True, shape)[:3]
+    for g, w in zip(res, gru_fwd_plain(xi, wh, bh, keep_residuals=True)):
+        _close(g, w)
+    assert torch.equal(res[0], fwd)
+    hseq, gseq = res[1:]
+    got = gru_module._walk_launch(xi, wh, hseq, gseq, dh, shape)
+    for g, w in zip(got, gru_walk_plain(xi, wh, hseq, gseq, dh)):
+        _close(g, w)
+    again = gru_module._walk_launch(xi, wh, hseq, gseq, dh, shape)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gru_rule_fills_the_card_at_one_day(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, cluster = launch_shape(304, 64, sms)
+    assert -(-304 // rows) * cluster >= sms
+    assert gru_module._shape(torch.empty(304, 1, 192, device=dev)) == (rows, cluster)
+
+
+def test_training_step_launches_the_residual_variant_and_scoring_does_not(dev):
+    from factorvae_tpu_torch import config
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.eval.predict import predict_panel
+    from factorvae_tpu_torch.train.loop import train_step
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    panel = synthetic_panel_dense(40, 13, 12, seed=1)
+    dates = [str(d) for d in panel.dates]
+    cfg = config.Config(
+        model=config.ModelConfig(num_features=12, hidden_size=8, num_factors=4,
+                                 num_portfolios=10, seq_len=6),
+        data=config.DataConfig(seq_len=6, start_time=dates[0], fit_end_time=dates[27],
+                               val_start_time=dates[28], val_end_time=dates[39]),
+        train=config.TrainConfig(num_epochs=1, days_per_step=1, checkpoint_every=0))
+    ds = PanelDataset(panel, seq_len=6, device=dev)
+    trainer = Trainer(cfg, ds, device=dev)
+    state = trainer.init_state()
+    counters = (gru_fwd, gru_fwd_residuals, gru_bwd, gru_dwh)
+
+    before = [c.launches for c in counters]
+    train_step(state, ds, trainer._order(trainer.train_days, True, 0)[0], guard=True)
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 1, 1, 1]
+
+    before = [c.launches for c in counters]
+    predict_panel(state.model, cfg, ds, ds.split_days(dates[30], dates[31]),
+                  stochastic=False)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 0, 0]

@@ -31,15 +31,22 @@ from factorvae_tpu_torch.ops.kernels.attention import (
     attention_fwd,
     attention_fwd_plain,
 )
+from factorvae_tpu_torch.ops.kernels import gru as gru_module
 from factorvae_tpu_torch.ops.kernels.gru import (
     gru,
     gru_bwd,
     gru_bwd_plain,
+    gru_dwh,
+    gru_dwh_plain,
     gru_fwd,
     gru_fwd_plain,
+    gru_fwd_residuals,
+    gru_walk_plain,
+    launch_shape,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+H100_SMS = 132           # streaming multiprocessors of an H100 SXM
 SUM_TOL = dict(rtol=2e-5, atol=5e-6)
 
 
@@ -112,6 +119,165 @@ class TestGruBackward:
         assert gru_bwd.launches == before
         with pytest.raises(ValueError, match="dh"):
             gru_bwd(xi, wh, bh, torch.zeros(7, 5))
+
+
+def unit_ranges(h_dim, cluster):
+    """The hidden units [u0, u1) of each CTA of a cluster, as the kernels
+    split them (`csrc/gru_common.cuh:unit_begin`)."""
+    return [(r * h_dim // cluster, (r + 1) * h_dim // cluster) for r in range(cluster)]
+
+
+def _numpy_recurrence(xi, wh, bh):
+    """The recurrence step by step in float64 numpy: (h, h before each step,
+    g = h . Wh + b of each step)."""
+    n, t_len, h3 = xi.shape
+    hd = h3 // 3
+    sig = lambda a: 1.0 / (1.0 + np.exp(-a))  # noqa: E731
+    h = np.zeros((n, hd))
+    hseq, gseq = np.zeros((n, t_len, hd)), np.zeros((n, t_len, h3))
+    for t in range(t_len):
+        g = h @ wh.astype(np.float64) + bh
+        hseq[:, t], gseq[:, t] = h, g
+        x = xi[:, t].astype(np.float64)
+        r = sig(x[:, :hd] + g[:, :hd])
+        z = sig(x[:, hd:2 * hd] + g[:, hd:2 * hd])
+        nn_ = np.tanh(x[:, 2 * hd:] + r * g[:, 2 * hd:])
+        h = (1 - z) * nn_ + z * h
+    return h, hseq, gseq
+
+
+class TestGruResiduals:
+    """The residual form of K1 and the walk from its residuals (K2/K3), the
+    dWh/db reduction, and the launch-shape rule of both kernels."""
+
+    @pytest.mark.parametrize("n,t,h", TestGruBackward.SHAPES)
+    def test_plain_residuals_match_a_numpy_recurrence(self, rng, n, t, h):
+        xi, wh, bh = _gru_args(rng, n, t, h)
+        got = gru_fwd_plain(*map(torch.from_numpy, (xi, wh, bh)), keep_residuals=True)
+        want = _numpy_recurrence(xi, wh, bh)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w, **TOL)
+        assert torch.equal(got[0], gru_fwd_plain(*map(torch.from_numpy, (xi, wh, bh))))
+
+    @pytest.mark.parametrize("n,t,h", TestGruBackward.SHAPES)
+    def test_plain_bwd_from_residuals_matches_recompute_and_pallas(self, rng, n, t, h):
+        xi, wh, bh = _gru_args(rng, n, t, h)
+        dh = rng.normal(size=(n, h)).astype(np.float32)
+        tx, tw, tb, tdh = map(torch.from_numpy, (xi, wh, bh, dh))
+        _, hseq, gseq = gru_fwd_plain(tx, tw, tb, keep_residuals=True)
+        got = gru_bwd_plain(tx, tw, tb, tdh, residuals=(hseq, gseq))
+        for a, b in zip(got, gru_bwd_plain(tx, tw, tb, tdh)):
+            assert torch.equal(a, b)
+        _check_gru_grads([g.numpy() for g in got], _jax_gru_grads(xi, wh, bh, dh))
+
+    @pytest.mark.parametrize("n,t,h", TestGruBackward.SHAPES)
+    def test_plain_dwh_matches_einsum(self, rng, n, t, h):
+        # what the kernel is given: the residuals and the walk's outputs of a
+        # recurrence (the inputs of the Pallas-VJP test above)
+        xi, wh, bh = map(torch.from_numpy, _gru_args(rng, n, t, h))
+        _, hs, gs = gru_fwd_plain(xi, wh, bh, keep_residuals=True)
+        dx, dn = gru_walk_plain(xi, wh, hs, gs, torch.from_numpy(
+            rng.normal(size=(n, h)).astype(np.float32)))
+        hseq, dxi, dgn = hs.numpy(), dx.numpy(), dn.numpy()
+        dg = jnp.concatenate([jnp.asarray(dxi[..., :2 * h]), jnp.asarray(dgn)], axis=-1)
+        want_w = np.asarray(jnp.einsum("nth,ntj->hj", jnp.asarray(hseq), dg))
+        want_b = np.asarray(jnp.einsum("ntj->j", dg))
+        got_w, got_b = gru_dwh_plain(*map(torch.from_numpy, (hseq, dxi, dgn)))
+        np.testing.assert_allclose(got_w.numpy(), want_w, **SUM_TOL)
+        np.testing.assert_allclose(got_b.numpy(), want_b, **SUM_TOL)
+        before = gru_dwh.launches
+        for a, b in zip(gru_dwh(*map(torch.from_numpy, (hseq, dxi, dgn))), (got_w, got_b)):
+            assert torch.equal(a, b)
+        assert gru_dwh.launches == before
+        with pytest.raises(ValueError, match="gru_dwh"):
+            gru_dwh(*map(torch.from_numpy, (hseq, dxi[..., :-1], dgn)))
+
+    def test_wrappers_on_cpu_run_the_plain_versions(self, rng):
+        xi, wh, bh = map(torch.from_numpy, _gru_args(rng, 7, 5, 4))
+        dh = torch.randn(7, 4)
+        before = gru_fwd_residuals.launches, gru_bwd.launches
+        res = gru_fwd_residuals(xi, wh, bh)
+        for a, b in zip(res, gru_fwd_plain(xi, wh, bh, keep_residuals=True)):
+            assert torch.equal(a, b)
+        got = gru_bwd(xi, wh, bh, dh, residuals=res[1:])
+        for a, b in zip(got, gru_bwd_plain(xi, wh, bh, dh)):
+            assert torch.equal(a, b)
+        assert (gru_fwd_residuals.launches, gru_bwd.launches) == before
+        with pytest.raises(ValueError, match="hseq"):
+            gru_bwd(xi, wh, bh, dh, residuals=(res[1][:, :-1], res[2]))
+
+    @pytest.mark.parametrize("n,h", [(304, 64), (304, 60), (2432, 64), (9728, 64),
+                                     (333, 37), (301, 64), (5, 4), (40, 2), (1, 1)])
+    def test_launch_shape_rule(self, n, h):
+        rows, cluster = launch_shape(n, h, H100_SMS)
+        assert rows in gru_module.TILE_ROWS and cluster in gru_module.CLUSTERS
+        assert cluster <= h
+        grid = -(-n // rows) * cluster
+        if n >= 304:                           # one flagship training day or more
+            assert grid >= H100_SMS
+        if -(-n // 16) >= H100_SMS:             # the card is full without a cluster
+            assert (rows, cluster) == (16, 1)
+        ranges = unit_ranges(h, cluster)
+        assert ranges[0][0] == 0 and ranges[-1][1] == h
+        assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+        widths = [u1 - u0 for u0, u1 in ranges]
+        assert min(widths) >= 1 and max(widths) - min(widths) <= 1
+
+    @pytest.mark.parametrize("n,t,h", [(304, 4, 64), (301, 5, 64), (333, 4, 37),
+                                       (45, 6, 37), (5, 3, 4)])
+    def test_tiled_cluster_split_computes_the_same_function(self, rng, n, t, h):
+        """The kernels' decomposition, written out: row tiles of the rule's
+        size, each CTA of a cluster computing g for its units' three gate
+        columns from the full h and h' for its units; the pieces assembled
+        are the plain recurrence, ragged last tile and uneven units
+        included."""
+        xi, wh, bh = map(torch.from_numpy, _gru_args(rng, n, t, h))
+        rows, cluster = launch_shape(n, h, H100_SMS)
+        out = torch.empty(n, h)
+        for r0 in range(0, n, rows):
+            x = xi[r0:r0 + rows]
+            hcur = torch.zeros(x.shape[0], h)
+            for step in range(t):
+                hnext = torch.empty_like(hcur)
+                for u0, u1 in unit_ranges(h, cluster):
+                    cols = [c for gate in range(3) for c in range(gate * h + u0, gate * h + u1)]
+                    g = hcur @ wh[:, cols] + bh[cols]
+                    xs = x[:, step, cols]
+                    w = u1 - u0
+                    rg = torch.sigmoid(xs[:, :w] + g[:, :w])
+                    zg = torch.sigmoid(xs[:, w:2 * w] + g[:, w:2 * w])
+                    ng = torch.tanh(xs[:, 2 * w:] + rg * g[:, 2 * w:])
+                    hnext[:, u0:u1] = (1 - zg) * ng + zg * hcur[:, u0:u1]
+                hcur = hnext
+            out[r0:r0 + rows] = hcur
+        np.testing.assert_allclose(out.numpy(), gru_fwd_plain(xi, wh, bh).numpy(), **TOL)
+
+    @pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no_input_needs_grad",
+                                      "training"])
+    def test_function_keeps_residuals_only_for_a_backward(self, rng, monkeypatch, mode):
+        calls = []
+        real = gru_module.gru_fwd_residuals
+        monkeypatch.setattr(gru_module, "gru_fwd_residuals",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        xi, wh, bh = (torch.from_numpy(a).requires_grad_(mode != "no_input_needs_grad")
+                      for a in _gru_args(rng, 6, 5, 4))
+        if mode == "no_grad":
+            with torch.no_grad():
+                out = gru(xi, wh, bh)
+        elif mode == "inference_mode":
+            with torch.inference_mode():
+                out = gru(xi, wh, bh)
+        else:
+            out = gru(xi, wh, bh)
+        assert torch.equal(out.detach(), gru_fwd_plain(xi.detach(), wh.detach(), bh.detach()))
+        if mode != "training":
+            assert calls == [] and out.grad_fn is None
+            return
+        assert calls == [1] and len(out.grad_fn.saved_tensors) == 5
+        dh = torch.randn(6, 4)
+        grads = torch.autograd.grad(out, (xi, wh, bh), dh)
+        for g, w in zip(grads, gru_bwd_plain(xi.detach(), wh.detach(), bh.detach(), dh)):
+            assert torch.equal(g, w)
 
 
 def _att_args(rng, b, n, k, h):

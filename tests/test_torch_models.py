@@ -169,6 +169,33 @@ class TestModules:
         np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
     @PALLAS
+    def test_extractor_gradient_walks_from_the_forward_residuals(self, weights, pallas,
+                                                                 monkeypatch):
+        """The extractor's input gradient through the GRU Function, whose
+        forward keeps the residuals its backward walks from, against
+        jax.grad of the JAX extractor; under no_grad nothing is kept."""
+        from factorvae_tpu_torch.ops.kernels import gru as gru_module
+
+        tree, model = weights
+        rng, x, _ = _inputs()
+        flat = x.reshape(B * N, T, C)
+        cot = rng.normal(size=(B * N, H)).astype(np.float32)
+        jext = JExtractor(_jcfg(pallas))
+        want = jax.grad(lambda a: jnp.sum(jext.apply(
+            {"params": tree["feature_extractor"]}, a) * jnp.asarray(cot)))(jnp.asarray(flat))
+        calls = []
+        real = gru_module.gru_fwd_residuals
+        monkeypatch.setattr(gru_module, "gru_fwd_residuals",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        leaf = _t(flat).requires_grad_()
+        (got,) = torch.autograd.grad(model.feature_extractor(leaf), leaf, _t(cot))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert calls == [1]
+        with torch.no_grad():
+            model.feature_extractor(leaf)
+        assert calls == [1]
+
+    @PALLAS
     def test_predictor(self, weights, pallas):
         tree, model = weights
         rng, _, mask = _inputs()
