@@ -14,8 +14,8 @@
 //   dWv = L^T dV       dbv = sum dV      dL = dkey Wk^T + dV Wv^T
 //
 // and a head caught by the guard (a non-finite valid score), or a day with
-// no valid row, gives exactly zero to every gradient. The mask and the
-// keep-mask get none.
+// no valid row, gives exactly zero to every gradient, by a select. The mask
+// and the keep-mask get none.
 //
 // Both dkey and dV are rank one per (day, head), so every product with L or
 // a weight reduces to vectors:
@@ -25,24 +25,28 @@
 //   dWv[k] = sum_b la (x) dctx           dbv[k] = sum_b (sum a) dctx
 //   dL[b, n] = sum_k dz[b,k,n] u_k + a[b,k,n] w_bk,  u_k = Wk q,  w_bk = Wv dctx
 //
-// Three kernels, launched in order on one stream:
-//   1. one block per (day, head): recompute scores and softmax with K4's own
-//      code (attention_common.cuh), the value rows for da (the (K, N, H) key
-//      and value stacks never touch device memory), then dz, and write a and
-//      dz per stock (B, K, N) and lz, la, sum dz, sum a, w per (day, head);
-//   2. one block per head: sum those over the days in day order and form dq,
-//      dWk, dbk, dWv, dbv and u;
+// and on a day whose valid rows are finite, so is da: da_n = L_n . w + bv .
+// dctx. Three kernels, launched in order on one stream:
+//   1. one CTA per (day, group of G heads), G from the wrapper's launch rule:
+//      the scores and softmax by K4's own fold code (attention_common.cuh;
+//      the weights a are bitwise K4's), w and da folded, then dz; writes a
+//      and dz per stock (B, K, N) and lz, la, w, sum dz, sum a per (day,
+//      head). No per-row H x H product: about 8H FLOP per valid row and head
+//      (score, da, lz, la). A day with a non-finite valid element takes the
+//      exact path in the same CTA, head by head: the key and value rows as
+//      written, as K4's exact path computes them;
+//   2. four blocks per head: sum those over the days in day order and form
+//      dq, dWk, dbk, dWv, dbv and u;
 //   3. one thread per (day, stock, column): dL summed over heads in head
 //      order.
 // Every sum runs in a fixed order, so a repeated call gives bitwise the same
 // gradients; there are no atomics.
 //
-// Bound: at one flagship day (N = 304, ~300 valid, K = 96, H = 64) the work
-// the function needs is the value product per valid row and head (2*H*H) and
-// O(H) terms, about 0.27 GFLOP against 0.9 MB of inputs, so the f32 CUDA-core
-// rate bounds it. Kernel 1 also recomputes the key product as K4 writes it,
-// which doubles that; kernels 2 and 3 are a few MFLOP. At one day kernel 1 runs
-// 96 blocks on 132 SMs; the grid is what keeps it far from the bound.
+// Bound: at one flagship day (N = 304, ~300 valid, K = 96, H = 64) the
+// least work is ~12H per valid row and head and a few H^2 per head: ~30
+// MFLOP, against reading Wk and Wv and writing dWk and dWv (6.3 MB of 6.7),
+// so the bytes bound it at ~0.002 ms. What keeps it from there is latency:
+// three launches, kernel 1's weight reads and barriers, 96 CTAs at one day.
 
 #include <cuda_runtime.h>
 
@@ -52,68 +56,44 @@ namespace {
 
 using namespace attn;
 
+// The exact path for one (day, head): the as-written key and value rows.
 template <int S>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_head_kernel(const float* __restrict__ latent,
-                          const unsigned char* __restrict__ mask,
-                          const float* __restrict__ keep,
-                          const float* __restrict__ q,
-                          const float* __restrict__ wk,
-                          const float* __restrict__ bk,
-                          const float* __restrict__ wv,
-                          const float* __restrict__ bv,
-                          const float* __restrict__ dctx,
-                          float* __restrict__ a_out,      // (B, K, N)
-                          float* __restrict__ dz_out,     // (B, K, N)
-                          float* __restrict__ vec_out,    // (B, K, 3, H): lz, la, w
-                          float* __restrict__ sum_out,    // (B, K, 2): sum dz, sum a
-                          int n, int k_heads, int h) {
-  extern __shared__ float4 smem4[];
-  const int hp = round4(h);
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* wk_s = smem;                        // (hp, H), rows >= h zero
-  float* wv_s = wk_s + hp * h;               // (hp, H)
-  float* tile_s = wv_s + hp * h;             // (kWarps, kTile, hp)
-  float* q_s = tile_s + kWarps * kTile * hp; // (hp,)
-  float* bk_s = q_s + hp;                    // (hp,)
-  float* bv_s = bk_s + hp;                   // (hp,)
-  float* dc_s = bv_s + hp;                   // (hp,) dctx of this (day, head)
-  float* sc_s = dc_s + hp;                   // (N,) scores r
-  float* a_s = sc_s + n;                     // (N,) softmax weights
-  float* dz_s = a_s + n;                     // (N,) da, then dz
-  int* idx_s = reinterpret_cast<int*>(dz_s + n);  // (N,) valid rows
+__device__ void exact_head(const float* lat, const int* idx, int nv, const float* kp,
+                           const float* q, const float* wk, const float* bk,
+                           const float* wv, const float* bv, const float* dctx_row,
+                           int head, int h, float* smem, const Layout& L,
+                           float* a_row, float* dz_row, float* vec, float* sums) {
   __shared__ float red_f[kWarps];
   __shared__ float shared_val;
-  __shared__ int shared_nv;
-
-  const int day = blockIdx.x / k_heads;
-  const int head = blockIdx.x - day * k_heads;
-  const size_t bk_idx = (size_t)day * k_heads + head;
+  const int hp = round4(h);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-
-  compact_rows(mask + (size_t)day * n, n, idx_s, &shared_nv);
+  float* wk_s = smem + L.wk;
+  float* wv_s = smem + L.wv;
+  float* q_s = smem + L.q;
+  float* bk_s = smem + L.bk;
+  float* bv_s = smem + L.bv;
+  float* dc_s = smem + L.dc;
+  float* sc_s = smem + L.xs;
+  float* a_s = smem + L.xa;
+  float* dz_s = smem + L.xd;
+  float* tile = smem + L.tile + warp * kTile * hp;
+  __syncthreads();            // the previous head's readers are done
   stage_head(q, wk, bk, wv, bv, head, h, hp, q_s, wk_s, bk_s, wv_s, bv_s);
-  for (int i = tid; i < hp; i += kThreads) dc_s[i] = i < h ? dctx[bk_idx * h + i] : 0.0f;
+  for (int i = tid; i < hp; i += kThreads) dc_s[i] = i < h ? dctx_row[i] : 0.0f;
   __syncthreads();
 
-  const int nv = shared_nv;
-  const float* lat = latent + (size_t)day * n * h;
-  const float* kp = keep ? keep + bk_idx * n : nullptr;
-  float* vec = vec_out + bk_idx * 3 * h;
-  float* tile = tile_s + warp * kTile * hp;
-
-  if (!head_softmax<S>(lat, idx_s, nv, kp, wk_s, bk_s, q_s, h, hp, tile, sc_s, a_s)) {
+  if (!head_softmax<S>(lat, idx, nv, kp, wk_s, bk_s, q_s, h, hp, tile, sc_s, a_s)) {
     // a zero context: no gradient (a_out and dz_out come zeroed)
     for (int i = tid; i < 3 * h; i += kThreads) vec[i] = 0.0f;
-    if (tid < 2) sum_out[bk_idx * 2 + tid] = 0.0f;
+    if (tid < 2) sums[tid] = 0.0f;
     return;
   }
 
   // ---- da = nan_to_num(value) . dctx for each valid stock ----------------
   for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
-    stage_tile(lat, idx_s, g, nv, h, hp, lane, tile);
+    stage_tile(lat, idx, g, nv, h, hp, lane, tile);
     float val[kTile][S];
     tile_times<S>(tile, wv_s, bv_s, h, hp, lane, val);
 #pragma unroll
@@ -149,22 +129,22 @@ attention_bwd_head_kernel(const float* __restrict__ latent,
     const float dr = a * dz_s[g] - a * sum_t;
     float dz = sc_s[g] > 0.0f ? dr : 0.0f;
     dz = dz / scale;
-    if (kp) dz = dz * kp[idx_s[g]];
+    if (kp) dz = dz * kp[idx[g]];
     dz_s[g] = dz;
-    a_out[bk_idx * n + idx_s[g]] = a;
-    dz_out[bk_idx * n + idx_s[g]] = dz;
+    a_row[idx[g]] = a;
+    dz_row[idx[g]] = dz;
   }
   __syncthreads();
 
   // ---- lz = L^T dz, la = L^T a, w = Wv dctx, sum dz, sum a ---------------
   if (tid < h) {
     float acc = 0.0f;
-    for (int g = 0; g < nv; ++g) acc = fmaf(dz_s[g], lat[(size_t)idx_s[g] * h + tid], acc);
+    for (int g = 0; g < nv; ++g) acc = fmaf(dz_s[g], lat[(size_t)idx[g] * h + tid], acc);
     vec[tid] = acc;
   } else if (tid >= kMaxH && tid < kMaxH + h) {
     const int i = tid - kMaxH;
     float acc = 0.0f;
-    for (int g = 0; g < nv; ++g) acc = fmaf(a_s[g], lat[(size_t)idx_s[g] * h + i], acc);
+    for (int g = 0; g < nv; ++g) acc = fmaf(a_s[g], lat[(size_t)idx[g] * h + i], acc);
     vec[h + i] = acc;
   } else if (tid >= 2 * kMaxH && tid < 2 * kMaxH + h) {
     const int i = tid - 2 * kMaxH;
@@ -175,12 +155,137 @@ attention_bwd_head_kernel(const float* __restrict__ latent,
     const float* v = tid == 3 * kMaxH ? dz_s : a_s;
     float acc = 0.0f;
     for (int g = 0; g < nv; ++g) acc += v[g];
-    sum_out[bk_idx * 2 + (tid - 3 * kMaxH)] = acc;
+    sums[tid - 3 * kMaxH] = acc;
   }
 }
 
-// One block per head: the weight gradients, summed over the days in order,
-// and u = Wk q for the latent pass.
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_head_kernel(const float* __restrict__ latent,
+                          const unsigned char* __restrict__ mask,
+                          const float* __restrict__ keep,
+                          const float* __restrict__ q,
+                          const float* __restrict__ wk,
+                          const float* __restrict__ bk,
+                          const float* __restrict__ wv,
+                          const float* __restrict__ bv,
+                          const float* __restrict__ dctx,
+                          float* __restrict__ a_out,      // (B, K, N)
+                          float* __restrict__ dz_out,     // (B, K, N)
+                          float* __restrict__ vec_out,    // (B, K, 3, H): lz, la, w
+                          float* __restrict__ sum_out,    // (B, K, 2): sum dz, sum a
+                          int* __restrict__ exact,
+                          int n, int k_heads, int h, int group, int staged) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout L = layout(n, h, group, staged, true);
+  int* idx = reinterpret_cast<int*>(smem + L.idx);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  const int groups = (k_heads + group - 1) / group;
+  const int day = blockIdx.x / groups;
+  const int grp = blockIdx.x - day * groups;
+  const int head0 = grp * group;
+  const int gn = min(group, k_heads - head0);
+  const size_t bk0 = (size_t)day * k_heads + head0;
+  const float* lat = latent + (size_t)day * n * h;
+  const float* keep_g = keep ? keep + bk0 * n : nullptr;
+  float* vec = vec_out + bk0 * 3 * h;
+  float* sums = sum_out + bk0 * 2;
+
+  const size_t group_bytes = (size_t)gn * h * h * sizeof(float);
+  prefetch_l2(wk + (size_t)head0 * h * h, group_bytes);
+  prefetch_l2(wv + (size_t)head0 * h * h, group_bytes);
+  // a and dz per stock: zero for every row, the valid ones written below
+  // (after the barrier in stage_rows)
+  for (int e = tid; e < gn * n; e += kThreads) a_out[bk0 * n + e] = dz_out[bk0 * n + e] = 0.0f;
+  const int nv = compact_rows(mask + (size_t)day * n, n, idx);
+  const bool flagged = stage_rows(lat, idx, nv, h, staged, smem + L.rows);
+  if (exact && grp == 0 && tid == 0) exact[day] = flagged;
+
+  if (flagged) {               // the exact path, one head at a time
+    for (int g = 0; g < gn; ++g)
+      exact_head<S>(lat, idx, nv, keep_g ? keep_g + (size_t)g * n : nullptr, q, wk, bk,
+                    wv, bv, dctx + (bk0 + g) * h, head0 + g, h, smem, L,
+                    a_out + (bk0 + g) * n, dz_out + (bk0 + g) * n,
+                    vec + (size_t)g * 3 * h, sums + 2 * g);
+    return;
+  }
+
+  const Rows rows = staged ? Rows{smem + L.rows, idx, row_ld(h), true}
+                           : Rows{lat, idx, h, false};
+  float* sc = smem + L.sc;
+  float* a = smem + L.a;
+  float* d = smem + L.d;
+  float* w = smem + L.w;
+  float* sa = smem + L.sa;
+  int* ok = reinterpret_cast<int*>(smem + L.ok);
+  const float scale = sqrtf((float)h + 1e-6f);
+
+  // the forward's scores and weights, then w = Wv dctx and da = L w + bv . dctx
+  head_matvec(wk + (size_t)head0 * h * h, bk + (size_t)head0 * h, q + (size_t)head0 * h,
+              gn, h, L.gp, smem + L.u, smem + L.c);
+  row_dots(rows, nv, h, smem + L.u, smem + L.c, gn, L.gp, sc, L.ldn);
+  fold_softmax(sc, a, L.ldn, smem + L.at, L.gt, nv, idx, keep_g, n, gn, scale, ok, sa);
+  head_matvec(wv + (size_t)head0 * h * h, bv + (size_t)head0 * h, dctx + bk0 * h, gn, h,
+              L.gp, w, smem + L.cw);
+  row_dots(rows, nv, h, w, smem + L.cw, gn, L.gp, d, L.ldn);
+
+  // dz = 1[r > 0] (a da - a sum(a da)) / scale * keep, per head (one warp),
+  // also transposed into dt; a guarded head's transposed a and dz are zero,
+  // so its lz and la come out zero
+  float* dt = smem + L.dt;
+  for (int g = warp; g < gn; g += kWarps) {
+    const float* ag = a + g * L.ldn;
+    const float* dg = d + g * L.ldn;
+    const float* sg = sc + g * L.ldn;
+    if (!ok[g]) {
+      for (int r = lane; r < nv; r += 32) dt[r * L.gt + g] = 0.0f;
+      if (lane < 2) sums[2 * g + lane] = 0.0f;
+      continue;
+    }
+    const float* kp = keep_g ? keep_g + (size_t)g * n : nullptr;
+    float* a_row = a_out + (bk0 + g) * n;
+    float* dz_row = dz_out + (bk0 + g) * n;
+    float st = 0.0f;
+    for (int r = lane; r < nv; r += 32) st += ag[r] * dg[r];
+    st = warp_sum(st);
+    float sdz = 0.0f;
+#pragma unroll 4
+    for (int r = lane; r < nv; r += 32) {
+      const float av = ag[r];
+      const float dr = av * dg[r] - av * st;
+      float dz = sg[r] > 0.0f ? dr : 0.0f;
+      dz = dz / scale;
+      if (kp) dz = dz * kp[idx[r]];
+      dt[r * L.gt + g] = dz;
+      sdz += dz;
+      a_row[idx[r]] = av;
+      dz_row[idx[r]] = dz;
+    }
+    sdz = warp_sum(sdz);
+    if (lane == 0) {
+      sums[2 * g] = sdz;
+      sums[2 * g + 1] = sa[g];
+    }
+  }
+  __syncthreads();
+  column_sums(rows, nv, h, dt, L.gt, gn, smem + L.part, vec, 3 * h);             // lz
+  column_sums(rows, nv, h, smem + L.at, L.gt, gn, smem + L.part, vec + h, 3 * h);  // la
+  for (int e = tid; e < gn * h; e += kThreads) {
+    const int g = e / h;
+    const int i = e - g * h;
+    vec[(size_t)g * 3 * h + 2 * h + i] = ok[g] ? w[i * L.gp + g] : 0.0f;
+  }
+}
+
+// One block per (head, quarter of the H x H elements): those elements of
+// dWk and dWv, summed over the days in order; quarter 0 also forms dq and
+// dbk, quarter 1 dbv, quarter 2 u = Wk q for the latent pass.
+constexpr int kWeightParts = 4;
+
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_weights_kernel(const float* __restrict__ q,
                              const float* __restrict__ wk,
@@ -195,7 +300,8 @@ attention_bwd_weights_kernel(const float* __restrict__ q,
   __shared__ float lz_s[kMaxH];
   __shared__ float q_s[kMaxH];
   __shared__ float sdz_s;
-  const int head = blockIdx.x;
+  const int head = blockIdx.x / kWeightParts;
+  const int part = blockIdx.x - head * kWeightParts;
   const int tid = threadIdx.x;
   const size_t hh = (size_t)h * h;
   const float* wk_k = wk + head * hh;
@@ -212,7 +318,9 @@ attention_bwd_weights_kernel(const float* __restrict__ q,
   }
   __syncthreads();
 
-  for (int e = tid; e < h * h; e += kThreads) {
+  const int e1 = (int)((part + 1) * hh / kWeightParts);
+#pragma unroll 4
+  for (int e = (int)(part * hh / kWeightParts) + tid; e < e1; e += kThreads) {
     const int i = e / h;
     const int j = e - i * h;
     dwk[head * hh + e] = lz_s[i] * q_s[j];
@@ -224,42 +332,63 @@ attention_bwd_weights_kernel(const float* __restrict__ q,
     dwv[head * hh + e] = acc;
   }
   for (int j = tid; j < h; j += kThreads) {
-    dbk[(size_t)head * h + j] = sdz_s * q_s[j];
-    float acc = 0.0f;
-    for (int i = 0; i < h; ++i) acc = fmaf(lz_s[i], wk_k[i * h + j], acc);
-    dq[(size_t)head * h + j] = acc + bk[(size_t)head * h + j] * sdz_s;
-    float accv = 0.0f;
-    for (int b = 0; b < b_days; ++b) {
-      const size_t bk_idx = (size_t)b * k_heads + head;
-      accv = fmaf(sums[bk_idx * 2 + 1], dctx[bk_idx * h + j], accv);
+    if (part == 0) {
+      dbk[(size_t)head * h + j] = sdz_s * q_s[j];
+      float acc = 0.0f;
+#pragma unroll 16
+      for (int i = 0; i < h; ++i) acc = fmaf(lz_s[i], wk_k[i * h + j], acc);
+      dq[(size_t)head * h + j] = acc + bk[(size_t)head * h + j] * sdz_s;
+    } else if (part == 1) {
+      float accv = 0.0f;
+      for (int b = 0; b < b_days; ++b) {
+        const size_t bk_idx = (size_t)b * k_heads + head;
+        accv = fmaf(sums[bk_idx * 2 + 1], dctx[bk_idx * h + j], accv);
+      }
+      dbv[(size_t)head * h + j] = accv;
+    } else if (part == 2) {
+      float accu = 0.0f;
+#pragma unroll 16
+      for (int c = 0; c < h; ++c) accu = fmaf(wk_k[j * h + c], q_s[c], accu);
+      u[(size_t)head * h + j] = accu;
     }
-    dbv[(size_t)head * h + j] = accv;
-    float accu = 0.0f;
-    for (int c = 0; c < h; ++c) accu = fmaf(wk_k[j * h + c], q_s[c], accu);
-    u[(size_t)head * h + j] = accu;
   }
 }
 
-// dL[b, n, i] = sum_k dz[b,k,n] u[k,i] + a[b,k,n] w[b,k,i], heads in order.
-__global__ void attention_bwd_latent_kernel(const float* __restrict__ a,
-                                            const float* __restrict__ dz,
-                                            const float* __restrict__ u,
-                                            const float* __restrict__ vec,
-                                            float* __restrict__ dlatent,
-                                            int b_days, int n, int k_heads, int h) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (size_t)b_days * n * h) return;
-  const int i = (int)(e % h);
-  const size_t bn = e / h;
-  const int b = (int)(bn / n);
-  const int row = (int)(bn - (size_t)b * n);
+// dL[b, n, i] = sum_k dz[b,k,n] u[k,i] + a[b,k,n] w[b,k,i]: one block per
+// (day, stock), a thread per (column, quarter of the heads), each quarter an
+// fmaf chain over its heads in order, the quarters summed in order.
+constexpr int kLatentSlices = kThreads / kMaxH;
+
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_latent_kernel(const float* __restrict__ a,
+                            const float* __restrict__ dz,
+                            const float* __restrict__ u,
+                            const float* __restrict__ vec,
+                            float* __restrict__ dlatent,
+                            int n, int k_heads, int h) {
+  __shared__ float part[kLatentSlices][kMaxH];
+  const int b = blockIdx.x / n;
+  const int row = blockIdx.x - b * n;
+  const int i = threadIdx.x % kMaxH;
+  const int sl = threadIdx.x / kMaxH;
+  const int per = (k_heads + kLatentSlices - 1) / kLatentSlices;
+  const int k1 = min(k_heads, (sl + 1) * per);
   float acc = 0.0f;
-  for (int k = 0; k < k_heads; ++k) {
-    const size_t bk_idx = (size_t)b * k_heads + k;
-    acc = fmaf(dz[bk_idx * n + row], u[(size_t)k * h + i], acc);
-    acc = fmaf(a[bk_idx * n + row], vec[(bk_idx * 3 + 2) * h + i], acc);
+  if (i < h) {
+#pragma unroll 8
+    for (int k = sl * per; k < k1; ++k) {
+      const size_t bk_idx = (size_t)b * k_heads + k;
+      acc = fmaf(dz[bk_idx * n + row], u[(size_t)k * h + i], acc);
+      acc = fmaf(a[bk_idx * n + row], vec[(bk_idx * 3 + 2) * h + i], acc);
+    }
   }
-  dlatent[e] = acc;
+  part[sl][i] = acc;
+  __syncthreads();
+  if (sl == 0 && i < h) {
+    float v = 0.0f;
+    for (int s = 0; s < kLatentSlices; ++s) v += part[s][i];
+    dlatent[(size_t)blockIdx.x * h + i] = v;
+  }
 }
 
 template <int S>
@@ -267,18 +396,21 @@ int launch_head(const float* latent, const unsigned char* mask,
                 const float* keep, const float* q, const float* wk,
                 const float* bk, const float* wv, const float* bv,
                 const float* dctx, float* a, float* dz, float* vec, float* sums,
-                int b, int n, int k_heads, int h, cudaStream_t stream) {
-  const int hp = round4(h);
-  const int smem = (int)sizeof(float) *
-                   (2 * hp * h + kWarps * kTile * hp + 4 * hp + 4 * n);
+                int* exact, int b, int n, int k_heads, int h, int group,
+                cudaStream_t stream) {
+  int staged = 0;
+  const int smem = plan_smem(n, h, group, true, &staged);
+  if (smem < 0) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       attention_bwd_head_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return (int)err;
   }
-  attention_bwd_head_kernel<S><<<b * k_heads, kThreads, smem, stream>>>(
-      latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums, n, k_heads, h);
+  const int groups = (k_heads + group - 1) / group;
+  attention_bwd_head_kernel<S><<<b * groups, kThreads, smem, stream>>>(
+      latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums, exact, n, k_heads,
+      h, group, staged);
   return (int)cudaGetLastError();
 }
 
@@ -286,25 +418,28 @@ int launch_head(const float* latent, const unsigned char* mask,
 
 extern "C" int attention_bwd_max_hidden() { return kMaxH; }
 
-// Floats of scratch the wrapper allocates, zeroed: a and dz (B, K, N), then
-// lz, la, w (B, K, 3, H), sum dz and sum a (B, K, 2), u (K, H).
+// Floats of scratch the wrapper allocates (the kernels write all of it): a
+// and dz (B, K, N), then lz, la, w (B, K, 3, H), sum dz and sum a (B, K, 2),
+// u (K, H).
 extern "C" long long attention_bwd_scratch_floats(int b, int n, int k_heads, int h) {
   const long long bk = (long long)b * k_heads;
   return 2 * bk * n + bk * 3 * h + bk * 2 + (long long)k_heads * h;
 }
 
-// Launches the three kernels on `stream`; returns the first cudaError_t (0 = ok).
-// An N whose scores and row lists do not fit in one block's shared memory is
-// refused by cudaFuncSetAttribute (above N of about 12,000 at H = 64).
+// Launches the three kernels on `stream`, kernel 1 with `group` heads per
+// CTA; returns the first cudaError_t (0 = ok). An N whose row list and
+// per-head arrays do not fit one block's shared memory even with the rows
+// left in device memory is refused (at H = 64: above N of about 9,300 at
+// G = 1, 3,700 at G = 2).
 extern "C" int attention_bwd(const float* latent, const unsigned char* mask,
                              const float* keep, const float* q,
                              const float* wk, const float* bk,
                              const float* wv, const float* bv,
                              const float* dctx, float* dlatent, float* dq,
                              float* dwk, float* dbk, float* dwv, float* dbv,
-                             float* scratch, int b, int n, int k_heads, int h,
-                             void* stream) {
-  if (h <= 0 || h > kMaxH || n <= 0 || b <= 0 || k_heads <= 0)
+                             float* scratch, int* exact, int b, int n, int k_heads,
+                             int h, int group, void* stream) {
+  if (h <= 0 || h > kMaxH || n <= 0 || b <= 0 || k_heads <= 0 || group <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t bk_n = (size_t)b * k_heads;
@@ -314,15 +449,16 @@ extern "C" int attention_bwd(const float* latent, const unsigned char* mask,
   float* sums = vec + bk_n * 3 * h;
   float* u = sums + bk_n * 2;
   int err = h <= 32
-      ? launch_head<1>(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums, b, n, k_heads, h, st)
-      : launch_head<2>(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums, b, n, k_heads, h, st);
+      ? launch_head<1>(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums,
+                       exact, b, n, k_heads, h, group, st)
+      : launch_head<2>(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums,
+                       exact, b, n, k_heads, h, group, st);
   if (err != 0) return err;
-  attention_bwd_weights_kernel<<<k_heads, kThreads, 0, st>>>(
+  attention_bwd_weights_kernel<<<k_heads * kWeightParts, kThreads, 0, st>>>(
       q, wk, bk, dctx, vec, sums, dq, dwk, dbk, dwv, dbv, u, b, k_heads, h);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const size_t total = (size_t)b * n * h;
-  attention_bwd_latent_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      a, dz, u, vec, dlatent, b, n, k_heads, h);
+  attention_bwd_latent_kernel<<<b * n, kThreads, 0, st>>>(a, dz, u, vec, dlatent, n,
+                                                          k_heads, h);
   return (int)cudaGetLastError();
 }

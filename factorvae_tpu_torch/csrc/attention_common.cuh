@@ -1,8 +1,26 @@
 // Device code shared by the K-head attention forward (K4, attention_fwd.cu)
-// and backward (K5, attention_bwd.cu): one block per (day, head) compacts the
-// day's valid rows, stages the head's weights, and computes the scores and
-// softmax weights exactly as the forward does, so the backward recomputes
-// the forward's own numbers.
+// and backward (K5, attention_bwd.cu).
+//
+// A CTA takes one day and a group of G consecutive heads. It compacts the
+// day's valid rows into a list, stages them in shared memory when they fit
+// (else it reads them from device memory through the list), and notes
+// whether any element of a valid row is non-finite.
+//
+// The fold path, for a day whose valid rows are finite: per head
+//
+//   u = Wk . q (H),  c = bk . q          s_n = (L_n . u + c) / sqrt(H + 1e-6)
+//
+// so no per-row key product is formed (`head_matvec`, `row_dots`,
+// `fold_softmax`). Forward and backward call the same functions, and each
+// score is one fmaf chain over the hidden units in order, whatever G is, so
+// the backward's softmax weights are bitwise the forward's.
+//
+// The exact path, for a day with a non-finite valid element: the key and
+// value rows as written, L . Wk + bk and nan_to_num(L . Wv + bv), one head at
+// a time (`stage_head`, `head_softmax`, `tile_times`). There the fold is not
+// the same function: with L_n = (+inf, 0, ...) the key row is +-inf by the
+// sign of Wk[0, j] and key . q is NaN (the head is guarded), while
+// L_n . u = +inf * u_0 is -inf where u_0 < 0, which the ReLU turns into 0.
 
 #pragma once
 
@@ -14,14 +32,143 @@ namespace attn {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxH = 64;            // largest hidden size (2 columns per lane)
-constexpr int kTile = 8;             // valid rows per warp step
+constexpr int kTile = 8;             // valid rows per warp step (exact path)
 constexpr float kNegInf = -1e30f;
+constexpr int kSmemSlack = 1024;     // bytes left for the kernels' static shared memory
 
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+// Row stride of the staged rows: odd, so a warp that reads one column of 32
+// consecutive rows touches 32 banks.
+__host__ __device__ __forceinline__ int row_ld(int h) { return h | 1; }
+
+// Offsets, in floats, into a CTA's dynamic shared memory for n rows, hidden
+// size h and groups of g heads. The valid-row list comes first; the fold
+// path's arrays and the exact path's share the space after it.
+struct Layout {
+  int ldn;                 // stride of the per-head row arrays: round4(n)
+  int gp;                  // stride of the head vectors: round4(g)
+  int gt;                  // row stride of the transposed arrays: 1 for one
+                           // head, 4 for up to four, else gp + 4 (fewer bank
+                           // conflicts on write)
+  int idx;                 // (n) valid rows, as ints
+  // fold path
+  int rows;                // (n, row_ld(h)) staged rows, when staged
+  int sc, a, d;            // (g, ldn) scores r, weights a (the forward: = sc), da / dz
+  int at, dt;              // (n, gt) a and (backward) dz, transposed
+  int u, c;                // (h, gp), (gp): u = Wk . q and c = bk . q per head
+  int w, cw;               // backward: (h, gp), (gp): w = Wv . dctx, bv . dctx
+  int sa, ok;              // (gp) sum of a; (gp ints) the head is not guarded
+  int p;                   // forward: (g, h) P = a^T L
+  int part;                // (4 kThreads) partial sums
+  // exact path
+  int wk, wv, tile, q, bk, bv, dc, red;
+  int xs, xa, xd;          // (ldn) scores, weights (backward), da / dz (backward)
+  int total;
+};
+
+__host__ __device__ inline Layout layout(int n, int h, int g, bool staged, bool bwd) {
+  Layout L;
+  const int hp = round4(h);
+  L.ldn = round4(n);
+  L.gp = round4(g);
+  L.gt = g == 1 ? 1 : L.gp == 4 ? 4 : L.gp + 4;
+  int o = 0;
+  L.idx = o;
+  o += L.ldn;
+  const int base = o;
+  L.rows = o;
+  if (staged) o += round4(n * row_ld(h));
+  L.sc = o;
+  o += g * L.ldn;
+  L.a = L.sc;
+  L.d = o;
+  if (bwd) {
+    L.a = o;
+    o += g * L.ldn;
+    L.d = o;
+    o += g * L.ldn;
+  }
+  L.at = L.dt = o;
+  o += round4(n * L.gt);
+  if (bwd) {
+    L.dt = o;
+    o += round4(n * L.gt);
+  }
+  L.u = o;
+  o += h * L.gp;
+  L.c = o;
+  o += L.gp;
+  L.w = L.cw = o;
+  if (bwd) {
+    L.cw = o + h * L.gp;
+    o += (h + 1) * L.gp;
+  }
+  L.sa = o;
+  o += L.gp;
+  L.ok = o;
+  o += L.gp;
+  L.p = o;
+  if (!bwd) o += round4(g * h);
+  L.part = o;
+  o += 4 * kThreads;
+  const int fold_end = o;
+
+  o = base;
+  L.wk = o;
+  o += hp * h;
+  L.wv = o;
+  o += hp * h;
+  L.tile = o;
+  o += kWarps * kTile * hp;
+  L.q = o;
+  o += hp;
+  L.bk = o;
+  o += hp;
+  L.bv = o;
+  o += hp;
+  L.dc = o;
+  o += hp;
+  L.red = o;
+  o += kWarps * hp;
+  L.xs = L.xa = L.xd = o;
+  o += L.ldn;
+  if (bwd) {
+    L.xa = o;
+    o += L.ldn;
+    L.xd = o;
+    o += L.ldn;
+  }
+  L.total = fold_end > o ? fold_end : o;
+  return L;
+}
+
+// Bytes of dynamic shared memory of a launch, and whether the rows are
+// staged (*staged = 1): staged whenever that layout fits the card's
+// per-block limit. Returns -1 when not even the unstaged one fits.
+inline int plan_smem(int n, int h, int g, bool bwd, int* staged) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  for (int s = 1; s >= 0; --s) {
+    const long long bytes = (long long)sizeof(float) * layout(n, h, g, s, bwd).total;
+    if (bytes + kSmemSlack <= limit) {
+      *staged = s;
+      return (int)bytes;
+    }
+  }
+  return -1;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -31,9 +178,304 @@ __device__ __forceinline__ float nan_to_num_f(float v) {
   return v;
 }
 
+// Ask L2 for the 128-byte lines of [p, p + bytes), spread over the block's
+// threads: a later read of them finds them there and not in device memory.
+__device__ __forceinline__ void prefetch_l2(const float* p, size_t bytes) {
+  const char* c = reinterpret_cast<const char*>(p);
+  for (size_t o = (size_t)threadIdx.x * 128; o < bytes; o += (size_t)kThreads * 128)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + o));
+}
+
 __device__ __forceinline__ float component(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
+
+// The indices of the day's valid rows, in order, into idx_s; returns their
+// count. Every thread calls it; each loads its rows' mask bytes of up to
+// kMaskChunks chunks of kThreads rows at once, then a ballot per warp and
+// the warps' counts in order place them. Ends with __syncthreads.
+constexpr int kMaskChunks = 4;
+
+__device__ __forceinline__ int compact_rows(const unsigned char* m, int n, int* idx_s) {
+  __shared__ int warp_count[kMaskChunks][kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  for (int r0 = 0; r0 < n; r0 += kMaskChunks * kThreads) {
+    bool v[kMaskChunks];
+    unsigned bal[kMaskChunks];
+#pragma unroll
+    for (int c = 0; c < kMaskChunks; ++c) {
+      const int r = r0 + c * kThreads + threadIdx.x;
+      v[c] = r < n && m[r];
+    }
+#pragma unroll
+    for (int c = 0; c < kMaskChunks; ++c) {
+      bal[c] = __ballot_sync(0xffffffffu, v[c]);
+      if (lane == 0) warp_count[c][warp] = __popc(bal[c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kMaskChunks; ++c) {
+      int before = 0, total = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        const int count = warp_count[c][w];
+        if (w < warp) before += count;
+        total += count;
+      }
+      if (v[c])
+        idx_s[base + before + __popc(bal[c] & ((1u << lane) - 1u))] =
+            r0 + c * kThreads + threadIdx.x;
+      base += total;
+    }
+    __syncthreads();          // warp_count is written again by the next chunk
+  }
+  return base;
+}
+
+// ---------------------------------------------------------------------------
+// The fold path
+// ---------------------------------------------------------------------------
+
+// The day's valid rows: staged in shared memory (row r at base + r * ld), or
+// in device memory through the list (row r at base + idx[r] * ld).
+struct Rows {
+  const float* base;
+  const int* idx;
+  int ld;
+  bool staged;
+  __device__ __forceinline__ const float* row(int r) const {
+    return base + (size_t)(staged ? r : idx[r]) * ld;
+  }
+};
+
+// Copy the nv valid rows of the day to rows_s (when staged) and return, on
+// every thread, whether any element of a valid row is non-finite. Each
+// thread loads kStageBatch elements at once (clamped addresses, so no
+// branch keeps a load waiting for the one before it), then stores them.
+// Every thread calls it after compact_rows.
+constexpr int kStageBatch = 8;
+
+__device__ __forceinline__ bool stage_rows(const float* lat, const int* idx, int nv,
+                                           int h, bool staged, float* rows_s) {
+  const int ld = row_ld(h);
+  const int total = nv * h;
+  int bad = 0;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kStageBatch * kThreads) {
+    float v[kStageBatch];
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int e = min(e0 + k * kThreads, total - 1);
+      const int r = e / h;
+      v[k] = __ldg(lat + (size_t)idx[r] * h + (e - r * h));
+    }
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int e = e0 + k * kThreads;
+      if (e < total) {
+        const int r = e / h;
+        bad |= !isfinite(v[k]);
+        if (staged) rows_s[r * ld + (e - r * h)] = v[k];
+      }
+    }
+  }
+  return __syncthreads_or(bad) != 0;
+}
+
+// For the g < G heads of a group: v[i * gp + g] = mat_g[i] . x_g (i < h) and
+// cv[g] = bias_g . x_g, with mat_g = mat + g*h*h (h rows of h), bias_g =
+// bias + g*h and x_g = x + g*h, all in device memory. A warp loads 16
+// outputs' rows at once (clamped addresses, so every load is in flight
+// before the first sum), a lane the columns lane and lane + 32, then a
+// butterfly sum: each output's order of summation is
+// fixed, whatever G is. Zeroes v's padding heads [G, gp). Ends with
+// __syncthreads.
+constexpr int kMatvecBatch = 16;
+
+__device__ __forceinline__ void head_matvec(const float* __restrict__ mat,
+                                            const float* __restrict__ bias,
+                                            const float* __restrict__ x, int G,
+                                            int h, int gp, float* v, float* cv) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int total = G * (h + 1);
+  const int j0 = min(lane, h - 1);
+  const int j1 = min(lane + 32, h - 1);
+  for (int o0 = warp * kMatvecBatch; o0 < total; o0 += kWarps * kMatvecBatch) {
+    float m0[kMatvecBatch], m1[kMatvecBatch], x0[kMatvecBatch], x1[kMatvecBatch];
+#pragma unroll
+    for (int k = 0; k < kMatvecBatch; ++k) {
+      const int o = min(o0 + k, total - 1);
+      const int g = o / (h + 1);
+      const int i = o - g * (h + 1);
+      const float* m = i < h ? mat + ((size_t)g * h + i) * h : bias + (size_t)g * h;
+      const float* xg = x + (size_t)g * h;
+      m0[k] = __ldg(m + j0);
+      m1[k] = __ldg(m + j1);
+      x0[k] = __ldg(xg + j0);
+      x1[k] = __ldg(xg + j1);
+    }
+#pragma unroll
+    for (int k = 0; k < kMatvecBatch; ++k) {
+      float part = lane < h ? m0[k] * x0[k] : 0.0f;
+      if (lane + 32 < h) part = fmaf(m1[k], x1[k], part);
+      const float acc = warp_sum(part);
+      const int o = o0 + k;
+      if (lane == 0 && o < total) {
+        const int g = o / (h + 1);
+        const int i = o - g * (h + 1);
+        if (i < h) v[i * gp + g] = acc;
+        else cv[g] = acc;
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < h * gp; e += kThreads)
+    if (e % gp >= G) v[e] = 0.0f;
+  __syncthreads();
+}
+
+// out[g * ldo + r] = row(r) . v[:, g] + cv[g] for r < nv and g < G: one fmaf
+// chain over i in order per value, four heads per thread, so a value does
+// not depend on G. v is (h, gp) in shared memory. Ends with __syncthreads.
+__device__ __forceinline__ void row_dots(const Rows& rows, int nv, int h,
+                                         const float* v, const float* cv, int G,
+                                         int gp, float* out, int ldo) {
+  const int quads = gp >> 2;
+  for (int t = threadIdx.x; t < nv * quads; t += kThreads) {
+    const int r = t % nv;
+    const int g0 = (t / nv) * 4;
+    const float* x = rows.row(r);
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < h; ++i) {
+      const float l = x[i];
+      const float4 vv = *reinterpret_cast<const float4*>(v + i * gp + g0);
+      a0 = fmaf(l, vv.x, a0);
+      a1 = fmaf(l, vv.y, a1);
+      a2 = fmaf(l, vv.z, a2);
+      a3 = fmaf(l, vv.w, a3);
+    }
+    const float acc[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (g0 + c < G) out[(g0 + c) * ldo + r] = acc[c] + cv[g0 + c];
+  }
+  __syncthreads();
+}
+
+// For each head g < G (warp g % kWarps), over the nv valid rows:
+//   r = relu(s / sqrt(H + 1e-6) * keep)   in place in sc (a ReLU that keeps NaN)
+//   ok[g] = no r is non-finite (the guard) and nv > 0
+//   a = softmax(r) into a (may alias sc; a guarded head's a is left unset)
+//       and into a_t[r * gt + g] (zero for a guarded head),
+//   sa[g] = sum a, 0 if !ok[g].
+// keep: this day's and group's (G, n) keep-mask, or null. Ends with
+// __syncthreads.
+__device__ __forceinline__ void fold_softmax(float* sc, float* a, int ldo, float* a_t,
+                                             int gt, int nv, const int* idx,
+                                             const float* keep, int n, int G, float scale,
+                                             int* ok, float* sa) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int g = warp; g < G; g += kWarps) {
+    float* s = sc + g * ldo;
+    float* ag = a + g * ldo;
+    const float* kp = keep ? keep + (size_t)g * n : nullptr;
+    float mx = kNegInf;
+    int bad = 0;
+#pragma unroll 4
+    for (int r = lane; r < nv; r += 32) {
+      float v = s[r] / scale;
+      if (kp) v = v * kp[idx[r]];
+      v = isnan(v) ? v : fmaxf(v, 0.0f);
+      if (!isfinite(v)) bad = 1;
+      else mx = fmaxf(mx, v);
+      s[r] = v;
+    }
+    mx = warp_max(mx);
+    const bool good = !__any_sync(0xffffffffu, bad) && nv > 0;
+    float tot = 0.0f;
+    if (good) {
+      float sum = 0.0f;
+      for (int r = lane; r < nv; r += 32) {
+        const float e = expf(s[r] - mx);
+        ag[r] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int r = lane; r < nv; r += 32) {
+        const float w = ag[r] / sum;
+        ag[r] = w;
+        a_t[r * gt + g] = w;
+        tot += w;
+      }
+      tot = warp_sum(tot);
+    } else {
+      for (int r = lane; r < nv; r += 32) a_t[r * gt + g] = 0.0f;
+    }
+    if (lane == 0) {
+      ok[g] = good;
+      sa[g] = tot;
+    }
+  }
+  __syncthreads();
+}
+
+// out[g * ostride + i] = sum over r < nv of coef_t[r * gt + g] * row(r)[i],
+// for g < G and i < h. A task is a column i and four heads (one float4 of
+// coef_t per row; one float when gt = 1, a group of one head); the rows are cut into
+// `slices` runs, each an fmaf chain,
+// then summed in slice order (a fixed order for a given G). part: 4 *
+// kThreads floats of shared memory. Ends with __syncthreads.
+__device__ __forceinline__ void column_sums(const Rows& rows, int nv, int h,
+                                            const float* coef_t, int gt, int G,
+                                            float* part, float* out, int ostride) {
+  const int pairs = h * ((G + 3) >> 2);
+  const int slices = pairs >= kThreads ? 1 : kThreads / pairs;
+  const int chunk = (nv + slices - 1) / slices;
+  for (int t = threadIdx.x; t < pairs * slices; t += kThreads) {
+    const int pair = t % pairs;
+    const int sl = t / pairs;
+    const int g0 = (pair / h) * 4;
+    const int i = pair - (g0 >> 2) * h;
+    const int r1 = min(nv, (sl + 1) * chunk);
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll 4
+    for (int r = sl * chunk; r < r1; ++r) {
+      const float l = rows.row(r)[i];
+      const float4 c = gt == 1 ? float4{coef_t[r], 0.0f, 0.0f, 0.0f}
+                              : *reinterpret_cast<const float4*>(coef_t + r * gt + g0);
+      a0 = fmaf(c.x, l, a0);
+      a1 = fmaf(c.y, l, a1);
+      a2 = fmaf(c.z, l, a2);
+      a3 = fmaf(c.w, l, a3);
+    }
+    const float acc[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (g0 + c >= G) break;
+      if (slices == 1) out[(g0 + c) * ostride + i] = acc[c];
+      else part[4 * t + c] = acc[c];
+    }
+  }
+  if (slices > 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < pairs * 4; e += kThreads) {
+      const int pair = e >> 2;
+      const int c = e & 3;
+      const int g0 = (pair / h) * 4;
+      if (g0 + c >= G) continue;
+      float acc = 0.0f;
+      for (int sl = 0; sl < slices; ++sl) acc += part[4 * (sl * pairs + pair) + c];
+      out[(g0 + c) * ostride + pair - (g0 >> 2) * h] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The exact path: the key and value rows as the TPU kernel writes them
+// ---------------------------------------------------------------------------
 
 // Stage the warp's tile of valid rows (zeros past the list's end and in
 // the padding columns [h, hp)) into `tile` (kTile, hp).
@@ -89,23 +531,6 @@ __device__ __forceinline__ void tile_times(const float* tile, const float* w,
   }
 }
 
-// Warp 0 writes the indices of the day's valid rows, in order, to idx_s and
-// their count to *nv_s.
-__device__ __forceinline__ void compact_rows(const unsigned char* m, int n,
-                                             int* idx_s, int* nv_s) {
-  const int lane = threadIdx.x & 31;
-  if (threadIdx.x >= 32) return;
-  int base = 0;
-  for (int r0 = 0; r0 < n; r0 += 32) {
-    const int r = r0 + lane;
-    const bool v = r < n && m[r];
-    const unsigned bal = __ballot_sync(0xffffffffu, v);
-    if (v) idx_s[base + __popc(bal & ((1u << lane) - 1u))] = r;
-    base += __popc(bal);
-  }
-  if (lane == 0) *nv_s = base;
-}
-
 // Head `head`'s Wk and Wv (hp rows of H, rows >= h zero) and q, bk, bv
 // (hp, zero padded) into shared memory.
 __device__ __forceinline__ void stage_head(const float* q, const float* wk,
@@ -128,7 +553,8 @@ __device__ __forceinline__ void stage_head(const float* q, const float* wk,
   }
 }
 
-// Scores and softmax weights of one (day, head) over its nv valid rows:
+// Scores and softmax weights of one (day, head) over its nv valid rows, with
+// the key rows as written:
 //
 //   s  = (L . Wk + bk) . q / sqrt(H + 1e-6), times the keep-mask kp if any,
 //   r  = relu(s) (NaN kept)  -> sc_s[g]

@@ -8,10 +8,12 @@ K4, `csrc/attention_fwd.cu`) and `_bwd_kernel` of
 `csrc/attention_bwd.cu`), which the JAX predictor reaches through the custom
 VJP `fused_attention` and vmaps over days. These kernels take the day axis
 directly. Each source's header comment says what bounds the kernel on an
-H100 and how the design meets it (one block per (day, head), head weights
-and scores in shared memory, the (K, N, H) key/value stacks never written
-out; the backward recomputes the forward's scores and softmax with the
-forward's own device code).
+H100 and how the design meets it: one CTA per (day, group of heads), the
+key and value products folded into the scores L . (Wk . q) and the context
+(a^T L) . Wv on a day whose valid latent rows are finite, the products as
+written on a day that has a non-finite one (the exact path); the backward
+recomputes the forward's scores and softmax with the forward's own device
+code. `launch_group` picks the heads per CTA from the card's SM count.
 
 `attention_fwd` and `attention_bwd` launch their kernels for CUDA tensors
 and run `attention_fwd_plain` / `attention_bwd_plain` for CPU tensors; there
@@ -23,6 +25,7 @@ the serving path passes none.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -130,20 +133,55 @@ def _validate(name, latent, mask, query, w_key, b_key, w_val, b_val, keep,
             raise ValueError(f"{name}: {key} is on {a.device}, latent on {latent.device}")
 
 
+GROUPS = (16, 8, 4, 2, 1)    # heads per CTA the kernels take, preferred first
+MAX_GROUP_ROWS = 4096        # G * N at most: the per-head row arrays fit in
+                             # shared memory beside the row list
+
+
+def launch_group(b_days: int, k_heads: int, n: int, num_sms: int) -> int:
+    """Heads per CTA of the attention kernels for B days of N stocks and K
+    heads on a card of `num_sms` SMs: the largest of GROUPS whose grid of B *
+    ceil(K / G) CTAs has a CTA for every SM, or for every head of a day where
+    a day has fewer heads than the card has SMs, and whose per-head row
+    arrays stay small (G * N <= MAX_GROUP_ROWS); else 1, the widest grid.
+    A CTA's fixed cost (the day's rows, the compaction) is paid once per
+    group, so the rule takes the fewest CTAs that still spread over the
+    card: one head per CTA at one flagship day, 8 at 8 days and at a 32-day
+    serving chunk."""
+    target = min(k_heads, num_sms)
+    for g in GROUPS:
+        if g <= k_heads and g * n <= MAX_GROUP_ROWS and b_days * -(-k_heads // g) >= target:
+            return g
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _group(latent: torch.Tensor, k_heads: int) -> int:
+    """`launch_group` for latent (B, N, H) on the card that holds it."""
+    b, n, _ = latent.shape
+    return launch_group(b, k_heads, n, _num_sms(latent.device.index))
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "attention_fwd": {"attention_fwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
+                      "attention_fwd_max_hidden": ([], _I)},
+    "attention_bwd": {"attention_bwd": ([_P] * 17 + [_I] * 5 + [_P], _I),
+                      "attention_bwd_scratch_floats": ([_I] * 4, _L),
+                      "attention_bwd_max_hidden": ([], _I)},
+}
+
+
 def _lib(name: str):
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        if name == "attention_fwd":
-            lib.attention_fwd.argtypes = ([ctypes.c_void_p] * 9
-                                          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            lib.attention_fwd.restype = ctypes.c_int
-        else:
-            lib.attention_bwd.argtypes = ([ctypes.c_void_p] * 16
-                                          + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            lib.attention_bwd.restype = ctypes.c_int
-            lib.attention_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
-            lib.attention_bwd_scratch_floats.restype = ctypes.c_longlong
-        getattr(lib, f"{name}_max_hidden").restype = ctypes.c_int
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         lib._typed = True
     return lib
 
@@ -156,6 +194,42 @@ def _cuda_lib(name: str, h: int):
     return lib
 
 
+def _pointers(latent, mask, keep, rest):
+    """Contiguous tensors' data pointers in the C entries' order: latent,
+    mask, keep (None for no keep-mask), then `rest`. Returns the tensors too,
+    so they outlive the launch."""
+    tensors = [t.contiguous() for t in (latent, mask, *rest)]
+    keep_c = keep.contiguous() if keep is not None else None
+    ptrs = [t.data_ptr() for t in tensors[:2]]
+    ptrs.append(keep_c.data_ptr() if keep_c is not None else None)
+    ptrs += [t.data_ptr() for t in tensors[2:]]
+    return ptrs, (tensors, keep_c)
+
+
+def _fwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, keep, group: int,
+                exact: bool = False):
+    """K4 on CUDA tensors with `group` heads per CTA: (ctx (B, K, H), exact
+    (B,) int32 with 1 for each day that took the exact path, or None without
+    `exact`, launched). Counts nothing."""
+    b, n, h = latent.shape
+    k = query.shape[0]
+    lib = _cuda_lib("attention_fwd", h)
+    out = torch.empty((b, k, h), dtype=torch.float32, device=latent.device)
+    days = torch.zeros(b, dtype=torch.int32, device=latent.device) if exact else None
+    if b == 0 or k == 0 or n == 0:
+        return out.zero_(), days, False
+    ptrs, _alive = _pointers(latent, mask, keep, (query, w_key, b_key, w_val, b_val))
+    with torch.cuda.device(latent.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.attention_fwd(*ptrs, out.data_ptr(),
+                                days.data_ptr() if exact else None,
+                                b, n, k, h, group, stream)
+    if err != 0:
+        raise RuntimeError(f"attention_fwd launch failed at B={b}, N={n}, K={k}, "
+                           f"H={h}, G={group}: cudaError {err}")
+    return out, days, True
+
+
 def attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val,
                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused K-head attention over each day's stocks -> ctx (B, K, H) f32.
@@ -165,29 +239,43 @@ def attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val,
     if latent.device.type == "cpu":
         return attention_fwd_plain(latent, mask, query, w_key, b_key, w_val,
                                    b_val, keep)
-    b, n, h = latent.shape
-    k = query.shape[0]
-    lib = _cuda_lib("attention_fwd", h)
-    out = torch.empty((b, k, h), dtype=torch.float32, device=latent.device)
-    if b == 0 or k == 0 or n == 0:
-        return out.zero_()
-    tensors = [t.contiguous() for t in (latent, mask, query, w_key, b_key,
-                                        w_val, b_val)]
-    keep_c = keep.contiguous() if keep is not None else None
-    ptrs = [t.data_ptr() for t in tensors[:2]]
-    ptrs.append(keep_c.data_ptr() if keep_c is not None else None)
-    ptrs += [t.data_ptr() for t in tensors[2:]]
-    with torch.cuda.device(latent.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_fwd(*ptrs, out.data_ptr(), b, n, k, h, stream)
-    if err != 0:
-        raise RuntimeError(f"attention_fwd launch failed at B={b}, N={n}, K={k}, "
-                           f"H={h}: cudaError {err}")
-    attention_fwd.launches += 1
+    out, _, launched = _fwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, keep,
+                                   _group(latent, query.shape[0]))
+    attention_fwd.launches += launched
     return out
 
 
 attention_fwd.launches = 0
+
+
+def _bwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, dctx, keep,
+                group: int, exact: bool = False):
+    """K5 on CUDA tensors, kernel 1 with `group` heads per CTA: ((dlatent,
+    dquery, dw_key, db_key, dw_val, db_val), exact days as in `_fwd_launch`,
+    launched). Counts nothing."""
+    b, n, h = latent.shape
+    k = query.shape[0]
+    lib = _cuda_lib("attention_bwd", h)
+    days = torch.zeros(b, dtype=torch.int32, device=latent.device) if exact else None
+    if b == 0 or k == 0 or n == 0:
+        return tuple(torch.zeros(tuple(a.shape), dtype=torch.float32, device=latent.device)
+                     for a in (latent, query, w_key, b_key, w_val, b_val)), days, False
+    # the kernels write every element of the gradients and of the scratch
+    outs = [torch.empty(tuple(a.shape), dtype=torch.float32, device=latent.device)
+            for a in (latent, query, w_key, b_key, w_val, b_val)]
+    scratch = torch.empty(lib.attention_bwd_scratch_floats(b, n, k, h),
+                          dtype=torch.float32, device=latent.device)
+    ptrs, _alive = _pointers(latent, mask, keep,
+                             (query, w_key, b_key, w_val, b_val, dctx))
+    ptrs += [o.data_ptr() for o in outs] + [scratch.data_ptr()]
+    with torch.cuda.device(latent.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.attention_bwd(*ptrs, days.data_ptr() if exact else None,
+                                b, n, k, h, group, stream)
+    if err != 0:
+        raise RuntimeError(f"attention_bwd launch failed at B={b}, N={n}, K={k}, "
+                           f"H={h}, G={group}: cudaError {err}")
+    return tuple(outs), days, True
 
 
 def attention_bwd(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
@@ -201,30 +289,10 @@ def attention_bwd(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
     if latent.device.type == "cpu":
         return attention_bwd_plain(latent, mask, query, w_key, b_key, w_val,
                                    b_val, dctx, keep)
-    b, n, h = latent.shape
-    k = query.shape[0]
-    lib = _cuda_lib("attention_bwd", h)
-    outs = [torch.zeros(tuple(a.shape), dtype=torch.float32, device=latent.device)
-            for a in (latent, query, w_key, b_key, w_val, b_val)]
-    if b == 0 or k == 0 or n == 0:
-        return tuple(outs)
-    tensors = [t.contiguous() for t in (latent, mask, query, w_key, b_key,
-                                        w_val, b_val, dctx)]
-    keep_c = keep.contiguous() if keep is not None else None
-    scratch = torch.zeros(lib.attention_bwd_scratch_floats(b, n, k, h),
-                          dtype=torch.float32, device=latent.device)
-    ptrs = [t.data_ptr() for t in tensors[:2]]
-    ptrs.append(keep_c.data_ptr() if keep_c is not None else None)
-    ptrs += [t.data_ptr() for t in tensors[2:]]
-    ptrs += [o.data_ptr() for o in outs] + [scratch.data_ptr()]
-    with torch.cuda.device(latent.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_bwd(*ptrs, b, n, k, h, stream)
-    if err != 0:
-        raise RuntimeError(f"attention_bwd launch failed at B={b}, N={n}, K={k}, "
-                           f"H={h}: cudaError {err}")
-    attention_bwd.launches += 1
-    return tuple(outs)
+    outs, _, launched = _bwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
+                                    keep, _group(latent, query.shape[0]))
+    attention_bwd.launches += launched
+    return outs
 
 
 attention_bwd.launches = 0

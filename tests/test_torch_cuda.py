@@ -18,12 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+from factorvae_tpu_torch.ops.kernels import attention as attention_module
 from factorvae_tpu_torch.ops.kernels.attention import (
+    GROUPS,
+    MAX_GROUP_ROWS,
     attention,
     attention_bwd,
     attention_bwd_plain,
     attention_fwd,
     attention_fwd_plain,
+    launch_group,
 )
 from factorvae_tpu_torch.ops.kernels import gru as gru_module
 from factorvae_tpu_torch.ops.kernels.gru import (
@@ -103,10 +107,27 @@ def test_attention_kernel_refuses_what_it_cannot_run(dev):
         call(1, 4, 2, 65)
     before = attention_fwd.launches
     with pytest.raises(RuntimeError, match="launch failed"):
-        call(1, 40000, 1, 8)     # scores and row list exceed one block's shared memory
+        call(1, 40000, 1, 8)     # row list and scores exceed one block's shared
+                                 # memory even with the rows left in device memory
     assert attention_fwd.launches == before
     call(1, 4, 2, 8)             # the refusal leaves no error behind for the next launch
     assert attention_fwd.launches == before + 1
+
+
+def _with_inf_days(rng, latent, mask, q, wk):
+    """latent and mask with two more days: row 2 of the first holds +inf in
+    one column, row 2 of the second -inf. The columns are those where the
+    folded score L . (Wk q) is -inf on some head (Wk q < 0 at the +inf
+    column, > 0 at the -inf one), while the score as written, (L . Wk) . q,
+    sums infinities of both signs and is NaN: the guard zeroes the head."""
+    _, n, h = latent.shape
+    extra = rng.normal(size=(2, n, h)).astype(np.float32)
+    extra_mask = rng.random((2, n)) > 0.2
+    u = np.einsum("khj,kj->kh", wk, q)
+    extra[0, 2, u.min(axis=0).argmin()] = np.inf
+    extra[1, 2, u.max(axis=0).argmax()] = -np.inf
+    extra_mask[:, 2] = True
+    return np.concatenate([latent, extra]), np.concatenate([mask, extra_mask])
 
 
 @pytest.mark.parametrize("b,n,k,h", [(32, 304, 96, 64), (3, 10, 4, 8),
@@ -122,15 +143,17 @@ def test_attention_kernel_matches_plain(dev, b, n, k, h, with_keep):
     weights = [rng.normal(size=(k, h)).astype(np.float32)]
     for shape in ((k, h, h), (k, h), (k, h, h), (k, h)):
         weights.append((rng.normal(size=shape) / np.sqrt(h)).astype(np.float32))
+    latent, mask = _with_inf_days(rng, latent, mask, weights[0], weights[1])
     args = _to(dev, latent, mask, *weights)
     keep = None
     if with_keep:
-        keep = _to(dev, ((rng.random((b, k, n)) > 0.1) / 0.9).astype(np.float32))[0]
+        keep = _to(dev, ((rng.random((b + 2, k, n)) > 0.1) / 0.9).astype(np.float32))[0]
     before = attention_fwd.launches
     got = attention_fwd(*args, keep=keep)
     assert attention_fwd.launches == before + 1
     _close(got, attention_fwd_plain(*args, keep=keep))
-    assert bool((got[0] == 0).all()) and bool((got[1] == 0).all())
+    for day in (0, 1, b, b + 1):                      # empty, NaN, +inf, -inf
+        assert bool((got[day] == 0).all())
     assert bool(torch.isfinite(got).all())
 
 
@@ -215,10 +238,15 @@ def test_attention_bwd_kernel_matches_plain_and_repeats_bitwise(dev, b, n, k, h,
     weights = [rng.normal(size=(k, h)).astype(np.float32)]
     for shape in ((k, h, h), (k, h), (k, h, h), (k, h)):
         weights.append((rng.normal(size=shape) / np.sqrt(h)).astype(np.float32))
-    args = _to(dev, latent, mask, *weights, (rng.normal(size=(b, k, h)) * 0.1).astype(np.float32))
+    days = b
+    if b > 1:                                         # +inf and -inf days b, b + 1
+        latent, mask = _with_inf_days(rng, latent, mask, weights[0], weights[1])
+        days = b + 2
+    args = _to(dev, latent, mask, *weights,
+               (rng.normal(size=(days, k, h)) * 0.1).astype(np.float32))
     keep = None
     if with_keep:
-        keep = _to(dev, ((rng.random((b, k, n)) > 0.1) / 0.9).astype(np.float32))[0]
+        keep = _to(dev, ((rng.random((days, k, n)) > 0.1) / 0.9).astype(np.float32))[0]
     before = attention_bwd.launches
     got = attention_bwd(*args, keep=keep)
     assert attention_bwd.launches == before + 1
@@ -227,8 +255,8 @@ def test_attention_bwd_kernel_matches_plain_and_repeats_bitwise(dev, b, n, k, h,
     for g, w in zip(got[1:], want[1:]):
         _close_sum(g, w)
     assert all(bool(torch.isfinite(g).all()) for g in got)
-    if b > 1:
-        assert bool((got[0][0] == 0).all()) and bool((got[0][1] == 0).all())
+    if b > 1:                                         # empty, NaN, +inf, -inf
+        assert all(bool((got[0][day] == 0).all()) for day in (0, 1, b, b + 1))
     again = attention_bwd(*args, keep=keep)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
@@ -394,3 +422,74 @@ def test_training_step_launches_the_residual_variant_and_scoring_does_not(dev):
     predict_panel(state.model, cfg, ds, ds.split_days(dates[30], dates[31]),
                   stochastic=False)
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 0, 0, 0]
+
+
+def _attention_case(dev, b, n, k, h, seed, poison):
+    """Inputs of one attention case with a keep-mask and a cotangent; with
+    `poison` (b >= 5), day 0 all padding, day 1 a NaN row and days 3 and 4
+    +inf / -inf rows built as in `_with_inf_days`. Returns (args, keep,
+    dctx, the days that must take the exact path)."""
+    rng = np.random.default_rng(seed)
+    latent = rng.normal(size=(b, n, h)).astype(np.float32)
+    mask = rng.random((b, n)) > 0.2
+    weights = [rng.normal(size=(k, h)).astype(np.float32)]
+    for shape in ((k, h, h), (k, h), (k, h, h), (k, h)):
+        weights.append((rng.normal(size=shape) / np.sqrt(h)).astype(np.float32))
+    flagged = []
+    if poison:
+        mask[0] = False
+        latent[1, 3, 0] = np.nan
+        mask[1, 3] = True
+        inf_lat, inf_mask = _with_inf_days(rng, latent[3:5], mask[3:5], weights[0],
+                                           weights[1])
+        latent[3:5], mask[3:5] = inf_lat[2:], inf_mask[2:]
+        flagged = [1, 3, 4]
+    keep = ((rng.random((b, k, n)) > 0.1) / 0.9).astype(np.float32)
+    dctx = (rng.normal(size=(b, k, h)) * 0.1).astype(np.float32)
+    args = _to(dev, latent, mask, *weights)
+    keep_t, dctx_t = _to(dev, keep, dctx)
+    return args, keep_t, dctx_t, flagged
+
+
+ATT_SHAPES = [(1, 304, 96, 64), (6, 304, 96, 64), (5, 70, 6, 37), (1, 3000, 8, 64)]
+ATT_IDS = ["one_day", "six_days_poisoned", "H37_poisoned", "N3000_rows_unstaged"]
+
+
+@pytest.mark.parametrize("b,n,k,h,group", [
+    pytest.param(*shape, g, id=f"{name}-G{g}") for shape, name in zip(ATT_SHAPES, ATT_IDS)
+    for g in GROUPS if g * shape[1] <= MAX_GROUP_ROWS])
+def test_attention_group_path_matches_plain(dev, b, n, k, h, group):
+    """Every heads-per-CTA size the rule can pick computes the plain
+    function, forward and backward, with and without the keep-mask; the
+    backward repeats bitwise; exactly the poisoned days take the exact
+    path, and they and the empty day get zero."""
+    args, keep, dctx, flagged = _attention_case(dev, b, n, k, h, b * n + h + group, b >= 5)
+    for kp in (None, keep):
+        got, days, _ = attention_module._fwd_launch(*args, kp, group, exact=True)
+        _close(got, attention_fwd_plain(*args, keep=kp))
+        assert [d for d in range(b) if days[d]] == flagged
+        grads, days, _ = attention_module._bwd_launch(*args, dctx, kp, group, exact=True)
+        want = attention_bwd_plain(*args, dctx, keep=kp)
+        _close(grads[0], want[0])
+        for g, w in zip(grads[1:], want[1:]):
+            _close_sum(g, w)
+        assert [d for d in range(b) if days[d]] == flagged
+        again, _, _ = attention_module._bwd_launch(*args, dctx, kp, group)
+        assert all(torch.equal(x, y) for x, y in zip(grads, again))
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        for d in ([0] + flagged if flagged else []):
+            assert bool((got[d] == 0).all()) and bool((grads[0][d] == 0).all())
+
+
+def test_attention_rule_fills_the_card(dev):
+    """At one flagship day the rule takes one head per CTA, the widest grid
+    the heads give (96 CTAs); at 8 days and at a 32-day serving chunk it
+    groups heads, and its grid still has a CTA for every head of a day (96
+    on a card of 132 SMs), or for every SM on a card with fewer."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert launch_group(1, 96, 304, sms) == 1
+    for b in (8, 32):
+        g = launch_group(b, 96, 304, sms)
+        assert g > 1 and b * -(-96 // g) >= min(96, sms)
+    latent = torch.empty(32, 304, 64, device=dev)
+    assert attention_module._group(latent, 96) == launch_group(32, 96, 304, sms)

@@ -30,8 +30,10 @@ from factorvae_tpu_torch.ops.kernels.attention import (
     attention_bwd_plain,
     attention_fwd,
     attention_fwd_plain,
+    launch_group,
 )
 from factorvae_tpu_torch.ops.kernels import gru as gru_module
+from factorvae_tpu_torch.ops.masked import masked_softmax as torch_masked_softmax
 from factorvae_tpu_torch.ops.kernels.gru import (
     gru,
     gru_bwd,
@@ -435,3 +437,103 @@ class TestAttentionBackward:
         assert attention_bwd.launches == before
         with pytest.raises(ValueError, match="dctx"):
             attention_bwd(*args, torch.zeros(2, 3, 5))
+
+
+def _folded_attention(latent, mask, q, wk, bk, wv, bv, keep=None, exact_path=True):
+    """The algebra of the CUDA attention kernels (csrc/attention_fwd.cu) in
+    torch, (B, K, H): the key and value products folded into the scores
+    s = (L . u + c) / sqrt(H + 1e-6), u = Wk . q, c = bk . q, and the context
+    (a^T L) . Wv + bv sum(a). Its finiteness rule: with `exact_path`, a day
+    with a non-finite element in a valid latent row takes the form as written
+    (`attention_fwd_plain`), as the kernels' exact path does; without it,
+    every day is folded."""
+    lat, m, q, wk, bk, wv, bv = (torch.from_numpy(np.ascontiguousarray(a))
+                                 for a in (latent, mask, q, wk, bk, wv, bv))
+    kp = None if keep is None else torch.from_numpy(keep)
+    scale = torch.sqrt(torch.tensor(float(lat.shape[-1])) + 1e-6)
+    u = torch.einsum("khj,kj->kh", wk, q)
+    c = (bk * q).sum(-1)
+    lat0 = torch.where(m[..., None], lat, 0.0)
+    s = (torch.einsum("bnh,kh->bkn", lat0, u) + c[None, :, None]) / scale
+    if kp is not None:
+        s = s * kp
+    r = torch.relu(s)
+    valid = m[:, None, :]
+    bad = torch.any(~torch.isfinite(torch.where(valid, r, 0.0)), dim=-1, keepdim=True)
+    a = torch.where(bad, 0.0, torch_masked_softmax(r, valid, dim=-1))
+    ctx = (torch.einsum("bkh,khj->bkj", torch.einsum("bkn,bnh->bkh", a, lat0), wv)
+           + bv[None] * a.sum(-1, keepdim=True))
+    ctx = torch.where(bad, 0.0, ctx)
+    if exact_path:
+        flagged = ~torch.isfinite(lat0).all(dim=2).all(dim=1)
+        if flagged.any():
+            ctx[flagged] = attention_fwd_plain(lat[flagged], m[flagged], q, wk, bk, wv, bv,
+                                               None if kp is None else kp[flagged])
+    return ctx.numpy()
+
+
+def _inf_days(rng, latent, mask, q, wk):
+    """Rows holding +inf (day 1) and -inf (day 2) in the column where the
+    folded score L . (Wk q) is -inf on some head, while the score as written,
+    (L . Wk) . q, sums infinities of both signs (NaN: the head is guarded)."""
+    u = np.einsum("khj,kj->kh", wk, q)
+    latent[1, 4, u.min(axis=0).argmin()] = np.inf
+    latent[2, 6, u.max(axis=0).argmax()] = -np.inf
+    mask[1, 4] = mask[2, 6] = True
+    return (1, 2)
+
+
+class TestAttentionFold:
+    """The folded algebra of the CUDA kernels and its finiteness rule
+    against the Pallas kernel (interpret mode)."""
+    B, N, K, H = 4, 12, 4, 8
+
+    @pytest.mark.parametrize("case", ["masked_rows", "all_masked_day", "keep_mask",
+                                      "nan_row"])
+    def test_fold_matches_pallas_kernel(self, rng, case):
+        latent, mask, q, wk, bk, wv, bv = _att_args(rng, self.B, self.N, self.K, self.H)
+        keep = None
+        if case == "all_masked_day":
+            mask[1] = False
+        elif case == "keep_mask":
+            keep = ((rng.random((self.B, self.K, self.N)) > 0.2) / 0.8).astype(np.float32)
+        elif case == "nan_row":
+            latent[3, 2, 5] = np.nan
+            mask[3, 2] = True
+        args = (latent, mask, q, wk, bk, wv, bv)
+        want = _pallas_days(*args, keep=keep)
+        np.testing.assert_allclose(_folded_attention(*args, keep=keep), want, **TOL)
+        # NaN propagates alike in both forms: the bare fold guards it too
+        np.testing.assert_allclose(_folded_attention(*args, keep=keep, exact_path=False),
+                                   want, **TOL)
+        if case == "nan_row":
+            assert (want[3] == 0).all() and (want[0] != 0).any()
+
+    @pytest.mark.parametrize("with_keep", [False, True], ids=["no_keep", "keep_mask"])
+    def test_fold_needs_the_exact_path_on_an_infinite_row(self, rng, with_keep):
+        latent, mask, q, wk, bk, wv, bv = _att_args(rng, self.B, self.N, self.K, self.H)
+        days = _inf_days(rng, latent, mask, q, wk)
+        keep = None
+        if with_keep:
+            keep = ((rng.random((self.B, self.K, self.N)) > 0.2) / 0.8).astype(np.float32)
+            keep[:, :, [4, 6]] = 1.25           # the poisoned rows' scores are kept
+        args = (latent, mask, q, wk, bk, wv, bv)
+        want = _pallas_days(*args, keep=keep)
+        assert all((want[d] == 0).all() for d in days)     # the reference guards them
+        bare = _folded_attention(*args, keep=keep, exact_path=False)
+        for d in days:                          # the bare fold misses a head there
+            assert not np.isfinite(bare[d]).all()
+        got = _folded_attention(*args, keep=keep)
+        np.testing.assert_allclose(got, want, **TOL)
+        assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("b,n,k,want", [(1, 304, 96, 1), (8, 304, 96, 8), (32, 304, 96, 8),
+                                        (4, 800, 60, 4), (1, 3000, 8, 1), (3, 70, 6, 4)])
+def test_attention_launch_rule(b, n, k, want):
+    """Heads per CTA on an H100: one per CTA at one flagship day; grouped at
+    8 days and at a serving chunk, the grid keeping a CTA for every head of
+    a day; at most MAX_GROUP_ROWS rows of per-head arrays."""
+    g = launch_group(b, k, n, H100_SMS)
+    assert g == want
+    assert b * -(-k // g) >= min(k, H100_SMS) or g == 1
