@@ -66,9 +66,27 @@ named phases, and prints neither the kernels line nor the result):
               first 8 steps on the card and on the CPU from the same
               weights: per-step losses and the parameters after 8 steps are
               compared. CUDA-event times of one step's stages.
-9. kernels -- one line {"kernels": [...]} with each kernel's error, times,
-              bound and launches (in the train phase; K1 and K4 also in the
-              slice phase).
+9. cli     -- the experiment CLI (`factorvae_tpu_torch.cli.main`) in this
+              process at flagship width, f32, on a reference-schema pickle of
+              a 120-day synthetic panel of 300 stocks: 50 train days, 20
+              validation days, 50 scored days. Runs, each with every launch
+              counter set to 0 just before it: (a) 3 epochs with
+              --deterministic_scores --backtest; (b) --resume to 4 epochs,
+              which must start at epoch 3; (c) --score_only, which must give
+              (b)'s RankIC; (d) --score_only --device cpu on the first 8
+              scored days, held against (c)'s CSV; (e) a fresh --save_dir
+              under a chaos plan (`chaos.active`) poisoning epochs 1 and 2 of
+              4 with nan_grads: the trail
+              must be epochs 0, 1, 2, 1, 2, 3 with one rollback to epoch 0 at
+              half the lr. (a) must launch K1's residual variant, the walk
+              and the dWh kernel once per train step, K1's serving variant
+              once per validation batch and scoring chunk, K4 once per
+              forward and K5 once per train step; (c) the serving variant
+              and K4 only. The CSV has one row per valid (day, stock) and
+              the RankIC is finite. Epoch, scoring and CSV times.
+10. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+              bound and launches (in the train phase; `launches_serving` in
+              the slice phase and `launches_cli` in the CLI's run (a)).
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero. Times come from CUDA events: `ms` around 20
@@ -1058,6 +1076,177 @@ def phase_train(torch, seed: int, counters) -> dict:
                        "zero_grad_bound": lr_sum}}
 
 
+CLI_DAYS = 120          # 50 train + 20 validation + 50 scored days
+CLI_CPU_DAYS = 8        # the scored days held against the CPU
+
+
+def _cli_drive(torch, cli, counters, argv, plan=None) -> dict:
+    """cli.main(argv), under the chaos `plan` if one is given, with every
+    launch counter set to 0 just before; its echo is kept, not printed (the
+    result lines stay the script's own)."""
+    import contextlib
+    import io
+
+    from factorvae_tpu_torch import chaos
+
+    echo = io.StringIO()
+    jsonl = argv[len(argv) - argv[::-1].index("--metrics_jsonl")]     # the last one counts
+    offset = os.path.getsize(jsonl) if os.path.exists(jsonl) else 0   # the stream appends
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(echo), (
+            chaos.active(plan) if plan is not None else contextlib.nullcontext()):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli {' '.join(argv[-4:])}: exit code {rc}")
+    with open(jsonl) as fh:
+        fh.seek(offset)
+        events = [json.loads(line) for line in fh]
+    return {"launches": {c.__name__: c.launches for c in counters}, "wall_s": wall,
+            "events": events, "echo": echo.getvalue().splitlines()}
+
+
+def _of(run, name) -> list:
+    return [e for e in run["events"] if e["event"] == name]
+
+
+def _csv_scores(path):
+    import csv
+
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    return rows[0], np.array([float(r[2]) for r in rows[1:]], np.float32)
+
+
+def phase_cli(torch, seed: int, counters, card: str) -> dict:
+    import tempfile
+
+    from factorvae_tpu_torch import cli
+    from factorvae_tpu_torch.chaos import ChaosPlan, Fault
+    from factorvae_tpu_torch.data.panel import panel_to_frame
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.presets import get_preset
+
+    cfg = get_preset("flagship")
+    panel = synthetic_panel_dense(CLI_DAYS, 300, cfg.model.num_features, seed=seed)
+    d = [str(x) for x in panel.dates]
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    root = work.name
+    pkl = os.path.join(root, "panel.pkl")
+    t0 = time.perf_counter()
+    panel_to_frame(panel).to_pickle(pkl)
+    pickle_s = time.perf_counter() - t0
+    base = ["--preset", "flagship", "--dataset", pkl, "--seed", str(seed),
+            "--run_name", "smoke", "--start_time", d[0], "--fit_end_time", d[49],
+            "--val_start_time", d[50], "--val_end_time", d[69], "--score_start", d[70],
+            "--score_end", d[CLI_DAYS - 1], "--deterministic_scores"]
+
+    def argv(out, *extra):
+        return base + ["--save_dir", f"{root}/{out}/models",
+                       "--score_dir", f"{root}/{out}/scores",
+                       "--metrics_jsonl", f"{root}/{out}/run.jsonl", *extra]
+
+    train_names = ("gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_bwd")
+    # (a) three epochs, then score, export and backtest
+    a = _cli_drive(torch, cli, counters, argv("a", "--num_epochs", "3", "--backtest"))
+    la = a["launches"]
+    epochs = _of(a, "epoch")
+    check([e["epoch"] for e in epochs] == [0, 1, 2], f"cli (a): epochs {epochs}")
+    steps, val_batches, chunks = 50, 20, -(-(CLI_DAYS - 70) // 32)
+    check(all(la[n] == 3 * steps for n in train_names),
+          f"cli (a): {3 * steps} train steps but launches {la}")
+    check(la["gru_fwd"] == 3 * val_batches + chunks,
+          f"cli (a): {3 * val_batches} validation batches and {chunks} scoring chunks "
+          f"but launches {la}")
+    check(la["attention_fwd"] == la["gru_fwd"] + la["gru_fwd_residuals"],
+          f"cli (a): one attention forward per model forward, launches {la}")
+    for e in epochs:
+        check(np.isfinite(e["train_loss"]) and np.isfinite(e["val_loss"])
+              and e["skipped_steps"] == 0, f"cli (a): epoch {e}")
+    scores_a = _of(a, "scores")[0]
+    check(np.isfinite(scores_a["rank_ic"]) and np.isfinite(scores_a["rank_ic_ir"]),
+          f"cli (a): RankIC {scores_a}")
+    csv_path = scores_a["path"]
+    check(os.path.basename(csv_path) == "smoke_96_True_None_158_64.csv",
+          f"cli (a): score CSV {csv_path}")
+    head, csv_scores = _csv_scores(csv_path)
+    valid_rows = int(panel.valid[70:CLI_DAYS].sum())
+    check(head == ["datetime", "instrument", "score", "LABEL0"]
+          and len(csv_scores) == valid_rows == scores_a["windows"]
+          and bool(np.isfinite(csv_scores).all()),
+          f"cli (a): CSV {head}, {len(csv_scores)} rows for {valid_rows} valid pairs")
+    backtest = _of(a, "backtest") + _of(a, "backtest_account")
+    check(len(backtest) == 2, "cli (a): no backtest events")
+
+    # (b) resume to four epochs
+    b = _cli_drive(torch, cli, counters, argv("a", "--num_epochs", "4", "--resume"))
+    check([e["epoch"] for e in _of(b, "resume")] == [3]
+          and [e["epoch"] for e in _of(b, "epoch")] == [3],
+          f"cli (b): resume {_of(b, 'resume')}, epochs {_of(b, 'epoch')}")
+    # (c) score only, from (b)'s best weights
+    c = _cli_drive(torch, cli, counters, argv("a", "--num_epochs", "4", "--score_only"))
+    lc = c["launches"]
+    check(lc["gru_fwd"] == lc["attention_fwd"] == chunks
+          and all(lc[n] == 0 for n in train_names + ("gru_fwd_residuals",)),
+          f"cli (c): {chunks} scoring chunks but launches {lc}")
+    rank_ic = (_of(b, "scores")[0]["rank_ic"], _of(c, "scores")[0]["rank_ic"])
+    check(rank_ic[0] == rank_ic[1], f"cli (c): RankIC {rank_ic[1]} != (b)'s {rank_ic[0]}")
+    # (d) the same weights on the CPU, first CLI_CPU_DAYS scored days
+    cpu = _cli_drive(torch, cli, counters, argv(
+        "a", "--num_epochs", "4", "--score_only", "--device", "cpu",
+        "--score_end", d[70 + CLI_CPU_DAYS - 1], "--score_dir", f"{root}/cpu/scores",
+        "--metrics_jsonl", f"{root}/cpu/run.jsonl"))
+    _, card_scores = _csv_scores(_of(c, "scores")[0]["path"])
+    _, cpu_scores = _csv_scores(_of(cpu, "scores")[0]["path"])
+    n_cpu = int(panel.valid[70:70 + CLI_CPU_DAYS].sum())
+    check(len(cpu_scores) == n_cpu, f"cli (d): {len(cpu_scores)} CPU rows, not {n_cpu}")
+    cpu_err = float(np.max(np.abs(card_scores[:n_cpu] - cpu_scores)))
+    check(cpu_err <= SLICE_TOL, f"cli (d): card vs CPU scores differ by {cpu_err}")
+    # (e) nan_grads at epochs 1 and 2 of 4, a fresh save_dir
+    plan = ChaosPlan([Fault("nan_grads", epoch=1), Fault("nan_grads", epoch=2)])
+    e = _cli_drive(torch, cli, counters, argv("e", "--num_epochs", "4"), plan=plan)
+    trail = [r["epoch"] for r in _of(e, "epoch")]
+    rec = _of(e, "recovery")
+    check(trail == [0, 1, 2, 1, 2, 3], f"cli (e): epoch trail {trail}")
+    check(len(rec) == 1 and rec[0]["kind"] == "rollback" and rec[0]["restored_step"] == 0
+          and rec[0]["lr_scale"] == 0.5, f"cli (e): recovery {rec}")
+    check([r["skipped_steps"] for r in _of(e, "epoch")] == [0, steps, steps, 0, 0, 0],
+          f"cli (e): skipped steps {[r['skipped_steps'] for r in _of(e, 'epoch')]}")
+    check(any(line.startswith("[recovery] kind=rollback") for line in e["echo"]),
+          "cli (e): no [recovery] line")
+    work.cleanup()
+
+    windows = int(panel.valid[:50].sum())
+    warm = epochs[-1]["seconds"]
+    return {"phase": "cli", "entry": "main", "card": card,
+            "config": "flagship C158/T20/H64/K96/M128, f32, days_per_step=1, "
+                      "dropout 0.1, mse, --deterministic_scores",
+            "splits": {"train": [d[0], d[49]], "val": [d[50], d[69]],
+                       "score": [d[70], d[CLI_DAYS - 1]]},
+            "pickle_s": pickle_s,
+            "launches": {"a_train_score": la, "c_score_only": lc},
+            "epoch_s_first": epochs[0]["seconds"], "epoch_s_warm": warm,
+            "epoch_s": [r["seconds"] for r in epochs],
+            "train_windows": windows, "train_windows_per_s": windows / warm,
+            "score_s": scores_a["score_s"], "score_windows": scores_a["windows"],
+            "score_windows_per_s": scores_a["windows"] / scores_a["score_s"],
+            "csv_s": scores_a["export_s"], "rank_ic": scores_a["rank_ic"],
+            "rank_ic_ir": scores_a["rank_ic_ir"],
+            "backtest": {ev["event"]: {k: v for k, v in ev.items() if k not in ("ts", "event")}
+                         for ev in backtest},
+            "resume": {"epochs": [r["epoch"] for r in _of(b, "epoch")],
+                       "rank_ic": rank_ic[0], "score_only_rank_ic": rank_ic[1]},
+            "cpu_scores": {"days": CLI_CPU_DAYS, "rows": n_cpu, "max_abs_err": cpu_err,
+                           "tolerance": SLICE_TOL},
+            "chaos": {"trail": trail, "recovery": {k: rec[0][k] for k in (
+                "kind", "epoch", "restored_step", "lr_scale", "rollbacks")}},
+            "walls_s": {"a": a["wall_s"], "b": b["wall_s"], "c": c["wall_s"],
+                        "d_cpu": cpu["wall_s"], "e": e["wall_s"]}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1086,15 +1275,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
 
+    counters = (gru_fwd, gru_fwd_residuals, gru_bwd, gru_dwh, attention_fwd, attention_bwd)
     steps = {
         "device": lambda: phase_device(torch), "build": phase_build,
         "K1": lambda: phase_k1(torch, args.seed), "K4": lambda: phase_k4(torch, args.seed),
         "slice": lambda: phase_slice(torch, args.seed, (gru_fwd, attention_fwd),
                                      (gru_fwd_residuals, gru_bwd, gru_dwh, attention_bwd)),
         "K2": lambda: phase_k2(torch, args.seed), "K5": lambda: phase_k5(torch, args.seed),
-        "train": lambda: phase_train(torch, args.seed,
-                                     (gru_fwd, gru_fwd_residuals, gru_bwd, gru_dwh,
-                                      attention_fwd, attention_bwd))}
+        "train": lambda: phase_train(torch, args.seed, counters),
+        "cli": lambda: phase_cli(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -1130,6 +1319,7 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "launches_serving": by["slice"]["launches"].get(name, 0),
+                     "launches_cli": by["cli"]["launches"]["a_train_score"][name],
                      "max_abs_err": ph["max_abs_err"],
                      "tolerance": ph["tolerance"],
                      "ms": ph["ms"], "graph_ms": ph.get("graph_ms"),

@@ -1,0 +1,141 @@
+"""Deterministic fault injection for the trainer's recovery
+(`factorvae_tpu/chaos/__init__.py`, in part).
+
+A `ChaosPlan` is a seeded list of `Fault`s, each pinned to coordinates and
+bounded by a fire count. It is installed in-process (`install`, or the
+scoped `active` that tests use so that no plan outlives its test), or
+through the `FACTORVAE_CHAOS` environment variable holding the plan as
+JSON, which is read once, at the process's first query. An injection point asks `fault(kind, **coords)` and acts only on a
+match, which consumes one firing; so a fault at epoch 2 fires once, and
+the epoch replayed after a rollback runs clean.
+
+Only `nan_grads` is ported: on a matching train epoch (coordinate `epoch`)
+every step's gradients are multiplied by NaN (`train/loop.py`), which the
+finite guard skips and the trainer's rollback recovers from. A plan that
+names any other kind of the JAX package is refused, never ignored.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import threading
+from typing import Iterator, List, Optional, Sequence
+
+KINDS = ("nan_grads",)
+ENV_VAR = "FACTORVAE_CHAOS"
+
+_COORDS = ("epoch", "step", "lane", "chunk", "request")
+
+
+@dataclasses.dataclass
+class Fault:
+    """One injected fault. A coordinate of -1 matches anything; `times`
+    bounds how many matching queries fire (-1: every one)."""
+
+    kind: str
+    epoch: int = -1
+    step: int = -1
+    lane: int = -1
+    chunk: int = -1
+    request: int = -1
+    times: int = 1
+    delay_s: float = 0.0
+    rng_seed: int = 0
+    path: str = ""
+
+    def __post_init__(self) -> None:
+        if self.kind not in KINDS:
+            raise ValueError(
+                f"chaos fault kind {self.kind!r} is not ported: factorvae_tpu_torch "
+                f"injects only {KINDS} (the others wait for ROADMAP Queue 1 item 8)")
+
+    def matches(self, coords: dict) -> bool:
+        """Every pinned coordinate must be present in the query and equal."""
+        for k in _COORDS:
+            pin = getattr(self, k)
+            if pin != -1 and (k not in coords or int(coords[k]) != int(pin)):
+                return False
+        return True
+
+
+class ChaosPlan:
+    """Faults plus their consumption state; `find` is thread-safe and
+    records each firing in `fired`."""
+
+    def __init__(self, faults: Sequence[Fault], seed: int = 0):
+        self.faults: List[Fault] = list(faults)
+        self.seed = int(seed)
+        self._remaining = [f.times for f in self.faults]
+        self.fired: List[dict] = []
+        self._lock = threading.Lock()
+
+    def find(self, kind: str, **coords) -> Optional[Fault]:
+        """The first live fault of `kind` matching `coords`, consuming one
+        firing; None otherwise."""
+        with self._lock:
+            for i, f in enumerate(self.faults):
+                if f.kind != kind or self._remaining[i] == 0 or not f.matches(coords):
+                    continue
+                if self._remaining[i] > 0:
+                    self._remaining[i] -= 1
+                self.fired.append({"kind": kind, **coords})
+                return f
+        return None
+
+    def to_json(self) -> str:
+        return json.dumps({"seed": self.seed,
+                           "faults": [dataclasses.asdict(f) for f in self.faults]})
+
+    @classmethod
+    def from_json(cls, blob: str) -> "ChaosPlan":
+        d = json.loads(blob)
+        return cls([Fault(**f) for f in d.get("faults", [])], seed=int(d.get("seed", 0)))
+
+
+_PLAN: Optional[ChaosPlan] = None
+_ENV_CHECKED = False
+
+
+def install(plan: Optional[ChaosPlan]) -> Optional[ChaosPlan]:
+    """Install the process-wide plan (None: off); returns the previous one.
+    An explicit install wins over the environment variable."""
+    global _PLAN, _ENV_CHECKED
+    prev, _PLAN = _PLAN, plan
+    _ENV_CHECKED = True
+    return prev
+
+
+def current_plan() -> Optional[ChaosPlan]:
+    """The installed plan; FACTORVAE_CHAOS is read once, at the first query
+    of the process, if nothing was installed before."""
+    global _PLAN, _ENV_CHECKED
+    if _PLAN is None and not _ENV_CHECKED:
+        _ENV_CHECKED = True
+        blob = os.environ.get(ENV_VAR)
+        if blob:
+            _PLAN = ChaosPlan.from_json(blob)
+    return _PLAN
+
+
+def fault(kind: str, **coords) -> Optional[Fault]:
+    """The injection-point query: None unless a live matching fault is
+    installed."""
+    plan = current_plan()
+    return None if plan is None else plan.find(kind, **coords)
+
+
+@contextlib.contextmanager
+def active(plan: ChaosPlan) -> Iterator[ChaosPlan]:
+    """Install `plan` for the block; restore the previous plan, and re-arm
+    the environment check, after."""
+    global _ENV_CHECKED
+    prev_checked = _ENV_CHECKED
+    prev = install(plan)
+    try:
+        yield plan
+    finally:
+        install(prev)
+        _ENV_CHECKED = prev_checked

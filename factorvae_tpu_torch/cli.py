@@ -1,0 +1,351 @@
+"""The experiment CLI of the port (`factorvae_tpu/cli.py`).
+
+    python -m factorvae_tpu_torch.cli --dataset ./data/csi_data.pkl --num_epochs 30
+    python -m factorvae_tpu_torch.cli --score_only ...
+    python -m factorvae_tpu_torch.cli --device cpu ...   # the kernels' plain versions
+
+One command reads a reference-schema pickle, trains with validation,
+best-validation weights and full-state checkpoints (`--resume` continues
+from the newest; a bad streak rolls back, `train/trainer.py`), scores
+[--score_start, --score_end] from the best weights, writes the score CSV
+under the reference's name, logs RankIC and RankIC_IR, and with
+`--backtest` runs the TopkDropout backtest. Every flag of the JAX CLI is
+accepted with its name and default; `--device` (default cuda) picks the
+card, where the CUDA kernels always run, or the CPU.
+
+The flags of paths this package does not port yet exit with code 2 and a
+line naming their ROADMAP Queue 1 item, before the dataset is read.
+`--pallas` and `--pallas_auto` change nothing (the kernels always run on
+CUDA), and `--num_workers` is unused, as in the JAX CLI. The port computes
+in float32: its default, where the JAX CLI's is bfloat16.
+
+After the panel is built, `run` imports pandas only for `--backtest`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+from typing import Optional
+
+import torch
+
+from factorvae_tpu_torch.config import Config, DataConfig, MeshConfig, ModelConfig, TrainConfig
+from factorvae_tpu_torch.data.loader import PanelDataset
+from factorvae_tpu_torch.data.panel import build_panel, load_frame
+from factorvae_tpu_torch.eval.metrics import rank_ic_of_panel
+from factorvae_tpu_torch.eval.predict import export_scores, predict_panel, score_table
+from factorvae_tpu_torch.models.factorvae import load_model
+from factorvae_tpu_torch.train.trainer import Trainer
+from factorvae_tpu_torch.utils.logging import MetricsLogger
+
+_REFUSED = "not ported yet: exits with code 2"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Train a FactorVAE model on stock data (PyTorch/CUDA port)")
+    # --- reference flags (main.py:92-113) ---
+    p.add_argument("--num_epochs", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--num_latent", type=int, default=158,
+                   help="number of input features C (reference --num_latent)")
+    p.add_argument("--num_portfolio", type=int, default=128)
+    p.add_argument("--seq_len", type=int, default=20)
+    p.add_argument("--num_factor", type=int, default=96)
+    p.add_argument("--hidden_size", type=int, default=64)
+    p.add_argument("--dataset", type=str, default=None)
+    p.add_argument("--start_time", type=str, default=None)
+    p.add_argument("--fit_end_time", type=str, default=None)
+    p.add_argument("--val_start_time", type=str, default=None)
+    p.add_argument("--val_end_time", type=str, default=None)
+    p.add_argument("--end_time", type=str, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--run_name", type=str, default=None)
+    p.add_argument("--save_dir", type=str, default=None)
+    p.add_argument("--num_workers", type=int, default=4,
+                   help="accepted for reference parity; unused (no loader workers)")
+    p.add_argument("--wandb", action="store_true")
+    # --- extensions of the JAX CLI ---
+    p.add_argument("--days_per_step", type=int, default=None,
+                   help="days whose grads are averaged per update (1 = reference)")
+    p.add_argument("--mesh", action="store_true", help=_REFUSED)
+    p.add_argument("--mesh_stock", type=int, default=None, help=_REFUSED)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest full-state checkpoint")
+    p.add_argument("--fleet_seeds", type=int, default=None,
+                   help="1 only; more seeds are " + _REFUSED)
+    p.add_argument("--hyper_grid", type=str, default=None, metavar="LR:KLW,LR:KLW,...",
+                   help=_REFUSED)
+    p.add_argument("--kl_weight", type=float, default=None,
+                   help="scale on the summed-over-K KL term (default 1.0)")
+    p.add_argument("--recon_loss", choices=["mse", "nll"], default=None,
+                   help="mse = the reference's single-sample MSE; nll = Gaussian "
+                        "NLL (default: mse, or the preset's choice)")
+    p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=None,
+                   help="--no-bf16 is the port's float32 default; --bf16 is " + _REFUSED)
+    p.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
+                   help="--pallas changes nothing (the CUDA kernels always run on "
+                        "the card); --no-pallas is refused")
+    p.add_argument("--pallas_auto", action="store_true", help="changes nothing")
+    p.add_argument("--max_stocks", type=int, default=None,
+                   help="cross-section padding N_max (default: inferred)")
+    p.add_argument("--panel_residency", choices=["hbm", "stream"], default=None,
+                   help="hbm (the panel lives on the device); stream is " + _REFUSED)
+    p.add_argument("--stream_chunk_days", type=int, default=None, help=_REFUSED)
+    p.add_argument("--auto_plan", action=argparse.BooleanOptionalAction, default=False,
+                   help=_REFUSED)
+    p.add_argument("--score_only", action="store_true",
+                   help="skip training; score [--score_start, --score_end] from "
+                        "the best checkpoint")
+    p.add_argument("--score_start", type=str, default="2019-01-01")
+    p.add_argument("--score_end", type=str, default="2020-12-31")
+    p.add_argument("--score_dir", type=str, default="./scores")
+    p.add_argument("--stochastic_scores", dest="stochastic_scores", action="store_true",
+                   default=None,
+                   help="sample at inference like the reference (the default)")
+    p.add_argument("--deterministic_scores", dest="stochastic_scores",
+                   action="store_false",
+                   help="score with the prior mean instead of sampling")
+    p.add_argument("--int8_scores", action="store_true", help=_REFUSED)
+    p.add_argument("--metrics_jsonl", type=str, default=None)
+    p.add_argument("--prom_textfile", type=str, default=None, metavar="PATH",
+                   help=_REFUSED)
+    p.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
+                   help="'off' only; a directory is " + _REFUSED)
+    p.add_argument("--obs", action=argparse.BooleanOptionalAction, default=None,
+                   help="--no-obs only; --obs is " + _REFUSED)
+    p.add_argument("--preset", type=str, default=None,
+                   help="named config preset (factorvae_tpu_torch.presets). It fixes "
+                        "the architecture; explicitly passed data and training "
+                        "flags override its values")
+    p.add_argument("--profile", type=str, default=None, help=_REFUSED)
+    p.add_argument("--debug_nans", action="store_true", help=_REFUSED)
+    p.add_argument("--backtest", action="store_true",
+                   help="run the TopkDropout backtest on the scores (backtest.ipynb "
+                        "cell 6: topk 50, n_drop 10, costs 5bp/15bp)")
+    p.add_argument("--backtest_topk", type=int, default=50)
+    p.add_argument("--backtest_n_drop", type=int, default=10)
+    p.add_argument("--backtest_plot", type=str, default=None, metavar="PNG",
+                   help="with --backtest, write the report_graph figure here")
+    p.add_argument("--export", type=str, default=None, metavar="PATH", help=_REFUSED)
+    p.add_argument("--export_platform", type=str, default=None, help=_REFUSED)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the card, through the CUDA kernels) or cpu (their "
+                        "plain PyTorch versions)")
+    return p
+
+
+def refusal(args: argparse.Namespace) -> Optional[str]:
+    """The error line for a flag of a path this package does not port, or
+    None."""
+    not_ported = (
+        (args.mesh, "--mesh", 12), (args.mesh_stock is not None, "--mesh_stock", 12),
+        ((args.fleet_seeds or 1) > 1, "--fleet_seeds above 1", 4),
+        (args.hyper_grid is not None, "--hyper_grid", 4),
+        (args.auto_plan, "--auto_plan", 9),
+        (args.panel_residency == "stream", "--panel_residency stream", 5),
+        (args.stream_chunk_days is not None, "--stream_chunk_days", 5),
+        (args.bf16 is True, "--bf16", 3), (args.int8_scores, "--int8_scores", 3),
+        (args.compile_cache not in (None, "off"), "--compile_cache", 9),
+        (args.obs is True, "--obs", 11),
+        (args.prom_textfile is not None, "--prom_textfile", 11),
+        (args.profile is not None, "--profile", 11), (args.debug_nans, "--debug_nans", 11),
+        (args.export is not None, "--export", 6),
+        (args.export_platform is not None, "--export_platform", 6))
+    for given, flag, item in not_ported:
+        if given:
+            return (f"{flag} is not ported to factorvae_tpu_torch yet "
+                    f"(ROADMAP Queue 1 item {item})")
+    if args.pallas is False:
+        return ("--no-pallas: factorvae_tpu_torch has no switch that turns a kernel "
+                "off on the card (ROADMAP: on CUDA the kernels always run); "
+                "--device cpu runs their plain versions")
+    return None
+
+
+# Reference CLI defaults (main.py:92-113), applied when a flag is neither
+# passed nor supplied by a preset.
+_DEFAULTS = dict(
+    num_epochs=30, lr=1e-4, dataset="./data/csi_data.pkl",
+    start_time="2009-01-01", fit_end_time="2017-12-31",
+    val_start_time="2018-01-01", val_end_time="2018-12-31",
+    end_time="2020-12-31", seed=42, run_name="VAE-Revision2",
+    save_dir="./best_models", days_per_step=1,
+)
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    def resolve(name, preset_value=None):
+        """Explicit flag > preset value > reference default."""
+        v = getattr(args, name)
+        if v is not None:
+            return v
+        return preset_value if preset_value is not None else _DEFAULTS[name]
+
+    if args.preset:
+        from factorvae_tpu_torch.presets import get_preset
+
+        try:
+            cfg = get_preset(args.preset)
+        except KeyError as e:
+            raise SystemExit(f"error: {e.args[0]}")
+        return dataclasses.replace(
+            cfg,
+            # the preset fixes the architecture; these behaviour knobs
+            # follow the flags
+            model=dataclasses.replace(
+                cfg.model,
+                stochastic_inference=(cfg.model.stochastic_inference
+                                      if args.stochastic_scores is None
+                                      else args.stochastic_scores),
+                recon_loss=args.recon_loss or cfg.model.recon_loss,
+                kl_weight=cfg.model.kl_weight if args.kl_weight is None else args.kl_weight),
+            data=dataclasses.replace(
+                cfg.data,
+                dataset_path=resolve("dataset", cfg.data.dataset_path),
+                start_time=resolve("start_time", cfg.data.start_time),
+                fit_end_time=resolve("fit_end_time", cfg.data.fit_end_time),
+                val_start_time=resolve("val_start_time", cfg.data.val_start_time),
+                val_end_time=resolve("val_end_time", cfg.data.val_end_time),
+                end_time=resolve("end_time", cfg.data.end_time),
+                panel_residency=args.panel_residency or cfg.data.panel_residency,
+                stream_chunk_days=(cfg.data.stream_chunk_days
+                                   if args.stream_chunk_days is None
+                                   else args.stream_chunk_days)),
+            train=dataclasses.replace(
+                cfg.train,
+                num_epochs=resolve("num_epochs", cfg.train.num_epochs),
+                lr=resolve("lr", cfg.train.lr),
+                seed=resolve("seed", cfg.train.seed),
+                run_name=resolve("run_name", cfg.train.run_name),
+                save_dir=resolve("save_dir", cfg.train.save_dir),
+                days_per_step=resolve("days_per_step", cfg.train.days_per_step),
+                wandb=args.wandb,
+                obs_probes=cfg.train.obs_probes if args.obs is None else args.obs))
+    return Config(
+        model=ModelConfig(
+            num_features=args.num_latent, hidden_size=args.hidden_size,
+            num_factors=args.num_factor, num_portfolios=args.num_portfolio,
+            seq_len=args.seq_len, recon_loss=args.recon_loss or "mse",
+            kl_weight=1.0 if args.kl_weight is None else args.kl_weight,
+            compute_dtype="float32",
+            stochastic_inference=(True if args.stochastic_scores is None
+                                  else args.stochastic_scores)),
+        data=DataConfig(
+            dataset_path=resolve("dataset"), start_time=resolve("start_time"),
+            fit_end_time=resolve("fit_end_time"), val_start_time=resolve("val_start_time"),
+            val_end_time=resolve("val_end_time"), end_time=resolve("end_time"),
+            seq_len=args.seq_len, max_stocks=args.max_stocks,
+            panel_residency=args.panel_residency or "hbm",
+            stream_chunk_days=32 if args.stream_chunk_days is None else args.stream_chunk_days),
+        train=TrainConfig(
+            num_epochs=resolve("num_epochs"), lr=resolve("lr"), seed=resolve("seed"),
+            days_per_step=resolve("days_per_step"), run_name=resolve("run_name"),
+            save_dir=resolve("save_dir"), wandb=args.wandb, obs_probes=bool(args.obs)),
+        mesh=MeshConfig(stock_axis=args.mesh_stock or 1),
+    )
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    refused = refusal(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 2
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print("error: no CUDA device; pass --device cpu to run on the CPU", file=sys.stderr)
+        return 2
+    cfg = config_from_args(args)
+    if not os.path.exists(cfg.data.dataset_path):
+        print(f"error: dataset not found: {cfg.data.dataset_path} "
+              f"(see data/README.md for the qlib ETL recipe)", file=sys.stderr)
+        return 2
+    return run(cfg, args, build_panel(load_frame(cfg.data.dataset_path,
+                                                 cfg.data.select_feature)))
+
+
+def run(cfg: Config, args: argparse.Namespace, panel) -> int:
+    """Everything after the panel is built: train (or restore the best
+    weights for --score_only), score, export, RankIC, --backtest. Returns
+    the exit code."""
+    logger = MetricsLogger(jsonl_path=args.metrics_jsonl, use_wandb=cfg.train.wandb,
+                           run_name=cfg.train.run_name, config=cfg.to_dict())
+    try:
+        logger.log("config", json=cfg.to_json())
+        if panel.num_features != cfg.model.num_features:
+            print(f"error: model expects {cfg.model.num_features} features "
+                  f"(--num_latent/preset) but {cfg.data.dataset_path} has "
+                  f"{panel.num_features}", file=sys.stderr)
+            return 2
+        dataset = PanelDataset(panel, seq_len=cfg.data.seq_len,
+                               max_stocks=cfg.data.max_stocks,
+                               pad_multiple=cfg.data.pad_multiple, device=args.device)
+        best = os.path.join(cfg.train.save_dir, cfg.checkpoint_name())
+        if args.score_only:
+            if not os.path.isdir(best):
+                print(f"error: no checkpoint at {best}; train first", file=sys.stderr)
+                return 2
+            model = load_model(cfg, best, device=args.device)
+        else:
+            try:
+                trainer = Trainer(cfg, dataset, device=args.device, logger=logger)
+            except ValueError as e:
+                if "empty training split" not in str(e):
+                    raise
+                print(f"error: no trading days in [{cfg.data.start_time}, "
+                      f"{cfg.data.fit_end_time}] — the dataset covers "
+                      f"[{dataset.dates[0]}, {dataset.dates[-1]}]; "
+                      f"adjust --start_time/--fit_end_time", file=sys.stderr)
+                return 2
+            state, _ = trainer.fit(resume=args.resume)
+            # score with the best-validation weights, as the reference's
+            # backtest does, not the last step's
+            model = (load_model(cfg, best, device=args.device) if os.path.isdir(best)
+                     else state.model.eval())
+
+        t0 = time.perf_counter()
+        days = dataset.split_days(args.score_start, args.score_end)
+        scores = predict_panel(model, cfg, dataset, days)
+        score_s = time.perf_counter() - t0
+        table = score_table(dataset, days, scores, with_labels=True)
+        t0 = time.perf_counter()
+        path = export_scores(table, cfg, args.score_dir)
+        export_s = time.perf_counter() - t0
+        ic = rank_ic_of_panel(scores, dataset.day_labels(days), dataset.valid[days])
+        logger.log("scores", path=path, rank_ic=ic["RankIC"], rank_ic_ir=ic["RankIC_IR"],
+                   days=len(days), windows=len(table["score"]), score_s=score_s,
+                   export_s=export_s)
+        if args.backtest:
+            _backtest(cfg, args, table, logger)
+        return 0
+    finally:
+        logger.finish()
+
+
+def _backtest(cfg: Config, args: argparse.Namespace, table: dict, logger) -> None:
+    from factorvae_tpu_torch.eval.backtest import simulate_topk_account, topk_dropout_backtest
+    from factorvae_tpu_torch.eval.predict import score_frame
+
+    scores = score_frame(table)
+    bt = topk_dropout_backtest(scores.dropna(), topk=args.backtest_topk,
+                               n_drop=args.backtest_n_drop)
+    logger.log("backtest", **{k: v for k, v in bt.summary().items() if v is not None})
+    # the account simulator owns the NaN semantics: give it the whole frame
+    acct = simulate_topk_account(scores, topk=args.backtest_topk,
+                                 n_drop=args.backtest_n_drop)
+    logger.log("backtest_account", **{
+        k: (v if v is None or isinstance(v, (int, float)) else float(v))
+        for k, v in acct.summary().items()})
+    if args.backtest_plot:
+        from factorvae_tpu_torch.eval.plots import report_graph
+
+        logger.log("backtest_plot", path=report_graph(acct.report, args.backtest_plot,
+                                                      title=cfg.train.run_name))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

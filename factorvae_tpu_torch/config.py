@@ -123,6 +123,14 @@ class Config:
                 f"_hdn_{self.model.hidden_size}_port_{self.model.num_portfolios}"
                 f"_seed_{self.train.seed}")
 
+    def score_name(self) -> str:
+        """The reference's score-CSV name (scores/readme.md:2-8),
+        ``{run_name}_{K}_{normalize}_{select_feature}_{C}_{H}``."""
+        sel = ("None" if self.data.select_feature is None
+               else str(len(self.data.select_feature)))
+        return (f"{self.train.run_name}_{self.model.num_factors}_{self.data.normalize}"
+                f"_{sel}_{self.model.num_features}_{self.model.hidden_size}")
+
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
         def _load(tp, sub):

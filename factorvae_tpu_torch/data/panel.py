@@ -6,8 +6,9 @@
     dates:  (D,) numpy datetime64[D]
     instruments: (I,) str
 
-pandas is imported only by `load_frame` and `build_panel`, which read the
-reference's pickle schema; the scoring path never needs it.
+pandas is imported only by `load_frame`, `build_panel` and `panel_to_frame`,
+which read and write the reference's pickle schema; the scoring path never
+needs it.
 """
 
 from __future__ import annotations
@@ -82,3 +83,17 @@ def build_panel(df) -> Panel:
     return Panel(values=values, valid=valid,
                  dates=np.asarray(dates.values, dtype="datetime64[D]"),
                  instruments=np.asarray(instruments))
+
+
+def panel_to_frame(panel: Panel):
+    """The inverse of `build_panel`: a (datetime, instrument)-indexed frame
+    of the rows that exist, day-major, the label last."""
+    import pandas as pd
+
+    i, d, c = panel.values.shape
+    idx = pd.MultiIndex.from_product(
+        [pd.DatetimeIndex(panel.dates.astype("datetime64[ns]")), panel.instruments],
+        names=["datetime", "instrument"])
+    flat = np.swapaxes(panel.values, 0, 1).reshape(d * i, c)
+    keep = panel.valid.reshape(-1)
+    return pd.DataFrame(flat[keep], index=idx[keep])

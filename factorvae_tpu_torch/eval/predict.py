@@ -7,10 +7,17 @@ with day -1, gathered as day 0 and masked out, exactly as in the JAX scan.
 
 The stochastic mode draws its noise from a torch.Generator seeded with
 `seed`; those numbers are not the JAX package's.
+
+`score_table` lays the scores out as the reference's score frame (one row
+per valid (day, stock), day-major); `export_scores` writes it as the JAX
+package's CSV with the `csv` module, and `score_frame` makes it the
+DataFrame of `generate_prediction_scores`: only these two import pandas.
 """
 
 from __future__ import annotations
 
+import csv
+import os
 from typing import Optional
 
 import numpy as np
@@ -48,6 +55,22 @@ def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
     return out
 
 
+def score_table(dataset: PanelDataset, days: np.ndarray, scores: np.ndarray,
+                with_labels: bool = False) -> dict:
+    """The score frame's columns, one entry per valid (day, stock) of
+    `days` in day-major order: "datetime" (datetime64[D]), "instrument",
+    "score" (float32) and, with_labels=True, "LABEL0" (float32)."""
+    days = np.asarray(days, np.int64)
+    valid = dataset.valid[days]
+    day_pos, inst_pos = np.nonzero(valid)
+    table = {"datetime": np.asarray(dataset.dates)[days[day_pos]],
+             "instrument": np.asarray(dataset.instruments)[inst_pos],
+             "score": np.asarray(scores, np.float32)[valid]}
+    if with_labels:
+        table["LABEL0"] = dataset.day_labels(days)[valid].astype(np.float32)
+    return table
+
+
 def generate_prediction_scores(model, config, dataset: PanelDataset,
                                start: Optional[str] = None,
                                end: Optional[str] = None,
@@ -55,17 +78,40 @@ def generate_prediction_scores(model, config, dataset: PanelDataset,
                                seed: int = 0, with_labels: bool = False):
     """Scores DataFrame indexed by (datetime, instrument) with a 'score'
     column (and 'LABEL0' when with_labels=True)."""
+    days = dataset.split_days(start, end)
+    return score_frame(score_table(
+        dataset, days, predict_panel(model, config, dataset, days, stochastic, seed),
+        with_labels))
+
+
+def score_frame(table: dict):
+    """A `score_table` as the (datetime, instrument)-indexed DataFrame."""
     import pandas as pd
 
-    days = dataset.split_days(start, end)
-    scores = predict_panel(model, config, dataset, days, stochastic, seed)
-    valid = dataset.valid[days]
-    day_pos, inst_pos = np.nonzero(valid)
     idx = pd.MultiIndex.from_arrays(
-        [pd.DatetimeIndex(dataset.dates[days[day_pos]]),
-         np.asarray(dataset.instruments)[inst_pos]],
-        names=["datetime", "instrument"])
-    df = pd.DataFrame({"score": scores[valid]}, index=idx)
-    if with_labels:
-        df["LABEL0"] = dataset.day_labels(days)[valid]
-    return df
+        [pd.DatetimeIndex(table["datetime"].astype("datetime64[ns]")),
+         table["instrument"]], names=["datetime", "instrument"])
+    return pd.DataFrame({c: table[c] for c in ("score", "LABEL0") if c in table},
+                        index=idx)
+
+
+def _cell(v: np.float32) -> str:
+    # the shortest text that parses back to the same float32; NaN empty,
+    # as pandas writes it
+    return "" if np.isnan(v) else str(v)
+
+
+def export_scores(table: dict, config, out_dir: str = "./scores") -> str:
+    """Write a `score_table` as `<out_dir>/<config.score_name()>.csv`: the
+    JAX package's file (columns datetime, instrument, score[, LABEL0],
+    dates as YYYY-MM-DD, the same row order)."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, config.score_name() + ".csv")
+    value_cols = [c for c in ("score", "LABEL0") if c in table]
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh, lineterminator="\n")
+        w.writerow(["datetime", "instrument"] + value_cols)
+        cols = [table["datetime"].astype(str), table["instrument"]]
+        cols += [[_cell(v) for v in table[c]] for c in value_cols]
+        w.writerows(zip(*cols))
+    return path

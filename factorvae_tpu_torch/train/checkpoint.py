@@ -4,10 +4,11 @@ One file per saved epoch, `<directory>/epoch_<n>.pt`, written to a temporary
 name and renamed, so a reader never sees half a file. It holds what a resumed
 run needs to continue exactly: the model's and the optimizer's state_dicts,
 the scheduler's position, the train step count, the noise generator's state,
-and a `meta` dict (epoch, best validation loss, config). The newest `keep`
-files stay. Best-validation weights go through `params.save_weights`
-instead. The JAX package's orbax checkpoints, manifests and quarantine are
-not ported.
+and a `meta` dict (epoch, best validation loss, config, and `clean`: no bad
+signal at that epoch, so it may anchor a rollback). The newest `keep`
+files stay; an epoch replayed after a rollback replaces its file.
+Best-validation weights go through `params.save_weights` instead. The JAX
+package's orbax checkpoints, manifests and quarantine are not ported.
 """
 
 from __future__ import annotations
@@ -72,3 +73,4 @@ class Checkpointer:
         state.generator.set_state(payload["generator"])
         state.step = int(payload["step"])
         return payload["meta"]
+

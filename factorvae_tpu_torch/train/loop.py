@@ -10,7 +10,9 @@ one copy at its end. The finite guard (`TrainConfig.finite_guard`) reads one
 flag per step: a step whose gradient has any non-finite element applies no
 update, so the parameters, Adam's moments and step count and the schedule's
 position stay exactly as they were; the train step count still advances and
-`skipped_steps` counts the step.
+`skipped_steps` counts the step. A `poison`ed epoch (a `nan_grads` fault
+of `chaos`) multiplies every step's gradients by NaN before the guard reads
+them, as the JAX package's chaos traces do.
 """
 
 from __future__ import annotations
@@ -59,13 +61,18 @@ def all_finite(tensors) -> torch.Tensor:
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
 
-def train_step(state: TrainState, dataset, days: torch.Tensor, *, guard: bool) -> dict:
+def train_step(state: TrainState, dataset, days: torch.Tensor, *, guard: bool,
+               poison: bool = False) -> dict:
     """One update from the batch `days`; returns the step's aux sums."""
     model, optimizer = state.model, state.optimizer
     optimizer.zero_grad(set_to_none=True)
     loss, aux = weighted_day_loss(model, dataset, days, train=True,
                                   generator=state.generator)
     loss.backward()
+    if poison:
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(float("nan"))
     apply = True
     if guard:
         ok = all_finite([p.grad for p in model.parameters() if p.grad is not None])
@@ -104,11 +111,13 @@ def to_host(metrics: dict) -> dict:
     return dict(zip(keys, values))
 
 
-def train_epoch(state: TrainState, dataset, order: torch.Tensor, *, guard: bool) -> dict:
+def train_epoch(state: TrainState, dataset, order: torch.Tensor, *, guard: bool,
+                poison: bool = False) -> dict:
     """order (S, B) day indices on the device -> the epoch's metrics (floats)."""
     sums = None
     for i in range(order.shape[0]):
-        sums = _accumulate(sums, train_step(state, dataset, order[i], guard=guard))
+        sums = _accumulate(sums, train_step(state, dataset, order[i], guard=guard,
+                                            poison=poison))
     return to_host(finalize_train(sums))
 
 

@@ -15,9 +15,13 @@ validation noise of epoch e from its own generator seeded from (seed, e).
 
 Ported: the finite guard, best-validation weights (`params.save_weights`
 under `config.checkpoint_name()`), full-state checkpoints every
-`checkpoint_every` epochs and resume. Not ported (ROADMAP Queue 1): the
-rollback recovery (`recover_after` is not read), fleets, mixed precision,
-streaming residency, the mesh.
+`checkpoint_every` epochs, resume, and the rollback recovery: after
+`recover_after` bad epochs in a row (a non-finite train loss or any skipped
+step) the run goes back to its last checkpoint saved at a clean epoch,
+scales the peak lr by `recover_lr_backoff` and replays from there, at most
+`recover_max_rollbacks` times. Events go to a `utils.logging.MetricsLogger`
+with the JAX `Trainer`'s names and fields. Not ported (ROADMAP Queue 1):
+fleets, mixed precision, streaming residency, the mesh.
 """
 
 from __future__ import annotations
@@ -29,21 +33,30 @@ from typing import Optional
 import numpy as np
 import torch
 
+from factorvae_tpu_torch import chaos
 from factorvae_tpu_torch.config import Config
 from factorvae_tpu_torch.models.factorvae import FactorVAE
 from factorvae_tpu_torch.params import save_weights
 from factorvae_tpu_torch.train.checkpoint import Checkpointer
 from factorvae_tpu_torch.train.loop import eval_epoch, train_epoch
-from factorvae_tpu_torch.train.state import TrainState, make_optimizer, seed_for
+from factorvae_tpu_torch.train.state import (
+    TrainState,
+    make_optimizer,
+    seed_for,
+    set_lr_scale,
+)
+from factorvae_tpu_torch.utils.logging import MetricsLogger
 
 _TRAIN_NOISE, _EVAL_NOISE = 1, 2      # stream ids of seed_for
 
 
 class Trainer:
-    def __init__(self, config: Config, dataset, device="cuda"):
+    def __init__(self, config: Config, dataset, device="cuda",
+                 logger: Optional[MetricsLogger] = None):
         self.cfg = config
         self.ds = dataset
         self.device = torch.device(device)
+        self.logger = logger or MetricsLogger(echo=False)
         if dataset.device.type != self.device.type:
             raise ValueError(f"the dataset lives on {dataset.device}, the trainer "
                              f"runs on {self.device}")
@@ -59,6 +72,16 @@ class Trainer:
         self.batch_days = max(1, config.train.days_per_step)
         self.steps_per_epoch = -(-len(self.train_days) // self.batch_days)
         self.total_steps = self.steps_per_epoch * config.train.num_epochs
+        # the peak lr's factor: the rollback recovery backs it off, and it
+        # holds for later fits of this trainer, as in the JAX package
+        self._lr_scale = 1.0
+        self.logger.log(
+            "execution_layout", flatten_days=config.model.flatten_days,
+            days_per_step=self.batch_days, compute_dtype="float32",
+            model_compute_dtype=config.model.compute_dtype, mixed_precision=False,
+            n_real=dataset.n_real, n_padded=dataset.n_max,
+            dead_compute_frac=round(1.0 - dataset.n_real / dataset.n_max, 4),
+            obs_probes=config.train.obs_probes, device=str(self.device))
 
     def init_state(self) -> TrainState:
         """A model with weights drawn from `train.seed` (bitwise
@@ -87,30 +110,48 @@ class Trainer:
             num_epochs: Optional[int] = None):
         """Train the first `num_epochs` epochs of the configured schedule
         (default: all of them; the cosine horizon stays the config's, so a
-        partial run and its resume equal an unbroken run). With resume=True
-        and no `state`, continue from the newest checkpoint. Returns (state,
+        partial run and its resume equal an unbroken run). With resume=True and no
+        `state`, continue from the newest checkpoint. Returns (state,
         {"history": [per-epoch records], "best_val": float})."""
-        cfg = self.cfg
-        epochs = cfg.train.num_epochs if num_epochs is None else num_epochs
+        cfg, tcfg = self.cfg, self.cfg.train
+        epochs = tcfg.num_epochs if num_epochs is None else num_epochs
         ckpt = None
-        if cfg.train.checkpoint_every:
-            ckpt = Checkpointer(os.path.join(cfg.train.save_dir,
+        if tcfg.checkpoint_every:
+            ckpt = Checkpointer(os.path.join(tcfg.save_dir,
                                              f"{cfg.checkpoint_name()}_ckpt"),
-                                keep=cfg.train.keep_checkpoints)
+                                keep=tcfg.keep_checkpoints)
         start_epoch, best_val = 0, float("inf")
+        # the rollback anchor: the newest checkpoint saved at a clean epoch
+        last_good_step: Optional[int] = None
         if state is None:
             state = self.init_state()
             if resume and ckpt is not None and ckpt.latest_step() is not None:
                 meta = ckpt.restore(state)
                 start_epoch = int(meta["epoch"]) + 1
+                if meta.get("clean", True):
+                    last_good_step = start_epoch - 1
                 best_val = float(meta["best_val"])
+                saved, now = meta.get("config"), cfg.to_dict()
+                if saved is not None and saved != now:
+                    self.logger.log(
+                        "resume_config_mismatch",
+                        sections=sorted(k for k in set(saved) | set(now)
+                                        if saved.get(k) != now.get(k)),
+                        note="resuming with a different config than the "
+                             "checkpoint was written with")
+                self.logger.log("resume", epoch=start_epoch, best_val=best_val)
+        set_lr_scale(state, tcfg, self._lr_scale)
         val_order = (self._order(self.val_days, False, 0)
                      if len(self.val_days) else None)
+        recover_after = max(0, int(tcfg.recover_after))
+        bad_streak = rollbacks = 0
         history = []
-        for epoch in range(start_epoch, epochs):
+        epoch = start_epoch
+        while epoch < epochs:
             t0 = time.perf_counter()
+            poison = chaos.fault("nan_grads", epoch=epoch) is not None
             train_m = train_epoch(state, self.ds, self._order(self.train_days, True, epoch),
-                                  guard=cfg.train.finite_guard)
+                                  guard=tcfg.finite_guard, poison=poison)
             rec = {"epoch": epoch, "train_loss": train_m["loss"],
                    "train_recon": train_m["recon"], "train_kl": train_m["kl"]}
             if val_order is not None:
@@ -129,14 +170,56 @@ class Trainer:
             if "skipped_steps" in train_m:
                 rec["skipped_steps"] = train_m["skipped_steps"]
             history.append(rec)
+            self.logger.log("epoch", **rec)
+
+            # the recovery escalation (f32: any skipped step is a bad signal)
+            bad = not np.isfinite(train_m["loss"]) or train_m.get("skipped_steps", 0.0) > 0
+            bad_streak = bad_streak + 1 if bad else 0
+            escalate = bool(recover_after and bad_streak >= recover_after)
+            can_roll = (rollbacks < tcfg.recover_max_rollbacks and ckpt is not None
+                        and last_good_step is not None)
+            if escalate and not can_roll and bad_streak == recover_after:
+                # nowhere to roll back to: back the lr off alone (unless the
+                # rollback budget is what ran out) and say so, once a streak
+                budget_spent = rollbacks >= tcfg.recover_max_rollbacks
+                reason = (f"rollback budget spent ({rollbacks}/{tcfg.recover_max_rollbacks})"
+                          if budget_spent
+                          else "checkpointing disabled" if ckpt is None
+                          else "no good-epoch checkpoint anchor yet")
+                if not budget_spent:
+                    self._lr_scale *= tcfg.recover_lr_backoff
+                    set_lr_scale(state, tcfg, self._lr_scale)
+                self.logger.log("recovery", kind="rollback_unavailable", epoch=epoch,
+                                lr_scale=self._lr_scale,
+                                note=f"{reason}; continuing with lr backoff only")
+            if escalate and can_roll:
+                rollbacks += 1
+                bad_streak = 0
+                self._lr_scale *= tcfg.recover_lr_backoff
+                try:
+                    ckpt.restore(state, step=last_good_step)
+                    restored = last_good_step
+                except FileNotFoundError:   # retention evicted the anchor
+                    restored = int(ckpt.restore(state)["epoch"])
+                set_lr_scale(state, tcfg, self._lr_scale)
+                self.logger.log("recovery", kind="rollback", epoch=epoch,
+                                restored_step=restored, lr_scale=self._lr_scale,
+                                rollbacks=rollbacks)
+                epoch = restored + 1
+                continue
+
             if selection < best_val:
                 best_val = selection
                 save_weights(state.model, cfg,
-                             os.path.join(cfg.train.save_dir, cfg.checkpoint_name()))
-            if ckpt is not None and (epoch % max(1, cfg.train.checkpoint_every) == 0
+                             os.path.join(tcfg.save_dir, cfg.checkpoint_name()))
+            if ckpt is not None and (epoch % max(1, tcfg.checkpoint_every) == 0
                                      or epoch == epochs - 1):
                 ckpt.save(epoch, state, {"epoch": epoch, "best_val": best_val,
-                                         "config": cfg.to_dict()})
+                                         "config": cfg.to_dict(), "clean": not bad})
+                if not bad:
+                    last_good_step = epoch
+            epoch += 1
+        self.logger.log("best", best_val=best_val)
         return state, {"history": history, "best_val": best_val}
 
     def evaluate(self, model, start=None, end=None, seed: int = 0) -> dict:

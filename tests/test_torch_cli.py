@@ -1,0 +1,474 @@
+"""The port's experiment CLI against the JAX CLI, and the port's rollback
+recovery against the JAX `Trainer`.
+
+Both CLIs read the same reference-schema pickle, on the CPU (the port's
+kernels run their plain versions there). Their runs are deterministic:
+`config_from_args` is patched to dropout 0 in both packages, the loss is
+the NLL, the scores the prior mean, and the port starts from the JAX
+Trainer's initial weights (`params.flax_to_torch`). Tolerances:
+
+- per-epoch losses at rtol 2e-5, the bound of the Trainer test
+  (`test_torch_train.py`);
+- the scores of the two training runs at rtol 2e-5 / atol 2e-6: the
+  weights after three epochs of Adam differ by its magnified rounding
+  (read: 3.7e-7 apart at most, on scores up to 0.15);
+- scores from the same (carried-over) weights at rtol 1e-5 / atol 1e-6,
+  the repo's torch-oracle tolerance, and RankIC and RankIC_IR within 1e-6;
+- a run resumed after a crash equals an unbroken run bitwise.
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from factorvae_tpu import chaos as jchaos
+from factorvae_tpu import cli as jcli
+from factorvae_tpu import config as jconfig
+from factorvae_tpu.data import PanelDataset as JPanelDataset
+from factorvae_tpu.data import build_panel as jbuild_panel
+from factorvae_tpu.data import load_frame as jload_frame
+from factorvae_tpu.data import panel_to_frame as jpanel_to_frame
+from factorvae_tpu.data import synthetic_panel
+from factorvae_tpu.models.factorvae import load_model as jload_model
+from factorvae_tpu.train.trainer import Trainer as JTrainer
+from factorvae_tpu.utils.logging import MetricsLogger as JMetricsLogger
+from factorvae_tpu_torch import chaos, cli
+from factorvae_tpu_torch import config as tconfig
+from factorvae_tpu_torch.data.loader import PanelDataset
+from factorvae_tpu_torch.data.panel import Panel
+from factorvae_tpu_torch.models.factorvae import FactorVAE
+from factorvae_tpu_torch.params import flax_to_torch, save_weights
+from factorvae_tpu_torch.train import trainer as trainer_mod
+from factorvae_tpu_torch.train.trainer import Trainer
+from factorvae_tpu_torch.utils.logging import MetricsLogger
+
+C, T, H, K, M = 6, 5, 8, 4, 10
+LOSS_RTOL = 2e-5
+TRAINED_SCORE_RTOL, TRAINED_SCORE_ATOL = 2e-5, 2e-6
+SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
+IC_ATOL = 1e-6
+DETERMINISTIC = ["--recon_loss", "nll", "--deterministic_scores"]
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    jp = synthetic_panel(num_days=36, num_instruments=11, num_features=C,
+                         missing_prob=0.2, seed=4)
+    path = str(root / "panel.pkl")
+    jpanel_to_frame(jp).to_pickle(path)
+    return root, path, [str(x.date()) for x in jp.dates]
+
+
+def _argv(data, out, *extra, epochs=3):
+    root, path, d = data
+    out = os.path.join(str(root), out)
+    return ["--dataset", path, "--num_latent", str(C), "--hidden_size", str(H),
+            "--num_factor", str(K), "--num_portfolio", str(M), "--seq_len", str(T),
+            "--start_time", d[0], "--fit_end_time", d[24], "--val_start_time", d[25],
+            "--val_end_time", d[35], "--score_start", d[10], "--score_end", d[35],
+            "--num_epochs", str(epochs), "--lr", "1e-3", "--seed", "3", "--run_name", "cli",
+            "--save_dir", f"{out}/models", "--score_dir", f"{out}/scores",
+            "--metrics_jsonl", f"{out}/run.jsonl", *extra]
+
+
+def _no_dropout(config_from_args):
+    def patched(args):
+        cfg = config_from_args(args)
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout_rate=0.0))
+    return patched
+
+
+def _events(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _named(events, name):
+    return [e for e in events if e["event"] == name]
+
+
+def _csv(path):
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    return rows[0], rows[1:]
+
+
+def _floats(rows, col):
+    return np.array([float(r[col]) if r[col] else np.nan for r in rows], np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_run(data):
+    argv = _argv(data, "jax", *DETERMINISTIC, "--no-bf16")
+    config_from_args = _no_dropout(jcli.config_from_args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcli, "config_from_args", config_from_args)
+        assert jcli.main(argv) == 0
+    jcfg = config_from_args(jcli.build_parser().parse_args(argv))
+    dataset = JPanelDataset(jbuild_panel(jload_frame(data[1])), seq_len=T)
+    weights = flax_to_torch(JTrainer(jcfg, dataset).init_state().params)
+    return {"argv": argv, "cfg": jcfg, "weights": weights, "n_max": dataset.n_max,
+            "events": _events(argv[argv.index("--metrics_jsonl") + 1]),
+            "out": os.path.join(str(data[0]), "jax")}
+
+
+def _from_weights(weights):
+    init_state = Trainer.init_state
+
+    def patched(self):
+        state = init_state(self)
+        state.model.load_state_dict(weights)
+        return state
+    return patched
+
+
+@pytest.fixture(scope="module")
+def port_run(data, jax_run):
+    argv = _argv(data, "port", *DETERMINISTIC, "--device", "cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "config_from_args", _no_dropout(cli.config_from_args))
+        mp.setattr(Trainer, "init_state", _from_weights(jax_run["weights"]))
+        assert cli.main(argv) == 0
+    return {"events": _events(argv[argv.index("--metrics_jsonl") + 1]),
+            "out": os.path.join(str(data[0]), "port")}
+
+
+class TestCliAgainstJax:
+    def test_events_losses_and_artifact_names(self, jax_run, port_run):
+        got, want = port_run["events"], jax_run["events"]
+        names = {e["event"] for e in got}
+        assert names == {"run_meta", "config", "execution_layout", "epoch", "best", "scores"}
+        assert [e["event"] for e in got] == [e["event"] for e in want if e["event"] in names]
+        for key in ("train_loss", "val_loss"):
+            np.testing.assert_allclose([e[key] for e in _named(got, "epoch")],
+                                       [e[key] for e in _named(want, "epoch")],
+                                       rtol=LOSS_RTOL, err_msg=key)
+        assert ([e["step"] for e in _named(got, "epoch")]
+                == [e["step"] for e in _named(want, "epoch")])
+        # the best-weights and full-state checkpoint directories (the JAX
+        # package's integrity manifests beside them are ROADMAP Queue 1 item 8)
+        dirs = [sorted(n for n in os.listdir(os.path.join(run["out"], "models"))
+                       if os.path.isdir(os.path.join(run["out"], "models", n)))
+                for run in (port_run, jax_run)]
+        name = jax_run["cfg"].checkpoint_name()
+        assert dirs[0] == dirs[1] == [name, name + "_ckpt"]
+        assert os.listdir(os.path.join(port_run["out"], "scores")) == [
+            jax_run["cfg"].score_name() + ".csv"]
+
+    def test_csv_rows(self, jax_run, port_run):
+        name = jax_run["cfg"].score_name() + ".csv"
+        head, rows = _csv(os.path.join(port_run["out"], "scores", name))
+        jhead, jrows = _csv(os.path.join(jax_run["out"], "scores", name))
+        assert head == jhead == ["datetime", "instrument", "score", "LABEL0"]
+        assert [r[:2] for r in rows] == [r[:2] for r in jrows]
+        assert np.array_equal(_floats(rows, 3), _floats(jrows, 3), equal_nan=True)
+        np.testing.assert_allclose(_floats(rows, 2), _floats(jrows, 2),
+                                   rtol=TRAINED_SCORE_RTOL, atol=TRAINED_SCORE_ATOL)
+
+    def test_score_only_from_the_jax_best_weights(self, data, jax_run):
+        """The JAX run's best weights carried across: the port's
+        --score_only scores and Rank-IC equal the JAX run's."""
+        jcfg = jax_run["cfg"]
+        best = os.path.join(jax_run["out"], "models", jcfg.checkpoint_name())
+        _, params = jload_model(jcfg, checkpoint_path=best, n_max=jax_run["n_max"])
+        argv = _argv(data, "carried", *DETERMINISTIC, "--device", "cpu", "--score_only")
+        tcfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        model = FactorVAE(tcfg.model)
+        model.load_state_dict(flax_to_torch(params))
+        save_weights(model, tcfg, os.path.join(tcfg.train.save_dir, tcfg.checkpoint_name()))
+        assert cli.main(argv) == 0
+        name = jcfg.score_name() + ".csv"
+        head, rows = _csv(os.path.join(str(data[0]), "carried", "scores", name))
+        jhead, jrows = _csv(os.path.join(jax_run["out"], "scores", name))
+        assert head == jhead and [r[:2] for r in rows] == [r[:2] for r in jrows]
+        np.testing.assert_allclose(_floats(rows, 2), _floats(jrows, 2),
+                                   rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        got = _named(_events(argv[argv.index("--metrics_jsonl") + 1]), "scores")[0]
+        want = _named(jax_run["events"], "scores")[0]
+        for key in ("rank_ic", "rank_ic_ir"):
+            assert np.isfinite(got[key])
+            assert abs(got[key] - want[key]) <= IC_ATOL, key
+
+
+class _Crash(Exception):
+    pass
+
+
+class TestCliResume:
+    def test_resume_after_a_crash_equals_an_unbroken_run_bitwise(self, data, monkeypatch):
+        """The default, stochastic settings (dropout, the sampled loss and
+        scores), so the noise generator must round-trip too."""
+        full = _argv(data, "full", "--device", "cpu")
+        part = _argv(data, "part", "--device", "cpu")
+        assert cli.main(full) == 0
+        calls = []
+        train_epoch = trainer_mod.train_epoch
+
+        def crash_at_epoch_2(*a, **kw):
+            calls.append(1)
+            if len(calls) == 3:
+                raise _Crash()
+            return train_epoch(*a, **kw)
+
+        monkeypatch.setattr(trainer_mod, "train_epoch", crash_at_epoch_2)
+        with pytest.raises(_Crash):
+            cli.main(part)
+        monkeypatch.setattr(trainer_mod, "train_epoch", train_epoch)
+        assert cli.main(part + ["--resume"]) == 0
+
+        root = str(data[0])
+        ev_full = _events(os.path.join(root, "full", "run.jsonl"))
+        ev_part = _events(os.path.join(root, "part", "run.jsonl"))
+        assert [e["epoch"] for e in _named(ev_part, "resume")] == [2]
+        done, redone = _named(ev_full, "epoch")[2], _named(ev_part, "epoch")[-1]
+        for key in ("epoch", "train_loss", "val_loss", "lr", "step"):
+            assert done[key] == redone[key], key
+        assert _named(ev_full, "scores")[0]["rank_ic"] == _named(ev_part, "scores")[-1]["rank_ic"]
+        name = "cli_factor_4_hdn_8_port_10_seed_3"
+        a, b = (torch.load(os.path.join(root, run, "models", name, "weights.pt"))
+                for run in ("full", "part"))
+        assert all(torch.equal(a[k], b[k]) for k in a)
+        csv_name = "cli_4_True_None_6_8.csv"
+        with open(os.path.join(root, "full", "scores", csv_name), "rb") as fa, \
+                open(os.path.join(root, "part", "scores", csv_name), "rb") as fb:
+            assert fa.read() == fb.read()
+
+
+def _trainers(tmp_path, epochs, **train):
+    jp = synthetic_panel(num_days=36, num_instruments=11, num_features=C,
+                         missing_prob=0.2, seed=4)
+    tp = Panel(values=jp.values, valid=jp.valid,
+               dates=jp.dates.values.astype("datetime64[D]"),
+               instruments=np.asarray(jp.instruments))
+    d = [str(x.date()) for x in jp.dates]
+    jcfg = jconfig.Config(
+        model=jconfig.ModelConfig(num_features=C, hidden_size=H, num_factors=K,
+                                  num_portfolios=M, seq_len=T, dropout_rate=0.0,
+                                  recon_loss="nll"),
+        data=jconfig.DataConfig(seq_len=T, start_time=d[0], fit_end_time=d[24],
+                                val_start_time=d[25], val_end_time=d[35]),
+        train=jconfig.TrainConfig(num_epochs=epochs, lr=1e-3, seed=3, recover_after=2,
+                                  save_dir=str(tmp_path / "jax"), **train))
+    tcfg = tconfig.Config.from_dict(jcfg.to_dict())
+    tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(
+        tcfg.train, save_dir=str(tmp_path / "port")))
+    jlog = JMetricsLogger(jsonl_path=str(tmp_path / "jax.jsonl"), echo=False)
+    tlog = MetricsLogger(jsonl_path=str(tmp_path / "port.jsonl"), echo=False)
+    # the JAX Trainer compiles its chaos trace only if a plan is installed
+    # when it is built
+    jtr = lambda: JTrainer(jcfg, JPanelDataset(jp, seq_len=T), logger=jlog)  # noqa: E731
+    tr = Trainer(tcfg, PanelDataset(tp, seq_len=T, device="cpu"), device="cpu", logger=tlog)
+    return jtr, tr
+
+
+class TestRecoveryAgainstJax:
+    @pytest.mark.parametrize("case", ["rollback", "rollback_unavailable"])
+    def test_same_trail_events_and_losses(self, tmp_path, case):
+        """`rollback`: nan_grads at epochs 2 and 3 of 6, a checkpoint every
+        epoch: the streak rolls back to epoch 1 at half the lr and replays.
+        `rollback_unavailable`: nan_grads at epochs 0 and 1 of 4 with no
+        checkpoints: the lr is halved in place."""
+        if case == "rollback":
+            epochs, faults, train = 6, (2, 3), {}
+            trail, event = [0, 1, 2, 3, 2, 3, 4, 5], {"restored_step": 1}
+        else:
+            epochs, faults, train = 4, (0, 1), {"checkpoint_every": 0}
+            trail, event = [0, 1, 2, 3], {"epoch": 1}
+        make_jtr, tr = _trainers(tmp_path, epochs, **train)
+        with jchaos.active(jchaos.ChaosPlan([jchaos.Fault("nan_grads", epoch=e)
+                                             for e in faults])):
+            jtr = make_jtr()
+            jstate = jtr.init_state()
+            weights = flax_to_torch(jstate.params)
+            _, jout = jtr.fit(state=jstate)
+        plan = chaos.ChaosPlan([chaos.Fault("nan_grads", epoch=e) for e in faults])
+        state = tr.init_state()
+        state.model.load_state_dict(weights)
+        with chaos.active(plan):
+            state, out = tr.fit(state=state)
+        assert len(plan.fired) == 2
+        hist, jhist = out["history"], jout["history"]
+        assert [r["epoch"] for r in hist] == [r["epoch"] for r in jhist] == trail
+        assert ([r["skipped_steps"] for r in hist]
+                == [r["skipped_steps"] for r in jhist])
+        assert sum(r["skipped_steps"] > 0 for r in hist) == 2
+        for key in ("train_loss", "val_loss"):
+            np.testing.assert_allclose([r[key] for r in hist], [r[key] for r in jhist],
+                                       rtol=LOSS_RTOL, err_msg=key)
+        tr.logger.finish()
+        jtr.logger.finish()
+        got = _named(_events(str(tmp_path / "port.jsonl")), "recovery")
+        want = _named(_events(str(tmp_path / "jax.jsonl")), "recovery")
+        assert len(got) == len(want) == 1
+        assert got[0]["kind"] == want[0]["kind"] == case
+        assert got[0]["lr_scale"] == want[0]["lr_scale"] == 0.5
+        for key, value in event.items():
+            assert got[0][key] == want[0][key] == value
+        assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
+class TestChaosEnvironment:
+    def test_the_variable_is_read_once_per_process_as_in_jax(self, monkeypatch):
+        """FACTORVAE_CHAOS is parsed at the first query only: its fault
+        fires once, a later text is not read, and `active` re-arms the
+        check on exit. The JAX module answers the same queries alike."""
+        def queries(mod):
+            monkeypatch.setattr(mod, "_PLAN", None)
+            monkeypatch.setattr(mod, "_ENV_CHECKED", False)
+            plan = mod.ChaosPlan([mod.Fault("nan_grads", epoch=1)])
+            monkeypatch.setenv(mod.ENV_VAR, plan.to_json())
+            got = [mod.fault("nan_grads", epoch=0), mod.fault("nan_grads", epoch=1),
+                   mod.fault("nan_grads", epoch=1)]
+            monkeypatch.setenv(mod.ENV_VAR, mod.ChaosPlan(
+                [mod.Fault("nan_grads", epoch=2)]).to_json())
+            got.append(mod.fault("nan_grads", epoch=2))
+            monkeypatch.setattr(mod, "_PLAN", None)
+            monkeypatch.setattr(mod, "_ENV_CHECKED", False)
+            with mod.active(mod.ChaosPlan([])):
+                got.append(mod.fault("nan_grads", epoch=2))
+            got.append(mod.fault("nan_grads", epoch=2))     # re-armed: read now
+            return [None if f is None else (f.kind, f.epoch) for f in got]
+
+        want = [None, ("nan_grads", 1), None, None, None, ("nan_grads", 2)]
+        assert queries(chaos) == queries(jchaos) == want
+
+    def test_an_unported_kind_in_the_variable_raises(self, monkeypatch):
+        monkeypatch.setattr(chaos, "_PLAN", None)
+        monkeypatch.setattr(chaos, "_ENV_CHECKED", False)
+        monkeypatch.setenv(chaos.ENV_VAR, json.dumps(
+            {"seed": 0, "faults": [{"kind": "stream_stall", "chunk": 1}]}))
+        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8"):
+            chaos.fault("nan_grads", epoch=1)
+
+
+REFUSED = [
+    (["--mesh"], "--mesh", 12),
+    (["--mesh_stock", "2"], "--mesh_stock", 12),
+    (["--fleet_seeds", "3"], "--fleet_seeds above 1", 4),
+    (["--hyper_grid", "1e-3:1,3e-3:0.1"], "--hyper_grid", 4),
+    (["--auto_plan"], "--auto_plan", 9),
+    (["--panel_residency", "stream"], "--panel_residency stream", 5),
+    (["--stream_chunk_days", "8"], "--stream_chunk_days", 5),
+    (["--bf16"], "--bf16", 3),
+    (["--int8_scores"], "--int8_scores", 3),
+    (["--compile_cache", "xla_cache"], "--compile_cache", 9),
+    (["--obs"], "--obs", 11),
+    (["--prom_textfile", "x.prom"], "--prom_textfile", 11),
+    (["--profile", "trace"], "--profile", 11),
+    (["--debug_nans"], "--debug_nans", 11),
+    (["--export", "model.bin"], "--export", 6),
+    (["--export_platform", "tpu"], "--export_platform", 6),
+    (["--no-pallas"], "--no-pallas", None),
+]
+
+
+def _read_nothing(monkeypatch):
+    opened = []
+    load_frame = cli.load_frame
+
+    def recording(*a, **kw):
+        opened.append(a)
+        return load_frame(*a, **kw)
+
+    monkeypatch.setattr(cli, "load_frame", recording)
+    return opened
+
+
+class TestCliRefusals:
+    @pytest.mark.parametrize("extra,flag,item", REFUSED, ids=[r[1] for r in REFUSED])
+    def test_refused_flag_exits_2_before_the_dataset(self, data, monkeypatch, capsys,
+                                                     extra, flag, item):
+        opened = _read_nothing(monkeypatch)
+        assert cli.main(_argv(data, "refused", "--device", "cpu", *extra)) == 2
+        err = capsys.readouterr().err.strip()
+        assert err.startswith(f"error: {flag}") and len(err.splitlines()) == 1
+        assert "ROADMAP" in err and (item is None or f"Queue 1 item {item})" in err)
+        assert opened == []
+
+    @pytest.mark.parametrize("extra", [["--pallas"], ["--pallas_auto"], ["--no-bf16"],
+                                       ["--fleet_seeds", "1"], ["--no-obs"],
+                                       ["--panel_residency", "hbm"],
+                                       ["--compile_cache", "off"], ["--num_workers", "8"]],
+                             ids=lambda e: " ".join(e))
+    def test_accepted_flags_change_nothing(self, extra):
+        base = cli.build_parser().parse_args(["--device", "cpu"])
+        args = cli.build_parser().parse_args(["--device", "cpu", *extra])
+        assert cli.refusal(args) is None
+        assert cli.config_from_args(args).to_dict() == cli.config_from_args(base).to_dict()
+
+    @pytest.mark.parametrize("case", ["missing_dataset", "empty_train_split",
+                                      "feature_mismatch", "no_checkpoint", "no_cuda"])
+    def test_exit_2_errors(self, data, monkeypatch, capsys, case):
+        argv = _argv(data, f"err_{case}", "--device", "cpu")
+        want = {"missing_dataset": "error: dataset not found",
+                "empty_train_split": "error: no trading days in [2000-01-01, 2000-02-01]",
+                "feature_mismatch": "error: model expects 7 features",
+                "no_checkpoint": "error: no checkpoint at",
+                "no_cuda": "error: no CUDA device"}[case]
+        if case == "missing_dataset":
+            argv[argv.index("--dataset") + 1] = "/nonexistent/panel.pkl"
+        elif case == "empty_train_split":
+            argv += ["--start_time", "2000-01-01", "--fit_end_time", "2000-02-01"]
+        elif case == "feature_mismatch":
+            argv += ["--num_latent", "7"]
+        elif case == "no_checkpoint":
+            argv += ["--score_only"]
+        else:
+            monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+            argv += ["--device", "cuda"]
+        assert cli.main(argv) == 2
+        err = capsys.readouterr().err
+        assert err.startswith(want), err
+        if case == "empty_train_split":
+            assert "the dataset covers [" in err
+
+
+CONFIG_ARGV = [
+    [],
+    ["--num_epochs", "5", "--lr", "3e-4", "--seed", "7", "--run_name", "r",
+     "--save_dir", "/tmp/x", "--dataset", "d.pkl", "--start_time", "2010-01-01",
+     "--end_time", "2019-12-31", "--max_stocks", "320"],
+    ["--num_latent", "360", "--seq_len", "60", "--hidden_size", "60", "--num_factor",
+     "60", "--num_portfolio", "64"],
+    ["--preset", "flagship"],
+    ["--preset", "csi300-k60", "--num_epochs", "2", "--lr", "1e-3", "--seed", "1",
+     "--fit_end_time", "2016-12-31", "--deterministic_scores"],
+    ["--preset", "alpha360-k60", "--recon_loss", "nll", "--kl_weight", "0.5",
+     "--days_per_step", "4", "--wandb"],
+    ["--recon_loss", "nll"],
+    ["--kl_weight", "0.1", "--stochastic_scores"],
+    ["--days_per_step", "8", "--deterministic_scores", "--no-obs"],
+]
+
+
+class TestConfigFromArgs:
+    @pytest.mark.parametrize("argv", CONFIG_ARGV, ids=lambda a: " ".join(a) or "defaults")
+    def test_equals_the_jax_config(self, argv):
+        """Equal `to_dict()` but for the fields the port leaves out or
+        fixes: the Pallas knobs and the compute dtype (float32 here)."""
+        got = cli.config_from_args(cli.build_parser().parse_args(argv)).to_dict()
+        want = jcli.config_from_args(jcli.build_parser().parse_args(argv)).to_dict()
+        assert got["model"].pop("compute_dtype") == "float32"
+        want["model"].pop("compute_dtype")
+        assert set(want["model"]) - set(got["model"]) == {"use_pallas_attention",
+                                                          "use_pallas_gru"}
+        for key in ("use_pallas_attention", "use_pallas_gru"):
+            want["model"].pop(key)
+        assert got == want
+
+    def test_parser_has_every_jax_flag_with_its_default(self):
+        def flags(parser):
+            return {a.dest: (tuple(a.option_strings), a.default)
+                    for a in parser._actions if a.dest != "help"}
+
+        got, want = flags(cli.build_parser()), flags(jcli.build_parser())
+        assert set(got) - set(want) == {"device"}
+        assert {k: got[k] for k in want} == want

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: what it imports (every module, the training
-ones included, and a scoring pass and a training epoch run with no JAX,
-Flax, pandas or JAX-package module loaded), that the JAX weights carry
+and CLI ones included, and a scoring pass, a training epoch and a CLI run
+without --backtest with no JAX, Flax, pandas or JAX-package module loaded),
+that the JAX weights carry
 across without loss, and that `chip_smoke.py` refuses to run without a GPU
 instead of falling back to the CPU."""
 
@@ -59,6 +60,26 @@ assert {"factorvae_tpu_torch.train.trainer", "factorvae_tpu_torch.train.loop",
         "factorvae_tpu_torch.train.state", "factorvae_tpu_torch.train.checkpoint",
         "factorvae_tpu_torch.ops.kl"} <= set(names)
 
+# the CLI after the panel is built (no --backtest): train, score, export
+from factorvae_tpu_torch import cli
+
+with tempfile.TemporaryDirectory() as out:
+    args = cli.build_parser().parse_args([
+        "--device", "cpu", "--num_epochs", "1", "--num_latent", "6", "--hidden_size", "4",
+        "--num_factor", "3", "--num_portfolio", "5", "--seq_len", "4",
+        "--start_time", "2015-01-01", "--fit_end_time", "2015-01-12",
+        "--val_start_time", "2015-01-13", "--val_end_time", "2015-01-16",
+        "--score_start", "2015-01-05", "--score_end", "2015-01-16",
+        "--save_dir", out + "/models", "--score_dir", out + "/scores",
+        "--metrics_jsonl", out + "/run.jsonl"])
+    assert cli.run(cli.config_from_args(args), args, synthetic_panel_dense(12, 5, 6)) == 0
+    import os
+    assert os.listdir(out + "/scores") == ["VAE-Revision2_3_True_None_6_4.csv"]
+assert {"factorvae_tpu_torch.cli", "factorvae_tpu_torch.ops.stats",
+        "factorvae_tpu_torch.eval.metrics", "factorvae_tpu_torch.eval.backtest",
+        "factorvae_tpu_torch.eval.plots", "factorvae_tpu_torch.utils.logging",
+        "factorvae_tpu_torch.chaos"} <= set(names)
+
 def banned(mod):
     top = mod.split(".")[0]
     return (top in ("jax", "jaxlib", "flax", "pandas", "factorvae_tpu")
@@ -73,7 +94,7 @@ def test_port_imports_no_jax_flax_pandas_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    n_modules, banned = proc.stdout.split(maxsplit=1)
+    n_modules, banned = proc.stdout.splitlines()[-1].split(maxsplit=1)   # after the CLI's echo
     assert int(n_modules) >= 20
     assert banned.strip() == "[]"
 
