@@ -66,7 +66,21 @@ named phases, and prints neither the kernels line nor the result):
               first 8 steps on the card and on the CPU from the same
               weights: per-step losses and the parameters after 8 steps are
               compared. CUDA-event times of one step's stages.
-9. cli     -- the experiment CLI (`factorvae_tpu_torch.cli.main`) in this
+9. precision -- the precision ladder at flagship width on the same 80-day
+              panel: the kernels' one hidden-size limit (`ops.kernels.
+              MAX_HIDDEN`) against every built library's `*_max_hidden()`;
+              K1 on bf16 inputs bitwise K1 on their f32 upcast; a bfloat16
+              32-day chunk, card against CPU (per-day Spearman >= 0.99), with
+              its stages' times, the upcast of xi for K1 as a stage of its
+              own, and the projections' bound; int8 weight-only scores, card
+              against CPU (max abs <= 1e-5), and the parameter bytes of the
+              float32 and int8 rungs; the chunk's time at each rung; one mixed
+              epoch (bfloat16 over float32 masters, the dynamic loss scale)
+              with every launch counter set to 0 just before it: K1's
+              residual variant, the walk, dWh and K5 once per step, the
+              masters and Adam's moments float32, the skipped steps within
+              the rollback's budget; the loss scale and the epoch's time.
+10. cli    -- the experiment CLI (`factorvae_tpu_torch.cli.main`) in this
               process at flagship width, f32, on a reference-schema pickle of
               a 120-day synthetic panel of 300 stocks: 50 train days, 20
               validation days, 50 scored days. Runs, each with every launch
@@ -78,26 +92,34 @@ named phases, and prints neither the kernels line nor the result):
               under a chaos plan (`chaos.active`) poisoning epochs 1 and 2 of
               4 with nan_grads: the trail
               must be epochs 0, 1, 2, 1, 2, 3 with one rollback to epoch 0 at
-              half the lr. (a) must launch K1's residual variant, the walk
+              half the lr; (f) a fresh --save_dir with --bf16 --int8_scores,
+              one mixed epoch and the int8 scores (dequantized to bf16):
+              finite losses, a loss scale, one launch of K1's residual
+              variant, the walk and dWh per step, and of K1's serving variant
+              per validation batch and scoring chunk, a finite CSV and
+              RankIC. (a) must launch K1's residual variant, the walk
               and the dWh kernel once per train step, K1's serving variant
               once per validation batch and scoring chunk, K4 once per
               forward and K5 once per train step; (c) the serving variant
               and K4 only. The CSV has one row per valid (day, stock) and
               the RankIC is finite. Epoch, scoring and CSV times.
-10. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+11. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
-              the slice phase and `launches_cli` in the CLI's run (a)).
+              the slice phase, `launches_cli` in the CLI's run (a) and
+              `launches_mixed` in the precision phase's mixed epoch).
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero. Times come from CUDA events: `ms` around 20
 calls from Python, and `graph_ms` around 20 replays of a CUDA graph of one
 call, which leaves out the host's launch gaps (a port kernel that cannot be
-captured fails the run; a cuDNN yardstick that cannot gets a null). The
+captured fails the run; a cuDNN yardstick that cannot gets a null). TF32
+is off and bf16 products accumulate in f32, as XLA's do. The
 bounds use the H100 SXM data-sheet rates over the least work and bytes the
 function needs on this run's inputs: 3.35 TB/s of HBM, 67 TFLOP/s f32
 outside the tensor cores, and for the GRU's matrix products, which its
 kernels run on the tensor cores at f32 accuracy as three TF32 products
-each (3xTF32), 495 TFLOP/s of TF32, so 165 TFLOP/s of f32-accurate product.
+each (3xTF32), 495 TFLOP/s of TF32, so 165 TFLOP/s of f32-accurate product;
+the bf16 projections' products at 989 TFLOP/s of bf16.
 """
 
 from __future__ import annotations
@@ -113,6 +135,7 @@ import time
 import numpy as np
 
 F32_PEAK = 67e12       # FLOP/s, f32 outside the tensor cores (H100 SXM)
+BF16_PEAK = 989e12     # FLOP/s, bf16 on the tensor cores, dense (H100 SXM)
 TF32_PEAK = 495e12     # FLOP/s, TF32 on the tensor cores, dense (H100 SXM)
 HBM_RATE = 3.35e12     # bytes/s (H100 SXM)
 # Limits on max |a - b|. The kernels sum in another order than the plain
@@ -153,6 +176,10 @@ TRAIN_GRAD_RTOL = 5e-5
 TRAIN_PARAM_ATOL = 1e-5
 ZERO_GRAD_ATOL = 1e-6
 ZERO_GRAD_ROWS = ("factor_predictor.key_bias",)    # (K, H): a row per head
+# A bfloat16 chunk, card against CPU: the per-day Spearman rank correlation
+# of the scores (the serve gate of docs/precision.md). The two devices run
+# the same bf16 rounding points but sum their products in other orders.
+BF16_SPEARMAN = 0.99
 
 
 def emit(obj) -> None:
@@ -1076,6 +1103,206 @@ def phase_train(torch, seed: int, counters) -> dict:
                        "zero_grad_bound": lr_sum}}
 
 
+def _precision_stages(torch, model, dataset, days) -> dict:
+    """CUDA-event times of one bfloat16 32-day chunk's stages, the upcast
+    of xi to float32 for K1 as its own stage."""
+    from torch.nn.functional import leaky_relu
+    from torch.nn.functional import linear
+
+    from factorvae_tpu_torch.ops.kernels.gru import gru_fwd
+
+    day_idx = torch.as_tensor(days[:32], device="cuda")
+    fe = model.feature_extractor
+    dtype = model.cfg.dtype
+    w_in, b_in = fe.gru.input_proj.weight.to(dtype), fe.gru.input_proj.bias.float()
+    with torch.inference_mode():
+        x, _, mask = dataset.gather(day_idx)
+        b, n = x.shape[:2]
+        flat = x.reshape((b * n,) + tuple(x.shape[2:]))
+
+        def front():
+            z = fe.proj(fe.layer_norm(flat.to(dtype)))
+            return leaky_relu(z, fe.slope)
+
+        z = front()
+        product = linear(z, w_in)
+        xi = product + b_in
+        latent = gru_fwd(xi, fe.gru.hidden_kernel, fe.gru.hidden_bias).to(dtype).float()
+        latent = latent.reshape(b, n, -1)
+        mu, sigma = model.factor_predictor.day_batched(latent, mask)
+        stages = {
+            "gather": lambda: dataset.gather(day_idx),
+            "cast + layernorm + proj + leaky_relu (bf16)": front,
+            "input_proj product (bf16 GEMM)": lambda: linear(z, w_in),
+            "xi upcast + bias (bf16 -> f32)": lambda: product + b_in,
+            "gru_fwd (K1)": lambda: gru_fwd(xi, fe.gru.hidden_kernel, fe.gru.hidden_bias),
+            "predictor (K4 + heads)": lambda: model.factor_predictor.day_batched(latent, mask),
+            "decoder": lambda: model.factor_decoder(latent, mu, sigma, sample=False),
+            "whole chunk": lambda: model.day_batched_prediction(x, mask, stochastic=False),
+        }
+        out = {name: cuda_ms(torch, fn, reps=10, warmup=2) for name, fn in stages.items()}
+        out["projections (bf16, as the model runs them)"] = cuda_ms(
+            torch, lambda: fe.gru.input_proj(leaky_relu(fe.proj(fe.layer_norm(
+                flat.to(dtype))), fe.slope), upcast=True), reps=10, warmup=2)
+    m_rows, c, h3 = b * n * x.shape[2], x.shape[-1], xi.shape[-1]
+    # the projections' least work: read the f32 windows once, write xi once
+    # (f32, as K1 reads it); their products at the bf16 tensor-core rate
+    n_bytes = 4.0 * m_rows * c + 4.0 * m_rows * h3
+    flops = 2.0 * m_rows * c * (c + h3)
+    t_bytes, t_ops = n_bytes / HBM_RATE, flops / BF16_PEAK
+    upcast_bytes = 2.0 * m_rows * h3 + 4.0 * m_rows * h3
+    return {"stage_ms": out,
+            "projections_bound_ms": max(t_bytes, t_ops) * 1e3,
+            "projections_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "projections_bytes": n_bytes, "projections_flops": flops,
+            "xi_upcast_bytes": upcast_bytes,
+            "xi_upcast_bound_ms": upcast_bytes / HBM_RATE * 1e3}
+
+
+def phase_precision(torch, seed: int, counters) -> dict:
+    """The precision ladder at flagship width: the kernels' hidden-size
+    limit, a bfloat16 32-day chunk and int8 scores against the CPU, one
+    mixed (bfloat16 over float32 masters) training epoch."""
+    import tempfile
+
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.eval.predict import predict_panel
+    from factorvae_tpu_torch.models.factorvae import load_model, with_compute_dtype
+    from factorvae_tpu_torch.ops import kernels
+    from factorvae_tpu_torch.ops.kernels import attention as attention_module
+    from factorvae_tpu_torch.ops.kernels import gru as gru_module
+    from factorvae_tpu_torch.ops.quant import quantize_params, tree_nbytes
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.serve.registry import precision_config
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    # the kernels' one Python limit against the built libraries' kMaxH
+    max_hidden = {name: getattr(mod._lib(name), f"{name}_max_hidden")()
+                  for mod, name in ((gru_module, "gru_fwd"), (gru_module, "gru_bwd"),
+                                    (attention_module, "attention_fwd"),
+                                    (attention_module, "attention_bwd"))}
+    check(all(v == kernels.MAX_HIDDEN for v in max_hidden.values()),
+          f"precision: MAX_HIDDEN {kernels.MAX_HIDDEN} != the libraries' {max_hidden}")
+
+    cfg = get_preset("flagship")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=seed))
+    m = cfg.model
+    panel = synthetic_panel_dense(80, 300, m.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    dataset = PanelDataset(panel, seq_len=m.seq_len, device="cuda")
+    cpu_ds = PanelDataset(panel, seq_len=m.seq_len, device="cpu")
+    model, cpu_model = load_model(cfg, device="cuda"), load_model(cfg, device="cpu")
+    days = dataset.split_days(dates[19], dates[50])
+    check(len(days) == 32, f"precision: {len(days)} days, not one 32-day chunk")
+
+    # bf16 inputs reach the kernels upcast: bitwise the f32 call on them
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xi, wh, bh = _gru_inputs(torch, g, 304, 20, 64)
+    xi16 = xi.to(torch.bfloat16)
+    check(torch.equal(gru_module.gru_fwd(xi16, wh.to(torch.bfloat16), bh),
+                      gru_module.gru_fwd(xi16.float(), wh.to(torch.bfloat16).float(), bh)),
+          "precision: K1 on bf16 inputs differs from K1 on their f32 upcast")
+
+    # a bfloat16 chunk, card against CPU, and against the f32 rung
+    bf16 = precision_config(cfg, "bfloat16")
+    model16 = with_compute_dtype(model, "bfloat16")       # shares the weights
+    got = predict_panel(model16, bf16, dataset, days, stochastic=False)[:, :300]
+    want = predict_panel(cpu_model, bf16, cpu_ds, days, stochastic=False)[:, :300]
+    f32 = predict_panel(model, cfg, dataset, days, stochastic=False)[:, :300]
+    check(bool(np.isfinite(got).all()), "precision: non-finite bf16 scores")
+    rho = [_spearman(got[d], want[d]) for d in range(len(days))]
+    rho_f32 = [_spearman(got[d], f32[d]) for d in range(len(days))]
+    check(min(rho) >= BF16_SPEARMAN, f"precision: bf16 card vs CPU per-day Spearman "
+                                     f"{min(rho)} < {BF16_SPEARMAN}")
+    bf16_stages = _precision_stages(torch, model16, dataset, days)
+
+    # int8 weight-only scores, card against CPU; the bytes of each rung
+    q_card, q_cpu = quantize_params(model), quantize_params(cpu_model)
+    got8 = predict_panel(model, cfg, dataset, days, stochastic=False, int8=True,
+                         params=q_card)[:, :300]
+    want8 = predict_panel(cpu_model, cfg, cpu_ds, days, stochastic=False, int8=True,
+                          params=q_cpu)[:, :300]
+    err8 = float(np.abs(got8 - want8).max())
+    check(bool(np.isfinite(got8).all()) and err8 <= SLICE_TOL,
+          f"precision: int8 card vs CPU scores differ by {err8} > {SLICE_TOL}")
+    int8_ms = cuda_ms(torch, lambda: predict_panel(model, cfg, dataset, days, stochastic=False,
+                                                   int8=True, params=q_card), reps=5)
+    f32_ms = cuda_ms(torch, lambda: predict_panel(model, cfg, dataset, days,
+                                                  stochastic=False), reps=5)
+    bf16_ms = cuda_ms(torch, lambda: predict_panel(model16, bf16, dataset, days,
+                                                   stochastic=False), reps=5)
+
+    # one mixed epoch: bf16 compute over f32 masters, the dynamic loss scale
+    save_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mixed_")
+    tcfg = dataclasses.replace(
+        bf16,
+        data=dataclasses.replace(cfg.data, start_time=dates[0], fit_end_time=dates[49],
+                                 val_start_time=dates[50], val_end_time=dates[69]),
+        train=dataclasses.replace(cfg.train, num_epochs=1, days_per_step=1,
+                                  checkpoint_every=0, save_dir=save_dir.name))
+    trainer = Trainer(tcfg, dataset, device="cuda")
+    check(trainer.mixed, "precision: the bf16 trainer is not mixed")
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, summary = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    steps = trainer.steps_per_epoch
+    for name in ("gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_bwd"):
+        check(launches[name] == steps, f"precision: {steps} mixed steps, launches {launches}")
+    check(launches["attention_fwd"] > steps and launches["gru_fwd"] > 0,
+          f"precision: launches {launches}")
+    rec = summary["history"][0]
+    for key in ("train_loss", "val_loss"):
+        check(np.isfinite(rec[key]), f"precision: mixed {key} = {rec[key]}")
+    check(all(p.dtype == torch.float32 for p in state.model.parameters()),
+          "precision: the masters are not float32")
+    check(all(v.dtype == torch.float32 for st in state.optimizer.state_dict()["state"].values()
+              for k, v in st.items() if k != "step"), "precision: Adam's moments are not f32")
+    budget = steps // tcfg.train.loss_scale_growth_interval + 1
+    check(rec["skipped_steps"] <= budget,
+          f"precision: {rec['skipped_steps']} skipped steps > budget {budget}")
+    t0 = time.perf_counter()
+    _, warm = trainer.fit()
+    torch.cuda.synchronize()
+    warm_fit_s = time.perf_counter() - t0
+    save_dir.cleanup()
+    windows = int(sum(dataset.valid[d].sum() for d in trainer.train_days))
+    epoch_s = warm["history"][0]["seconds"]
+    return {"phase": "precision", "config": "flagship C158/T20/H64/K96/M128",
+            "max_hidden": {"python": kernels.MAX_HIDDEN, **max_hidden},
+            "bf16_chunk": {"days": len(days), "card_vs_cpu_spearman_min": min(rho),
+                           "spearman_limit": BF16_SPEARMAN,
+                           "card_vs_cpu_max_abs_err": float(np.abs(got - want).max()),
+                           "vs_f32_max_abs_err": float(np.abs(got - f32).max()),
+                           "vs_f32_spearman_min": min(rho_f32),
+                           "chunk_ms": {"float32": f32_ms, "bfloat16": bf16_ms,
+                                        "int8": int8_ms},
+                           **bf16_stages},
+            "int8": {"card_vs_cpu_max_abs_err": err8, "tolerance": SLICE_TOL,
+                     "vs_f32_max_abs_err": float(np.abs(got8 - f32).max()),
+                     "param_bytes": {"float32": tree_nbytes(model),
+                                     "int8": tree_nbytes(q_card)},
+                     "quantized": sorted(k for k, v in q_card.items()
+                                         if hasattr(v, "q"))},
+            "mixed_epoch": {"launches": launches, "epoch": rec, "fit_s": fit_s,
+                            "warm_fit_s": warm_fit_s, "epoch_s": epoch_s,
+                            "epoch_s_first": rec["seconds"],
+                            "loss_scale": rec["loss_scale"],
+                            "skipped_steps": rec["skipped_steps"],
+                            "skip_budget": budget, "train_windows": windows,
+                            "train_windows_per_s": windows / epoch_s}}
+
+
+def _spearman(a, b) -> float:
+    ra, rb = np.argsort(np.argsort(a)), np.argsort(np.argsort(b))
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
 CLI_DAYS = 120          # 50 train + 20 validation + 50 scored days
 CLI_CPU_DAYS = 8        # the scored days held against the CPU
 
@@ -1217,6 +1444,24 @@ def phase_cli(torch, seed: int, counters, card: str) -> dict:
           f"cli (e): skipped steps {[r['skipped_steps'] for r in _of(e, 'epoch')]}")
     check(any(line.startswith("[recovery] kind=rollback") for line in e["echo"]),
           "cli (e): no [recovery] line")
+    # (f) --bf16 --int8_scores: one mixed epoch, then int8 scores
+    f = _cli_drive(torch, cli, counters, argv("f", "--num_epochs", "1", "--bf16",
+                                             "--int8_scores"))
+    lf = f["launches"]
+    layout = _of(f, "execution_layout")[0]
+    check(layout["compute_dtype"] == "bfloat16" and layout["mixed_precision"],
+          f"cli (f): execution_layout {layout}")
+    (ef,) = _of(f, "epoch")
+    check(np.isfinite(ef["train_loss"]) and np.isfinite(ef["val_loss"])
+          and ef["skipped_steps"] <= steps // 200 + 1 and ef["loss_scale"] > 0,
+          f"cli (f): epoch {ef}")
+    check(all(lf[n] == steps for n in train_names) and lf["gru_fwd"] == val_batches + chunks,
+          f"cli (f): {steps} train steps, {val_batches} validation batches and {chunks} "
+          f"scoring chunks but launches {lf}")
+    scores_f = _of(f, "scores")[0]
+    _, csv_f = _csv_scores(scores_f["path"])
+    check(np.isfinite(scores_f["rank_ic"]) and len(csv_f) == valid_rows
+          and bool(np.isfinite(csv_f).all()), f"cli (f): scores {scores_f}")
     work.cleanup()
 
     windows = int(panel.valid[:50].sum())
@@ -1243,8 +1488,12 @@ def phase_cli(torch, seed: int, counters, card: str) -> dict:
                            "tolerance": SLICE_TOL},
             "chaos": {"trail": trail, "recovery": {k: rec[0][k] for k in (
                 "kind", "epoch", "restored_step", "lr_scale", "rollbacks")}},
+            "bf16_int8": {"launches": lf, "epoch": {k: ef[k] for k in (
+                "train_loss", "val_loss", "seconds", "skipped_steps", "loss_scale",
+                "loss_scale_floor_steps")}, "rank_ic": scores_f["rank_ic"],
+                "score_s": scores_f["score_s"], "windows": scores_f["windows"]},
             "walls_s": {"a": a["wall_s"], "b": b["wall_s"], "c": c["wall_s"],
-                        "d_cpu": cpu["wall_s"], "e": e["wall_s"]}}
+                        "d_cpu": cpu["wall_s"], "e": e["wall_s"], "f": f["wall_s"]}}
 
 
 def main(argv=None) -> int:
@@ -1273,6 +1522,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.cuda.set_device(0)
 
     counters = (gru_fwd, gru_fwd_residuals, gru_bwd, gru_dwh, attention_fwd, attention_bwd)
@@ -1283,6 +1534,7 @@ def main(argv=None) -> int:
                                      (gru_fwd_residuals, gru_bwd, gru_dwh, attention_bwd)),
         "K2": lambda: phase_k2(torch, args.seed), "K5": lambda: phase_k5(torch, args.seed),
         "train": lambda: phase_train(torch, args.seed, counters),
+        "precision": lambda: phase_precision(torch, args.seed, counters),
         "cli": lambda: phase_cli(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
@@ -1320,6 +1572,7 @@ def main(argv=None) -> int:
                      "replaces": replaces, "launches": launches[name],
                      "launches_serving": by["slice"]["launches"].get(name, 0),
                      "launches_cli": by["cli"]["launches"]["a_train_score"][name],
+                     "launches_mixed": by["precision"]["mixed_epoch"]["launches"][name],
                      "max_abs_err": ph["max_abs_err"],
                      "tolerance": ph["tolerance"],
                      "ms": ph["ms"], "graph_ms": ph.get("graph_ms"),

@@ -14,10 +14,17 @@ accepted with its name and default; `--device` (default cuda) picks the
 card, where the CUDA kernels always run, or the CPU.
 
 The flags of paths this package does not port yet exit with code 2 and a
-line naming their ROADMAP Queue 1 item, before the dataset is read.
+line naming their ROADMAP Queue 1 item, before the dataset is read, as does
+a hidden size above the CUDA kernels' maximum on `--device cuda`.
 `--pallas` and `--pallas_auto` change nothing (the kernels always run on
-CUDA), and `--num_workers` is unused, as in the JAX CLI. The port computes
-in float32: its default, where the JAX CLI's is bfloat16.
+CUDA), and `--num_workers` is unused, as in the JAX CLI.
+
+Precision: `--bf16` trains through the mixed path (float32 master weights
+and optimizer, a bfloat16 compute copy per step, a dynamic loss scale) and
+scores in bfloat16; `--int8_scores` scores with weight-only int8. An
+explicit `--bf16`/`--no-bf16` beats a preset. Unset, the port computes in
+float32: the JAX CLI's bfloat16 default is the best setting measured on a
+TPU, and the port carries over no default tuned there.
 
 After the panel is built, `run` imports pandas only for `--backtest`.
 """
@@ -39,6 +46,7 @@ from factorvae_tpu_torch.data.panel import build_panel, load_frame
 from factorvae_tpu_torch.eval.metrics import rank_ic_of_panel
 from factorvae_tpu_torch.eval.predict import export_scores, predict_panel, score_table
 from factorvae_tpu_torch.models.factorvae import load_model
+from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.train.trainer import Trainer
 from factorvae_tpu_torch.utils.logging import MetricsLogger
 
@@ -86,7 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mse = the reference's single-sample MSE; nll = Gaussian "
                         "NLL (default: mse, or the preset's choice)")
     p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=None,
-                   help="--no-bf16 is the port's float32 default; --bf16 is " + _REFUSED)
+                   help="bfloat16 compute: mixed-precision training (float32 master "
+                        "weights, a dynamic loss scale) and bfloat16 scoring. Unset "
+                        "means float32, the port's default (the JAX CLI's bfloat16 "
+                        "default was tuned on a TPU); an explicit flag beats a preset")
     p.add_argument("--pallas", action=argparse.BooleanOptionalAction, default=None,
                    help="--pallas changes nothing (the CUDA kernels always run on "
                         "the card); --no-pallas is refused")
@@ -110,7 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deterministic_scores", dest="stochastic_scores",
                    action="store_false",
                    help="score with the prior mean instead of sampling")
-    p.add_argument("--int8_scores", action="store_true", help=_REFUSED)
+    p.add_argument("--int8_scores", action="store_true",
+                   help="score with per-channel int8 weights, dequantized to the "
+                        "compute dtype for each scoring chunk")
     p.add_argument("--metrics_jsonl", type=str, default=None)
     p.add_argument("--prom_textfile", type=str, default=None, metavar="PATH",
                    help=_REFUSED)
@@ -149,7 +162,6 @@ def refusal(args: argparse.Namespace) -> Optional[str]:
         (args.auto_plan, "--auto_plan", 9),
         (args.panel_residency == "stream", "--panel_residency stream", 5),
         (args.stream_chunk_days is not None, "--stream_chunk_days", 5),
-        (args.bf16 is True, "--bf16", 3), (args.int8_scores, "--int8_scores", 3),
         (args.compile_cache not in (None, "off"), "--compile_cache", 9),
         (args.obs is True, "--obs", 11),
         (args.prom_textfile is not None, "--prom_textfile", 11),
@@ -164,7 +176,20 @@ def refusal(args: argparse.Namespace) -> Optional[str]:
         return ("--no-pallas: factorvae_tpu_torch has no switch that turns a kernel "
                 "off on the card (ROADMAP: on CUDA the kernels always run); "
                 "--device cpu runs their plain versions")
-    return None
+    return hidden_refusal(_hidden_size(args), args.device)
+
+
+def _hidden_size(args: argparse.Namespace) -> int:
+    """The hidden size `config_from_args` will give: the preset's, else the
+    flag's."""
+    if args.preset:
+        from factorvae_tpu_torch.presets import get_preset
+
+        try:
+            return get_preset(args.preset).model.hidden_size
+        except KeyError:        # config_from_args reports the unknown preset
+            pass
+    return args.hidden_size
 
 
 # Reference CLI defaults (main.py:92-113), applied when a flag is neither
@@ -203,7 +228,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
                                       if args.stochastic_scores is None
                                       else args.stochastic_scores),
                 recon_loss=args.recon_loss or cfg.model.recon_loss,
-                kl_weight=cfg.model.kl_weight if args.kl_weight is None else args.kl_weight),
+                kl_weight=cfg.model.kl_weight if args.kl_weight is None else args.kl_weight,
+                compute_dtype=(cfg.model.compute_dtype if args.bf16 is None
+                               else "bfloat16" if args.bf16 else "float32")),
             data=dataclasses.replace(
                 cfg.data,
                 dataset_path=resolve("dataset", cfg.data.dataset_path),
@@ -232,7 +259,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
             num_factors=args.num_factor, num_portfolios=args.num_portfolio,
             seq_len=args.seq_len, recon_loss=args.recon_loss or "mse",
             kl_weight=1.0 if args.kl_weight is None else args.kl_weight,
-            compute_dtype="float32",
+            # float32 unless --bf16: the JAX CLI's bfloat16 default was
+            # measured best on a TPU
+            compute_dtype="bfloat16" if args.bf16 else "float32",
             stochastic_inference=(True if args.stochastic_scores is None
                                   else args.stochastic_scores)),
         data=DataConfig(
@@ -309,7 +338,7 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
 
         t0 = time.perf_counter()
         days = dataset.split_days(args.score_start, args.score_end)
-        scores = predict_panel(model, cfg, dataset, days)
+        scores = predict_panel(model, cfg, dataset, days, int8=args.int8_scores)
         score_s = time.perf_counter() - t0
         table = score_table(dataset, days, scores, with_labels=True)
         t0 = time.perf_counter()

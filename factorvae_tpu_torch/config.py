@@ -20,6 +20,11 @@ from typing import Any, Optional, Sequence
 import torch
 
 
+# The compute dtypes of the precision ladder's float rungs (int8 is a
+# weight format of scoring, not a compute dtype).
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters (C, H, K, M, T of the reference)."""
@@ -37,7 +42,9 @@ class ModelConfig:
     # The reference draws a reparameterized sample even at inference;
     # False returns the distribution mean (deterministic scores).
     stochastic_inference: bool = True
-    # "float32" | "bfloat16". The port's models run float32 only for now.
+    # "float32" | "bfloat16": the dtype of the extractor's activations
+    # (flax's `dtype=`). bfloat16 scoring keeps float32 weights; a bfloat16
+    # training run computes with a bfloat16 copy of float32 master weights.
     compute_dtype: str = "float32"
     # torch-style U(+-1/sqrt(fan_in)) initializers; False -> lecun normal.
     torch_init: bool = True
@@ -45,10 +52,14 @@ class ModelConfig:
     # (flattened) layout; the JAX package pins both layouts equal.
     flatten_days: bool = True
 
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}; "
+                             f"got {self.compute_dtype!r}")
+
     @property
     def dtype(self) -> torch.dtype:
-        return {"float32": torch.float32,
-                "bfloat16": torch.bfloat16}[self.compute_dtype]
+        return COMPUTE_DTYPES[self.compute_dtype]
 
 
 @dataclass(frozen=True)
@@ -88,13 +99,30 @@ class TrainConfig:
     recover_after: int = 2
     recover_lr_backoff: float = 0.5
     recover_max_rollbacks: int = 2
+    # The training compute dtype; None inherits model.compute_dtype
+    # (train/state.resolve_train_dtype).
     compute_dtype: Optional[str] = None
+    # The dynamic loss scale of a mixed (bfloat16) run: the scale starts at
+    # init, grows by `growth` after `growth_interval` finite steps in a row
+    # and backs off by `backoff`, down to `floor`, at a step whose gradient
+    # is not finite (which applies no update).
     loss_scale_init: float = 32768.0
     loss_scale_growth: float = 2.0
     loss_scale_backoff: float = 0.5
     loss_scale_growth_interval: int = 200
     loss_scale_floor: float = 1.0
     remat: str = "none"
+
+    def __post_init__(self):
+        if not (self.loss_scale_init > 0 and self.loss_scale_floor > 0
+                and self.loss_scale_growth >= 1 and 0 < self.loss_scale_backoff <= 1
+                and self.loss_scale_growth_interval >= 1):
+            raise ValueError(
+                "loss scale knobs need init > 0, floor > 0, growth >= 1, "
+                "0 < backoff <= 1 and growth_interval >= 1; got "
+                f"init={self.loss_scale_init}, floor={self.loss_scale_floor}, "
+                f"growth={self.loss_scale_growth}, backoff={self.loss_scale_backoff}, "
+                f"growth_interval={self.loss_scale_growth_interval}")
 
 
 @dataclass(frozen=True)

@@ -8,6 +8,12 @@ with day -1, gathered as day 0 and masked out, exactly as in the JAX scan.
 The stochastic mode draws its noise from a torch.Generator seeded with
 `seed`; those numbers are not the JAX package's.
 
+The precision ladder: the compute dtype comes from `config.model`
+(bfloat16 scoring keeps the float32 weights and computes the extractor in
+bfloat16), and `int8=True` scores with weight-only int8 (`ops/quant.py`):
+the weights are quantized once (`ensure_quantized`; a registry entry
+arrives quantized) and dequantized to the compute dtype for each chunk.
+
 `score_table` lays the scores out as the reference's score frame (one row
 per valid (day, stock), day-major); `export_scores` writes it as the JAX
 package's CSV with the `csv` module, and `score_frame` makes it the
@@ -24,16 +30,24 @@ import numpy as np
 import torch
 
 from factorvae_tpu_torch.data.loader import PanelDataset
+from factorvae_tpu_torch.models.factorvae import call_with, with_compute_dtype
+from factorvae_tpu_torch.ops.quant import dequantize_params, ensure_quantized
 
 
 def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
                   stochastic: Optional[bool] = None, seed: int = 0,
-                  chunk: int = 32) -> np.ndarray:
+                  chunk: int = 32, int8: bool = False,
+                  params: Optional[dict] = None) -> np.ndarray:
     """(len(days), N_max) float32 scores; padded or absent stocks are NaN.
 
-    `model` is a `FactorVAE` on `dataset.device`; `config` its Config (kept
-    for the JAX signature: the model already carries its ModelConfig)."""
-    del config
+    `model` is a `FactorVAE` on `dataset.device` and `config` the Config to
+    score under: its `model.compute_dtype` is the compute dtype. `params`
+    (parameter name -> tensor, or a `quantize_params` tree) replace the
+    model's own weights; with `int8`, the weights (these or the model's) are
+    quantized unless they already are."""
+    model = with_compute_dtype(model, config.model.compute_dtype)
+    if int8:
+        params = ensure_quantized(model if params is None else params)
     days = np.asarray(days, np.int64)
     n_days = len(days)
     out = np.full((n_days, dataset.n_max), np.nan, np.float32)
@@ -49,8 +63,12 @@ def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
             day_idx = torch.from_numpy(padded).to(dataset.device)
             x, _, mask = dataset.gather(torch.clamp(day_idx, min=0))
             mask = mask & (day_idx >= 0)[:, None]
-            scores = model.day_batched_prediction(
-                x, mask, stochastic=sample, generator=generator)
+            kw = dict(stochastic=sample, generator=generator)
+            if params is None:
+                scores = model.day_batched_prediction(x, mask, **kw)
+            else:
+                weights = dequantize_params(params, model.cfg.dtype) if int8 else params
+                scores = call_with(model, weights, "day_batched_prediction", x, mask, **kw)
             out[c0:c0 + len(sel)] = scores[:len(sel)].cpu().numpy()
     return out
 
@@ -75,13 +93,14 @@ def generate_prediction_scores(model, config, dataset: PanelDataset,
                                start: Optional[str] = None,
                                end: Optional[str] = None,
                                stochastic: Optional[bool] = None,
-                               seed: int = 0, with_labels: bool = False):
+                               seed: int = 0, with_labels: bool = False,
+                               int8: bool = False):
     """Scores DataFrame indexed by (datetime, instrument) with a 'score'
     column (and 'LABEL0' when with_labels=True)."""
     days = dataset.split_days(start, end)
     return score_frame(score_table(
-        dataset, days, predict_panel(model, config, dataset, days, stochastic, seed),
-        with_labels))
+        dataset, days, predict_panel(model, config, dataset, days, stochastic, seed,
+                                     int8=int8), with_labels))
 
 
 def score_frame(table: dict):

@@ -1,7 +1,9 @@
 """Per-stock feature extractor (`factorvae_tpu/models/extractor.py`).
 
 LayerNorm(C) -> Linear(C->C) -> LeakyReLU -> 1-layer GRU over T -> last
-hidden state: the per-stock latent (N, H).
+hidden state: the per-stock latent (N, H). The input is cast to the
+config's compute dtype first and every layer computes in it (the GRU's
+recurrence in float32); the latent comes out in float32.
 """
 
 from __future__ import annotations
@@ -24,9 +26,13 @@ class FeatureExtractor(nn.Module):
                 "factorvae_tpu_torch ports the 1-layer GRU only "
                 f"(gru_layers={cfg.gru_layers})")
         self.cfg = cfg
-        self.layer_norm = layer_norm(cfg.num_features)
-        self.proj = Dense(cfg.num_features, cfg.num_features)
-        self.gru = GRU(cfg.num_features, cfg.hidden_size)
+        dtype = cfg.dtype
+        self.layer_norm = layer_norm(cfg.num_features, dtype)
+        self.proj = Dense(cfg.num_features, cfg.num_features, dtype)
+        self.gru = GRU(cfg.num_features, cfg.hidden_size, dtype)
+        # flax's leaky_relu multiplies by the slope as a weak-typed scalar,
+        # i.e. by the slope rounded to the compute dtype
+        self.slope = float(torch.tensor(cfg.leaky_relu_slope, device="cpu").to(dtype))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.layer_norm.reset_parameters()
@@ -36,7 +42,7 @@ class FeatureExtractor(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, T, C) -> (N, H). Padded stocks give latents that the
         masked reductions downstream ignore."""
-        x = self.layer_norm(x)
+        x = self.layer_norm(x.to(self.cfg.dtype))
         x = self.proj(x)
-        x = F.leaky_relu(x, negative_slope=self.cfg.leaky_relu_slope)
-        return self.gru(x)
+        x = F.leaky_relu(x, negative_slope=self.slope)
+        return self.gru(x).float()

@@ -13,6 +13,10 @@ reparameterized sample and the labels (a mean over stocks) while the KL is a
 sum over K; 'nll' is the analytic Gaussian reconstruction likelihood. The
 decoder's noise `eps` and the predictor's keep-mask `keep` are optional
 tensor arguments, else drawn from `generator`.
+
+`call_with` runs a method of the model on other parameters than its own:
+the bfloat16 compute copy of a mixed training step, or the dequantized
+weights of int8 scoring.
 """
 
 from __future__ import annotations
@@ -50,10 +54,6 @@ class FactorVAEOutput:
 class FactorVAE(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"factorvae_tpu_torch runs float32 only; got compute_dtype="
-                f"{cfg.compute_dtype!r} (the precision ladder is not ported)")
         self.cfg = cfg
         self.feature_extractor = FeatureExtractor(cfg)
         self.factor_encoder = FactorEncoder(cfg)
@@ -150,6 +150,38 @@ class FactorVAE(nn.Module):
             latent, pred_mu, pred_sigma, sample=self._stochastic(stochastic),
             eps=eps, generator=generator)
         return torch.where(mask, y_pred, torch.nan)
+
+
+class _Method(nn.Module):
+    """`model.<method>` as a module's forward, for `functional_call`."""
+
+    def __init__(self, model: nn.Module, method: str):
+        super().__init__()
+        self.model, self.method = model, method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.model, self.method)(*args, **kwargs)
+
+
+def with_compute_dtype(model: "FactorVAE", compute_dtype: str) -> "FactorVAE":
+    """`model` computing in `compute_dtype`: the model itself when it already
+    does, else a FactorVAE that shares its parameter tensors."""
+    if model.cfg.compute_dtype == compute_dtype:
+        return model
+    cfg = dataclasses.replace(model.cfg, compute_dtype=compute_dtype)
+    with torch.device("meta"):
+        view = FactorVAE(cfg)
+    view.load_state_dict(model.state_dict(keep_vars=True), assign=True)
+    return view.train(model.training)
+
+
+def call_with(model: nn.Module, params: dict, method: str, *args, **kwargs):
+    """`model.<method>(*args, **kwargs)` computed with `params` (parameter
+    name -> tensor) in place of the model's own parameters; gradients flow
+    to whatever `params` were made from."""
+    return torch.func.functional_call(
+        _Method(model, method), {f"model.{k}": v for k, v in params.items()},
+        args, kwargs)
 
 
 def load_model(config, checkpoint_path: Optional[str] = None,

@@ -4,6 +4,15 @@
 The GRU's input projection for all T steps is one matmul outside the
 recurrence, as in the JAX package; the recurrence itself is the
 differentiable `ops/kernels/gru.gru` (forward K1, backward K2).
+
+Compute dtypes follow flax's `dtype=`: a layer given a dtype casts its
+input and parameters to it; without one it computes in the promoted dtype
+of its input and parameters (a bfloat16 weight meets a float32 activation
+in float32). LayerNorm takes its mean and variance in float32 whatever the
+dtype. The GRU recurrence always runs in float32: xi goes to float32 on the
+way in and the last hidden state comes back in the compute dtype.
+`KERNEL_PARAMS` names a module's parameters that enter a CUDA kernel rather
+than a PyTorch op (`train/state.cast_compute` casts those differently).
 """
 
 from __future__ import annotations
@@ -56,11 +65,25 @@ def init_bias(t: torch.Tensor, fan_in: int, torch_init: bool,
             t.zero_()
 
 
-class Dense(nn.Module):
-    """Linear layer y = x W^T + b with the torch-scale init."""
+def compute_dtype(dtype: Optional[torch.dtype], *tensors: torch.Tensor) -> torch.dtype:
+    """`dtype`, or without one the promoted dtype of `tensors` (flax's
+    `promote_dtype`)."""
+    if dtype is not None:
+        return dtype
+    out = tensors[0].dtype
+    for t in tensors[1:]:
+        out = torch.promote_types(out, t.dtype)
+    return out
 
-    def __init__(self, in_features: int, out_features: int):
+
+class Dense(nn.Module):
+    """Linear layer y = x W^T + b with the torch-scale init, computed in
+    `dtype` (None: the promoted dtype of x, W and b)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
 
@@ -70,13 +93,61 @@ class Dense(nn.Module):
         init_weight(self.weight, fan_in, torch_init, generator)
         init_bias(self.bias, fan_in, torch_init, generator)
 
+    def forward(self, x: torch.Tensor, upcast: bool = False) -> torch.Tensor:
+        """y in the compute dtype; with `upcast`, a low-precision y comes back
+        in float32 before its last rounding, for a consumer that upcasts it
+        at once (XLA drops such a round trip when it fuses the two)."""
+        dtype = compute_dtype(self.dtype, x, self.weight, self.bias)
+        x, w, b = (t.to(dtype) for t in (x, self.weight, self.bias))
+        if dtype == torch.float32:
+            return F.linear(x, w, b)
+        # as XLA computes it: the product rounded to the compute dtype, then
+        # the bias added in float32 and the sum rounded (one pass; a
+        # low-precision add rounds its float32 sum once)
+        y = F.linear(x, w)
+        if upcast:
+            return _RoundGrad.apply(y + b.float(), dtype)
+        return y + b
+
+
+class _RoundGrad(torch.autograd.Function):
+    """Identity in the forward; the backward rounds the gradient to `dtype`
+    (the cotangent of the cast that XLA fused away in the forward)."""
+
+    @staticmethod
+    def forward(ctx, y, dtype):
+        ctx.dtype = dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype).to(grad.dtype), None
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with torch defaults (eps=1e-5, elementwise affine). With a
+    `dtype` other than float32, the statistics and the affine map are taken
+    in float32 and the result is cast to `dtype`."""
+
+    def __init__(self, num_features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__(num_features, eps=1e-5)
+        self.dtype = dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        dtype = compute_dtype(self.dtype, x, self.weight, self.bias)
+        if dtype == torch.float32 and x.dtype == torch.float32:
+            return super().forward(x)
+        # flax's float32 arithmetic: var = E[x^2] - E[x]^2, and the scale
+        # folded into the reciprocal standard deviation
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((x - mean) * mul + self.bias.float()).to(dtype)
 
 
-def layer_norm(num_features: int) -> nn.LayerNorm:
-    """LayerNorm with torch defaults (eps=1e-5, elementwise affine)."""
-    return nn.LayerNorm(num_features, eps=1e-5)
+def layer_norm(num_features: int, dtype: Optional[torch.dtype] = None) -> LayerNorm:
+    return LayerNorm(num_features, dtype)
 
 
 class GRU(nn.Module):
@@ -89,14 +160,20 @@ class GRU(nn.Module):
         n = tanh  (x W_in + b_in + r * (h W_hn + b_hn))
         h' = (1 - z) * n + z * h
 
-    Input (N, T, C), output (N, H). `hidden_kernel` is (H, 3H), as in the
-    Flax tree (torch's nn.GRU stores its transpose).
+    Input (N, T, C), output (N, H) in `dtype` (None: the input's). The
+    input projection computes in `dtype`; the recurrence in float32.
+    `hidden_kernel` is (H, 3H), as in the Flax tree (torch's nn.GRU stores
+    its transpose).
     """
 
-    def __init__(self, input_size: int, hidden_size: int):
+    KERNEL_PARAMS = ("hidden_kernel", "hidden_bias")
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.hidden_size = hidden_size
-        self.input_proj = Dense(input_size, 3 * hidden_size)
+        self.dtype = dtype
+        self.input_proj = Dense(input_size, 3 * hidden_size, dtype)
         self.hidden_kernel = nn.Parameter(torch.empty(hidden_size, 3 * hidden_size))
         self.hidden_bias = nn.Parameter(torch.empty(3 * hidden_size))
 
@@ -107,5 +184,6 @@ class GRU(nn.Module):
         init_bias(self.hidden_bias, self.hidden_size, torch_init, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xi = self.input_proj(x)          # (N, T, 3H) in one matmul
-        return gru(xi, self.hidden_kernel, self.hidden_bias)
+        xi = self.input_proj(x, upcast=True)     # (N, T, 3H) f32, one matmul
+        h = gru(xi, self.hidden_kernel, self.hidden_bias)
+        return h.to(self.dtype or x.dtype)

@@ -25,6 +25,8 @@ from factorvae_tpu_torch.ops.kernels.attention import attention
 
 
 class FactorPredictor(nn.Module):
+    KERNEL_PARAMS = ("query", "key_kernel", "key_bias", "value_kernel", "value_bias")
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from factorvae_tpu_torch import _build
+from factorvae_tpu_torch.ops.kernels import upcast
 from factorvae_tpu_torch.ops.masked import masked_softmax
 
 
@@ -235,6 +236,8 @@ def attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val,
     """Fused K-head attention over each day's stocks -> ctx (B, K, H) f32.
 
     Shapes as in `attention_fwd_plain`."""
+    latent, query, w_key, b_key, w_val, b_val, keep = upcast(
+        latent, query, w_key, b_key, w_val, b_val, keep)
     _validate("attention_fwd", latent, mask, query, w_key, b_key, w_val, b_val, keep)
     if latent.device.type == "cpu":
         return attention_fwd_plain(latent, mask, query, w_key, b_key, w_val,
@@ -284,6 +287,8 @@ def attention_bwd(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
     dquery, dw_key, db_key, dw_val, db_val), f32; shapes as in
     `attention_bwd_plain`. One launch is the three kernels of
     `csrc/attention_bwd.cu`."""
+    latent, query, w_key, b_key, w_val, b_val, dctx, keep = upcast(
+        latent, query, w_key, b_key, w_val, b_val, dctx, keep)
     _validate("attention_bwd", latent, mask, query, w_key, b_key, w_val, b_val,
               keep, dctx)
     if latent.device.type == "cpu":
@@ -317,5 +322,7 @@ def attention(latent, mask, query, w_key, b_key, w_val, b_val,
     """Differentiable `attention_fwd`: the forward is K4, the backward K5
     (the plain versions on the CPU). The mask and keep-mask get no
     gradient."""
+    latent, query, w_key, b_key, w_val, b_val, keep = upcast(
+        latent, query, w_key, b_key, w_val, b_val, keep)
     return _AttentionFunction.apply(latent, mask, query, w_key, b_key, w_val,
                                     b_val, keep)

@@ -22,7 +22,11 @@ Wrappers, each with its own launch count:
 Each launches its kernel for CUDA tensors and runs its plain version
 (`*_plain`) for CPU tensors; there is no fallback between the two. `gru` is
 the differentiable recurrence: forward K1 (the residual variant when a
-gradient will be needed), backward the walk and `gru_dwh`.
+gradient will be needed), backward the walk and `gru_dwh`. Each takes
+bfloat16 inputs too and upcasts them (`ops.kernels.upcast`): the kernels
+compute in float32 and return float32, as the Pallas kernels do. A float32
+input's gradient leaves `gru` unrounded, so a mixed training step feeds
+the bfloat16-valued float32 weights of `train/state.cast_compute`.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import functools
 import torch
 
 from factorvae_tpu_torch import _build
+from factorvae_tpu_torch.ops.kernels import upcast
 
 TILE_ROWS = (16, 8)      # rows per tile the kernels take, preferred first
 CLUSTERS = (1, 2, 4)     # CTAs per cluster the kernels take
@@ -239,6 +244,7 @@ def _fwd_launch(name: str, xi, w_h, b_h, residuals: bool, shape: tuple):
 
 def gru_fwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
     """Fused recurrence: xi (N, T, 3H), w_h (H, 3H), b_h (3H,) -> (N, H) f32."""
+    xi, w_h, b_h = upcast(xi, w_h, b_h)
     _check("gru_fwd", xi, w_h, b_h)
     if xi.device.type == "cpu":
         return gru_fwd_plain(xi, w_h, b_h)
@@ -255,6 +261,7 @@ def gru_fwd_residuals(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor):
     (N, H), hseq (N, T, H), gseq (N, T, 3H)), h before each step and g =
     h . Wh + b of each step. The kernel's training variant: its h is
     bitwise `gru_fwd`'s."""
+    xi, w_h, b_h = upcast(xi, w_h, b_h)
     _check("gru_fwd_residuals", xi, w_h, b_h)
     if xi.device.type == "cpu":
         return gru_fwd_plain(xi, w_h, b_h, keep_residuals=True)
@@ -321,6 +328,7 @@ def gru_bwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, dh: torch.Te
     (N, H)) -> (dxi, dw_h, db_h), f32, for any T. `residuals` = (hseq,
     gseq) from `gru_fwd_residuals`; without them one `gru_fwd_residuals`
     launch makes them. Then the walk (counted here) and `gru_dwh`."""
+    xi, w_h, b_h, dh = upcast(xi, w_h, b_h, dh)
     more = {"dh": dh}
     if residuals is not None:
         more.update(hseq=residuals[0], gseq=residuals[1])
@@ -363,5 +371,6 @@ def gru(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
     mode on and an input that requires one) the forward is the residual
     variant and the backward walks from its residuals; under `no_grad` or
     `inference_mode` it is the serving variant, and nothing is kept."""
+    xi, w_h, b_h = upcast(xi, w_h, b_h)
     keep = torch.is_grad_enabled() and any(a.requires_grad for a in (xi, w_h, b_h))
     return _GRUFunction.apply(xi, w_h, b_h, keep)

@@ -3,7 +3,8 @@
 The same five BASELINE.json configurations plus the CLI-default flagship.
 They differ from the JAX presets in one field: `compute_dtype` stays
 "float32". The JAX presets default to bfloat16 because that was the best
-setting measured on a TPU; the port has no bfloat16 path yet.
+setting measured on a TPU, and the port carries over no default tuned
+there; `--bf16` (or `compute_dtype="bfloat16"`) takes the bfloat16 rung.
 """
 
 from __future__ import annotations

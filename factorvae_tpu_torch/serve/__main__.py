@@ -7,8 +7,10 @@
 Serves a synthetic dense panel (`--synthetic DAYS,STOCKS`) or a reference
 pickle (`--dataset`). Models come from weights directories (`--model DIR`,
 repeatable; alias = the directory name) or, without one, a preset with
-random weights drawn from `--seed` (alias = the preset name). Runs on CUDA
-unless `--device cpu` is given.
+random weights drawn from `--seed` (alias = the preset name), each admitted
+at `--precision` (float32, bfloat16 or int8; `plan`, the default, resolves
+to float32: the port has no plan table yet, and the JAX package's plan
+rows were measured on a TPU). Runs on CUDA unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -32,8 +34,13 @@ def main(argv=None) -> int:
     p.add_argument("--max_stocks", type=int, default=None)
     p.add_argument("--stochastic", action="store_true",
                    help="sample at inference (default: deterministic scores)")
+    p.add_argument("--precision", choices=["plan", "float32", "bfloat16", "int8"],
+                   default="plan",
+                   help="the rung every model is admitted at; plan = float32 (no "
+                        "plan table is ported)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    precision = "float32" if args.precision == "plan" else args.precision
 
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device; pass --device cpu to serve on the CPU",
@@ -48,6 +55,7 @@ def main(argv=None) -> int:
 
     from factorvae_tpu_torch.data.loader import PanelDataset
     from factorvae_tpu_torch.models.factorvae import load_model
+    from factorvae_tpu_torch.ops.kernels import hidden_refusal
     from factorvae_tpu_torch.params import read_config
     from factorvae_tpu_torch.presets import get_preset
     from factorvae_tpu_torch.serve.daemon import ScoringDaemon, serve_stdin
@@ -63,6 +71,10 @@ def main(argv=None) -> int:
                 config, train=dataclasses.replace(config.train, seed=args.seed))
     except (KeyError, OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
+        return 2
+    refused = hidden_refusal(config.model.hidden_size, args.device)
+    if refused:        # before the panel is read
+        print(f"error: {refused}", file=sys.stderr)
         return 2
 
     if args.synthetic:
@@ -86,15 +98,15 @@ def main(argv=None) -> int:
     try:
         if args.model:
             for path in args.model:
-                registry.admit(path)
+                registry.admit(path, precision=precision)
         else:
             model = load_model(config, device=args.device)
-            registry.admit(model, config, alias=args.preset)
+            registry.admit(model, config, alias=args.preset, precision=precision)
     except RegistryError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     print(f"[serve] ready: {len(registry.keys())} model(s) "
-          f"{sorted(registry.stats()['aliases'])}, panel "
+          f"{sorted(registry.stats()['aliases'])} at {precision}, panel "
           f"{len(dataset.dates)}d x {dataset.n_max} on {dataset.device}",
           file=sys.stderr)
     daemon = ScoringDaemon(registry, dataset,

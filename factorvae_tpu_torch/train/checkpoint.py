@@ -4,10 +4,12 @@ One file per saved epoch, `<directory>/epoch_<n>.pt`, written to a temporary
 name and renamed, so a reader never sees half a file. It holds what a resumed
 run needs to continue exactly: the model's and the optimizer's state_dicts,
 the scheduler's position, the train step count, the noise generator's state,
+a mixed run's loss scale and finite-step count (absent on float32 runs),
 and a `meta` dict (epoch, best validation loss, config, and `clean`: no bad
 signal at that epoch, so it may anchor a rollback). The newest `keep`
 files stay; an epoch replayed after a rollback replaces its file.
-Best-validation weights go through `params.save_weights` instead. The JAX
+Best-validation weights go through `params.save_weights` instead; they are
+the float32 masters whatever the training dtype. The JAX
 package's orbax checkpoints, manifests and quarantine are not ported.
 """
 
@@ -17,6 +19,7 @@ import os
 import re
 from typing import Optional
 
+import numpy as np
 import torch
 
 from factorvae_tpu_torch.train.state import TrainState
@@ -52,6 +55,9 @@ class Checkpointer:
             "step": state.step,
             "meta": meta,
         }
+        if state.loss_scale is not None:
+            payload["loss_scale"] = float(state.loss_scale)     # a float32 value
+            payload["good_steps"] = int(state.good_steps)
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -72,5 +78,8 @@ class Checkpointer:
         state.scheduler.load_state_dict(payload["scheduler"])
         state.generator.set_state(payload["generator"])
         state.step = int(payload["step"])
+        if "loss_scale" in payload:
+            state.loss_scale = np.float32(payload["loss_scale"])
+            state.good_steps = int(payload["good_steps"])
         return payload["meta"]
 

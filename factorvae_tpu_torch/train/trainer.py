@@ -20,12 +20,27 @@ under `config.checkpoint_name()`), full-state checkpoints every
 step) the run goes back to its last checkpoint saved at a clean epoch,
 scales the peak lr by `recover_lr_backoff` and replays from there, at most
 `recover_max_rollbacks` times. Events go to a `utils.logging.MetricsLogger`
-with the JAX `Trainer`'s names and fields. Not ported (ROADMAP Queue 1):
-fleets, mixed precision, streaming residency, the mesh.
+with the JAX `Trainer`'s names and fields.
+
+The precision ladder: the training dtype resolves through
+`train/state.resolve_train_dtype` and the model computes in it. A bfloat16
+run is mixed: float32 masters and optimizer, a bfloat16 compute copy per
+step, the dynamic loss scale of `TrainConfig.loss_scale_*` (each epoch
+record gains `loss_scale` and `loss_scale_floor_steps`), and validation in
+bfloat16 too. Its rollback counts up to steps_per_epoch // growth_interval
++ 1 skipped steps an epoch as normal (the scale's growth overshoots about
+once per interval) and a scale at its floor as bad.
+
+Refused in `__init__`, each naming its ROADMAP item, as the CLI does:
+streaming residency, a stock-sharded mesh, rematerialization, and on a
+CUDA device a hidden size above the kernels' maximum. Not ported: fleets.
+Checkpoints are saved synchronously (`train.async_checkpointing` is
+accepted; the files are the same).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -36,12 +51,15 @@ import torch
 from factorvae_tpu_torch import chaos
 from factorvae_tpu_torch.config import Config
 from factorvae_tpu_torch.models.factorvae import FactorVAE
+from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import save_weights
 from factorvae_tpu_torch.train.checkpoint import Checkpointer
 from factorvae_tpu_torch.train.loop import eval_epoch, train_epoch
 from factorvae_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
+    mixed_fields,
+    resolve_train_dtype,
     seed_for,
     set_lr_scale,
 )
@@ -57,12 +75,25 @@ class Trainer:
         self.ds = dataset
         self.device = torch.device(device)
         self.logger = logger or MetricsLogger(echo=False)
+        refused = hidden_refusal(config.model.hidden_size, self.device)
+        if refused:
+            raise ValueError(refused)
         if dataset.device.type != self.device.type:
             raise ValueError(f"the dataset lives on {dataset.device}, the trainer "
                              f"runs on {self.device}")
-        if (config.train.compute_dtype or config.model.compute_dtype) != "float32":
-            raise NotImplementedError("factorvae_tpu_torch trains in float32 only "
-                                      "(mixed precision is not ported)")
+        for given, knob, item in (
+                (config.data.panel_residency == "stream", "data.panel_residency='stream'", 5),
+                (config.mesh.stock_axis > 1, "mesh.stock_axis > 1", 12),
+                (config.train.remat != "none", f"train.remat={config.train.remat!r}", 15)):
+            if given:
+                raise NotImplementedError(f"{knob} is not ported to factorvae_tpu_torch "
+                                          f"yet (ROADMAP Queue 1 item {item})")
+        self.train_dtype = resolve_train_dtype(config.train, config.model)
+        self.mixed = self.train_dtype != "float32"
+        self.model_cfg = dataclasses.replace(config.model, compute_dtype=self.train_dtype)
+        t = config.train
+        self.loss_scale_cfg = (t.loss_scale_growth, t.loss_scale_backoff,
+                               t.loss_scale_growth_interval, t.loss_scale_floor)
         self.train_days = dataset.split_days(config.data.start_time,
                                              config.data.fit_end_time)
         self.val_days = dataset.split_days(config.data.val_start_time,
@@ -77,24 +108,29 @@ class Trainer:
         self._lr_scale = 1.0
         self.logger.log(
             "execution_layout", flatten_days=config.model.flatten_days,
-            days_per_step=self.batch_days, compute_dtype="float32",
-            model_compute_dtype=config.model.compute_dtype, mixed_precision=False,
+            days_per_step=self.batch_days, compute_dtype=self.train_dtype,
+            model_compute_dtype=config.model.compute_dtype, mixed_precision=self.mixed,
+            checkpoint_saves="synchronous",
             n_real=dataset.n_real, n_padded=dataset.n_max,
             dead_compute_frac=round(1.0 - dataset.n_real / dataset.n_max, 4),
             obs_probes=config.train.obs_probes, device=str(self.device))
 
     def init_state(self) -> TrainState:
         """A model with weights drawn from `train.seed` (bitwise
-        `load_model`'s), Adam, the schedule and the noise generator."""
+        `load_model`'s), Adam, the schedule and the noise generator; on a
+        mixed run also the loss scale at `loss_scale_init`."""
         cfg = self.cfg
-        model = FactorVAE(cfg.model)
+        model = FactorVAE(self.model_cfg)
         model.reset_parameters(torch.Generator().manual_seed(cfg.train.seed))
         model.to(self.device)
         optimizer, scheduler = make_optimizer(model.parameters(), cfg.train,
                                               self.total_steps)
         generator = torch.Generator(device=self.device).manual_seed(
             seed_for(cfg.train.seed, _TRAIN_NOISE))
-        return TrainState(model, optimizer, scheduler, generator)
+        state = TrainState(model, optimizer, scheduler, generator)
+        if self.mixed:
+            state = dataclasses.replace(state, **mixed_fields(cfg.train))
+        return state
 
     def _order(self, days, shuffle: bool, epoch: int) -> torch.Tensor:
         order = self.ds.epoch_order(days, shuffle=shuffle, seed=self.cfg.train.seed,
@@ -151,12 +187,14 @@ class Trainer:
             t0 = time.perf_counter()
             poison = chaos.fault("nan_grads", epoch=epoch) is not None
             train_m = train_epoch(state, self.ds, self._order(self.train_days, True, epoch),
-                                  guard=tcfg.finite_guard, poison=poison)
+                                  guard=tcfg.finite_guard, poison=poison,
+                                  compute_dtype=self.model_cfg.dtype,
+                                  loss_scale_cfg=self.loss_scale_cfg)
             rec = {"epoch": epoch, "train_loss": train_m["loss"],
                    "train_recon": train_m["recon"], "train_kl": train_m["kl"]}
             if val_order is not None:
                 val_m = eval_epoch(state.model, self.ds, val_order,
-                                   self._eval_generator(epoch))
+                                   self._eval_generator(epoch), self.model_cfg.dtype)
                 rec.update(val_loss=val_m["loss"], val_recon=val_m["recon"],
                            val_kl=val_m["kl"])
                 selection = val_m["loss"]
@@ -167,13 +205,22 @@ class Trainer:
             seconds = time.perf_counter() - t0
             rec.update(lr=state.scheduler.get_last_lr()[0], step=state.step,
                        seconds=seconds, days_per_sec=train_m["days"] / max(seconds, 1e-9))
-            if "skipped_steps" in train_m:
-                rec["skipped_steps"] = train_m["skipped_steps"]
+            for key in ("skipped_steps", "loss_scale", "loss_scale_floor_steps"):
+                if key in train_m:
+                    rec[key] = train_m[key]
             history.append(rec)
             self.logger.log("epoch", **rec)
 
-            # the recovery escalation (f32: any skipped step is a bad signal)
-            bad = not np.isfinite(train_m["loss"]) or train_m.get("skipped_steps", 0.0) > 0
+            # the recovery escalation: on f32 any skipped step is a bad
+            # signal; a mixed run expects about one overflow per growth of
+            # the scale, and a scale at its floor has stopped learning
+            skipped = train_m.get("skipped_steps", 0.0)
+            if self.mixed:
+                budget = self.steps_per_epoch // max(1, tcfg.loss_scale_growth_interval) + 1
+                bad = (not np.isfinite(train_m["loss"]) or skipped > budget
+                       or train_m["loss_scale"] <= tcfg.loss_scale_floor)
+            else:
+                bad = not np.isfinite(train_m["loss"]) or skipped > 0
             bad_streak = bad_streak + 1 if bad else 0
             escalate = bool(recover_after and bad_streak >= recover_after)
             can_roll = (rollbacks < tcfg.recover_max_rollbacks and ckpt is not None
@@ -232,7 +279,8 @@ class Trainer:
             raise ValueError("no trading days in the requested range")
         generator = torch.Generator(device=self.device).manual_seed(
             seed_for(seed, _EVAL_NOISE))
-        return eval_epoch(model, self.ds, self._order(days, False, 0), generator)
+        return eval_epoch(model, self.ds, self._order(days, False, 0), generator,
+                          self.model_cfg.dtype)
 
     def score(self, model, start=None, end=None, **kw):
         """Prediction scores DataFrame (`eval.predict.generate_prediction_scores`)."""

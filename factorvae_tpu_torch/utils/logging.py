@@ -39,10 +39,14 @@ def _git_sha() -> Optional[str]:
 
 def backend_env() -> dict:
     """The settings torch's numbers depend on: the visible cards, whether
-    float32 products may round through TF32, and the CPU thread count."""
+    float32 products may round through TF32, whether bfloat16 products may
+    reduce in bfloat16 (XLA's accumulate in float32), and the CPU thread
+    count."""
     return {
         "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "matmul_allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "torch_num_threads": torch.get_num_threads(),
     }

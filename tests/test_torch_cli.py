@@ -357,8 +357,6 @@ REFUSED = [
     (["--auto_plan"], "--auto_plan", 9),
     (["--panel_residency", "stream"], "--panel_residency stream", 5),
     (["--stream_chunk_days", "8"], "--stream_chunk_days", 5),
-    (["--bf16"], "--bf16", 3),
-    (["--int8_scores"], "--int8_scores", 3),
     (["--compile_cache", "xla_cache"], "--compile_cache", 9),
     (["--obs"], "--obs", 11),
     (["--prom_textfile", "x.prom"], "--prom_textfile", 11),
@@ -367,6 +365,8 @@ REFUSED = [
     (["--export", "model.bin"], "--export", 6),
     (["--export_platform", "tpu"], "--export_platform", 6),
     (["--no-pallas"], "--no-pallas", None),
+    # above the CUDA kernels' kMaxH on the card (ROADMAP Queue 2 "Limits")
+    (["--hidden_size", "96", "--device", "cuda"], "hidden_size 96", None),
 ]
 
 
@@ -396,13 +396,19 @@ class TestCliRefusals:
     @pytest.mark.parametrize("extra", [["--pallas"], ["--pallas_auto"], ["--no-bf16"],
                                        ["--fleet_seeds", "1"], ["--no-obs"],
                                        ["--panel_residency", "hbm"],
-                                       ["--compile_cache", "off"], ["--num_workers", "8"]],
+                                       ["--compile_cache", "off"], ["--num_workers", "8"],
+                                       ["--bf16"], ["--int8_scores"]],
                              ids=lambda e: " ".join(e))
     def test_accepted_flags_change_nothing(self, extra):
+        """Accepted, and nothing in the config changes but what the flag
+        sets: --bf16 the compute dtype (--int8_scores acts at scoring)."""
         base = cli.build_parser().parse_args(["--device", "cpu"])
         args = cli.build_parser().parse_args(["--device", "cpu", *extra])
         assert cli.refusal(args) is None
-        assert cli.config_from_args(args).to_dict() == cli.config_from_args(base).to_dict()
+        want = cli.config_from_args(base).to_dict()
+        if extra == ["--bf16"]:
+            want["model"]["compute_dtype"] = "bfloat16"
+        assert cli.config_from_args(args).to_dict() == want
 
     @pytest.mark.parametrize("case", ["missing_dataset", "empty_train_split",
                                       "feature_mismatch", "no_checkpoint", "no_cuda"])

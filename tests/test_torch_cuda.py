@@ -493,3 +493,84 @@ def test_attention_rule_fills_the_card(dev):
         assert g > 1 and b * -(-96 // g) >= min(96, sms)
     latent = torch.empty(32, 304, 64, device=dev)
     assert attention_module._group(latent, 96) == launch_group(32, 96, 304, sms)
+
+
+# ---------------------------------------------------------------------------
+# the precision ladder on the card
+
+
+def test_max_hidden_is_every_librarys_kmaxh(dev):
+    from factorvae_tpu_torch.ops.kernels import MAX_HIDDEN
+
+    for mod, name in ((gru_module, "gru_fwd"), (gru_module, "gru_bwd"),
+                      (attention_module, "attention_fwd"),
+                      (attention_module, "attention_bwd")):
+        assert getattr(mod._lib(name), f"{name}_max_hidden")() == MAX_HIDDEN, name
+
+
+def test_bf16_inputs_run_the_kernels_upcast(dev):
+    """A bf16 input reaches the kernel as its f32 upcast: bitwise the f32
+    call on the upcast values, and f32 out."""
+    rng = np.random.default_rng(5)
+    xi, wh, bh = _to(dev, rng.normal(size=(304, 20, 192)).astype(np.float32) * 0.5,
+                     (rng.normal(size=(64, 192)) / 8).astype(np.float32),
+                     (rng.normal(size=192) / 8).astype(np.float32))
+    lo = [t.to(torch.bfloat16) for t in (xi, wh, bh)]
+    got = gru_fwd(*lo)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, gru_fwd(*[t.float() for t in lo]))
+    args, keep, _, _ = _attention_case(dev, 2, 304, 96, 64, seed=6, poison=False)
+    lat, mask, *w = args
+    w16 = [t.to(torch.bfloat16) for t in w]
+    assert torch.equal(attention_fwd(lat, mask, *w16, keep),
+                       attention_fwd(lat, mask, *[t.float() for t in w16], keep))
+
+
+def test_mixed_step_on_the_card(dev):
+    """One mixed step on the card: the kernels launch, the masters stay f32
+    and the kernels' weight gradients reach them unrounded."""
+    from factorvae_tpu_torch import config
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.train.loop import train_step
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    panel = synthetic_panel_dense(40, 13, 12, seed=1)
+    dates = [str(d) for d in panel.dates]
+    cfg = config.Config(
+        model=config.ModelConfig(num_features=12, hidden_size=8, num_factors=4,
+                                 num_portfolios=10, seq_len=6, compute_dtype="bfloat16"),
+        data=config.DataConfig(seq_len=6, start_time=dates[0], fit_end_time=dates[27],
+                               val_start_time=dates[28], val_end_time=dates[39]),
+        train=config.TrainConfig(num_epochs=1, checkpoint_every=0))
+    ds = PanelDataset(panel, seq_len=6, device=dev)
+    trainer = Trainer(cfg, ds, device=dev)
+    state = trainer.init_state()
+    counters = (gru_fwd_residuals, gru_bwd, attention_fwd, attention_bwd)
+    before = [c.launches for c in counters]
+    aux = train_step(state, ds, trainer._order(trainer.train_days, True, 0)[0], guard=True,
+                     compute_dtype=torch.bfloat16, loss_scale_cfg=trainer.loss_scale_cfg)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    assert float(aux["skipped"]) == 0.0 and aux["loss_scale"] == 32768.0
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    g = state.model.feature_extractor.gru.hidden_kernel.grad
+    assert not torch.equal(g, g.to(torch.bfloat16).float())
+
+
+def test_entry_points_refuse_a_hidden_size_above_the_kernels(dev):
+    from factorvae_tpu_torch import config
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.models.factorvae import FactorVAE
+    from factorvae_tpu_torch.serve.registry import ModelRegistry, RegistryError
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    cfg = config.Config(model=config.ModelConfig(num_features=12, hidden_size=96,
+                                                 num_factors=4, num_portfolios=10,
+                                                 seq_len=6),
+                        data=config.DataConfig(seq_len=6))
+    ds = PanelDataset(synthetic_panel_dense(20, 13, 12, seed=1), seq_len=6, device=dev)
+    with pytest.raises(ValueError, match="Limits"):
+        Trainer(cfg, ds, device=dev)
+    with pytest.raises(RegistryError, match="Limits"):
+        ModelRegistry(device=dev).admit(FactorVAE(cfg.model), cfg)

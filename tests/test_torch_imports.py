@@ -1,6 +1,7 @@
-"""Guards of the PyTorch port: what it imports (every module, the training
-and CLI ones included, and a scoring pass, a training epoch and a CLI run
-without --backtest with no JAX, Flax, pandas or JAX-package module loaded),
+"""Guards of the PyTorch port: what it imports (every module, the training,
+CLI and quantization ones included, and a scoring pass at each precision
+rung, a float32 and a mixed training epoch and a CLI run without --backtest
+with no JAX, Flax, pandas or JAX-package module loaded),
 that the JAX weights carry
 across without loss, and that `chip_smoke.py` refuses to run without a GPU
 instead of falling back to the CPU."""
@@ -45,6 +46,13 @@ ds = PanelDataset(synthetic_panel_dense(12, 5, 6), seq_len=4, device="cpu")
 scores = predict_panel(load_model(cfg, device="cpu"), cfg, ds,
                        ds.split_days(None, None), stochastic=False)
 assert scores.shape == (12, 8) and np.isfinite(scores[:, :5]).all()
+# the precision ladder's scoring rungs: bf16 and int8 weight-only
+import dataclasses
+bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+for rung_cfg, int8 in ((bf16, False), (cfg, True), (bf16, True)):
+    s = predict_panel(load_model(cfg, device="cpu"), rung_cfg, ds,
+                      ds.split_days(None, None), stochastic=False, int8=int8)
+    assert s.shape == (12, 8) and np.isfinite(s[:, :5]).all()
 
 import tempfile
 from factorvae_tpu_torch.train.trainer import Trainer
@@ -56,9 +64,14 @@ with tempfile.TemporaryDirectory() as save_dir:
     state, out = Trainer(tcfg, ds, device="cpu").fit()
     assert state.step == len(ds.split_days(None, None))
     assert np.isfinite(out["history"][0]["train_loss"])
+    # a mixed epoch: bf16 compute over f32 masters, the dynamic loss scale
+    mixed = dataclasses.replace(tcfg, train=dataclasses.replace(tcfg.train,
+                                                                compute_dtype="bfloat16"))
+    state, out = Trainer(mixed, ds, device="cpu").fit()
+    assert np.isfinite(out["history"][0]["train_loss"]) and state.loss_scale > 0
 assert {"factorvae_tpu_torch.train.trainer", "factorvae_tpu_torch.train.loop",
         "factorvae_tpu_torch.train.state", "factorvae_tpu_torch.train.checkpoint",
-        "factorvae_tpu_torch.ops.kl"} <= set(names)
+        "factorvae_tpu_torch.ops.kl", "factorvae_tpu_torch.ops.quant"} <= set(names)
 
 # the CLI after the panel is built (no --backtest): train, score, export
 from factorvae_tpu_torch import cli

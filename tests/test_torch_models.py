@@ -382,8 +382,10 @@ class TestPrediction:
         bound = 1.0 / np.sqrt(C)
         w = a.feature_extractor.proj.weight.detach()
         assert float(w.abs().max()) <= bound and float(w.std()) > bound / 4
-        with pytest.raises(NotImplementedError):
-            FactorVAE(dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+        bf16 = FactorVAE(dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+        assert bf16.feature_extractor.proj.dtype == torch.bfloat16     # bf16 now builds
+        with pytest.raises(ValueError, match="compute_dtype"):
+            dataclasses.replace(cfg.model, compute_dtype="float16")
         with pytest.raises(NotImplementedError):
             FactorVAE(dataclasses.replace(cfg.model, gru_layers=2))
         json.dumps(cfg.to_dict())

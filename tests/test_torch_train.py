@@ -267,5 +267,9 @@ class TestResume:
             Trainer(tr.cfg, tr.ds, device="meta")
         bf16 = dataclasses.replace(tr.cfg, model=dataclasses.replace(
             tr.cfg.model, compute_dtype="bfloat16"))
-        with pytest.raises(NotImplementedError):
-            Trainer(bf16, tr.ds, device="cpu")
+        mixed = Trainer(bf16, tr.ds, device="cpu")        # bf16 now trains (mixed)
+        assert mixed.mixed and mixed.train_dtype == "bfloat16"
+        int8 = dataclasses.replace(tr.cfg, train=dataclasses.replace(
+            tr.cfg.train, compute_dtype="int8"))
+        with pytest.raises(ValueError, match="serving rung"):
+            Trainer(int8, tr.ds, device="cpu")
