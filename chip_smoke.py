@@ -103,10 +103,32 @@ named phases, and prints neither the kernels line nor the result):
               forward and K5 once per train step; (c) the serving variant
               and K4 only. The CSV has one row per valid (day, stock) and
               the RankIC is finite. Epoch, scoring and CSV times.
-11. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+11. fleet  -- fleets of models at flagship width, f32, S = 4 lanes: (a)
+              K1 (both variants), the walk and dWh at one training day and
+              at T = 60 / H = 60 (K3's case), K4 and K5 at one training day
+              per lane, each with four weight sets, against the lane-axis
+              plain versions, each lane bitwise the one-lane launch of the
+              same launch shape, and a NaN in lane 2 leaving lanes 0, 1 and
+              3 bitwise as they were (the attention's exact path on lane 2's
+              day alone); times at four lanes beside four one-lane times,
+              bounds four times the one lane's; (b) FleetTrainer, a seed
+              fleet of four, one epoch on the 80-day panel with every launch
+              counter set to 0 just before it: each training kernel once per
+              fleet step, K1's serving variant once per validation batch;
+              each lane's losses against the solo Trainer of its seed on the
+              card, the fleet epoch's wall against the solo epoch's, and the
+              busy share of five steps of each; (c) the CLI on the 120-day
+              pickle, one epoch each: --fleet_seeds 3 --backtest (one
+              launch per fleet step), --score_only on the winning seed (the
+              same RankIC), and a 2 x 2 lr:kl_weight --hyper_grid; (d) a
+              one-lane fleet equal to Trainer.fit bitwise on the card.
+12. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
-              the slice phase, `launches_cli` in the CLI's run (a) and
-              `launches_mixed` in the precision phase's mixed epoch).
+              the slice phase, `launches_cli` in the CLI's run (a),
+              `launches_mixed` in the precision phase's mixed epoch and
+              `launches_fleet` in the fleet epoch), and its `fleet_*` times
+              at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
+              `fleet_bound_ms`, ...).
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero. Times come from CUDA events: `ms` around 20
@@ -1496,6 +1518,389 @@ def phase_cli(torch, seed: int, counters, card: str) -> dict:
                         "d_cpu": cpu["wall_s"], "e": e["wall_s"], "f": f["wall_s"]}}
 
 
+# ---- fleets: the kernels' lane axis, FleetTrainer, the CLI's fleets ---------
+
+FLEET_LANES = 4
+# A lane of the fleet against the solo Trainer of its seed, one flagship
+# epoch on the card: the fleet runs the model's products batched over lanes
+# (vmap: cuBLAS's batched products, which sum in another order than the
+# solo run's), then 50 Adam steps magnify that rounding in small gradients.
+# A sound fleet reads about 2e-7 on an H100 (3e-7 on the CPU,
+# tests/test_torch_fleet.py). A plumbing fault reads far more: the control
+# below, a solo run whose lr is off by FLEET_FAULT_LR (relative), stands in
+# for a lane whose lr, step count or bias correction is slightly wrong, and
+# must read above the limit.
+FLEET_LOSS_RTOL = 1e-5
+FLEET_FAULT_LR = 1e-3
+
+
+def _lanes_close(torch, got, want, what: str) -> float:
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"fleet {what}: non-finite output")
+    return err
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def _same_lanes(torch, a, b, lanes) -> bool:
+    return all(bool(torch.equal(a[s], b[s])) for s in lanes)
+
+
+def _fleet_gru(torch, g, n, t, h) -> dict:
+    """K1 (both variants), the walk and dWh at S = FLEET_LANES lanes of four
+    weight sets: against the lane-axis plain versions, each lane bitwise the
+    one-lane launch of the same launch shape, a NaN in lane 2 leaving lanes
+    0, 1 and 3 bitwise as they were; times at S lanes beside S one-lane
+    launches; bounds S times the one-lane count (lanes share nothing)."""
+    from factorvae_tpu_torch.ops.kernels import gru as m
+    from factorvae_tpu_torch.ops.kernels import per_lane
+
+    s_ = FLEET_LANES
+    per = [_gru_bwd_inputs(torch, g, n, t, h) for _ in range(s_)]
+    xi, wh, bh, dh = (torch.stack(parts) for parts in zip(*per))
+    shape = m._shape(xi)
+    others = [0, 1, 3]
+    out = {"shape": [s_, n, t, h], "launch_shape": list(shape),
+           "one_lane_launch_shape": list(m._shape(xi[0]))}
+    # K1, serving and residual variants
+    h_s = m.gru_fwd(xi, wh, bh)
+    h_r, hseq, gseq = m.gru_fwd_residuals(xi, wh, bh)
+    check(bool(torch.equal(h_s, h_r)), "fleet K1: residual h != serving h")
+    plain = per_lane(m.gru_fwd_plain, xi, wh, bh)
+    errs = {"K1": _lanes_close(torch, h_s, plain, "K1")}
+    one = [m._fwd_launch("gru_fwd", xi[i], wh[i], bh[i], True, shape) for i in range(s_)]
+    check(all(torch.equal(one[i][0], h_s[i]) and torch.equal(one[i][1], hseq[i])
+              and torch.equal(one[i][2], gseq[i]) for i in range(s_)),
+          "fleet K1: a lane differs from its one-lane launch")
+    xi_p = xi.clone()
+    xi_p[2, 5, 3, 7] = float("nan")
+    h_p = m.gru_fwd(xi_p, wh, bh)
+    check(_same_lanes(torch, h_p, h_s, others) and not bool(torch.isfinite(h_p[2]).all()),
+          "fleet K1: a NaN in lane 2 reached another lane")
+    # the walk and dWh from the residuals (a training step's backward)
+    grads = m.gru_bwd(xi, wh, bh, dh, residuals=(hseq, gseq))
+    want = per_lane(lambda *a: m.gru_bwd_plain(*a[:4], residuals=a[4:]),
+                       xi, wh, bh, dh, hseq, gseq)
+    errs["walk_dxi"] = _lanes_close(torch, grads[0], want[0], "walk")
+    errs["dwh"] = max(_rel(grads[1][i], want[1][i]) for i in range(s_))
+    errs["db"] = max(_rel(grads[2][i], want[2][i]) for i in range(s_))
+    for i in range(s_):
+        dxi_i, dgn_i = m._walk_launch(xi[i], wh[i], hseq[i], gseq[i], dh[i], shape)
+        dwh_i, db_i = m.gru_dwh(hseq[i], dxi_i, dgn_i)
+        check(bool(torch.equal(dxi_i, grads[0][i]) and torch.equal(dwh_i, grads[1][i])
+                   and torch.equal(db_i, grads[2][i])),
+              f"fleet walk/dWh: lane {i} differs from its one-lane launch")
+    dh_p = dh.clone()
+    dh_p[2, 0, 0] = float("nan")
+    grads_p = m.gru_bwd(xi, wh, bh, dh_p, residuals=(hseq, gseq))
+    check(all(_same_lanes(torch, a, b, others) for a, b in zip(grads_p, grads))
+          and not bool(torch.isfinite(grads_p[1][2]).all()),
+          "fleet walk/dWh: a NaN in lane 2 reached another lane")
+    out["errors"] = errs
+    check(errs["K1"] <= K1_TOL and errs["walk_dxi"] <= K2_TOL and errs["dwh"] <= K2_TOL
+          and errs["db"] <= K2_TOL, f"fleet GRU: {errs} above {K1_TOL}")
+    # times at S lanes and of one lane; bounds S times the one lane's
+    _, _, b_ms, b_by = _k1_bound(n, t, h)
+    _, _, r_ms, r_by = _k1_bound(n, t, h, residuals=True)
+    product, elementwise = 2 * 2.0 * n * t * h * 3 * h, 30.0 * n * t * h
+    walk_bytes = 4.0 * (n * t * 3 * h * 2 + n * t * 4 * h + n * h + 2 * (3 * h * h + 3 * h))
+    w_ms, w_by = gru_bound_ms(walk_bytes, product, elementwise)
+    dwh_ms, dwh_by = gru_bound_ms(4.0 * (n * t * 4 * h + 3 * h * h + 3 * h),
+                                  2.0 * n * t * h * 3 * h, n * t * 3 * h)
+    _, dgn = m._walk_launch(xi, wh, hseq, gseq, dh, shape)
+    timing = {}
+    for name, lanes_fn, one_fn, bound, by in (
+            ("gru_fwd", lambda: m.gru_fwd(xi, wh, bh), lambda: m.gru_fwd(xi[0], wh[0], bh[0]),
+             b_ms, b_by),
+            ("gru_fwd_residuals", lambda: m.gru_fwd_residuals(xi, wh, bh),
+             lambda: m.gru_fwd_residuals(xi[0], wh[0], bh[0]), r_ms, r_by),
+            ("gru_bwd", lambda: m.gru_bwd(xi, wh, bh, dh, residuals=(hseq, gseq)),
+             lambda: m.gru_bwd(xi[0], wh[0], bh[0], dh[0], residuals=(hseq[0], gseq[0])),
+             w_ms, w_by),
+            ("gru_dwh", lambda: m.gru_dwh(hseq, grads[0], dgn),
+             lambda: m.gru_dwh(hseq[0], grads[0][0], dgn[0]), dwh_ms, dwh_by)):
+        lanes_t, one_t = _timed(torch, lanes_fn), _timed(torch, one_fn)
+        timing[name] = {"ms": lanes_t["ms"], "graph_ms": lanes_t["graph_ms"],
+                        "one_lane_ms": one_t["ms"], "one_lane_graph_ms": one_t["graph_ms"],
+                        "solo_x4_ms": s_ * one_t["ms"],
+                        "solo_x4_graph_ms": s_ * one_t["graph_ms"],
+                        "bound_ms": s_ * bound, "bound_by": by,
+                        "one_lane_bound_ms": bound}
+    out["timing"] = timing
+    return out
+
+
+def _fleet_attention(torch, g) -> dict:
+    """K4 and K5 at S = FLEET_LANES lanes, one flagship training day each
+    (B = 1, N = 304, K = 96, H = 64, with a keep-mask): against the lane-axis
+    plain versions, each lane bitwise the one-lane launch of the same heads
+    per CTA, a NaN latent row in lane 2 leaving lanes 0, 1 and 3 bitwise as
+    they were and taking the exact path in lane 2's day alone; times and
+    bounds as `_fleet_gru`."""
+    from factorvae_tpu_torch.ops.kernels import attention as m
+    from factorvae_tpu_torch.ops.kernels import per_lane
+
+    s_, b, n, k, h, n_real = FLEET_LANES, 1, 304, 96, 64, 300
+    per = [_k4_inputs(torch, g, b, n, k, h, n_real) for _ in range(s_)]
+    lat, mask, q, wk, bk, wv, bv = (torch.stack(parts) for parts in zip(*per))
+    weights = (q, wk, bk, wv, bv)
+    keep = (torch.rand(s_, b, k, n, device="cuda", generator=g) > 0.1).float() / 0.9
+    dctx = torch.randn(s_, b, k, h, device="cuda", generator=g)
+    group = m._group(lat, k)
+    others = [0, 1, 3]
+    out = {"shape": [s_, b, n, k, h], "heads_per_cta": group,
+           "one_lane_heads_per_cta": m._group(lat[0], k)}
+    ctx = m.attention_fwd(lat, mask, *weights, keep=keep)
+    errs = {"K4": _lanes_close(torch, ctx, per_lane(m.attention_fwd_plain, lat, mask,
+                                                        *weights, keep), "K4")}
+    grads = m.attention_bwd(lat, mask, *weights, dctx, keep=keep)
+    want = per_lane(m.attention_bwd_plain, lat, mask, *weights, dctx, keep)
+    errs["K5_dlatent"] = _lanes_close(torch, grads[0], want[0], "K5")
+    errs["K5_weights"] = max(_rel(a[i], w[i]) for a, w in zip(grads[1:], want[1:])
+                             for i in range(s_))
+    for i in range(s_):
+        lane = (lat[i], mask[i], *(w[i] for w in weights))
+        one_ctx, _, _ = m._fwd_launch(*lane, keep[i], group)
+        one_grads, _, _ = m._bwd_launch(*lane, dctx[i], keep[i], group)
+        check(bool(torch.equal(one_ctx, ctx[i]))
+              and all(torch.equal(a, w[i]) for a, w in zip(one_grads, grads)),
+              f"fleet K4/K5: lane {i} differs from its one-lane launch")
+    lat_p, mask_p = lat.clone(), mask.clone()
+    lat_p[2, 0, 11] = float("nan")
+    mask_p[2, 0, 11] = True
+    ctx_p, days_f, _ = m._fwd_launch(lat_p, mask_p, *weights, keep, group, exact=True)
+    grads_p, days_b, _ = m._bwd_launch(lat_p, mask_p, *weights, dctx, keep, group,
+                                       exact=True)
+    check(_same_lanes(torch, ctx_p, ctx, others)
+          and all(_same_lanes(torch, a, w, others) for a, w in zip(grads_p, grads)),
+          "fleet K4/K5: a NaN in lane 2 reached another lane")
+    check(all(bool(torch.isfinite(a).all()) for a in (ctx_p, *grads_p)),
+          "fleet K4/K5: the guarded lane's outputs are not finite")
+    exact = {"K4": days_f.nonzero().tolist(), "K5": days_b.nonzero().tolist()}
+    check(exact["K4"] == exact["K5"] == [[2, 0]],
+          f"fleet K4/K5: the exact path ran on (lane, day) {exact}, not [[2, 0]]")
+    out.update(errors=errs, exact_path_lane_days=exact)
+    check(errs["K4"] <= K4_TOL and errs["K5_dlatent"] <= K5_TOL
+          and errs["K5_weights"] <= K5_TOL, f"fleet K4/K5: {errs}")
+    one4 = _k4_timing(torch, lat[0], mask[0], tuple(w[0] for w in weights))
+    one5 = _k5_timing(torch, lat[0], mask[0], *(w[0] for w in weights), dctx[0], keep[0])
+    timing = {}
+    for name, fn, one in (
+            ("attention_fwd", lambda: m.attention_fwd(lat, mask, *weights), one4),
+            ("attention_bwd", lambda: m.attention_bwd(lat, mask, *weights, dctx, keep=keep),
+             one5)):
+        t = _timed(torch, fn)
+        # lanes share nothing: S times the one-lane work (the lanes' valid
+        # rows are within a few of each other; counted from lane 0's)
+        b_ms, b_by = bound_ms(s_ * one["bytes"], s_ * one["flops"])
+        timing[name] = {"ms": t["ms"], "graph_ms": t["graph_ms"],
+                        "one_lane_ms": one["ms"], "one_lane_graph_ms": one["graph_ms"],
+                        "solo_x4_ms": s_ * one["ms"], "solo_x4_graph_ms": s_ * one["graph_ms"],
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "one_lane_bound_ms": one["bound_ms"]}
+    out["timing"] = timing
+    return out
+
+
+def _busy_share(torch, fn) -> dict:
+    """Wall and device time of `fn` under torch.profiler: the kernels' and
+    copies' summed durations over the host's wall (single stream). Null
+    device time if the profiler shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            device_us += float(getattr(e, "self_device_time_total",
+                                       getattr(e, "self_cuda_time_total", 0.0)))
+    device_ms = device_us / 1e3 if device_us > 0 else None
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": None if device_ms is None else device_ms / wall_ms,
+            "host_share": None if device_ms is None else 1.0 - device_ms / wall_ms}
+
+
+def phase_fleet(torch, seed: int, counters, card: str) -> dict:
+    import tempfile
+
+    from factorvae_tpu_torch import cli
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.panel import panel_to_frame
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.train.fleet import FleetTrainer
+    from factorvae_tpu_torch.train.loop import lane_train_step, train_step
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    # (a) the kernels' lane axis; T = 60 / H = 60 is K3's case
+    gru_day = _fleet_gru(torch, g, 304, 20, 64)
+    gru_t60 = _fleet_gru(torch, g, 304, 60, 60)
+    att = _fleet_attention(torch, g)
+
+    # (b) a seed fleet of four, one flagship epoch, against solo runs
+    base = get_preset("flagship")
+    m = base.model
+    panel = synthetic_panel_dense(80, 300, m.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    cfg = dataclasses.replace(
+        base,
+        data=dataclasses.replace(base.data, start_time=dates[0], fit_end_time=dates[49],
+                                 val_start_time=dates[50], val_end_time=dates[69]),
+        train=dataclasses.replace(base.train, seed=seed, num_epochs=1, days_per_step=1,
+                                  checkpoint_every=0, save_dir=work.name))
+    dataset = PanelDataset(panel, seq_len=m.seq_len, device="cuda")
+    seeds = [seed + i for i in range(FLEET_LANES)]
+    fleet = FleetTrainer(cfg, dataset, seeds=seeds, device="cuda")
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, out = fleet.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    steps = fleet.steps_per_epoch
+    val_batches = -(-len(fleet.val_days) // fleet.batch_days)
+    check(all(launches[n] == steps for n in ("gru_fwd_residuals", "gru_bwd", "gru_dwh",
+                                              "attention_bwd"))
+          and launches["gru_fwd"] == val_batches
+          and launches["attention_fwd"] == steps + val_batches,
+          f"fleet: {steps} steps and {val_batches} validation batches of {FLEET_LANES} "
+          f"lanes, one launch each, but launches {launches}")
+    rec = out["history"][0]
+    check(all(np.isfinite(rec[k]).all() for k in ("train_loss", "val_loss"))
+          and rec["skipped_steps"] == [0.0] * FLEET_LANES, f"fleet: epoch {rec}")
+    _, warm = fleet.fit()
+    torch.cuda.synchronize()
+    solo, loss_rel = [], 0.0
+    for i, s in enumerate(seeds):
+        solo_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=s))
+        tr = Trainer(solo_cfg, dataset, device="cuda")
+        _, o = tr.fit()
+        if i == 0:          # warm, as the fleet's second fit
+            _, o = tr.fit()
+        r = o["history"][0]
+        solo.append(r)
+        for key in ("train_loss", "val_loss"):
+            loss_rel = max(loss_rel, abs(rec[key][i] - r[key]) / abs(r[key]))
+    check(loss_rel <= FLEET_LOSS_RTOL,
+          f"fleet: a lane's losses differ from its solo run by {loss_rel} (relative)")
+    # the control: lane 0 against a solo run with its lr slightly off
+    off_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, seed=seeds[0], lr=cfg.train.lr * (1 + FLEET_FAULT_LR)))
+    r = Trainer(off_cfg, dataset, device="cuda").fit()[1]["history"][0]
+    fault_rel = max(abs(rec[k][0] - r[k]) / abs(r[k]) for k in ("train_loss", "val_loss"))
+    check(fault_rel > FLEET_LOSS_RTOL,
+          f"fleet: a solo run with its lr {FLEET_FAULT_LR} off reads {fault_rel}, "
+          f"within the limit {FLEET_LOSS_RTOL}: the limit cannot tell it from a sound lane")
+    # busy shares of 5 steps of the fleet and of one solo run
+    order = fleet._epoch_orders(0)
+    peaks = [c.train.lr for c in fleet.lane_cfgs]
+    fleet_busy = _busy_share(torch, lambda: [lane_train_step(
+        fleet.model, state, dataset, order[:, i], peaks=peaks, train_cfg=cfg.train,
+        total_steps=fleet.total_steps, guard=True) for i in range(5)])
+    solo_tr = Trainer(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, seed=seeds[0])), dataset, device="cuda")
+    solo_state = solo_tr.init_state()
+    solo_busy = _busy_share(torch, lambda: [train_step(
+        solo_state, dataset, order[0, i], guard=True) for i in range(5)])
+
+    # (d) one lane equals the Trainer bitwise, on the card
+    one_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, seed=seeds[1], save_dir=os.path.join(work.name, "one")))
+    st1, o1 = FleetTrainer(one_cfg, dataset, seeds=[seeds[1]], device="cuda").fit()
+    stt, ot = Trainer(dataclasses.replace(one_cfg, train=dataclasses.replace(
+        one_cfg.train, save_dir=os.path.join(work.name, "solo"))), dataset,
+        device="cuda").fit()
+    same = ([(r["train_loss"][0], r["val_loss"][0]) for r in o1["history"]]
+            == [(r["train_loss"], r["val_loss"]) for r in ot["history"]]
+            and all(torch.equal(st1.params[n][0], p) for n, p in stt.model.named_parameters()))
+    check(same, "fleet: a one-lane fleet differs from Trainer.fit on the card")
+
+    # (c) the CLI: --fleet_seeds 3 with --backtest, --score_only on the
+    # winner, and a 2 x 2 lr:kl_weight --hyper_grid, one epoch each
+    cli_panel = synthetic_panel_dense(CLI_DAYS, 300, m.num_features, seed=seed)
+    d = [str(x) for x in cli_panel.dates]
+    pkl = os.path.join(work.name, "panel.pkl")
+    panel_to_frame(cli_panel).to_pickle(pkl)
+    root = work.name
+
+    def argv(out_dir, *extra):
+        return ["--preset", "flagship", "--dataset", pkl, "--seed", str(seed),
+                "--run_name", "fleet", "--start_time", d[0], "--fit_end_time", d[49],
+                "--val_start_time", d[50], "--val_end_time", d[69], "--score_start", d[70],
+                "--score_end", d[CLI_DAYS - 1], "--deterministic_scores", "--num_epochs", "1",
+                "--save_dir", f"{root}/cli/models", "--score_dir", f"{root}/{out_dir}/scores",
+                "--metrics_jsonl", f"{root}/{out_dir}/run.jsonl", *extra]
+
+    chunks = -(-(CLI_DAYS - 70) // 32)
+    train_names = ("gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_bwd")
+    fs = _cli_drive(torch, cli, counters, argv("fs", "--fleet_seeds", "3", "--backtest"))
+    lf = fs["launches"]
+    (sweep_ev,) = _of(fs, "fleet_sweep")
+    ics = {e["seed"]: e["rank_ic"] for e in _of(fs, "sweep_seed")}
+    best = sweep_ev["best_seed"]
+    scores_fs = _of(fs, "scores")[0]
+    check(sorted(ics) == [seed, seed + 1, seed + 2] and best == max(ics, key=ics.get)
+          and np.isfinite(scores_fs["rank_ic"]) and len(_of(fs, "backtest")) == 1,
+          f"cli --fleet_seeds: sweep {ics}, winner {best}, scores {scores_fs}")
+    # one launch per fleet step for the three lanes; validation batches; the
+    # fleet's scoring pass and the winner's, a chunk each
+    check(all(lf[n] == 50 for n in train_names) and lf["gru_fwd"] == 20 + 2 * chunks,
+          f"cli --fleet_seeds: launches {lf}")
+    so_argv = argv("so", "--score_only")
+    so_argv[so_argv.index("--seed") + 1] = str(best)
+    so = _cli_drive(torch, cli, counters, so_argv)
+    rank_ic = (scores_fs["rank_ic"], _of(so, "scores")[0]["rank_ic"])
+    check(rank_ic[0] == rank_ic[1],
+          f"cli --score_only on seed {best}: RankIC {rank_ic[1]} != the fleet run's {rank_ic[0]}")
+    hg = _cli_drive(torch, cli, counters, argv(
+        "hg", "--hyper_grid", "1e-4:1,1e-4:0.5,3e-4:1,3e-4:0.5"))
+    lh = hg["launches"]
+    (hyper_ev,) = _of(hg, "hyper_grid")
+    points = {e["label"]: e["rank_ic"] for e in _of(hg, "grid_point")}
+    scores_hg = _of(hg, "scores")[0]
+    check(len(points) == 4 and hyper_ev["best_label"] == max(points, key=points.get)
+          and np.isfinite(scores_hg["rank_ic"]) and all(lh[n] == 50 for n in train_names),
+          f"cli --hyper_grid: points {points}, {hyper_ev}, launches {lh}")
+    work.cleanup()
+
+    fleet_epoch, solo_epoch = warm["history"][0]["seconds"], solo[0]["seconds"]
+    return {"phase": "fleet", "card": card, "lanes": FLEET_LANES,
+            "config": "flagship C158/T20/H64/K96/M128, f32, days_per_step=1, "
+                      "dropout 0.1, mse; 50 train and 20 validation days of 300 stocks",
+            "kernels": {"gru_flagship_day": gru_day, "gru_alpha360_k60_T60": gru_t60,
+                        "attention_flagship_day": att},
+            "launches": launches,
+            "seed_fleet": {"seeds": seeds, "fit_s_first": fit_s,
+                           "epoch_s_first": rec["seconds"], "epoch_s_warm": fleet_epoch,
+                           "solo_epoch_s": [r["seconds"] for r in solo],
+                           "solo_epoch_s_warm": solo_epoch,
+                           "fleet_over_solo_epoch": fleet_epoch / solo_epoch,
+                           "fleet_over_4_solo_epochs": fleet_epoch / (FLEET_LANES * solo_epoch),
+                           "train_loss": rec["train_loss"], "val_loss": rec["val_loss"],
+                           "solo_train_loss": [r["train_loss"] for r in solo],
+                           "loss_max_rel_err": loss_rel, "loss_rtol": FLEET_LOSS_RTOL,
+                           "lr_off_loss_rel_err": fault_rel, "lr_off": FLEET_FAULT_LR,
+                           "busy_5_steps": {"fleet": fleet_busy, "solo": solo_busy}},
+            "one_lane_bitwise_trainer": same,
+            "cli": {"fleet_seeds": {"rank_ic": ics, "best_seed": best,
+                                    "score_rank_ic": rank_ic[0],
+                                    "score_only_rank_ic": rank_ic[1], "launches": lf,
+                                    "wall_s": fs["wall_s"]},
+                    "hyper_grid": {"rank_ic": points, "best_label": hyper_ev["best_label"],
+                                   "launches": lh, "wall_s": hg["wall_s"]}}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1535,7 +1940,8 @@ def main(argv=None) -> int:
         "K2": lambda: phase_k2(torch, args.seed), "K5": lambda: phase_k5(torch, args.seed),
         "train": lambda: phase_train(torch, args.seed, counters),
         "precision": lambda: phase_precision(torch, args.seed, counters),
-        "cli": lambda: phase_cli(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "cli": lambda: phase_cli(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "fleet": lambda: phase_fleet(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -1552,6 +1958,8 @@ def main(argv=None) -> int:
 
     by = {ph["phase"]: ph for ph in phases}
     launches = by["train"]["launches"]
+    fk = by["fleet"]["kernels"]
+    fleet_timing = {**fk["gru_flagship_day"]["timing"], **fk["attention_flagship_day"]["timing"]}
     rows = []
     for name, ph, src, replaces in (
             ("gru_fwd", by["K1"], "factorvae_tpu_torch/csrc/gru_fwd.cu",
@@ -1573,6 +1981,8 @@ def main(argv=None) -> int:
                      "launches_serving": by["slice"]["launches"].get(name, 0),
                      "launches_cli": by["cli"]["launches"]["a_train_score"][name],
                      "launches_mixed": by["precision"]["mixed_epoch"]["launches"][name],
+                     "launches_fleet": by["fleet"]["launches"][name],
+                     **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],
                      "tolerance": ph["tolerance"],
                      "ms": ph["ms"], "graph_ms": ph.get("graph_ms"),

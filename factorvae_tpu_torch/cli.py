@@ -13,6 +13,15 @@ under the reference's name, logs RankIC and RankIC_IR, and with
 accepted with its name and default; `--device` (default cuda) picks the
 card, where the CUDA kernels always run, or the CPU.
 
+Fleets: `--fleet_seeds N` trains the seeds [seed, seed + N) in one fleet
+(`train/fleet.py`, every kernel launched once per step for all of them),
+reports the per-seed Rank-IC sweep (`fleet_sweep`), and scores, exports and
+backtests the winner: the best Rank-IC among the seeds with a finite
+best_val and best weights on disk. `--hyper_grid LR:KLW,...` races the grid
+through hyper-fleets (`eval/sweep.grid_sweep`, `hyper_grid`) and goes on
+with its winner the same way; `--resume` restores a fleet from its
+lockstep checkpoints.
+
 The flags of paths this package does not port yet exit with code 2 and a
 line naming their ROADMAP Queue 1 item, before the dataset is read, as does
 a hidden size above the CUDA kernels' maximum on `--device cuda`.
@@ -85,9 +94,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest full-state checkpoint")
     p.add_argument("--fleet_seeds", type=int, default=None,
-                   help="1 only; more seeds are " + _REFUSED)
+                   help="train N seeds [seed, seed+N) at once in one fleet, report the "
+                        "per-seed Rank-IC sweep, then score/export with the best seed's "
+                        "best-val weights")
     p.add_argument("--hyper_grid", type=str, default=None, metavar="LR:KLW,LR:KLW,...",
-                   help=_REFUSED)
+                   help="race an lr:kl_weight grid through hyper-fleets (one lane per "
+                        "point), then score/export with the best point's best-val weights")
     p.add_argument("--kl_weight", type=float, default=None,
                    help="scale on the summed-over-K KL term (default 1.0)")
     p.add_argument("--recon_loss", choices=["mse", "nll"], default=None,
@@ -157,8 +169,6 @@ def refusal(args: argparse.Namespace) -> Optional[str]:
     None."""
     not_ported = (
         (args.mesh, "--mesh", 12), (args.mesh_stock is not None, "--mesh_stock", 12),
-        ((args.fleet_seeds or 1) > 1, "--fleet_seeds above 1", 4),
-        (args.hyper_grid is not None, "--hyper_grid", 4),
         (args.auto_plan, "--auto_plan", 9),
         (args.panel_residency == "stream", "--panel_residency stream", 5),
         (args.stream_chunk_days is not None, "--stream_chunk_days", 5),
@@ -319,6 +329,22 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
                 print(f"error: no checkpoint at {best}; train first", file=sys.stderr)
                 return 2
             model = load_model(cfg, best, device=args.device)
+        elif args.hyper_grid or (args.fleet_seeds or 1) > 1:
+            try:
+                won = (_hyper_grid(cfg, args, dataset, logger) if args.hyper_grid
+                       else _fleet_seeds(cfg, args, dataset, logger))
+            except ValueError as e:
+                if "empty training split" not in str(e):
+                    raise
+                print(f"error: no trading days in [{cfg.data.start_time}, "
+                      f"{cfg.data.fit_end_time}]; adjust --start_time/--fit_end_time",
+                      file=sys.stderr)
+                return 2
+            if isinstance(won, str):
+                print(f"error: {won}", file=sys.stderr)
+                return 2
+            cfg, best = won
+            model = load_model(cfg, best, device=args.device)
         else:
             try:
                 trainer = Trainer(cfg, dataset, device=args.device, logger=logger)
@@ -353,6 +379,77 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
         return 0
     finally:
         logger.finish()
+
+
+def _winner(df, ckpt_of) -> "object | None":
+    """The frame's index of the best Rank-IC among the rows with a finite
+    best_val whose best weights are on disk (`ckpt_of(index)`), or None. A
+    row whose selection never improved was scored on its final weights, and
+    a directory of that name may be an earlier run's."""
+    import numpy as np
+
+    ranked = df["rank_ic"].dropna()
+    ranked = ranked[np.isfinite(df.loc[ranked.index, "best_val"].to_numpy(float))]
+    ranked = ranked[[os.path.isdir(ckpt_of(i)) for i in ranked.index]]
+    return None if ranked.empty else ranked.idxmax()
+
+
+def _fleet_seeds(cfg: Config, args: argparse.Namespace, dataset, logger):
+    """--fleet_seeds: (the winning seed's Config, its best-weights path), or
+    the error line."""
+    from factorvae_tpu_torch.eval.sweep import seed_sweep
+
+    seeds = list(range(cfg.train.seed, cfg.train.seed + args.fleet_seeds))
+    df = seed_sweep(cfg, dataset, seeds=seeds, score_start=args.score_start,
+                    score_end=args.score_end, logger=logger, fleet=True,
+                    fleet_resume=args.resume, device=args.device)
+
+    def seed_cfg(seed):
+        return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=int(seed)))
+
+    def ckpt(seed):
+        c = seed_cfg(seed)
+        return os.path.join(c.train.save_dir, c.checkpoint_name())
+
+    best_seed = _winner(df, ckpt)
+    if best_seed is None:
+        return ("no fleet seed with finite rank_ic and a best-val checkpoint; nothing "
+                "to score/export (check lr / data ranges)")
+    logger.log("fleet_sweep", best_seed=int(best_seed), seeds=seeds, **df.attrs["summary"])
+    return seed_cfg(best_seed), ckpt(best_seed)
+
+
+def _hyper_grid(cfg: Config, args: argparse.Namespace, dataset, logger):
+    """--hyper_grid: (the winning point's Config, its best-weights path), or
+    the error line."""
+    from factorvae_tpu_torch.eval.sweep import (
+        _point_config,
+        grid_sweep,
+        parse_hyper_grid,
+        point_label,
+    )
+
+    points = parse_hyper_grid(args.hyper_grid)
+    if not points:
+        return "--hyper_grid parsed to zero points (format: LR:KLW,LR:KLW,...)"
+    df = grid_sweep(cfg, dataset, points, score_start=args.score_start,
+                    score_end=args.score_end, logger=logger, device=args.device)
+    by_label = {point_label(p): p for p in points}
+
+    def point_cfg(label):
+        return _point_config(cfg, by_label[label], label)
+
+    def ckpt(label):
+        c = point_cfg(label)
+        return os.path.join(c.train.save_dir, c.checkpoint_name())
+
+    best_label = _winner(df, ckpt)
+    if best_label is None:
+        return ("no grid point with finite rank_ic and a best-val checkpoint; nothing "
+                "to score/export (check the grid / data ranges)")
+    logger.log("hyper_grid", best_label=str(best_label), points=list(by_label),
+               **{k: v for k, v in df.attrs["summary"].items() if k != "best_label"})
+    return point_cfg(best_label), ckpt(best_label)
 
 
 def _backtest(cfg: Config, args: argparse.Namespace, table: dict, logger) -> None:

@@ -42,6 +42,12 @@
 // Every sum runs in a fixed order, so a repeated call gives bitwise the same
 // gradients; there are no atomics.
 //
+// Lanes: a launch carries S models, each with its own days (train/fleet.py):
+// every input, gradient and scratch array gains a leading lane axis, and
+// each kernel's grid has the lane as its y. The cross-day sums of kernel 2
+// run over one lane's days only, in day order, and a guarded head stays in
+// its lane, so lane i is bitwise a one-lane launch.
+//
 // Bound: at one flagship day (N = 304, ~300 valid, K = 96, H = 64) the
 // least work is ~12H per valid row and head and a few H^2 per head: ~30
 // MFLOP, against reading Wk and Wv and writing dWk and dWv (6.3 MB of 6.7),
@@ -185,6 +191,26 @@ attention_bwd_head_kernel(const float* __restrict__ latent,
   const int lane = tid & 31;
 
   const int groups = (k_heads + group - 1) / group;
+  {                         // this CTA's lane: its slice of every array
+    const size_t lane = blockIdx.y;
+    const size_t b_days = gridDim.x / groups;
+    const size_t kh = (size_t)k_heads * h;
+    const size_t bkn = b_days * k_heads * n;
+    latent += lane * b_days * n * h;
+    mask += lane * b_days * n;
+    if (keep) keep += lane * bkn;
+    q += lane * kh;
+    wk += lane * kh * h;
+    bk += lane * kh;
+    wv += lane * kh * h;
+    bv += lane * kh;
+    dctx += lane * b_days * kh;
+    a_out += lane * bkn;
+    dz_out += lane * bkn;
+    vec_out += lane * b_days * 3 * kh;
+    sum_out += lane * b_days * k_heads * 2;
+    if (exact) exact += lane * b_days;
+  }
   const int day = blockIdx.x / groups;
   const int grp = blockIdx.x - day * groups;
   const int head0 = grp * group;
@@ -304,6 +330,22 @@ attention_bwd_weights_kernel(const float* __restrict__ q,
   const int part = blockIdx.x - head * kWeightParts;
   const int tid = threadIdx.x;
   const size_t hh = (size_t)h * h;
+  {                         // this block's lane
+    const size_t lane = blockIdx.y;
+    const size_t kh = (size_t)k_heads * h;
+    q += lane * kh;
+    wk += lane * kh * h;
+    bk += lane * kh;
+    dctx += lane * b_days * kh;
+    vec += lane * b_days * 3 * kh;
+    sums += lane * b_days * k_heads * 2;
+    dq += lane * kh;
+    dwk += lane * kh * h;
+    dbk += lane * kh;
+    dwv += lane * kh * h;
+    dbv += lane * kh;
+    u += lane * kh;
+  }
   const float* wk_k = wk + head * hh;
 
   if (tid < h) {
@@ -367,6 +409,15 @@ attention_bwd_latent_kernel(const float* __restrict__ a,
                             float* __restrict__ dlatent,
                             int n, int k_heads, int h) {
   __shared__ float part[kLatentSlices][kMaxH];
+  {                         // this block's lane
+    const size_t lane = blockIdx.y;
+    const size_t bkn = (size_t)gridDim.x * k_heads;     // B * K * N
+    a += lane * bkn;
+    dz += lane * bkn;
+    u += lane * k_heads * h;
+    vec += lane * bkn / n * 3 * h;
+    dlatent += lane * gridDim.x * h;
+  }
   const int b = blockIdx.x / n;
   const int row = blockIdx.x - b * n;
   const int i = threadIdx.x % kMaxH;
@@ -396,7 +447,7 @@ int launch_head(const float* latent, const unsigned char* mask,
                 const float* keep, const float* q, const float* wk,
                 const float* bk, const float* wv, const float* bv,
                 const float* dctx, float* a, float* dz, float* vec, float* sums,
-                int* exact, int b, int n, int k_heads, int h, int group,
+                int* exact, int b, int n, int k_heads, int h, int group, int lanes,
                 cudaStream_t stream) {
   int staged = 0;
   const int smem = plan_smem(n, h, group, true, &staged);
@@ -408,7 +459,7 @@ int launch_head(const float* latent, const unsigned char* mask,
     return (int)err;
   }
   const int groups = (k_heads + group - 1) / group;
-  attention_bwd_head_kernel<S><<<b * groups, kThreads, smem, stream>>>(
+  attention_bwd_head_kernel<S><<<dim3(b * groups, lanes), kThreads, smem, stream>>>(
       latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums, exact, n, k_heads,
       h, group, staged);
   return (int)cudaGetLastError();
@@ -418,19 +469,20 @@ int launch_head(const float* latent, const unsigned char* mask,
 
 extern "C" int attention_bwd_max_hidden() { return kMaxH; }
 
-// Floats of scratch the wrapper allocates (the kernels write all of it): a
-// and dz (B, K, N), then lz, la, w (B, K, 3, H), sum dz and sum a (B, K, 2),
-// u (K, H).
-extern "C" long long attention_bwd_scratch_floats(int b, int n, int k_heads, int h) {
+// Floats of scratch the wrapper allocates (the kernels write all of it), for
+// `lanes` = S models: a and dz (S, B, K, N), then lz, la, w (S, B, K, 3, H),
+// sum dz and sum a (S, B, K, 2), u (S, K, H).
+extern "C" long long attention_bwd_scratch_floats(int b, int n, int k_heads, int h,
+                                                  int lanes) {
   const long long bk = (long long)b * k_heads;
-  return 2 * bk * n + bk * 3 * h + bk * 2 + (long long)k_heads * h;
+  return (long long)lanes * (2 * bk * n + bk * 3 * h + bk * 2 + (long long)k_heads * h);
 }
 
 // Launches the three kernels on `stream`, kernel 1 with `group` heads per
-// CTA; returns the first cudaError_t (0 = ok). An N whose row list and
-// per-head arrays do not fit one block's shared memory even with the rows
-// left in device memory is refused (at H = 64: above N of about 9,300 at
-// G = 1, 3,700 at G = 2).
+// CTA, for `lanes` = S models; returns the first cudaError_t (0 = ok). An N
+// whose row list and per-head arrays do not fit one block's shared memory
+// even with the rows left in device memory is refused (at H = 64: above N
+// of about 9,300 at G = 1, 3,700 at G = 2).
 extern "C" int attention_bwd(const float* latent, const unsigned char* mask,
                              const float* keep, const float* q,
                              const float* wk, const float* bk,
@@ -438,11 +490,12 @@ extern "C" int attention_bwd(const float* latent, const unsigned char* mask,
                              const float* dctx, float* dlatent, float* dq,
                              float* dwk, float* dbk, float* dwv, float* dbv,
                              float* scratch, int* exact, int b, int n, int k_heads,
-                             int h, int group, void* stream) {
-  if (h <= 0 || h > kMaxH || n <= 0 || b <= 0 || k_heads <= 0 || group <= 0)
+                             int h, int group, int lanes, void* stream) {
+  if (h <= 0 || h > kMaxH || n <= 0 || b <= 0 || k_heads <= 0 || group <= 0 ||
+      lanes < 1 || lanes > kMaxLanes)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const size_t bk_n = (size_t)b * k_heads;
+  const size_t bk_n = (size_t)lanes * b * k_heads;
   float* a = scratch;
   float* dz = a + bk_n * n;
   float* vec = dz + bk_n * n;
@@ -450,15 +503,15 @@ extern "C" int attention_bwd(const float* latent, const unsigned char* mask,
   float* u = sums + bk_n * 2;
   int err = h <= 32
       ? launch_head<1>(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums,
-                       exact, b, n, k_heads, h, group, st)
+                       exact, b, n, k_heads, h, group, lanes, st)
       : launch_head<2>(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums,
-                       exact, b, n, k_heads, h, group, st);
+                       exact, b, n, k_heads, h, group, lanes, st);
   if (err != 0) return err;
-  attention_bwd_weights_kernel<<<k_heads * kWeightParts, kThreads, 0, st>>>(
+  attention_bwd_weights_kernel<<<dim3(k_heads * kWeightParts, lanes), kThreads, 0, st>>>(
       q, wk, bk, dctx, vec, sums, dq, dwk, dbk, dwv, dbv, u, b, k_heads, h);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  attention_bwd_latent_kernel<<<b * n, kThreads, 0, st>>>(a, dz, u, vec, dlatent, n,
-                                                          k_heads, h);
+  attention_bwd_latent_kernel<<<dim3(b * n, lanes), kThreads, 0, st>>>(
+      a, dz, u, vec, dlatent, n, k_heads, h);
   return (int)cudaGetLastError();
 }

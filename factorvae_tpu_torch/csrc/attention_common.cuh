@@ -32,6 +32,7 @@ namespace attn {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxH = 64;            // largest hidden size (2 columns per lane)
+constexpr int kMaxLanes = 65535;     // models per launch: the grid's y extent
 constexpr int kTile = 8;             // valid rows per warp step (exact path)
 constexpr float kNegInf = -1e30f;
 constexpr int kSmemSlack = 1024;     // bytes left for the kernels' static shared memory

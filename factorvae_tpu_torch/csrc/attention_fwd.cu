@@ -20,6 +20,12 @@
 // Inputs: latent (B, N, H), mask (B, N) bytes, keep (B, K, N) or null,
 // q (K, H), Wk/Wv (K, H, H), bk/bv (K, H). Output: ctx (B, K, H), and, if
 // `exact` is not null, exact[b] = 1 for a day that took the exact path.
+// A launch carries S lanes, each its own model and its own days
+// (train/fleet.py): every array above gains a leading lane axis (latent
+// (S, B, N, H), mask (S, B, N), q (S, K, H), ..., ctx (S, B, K, H), exact
+// (S, B)). The grid's y is the lane, so a CTA never mixes two lanes, a
+// lane's guard and exact path stay in that lane, and lane i is bitwise a
+// one-lane launch.
 //
 // Neither per-row product is needed on a day whose valid latent rows are
 // finite: s_n = L_n . u + c with u = Wk . q, c = bk . q, and ctx = (a^T L) .
@@ -164,6 +170,21 @@ attention_fwd_kernel(const float* __restrict__ latent,
   int* idx = reinterpret_cast<int*>(smem + L.idx);
 
   const int groups = (k_heads + group - 1) / group;
+  {                         // this CTA's lane: its slice of every array
+    const size_t lane = blockIdx.y;
+    const size_t b_days = gridDim.x / groups;
+    const size_t kh = (size_t)k_heads * h;
+    latent += lane * b_days * n * h;
+    mask += lane * b_days * n;
+    if (keep) keep += lane * b_days * k_heads * n;
+    q += lane * kh;
+    wk += lane * kh * h;
+    bk += lane * kh;
+    wv += lane * kh * h;
+    bv += lane * kh;
+    out += lane * b_days * kh;
+    if (exact) exact += lane * b_days;
+  }
   const int day = blockIdx.x / groups;
   const int grp = blockIdx.x - day * groups;
   const int head0 = grp * group;
@@ -205,7 +226,7 @@ template <int S>
 int launch(const float* latent, const unsigned char* mask, const float* keep,
            const float* q, const float* wk, const float* bk, const float* wv,
            const float* bv, float* out, int* exact, int b, int n, int k_heads, int h,
-           int group, cudaStream_t stream) {
+           int group, int lanes, cudaStream_t stream) {
   int staged = 0;
   const int smem = plan_smem(n, h, group, false, &staged);
   if (smem < 0) return (int)cudaErrorInvalidConfiguration;
@@ -216,7 +237,7 @@ int launch(const float* latent, const unsigned char* mask, const float* keep,
     return (int)err;
   }
   const int groups = (k_heads + group - 1) / group;
-  attention_fwd_kernel<S><<<b * groups, kThreads, smem, stream>>>(
+  attention_fwd_kernel<S><<<dim3(b * groups, lanes), kThreads, smem, stream>>>(
       latent, mask, keep, q, wk, bk, wv, bv, out, exact, n, k_heads, h, group, staged);
   return (int)cudaGetLastError();
 }
@@ -225,22 +246,24 @@ int launch(const float* latent, const unsigned char* mask, const float* keep,
 
 extern "C" int attention_fwd_max_hidden() { return kMaxH; }
 
-// Launches on `stream` with `group` heads per CTA; returns the cudaError_t
-// of the launch (0 = ok). An N whose row list and scores do not fit one
-// block's shared memory even with the rows left in device memory is refused
-// (at H = 64: above N of about 18,800 at G = 1, 8,000 at G = 2).
+// Launches on `stream` with `group` heads per CTA, for `lanes` = S models;
+// returns the cudaError_t of the launch (0 = ok). An N whose row list and
+// scores do not fit one block's shared memory even with the rows left in
+// device memory is refused (at H = 64: above N of about 18,800 at G = 1,
+// 8,000 at G = 2).
 extern "C" int attention_fwd(const float* latent, const unsigned char* mask,
                              const float* keep, const float* q,
                              const float* wk, const float* bk,
                              const float* wv, const float* bv, float* out,
                              int* exact, int b, int n, int k_heads, int h, int group,
-                             void* stream) {
-  if (h <= 0 || h > kMaxH || n <= 0 || group <= 0) return (int)cudaErrorInvalidValue;
+                             int lanes, void* stream) {
+  if (h <= 0 || h > kMaxH || n <= 0 || group <= 0 || lanes < 1 || lanes > kMaxLanes)
+    return (int)cudaErrorInvalidValue;
   if (b <= 0 || k_heads <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (h <= 32)
     return launch<1>(latent, mask, keep, q, wk, bk, wv, bv, out, exact, b, n, k_heads, h,
-                     group, st);
+                     group, lanes, st);
   return launch<2>(latent, mask, keep, q, wk, bk, wv, bv, out, exact, b, n, k_heads, h,
-                   group, st);
+                   group, lanes, st);
 }

@@ -46,6 +46,12 @@
 // 64), 0.0009 ms at f32 accuracy on the tensor cores (3xTF32, 165 TFLOP/s),
 // so its 6.3 MB of inputs bound it at 0.0019 ms. Why not wgmma: see
 // gru_fwd.cu.
+//
+// Lanes: a launch carries S models (train/fleet.py), every array with a
+// leading lane axis (xi (S, N, T, 3H), Wh (S, H, 3H), dWh (S, H, 3H), ...).
+// Every kernel's grid has the lane as its y, so no CTA, cluster or partial
+// sum mixes two lanes; dWh's partial slots and their block-order sum are per
+// lane, so lane i of an S-lane launch is bitwise a one-lane launch.
 
 #include "gru_common.cuh"
 
@@ -81,6 +87,17 @@ gru_walk_kernel(const float* __restrict__ xi, const float* __restrict__ wh,
   extern __shared__ float4 smem4[];
   const int h3 = 3 * h;
   const int ldg = mma_ld(h3);
+  {                         // this CTA's lane: its slice of every array
+    const long long lane = blockIdx.y;
+    const long long nt = (long long)n_rows * t_len;
+    xi += lane * nt * h3;
+    wh += lane * h * h3;
+    hseq += lane * nt * h;
+    gseq += lane * nt * h3;
+    dh += lane * n_rows * h;
+    dxi += lane * nt * h3;
+    dgn += lane * nt * h;
+  }
   const int rank = blockIdx.x % csize;
   const int u0 = unit_begin(rank, h, csize);
   const int un = unit_begin(rank + 1, h, csize) - u0;
@@ -204,14 +221,14 @@ gru_walk_kernel(const float* __restrict__ xi, const float* __restrict__ wh,
 template <int R>
 int launch_walk(const float* xi, const float* wh, const float* hseq, const float* gseq,
                 const float* dh, float* dxi, float* dgn, int n_rows, int t_len, int h,
-                int cluster, cudaStream_t stream) {
+                int cluster, int lanes, cudaStream_t stream) {
   const int tiles = (n_rows + R - 1) / R;
   const int smem =
       (int)sizeof(float) * walk_smem_floats(h, R, (h + cluster - 1) / cluster, cluster);
   return launch_clustered(a_in_registers(h, cluster, walk_plan) ? gru_walk_kernel<R, true>
                                                                 : gru_walk_kernel<R, false>,
-                          tiles * cluster, cluster, smem, stream, xi, wh, hseq, gseq, dh, dxi,
-                          dgn, n_rows, t_len, h, cluster);
+                          tiles * cluster, lanes, cluster, smem, stream, xi, wh, hseq, gseq,
+                          dh, dxi, dgn, n_rows, t_len, h, cluster);
 }
 
 // ---- dWh and db -------------------------------------------------------------
@@ -238,6 +255,13 @@ gru_dwh_kernel(const float* __restrict__ hseq, const float* __restrict__ dxi,
   const int tid = threadIdx.x;
   const int kq = tid / 16;
   const int jq = tid % 16;
+  {                         // this block's lane: its rows and its slots
+    const long long lane = blockIdx.y;
+    hseq += lane * m_rows * h;
+    dxi += lane * m_rows * h3;
+    dgn += lane * m_rows * h;
+    part += (lane * gridDim.x) * (long long)(h * h3 + h3);
+  }
   float acc[4][12];
   float dbacc[12];
 #pragma unroll
@@ -296,12 +320,16 @@ gru_dwh_kernel(const float* __restrict__ hseq, const float* __restrict__ dxi,
 }
 
 // Sum the blocks' partial (dWh, db) slots in block order, one thread per
-// output (neighbouring threads read neighbouring floats of a slot).
+// output (neighbouring threads read neighbouring floats of a slot); the
+// grid's y is the lane.
 __global__ void gru_dwh_reduce_kernel(const float* __restrict__ part, int blocks,
                                       int h, float* __restrict__ dwh,
                                       float* __restrict__ db) {
   const int h3 = 3 * h;
   const int len = h * h3 + h3;
+  part += (size_t)blockIdx.y * blocks * len;
+  dwh += (size_t)blockIdx.y * h * h3;
+  db += (size_t)blockIdx.y * h3;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= len) return;
   float s = 0.0f;
@@ -315,42 +343,46 @@ __global__ void gru_dwh_reduce_kernel(const float* __restrict__ part, int blocks
 
 extern "C" int gru_bwd_max_hidden() { return kMaxH; }
 
-// The walk: dxi (N, T, 3H) and dg_n (N, T, H) from xi, Wh, the residuals
-// hseq and gseq, and dh (N, H). Launches on `stream`; returns the
-// cudaError_t (0 = ok). `rows` and `cluster` as in gru_fwd.
+// The walk: dxi (S, N, T, 3H) and dg_n (S, N, T, H) from xi, Wh, the
+// residuals hseq and gseq, and dh (S, N, H), for `lanes` = S models.
+// Launches on `stream`; returns the cudaError_t (0 = ok). `rows` and
+// `cluster` as in gru_fwd.
 extern "C" int gru_walk(const float* xi, const float* wh, const float* hseq,
                         const float* gseq, const float* dh, float* dxi, float* dgn,
-                        int n_rows, int t_len, int h, int rows, int cluster, void* stream) {
-  if (!valid_shape(h, rows, cluster) || t_len < 0) return (int)cudaErrorInvalidValue;
+                        int n_rows, int t_len, int h, int rows, int cluster, int lanes,
+                        void* stream) {
+  if (!valid_shape(h, rows, cluster, lanes) || t_len < 0) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0 || t_len == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   return rows == 8 ? launch_walk<8>(xi, wh, hseq, gseq, dh, dxi, dgn, n_rows, t_len, h,
-                                    cluster, st)
+                                    cluster, lanes, st)
                    : launch_walk<16>(xi, wh, hseq, gseq, dh, dxi, dgn, n_rows, t_len, h,
-                                     cluster, st);
+                                     cluster, lanes, st);
 }
 
-// Floats of scratch gru_dwh needs for m_rows = N * T rows: one partial
-// (dWh, db) slot per block.
-extern "C" long long gru_dwh_scratch_floats(long long m_rows, int h) {
-  return dwh_blocks(m_rows) * (3LL * h * h + 3 * h);
+// Floats of scratch gru_dwh needs for m_rows = N * T rows of each of `lanes`
+// models: one partial (dWh, db) slot per block and lane.
+extern "C" long long gru_dwh_scratch_floats(long long m_rows, int h, int lanes) {
+  return (long long)lanes * dwh_blocks(m_rows) * (3LL * h * h + 3 * h);
 }
 
-// dWh (H, 3H) = hseq^T . [dxi_r | dxi_z | dg_n] and db (3H) = its column sums,
-// over m_rows = N * T rows. Launches on `stream`; returns the cudaError_t.
+// dWh (S, H, 3H) = hseq^T . [dxi_r | dxi_z | dg_n] and db (S, 3H) = its
+// column sums, over m_rows = N * T rows of each of `lanes` = S models.
+// Launches on `stream`; returns the cudaError_t.
 extern "C" int gru_dwh(const float* hseq, const float* dxi, const float* dgn,
                        float* dwh, float* db, float* scratch, long long m_rows,
-                       int h, void* stream) {
-  if (h <= 0 || h > kMaxH || m_rows <= 0) return (int)cudaErrorInvalidValue;
+                       int h, int lanes, void* stream) {
+  if (h <= 0 || h > kMaxH || m_rows <= 0 || lanes < 1 || lanes > kMaxLanes)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const long long blocks = dwh_blocks(m_rows);
   const long long per_block = (m_rows + blocks - 1) / blocks;
-  gru_dwh_kernel<<<(int)blocks, kDwThreads, 0, st>>>(hseq, dxi, dgn, scratch, m_rows,
-                                                      per_block, h);
+  gru_dwh_kernel<<<dim3((unsigned)blocks, lanes), kDwThreads, 0, st>>>(
+      hseq, dxi, dgn, scratch, m_rows, per_block, h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = 3 * h * h + 3 * h;
-  gru_dwh_reduce_kernel<<<(len + 255) / 256, 256, 0, st>>>(scratch, (int)blocks, h, dwh,
-                                                           db);
+  gru_dwh_reduce_kernel<<<dim3((len + 255) / 256, lanes), 256, 0, st>>>(
+      scratch, (int)blocks, h, dwh, db);
   return (int)cudaGetLastError();
 }

@@ -243,17 +243,18 @@ __device__ __forceinline__ void mma_product(const float* __restrict__ A, int lda
   }
 }
 
-// Launch `kernel` on `blocks` CTAs of kThreads in clusters of `cluster`, with
-// `smem` bytes of dynamic shared memory; returns the cudaError_t (0 = ok) and
-// leaves no error behind for the next launch.
+// Launch `kernel` on `blocks` x `lanes` CTAs of kThreads in clusters of
+// `cluster` along x, with `smem` bytes of dynamic shared memory; returns the
+// cudaError_t (0 = ok) and leaves no error behind for the next launch. The
+// grid's y is the lane: a cluster never straddles two lanes.
 template <typename... Params, typename... Args>
-int launch_clustered(void (*kernel)(Params...), int blocks, int cluster, int smem,
-                     cudaStream_t stream, Args... args) {
+int launch_clustered(void (*kernel)(Params...), int blocks, int lanes, int cluster,
+                     int smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) {
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks);
+    cfg.gridDim = dim3(blocks, lanes);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
@@ -274,10 +275,12 @@ int launch_clustered(void (*kernel)(Params...), int blocks, int cluster, int sme
 }
 
 // The host's check of a launch shape: 8- or 16-row tiles, 1 to kMaxCluster
-// CTAs per cluster, each owning at least one hidden unit.
-inline bool valid_shape(int h, int rows, int cluster) {
+// CTAs per cluster, each owning at least one hidden unit, 1 to kMaxLanes
+// lanes.
+constexpr int kMaxLanes = 65535;   // the grid's y extent
+inline bool valid_shape(int h, int rows, int cluster, int lanes) {
   return h > 0 && h <= kMaxH && (rows == 8 || rows == 16) && cluster >= 1 &&
-         cluster <= kMaxCluster && cluster <= h;
+         cluster <= kMaxCluster && cluster <= h && lanes >= 1 && lanes <= kMaxLanes;
 }
 
 }  // namespace gru

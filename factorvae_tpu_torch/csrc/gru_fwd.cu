@@ -16,7 +16,12 @@
 // 3H). Both variants are one template, so their h is bitwise the same.
 //
 // Inputs: xi (N, T, 3H) row-major, read in place (no per-gate transpose);
-// Wh (H, 3H); b (3H). Output: h (N, H).
+// Wh (H, 3H); b (3H). Output: h (N, H). A launch carries S lanes, each its
+// own model (the fleets of train/fleet.py, the counterpart of Pallas's
+// batching rule under jax.vmap): xi (S, N, T, 3H), Wh (S, H, 3H), b (S, 3H)
+// -> h (S, N, H), residuals (S, N, T, .). The grid's y is the lane, so a
+// CTA or a cluster never straddles two lanes and lane i computes bitwise
+// what a one-lane launch of the same shape computes.
 //
 // Bound: 2*N*T*H*3H FLOPs of h . Wh, each done as three TF32 products
 // (495 TFLOP/s dense on an H100 SXM, so 165 TFLOP/s at f32 accuracy),
@@ -85,6 +90,18 @@ gru_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ wh,
   extern __shared__ float4 smem4[];
   const int h3 = 3 * h;
   const int ldh = mma_ld(h);
+  {                         // this CTA's lane: its slice of every array
+    const long long lane = blockIdx.y;
+    const long long nt = (long long)n_rows * t_len;
+    xi += lane * nt * h3;
+    wh += lane * h * h3;
+    bh += lane * h3;
+    h_out += lane * n_rows * h;
+    if (kResiduals) {
+      hseq += lane * nt * h;
+      gseq += lane * nt * h3;
+    }
+  }
   const int rank = blockIdx.x % csize;
   const int u0 = unit_begin(rank, h, csize);
   const int un = unit_begin(rank + 1, h, csize) - u0;   // this CTA's units
@@ -199,24 +216,27 @@ gru_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ wh,
 template <int R, bool kResiduals>
 int launch(const float* xi, const float* wh, const float* bh, float* h_out,
            float* hseq, float* gseq, int n_rows, int t_len, int h, int cluster,
-           cudaStream_t stream) {
+           int lanes, cudaStream_t stream) {
   const int tiles = (n_rows + R - 1) / R;
   const int smem = (int)sizeof(float) *
                    fwd_smem_floats(h, R, (h + cluster - 1) / cluster, cluster);
   return launch_clustered(a_in_registers(h, cluster, fwd_plan)
                               ? gru_fwd_kernel<R, kResiduals, true>
                               : gru_fwd_kernel<R, kResiduals, false>,
-                          tiles * cluster, cluster, smem, stream, xi, wh, bh, h_out, hseq, gseq,
+                          tiles * cluster, lanes, cluster, smem, stream, xi, wh, bh, h_out,
+                          hseq, gseq,
                           n_rows, t_len, h, cluster);
 }
 
 template <int R>
 int launch_rows(const float* xi, const float* wh, const float* bh, float* h_out,
                 float* hseq, float* gseq, int n_rows, int t_len, int h,
-                int cluster, cudaStream_t st) {
+                int cluster, int lanes, cudaStream_t st) {
   return hseq != nullptr
-             ? launch<R, true>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h, cluster, st)
-             : launch<R, false>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h, cluster, st);
+             ? launch<R, true>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h, cluster,
+                               lanes, st)
+             : launch<R, false>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h, cluster,
+                                lanes, st);
 }
 
 }  // namespace
@@ -225,17 +245,20 @@ extern "C" int gru_fwd_max_hidden() { return kMaxH; }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
 // `hseq` and `gseq` null: the serving variant, which writes only h_out. Else
-// the training variant, which also writes hseq (N, T, H) and gseq (N, T, 3H).
-// `rows` (8 or 16) and `cluster` (1, 2 or 4) are the launch shape.
+// the training variant, which also writes hseq (S, N, T, H) and gseq (S, N,
+// T, 3H). `rows` (8 or 16) and `cluster` (1, 2 or 4) are the launch shape;
+// `lanes` = S >= 1, the models of the launch (1: one model, the shapes above
+// without their S).
 extern "C" int gru_fwd(const float* xi, const float* wh, const float* bh,
                        float* h_out, float* hseq, float* gseq, int n_rows,
-                       int t_len, int h, int rows, int cluster, void* stream) {
-  if (!valid_shape(h, rows, cluster) || t_len < 0 || (hseq == nullptr) != (gseq == nullptr))
+                       int t_len, int h, int rows, int cluster, int lanes, void* stream) {
+  if (!valid_shape(h, rows, cluster, lanes) || t_len < 0 ||
+      (hseq == nullptr) != (gseq == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   return rows == 8 ? launch_rows<8>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h,
-                                    cluster, st)
+                                    cluster, lanes, st)
                    : launch_rows<16>(xi, wh, bh, h_out, hseq, gseq, n_rows, t_len, h,
-                                     cluster, st);
+                                     cluster, lanes, st);
 }

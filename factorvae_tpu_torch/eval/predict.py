@@ -14,6 +14,12 @@ bfloat16), and `int8=True` scores with weight-only int8 (`ops/quant.py`):
 the weights are quantized once (`ensure_quantized`; a registry entry
 arrives quantized) and dequantized to the compute dtype for each chunk.
 
+Fleets: `predict_panel_fleet` scores S stacked parameter sets (a
+`train/fleet.FleetTrainer`'s) per chunk through `torch.func.vmap` of the
+model, so K1 and K4 launch once per chunk for all lanes; the lanes share
+the chunk's windows and, when sampling, its noise (the scoring seed of the
+serial sweep). One lane is `predict_panel` of that lane's model.
+
 `score_table` lays the scores out as the reference's score frame (one row
 per valid (day, stock), day-major); `export_scores` writes it as the JAX
 package's CSV with the `csv` module, and `score_frame` makes it the
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from factorvae_tpu_torch.data.loader import PanelDataset
-from factorvae_tpu_torch.models.factorvae import call_with, with_compute_dtype
+from factorvae_tpu_torch.models.factorvae import call_with, model_from_params, with_compute_dtype
 from factorvae_tpu_torch.ops.quant import dequantize_params, ensure_quantized
 
 
@@ -71,6 +77,56 @@ def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
                 scores = call_with(model, weights, "day_batched_prediction", x, mask, **kw)
             out[c0:c0 + len(sel)] = scores[:len(sel)].cpu().numpy()
     return out
+
+
+def predict_panel_fleet(params: dict, config, dataset: PanelDataset, days: np.ndarray,
+                        stochastic: Optional[bool] = None, seed: int = 0) -> np.ndarray:
+    """(S, len(days), N_max) float32 scores of S stacked parameter sets
+    (name -> (S, ...) tensors on `dataset.device`) under `config`, in
+    `predict_panel`'s 32-day chunks. Lane i
+    equals `predict_panel` of lane i's weights: bitwise at S = 1, which
+    takes that path, within f32 rounding else (the batched products)."""
+    lanes = next(iter(params.values())).shape[0]
+    if lanes == 1:
+        return predict_panel(model_from_params(config.model, params, 0), config, dataset,
+                             days, stochastic, seed)[None]
+    model = model_from_params(config.model, None)
+    days = np.asarray(days, np.int64)
+    n_days = len(days)
+    out = np.full((lanes, n_days, dataset.n_max), np.nan, np.float32)
+    sample = model.cfg.stochastic_inference if stochastic is None else stochastic
+    generator = (torch.Generator(device=dataset.device).manual_seed(seed)
+                 if sample else None)
+
+    def one(p, x, mask, eps):
+        return call_with(model, p, "day_batched_prediction", x, mask, stochastic=sample,
+                         eps=eps)
+
+    chunk = 32
+    with torch.inference_mode():
+        for c0 in range(0, n_days, chunk):
+            sel = days[c0:c0 + chunk]
+            padded = np.full(chunk, -1, np.int64)
+            padded[:len(sel)] = sel
+            day_idx = torch.from_numpy(padded).to(dataset.device)
+            x, _, mask = dataset.gather(torch.clamp(day_idx, min=0))
+            mask = mask & (day_idx >= 0)[:, None]
+            eps = (torch.randn(mask.shape, generator=generator, device=dataset.device)
+                   if sample else None)
+            scores = torch.func.vmap(one, in_dims=(0, None, None, None))(params, x, mask, eps)
+            out[:, c0:c0 + len(sel)] = scores[:, :len(sel)].cpu().numpy()
+    return out
+
+
+def fleet_prediction_scores(params: dict, config, dataset: PanelDataset,
+                            start: Optional[str] = None, end: Optional[str] = None,
+                            stochastic: Optional[bool] = None, seed: int = 0,
+                            with_labels: bool = False) -> list:
+    """Per-lane score DataFrames (`generate_prediction_scores`'s schema) from
+    one lane-batched scoring pass."""
+    days = dataset.split_days(start, end)
+    scores = predict_panel_fleet(params, config, dataset, days, stochastic, seed)
+    return [score_frame(score_table(dataset, days, s, with_labels)) for s in scores]
 
 
 def score_table(dataset: PanelDataset, days: np.ndarray, scores: np.ndarray,

@@ -175,6 +175,20 @@ def with_compute_dtype(model: "FactorVAE", compute_dtype: str) -> "FactorVAE":
     return view.train(model.training)
 
 
+def model_from_params(model_cfg: ModelConfig, params: dict,
+                      lane: Optional[int] = None) -> "FactorVAE":
+    """A FactorVAE of `model_cfg` holding copies of `params` (parameter name
+    -> tensor), or of lane `lane` of stacked (S, ...) ones (a fleet's), on
+    their device; `params` None gives the structure alone, on the meta
+    device (for `call_with`)."""
+    with torch.device("meta"):
+        model = FactorVAE(model_cfg)
+    if params is not None:
+        model.load_state_dict({n: (p[lane] if lane is not None else p).detach().clone()
+                               for n, p in params.items()}, assign=True)
+    return model
+
+
 def call_with(model: nn.Module, params: dict, method: str, *args, **kwargs):
     """`model.<method>(*args, **kwargs)` computed with `params` (parameter
     name -> tensor) in place of the model's own parameters; gradients flow

@@ -112,12 +112,18 @@ class Dense(nn.Module):
 
 class _RoundGrad(torch.autograd.Function):
     """Identity in the forward; the backward rounds the gradient to `dtype`
-    (the cotangent of the cast that XLA fused away in the forward)."""
+    (the cotangent of the cast that XLA fused away in the forward). Plain
+    torch, so `torch.func.vmap` generates its rule."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, y, dtype):
-        ctx.dtype = dtype
-        return y
+    def forward(y, dtype):
+        return y.view_as(y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dtype = inputs[1]
 
     @staticmethod
     def backward(ctx, grad):

@@ -1,4 +1,13 @@
-"""Hand-written CUDA kernels of the port and their plain PyTorch versions."""
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Every kernel takes one model's tensors or S models' at once, each tensor
+then with a leading lane axis (the fleets of `train/fleet.py`); one model's
+tensors are a launch of one lane, with no view made. The helpers below run
+a plain version lane by lane, and move a `torch.func.vmap` rule's batch
+dimension to the front.
+"""
+
+from typing import Optional
 
 import torch
 
@@ -25,3 +34,28 @@ def hidden_refusal(hidden_size: int, device) -> "str | None":
                 f"{MAX_HIDDEN} (ROADMAP Queue 2 \"Limits\"); the plain versions on "
                 "--device cpu take any size")
     return None
+
+
+def plain(fn, lanes: bool, *args, **kw):
+    """`fn` (a plain version) on one model's tensors, or lane by lane on S
+    models' (`lanes`)."""
+    return per_lane(fn, *args, **kw) if lanes else fn(*args, **kw)
+
+
+def per_lane(fn, *args, **kw):
+    """`fn` (a plain version) lane by lane over lane-axis tensor arguments
+    (None passes through), its outputs stacked on a new lane axis."""
+    lanes = next(a for a in args if a is not None).shape[0]
+    outs = [fn(*(None if a is None else a[s] for a in args), **kw) for s in range(lanes)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def lane_major(t: Optional[torch.Tensor], dim: Optional[int], lanes: int):
+    """A tensor of a `torch.func.vmap` rule with its batch dimension `dim`
+    moved to the front, or, unbatched (dim None), expanded to `lanes`
+    copies; None stays None."""
+    if t is None:
+        return None
+    return t.movedim(dim, 0) if dim is not None else t.expand(lanes, *t.shape)

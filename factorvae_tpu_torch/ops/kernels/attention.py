@@ -20,6 +20,13 @@ and run `attention_fwd_plain` / `attention_bwd_plain` for CPU tensors; there
 is no fallback between the two. `attention` is the differentiable op:
 forward K4, backward K5. The training path passes the dropout keep-mask;
 the serving path passes none.
+
+Lanes (the fleets of `train/fleet.py`): both wrappers also take S models at
+once, each with its own days, every array with a leading lane axis (latent
+(S, B, N, H), mask (S, B, N), query (S, K, H), ...), in one launch that
+counts once; the plain versions run lane by lane. `attention` carries a
+`torch.func.vmap` rule: a vmapped call becomes one lane-axis call on the
+unwrapped (S, ...) tensors, so its backward is one lane-axis K5 launch.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import Optional
 import torch
 
 from factorvae_tpu_torch import _build
-from factorvae_tpu_torch.ops.kernels import upcast
+from factorvae_tpu_torch.ops.kernels import lane_major, plain, upcast
 from factorvae_tpu_torch.ops.masked import masked_softmax
 
 
@@ -108,10 +115,14 @@ def attention_bwd_plain(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
 
 def _validate(name, latent, mask, query, w_key, b_key, w_val, b_val, keep,
               dctx=None) -> None:
-    if latent.ndim != 3:
-        raise ValueError(f"{name}: latent must be (B, N, H); got {tuple(latent.shape)}")
-    b, n, h = latent.shape
-    k = query.shape[0]
+    """One model's tensors (latent (B, N, H)), or S models' with a leading
+    lane axis on every one (latent (S, B, N, H))."""
+    if latent.ndim not in (3, 4):
+        raise ValueError(f"{name}: latent must be (B, N, H) or (S, B, N, H); got "
+                         f"{tuple(latent.shape)}")
+    lane = tuple(latent.shape[:-3])
+    b, n, h = latent.shape[-3:]
+    k = query.shape[-2] if query.ndim >= 2 else 0
     args = {"mask": mask, "query": query, "w_key": w_key, "b_key": b_key,
             "w_val": w_val, "b_val": b_val, "keep": keep, "dctx": dctx}
     expect = {"mask": (b, n), "query": (k, h), "w_key": (k, h, h),
@@ -119,8 +130,9 @@ def _validate(name, latent, mask, query, w_key, b_key, w_val, b_val, keep,
               "keep": (b, k, n), "dctx": (b, k, h)}
     args = {key: a for key, a in args.items() if a is not None}
     for key, a in args.items():
-        if tuple(a.shape) != expect[key]:
-            raise ValueError(f"{name}: {key} must be {expect[key]}; got {tuple(a.shape)}")
+        if tuple(a.shape) != lane + expect[key]:
+            raise ValueError(f"{name}: {key} must be {lane + expect[key]}; got "
+                             f"{tuple(a.shape)}")
     if mask.dtype != torch.bool:
         raise TypeError(f"{name}: mask must be bool; got {mask.dtype}")
     if latent.device.type not in ("cpu", "cuda"):
@@ -162,17 +174,19 @@ def _num_sms(device_index: int) -> int:
 
 
 def _group(latent: torch.Tensor, k_heads: int) -> int:
-    """`launch_group` for latent (B, N, H) on the card that holds it."""
-    b, n, _ = latent.shape
-    return launch_group(b, k_heads, n, _num_sms(latent.device.index))
+    """`launch_group` for latent (B, N, H), or lane-axis latent (S, B, N, H),
+    on the card that holds it: the rule sees the S * B days of the launch,
+    and a CTA never takes two lanes' days."""
+    days = latent.shape[0] * (latent.shape[1] if latent.ndim == 4 else 1)
+    return launch_group(days, k_heads, latent.shape[-2], _num_sms(latent.device.index))
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "attention_fwd": {"attention_fwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "attention_fwd": {"attention_fwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
                       "attention_fwd_max_hidden": ([], _I)},
-    "attention_bwd": {"attention_bwd": ([_P] * 17 + [_I] * 5 + [_P], _I),
-                      "attention_bwd_scratch_floats": ([_I] * 4, _L),
+    "attention_bwd": {"attention_bwd": ([_P] * 17 + [_I] * 6 + [_P], _I),
+                      "attention_bwd_scratch_floats": ([_I] * 5, _L),
                       "attention_bwd_max_hidden": ([], _I)},
 }
 
@@ -209,41 +223,44 @@ def _pointers(latent, mask, keep, rest):
 
 def _fwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, keep, group: int,
                 exact: bool = False):
-    """K4 on CUDA tensors with `group` heads per CTA: (ctx (B, K, H), exact
-    (B,) int32 with 1 for each day that took the exact path, or None without
-    `exact`, launched). Counts nothing."""
-    b, n, h = latent.shape
-    k = query.shape[0]
+    """K4 on lane-axis CUDA tensors (latent (S, B, N, H)) with `group` heads
+    per CTA: (ctx (S, B, K, H), exact (S, B) int32 with 1 for each day that
+    took the exact path, or None without `exact`, launched); for one
+    model's tensors (latent (B, N, H)) without the S. Counts nothing."""
+    lane = tuple(latent.shape[:-3])
+    s = latent.shape[0] if lane else 1
+    b, n, h = latent.shape[-3:]
+    k = query.shape[-2]
     lib = _cuda_lib("attention_fwd", h)
-    out = torch.empty((b, k, h), dtype=torch.float32, device=latent.device)
-    days = torch.zeros(b, dtype=torch.int32, device=latent.device) if exact else None
-    if b == 0 or k == 0 or n == 0:
+    out = torch.empty(lane + (b, k, h), dtype=torch.float32, device=latent.device)
+    days = torch.zeros(lane + (b,), dtype=torch.int32, device=latent.device) if exact else None
+    if s == 0 or b == 0 or k == 0 or n == 0:
         return out.zero_(), days, False
     ptrs, _alive = _pointers(latent, mask, keep, (query, w_key, b_key, w_val, b_val))
     with torch.cuda.device(latent.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.attention_fwd(*ptrs, out.data_ptr(),
                                 days.data_ptr() if exact else None,
-                                b, n, k, h, group, stream)
+                                b, n, k, h, group, s, stream)
     if err != 0:
-        raise RuntimeError(f"attention_fwd launch failed at B={b}, N={n}, K={k}, "
+        raise RuntimeError(f"attention_fwd launch failed at S={s}, B={b}, N={n}, K={k}, "
                            f"H={h}, G={group}: cudaError {err}")
     return out, days, True
 
 
 def attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val,
                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused K-head attention over each day's stocks -> ctx (B, K, H) f32.
+    """Fused K-head attention over each day's stocks -> ctx (B, K, H) f32, or
+    (S, B, K, H) for S models.
 
-    Shapes as in `attention_fwd_plain`."""
+    Shapes as in `attention_fwd_plain`, each with a leading S for S models."""
     latent, query, w_key, b_key, w_val, b_val, keep = upcast(
         latent, query, w_key, b_key, w_val, b_val, keep)
     _validate("attention_fwd", latent, mask, query, w_key, b_key, w_val, b_val, keep)
+    args = (latent, mask, query, w_key, b_key, w_val, b_val, keep)
     if latent.device.type == "cpu":
-        return attention_fwd_plain(latent, mask, query, w_key, b_key, w_val,
-                                   b_val, keep)
-    out, _, launched = _fwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, keep,
-                                   _group(latent, query.shape[0]))
+        return plain(attention_fwd_plain, latent.ndim == 4, *args)
+    out, _, launched = _fwd_launch(*args, _group(latent, query.shape[-2]))
     attention_fwd.launches += launched
     return out
 
@@ -253,20 +270,23 @@ attention_fwd.launches = 0
 
 def _bwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, dctx, keep,
                 group: int, exact: bool = False):
-    """K5 on CUDA tensors, kernel 1 with `group` heads per CTA: ((dlatent,
-    dquery, dw_key, db_key, dw_val, db_val), exact days as in `_fwd_launch`,
-    launched). Counts nothing."""
-    b, n, h = latent.shape
-    k = query.shape[0]
+    """K5 on lane-axis CUDA tensors, kernel 1 with `group` heads per CTA:
+    ((dlatent, dquery, dw_key, db_key, dw_val, db_val), each (S, ...), exact
+    days as in `_fwd_launch`, launched); for one model's tensors without
+    the S. Counts nothing."""
+    lane = tuple(latent.shape[:-3])
+    s = latent.shape[0] if lane else 1
+    b, n, h = latent.shape[-3:]
+    k = query.shape[-2]
     lib = _cuda_lib("attention_bwd", h)
-    days = torch.zeros(b, dtype=torch.int32, device=latent.device) if exact else None
-    if b == 0 or k == 0 or n == 0:
+    days = torch.zeros(lane + (b,), dtype=torch.int32, device=latent.device) if exact else None
+    if s == 0 or b == 0 or k == 0 or n == 0:
         return tuple(torch.zeros(tuple(a.shape), dtype=torch.float32, device=latent.device)
                      for a in (latent, query, w_key, b_key, w_val, b_val)), days, False
     # the kernels write every element of the gradients and of the scratch
     outs = [torch.empty(tuple(a.shape), dtype=torch.float32, device=latent.device)
             for a in (latent, query, w_key, b_key, w_val, b_val)]
-    scratch = torch.empty(lib.attention_bwd_scratch_floats(b, n, k, h),
+    scratch = torch.empty(lib.attention_bwd_scratch_floats(b, n, k, h, s),
                           dtype=torch.float32, device=latent.device)
     ptrs, _alive = _pointers(latent, mask, keep,
                              (query, w_key, b_key, w_val, b_val, dctx))
@@ -274,9 +294,9 @@ def _bwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, dctx, keep,
     with torch.cuda.device(latent.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.attention_bwd(*ptrs, days.data_ptr() if exact else None,
-                                b, n, k, h, group, stream)
+                                b, n, k, h, group, s, stream)
     if err != 0:
-        raise RuntimeError(f"attention_bwd launch failed at B={b}, N={n}, K={k}, "
+        raise RuntimeError(f"attention_bwd launch failed at S={s}, B={b}, N={n}, K={k}, "
                            f"H={h}, G={group}: cudaError {err}")
     return tuple(outs), days, True
 
@@ -285,17 +305,16 @@ def attention_bwd(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
                   keep: Optional[torch.Tensor] = None):
     """The attention's VJP for the cotangent dctx (B, K, H) -> (dlatent,
     dquery, dw_key, db_key, dw_val, db_val), f32; shapes as in
-    `attention_bwd_plain`. One launch is the three kernels of
-    `csrc/attention_bwd.cu`."""
+    `attention_bwd_plain`, each with a leading S for S models. One launch is
+    the three kernels of `csrc/attention_bwd.cu`."""
     latent, query, w_key, b_key, w_val, b_val, dctx, keep = upcast(
         latent, query, w_key, b_key, w_val, b_val, dctx, keep)
     _validate("attention_bwd", latent, mask, query, w_key, b_key, w_val, b_val,
               keep, dctx)
+    args = (latent, mask, query, w_key, b_key, w_val, b_val, dctx, keep)
     if latent.device.type == "cpu":
-        return attention_bwd_plain(latent, mask, query, w_key, b_key, w_val,
-                                   b_val, dctx, keep)
-    outs, _, launched = _bwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, dctx,
-                                    keep, _group(latent, query.shape[0]))
+        return plain(attention_bwd_plain, latent.ndim == 4, *args)
+    outs, _, launched = _bwd_launch(*args, _group(latent, query.shape[-2]))
     attention_bwd.launches += launched
     return outs
 
@@ -304,10 +323,16 @@ attention_bwd.launches = 0
 
 
 class _AttentionFunction(torch.autograd.Function):
+    """Forward K4, backward K5, for one model's tensors or lane-axis ones;
+    under `torch.func.vmap` its rule makes one lane-axis call."""
+
     @staticmethod
-    def forward(ctx, latent, mask, query, w_key, b_key, w_val, b_val, keep):
-        ctx.save_for_backward(latent, mask, query, w_key, b_key, w_val, b_val, keep)
+    def forward(latent, mask, query, w_key, b_key, w_val, b_val, keep):
         return attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val, keep)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, dctx):
@@ -316,12 +341,18 @@ class _AttentionFunction(torch.autograd.Function):
             latent, mask, query, w_key, b_key, w_val, b_val, dctx, keep)
         return dlatent, None, dquery, dw_key, db_key, dw_val, db_val, None
 
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        args = [lane_major(a, d, info.batch_size) for a, d in zip(args, in_dims)]
+        return _AttentionFunction.apply(*args), 0
+
 
 def attention(latent, mask, query, w_key, b_key, w_val, b_val,
               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Differentiable `attention_fwd`: the forward is K4, the backward K5
-    (the plain versions on the CPU). The mask and keep-mask get no
-    gradient."""
+    """Differentiable `attention_fwd`, for one model or S (lane-axis
+    tensors, or a `torch.func.vmap` over models): the forward is K4, the
+    backward K5 (the plain versions on the CPU). The mask and keep-mask get
+    no gradient."""
     latent, query, w_key, b_key, w_val, b_val, keep = upcast(
         latent, query, w_key, b_key, w_val, b_val, keep)
     return _AttentionFunction.apply(latent, mask, query, w_key, b_key, w_val,

@@ -27,6 +27,14 @@ bfloat16 inputs too and upcasts them (`ops.kernels.upcast`): the kernels
 compute in float32 and return float32, as the Pallas kernels do. A float32
 input's gradient leaves `gru` unrounded, so a mixed training step feeds
 the bfloat16-valued float32 weights of `train/state.cast_compute`.
+
+Lanes (the fleets of `train/fleet.py`): every wrapper also takes S models
+at once, each array with a leading lane axis (xi (S, N, T, 3H), w_h (S, H,
+3H), b_h (S, 3H), dh (S, N, H), ...), in one launch that counts once; the
+plain versions run lane by lane. `gru` carries a `torch.func.vmap` rule: a
+vmapped call becomes one lane-axis call on the unwrapped (S, ...) tensors,
+so ordinary autograd runs through a vmapped forward and its backward is one
+lane-axis walk and one dWh launch.
 """
 
 from __future__ import annotations
@@ -37,25 +45,26 @@ import functools
 import torch
 
 from factorvae_tpu_torch import _build
-from factorvae_tpu_torch.ops.kernels import upcast
+from factorvae_tpu_torch.ops.kernels import lane_major, plain, upcast
 
 TILE_ROWS = (16, 8)      # rows per tile the kernels take, preferred first
 CLUSTERS = (1, 2, 4)     # CTAs per cluster the kernels take
 
 
-def launch_shape(n_rows: int, h_dim: int, num_sms: int) -> tuple:
-    """(rows per tile, CTAs per cluster) of the GRU kernels for N rows on a
-    card of `num_sms` SMs: the first of 16-row tiles alone, 8-row tiles
-    alone, then 16- and 8-row tiles split over 2 and over 4 CTAs, whose grid
-    has a CTA for every SM; else the widest split. A cluster never has more
-    CTAs than hidden units."""
+def launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1) -> tuple:
+    """(rows per tile, CTAs per cluster) of the GRU kernels for N rows of each
+    of `lanes` models on a card of `num_sms` SMs: the first of 16-row tiles
+    alone, 8-row tiles alone, then 16- and 8-row tiles split over 2 and over
+    4 CTAs, whose grid (tiles of each lane's rows, times the lanes) has a CTA
+    for every SM; else the widest split. A cluster never has more CTAs than
+    hidden units, and a tile never takes rows of two lanes."""
     shape = None
     for c in CLUSTERS:
         if c > h_dim:
             break
         for rows in TILE_ROWS:
             shape = (rows, c)
-            if -(-n_rows // rows) * c >= num_sms:
+            if lanes * -(-n_rows // rows) * c >= num_sms:
                 return shape
     return shape
 
@@ -66,8 +75,10 @@ def _num_sms(device_index: int) -> int:
 
 
 def _shape(xi: torch.Tensor) -> tuple:
-    """`launch_shape` for xi (N, T, 3H) on the card that holds it."""
-    return launch_shape(xi.shape[0], xi.shape[-1] // 3, _num_sms(xi.device.index))
+    """`launch_shape` for xi (N, T, 3H), or lane-axis xi (S, N, T, 3H), on
+    the card that holds it."""
+    lanes = xi.shape[0] if xi.ndim == 4 else 1
+    return launch_shape(xi.shape[-3], xi.shape[-1] // 3, _num_sms(xi.device.index), lanes)
 
 
 def _gates(x: torch.Tensor, g: torch.Tensor, h_dim: int):
@@ -150,15 +161,20 @@ def gru_bwd_plain(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
 
 def _check(name: str, xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
            **more) -> None:
-    if xi.ndim != 3 or xi.shape[-1] % 3:
-        raise ValueError(f"{name}: xi must be (N, T, 3H); got {tuple(xi.shape)}")
-    n, t_len, h3 = xi.shape
+    """xi (N, T, 3H) with its weights, or lane-axis xi (S, N, T, 3H) with
+    (S, ...) weights and (S, ...) `more`."""
+    if xi.ndim not in (3, 4) or xi.shape[-1] % 3:
+        raise ValueError(f"{name}: xi must be (N, T, 3H) or (S, N, T, 3H); got "
+                         f"{tuple(xi.shape)}")
+    lane = tuple(xi.shape[:-3])
+    n, t_len, h3 = xi.shape[-3:]
     h_dim = h3 // 3
-    if tuple(w_h.shape) != (h_dim, h3) or tuple(b_h.shape) != (h3,):
+    if tuple(w_h.shape) != lane + (h_dim, h3) or tuple(b_h.shape) != lane + (h3,):
         raise ValueError(
-            f"{name}: w_h must be ({h_dim}, {h3}) and b_h ({h3},); got "
+            f"{name}: w_h must be {lane + (h_dim, h3)} and b_h {lane + (h3,)}; got "
             f"{tuple(w_h.shape)} and {tuple(b_h.shape)}")
-    want = {"dh": (n, h_dim), "hseq": (n, t_len, h_dim), "gseq": (n, t_len, h3)}
+    want = {"dh": lane + (n, h_dim), "hseq": lane + (n, t_len, h_dim),
+            "gseq": lane + (n, t_len, h3)}
     tensors = {"xi": xi, "w_h": w_h, "b_h": b_h}
     for key, a in more.items():
         if tuple(a.shape) != want[key]:
@@ -182,11 +198,11 @@ def _check_device(name: str, tensors: dict) -> None:
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "gru_fwd": {"gru_fwd": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    "gru_fwd": {"gru_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
                 "gru_fwd_max_hidden": ([], _I)},
-    "gru_bwd": {"gru_walk": ([_P] * 7 + [_I] * 5 + [_P], _I),
-                "gru_dwh": ([_P] * 6 + [_L, _I, _P], _I),
-                "gru_dwh_scratch_floats": ([_L, _I], _L),
+    "gru_bwd": {"gru_walk": ([_P] * 7 + [_I] * 6 + [_P], _I),
+                "gru_dwh": ([_P] * 6 + [_L, _I, _I, _P], _I),
+                "gru_dwh_scratch_floats": ([_L, _I, _I], _L),
                 "gru_bwd_max_hidden": ([], _I)},
 }
 
@@ -213,41 +229,46 @@ def _stream(device) -> int:
         return torch.cuda.current_stream().cuda_stream
 
 
-def _raise_if(err: int, name: str, n: int, t_len: int, h_dim: int, shape) -> None:
+def _raise_if(err: int, name: str, xi_shape, shape) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} launch failed at N={n}, T={t_len}, H={h_dim}, "
+        raise RuntimeError(f"{name} launch failed at (S, N, T, 3H)={tuple(xi_shape)}, "
                            f"(rows, cluster)={shape}: cudaError {err}")
 
 
 def _fwd_launch(name: str, xi, w_h, b_h, residuals: bool, shape: tuple):
     """K1 on CUDA tensors at launch shape (rows, cluster): (h, hseq, gseq,
-    launched), hseq and gseq None without `residuals`. Counts nothing."""
-    n, t_len, h3 = xi.shape
+    launched), hseq and gseq None without `residuals`; one model's tensors
+    (xi (N, T, 3H)) or S models' (xi (S, N, T, 3H)), the outputs alike.
+    Counts nothing."""
+    lane = tuple(xi.shape[:-3])
+    lanes = xi.shape[0] if lane else 1
+    n, t_len, h3 = xi.shape[-3:]
     h_dim = h3 // 3
     lib = _lib("gru_fwd")
     _check_hidden(name, lib, "gru_fwd", h_dim)
     xi, w_h, b_h = xi.contiguous(), w_h.contiguous(), b_h.contiguous()
-    out = xi.new_empty((n, h_dim))
+    out = xi.new_empty(lane + (n, h_dim))
     hseq = gseq = None
     if residuals:
-        hseq = xi.new_empty((n, t_len, h_dim))
+        hseq = xi.new_empty(lane + (n, t_len, h_dim))
         gseq = torch.empty_like(xi)
-    if n == 0:
+    if n == 0 or lanes == 0:
         return out, hseq, gseq, False
     err = lib.gru_fwd(xi.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), out.data_ptr(),
                       hseq.data_ptr() if residuals else None,
                       gseq.data_ptr() if residuals else None,
-                      n, t_len, h_dim, *shape, _stream(xi.device))
-    _raise_if(err, name, n, t_len, h_dim, shape)
+                      n, t_len, h_dim, *shape, lanes, _stream(xi.device))
+    _raise_if(err, name, xi.shape, shape)
     return out, hseq, gseq, True
 
 
 def gru_fwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
-    """Fused recurrence: xi (N, T, 3H), w_h (H, 3H), b_h (3H,) -> (N, H) f32."""
+    """Fused recurrence: xi (N, T, 3H), w_h (H, 3H), b_h (3H,) -> (N, H) f32;
+    or S models: xi (S, N, T, 3H), w_h (S, H, 3H), b_h (S, 3H) -> (S, N, H)."""
     xi, w_h, b_h = upcast(xi, w_h, b_h)
     _check("gru_fwd", xi, w_h, b_h)
     if xi.device.type == "cpu":
-        return gru_fwd_plain(xi, w_h, b_h)
+        return plain(gru_fwd_plain, xi.ndim == 4, xi, w_h, b_h)
     out, _, _, launched = _fwd_launch("gru_fwd", xi, w_h, b_h, False, _shape(xi))
     gru_fwd.launches += launched
     return out
@@ -259,12 +280,12 @@ gru_fwd.launches = 0
 def gru_fwd_residuals(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor):
     """`gru_fwd` that also returns the residuals of the backward walk: (h
     (N, H), hseq (N, T, H), gseq (N, T, 3H)), h before each step and g =
-    h . Wh + b of each step. The kernel's training variant: its h is
-    bitwise `gru_fwd`'s."""
+    h . Wh + b of each step (each with a leading S for S models). The
+    kernel's training variant: its h is bitwise `gru_fwd`'s."""
     xi, w_h, b_h = upcast(xi, w_h, b_h)
     _check("gru_fwd_residuals", xi, w_h, b_h)
     if xi.device.type == "cpu":
-        return gru_fwd_plain(xi, w_h, b_h, keep_residuals=True)
+        return plain(gru_fwd_plain, xi.ndim == 4, xi, w_h, b_h, keep_residuals=True)
     out, hseq, gseq, launched = _fwd_launch("gru_fwd_residuals", xi, w_h, b_h, True,
                                             _shape(xi))
     gru_fwd_residuals.launches += launched
@@ -274,32 +295,47 @@ def gru_fwd_residuals(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor):
 gru_fwd_residuals.launches = 0
 
 
-def gru_dwh(hseq: torch.Tensor, dxi: torch.Tensor, dgn: torch.Tensor):
-    """(dWh (H, 3H), db (3H,)) from hseq (N, T, H), dxi (N, T, 3H) and dg_n
-    (N, T, H): one kernel over all N*T rows into per-block partials, one
-    that sums them in block order (deterministic, no atomics)."""
-    n, t_len, h_dim = hseq.shape
-    if tuple(dxi.shape) != (n, t_len, 3 * h_dim) or tuple(dgn.shape) != tuple(hseq.shape):
-        raise ValueError(f"gru_dwh: hseq {tuple(hseq.shape)}, dxi {tuple(dxi.shape)} and "
-                         f"dgn {tuple(dgn.shape)} must be (N, T, H), (N, T, 3H), (N, T, H)")
-    _check_device("gru_dwh", {"hseq": hseq, "dxi": dxi, "dgn": dgn})
-    if hseq.device.type == "cpu":
-        return gru_dwh_plain(hseq, dxi, dgn)
+def _dwh_launch(hseq, dxi, dgn):
+    """dWh and db on CUDA tensors with N, T > 0, one model's or lane-axis.
+    Counts nothing."""
+    lane = tuple(hseq.shape[:-3])
+    lanes = hseq.shape[0] if lane else 1
+    n, t_len, h_dim = hseq.shape[-3:]
     lib = _lib("gru_bwd")
     _check_hidden("gru_dwh", lib, "gru_bwd", h_dim)
     hseq, dxi, dgn = hseq.contiguous(), dxi.contiguous(), dgn.contiguous()
-    dw_h = hseq.new_zeros((h_dim, 3 * h_dim))
-    db_h = hseq.new_zeros((3 * h_dim,))
+    dw_h = hseq.new_empty(lane + (h_dim, 3 * h_dim))
+    db_h = hseq.new_empty(lane + (3 * h_dim,))
     m_rows = n * t_len
-    if m_rows == 0:
-        return dw_h, db_h
-    scratch = hseq.new_empty((lib.gru_dwh_scratch_floats(m_rows, h_dim),))
+    scratch = hseq.new_empty((lib.gru_dwh_scratch_floats(m_rows, h_dim, lanes),))
     err = lib.gru_dwh(hseq.data_ptr(), dxi.data_ptr(), dgn.data_ptr(), dw_h.data_ptr(),
-                      db_h.data_ptr(), scratch.data_ptr(), m_rows, h_dim,
+                      db_h.data_ptr(), scratch.data_ptr(), m_rows, h_dim, lanes,
                       _stream(hseq.device))
-    _raise_if(err, "gru_dwh", n, t_len, h_dim, None)
-    gru_dwh.launches += 1
+    _raise_if(err, "gru_dwh", dxi.shape, None)
     return dw_h, db_h
+
+
+def gru_dwh(hseq: torch.Tensor, dxi: torch.Tensor, dgn: torch.Tensor):
+    """(dWh (H, 3H), db (3H,)) from hseq (N, T, H), dxi (N, T, 3H) and dg_n
+    (N, T, H), or each with a leading S for S models: one kernel over all
+    N*T rows of each lane into per-block partials, one that sums them in
+    block order (deterministic, no atomics)."""
+    lane = tuple(hseq.shape[:-3])
+    if (hseq.ndim not in (3, 4)
+            or tuple(dxi.shape) != tuple(hseq.shape[:-1]) + (3 * hseq.shape[-1],)
+            or tuple(dgn.shape) != tuple(hseq.shape)):
+        raise ValueError(f"gru_dwh: hseq {tuple(hseq.shape)}, dxi {tuple(dxi.shape)} and "
+                         f"dgn {tuple(dgn.shape)} must be {lane}+(N, T, H), (N, T, 3H), "
+                         "(N, T, H)")
+    _check_device("gru_dwh", {"hseq": hseq, "dxi": dxi, "dgn": dgn})
+    if hseq.device.type == "cpu":
+        return plain(gru_dwh_plain, hseq.ndim == 4, hseq, dxi, dgn)
+    if hseq.numel() == 0:
+        h_dim = hseq.shape[-1]
+        return (hseq.new_zeros(lane + (h_dim, 3 * h_dim)), hseq.new_zeros(lane + (3 * h_dim,)))
+    out = _dwh_launch(hseq, dxi, dgn)
+    gru_dwh.launches += 1
+    return out
 
 
 gru_dwh.launches = 0
@@ -307,8 +343,10 @@ gru_dwh.launches = 0
 
 def _walk_launch(xi, w_h, hseq, gseq, dh, shape: tuple):
     """The walk on checked CUDA tensors with N, T > 0 at launch shape (rows,
-    cluster): (dxi (N, T, 3H), dg_n (N, T, H)). Counts nothing."""
-    n, t_len, h3 = xi.shape
+    cluster): (dxi (N, T, 3H), dg_n (N, T, H)), or with a leading S for
+    lane-axis tensors. Counts nothing."""
+    lanes = xi.shape[0] if xi.ndim == 4 else 1
+    n, t_len, h3 = xi.shape[-3:]
     h_dim = h3 // 3
     lib = _lib("gru_bwd")
     xi, w_h, dh = xi.contiguous(), w_h.contiguous(), dh.contiguous()
@@ -317,27 +355,29 @@ def _walk_launch(xi, w_h, hseq, gseq, dh, shape: tuple):
     dgn = torch.empty_like(hseq)
     err = lib.gru_walk(xi.data_ptr(), w_h.data_ptr(), hseq.data_ptr(), gseq.data_ptr(),
                        dh.data_ptr(), dxi.data_ptr(), dgn.data_ptr(), n, t_len, h_dim,
-                       *shape, _stream(xi.device))
-    _raise_if(err, "gru_bwd", n, t_len, h_dim, shape)
+                       *shape, lanes, _stream(xi.device))
+    _raise_if(err, "gru_bwd", xi.shape, shape)
     return dxi, dgn
 
 
 def gru_bwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, dh: torch.Tensor,
             *, residuals=None):
     """The recurrence's VJP: (xi (N, T, 3H), w_h (H, 3H), b_h (3H,), dh
-    (N, H)) -> (dxi, dw_h, db_h), f32, for any T. `residuals` = (hseq,
-    gseq) from `gru_fwd_residuals`; without them one `gru_fwd_residuals`
-    launch makes them. Then the walk (counted here) and `gru_dwh`."""
+    (N, H)) -> (dxi, dw_h, db_h), f32, for any T; each with a leading S for
+    S models. `residuals` = (hseq, gseq) from `gru_fwd_residuals`; without
+    them one `gru_fwd_residuals` launch makes them. Then the walk (counted
+    here) and `gru_dwh`."""
     xi, w_h, b_h, dh = upcast(xi, w_h, b_h, dh)
     more = {"dh": dh}
     if residuals is not None:
         more.update(hseq=residuals[0], gseq=residuals[1])
     _check("gru_bwd", xi, w_h, b_h, **more)
     if xi.device.type == "cpu":
-        return gru_bwd_plain(xi, w_h, b_h, dh, residuals=residuals)
-    n, t_len, h3 = xi.shape
-    _check_hidden("gru_bwd", _lib("gru_bwd"), "gru_bwd", h3 // 3)
-    if n == 0 or t_len == 0:
+        res = () if residuals is None else tuple(residuals)
+        return plain(lambda *a: gru_bwd_plain(*a[:4], residuals=a[4:] or None),
+                     xi.ndim == 4, xi, w_h, b_h, dh, *res)
+    _check_hidden("gru_bwd", _lib("gru_bwd"), "gru_bwd", xi.shape[-1] // 3)
+    if xi.numel() == 0:
         return torch.zeros_like(xi), torch.zeros_like(w_h), torch.zeros_like(b_h)
     if residuals is None:
         _, hseq, gseq = gru_fwd_residuals(xi, w_h, b_h)
@@ -352,25 +392,52 @@ gru_bwd.launches = 0
 
 
 class _GRUFunction(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, xi, w_h, b_h, keep_residuals):
-        if not keep_residuals:
-            return gru_fwd(xi, w_h, b_h)
-        h, hseq, gseq = gru_fwd_residuals(xi, w_h, b_h)
-        ctx.save_for_backward(xi, w_h, b_h, hseq, gseq)
-        return h
+    """Forward K1 (with `keep_residuals` the residual variant, whose (h,
+    hseq, gseq) leave it, hseq and gseq without a gradient), backward the
+    walk and dWh. One-model or lane-axis tensors alike; under
+    `torch.func.vmap` its rule makes one lane-axis call."""
 
     @staticmethod
-    def backward(ctx, dh):
+    def forward(xi, w_h, b_h, keep_residuals):
+        if not keep_residuals:
+            return gru_fwd(xi, w_h, b_h)
+        return gru_fwd_residuals(xi, w_h, b_h)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        xi, w_h, b_h, keep_residuals = inputs
+        if keep_residuals:
+            _, hseq, gseq = output
+            ctx.mark_non_differentiable(hseq, gseq)
+            ctx.save_for_backward(xi, w_h, b_h, hseq, gseq)
+            # hseq and gseq get no gradient: no zeros are made for them
+            ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, dh, *_):
+        if dh is None:
+            return None, None, None, None
         xi, w_h, b_h, hseq, gseq = ctx.saved_tensors
         return (*gru_bwd(xi, w_h, b_h, dh, residuals=(hseq, gseq)), None)
 
+    @staticmethod
+    def vmap(info, in_dims, xi, w_h, b_h, keep_residuals):
+        xi, w_h, b_h = (lane_major(t, d, info.batch_size)
+                        for t, d in zip((xi, w_h, b_h), in_dims[:3]))
+        # the wrapped call decided on the batched tensors; decide again on
+        # the lane-axis ones, whose requires_grad is autograd's
+        keep = torch.is_grad_enabled() and any(a.requires_grad for a in (xi, w_h, b_h))
+        out = _GRUFunction.apply(xi, w_h, b_h, keep)
+        return (out, (0, 0, 0)) if keep else (out, 0)
+
 
 def gru(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
-    """Differentiable `gru_fwd`. When autograd will need a gradient (grad
+    """Differentiable `gru_fwd`, for one model or S (lane-axis tensors, or a
+    `torch.func.vmap` over models). When autograd will need a gradient (grad
     mode on and an input that requires one) the forward is the residual
     variant and the backward walks from its residuals; under `no_grad` or
     `inference_mode` it is the serving variant, and nothing is kept."""
     xi, w_h, b_h = upcast(xi, w_h, b_h)
     keep = torch.is_grad_enabled() and any(a.requires_grad for a in (xi, w_h, b_h))
-    return _GRUFunction.apply(xi, w_h, b_h, keep)
+    out = _GRUFunction.apply(xi, w_h, b_h, keep)
+    return out[0] if isinstance(out, tuple) else out

@@ -23,6 +23,15 @@ overflow is a skipped step. The scale then walks on the host, in float32:
 a finite step counts towards growth (x `growth` after `growth_interval`
 finite steps in a row), a skipped one backs it off (x `backoff`, down to
 `floor`). Validation computes with the bfloat16 copy too.
+
+Fleets (`train/fleet.py`): `lane_train_epoch` and `lane_eval_epoch` take S
+models at once, a `FleetState`. Each lane gathers its own days (its own
+shuffled order), draws its noise from its own generator outside the model
+(`lane_noise`, the draws of its solo run, in their order) and passes it in
+as `eps` and `keep`; the forward is `torch.func.vmap` of the model over the
+stacked parameters, whose CUDA kernels each launch once for all lanes.
+A hyper-fleet reads kl_weight as an (S,) tensor. The finite guard is a
+per-lane select; the host reads the (S,) flags once per step.
 """
 
 from __future__ import annotations
@@ -33,7 +42,13 @@ import numpy as np
 import torch
 
 from factorvae_tpu_torch.models.factorvae import call_with
-from factorvae_tpu_torch.train.state import TrainState, cast_compute
+from factorvae_tpu_torch.train.state import (
+    FleetState,
+    TrainState,
+    cast_compute,
+    cast_params,
+    lane_adam_step,
+)
 
 
 def batch_for(dataset, days: torch.Tensor):
@@ -113,27 +128,26 @@ def train_step(state: TrainState, dataset, days: torch.Tensor, *, guard: bool,
         state.scheduler.step()
     state.step += 1
     if mixed:
-        aux["loss_scale"] = _walk_loss_scale(state, apply, loss_scale_cfg)
+        state.loss_scale, state.good_steps = walk_loss_scale(
+            state.loss_scale, state.good_steps, apply, loss_scale_cfg)
+        aux["loss_scale"] = state.loss_scale
     return aux
 
 
-def _walk_loss_scale(state: TrainState, ok: bool, cfg: tuple) -> np.float32:
-    """The loss scale's step, in float32, as the JAX package's in-graph walk:
-    good = ok ? good + 1 : 0; grow = good >= interval; scale = ok ? (grow ?
-    scale * growth : scale) : max(scale * backoff, floor); good = grow ? 0 :
-    good. Returns the new scale."""
+def walk_loss_scale(scale: np.float32, good: int, ok: bool, cfg: tuple):
+    """(scale, good) after one step, in float32, as the JAX package's
+    in-graph walk: good = ok ? good + 1 : 0; grow = good >= interval; scale
+    = ok ? (grow ? scale * growth : scale) : max(scale * backoff, floor);
+    good = grow ? 0 : good."""
     growth, backoff, interval, floor = (np.float32(cfg[0]), np.float32(cfg[1]),
                                         int(cfg[2]), np.float32(cfg[3]))
-    good = state.good_steps + 1 if ok else 0
+    good = good + 1 if ok else 0
     grow = good >= interval
-    scale = state.loss_scale
     if ok:
         scale = scale * growth if grow else scale
     else:
         scale = max(scale * backoff, floor)
-    state.loss_scale = np.float32(scale)
-    state.good_steps = 0 if grow else good
-    return state.loss_scale
+    return np.float32(scale), (0 if grow else good)
 
 
 def loss_scale_probes(scales: list, floor: float) -> dict:
@@ -200,5 +214,170 @@ def eval_epoch(model, dataset, order: torch.Tensor, generator: torch.Generator,
     for i in range(order.shape[0]):
         _, aux = weighted_day_loss(model, dataset, order[i], train=False,
                                    generator=generator, params=params)
+        sums = _accumulate(sums, aux)
+    return to_host(finalize_eval(sums))
+
+
+# ---- fleets: S models per step ----------------------------------------------
+
+
+def lane_batch(dataset, days: torch.Tensor):
+    """(x, y, mask) of lane-axis day batches days (S, B): each lane's own
+    days, gathered in one call; padding days (-1) are fully masked."""
+    s, b = days.shape
+    x, y, mask = batch_for(dataset, days.reshape(-1))
+    return (x.reshape((s, b) + tuple(x.shape[1:])), y.reshape(s, b, -1),
+            mask.reshape(s, b, -1))
+
+
+def lane_noise(model, generators, b: int, n: int, *, train: bool, device):
+    """Each lane's noise of one forward over B days of N stocks, drawn from
+    its own generator as its solo run's model draws it, in that order: the
+    decoder's eps (B, N), then with train and dropout the predictor's keep
+    mask (B, K, N). Returns (eps (S, B, N), keep (S, B, K, N) or None)."""
+    drop = train and model.cfg.dropout_rate > 0.0
+    eps, keep = [], []
+    for g in generators:
+        eps.append(torch.randn((b, n), generator=g, device=device, dtype=torch.float32))
+        if drop:
+            keep.append(model.factor_predictor.keep_mask(
+                (b, model.cfg.num_factors, n), device, g))
+    return torch.stack(eps), (torch.stack(keep) if drop else None)
+
+
+def lane_day_loss(model, params: dict, dataset, days: torch.Tensor, *, train: bool,
+                  generators, kl_weight: Optional[torch.Tensor] = None):
+    """(loss (S,), aux of (S,) sums): `weighted_day_loss` of S models at once,
+    lane i with its parameters params[name][i], its day batch days[i] and
+    its own noise, through `torch.func.vmap` over `call_with`. With
+    `kl_weight` (S,) each lane's loss is recon + kl_weight[i] * kl (a
+    hyper-fleet's runtime scalar); without it the model's own loss."""
+    x, y, mask = lane_batch(dataset, days)
+    eps, keep = lane_noise(model, generators, days.shape[1], x.shape[2], train=train,
+                           device=x.device)
+
+    def one(p, x, y, mask, d, eps, keep, klw):
+        day_w = (d >= 0).to(torch.float32)
+        out = call_with(model, p, "day_batched_forward", x, y, mask, train=train,
+                        eps=eps, keep=keep)
+        per_day = out.loss if klw is None else out.recon_loss + klw * out.kl
+        loss_sum = torch.sum(per_day * day_w)
+        count = torch.sum(day_w)
+        n_valid = torch.sum(mask, dim=-1).to(torch.float32) * day_w
+        aux = {"loss_sum": loss_sum, "recon_sum": torch.sum(out.recon_loss * day_w),
+               "kl_sum": torch.sum(out.kl * day_w), "days": count,
+               "wloss_sum": torch.sum(per_day * n_valid), "samples": torch.sum(n_valid)}
+        return loss_sum / torch.clamp(count, min=1.0), aux
+
+    in_dims = (0, 0, 0, 0, 0, 0, None if keep is None else 0,
+               None if kl_weight is None else 0)
+    loss, aux = torch.func.vmap(one, in_dims=in_dims, randomness="error")(
+        params, x, y, mask, days, eps, keep, kl_weight)
+    return loss, {k: v.detach() for k, v in aux.items()}
+
+
+def lane_all_finite(tensors) -> torch.Tensor:
+    """(S,) device bools: every element of lane i of every (S, ...) tensor is
+    finite."""
+    return torch.stack([torch.isfinite(t).reshape(t.shape[0], -1).all(dim=1)
+                        for t in tensors]).all(dim=0)
+
+
+def _lane_view(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return v.view((-1,) + (1,) * (like.ndim - 1))
+
+
+def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
+                    peaks, train_cfg, total_steps: int, guard: bool,
+                    poison: Optional[np.ndarray] = None,
+                    compute_dtype: torch.dtype = torch.float32,
+                    loss_scale_cfg: Optional[tuple] = None,
+                    kl_weight: Optional[torch.Tensor] = None) -> dict:
+    """One update of every lane from its batch days[i] (`train_step` lane by
+    lane): the gradients of the summed lane losses (lane i's part is its
+    own loss's, the lanes sharing nothing), lane i's loss scale on a mixed
+    fleet, the NaN poison on the lanes `poison` flags, then the per-lane
+    finite guard and `lane_adam_step` with lane i's peak lr `peaks[i]`.
+    Returns the step's aux sums, each (S,); a mixed fleet's also hold the
+    (S,) loss scales after the step (host float32)."""
+    params = state.params
+    for p in params.values():
+        p.grad = None
+    mixed = compute_dtype != torch.float32
+    use = cast_params(model, params, compute_dtype) if mixed else params
+    loss, aux = lane_day_loss(model, use, dataset, days, train=True,
+                              generators=state.generators, kl_weight=kl_weight)
+    grads = lambda: [p.grad for p in params.values() if p.grad is not None]  # noqa: E731
+    device = loss.device
+    if mixed:
+        scale = torch.as_tensor(state.loss_scale, device=device)
+        (loss * scale).sum().backward()
+        inv = torch.as_tensor(np.float32(1.0) / state.loss_scale, device=device)
+        for g in grads():
+            g.mul_(_lane_view(inv, g))
+    else:
+        loss.sum().backward()
+    if poison is not None and poison.any():
+        factor = torch.as_tensor(np.where(poison, np.float32("nan"), np.float32(1.0)),
+                                 device=device)
+        for g in grads():
+            g.mul_(_lane_view(factor, g))
+    apply = np.ones(state.num_lanes, bool)
+    if guard or mixed:
+        ok = lane_all_finite(grads())
+        aux["skipped"] = (~ok).to(torch.float32)
+        apply = ok.cpu().numpy()          # the gate's one host read per step
+    lane_adam_step(state, peaks, train_cfg, total_steps, apply)
+    state.steps = state.steps + 1
+    if mixed:
+        walked = [walk_loss_scale(s, int(g), bool(a), loss_scale_cfg)
+                  for s, g, a in zip(state.loss_scale, state.good_steps, apply)]
+        state.loss_scale = np.asarray([w[0] for w in walked], np.float32)
+        state.good_steps = np.asarray([w[1] for w in walked], np.int64)
+        aux["loss_scale"] = state.loss_scale.copy()
+    return aux
+
+
+def lane_train_epoch(model, state: FleetState, dataset, order: torch.Tensor, *,
+                     peaks, train_cfg, total_steps: int, guard: bool,
+                     poison: Optional[np.ndarray] = None,
+                     compute_dtype: torch.dtype = torch.float32,
+                     loss_scale_cfg: Optional[tuple] = None,
+                     kl_weight: Optional[torch.Tensor] = None) -> dict:
+    """order (S, steps, B), lane i's own day order -> the epoch's metrics,
+    each a list of S floats (`train_epoch` lane by lane)."""
+    sums, scales = None, []
+    for i in range(order.shape[1]):
+        aux = lane_train_step(model, state, dataset, order[:, i], peaks=peaks,
+                              train_cfg=train_cfg, total_steps=total_steps, guard=guard,
+                              poison=poison, compute_dtype=compute_dtype,
+                              loss_scale_cfg=loss_scale_cfg, kl_weight=kl_weight)
+        if "loss_scale" in aux:
+            scales.append(aux.pop("loss_scale"))
+        sums = _accumulate(sums, aux)
+    metrics = to_host(finalize_train(sums))
+    if scales:
+        probes = [loss_scale_probes([s[i] for s in scales], loss_scale_cfg[3])
+                  for i in range(state.num_lanes)]
+        for key in probes[0]:
+            metrics[key] = [p[key] for p in probes]
+    return metrics
+
+
+@torch.no_grad()
+def lane_eval_epoch(model, params: dict, dataset, order: torch.Tensor, generators,
+                    compute_dtype: torch.dtype = torch.float32,
+                    kl_weight: Optional[torch.Tensor] = None) -> dict:
+    """Validation metrics of S models over the shared order (steps, B), lane
+    i with its parameters and its generator -> each metric a list of S
+    floats (`eval_epoch` lane by lane)."""
+    if compute_dtype != torch.float32:
+        params = cast_params(model, params, compute_dtype)
+    lanes = len(generators)
+    sums = None
+    for i in range(order.shape[0]):
+        days = order[i].expand(lanes, -1)
+        _, aux = lane_day_loss(model, params, dataset, days, train=False,
+                               generators=generators, kl_weight=kl_weight)
         sums = _accumulate(sums, aux)
     return to_host(finalize_eval(sums))

@@ -33,7 +33,8 @@ once per interval) and a scale at its floor as bad.
 
 Refused in `__init__`, each naming its ROADMAP item, as the CLI does:
 streaming residency, a stock-sharded mesh, rematerialization, and on a
-CUDA device a hidden size above the kernels' maximum. Not ported: fleets.
+CUDA device a hidden size above the kernels' maximum. Fleets of models are
+`train/fleet.FleetTrainer`, whose one-lane fleet is this trainer.
 Checkpoints are saved synchronously (`train.async_checkpointing` is
 accepted; the files are the same).
 """
@@ -61,11 +62,34 @@ from factorvae_tpu_torch.train.state import (
     mixed_fields,
     resolve_train_dtype,
     seed_for,
+    set_horizon,
     set_lr_scale,
 )
 from factorvae_tpu_torch.utils.logging import MetricsLogger
 
 _TRAIN_NOISE, _EVAL_NOISE = 1, 2      # stream ids of seed_for
+
+
+def init_train_state(model_cfg, train_cfg, total_steps: int, device) -> TrainState:
+    """A run's first state: the model of `model_cfg` with weights drawn from
+    `train_cfg.seed` (bitwise `load_model`'s), Adam with the cosine over
+    `total_steps`, the train noise generator; when `model_cfg` computes in
+    bfloat16 (a mixed run) also the loss scale at `loss_scale_init`."""
+    model = FactorVAE(model_cfg)
+    model.reset_parameters(torch.Generator().manual_seed(train_cfg.seed))
+    model.to(device)
+    optimizer, scheduler = make_optimizer(model.parameters(), train_cfg, total_steps)
+    generator = torch.Generator(device=device).manual_seed(
+        seed_for(train_cfg.seed, _TRAIN_NOISE))
+    state = TrainState(model, optimizer, scheduler, generator)
+    if model_cfg.compute_dtype != "float32":
+        state = dataclasses.replace(state, **mixed_fields(train_cfg))
+    return state
+
+
+def eval_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The validation noise of epoch `epoch` of the run seeded `seed`."""
+    return torch.Generator(device=device).manual_seed(seed_for(seed, _EVAL_NOISE, epoch))
 
 
 class Trainer:
@@ -119,18 +143,8 @@ class Trainer:
         """A model with weights drawn from `train.seed` (bitwise
         `load_model`'s), Adam, the schedule and the noise generator; on a
         mixed run also the loss scale at `loss_scale_init`."""
-        cfg = self.cfg
-        model = FactorVAE(self.model_cfg)
-        model.reset_parameters(torch.Generator().manual_seed(cfg.train.seed))
-        model.to(self.device)
-        optimizer, scheduler = make_optimizer(model.parameters(), cfg.train,
-                                              self.total_steps)
-        generator = torch.Generator(device=self.device).manual_seed(
-            seed_for(cfg.train.seed, _TRAIN_NOISE))
-        state = TrainState(model, optimizer, scheduler, generator)
-        if self.mixed:
-            state = dataclasses.replace(state, **mixed_fields(cfg.train))
-        return state
+        return init_train_state(self.model_cfg, self.cfg.train, self.total_steps,
+                                self.device)
 
     def _order(self, days, shuffle: bool, epoch: int) -> torch.Tensor:
         order = self.ds.epoch_order(days, shuffle=shuffle, seed=self.cfg.train.seed,
@@ -139,18 +153,25 @@ class Trainer:
                                device=self.device)
 
     def _eval_generator(self, epoch: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            seed_for(self.cfg.train.seed, _EVAL_NOISE, epoch))
+        return eval_generator(self.cfg.train.seed, epoch, self.device)
 
     def fit(self, state: Optional[TrainState] = None, resume: bool = False,
-            num_epochs: Optional[int] = None):
+            num_epochs: Optional[int] = None, rescale_schedule: bool = False):
         """Train the first `num_epochs` epochs of the configured schedule
         (default: all of them; the cosine horizon stays the config's, so a
-        partial run and its resume equal an unbroken run). With resume=True and no
-        `state`, continue from the newest checkpoint. Returns (state,
-        {"history": [per-epoch records], "best_val": float})."""
+        partial run and its resume equal an unbroken run). With
+        rescale_schedule=True, `num_epochs` is the whole run instead: the
+        cosine decays to its floor at its end (a later fit without it goes
+        back to the config's horizon). With resume=True and no `state`,
+        continue from the newest checkpoint. Returns (state, {"history":
+        [per-epoch records], "best_val": float})."""
         cfg, tcfg = self.cfg, self.cfg.train
         epochs = tcfg.num_epochs if num_epochs is None else num_epochs
+        total = self.steps_per_epoch * (epochs if rescale_schedule else tcfg.num_epochs)
+        if total != self.total_steps:
+            self.total_steps = total
+            if state is not None:
+                set_horizon(state, tcfg, total)
         ckpt = None
         if tcfg.checkpoint_every:
             ckpt = Checkpointer(os.path.join(tcfg.save_dir,

@@ -352,8 +352,6 @@ class TestChaosEnvironment:
 REFUSED = [
     (["--mesh"], "--mesh", 12),
     (["--mesh_stock", "2"], "--mesh_stock", 12),
-    (["--fleet_seeds", "3"], "--fleet_seeds above 1", 4),
-    (["--hyper_grid", "1e-3:1,3e-3:0.1"], "--hyper_grid", 4),
     (["--auto_plan"], "--auto_plan", 9),
     (["--panel_residency", "stream"], "--panel_residency stream", 5),
     (["--stream_chunk_days", "8"], "--stream_chunk_days", 5),
@@ -393,8 +391,27 @@ class TestCliRefusals:
         assert "ROADMAP" in err and (item is None or f"Queue 1 item {item})" in err)
         assert opened == []
 
+    @pytest.mark.parametrize("fleet", [["--fleet_seeds", "3"],
+                                       ["--hyper_grid", "1e-3:1,3e-3:0.1"]],
+                             ids=["fleet_seeds", "hyper_grid"])
+    @pytest.mark.parametrize("extra,flag,item", [
+        (["--mesh"], "--mesh", 12),
+        (["--panel_residency", "stream"], "--panel_residency stream", 5),
+        (["--auto_plan"], "--auto_plan", 9)], ids=["mesh", "stream", "auto_plan"])
+    def test_fleet_flags_with_an_unported_path_exit_2(self, data, monkeypatch, capsys,
+                                                      fleet, extra, flag, item):
+        """A fleet composes with none of the unported paths: the line names
+        the path's item, before the dataset is read."""
+        opened = _read_nothing(monkeypatch)
+        assert cli.main(_argv(data, "refused", "--device", "cpu", *fleet, *extra)) == 2
+        err = capsys.readouterr().err.strip()
+        assert err.startswith(f"error: {flag}") and len(err.splitlines()) == 1
+        assert f"ROADMAP Queue 1 item {item})" in err
+        assert opened == []
+
     @pytest.mark.parametrize("extra", [["--pallas"], ["--pallas_auto"], ["--no-bf16"],
-                                       ["--fleet_seeds", "1"], ["--no-obs"],
+                                       ["--fleet_seeds", "1"], ["--fleet_seeds", "3"],
+                                       ["--hyper_grid", "1e-3:1,3e-3:0.1"], ["--no-obs"],
                                        ["--panel_residency", "hbm"],
                                        ["--compile_cache", "off"], ["--num_workers", "8"],
                                        ["--bf16"], ["--int8_scores"]],

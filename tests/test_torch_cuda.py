@@ -574,3 +574,83 @@ def test_entry_points_refuse_a_hidden_size_above_the_kernels(dev):
         Trainer(cfg, ds, device=dev)
     with pytest.raises(RegistryError, match="Limits"):
         ModelRegistry(device=dev).admit(FactorVAE(cfg.model), cfg)
+
+
+@pytest.mark.parametrize("n,t,h,shape", [(304, 20, 64, (8, 1)), (37, 30, 8, (16, 2)),
+                                         (40, 6, 12, (8, 4))],
+                         ids=["one_day", "T30_cluster2", "ragged_cluster4"])
+def test_gru_lane_axis_is_each_lane_alone(dev, n, t, h, shape):
+    """Three lanes of three weight sets in one launch of each GRU kernel:
+    the lane-axis plain version's values, and each lane bitwise the
+    one-lane launch of the same launch shape."""
+    from factorvae_tpu_torch.ops.kernels import per_lane
+
+    rng = np.random.default_rng(n * t + h)
+    xi, wh, bh, dh = _to(dev, (rng.normal(size=(3, n, t, 3 * h)) * 0.5).astype(np.float32),
+                         (rng.normal(size=(3, h, 3 * h)) * 0.3).astype(np.float32),
+                         (rng.normal(size=(3, 3 * h)) * 0.1).astype(np.float32),
+                         rng.normal(size=(3, n, h)).astype(np.float32))
+    h3, hseq, gseq, _ = gru_module._fwd_launch("gru_fwd", xi, wh, bh, True, shape)
+    _close(h3, per_lane(gru_fwd_plain, xi, wh, bh))
+    dxi, dgn = gru_module._walk_launch(xi, wh, hseq, gseq, dh, shape)
+    dwh, db = gru_dwh(hseq, dxi, dgn)
+    want = per_lane(lambda *a: gru_bwd_plain(*a[:4], residuals=a[4:]), xi, wh, bh, dh,
+                    hseq, gseq)
+    _close(dxi, want[0])
+    for s in range(3):
+        _close_sum(dwh[s], want[1][s])
+        one = gru_module._fwd_launch("gru_fwd", xi[s], wh[s], bh[s], True, shape)
+        assert all(torch.equal(a, b[s]) for a, b in zip(one[:3], (h3, hseq, gseq)))
+        walk = gru_module._walk_launch(xi[s], wh[s], hseq[s], gseq[s], dh[s], shape)
+        assert torch.equal(walk[0], dxi[s]) and torch.equal(walk[1], dgn[s])
+        one_dwh = gru_dwh(hseq[s], dxi[s], dgn[s])
+        assert torch.equal(one_dwh[0], dwh[s]) and torch.equal(one_dwh[1], db[s])
+
+
+@pytest.mark.parametrize("b,n,k,h,group", [(1, 304, 96, 64, 4), (2, 10, 6, 8, 2),
+                                           (3, 33, 5, 37, 1)],
+                         ids=["one_day_G4", "small_G2", "ragged_H37"])
+def test_attention_lane_axis_is_each_lane_alone(dev, b, n, k, h, group):
+    """Three lanes with their own days and weights in one launch of K4 and
+    of K5: the lane-axis plain version's values, each lane bitwise the
+    one-lane launch of the same heads per CTA, and a NaN latent row in lane
+    1 taking the exact path there alone and changing no bit elsewhere."""
+    from factorvae_tpu_torch.ops.kernels import per_lane
+
+    rng = np.random.default_rng(b * n + k + h)
+    lat = rng.normal(size=(3, b, n, h)).astype(np.float32)
+    mask = rng.random((3, b, n)) > 0.2
+    q = rng.normal(size=(3, k, h)).astype(np.float32)
+    ws = [(rng.normal(size=(3, k, h, h)) / np.sqrt(h)).astype(np.float32),
+          (rng.normal(size=(3, k, h)) * 0.1).astype(np.float32),
+          (rng.normal(size=(3, k, h, h)) / np.sqrt(h)).astype(np.float32),
+          (rng.normal(size=(3, k, h)) * 0.1).astype(np.float32)]
+    keep = ((rng.random((3, b, k, n)) > 0.2) / 0.8).astype(np.float32)
+    dctx = rng.normal(size=(3, b, k, h)).astype(np.float32)
+    lat, mask, q, wk, bk, wv, bv, keep, dctx = _to(dev, lat, mask, q, *ws, keep, dctx)
+    weights = (q, wk, bk, wv, bv)
+    ctx, _, _ = attention_module._fwd_launch(lat, mask, *weights, keep, group)
+    grads, _, _ = attention_module._bwd_launch(lat, mask, *weights, dctx, keep, group)
+    _close(ctx, per_lane(attention_fwd_plain, lat, mask, *weights, keep))
+    want = per_lane(attention_bwd_plain, lat, mask, *weights, dctx, keep)
+    _close(grads[0], want[0])
+    for s in range(3):
+        for g, w in zip(grads[1:], want[1:]):
+            _close_sum(g[s], w[s])
+        lane = (lat[s], mask[s], *(w[s] for w in weights))
+        one = attention_module._fwd_launch(*lane, keep[s], group)[0]
+        one_g = attention_module._bwd_launch(*lane, dctx[s], keep[s], group)[0]
+        assert torch.equal(one, ctx[s]) and all(torch.equal(a, g[s])
+                                                for a, g in zip(one_g, grads))
+    lat_p, mask_p = lat.clone(), mask.clone()
+    lat_p[1, 0, 3, 0] = float("nan")
+    mask_p[1, 0, 3] = True
+    ctx_p, days, _ = attention_module._fwd_launch(lat_p, mask_p, *weights, keep, group,
+                                                  exact=True)
+    grads_p, days_b, _ = attention_module._bwd_launch(lat_p, mask_p, *weights, dctx, keep,
+                                                      group, exact=True)
+    assert days.nonzero().tolist() == days_b.nonzero().tolist() == [[1, 0]]
+    for s in (0, 2):
+        assert torch.equal(ctx_p[s], ctx[s])
+        assert all(torch.equal(a[s], g[s]) for a, g in zip(grads_p, grads))
+    assert all(bool(torch.isfinite(a).all()) for a in (ctx_p, *grads_p))

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: what it imports (every module, the training,
-CLI and quantization ones included, and a scoring pass at each precision
-rung, a float32 and a mixed training epoch and a CLI run without --backtest
-with no JAX, Flax, pandas or JAX-package module loaded),
+CLI, quantization and fleet ones included, and a scoring pass at each
+precision rung, a float32 and a mixed training epoch, a fleet's epoch and
+its lane-batched scoring pass, and a CLI run without --backtest with no
+JAX, Flax, pandas or JAX-package module loaded),
 that the JAX weights carry
 across without loss, and that `chip_smoke.py` refuses to run without a GPU
 instead of falling back to the CPU."""
@@ -72,6 +73,21 @@ with tempfile.TemporaryDirectory() as save_dir:
 assert {"factorvae_tpu_torch.train.trainer", "factorvae_tpu_torch.train.loop",
         "factorvae_tpu_torch.train.state", "factorvae_tpu_torch.train.checkpoint",
         "factorvae_tpu_torch.ops.kl", "factorvae_tpu_torch.ops.quant"} <= set(names)
+
+# a fleet of two seeds, one epoch, then its lane-batched scoring pass
+from factorvae_tpu_torch.eval.predict import predict_panel_fleet
+from factorvae_tpu_torch.train.fleet import FleetTrainer
+
+with tempfile.TemporaryDirectory() as save_dir:
+    tcfg = config.Config(model=cfg.model, data=config.DataConfig(seq_len=4),
+                         train=config.TrainConfig(num_epochs=1, save_dir=save_dir))
+    fleet_state, out = FleetTrainer(tcfg, ds, seeds=[0, 1], device="cpu").fit()
+    assert np.isfinite(out["history"][0]["train_loss"]).all()
+    s = predict_panel_fleet(out["best_params"], tcfg, ds, ds.split_days(None, None),
+                            stochastic=False)
+    assert s.shape == (2, 12, 8) and np.isfinite(s[:, :, :5]).all()
+assert {"factorvae_tpu_torch.train.fleet", "factorvae_tpu_torch.train.pbt",
+        "factorvae_tpu_torch.eval.sweep"} <= set(names)
 
 # the CLI after the panel is built (no --backtest): train, score, export
 from factorvae_tpu_torch import cli
