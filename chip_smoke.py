@@ -122,11 +122,36 @@ named phases, and prints neither the kernels line nor the result):
               launch per fleet step), --score_only on the winning seed (the
               same RankIC), and a 2 x 2 lr:kl_weight --hyper_grid; (d) a
               one-lane fleet equal to Trainer.fit bitwise on the card.
-12. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+12. stream -- the stream residency at flagship width on the 80-day panel,
+              stream_chunk_days = 16 (train chunks of 16, 16, 16 and 2
+              steps), every result held bitwise against the "hbm"
+              residency's: (a) Trainer.fit, one epoch from the same init,
+              parameters and history, every launch counter set to 0 just
+              before each fit (each training kernel once per step, K1's
+              serving variant once per validation batch), the train and
+              validation ledgers, cold and warm epoch walls; (b)
+              predict_panel over 50 days, deterministic, sampled and int8,
+              and predict_panel_fleet at S = 4 lanes; (c) FleetTrainer, S =
+              4, one epoch, per lane; (d) stream_fail on chunk 1 (one retry,
+              the same scores) and a 50 ms stream_stall on chunk 0 (the
+              consumer's wait rises by it); (e) the peak device memory of a
+              stream scoring pass over the whole 80-day panel and over a
+              3,000-day x 300-stock one (580 MB on the host): equal within
+              16 MiB, both below the hbm dataset's peak on the 3,000-day
+              panel; the time per 32-day chunk of both residencies there;
+              (f) a PanelStore of 75 days, an append of 5 (the round trip
+              exact), extend_days under both residencies and the daemon's
+              extend_dataset: the new days' scores bitwise a fresh
+              dataset's; (g) the CLI with --panel_residency stream: the
+              hbm run's CSV byte for byte. Each ledger: bytes_put,
+              produce_seconds, wait_seconds, copy_seconds (CUDA events),
+              h2d_gb_per_s, staging_waits, retries, overlap_frac.
+13. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
-              `launches_mixed` in the precision phase's mixed epoch and
-              `launches_fleet` in the fleet epoch), and its `fleet_*` times
+              `launches_mixed` in the precision phase's mixed epoch,
+              `launches_fleet` in the fleet epoch and `launches_stream` in
+              the stream phase's stream epoch), and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
               `fleet_bound_ms`, ...).
 
@@ -1803,7 +1828,7 @@ def phase_fleet(torch, seed: int, counters, card: str) -> dict:
           f"fleet: a solo run with its lr {FLEET_FAULT_LR} off reads {fault_rel}, "
           f"within the limit {FLEET_LOSS_RTOL}: the limit cannot tell it from a sound lane")
     # busy shares of 5 steps of the fleet and of one solo run
-    order = fleet._epoch_orders(0)
+    order = torch.as_tensor(fleet._epoch_orders(0), device="cuda")
     peaks = [c.train.lr for c in fleet.lane_cfgs]
     fleet_busy = _busy_share(torch, lambda: [lane_train_step(
         fleet.model, state, dataset, order[:, i], peaks=peaks, train_cfg=cfg.train,
@@ -1901,6 +1926,277 @@ def phase_fleet(torch, seed: int, counters, card: str) -> dict:
                                    "launches": lh, "wall_s": hg["wall_s"]}}}
 
 
+# ---- stream residency: host-resident panels in double-buffered chunks ------
+
+STREAM_CHUNK_DAYS = 16      # 50 train days -> chunks of 16, 16, 16 and a tail of 2
+STREAM_LONG_DAYS = 3000     # the long history of the residency check (580 MB)
+# Peak device memory of a stream scoring pass must not grow with the
+# history: the 80-day and the 3,000-day panels' peaks within this many bytes.
+STREAM_MEMORY_TOL = 16 * 2 ** 20
+
+
+def _same_bytes(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def _history(out) -> list:
+    """An epoch history without its wall-clock fields."""
+    return [{k: v for k, v in r.items() if k not in ("seconds", "days_per_sec",
+                                                     "seed_days_per_sec")}
+            for r in out["history"]]
+
+
+def _scoring_peak(torch, fn) -> tuple:
+    """(peak device bytes above what was allocated before `fn`, fn's
+    result, its wall in s)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before, out, time.perf_counter() - t0
+
+
+def phase_stream(torch, seed: int, counters, card: str) -> dict:
+    import tempfile
+
+    from factorvae_tpu_torch import chaos, cli
+    from factorvae_tpu_torch.chaos import ChaosPlan, Fault
+    from factorvae_tpu_torch.data import PanelStore
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.panel import Panel, panel_to_frame
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.eval.predict import predict_panel, predict_panel_fleet
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.serve.daemon import ScoringDaemon
+    from factorvae_tpu_torch.serve.registry import ModelRegistry
+    from factorvae_tpu_torch.train.fleet import FleetTrainer
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    base = get_preset("flagship")
+    m = base.model
+    panel = synthetic_panel_dense(80, 300, m.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_stream_")
+    cfg = dataclasses.replace(
+        base,
+        data=dataclasses.replace(base.data, start_time=dates[0], fit_end_time=dates[49],
+                                 val_start_time=dates[50], val_end_time=dates[69],
+                                 stream_chunk_days=STREAM_CHUNK_DAYS),
+        train=dataclasses.replace(base.train, seed=seed, num_epochs=1, days_per_step=1,
+                                  checkpoint_every=0, save_dir=work.name))
+    residencies = ("hbm", "stream")
+    ds = {r: PanelDataset(panel, seq_len=m.seq_len, device="cuda", residency=r)
+          for r in residencies}
+    check(not hasattr(ds["stream"], "values"), "stream: the dataset holds a device panel")
+
+    # (a) Trainer.fit, one epoch from the same init, stream against hbm
+    fits = {}
+    for r in residencies:
+        tr = Trainer(cfg, ds[r], device="cuda")
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        state, out = tr.fit()
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        stats = ((tr.last_stream_stats.stats(), ds[r].last_stream.stats())
+                 if r == "stream" else (None, None))
+        _, warm = tr.fit()          # the same epoch again, warm
+        torch.cuda.synchronize()
+        fits[r] = {"trainer": tr, "state": state, "out": out, "launches": launches,
+                   "stats": stats[0], "val_stats": stats[1], "warm": warm,
+                   "warm_stats": (tr.last_stream_stats.stats() if r == "stream" else None)}
+    tr_s, a_h, a_s = fits["stream"]["trainer"], fits["hbm"], fits["stream"]
+    params_h = dict(a_h["state"].model.named_parameters())
+    check(all(torch.equal(params_h[n], p) for n, p in a_s["state"].model.named_parameters()),
+          "stream (a): parameters differ from the hbm run's")
+    check(_history(a_h["out"]) == _history(a_s["out"]),
+          f"stream (a): history {a_s['out']['history']} != {a_h['out']['history']}")
+    check(_history(a_h["warm"]) == _history(a_s["warm"]), "stream (a): warm histories differ")
+    steps = tr_s.steps_per_epoch
+    val_batches = -(-len(tr_s.val_days) // tr_s.batch_days)
+    ls = a_s["launches"]
+    check(all(ls[n] == steps for n in ("gru_fwd_residuals", "gru_bwd", "gru_dwh",
+                                        "attention_bwd"))
+          and ls["gru_fwd"] == val_batches and ls["attention_fwd"] == steps + val_batches,
+          f"stream (a): {steps} steps and {val_batches} validation batches but launches {ls}")
+    train_stats = a_s["stats"]
+    check(train_stats["chunks"] == -(-steps // tr_s.steps_per_chunk) >= 4
+          and train_stats["retries"] == 0, f"stream (a): ledger {train_stats}")
+    model = a_h["state"].model.eval()
+
+    # (c) a seed fleet of four, one epoch, stream against hbm, per lane
+    seeds = [seed + i for i in range(FLEET_LANES)]
+    fleets = {}
+    for r in residencies:
+        fcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, save_dir=os.path.join(work.name, f"fleet_{r}")))
+        ft = FleetTrainer(fcfg, ds[r], seeds=seeds, device="cuda")
+        t0 = time.perf_counter()
+        fstate, fout = ft.fit()
+        torch.cuda.synchronize()
+        fleets[r] = {"trainer": ft, "state": fstate, "out": fout,
+                     "wall_s": time.perf_counter() - t0}
+    f_h, f_s = fleets["hbm"], fleets["stream"]
+    lanes_same = [all(torch.equal(f_h["state"].params[n][i], f_s["state"].params[n][i])
+                      for n in f_h["state"].params) for i in range(FLEET_LANES)]
+    check(all(lanes_same) and _history(f_h["out"]) == _history(f_s["out"]),
+          f"stream (c): fleet lanes bitwise {lanes_same}")
+    fleet_stats = f_s["trainer"].last_stream_stats.stats()
+
+    # (b) scoring 50 days, stream against hbm: f32 (deterministic and
+    # sampled), int8, and a fleet of four
+    days = ds["hbm"].split_days(dates[30], dates[79])
+    check(len(days) == 50, f"stream (b): {len(days)} scored days")
+    scoring = {}
+    for name, kw in (("f32", {}), ("f32_sampled", {"stochastic": True, "seed": seed}),
+                     ("int8", {"int8": True})):
+        kw = {"stochastic": False, **kw}
+        got = {r: predict_panel(model, cfg, ds[r], days, **kw) for r in residencies}
+        check(_same_bytes(got["hbm"], got["stream"]), f"stream (b): {name} scores differ")
+        scoring[name] = ds["stream"].last_stream.stats()
+    best = f_h["out"]["best_params"]
+    got = {r: predict_panel_fleet(best, cfg, ds[r], days, stochastic=False)
+           for r in residencies}
+    check(got["hbm"].shape == (FLEET_LANES, 50, 304)
+          and _same_bytes(got["hbm"], got["stream"]), "stream (b): fleet scores differ")
+    want = got["stream"][0]
+
+    # (d) chaos: a failed chunk retries once, a stalled one is waited for
+    plan = ChaosPlan([Fault("stream_fail", chunk=1)])
+    with chaos.active(plan):
+        failed = predict_panel_fleet(best, cfg, ds["stream"], days, stochastic=False)[0]
+    fail_stats = ds["stream"].last_stream.stats()
+    check(fail_stats["retries"] == 1 and _same_bytes(failed, want),
+          f"stream (d): stream_fail gave {fail_stats['retries']} retries")
+    with chaos.active(ChaosPlan([Fault("stream_stall", chunk=0, delay_s=0.05)])):
+        stalled = predict_panel_fleet(best, cfg, ds["stream"], days, stochastic=False)[0]
+    stall_stats = ds["stream"].last_stream.stats()
+    # the consumer waits for chunk 0's stall and then its produce
+    stall_wait = stall_stats["chunk_wait_seconds"][0] - stall_stats["chunk_produce_seconds"][0]
+    check(_same_bytes(stalled, want) and stall_wait >= 0.05,
+          f"stream (d): a 50 ms stream_stall on chunk 0 added {stall_wait} s of wait")
+
+    # (e) residency: the peak device memory of a 32-day-chunk stream scoring
+    # pass over the whole 80-day and 3,000-day panels, and of the hbm dataset
+    t0 = time.perf_counter()
+    long_panel = synthetic_panel_dense(STREAM_LONG_DAYS, 300, m.num_features, seed=seed + 1)
+    long_s = PanelDataset(long_panel, seq_len=m.seq_len, device="cuda", residency="stream")
+    build_s = time.perf_counter() - t0
+    all_80 = ds["stream"].split_days(None, None)
+    all_long = long_s.split_days(None, None)
+    peak_80, _, _ = _scoring_peak(torch, lambda: predict_panel(
+        model, cfg, ds["stream"], all_80, stochastic=False))
+    peak_long, long_scores, long_stream_s = _scoring_peak(torch, lambda: predict_panel(
+        model, cfg, long_s, all_long, stochastic=False))
+    long_stats = long_s.last_stream.stats()
+
+    held = {}
+
+    def hbm_pass():
+        held["ds"] = PanelDataset(long_panel, seq_len=m.seq_len, device="cuda")
+        return predict_panel(model, cfg, held["ds"], all_long, stochastic=False)
+
+    peak_hbm, long_hbm_scores, _ = _scoring_peak(torch, hbm_pass)
+    t0 = time.perf_counter()
+    predict_panel(model, cfg, held.pop("ds"), all_long, stochastic=False)
+    torch.cuda.synchronize()
+    long_hbm_s = time.perf_counter() - t0
+    check(_same_bytes(long_scores, long_hbm_scores), "stream (e): 3,000-day scores differ")
+    check(abs(peak_long - peak_80) <= STREAM_MEMORY_TOL,
+          f"stream (e): peak {peak_long} B at {STREAM_LONG_DAYS} days against {peak_80} B "
+          f"at 80 days")
+    check(max(peak_80, peak_long) < peak_hbm,
+          f"stream (e): stream peaks {peak_80}, {peak_long} B not below hbm's {peak_hbm} B")
+    n_long_chunks = -(-len(all_long) // 32)
+    del long_panel, long_s
+
+    # (f) a store append of 5 days, then extend_days and the daemon's pickup
+    head = Panel(values=panel.values[:, :75], valid=panel.valid[:75],
+                 dates=panel.dates[:75], instruments=panel.instruments)
+    tail = Panel(values=panel.values[:, 75:], valid=panel.valid[75:],
+                 dates=panel.dates[75:], instruments=panel.instruments)
+    store = PanelStore.create(os.path.join(work.name, "store"), head)
+    record = store.append_panel(tail)
+    loaded = store.load_panel(verify=True)
+    check(_same_bytes(loaded.values, panel.values) and _same_bytes(loaded.valid, panel.valid)
+          and _same_bytes(loaded.dates, panel.dates), "stream (f): the store's round trip")
+    piece = store.load_slab(record)
+    new_days = np.arange(75, 80)
+    extended = {}
+    for r in residencies:
+        grown = PanelDataset(head, seq_len=m.seq_len, device="cuda", residency=r)
+        check(grown.extend_days(piece) and not grown.extend_days(piece),
+              f"stream (f): extend_days under {r}")
+        got = predict_panel(model, cfg, grown, new_days, stochastic=False)
+        fresh = predict_panel(model, cfg, ds[r], new_days, stochastic=False)
+        extended[r] = _same_bytes(got, fresh)
+    check(all(extended.values()), f"stream (f): appended days' scores {extended}")
+    registry = ModelRegistry(device="cuda")
+    registry.admit(model, cfg, alias="flagship")
+    daemon = ScoringDaemon(registry, PanelDataset(head, seq_len=m.seq_len, device="cuda",
+                                                  residency="stream"))
+    (before,) = daemon.handle_batch([{"id": 1, "model": "flagship", "day": dates[77]}])
+    check(not before["ok"], "stream (f): the daemon scored a day it does not hold")
+    check(daemon.extend_dataset(piece), "stream (f): extend_dataset added nothing")
+    (resp,) = daemon.handle_batch([{"id": 2, "model": "flagship", "day": dates[77]}])
+    fresh = predict_panel(model, cfg, ds["stream"], np.array([77]), stochastic=False)[0, :300]
+    check(resp["ok"] and _same_bytes(np.asarray(resp["results"][0]["scores"], np.float32),
+                                     fresh), "stream (f): the daemon's new day differs")
+
+    # (g) the CLI, one epoch and 10 scored days: stream against hbm, the CSV
+    pkl = os.path.join(work.name, "panel.pkl")
+    panel_to_frame(panel).to_pickle(pkl)
+    clis = {}
+    for r in residencies:
+        out = os.path.join(work.name, f"cli_{r}")
+        clis[r] = _cli_drive(torch, cli, counters, [
+            "--preset", "flagship", "--dataset", pkl, "--seed", str(seed),
+            "--run_name", "smoke", "--start_time", dates[0], "--fit_end_time", dates[49],
+            "--val_start_time", dates[50], "--val_end_time", dates[69],
+            "--score_start", dates[70], "--score_end", dates[79], "--deterministic_scores",
+            "--num_epochs", "1", "--panel_residency", r,
+            "--stream_chunk_days", str(STREAM_CHUNK_DAYS),
+            "--save_dir", f"{out}/models", "--score_dir", f"{out}/scores",
+            "--metrics_jsonl", f"{out}/run.jsonl"])
+    csv_bytes = {}
+    for r in residencies:
+        with open(_of(clis[r], "scores")[0]["path"], "rb") as fh:
+            csv_bytes[r] = fh.read()
+    check(csv_bytes["hbm"] == csv_bytes["stream"] and len(csv_bytes["hbm"]) > 0,
+          "stream (g): the CLI's CSVs differ")
+    work.cleanup()
+
+    return {"phase": "stream", "card": card, "stream_chunk_days": STREAM_CHUNK_DAYS,
+            "config": "flagship C158/T20/H64/K96/M128, f32, days_per_step=1",
+            "train": {"launches": ls, "launches_hbm": a_h["launches"],
+                      "steps": steps, "val_batches": val_batches,
+                      "steps_per_chunk": tr_s.steps_per_chunk,
+                      "epoch_s": {r: fits[r]["out"]["history"][0]["seconds"]
+                                  for r in residencies},
+                      "epoch_s_warm": {r: fits[r]["warm"]["history"][0]["seconds"]
+                                       for r in residencies},
+                      "ledger": train_stats, "ledger_warm": a_s["warm_stats"],
+                      "val_ledger": a_s["val_stats"]},
+            "fleet": {"lanes": FLEET_LANES, "ledger": fleet_stats,
+                      "wall_s": {r: fleets[r]["wall_s"] for r in residencies}},
+            "scoring": {"days": 50, "ledger": scoring},
+            "chaos": {"stream_fail": fail_stats, "stream_stall": stall_stats,
+                      "stall_wait_s": stall_wait},
+            "residency": {"peak_bytes_80": peak_80, "peak_bytes_3000": peak_long,
+                          "peak_bytes_hbm_3000": peak_hbm, "tolerance": STREAM_MEMORY_TOL,
+                          "long_panel_nbytes": 304 * STREAM_LONG_DAYS * 159 * 4,
+                          "long_build_s": build_s, "long_ledger": long_stats,
+                          "chunks": n_long_chunks,
+                          "chunk_ms": {"stream": long_stream_s * 1e3 / n_long_chunks,
+                                       "hbm": long_hbm_s * 1e3 / n_long_chunks}},
+            "append": {"slab": record, "extend_bitwise": extended},
+            "cli": {"csv_bytes": len(csv_bytes["hbm"]),
+                    "walls_s": {r: clis[r]["wall_s"] for r in residencies}}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1941,7 +2237,8 @@ def main(argv=None) -> int:
         "train": lambda: phase_train(torch, args.seed, counters),
         "precision": lambda: phase_precision(torch, args.seed, counters),
         "cli": lambda: phase_cli(torch, args.seed, counters, phases[0]["nvidia_smi"]),
-        "fleet": lambda: phase_fleet(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "fleet": lambda: phase_fleet(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "stream": lambda: phase_stream(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -1982,6 +2279,7 @@ def main(argv=None) -> int:
                      "launches_cli": by["cli"]["launches"]["a_train_score"][name],
                      "launches_mixed": by["precision"]["mixed_epoch"]["launches"][name],
                      "launches_fleet": by["fleet"]["launches"][name],
+                     "launches_stream": by["stream"]["train"]["launches"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],
                      "tolerance": ph["tolerance"],

@@ -9,10 +9,23 @@ JSON, which is read once, at the process's first query. An injection point asks 
 match, which consumes one firing; so a fault at epoch 2 fires once, and
 the epoch replayed after a rollback runs clean.
 
-Only `nan_grads` is ported: on a matching train epoch (coordinate `epoch`)
-every step's gradients are multiplied by NaN (`train/loop.py`), which the
-finite guard skips and the trainer's rollback recovers from. A plan that
-names any other kind of the JAX package is refused, never ignored.
+The ported kinds and their injection points:
+
+    kind                 injection point             recovery exercised
+    nan_grads            a train epoch's gradients   the finite guard skips
+                         (train/loop.py; `epoch`,    the steps; the
+                         fleets also `lane`)         trainer's rollback
+    stream_fail          ChunkStream._produce        bounded retry with
+    stream_stall         (`chunk`; data/stream.py)   backoff; `delay_s` of
+                                                     latency for a stall
+    kill_mid_append      PanelStore.append_panel,    the re-run overwrites
+                         `step` 0 before the slab,   the orphan slab
+                         1 before the manifest       (SIGKILL, chaos/ops.py)
+    corrupt_append_slab  PanelStore.append_panel,    sha256 check before the
+                         after the slab lands        manifest commit
+
+A plan that names any other kind of the JAX package is refused, never
+ignored.
 """
 
 from __future__ import annotations
@@ -24,7 +37,8 @@ import os
 import threading
 from typing import Iterator, List, Optional, Sequence
 
-KINDS = ("nan_grads",)
+KINDS = ("nan_grads", "stream_fail", "stream_stall", "kill_mid_append",
+         "corrupt_append_slab")
 ENV_VAR = "FACTORVAE_CHAOS"
 
 _COORDS = ("epoch", "step", "lane", "chunk", "request")

@@ -22,6 +22,10 @@ through hyper-fleets (`eval/sweep.grid_sweep`, `hyper_grid`) and goes on
 with its winner the same way; `--resume` restores a fleet from its
 lockstep checkpoints.
 
+`--panel_residency stream` keeps the panel in host memory: training,
+fleets and scoring take it in chunks of `--stream_chunk_days` copied to the
+device one chunk ahead (`data/stream.py`), with the "hbm" run's results.
+
 The flags of paths this package does not port yet exit with code 2 and a
 line naming their ROADMAP Queue 1 item, before the dataset is read, as does
 a hidden size above the CUDA kernels' maximum on `--device cuda`.
@@ -117,8 +121,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_stocks", type=int, default=None,
                    help="cross-section padding N_max (default: inferred)")
     p.add_argument("--panel_residency", choices=["hbm", "stream"], default=None,
-                   help="hbm (the panel lives on the device); stream is " + _REFUSED)
-    p.add_argument("--stream_chunk_days", type=int, default=None, help=_REFUSED)
+                   help="hbm: the panel lives on the device (default); stream: it stays "
+                        "in host memory and epochs and scoring take it in chunks copied "
+                        "one chunk ahead, with the same results")
+    p.add_argument("--stream_chunk_days", type=int, default=None,
+                   help="days per chunk under --panel_residency stream (default 32)")
     p.add_argument("--auto_plan", action=argparse.BooleanOptionalAction, default=False,
                    help=_REFUSED)
     p.add_argument("--score_only", action="store_true",
@@ -170,8 +177,6 @@ def refusal(args: argparse.Namespace) -> Optional[str]:
     not_ported = (
         (args.mesh, "--mesh", 12), (args.mesh_stock is not None, "--mesh_stock", 12),
         (args.auto_plan, "--auto_plan", 9),
-        (args.panel_residency == "stream", "--panel_residency stream", 5),
-        (args.stream_chunk_days is not None, "--stream_chunk_days", 5),
         (args.compile_cache not in (None, "off"), "--compile_cache", 9),
         (args.obs is True, "--obs", 11),
         (args.prom_textfile is not None, "--prom_textfile", 11),
@@ -322,7 +327,8 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
             return 2
         dataset = PanelDataset(panel, seq_len=cfg.data.seq_len,
                                max_stocks=cfg.data.max_stocks,
-                               pad_multiple=cfg.data.pad_multiple, device=args.device)
+                               pad_multiple=cfg.data.pad_multiple, device=args.device,
+                               residency=cfg.data.panel_residency)
         best = os.path.join(cfg.train.save_dir, cfg.checkpoint_name())
         if args.score_only:
             if not os.path.isdir(best):

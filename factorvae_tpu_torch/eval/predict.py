@@ -1,9 +1,13 @@
 """Inference scoring over a range of days (`factorvae_tpu/eval/predict.py`).
 
 `predict_panel` walks the days in chunks of `chunk`: each chunk gathers its
-windows from the device-resident panel, runs the day-batched prediction
-and copies the (chunk, N_max) scores to the host. The last chunk is padded
-with day -1, gathered as day 0 and masked out, exactly as in the JAX scan.
+windows on the device, runs the day-batched prediction and copies the
+(chunk, N_max) scores to the host. The last chunk is padded with day -1,
+gathered as day 0 and masked out, exactly as in the JAX scan. On an "hbm"
+dataset the windows come from the resident panel; on a "stream" one each
+chunk is a mini-panel copied one chunk ahead (`data/stream.py`), with the
+same chunking, padding and generator order, so the scores are bitwise the
+same.
 
 The stochastic mode draws its noise from a torch.Generator seeded with
 `seed`; those numbers are not the JAX package's.
@@ -36,8 +40,22 @@ import numpy as np
 import torch
 
 from factorvae_tpu_torch.data.loader import PanelDataset
+from factorvae_tpu_torch.data.stream import epoch_chunks
 from factorvae_tpu_torch.models.factorvae import call_with, model_from_params, with_compute_dtype
 from factorvae_tpu_torch.ops.quant import dequantize_params, ensure_quantized
+
+
+def _score_chunks(dataset, days: np.ndarray, chunk: int):
+    """(c0, real days, dataset or mini-panel, day_idx (chunk,) with -1
+    padding on the device) for each chunk of `days`."""
+    n_days = len(days)
+    padded = np.full(-(-n_days // chunk) * chunk, -1, np.int64)
+    padded[:n_days] = days
+    c0 = 0
+    for ds, order in epoch_chunks(dataset, padded.reshape(-1, chunk), 1):
+        for day_idx in order:
+            yield c0, min(chunk, n_days - c0), ds, day_idx
+            c0 += chunk
 
 
 def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
@@ -62,12 +80,8 @@ def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
     if sample:
         generator = torch.Generator(device=dataset.device).manual_seed(seed)
     with torch.inference_mode():
-        for c0 in range(0, n_days, chunk):
-            sel = days[c0:c0 + chunk]
-            padded = np.full(chunk, -1, np.int64)
-            padded[:len(sel)] = sel
-            day_idx = torch.from_numpy(padded).to(dataset.device)
-            x, _, mask = dataset.gather(torch.clamp(day_idx, min=0))
+        for c0, n_sel, ds, day_idx in _score_chunks(dataset, days, chunk):
+            x, _, mask = ds.gather(torch.clamp(day_idx, min=0))
             mask = mask & (day_idx >= 0)[:, None]
             kw = dict(stochastic=sample, generator=generator)
             if params is None:
@@ -75,7 +89,7 @@ def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
             else:
                 weights = dequantize_params(params, model.cfg.dtype) if int8 else params
                 scores = call_with(model, weights, "day_batched_prediction", x, mask, **kw)
-            out[c0:c0 + len(sel)] = scores[:len(sel)].cpu().numpy()
+            out[c0:c0 + n_sel] = scores[:n_sel].cpu().numpy()
     return out
 
 
@@ -102,19 +116,14 @@ def predict_panel_fleet(params: dict, config, dataset: PanelDataset, days: np.nd
         return call_with(model, p, "day_batched_prediction", x, mask, stochastic=sample,
                          eps=eps)
 
-    chunk = 32
     with torch.inference_mode():
-        for c0 in range(0, n_days, chunk):
-            sel = days[c0:c0 + chunk]
-            padded = np.full(chunk, -1, np.int64)
-            padded[:len(sel)] = sel
-            day_idx = torch.from_numpy(padded).to(dataset.device)
-            x, _, mask = dataset.gather(torch.clamp(day_idx, min=0))
+        for c0, n_sel, ds, day_idx in _score_chunks(dataset, days, 32):
+            x, _, mask = ds.gather(torch.clamp(day_idx, min=0))
             mask = mask & (day_idx >= 0)[:, None]
             eps = (torch.randn(mask.shape, generator=generator, device=dataset.device)
                    if sample else None)
             scores = torch.func.vmap(one, in_dims=(0, None, None, None))(params, x, mask, eps)
-            out[:, c0:c0 + len(sel)] = scores[:, :len(sel)].cpu().numpy()
+            out[:, c0:c0 + n_sel] = scores[:, :n_sel].cpu().numpy()
     return out
 
 

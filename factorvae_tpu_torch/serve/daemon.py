@@ -10,7 +10,10 @@ A scoring response carries `results` (one entry per day: `day`,
 `instruments`, `scores`, best first when `top` is given), `n`, `model`,
 `alias` and `latency_ms`. A bad request answers `{"ok": false, "error"}`
 and never stops the daemon. `serve_stdin` drives it with one JSONL line per
-tick (a line may hold an array of requests). Fused multi-model dispatch,
+tick (a line may hold an array of requests). `extend_dataset` appends
+trading days to the serving panel under the tick lock: a tick in flight
+finishes on the old day axis, and the next one can score the new days.
+Fused multi-model dispatch,
 breakers, deadlines, HTTP, tracing and drift monitoring are not ported yet.
 """
 
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 import time
 from typing import Optional
 
@@ -56,6 +60,8 @@ class ScoringDaemon:
         self.errors = 0
         self.ticks = 0
         self.closing = False
+        # a tick and an append of days exclude each other
+        self._lock = threading.Lock()
 
     def _resolve_days(self, req: dict) -> np.ndarray:
         ds = self.dataset
@@ -151,13 +157,21 @@ class ScoringDaemon:
 
     def handle_batch(self, requests: list) -> list:
         """Responses, in order, for one tick of requests."""
-        t0 = time.perf_counter()
-        self.ticks += 1
-        resolved = [self._resolve(r) for r in requests]
-        for r in resolved:
-            if r.error is None and r.cmd is None:
-                self._dispatch(r)
-        return [self._respond(r, t0) for r in resolved]
+        with self._lock:
+            t0 = time.perf_counter()
+            self.ticks += 1
+            resolved = [self._resolve(r) for r in requests]
+            for r in resolved:
+                if r.error is None and r.cmd is None:
+                    self._dispatch(r)
+            return [self._respond(r, t0) for r in resolved]
+
+    def extend_dataset(self, piece) -> bool:
+        """Append the trading days of the Panel `piece` to the serving panel
+        (`PanelDataset.extend_days`) under the tick lock. True when days
+        were added, False for the idempotent no-op."""
+        with self._lock:
+            return bool(self.dataset.extend_days(piece))
 
     def stats(self) -> dict:
         return {
@@ -168,7 +182,8 @@ class ScoringDaemon:
             "device": str(self.dataset.device),
             "registry": self.registry.stats(),
             "panel": {"n_days": int(len(self.dataset.dates)),
-                      "n_max": int(self.dataset.n_max)},
+                      "n_max": int(self.dataset.n_max),
+                      "residency": self.dataset.residency},
         }
 
 

@@ -39,10 +39,15 @@ Semantics, as the JAX package's:
   or skipped steps) rolls back alone to its last checkpoint saved at a
   clean epoch; the others go on, and no lr changes (`_rollback_lanes`).
 
-Refused in `__init__`, naming their ROADMAP Queue 1 items: streaming
-residency (5), a stock-sharded mesh (12), obs probes (11) and
-rematerialization (15); on a CUDA device a hidden size above the kernels'
-maximum.
+- A stream-resident dataset (`PanelDataset(residency="stream")`) is
+  taken in chunks of `steps_per_chunk` steps, as the serial trainer's: a
+  train chunk stacks each lane's mini-panel of its own shuffled days, the
+  shared validation order gets one mini-panel per chunk
+  (`data/stream.stream_epoch_batches`); bitwise the "hbm" fleet.
+
+Refused in `__init__`, naming their ROADMAP Queue 1 items: a stock-sharded
+mesh (12), obs probes (11) and rematerialization (15); on a CUDA device a
+hidden size above the kernels' maximum.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import torch
 
 from factorvae_tpu_torch import chaos
 from factorvae_tpu_torch.config import Config, config_hash
+from factorvae_tpu_torch.data.stream import epoch_chunks
 from factorvae_tpu_torch.models.factorvae import model_from_params
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import read_state_dict, save_weights
@@ -267,8 +273,6 @@ class FleetTrainer:
             raise ValueError(f"the dataset lives on {dataset.device}, the fleet runs "
                              f"on {self.device}")
         for given, knob, item in (
-                (config.data.panel_residency == "stream",
-                 "a fleet with data.panel_residency='stream'", 5),
                 (config.mesh.stock_axis > 1, "a fleet on a mesh (mesh.stock_axis > 1)", 12),
                 (config.train.obs_probes, "a fleet with train.obs_probes", 11),
                 (config.train.remat != "none", f"train.remat={config.train.remat!r}", 15)):
@@ -291,6 +295,9 @@ class FleetTrainer:
         self.batch_days = max(1, config.train.days_per_step)
         self.steps_per_epoch = -(-len(self.train_days) // self.batch_days)
         self.total_steps = self.steps_per_epoch * config.train.num_epochs
+        self.stream = dataset.residency == "stream"
+        self.steps_per_chunk = max(1, config.data.stream_chunk_days // self.batch_days)
+        self.last_stream_stats = None
         self._ckpts: dict = {}
         self.logger.log(
             "fleet_execution_layout", seeds=self.seeds, seeds_per_program=self.num_seeds,
@@ -299,7 +306,9 @@ class FleetTrainer:
             compute_dtype=self.train_dtype, model_compute_dtype=config.model.compute_dtype,
             mixed_precision=self.mixed, checkpoint_saves="synchronous",
             n_real=dataset.n_real, n_padded=dataset.n_max,
-            obs_probes=config.train.obs_probes, device=str(self.device))
+            obs_probes=config.train.obs_probes, device=str(self.device),
+            panel_residency="stream" if self.stream else "hbm",
+            steps_per_chunk=self.steps_per_chunk if self.stream else None)
 
     # ---- lanes -----------------------------------------------------------
 
@@ -359,21 +368,23 @@ class FleetTrainer:
     def _stacked(self, run) -> FleetState:
         return stack_states([run]) if self.num_seeds == 1 else run
 
-    def _epoch_orders(self, epoch: int) -> torch.Tensor:
+    def _epoch_orders(self, epoch: int) -> np.ndarray:
         """(S, steps, B): each lane's day order, shuffled with its own seed,
         as its solo run's epoch."""
         orders = [self.ds.epoch_order(self.train_days, shuffle=True, seed=s, epoch=epoch,
                                       pad_to=self.batch_days).reshape(-1, self.batch_days)
                   for s in self.seeds]
-        return torch.as_tensor(np.stack(orders).astype(np.int64), device=self.device)
+        return np.stack(orders).astype(np.int64)
 
-    def _val_order(self) -> Optional[torch.Tensor]:
+    def _val_order(self) -> Optional[np.ndarray]:
         if len(self.val_days) == 0:
             return None
         order = self.ds.epoch_order(self.val_days, shuffle=False, seed=0, epoch=0,
                                     pad_to=self.batch_days)
-        return torch.as_tensor(order.reshape(-1, self.batch_days).astype(np.int64),
-                               device=self.device)
+        return order.reshape(-1, self.batch_days).astype(np.int64)
+
+    def _chunks(self, order: np.ndarray):
+        return epoch_chunks(self.ds, order, self.steps_per_chunk)
 
     def _eval_generators(self, epoch: int) -> list:
         return [eval_generator(s, epoch, self.device) for s in self.seeds]
@@ -389,22 +400,28 @@ class FleetTrainer:
         guard = self.cfg.train.finite_guard
         dtype = self.model_cfg.dtype
         if self.num_seeds == 1:
-            m = train_epoch(run, self.ds, orders[0], guard=guard, poison=bool(poison[0]),
+            chunks = self._chunks(orders[0])
+            m = train_epoch(run, chunks, guard=guard, poison=bool(poison[0]),
                             compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg)
-            return {k: [v] for k, v in m.items()}
-        return lane_train_epoch(
-            self.model, run, self.ds, orders, peaks=[c.train.lr for c in self.lane_cfgs],
-            train_cfg=self.cfg.train, total_steps=self.total_steps, guard=guard,
-            poison=poison, compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
-            kl_weight=self._kl_weight())
+            m = {k: [v] for k, v in m.items()}
+        else:
+            chunks = self._chunks(orders)
+            m = lane_train_epoch(
+                self.model, run, chunks, peaks=[c.train.lr for c in self.lane_cfgs],
+                train_cfg=self.cfg.train, total_steps=self.total_steps, guard=guard,
+                poison=poison, compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
+                kl_weight=self._kl_weight())
+        if self.stream:
+            self.last_stream_stats = chunks
+        return m
 
-    def _run_eval_epoch(self, run, val_order: torch.Tensor, epoch: int) -> dict:
+    def _run_eval_epoch(self, run, val_order: np.ndarray, epoch: int) -> dict:
         generators = self._eval_generators(epoch)
         dtype = self.model_cfg.dtype
         if self.num_seeds == 1:
-            m = eval_epoch(run.model, self.ds, val_order, generators[0], dtype)
+            m = eval_epoch(run.model, self._chunks(val_order), generators[0], dtype)
             return {k: [v] for k, v in m.items()}
-        return lane_eval_epoch(self.model, run.params, self.ds, val_order, generators,
+        return lane_eval_epoch(self.model, run.params, self._chunks(val_order), generators,
                                dtype, self._kl_weight())
 
     def evaluate_lanes(self, state: FleetState, epoch: int) -> Optional[list]:

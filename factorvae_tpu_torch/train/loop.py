@@ -3,7 +3,12 @@
 A batch is a (days_per_step,) tensor of day indices on the device; -1 marks
 epoch padding (the day is gathered as day 0, masked out and weighted 0, so
 it adds neither loss nor gradient). `days_per_step=1` is the reference: one
-trading day per update, the schedule advanced per update.
+trading day per update, the schedule advanced per update. An epoch walks
+(dataset, order) chunks in step order (`data/stream.epoch_chunks`): the
+resident panel with the whole order, or under the stream residency one
+mini-panel per chunk with its local order; the sums, the loss-scale walk
+and the generators run on across chunks, so a stream epoch takes the steps
+of the "hbm" one.
 
 Metrics accumulate as device tensors; an epoch's metrics reach the host in
 one copy at its end. The finite guard (`TrainConfig.finite_guard`) reads one
@@ -184,18 +189,20 @@ def to_host(metrics: dict) -> dict:
     return dict(zip(keys, values))
 
 
-def train_epoch(state: TrainState, dataset, order: torch.Tensor, *, guard: bool,
-                poison: bool = False, compute_dtype: torch.dtype = torch.float32,
+def train_epoch(state: TrainState, chunks, *, guard: bool, poison: bool = False,
+                compute_dtype: torch.dtype = torch.float32,
                 loss_scale_cfg: Optional[tuple] = None) -> dict:
-    """order (S, B) day indices on the device -> the epoch's metrics
-    (floats); a mixed epoch's also hold `loss_scale_probes`."""
+    """The epoch's (dataset, order (steps, B)) chunks, in step order
+    (`data/stream.epoch_chunks`) -> the epoch's metrics (floats); a mixed
+    epoch's also hold `loss_scale_probes`."""
     sums, scales = None, []
-    for i in range(order.shape[0]):
-        aux = train_step(state, dataset, order[i], guard=guard, poison=poison,
-                         compute_dtype=compute_dtype, loss_scale_cfg=loss_scale_cfg)
-        if "loss_scale" in aux:
-            scales.append(aux.pop("loss_scale"))
-        sums = _accumulate(sums, aux)
+    for dataset, order in chunks:
+        for i in range(order.shape[0]):
+            aux = train_step(state, dataset, order[i], guard=guard, poison=poison,
+                             compute_dtype=compute_dtype, loss_scale_cfg=loss_scale_cfg)
+            if "loss_scale" in aux:
+                scales.append(aux.pop("loss_scale"))
+            sums = _accumulate(sums, aux)
     metrics = to_host(finalize_train(sums))
     if scales:
         metrics.update(loss_scale_probes(scales, loss_scale_cfg[3]))
@@ -203,18 +210,20 @@ def train_epoch(state: TrainState, dataset, order: torch.Tensor, *, guard: bool,
 
 
 @torch.no_grad()
-def eval_epoch(model, dataset, order: torch.Tensor, generator: torch.Generator,
+def eval_epoch(model, chunks, generator: torch.Generator,
                compute_dtype: torch.dtype = torch.float32) -> dict:
-    """Validation metrics over order (S, B): dropout off, the reconstruction
-    still sampled (the reference's validate()). A `compute_dtype` other
-    than float32 computes with the model's compute copy, as a mixed run's
-    train steps do."""
+    """Validation metrics over the (dataset, order (steps, B)) chunks:
+    dropout off, the reconstruction still sampled (the reference's
+    validate()), `generator` drawn across the chunks in order. A
+    `compute_dtype` other than float32 computes with the model's compute
+    copy, as a mixed run's train steps do."""
     params = cast_compute(model, compute_dtype) if compute_dtype != torch.float32 else None
     sums = None
-    for i in range(order.shape[0]):
-        _, aux = weighted_day_loss(model, dataset, order[i], train=False,
-                                   generator=generator, params=params)
-        sums = _accumulate(sums, aux)
+    for dataset, order in chunks:
+        for i in range(order.shape[0]):
+            _, aux = weighted_day_loss(model, dataset, order[i], train=False,
+                                       generator=generator, params=params)
+            sums = _accumulate(sums, aux)
     return to_host(finalize_eval(sums))
 
 
@@ -338,23 +347,24 @@ def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
     return aux
 
 
-def lane_train_epoch(model, state: FleetState, dataset, order: torch.Tensor, *,
-                     peaks, train_cfg, total_steps: int, guard: bool,
-                     poison: Optional[np.ndarray] = None,
+def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
+                     total_steps: int, guard: bool, poison: Optional[np.ndarray] = None,
                      compute_dtype: torch.dtype = torch.float32,
                      loss_scale_cfg: Optional[tuple] = None,
                      kl_weight: Optional[torch.Tensor] = None) -> dict:
-    """order (S, steps, B), lane i's own day order -> the epoch's metrics,
-    each a list of S floats (`train_epoch` lane by lane)."""
+    """The epoch's (dataset, order (S, steps, B)) chunks, lane i's own day
+    order -> the epoch's metrics, each a list of S floats (`train_epoch`
+    lane by lane)."""
     sums, scales = None, []
-    for i in range(order.shape[1]):
-        aux = lane_train_step(model, state, dataset, order[:, i], peaks=peaks,
-                              train_cfg=train_cfg, total_steps=total_steps, guard=guard,
-                              poison=poison, compute_dtype=compute_dtype,
-                              loss_scale_cfg=loss_scale_cfg, kl_weight=kl_weight)
-        if "loss_scale" in aux:
-            scales.append(aux.pop("loss_scale"))
-        sums = _accumulate(sums, aux)
+    for dataset, order in chunks:
+        for i in range(order.shape[1]):
+            aux = lane_train_step(model, state, dataset, order[:, i], peaks=peaks,
+                                  train_cfg=train_cfg, total_steps=total_steps, guard=guard,
+                                  poison=poison, compute_dtype=compute_dtype,
+                                  loss_scale_cfg=loss_scale_cfg, kl_weight=kl_weight)
+            if "loss_scale" in aux:
+                scales.append(aux.pop("loss_scale"))
+            sums = _accumulate(sums, aux)
     metrics = to_host(finalize_train(sums))
     if scales:
         probes = [loss_scale_probes([s[i] for s in scales], loss_scale_cfg[3])
@@ -365,19 +375,20 @@ def lane_train_epoch(model, state: FleetState, dataset, order: torch.Tensor, *,
 
 
 @torch.no_grad()
-def lane_eval_epoch(model, params: dict, dataset, order: torch.Tensor, generators,
+def lane_eval_epoch(model, params: dict, chunks, generators,
                     compute_dtype: torch.dtype = torch.float32,
                     kl_weight: Optional[torch.Tensor] = None) -> dict:
-    """Validation metrics of S models over the shared order (steps, B), lane
-    i with its parameters and its generator -> each metric a list of S
-    floats (`eval_epoch` lane by lane)."""
+    """Validation metrics of S models over the (dataset, shared order
+    (steps, B)) chunks, lane i with its parameters and its generator -> each
+    metric a list of S floats (`eval_epoch` lane by lane)."""
     if compute_dtype != torch.float32:
         params = cast_params(model, params, compute_dtype)
     lanes = len(generators)
     sums = None
-    for i in range(order.shape[0]):
-        days = order[i].expand(lanes, -1)
-        _, aux = lane_day_loss(model, params, dataset, days, train=False,
-                               generators=generators, kl_weight=kl_weight)
-        sums = _accumulate(sums, aux)
+    for dataset, order in chunks:
+        for i in range(order.shape[0]):
+            days = order[i].expand(lanes, -1)
+            _, aux = lane_day_loss(model, params, dataset, days, train=False,
+                                   generators=generators, kl_weight=kl_weight)
+            sums = _accumulate(sums, aux)
     return to_host(finalize_eval(sums))

@@ -31,9 +31,17 @@ bfloat16 too. Its rollback counts up to steps_per_epoch // growth_interval
 + 1 skipped steps an epoch as normal (the scale's growth overshoots about
 once per interval) and a scale at its floor as bad.
 
-Refused in `__init__`, each naming its ROADMAP item, as the CLI does:
-streaming residency, a stock-sharded mesh, rematerialization, and on a
-CUDA device a hidden size above the kernels' maximum. Fleets of models are
+The dataset's residency decides how an epoch reaches the card: under
+"stream" (`PanelDataset(residency="stream")`) each train and validation
+epoch walks chunks of `steps_per_chunk = stream_chunk_days // days_per_step`
+steps (the tail chunk shorter, never padded), each a mini-panel copied one
+chunk ahead (`data/stream.py`); the steps, the generators and the metrics
+are the "hbm" epoch's, bitwise. `last_stream_stats` is the last train
+epoch's `ChunkStream` and its transfer ledger.
+
+Refused in `__init__`, each naming its ROADMAP item, as the CLI does: a
+stock-sharded mesh, rematerialization, and on a CUDA device a hidden size
+above the kernels' maximum. Fleets of models are
 `train/fleet.FleetTrainer`, whose one-lane fleet is this trainer.
 Checkpoints are saved synchronously (`train.async_checkpointing` is
 accepted; the files are the same).
@@ -51,6 +59,7 @@ import torch
 
 from factorvae_tpu_torch import chaos
 from factorvae_tpu_torch.config import Config
+from factorvae_tpu_torch.data.stream import epoch_chunks
 from factorvae_tpu_torch.models.factorvae import FactorVAE
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import save_weights
@@ -106,7 +115,6 @@ class Trainer:
             raise ValueError(f"the dataset lives on {dataset.device}, the trainer "
                              f"runs on {self.device}")
         for given, knob, item in (
-                (config.data.panel_residency == "stream", "data.panel_residency='stream'", 5),
                 (config.mesh.stock_axis > 1, "mesh.stock_axis > 1", 12),
                 (config.train.remat != "none", f"train.remat={config.train.remat!r}", 15)):
             if given:
@@ -127,6 +135,9 @@ class Trainer:
         self.batch_days = max(1, config.train.days_per_step)
         self.steps_per_epoch = -(-len(self.train_days) // self.batch_days)
         self.total_steps = self.steps_per_epoch * config.train.num_epochs
+        self.stream = dataset.residency == "stream"
+        self.steps_per_chunk = max(1, config.data.stream_chunk_days // self.batch_days)
+        self.last_stream_stats = None
         # the peak lr's factor: the rollback recovery backs it off, and it
         # holds for later fits of this trainer, as in the JAX package
         self._lr_scale = 1.0
@@ -136,8 +147,10 @@ class Trainer:
             model_compute_dtype=config.model.compute_dtype, mixed_precision=self.mixed,
             checkpoint_saves="synchronous",
             n_real=dataset.n_real, n_padded=dataset.n_max,
-            dead_compute_frac=round(1.0 - dataset.n_real / dataset.n_max, 4),
-            obs_probes=config.train.obs_probes, device=str(self.device))
+            dead_compute_frac=round(dataset.dead_compute_frac, 4),
+            obs_probes=config.train.obs_probes, device=str(self.device),
+            panel_residency="stream" if self.stream else "hbm",
+            steps_per_chunk=self.steps_per_chunk if self.stream else None)
 
     def init_state(self) -> TrainState:
         """A model with weights drawn from `train.seed` (bitwise
@@ -146,11 +159,19 @@ class Trainer:
         return init_train_state(self.model_cfg, self.cfg.train, self.total_steps,
                                 self.device)
 
-    def _order(self, days, shuffle: bool, epoch: int) -> torch.Tensor:
+    def _order_np(self, days, shuffle: bool, epoch: int) -> np.ndarray:
         order = self.ds.epoch_order(days, shuffle=shuffle, seed=self.cfg.train.seed,
                                     epoch=epoch, pad_to=self.batch_days)
-        return torch.as_tensor(order.reshape(-1, self.batch_days).astype(np.int64),
-                               device=self.device)
+        return order.reshape(-1, self.batch_days).astype(np.int64)
+
+    def _order(self, days, shuffle: bool, epoch: int) -> torch.Tensor:
+        """The epoch's (steps, B) day order on the device (an "hbm" dataset's)."""
+        return torch.as_tensor(self._order_np(days, shuffle, epoch), device=self.device)
+
+    def _chunks(self, days, shuffle: bool, epoch: int):
+        """The epoch's (dataset, order) chunks for `train_epoch`/`eval_epoch`."""
+        return epoch_chunks(self.ds, self._order_np(days, shuffle, epoch),
+                            self.steps_per_chunk)
 
     def _eval_generator(self, epoch: int) -> torch.Generator:
         return eval_generator(self.cfg.train.seed, epoch, self.device)
@@ -198,8 +219,6 @@ class Trainer:
                              "checkpoint was written with")
                 self.logger.log("resume", epoch=start_epoch, best_val=best_val)
         set_lr_scale(state, tcfg, self._lr_scale)
-        val_order = (self._order(self.val_days, False, 0)
-                     if len(self.val_days) else None)
         recover_after = max(0, int(tcfg.recover_after))
         bad_streak = rollbacks = 0
         history = []
@@ -207,14 +226,16 @@ class Trainer:
         while epoch < epochs:
             t0 = time.perf_counter()
             poison = chaos.fault("nan_grads", epoch=epoch) is not None
-            train_m = train_epoch(state, self.ds, self._order(self.train_days, True, epoch),
-                                  guard=tcfg.finite_guard, poison=poison,
+            chunks = self._chunks(self.train_days, True, epoch)
+            train_m = train_epoch(state, chunks, guard=tcfg.finite_guard, poison=poison,
                                   compute_dtype=self.model_cfg.dtype,
                                   loss_scale_cfg=self.loss_scale_cfg)
+            if self.stream:
+                self.last_stream_stats = chunks
             rec = {"epoch": epoch, "train_loss": train_m["loss"],
                    "train_recon": train_m["recon"], "train_kl": train_m["kl"]}
-            if val_order is not None:
-                val_m = eval_epoch(state.model, self.ds, val_order,
+            if len(self.val_days):
+                val_m = eval_epoch(state.model, self._chunks(self.val_days, False, 0),
                                    self._eval_generator(epoch), self.model_cfg.dtype)
                 rec.update(val_loss=val_m["loss"], val_recon=val_m["recon"],
                            val_kl=val_m["kl"])
@@ -300,7 +321,7 @@ class Trainer:
             raise ValueError("no trading days in the requested range")
         generator = torch.Generator(device=self.device).manual_seed(
             seed_for(seed, _EVAL_NOISE))
-        return eval_epoch(model, self.ds, self._order(days, False, 0), generator,
+        return eval_epoch(model, self._chunks(days, False, 0), generator,
                           self.model_cfg.dtype)
 
     def score(self, model, start=None, end=None, **kw):

@@ -344,7 +344,7 @@ class TestChaosEnvironment:
         monkeypatch.setattr(chaos, "_PLAN", None)
         monkeypatch.setattr(chaos, "_ENV_CHECKED", False)
         monkeypatch.setenv(chaos.ENV_VAR, json.dumps(
-            {"seed": 0, "faults": [{"kind": "stream_stall", "chunk": 1}]}))
+            {"seed": 0, "faults": [{"kind": "kill_mid_save", "step": 1}]}))
         with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8"):
             chaos.fault("nan_grads", epoch=1)
 
@@ -353,8 +353,6 @@ REFUSED = [
     (["--mesh"], "--mesh", 12),
     (["--mesh_stock", "2"], "--mesh_stock", 12),
     (["--auto_plan"], "--auto_plan", 9),
-    (["--panel_residency", "stream"], "--panel_residency stream", 5),
-    (["--stream_chunk_days", "8"], "--stream_chunk_days", 5),
     (["--compile_cache", "xla_cache"], "--compile_cache", 9),
     (["--obs"], "--obs", 11),
     (["--prom_textfile", "x.prom"], "--prom_textfile", 11),
@@ -396,8 +394,7 @@ class TestCliRefusals:
                              ids=["fleet_seeds", "hyper_grid"])
     @pytest.mark.parametrize("extra,flag,item", [
         (["--mesh"], "--mesh", 12),
-        (["--panel_residency", "stream"], "--panel_residency stream", 5),
-        (["--auto_plan"], "--auto_plan", 9)], ids=["mesh", "stream", "auto_plan"])
+        (["--auto_plan"], "--auto_plan", 9)], ids=["mesh", "auto_plan"])
     def test_fleet_flags_with_an_unported_path_exit_2(self, data, monkeypatch, capsys,
                                                       fleet, extra, flag, item):
         """A fleet composes with none of the unported paths: the line names
@@ -426,6 +423,33 @@ class TestCliRefusals:
         if extra == ["--bf16"]:
             want["model"]["compute_dtype"] = "bfloat16"
         assert cli.config_from_args(args).to_dict() == want
+
+    def test_stream_flags_set_the_data_config(self):
+        args = cli.build_parser().parse_args(["--device", "cpu", "--panel_residency",
+                                              "stream", "--stream_chunk_days", "8"])
+        assert cli.refusal(args) is None
+        data = cli.config_from_args(args).data
+        assert (data.panel_residency, data.stream_chunk_days) == ("stream", 8)
+        preset = cli.build_parser().parse_args(["--device", "cpu", "--preset", "flagship",
+                                                "--panel_residency", "stream"])
+        assert cli.config_from_args(preset).data.panel_residency == "stream"
+
+    @pytest.mark.parametrize("fleet", [["--fleet_seeds", "2"],
+                                       ["--hyper_grid", "1e-3:1,3e-3:0.1"]],
+                             ids=["fleet_seeds", "hyper_grid"])
+    def test_fleet_flags_with_stream_residency_write_the_hbm_csv(self, data, fleet):
+        """A fleet on a stream-resident panel: the winner's score CSV byte
+        for byte the "hbm" run's."""
+        csvs = []
+        for name, extra in (("hbm", []), ("stream", ["--panel_residency", "stream",
+                                                     "--stream_chunk_days", "8"])):
+            argv = _argv(data, f"stream_{fleet[0][2:]}_{name}", "--device", "cpu", *fleet,
+                         *extra, epochs=1)
+            assert cli.main(argv) == 0
+            (scores,) = _named(_events(argv[argv.index("--metrics_jsonl") + 1]), "scores")
+            with open(scores["path"], "rb") as fh:
+                csvs.append(fh.read())
+        assert csvs[0] == csvs[1] and len(csvs[0]) > 100
 
     @pytest.mark.parametrize("case", ["missing_dataset", "empty_train_split",
                                       "feature_mismatch", "no_checkpoint", "no_cuda"])

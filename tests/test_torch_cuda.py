@@ -654,3 +654,84 @@ def test_attention_lane_axis_is_each_lane_alone(dev, b, n, k, h, group):
         assert torch.equal(ctx_p[s], ctx[s])
         assert all(torch.equal(a[s], g[s]) for a, g in zip(grads_p, grads))
     assert all(bool(torch.isfinite(a).all()) for a in (ctx_p, *grads_p))
+
+
+# ---- the stream residency's copies: pinned staging, a side stream, events ---
+
+# ~100 ms of device spin on an H100 (torch.cuda._sleep counts clock cycles):
+# far longer than the host needs to gather a small chunk, so a copy or a
+# kernel still queued behind it is certainly in flight when the next chunk
+# is produced
+_SPIN_CYCLES = 200_000_000
+_CHUNK_FLOATS = 1 << 20
+
+
+def _chunk_stream(n, cls=None):
+    from factorvae_tpu_torch.data.stream import ChunkStream
+
+    def make_chunk(i, alloc):
+        a = alloc("values", (_CHUNK_FLOATS,), np.float32)
+        a[...] = float(i)
+        return (a,)
+
+    return (cls or ChunkStream)(make_chunk, n, "cuda")
+
+
+def _slow_copies(base):
+    class SlowCopies(base):
+        """Every copy queued behind a spin on the side stream."""
+
+        def _copy(self, buf, sources):
+            with torch.cuda.stream(self._copy_stream):
+                torch.cuda._sleep(_SPIN_CYCLES)
+            return super()._copy(buf, sources)
+
+    return SlowCopies
+
+
+def _consume(stream, spin=False):
+    """Each chunk's first value, read on the consumer's stream (after a spin
+    when `spin`) before the chunk is released."""
+    got = []
+    for (t,) in stream:
+        if spin:
+            torch.cuda._sleep(_SPIN_CYCLES)
+        got.append(t[:1].clone())
+    torch.cuda.synchronize()
+    return [float(g) for g in got]
+
+
+class TestChunkStreamOnCard:
+    def test_staging_buffer_waits_for_the_copy_that_reads_it(self, dev):
+        """The copies lag ~100 ms each: the worker finds a staging buffer
+        still being read and waits, and every chunk arrives intact. Without
+        the wait (the control) it overwrites bytes the DMA has not read."""
+        from factorvae_tpu_torch.data.stream import ChunkStream
+
+        stream = _chunk_stream(6, _slow_copies(ChunkStream))
+        assert _consume(stream) == [float(i) for i in range(6)]
+        assert stream.staging_waits >= 1 and stream.copy_seconds > 0
+        assert stream.stats()["h2d_gb_per_s"] > 0
+
+        class Unguarded(_slow_copies(ChunkStream)):
+            def _settle(self, buf):
+                self._copied[buf] = None
+
+        assert _consume(_chunk_stream(6, Unguarded)) != [float(i) for i in range(6)]
+
+    def test_record_stream_keeps_a_chunk_until_its_kernels_ran(self, dev, monkeypatch):
+        """The consumer's kernels lag ~100 ms behind its loop: each chunk's
+        memory must not go to a later chunk's copy before they ran. Without
+        `record_stream` (the control) it does."""
+        assert _consume(_chunk_stream(6), spin=True) == [float(i) for i in range(6)]
+        monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
+        assert _consume(_chunk_stream(6), spin=True) != [float(i) for i in range(6)]
+
+    def test_at_most_two_chunks_on_the_device(self, dev):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _consume(_chunk_stream(8), spin=True)
+        peak = torch.cuda.max_memory_allocated() - before
+        chunk = 4 * _CHUNK_FLOATS
+        assert 2 * chunk <= peak < 3 * chunk

@@ -491,12 +491,15 @@ class TestHyperFleet:
             bad = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **knob))
             with pytest.raises(NotImplementedError, match=f"item {item}"):
                 FleetTrainer(bad, ds, seeds=SEEDS, device="cpu")
-        for bad, item in ((dataclasses.replace(cfg, data=dataclasses.replace(
-                cfg.data, panel_residency="stream")), 5),
-                (dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, stock_axis=2)),
-                 12)):
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                FleetTrainer(bad, ds, seeds=SEEDS, device="cpu")
+        mesh = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, stock_axis=2))
+        with pytest.raises(NotImplementedError, match="item 12"):
+            FleetTrainer(mesh, ds, seeds=SEEDS, device="cpu")
+        # stream residency is taken from the dataset (tests/test_torch_stream.py)
+        stream_ds = PanelDataset(ds.panel, seq_len=ds.seq_len, device="cpu",
+                                 residency="stream")
+        streamed = FleetTrainer(cfg, stream_ds, seeds=SEEDS, device="cpu")
+        assert streamed.stream and streamed.steps_per_chunk == max(
+            1, cfg.data.stream_chunk_days // streamed.batch_days)
         with pytest.raises(ValueError, match="duplicate seeds"):
             FleetTrainer(cfg, ds, seeds=[1, 1], device="cpu")
 

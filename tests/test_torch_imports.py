@@ -1,11 +1,11 @@
 """Guards of the PyTorch port: what it imports (every module, the training,
-CLI, quantization and fleet ones included, and a scoring pass at each
-precision rung, a float32 and a mixed training epoch, a fleet's epoch and
-its lane-batched scoring pass, and a CLI run without --backtest with no
-JAX, Flax, pandas or JAX-package module loaded),
-that the JAX weights carry
-across without loss, and that `chip_smoke.py` refuses to run without a GPU
-instead of falling back to the CPU."""
+CLI, quantization, fleet, stream and append ones included, and a scoring
+pass at each precision rung and on a stream-resident panel, a float32 and
+a mixed training epoch, a fleet's epoch and its lane-batched scoring pass,
+and a CLI run without --backtest with no JAX, Flax, pandas or JAX-package
+module loaded), that the JAX weights carry across without loss, and that
+`chip_smoke.py` refuses to run without a GPU instead of falling back to
+the CPU."""
 
 from __future__ import annotations
 
@@ -47,6 +47,12 @@ ds = PanelDataset(synthetic_panel_dense(12, 5, 6), seq_len=4, device="cpu")
 scores = predict_panel(load_model(cfg, device="cpu"), cfg, ds,
                        ds.split_days(None, None), stochastic=False)
 assert scores.shape == (12, 8) and np.isfinite(scores[:, :5]).all()
+# the stream residency: the same scores from chunks of a host-resident panel
+stream_ds = PanelDataset(synthetic_panel_dense(12, 5, 6), seq_len=4, device="cpu",
+                         residency="stream")
+assert np.array_equal(predict_panel(load_model(cfg, device="cpu"), cfg, stream_ds,
+                                    ds.split_days(None, None), stochastic=False),
+                      scores, equal_nan=True)
 # the precision ladder's scoring rungs: bf16 and int8 weight-only
 import dataclasses
 bf16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
@@ -87,7 +93,8 @@ with tempfile.TemporaryDirectory() as save_dir:
                             stochastic=False)
     assert s.shape == (2, 12, 8) and np.isfinite(s[:, :, :5]).all()
 assert {"factorvae_tpu_torch.train.fleet", "factorvae_tpu_torch.train.pbt",
-        "factorvae_tpu_torch.eval.sweep"} <= set(names)
+        "factorvae_tpu_torch.eval.sweep", "factorvae_tpu_torch.data.stream",
+        "factorvae_tpu_torch.data.append", "factorvae_tpu_torch.chaos.ops"} <= set(names)
 
 # the CLI after the panel is built (no --backtest): train, score, export
 from factorvae_tpu_torch import cli

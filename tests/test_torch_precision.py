@@ -635,9 +635,8 @@ class TestRefusals:
         ModelRegistry(device="cpu").admit(model, wide)
 
     @pytest.mark.parametrize("knob,item", [
-        (dict(data=dict(panel_residency="stream")), 5),
         (dict(mesh=dict(stock_axis=2)), 12),
-        (dict(train=dict(remat="dots")), 15)], ids=["stream", "mesh_stock", "remat"])
+        (dict(train=dict(remat="dots")), 15)], ids=["mesh_stock", "remat"])
     def test_unported_config_knobs(self, panels, tmp_path, knob, item):
         _, tp = panels
         cfg = _port(_jmixed(tp, tmp_path), save_dir=str(tmp_path / "k"))
@@ -645,6 +644,17 @@ class TestRefusals:
                                           for sec, kw in knob.items()})
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}\\)"):
             Trainer(cfg, PanelDataset(tp, seq_len=T, device="cpu"), device="cpu")
+
+    def test_stream_residency_is_accepted(self, panels, tmp_path):
+        """A mixed trainer on a stream-resident dataset streams its epochs
+        (bitwise the hbm ones: tests/test_torch_stream.py)."""
+        _, tp = panels
+        cfg = _port(_jmixed(tp, tmp_path), save_dir=str(tmp_path / "s"))
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, panel_residency="stream", stream_chunk_days=6))
+        tr = Trainer(cfg, PanelDataset(tp, seq_len=T, device="cpu", residency="stream"),
+                     device="cpu")
+        assert tr.stream and tr.mixed and tr.steps_per_chunk == 6 // tr.batch_days
 
     def test_async_checkpointing_is_accepted(self, panels, tmp_path):
         _, tp = panels
