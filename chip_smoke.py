@@ -146,12 +146,44 @@ named phases, and prints neither the kernels line nor the result):
               hbm run's CSV byte for byte. Each ledger: bytes_put,
               produce_seconds, wait_seconds, copy_seconds (CUDA events),
               h2d_gb_per_s, staging_waits, retries, overlap_frac.
-13. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+13. serve  -- the full scoring daemon at flagship width on the 80-day panel:
+              (a) eight f32 models, two bf16 and two int8, warmed; (b) one
+              tick per rung of the same 32 days, with every launch counter
+              set to 0 just before the three ticks: one fused dispatch per
+              bucket, K1's serving variant and K4 once each per bucket (3 in
+              all) and nothing else, each launch's output within K1_TOL /
+              K4_TOL of the kernel's plain version on the inputs that launch
+              got, each lane within 1e-5 (relative) of its serial scores and
+              of the same tick on the CPU (bf16 lanes: per-day Spearman >=
+              0.99 against the CPU), no fused_fallback mark; the fused tick
+              against S serial ticks at S = 2, 4, 8, split by the timeline's
+              spans into dispatch, responses and the rest, a re-stacking
+              tick, the device time of a 2-lane, an 8-lane and a one-model
+              tick by kernel kind (torch.profiler), single-day and 34-day
+              latency p50/p99/max over 1,000 requests each; (c) a
+              50 ms serve_stall against deadline_ms 20: two misses, the
+              breaker open, a fast-fail with retry_after_s, the half-open
+              probe closing it, health ok -> degraded -> ok; (d) a budget of
+              4 of 6 weights directories: two LRU evictions, a cold start
+              bitwise the scores before its eviction, serve_cold_fail
+              healed by one retry; (e) POST /admit of a candidate on 5
+              holdout days to serve_http with a TickScheduler while four
+              keep-alive clients send single-day requests: every request
+              answered, requests answered while the admission ran (it runs
+              on the scheduler's admission thread, not the tick thread), the
+              longest wait any client saw, each client's answers flipping
+              once from the incumbent to the candidate, every answer's
+              scores its model's; (f) serve_http with a TickScheduler and 8
+              keep-alive clients of 150 single-day requests: requests/s,
+              p50/p99/max, a /metrics scrape, /healthz 200; (g) `python -m factorvae_tpu_torch.serve --batch`
+              as a subprocess, equal to in-process serve_batch_file.
+14. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
               `launches_mixed` in the precision phase's mixed epoch,
-              `launches_fleet` in the fleet epoch and `launches_stream` in
-              the stream phase's stream epoch), and its `fleet_*` times
+              `launches_fleet` in the fleet epoch, `launches_stream` in
+              the stream phase's stream epoch and `launches_serve` in the
+              serve phase's fused ticks), and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
               `fleet_bound_ms`, ...).
 
@@ -2197,6 +2229,604 @@ def phase_stream(torch, seed: int, counters, card: str) -> dict:
                     "walls_s": {r: clis[r]["wall_s"] for r in residencies}}}
 
 
+# ---------------------------------------------------------------------------
+# 13. serve
+
+SERVE_F32 = 8              # f32 flagship models of the fused bucket
+SERVE_TOL = 1e-5           # fused lane vs its serial scores, max |a - b| / max(1, max |b|)
+SERVE_DAYS = 32            # one scoring chunk
+SERVE_SCALING_REPS = 15    # fused and serial ticks per S, medians kept
+SERVE_LATENCY_N = 1000     # requests per latency kind (p99 from 1,000)
+SERVE_HTTP_PER_CLIENT = 150  # 8 HTTP clients: 1,200 requests
+
+
+def _resp_scores(resp) -> np.ndarray:
+    return np.concatenate([np.asarray(r["scores"], np.float32) for r in resp["results"]])
+
+
+def _np_rel(a, b) -> float:
+    return float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max())))
+
+
+def _pct(vals, q) -> float:
+    return float(np.percentile(np.asarray(vals, np.float64), q)) if len(vals) else None
+
+
+def _lat_stats(vals) -> dict:
+    return {"p50_ms": _pct(vals, 50), "p99_ms": _pct(vals, 99),
+            "max_ms": float(max(vals)) if len(vals) else None, "n": len(vals)}
+
+
+def _device_split(torch, fn, reps: int = 3) -> dict:
+    """Device time per call of `fn` by kind of kernel, and the top kernels,
+    from torch.profiler's device events over `reps` calls after a profiled
+    warm-up window (the first window pays the tracer's start); an error
+    entry when the profiler sees no device time."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts):
+            fn()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        parts = {"K1": 0.0, "K4": 0.0, "products": 0.0, "copies": 0.0, "other": 0.0}
+        top = []
+        for ev in prof.key_averages():
+            # kernels and copies only: an operator's row repeats its kernels' time
+            if getattr(ev, "device_type", None) != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            if not us:
+                continue
+            ms = us / 1e3 / reps
+            name = ev.key.lower()
+            kind = ("K1" if "gru_fwd_kernel" in name else "K4" if "attention_fwd_kernel" in name
+                    else "products" if any(k in name for k in ("gemm", "cutlass", "xmma",
+                                                                "sm90", "ampere"))
+                    else "copies" if "memcpy" in name or "memset" in name else "other")
+            parts[kind] += ms
+            top.append((ms, ev.count // reps, ev.key[:80]))
+        busy = sum(parts.values())
+        if busy <= 0:
+            return {"error": "the profiler recorded no device time", "wall_ms": wall}
+        top.sort(reverse=True)
+        return {"device_ms": parts, "busy_ms": busy, "wall_ms": wall,
+                "idle_share": max(0.0, 1.0 - busy / wall),
+                "top_kernels": [{"ms": ms, "per_call": n, "name": k} for ms, n, k in top[:10]]}
+    except Exception as exc:        # noqa: BLE001 - a yardstick, not a check
+        return {"error": str(exc).splitlines()[0][:200]}
+
+
+class _Records:
+    """A MetricsLogger stand-in that keeps the timeline's records in memory."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, event, _echo=False, **fields):
+        self.records.append({"event": event, **fields})
+
+
+def _start_front(serve_http, daemon, scheduler) -> tuple:
+    """serve_http(daemon, scheduler=...) on 127.0.0.1, any free port, in a
+    thread: (port, thread)."""
+    import threading
+
+    bound, port = threading.Event(), {}
+
+    def ready(server):
+        port["n"] = server.server_address[1]
+        bound.set()
+
+    thread = threading.Thread(target=serve_http, args=(daemon, 0),
+                              kwargs=dict(scheduler=scheduler, ready=ready))
+    thread.start()
+    check(bound.wait(30), "serve: the HTTP front did not bind")
+    return port["n"], thread
+
+
+def _http(conn, method, path, body=None) -> tuple:
+    conn.request(method, path, body=None if body is None else json.dumps(body))
+    r = conn.getresponse()
+    return r.status, r.read().decode()
+
+
+def _serve_timeline(fn):
+    """Run `fn` with a timeline installed; its result, and its marks and spans."""
+    from factorvae_tpu_torch.utils.logging import Timeline, install_timeline
+
+    sink = _Records()
+    prev = install_timeline(Timeline(sink))
+    try:
+        out = fn()
+    finally:
+        install_timeline(prev)
+    return out, sink.records
+
+
+def _span_ms(recs, name) -> float:
+    return 1e3 * sum(r["dur"] for r in recs if r.get("event") == "span" and r["name"] == name)
+
+
+def _recording(seen: list, tag: dict) -> dict:
+    """Wrap K1's and K4's launch helpers (`_fwd_launch` of the gru and the
+    attention kernel modules) so that every launch keeps its inputs (as the
+    kernel gets them: upcast and checked) and its output in `seen`, under
+    the current `tag["rung"]`. The launch itself is unchanged, and so are
+    the wrappers' launch counters. Returns the originals, for `_restore`."""
+    from factorvae_tpu_torch.ops.kernels import attention as attention_module
+    from factorvae_tpu_torch.ops.kernels import gru as gru_module
+
+    real = {gru_module: gru_module._fwd_launch, attention_module: attention_module._fwd_launch}
+
+    def gru_launch(name, xi, w_h, b_h, residuals, shape):
+        res = real[gru_module](name, xi, w_h, b_h, residuals, shape)
+        seen.append((tag["rung"], name, (xi, w_h, b_h), res[0]))
+        return res
+
+    def attention_launch(*args):
+        res = real[attention_module](*args)
+        seen.append((tag["rung"], "attention_fwd", args[:8], res[0]))
+        return res
+
+    gru_module._fwd_launch = gru_launch
+    attention_module._fwd_launch = attention_launch
+    return real
+
+
+def _restore(real: dict) -> None:
+    for module, launch in real.items():
+        module._fwd_launch = launch
+
+
+def phase_serve(torch, seed: int, counters, card: str) -> dict:
+    import http.client
+    import tempfile
+    import threading
+
+    from factorvae_tpu_torch import chaos
+    from factorvae_tpu_torch.chaos import ChaosPlan, Fault
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.models.factorvae import load_model
+    from factorvae_tpu_torch.ops.kernels import plain
+    from factorvae_tpu_torch.ops.kernels.attention import attention_fwd_plain
+    from factorvae_tpu_torch.ops.kernels.gru import gru_fwd_plain
+    from factorvae_tpu_torch.params import save_weights
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.serve.daemon import (
+        ScoringDaemon,
+        TickScheduler,
+        serve_batch_file,
+        serve_http,
+    )
+    from factorvae_tpu_torch.serve.registry import ModelRegistry
+
+    base = get_preset("flagship")
+    m = base.model
+    panel = synthetic_panel_dense(80, 300, m.num_features, seed=seed)
+    dataset = PanelDataset(panel, seq_len=m.seq_len, device="cuda")
+    dates = [str(d) for d in dataset.dates]
+    days32 = dataset.split_days(dates[40], dates[71])
+    check(len(days32) == SERVE_DAYS, f"serve: {len(days32)} days, not {SERVE_DAYS}")
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+
+    def cfg_of(s):
+        return dataclasses.replace(base, train=dataclasses.replace(base.train, seed=s))
+
+    # (a) eight f32 flagship models, two bf16 and two int8, all warmed; the
+    # same models on the CPU, where every kernel runs its plain version
+    def models_on(device):
+        reg = ModelRegistry(device=device)
+        for i in range(SERVE_F32):
+            c = cfg_of(seed + i)
+            model = load_model(c, device=device)
+            reg.register_params(model, c, alias=f"f{i}")
+            if i < 2:
+                reg.register_params(model, c, precision="bfloat16", alias=f"b{i}")
+                reg.register_params(model, c, precision="int8", alias=f"q{i}")
+        return reg
+
+    t0 = time.perf_counter()
+    registry = models_on("cuda")
+    admit_s = time.perf_counter() - t0
+    cpu_daemon = ScoringDaemon(models_on("cpu"),
+                               PanelDataset(panel, seq_len=m.seq_len, device="cpu"))
+    warm = registry.warmup(dataset)
+    check(len(warm) == SERVE_F32 + 4 and all(e["compiled"] for e in registry.stats()["entries"]),
+          f"serve (a): warmed {len(warm)} of {SERVE_F32 + 4}")
+    daemon = ScoringDaemon(registry, dataset)
+    one_day = {"start": dates[40], "end": dates[71]}
+
+    def tick(aliases):
+        return daemon.handle_batch([{"id": a, "model": a, **one_day} for a in aliases])
+
+    def serial(aliases):
+        return {a: registry.score(a, dataset, days32) for a in aliases}
+
+    # (b) one tick of 8 requests for the same 32 days: one fused dispatch,
+    # K1's serving variant and K4 once for the whole bucket; then the bf16
+    # and the int8 pairs. Each launch's inputs and output are kept, to be
+    # held against the kernel's plain version after the run.
+    buckets = {"float32": [f"f{i}" for i in range(SERVE_F32)],
+               "bfloat16": ["b0", "b1"], "int8": ["q0", "q1"]}
+    want = {rung: serial(al) for rung, al in buckets.items()}
+    for al in buckets.values():
+        tick(al)                     # the stacks' first build, the fused path warm
+    torch.cuda.synchronize()
+    seen, tag = [], {"rung": None}
+    real = _recording(seen, tag)
+    for c in counters:
+        c.launches = 0
+    fused, per_bucket, errs = {}, {}, {}
+    before = dict(fused_requests=daemon.fused_requests, dispatches=daemon.dispatches)
+    counters_by_name = {c.__name__: c for c in counters}
+
+    def main_path():
+        for rung, al in buckets.items():
+            tag["rung"] = rung
+            k1 = counters_by_name["gru_fwd"].launches
+            k4 = counters_by_name["attention_fwd"].launches
+            fr = daemon.fused_requests
+            t1 = time.perf_counter()
+            fused[rung] = tick(al)
+            wall = (time.perf_counter() - t1) * 1e3
+            per_bucket[rung] = {"lanes": len(al), "tick_ms": wall,
+                                "fused_requests": daemon.fused_requests - fr,
+                                "gru_fwd": counters_by_name["gru_fwd"].launches - k1,
+                                "attention_fwd": counters_by_name["attention_fwd"].launches - k4}
+
+    try:
+        _, recs = _serve_timeline(main_path)
+        torch.cuda.synchronize()
+    finally:
+        _restore(real)
+    launches = {c.__name__: c.launches for c in counters}
+    # each launch against its plain version on the inputs it got, on the card
+    plain_fn = {"gru_fwd": gru_fwd_plain, "attention_fwd": attention_fwd_plain}
+    kernel_errs: dict = {}
+    with torch.inference_mode():
+        for rung, name, args, out in seen:
+            check(name in plain_fn, f"serve (b): {name} launched on the main path")
+            ref = plain(plain_fn[name], args[0].ndim == 4, *args)
+            err = float((out - ref).abs().max())
+            key = f"{rung}/{name}"
+            kernel_errs[key] = {"max_abs_err": max(err, kernel_errs.get(key, {}).get(
+                "max_abs_err", 0.0)), "shape": list(args[0].shape)}
+    del seen
+    check(sorted(kernel_errs) == sorted(f"{r}/{n}" for r in buckets for n in plain_fn),
+          f"serve (b): the kernels launched on the main path {sorted(kernel_errs)}")
+    for key, e in kernel_errs.items():
+        tol = K1_TOL if key.endswith("gru_fwd") else K4_TOL
+        check(e["max_abs_err"] <= tol, f"serve (b): {key} vs its plain version {e} > {tol}")
+    # the same ticks on the CPU
+    cpu_out = {rung: cpu_daemon.handle_batch([{"id": a, "model": a, **one_day} for a in al])
+               for rung, al in buckets.items()}
+    fallbacks = [r for r in recs if r.get("name") == "fused_fallback"]
+    check(not fallbacks, f"serve (b): fused_fallback on healthy traffic: {fallbacks}")
+    check(daemon.fused_requests - before["fused_requests"] == SERVE_F32 + 4
+          and daemon.dispatches - before["dispatches"] == 3,
+          f"serve (b): fused_requests +{daemon.fused_requests - before['fused_requests']}, "
+          f"dispatches +{daemon.dispatches - before['dispatches']}")
+    cpu_errs = {}
+    for rung, al in buckets.items():
+        pb = per_bucket[rung]
+        check(pb["fused_requests"] == len(al) and pb["gru_fwd"] == 1 and pb["attention_fwd"] == 1,
+              f"serve (b): the {rung} bucket of {len(al)}: {pb}")
+        worst, worst_cpu, rho = 0.0, 0.0, 1.0
+        for resp, on_cpu in zip(fused[rung], cpu_out[rung]):
+            check(resp["ok"] and resp["batched_with"] == len(al)
+                  and on_cpu["ok"] and on_cpu["batched_with"] == len(al),
+                  f"serve (b): {resp.get('error')} {on_cpu.get('error')}")
+            ref = want[rung][resp["alias"]][:, :300].reshape(-1)
+            got = _resp_scores(resp)
+            check(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                  f"serve (b): {resp['alias']} scores {got.shape}")
+            worst = max(worst, _np_rel(got, ref))
+            cpu = _resp_scores(on_cpu)
+            check(cpu.shape == got.shape, f"serve (b): {resp['alias']} CPU scores {cpu.shape}")
+            worst_cpu = max(worst_cpu, _np_rel(got, cpu))
+            rho = min(rho, *(_spearman(g, w) for g, w in zip(got.reshape(SERVE_DAYS, -1),
+                                                             cpu.reshape(SERVE_DAYS, -1))))
+        errs[rung] = worst
+        cpu_errs[rung] = {"max_rel_err": worst_cpu, "min_day_spearman": rho}
+        check(worst <= SERVE_TOL, f"serve (b): {rung} fused lanes vs serial {worst} > {SERVE_TOL}")
+        if rung == "bfloat16":   # the card's bf16 products round apart from the CPU's
+            check(rho >= BF16_SPEARMAN, f"serve (b): bf16 fused lanes vs the CPU: per-day "
+                                        f"Spearman {rho} < {BF16_SPEARMAN}")
+        else:
+            check(worst_cpu <= SERVE_TOL,
+                  f"serve (b): {rung} fused lanes vs the CPU {worst_cpu} > {SERVE_TOL}")
+    check(launches["gru_fwd"] == 3 and launches["attention_fwd"] == 3
+          and all(launches[n] == 0 for n in ("gru_fwd_residuals", "gru_bwd", "gru_dwh",
+                                               "attention_bwd")),
+          f"serve (b): launches {launches}")
+
+    # the fused tick's wall against S serial dispatches, S = 2, 4, 8, each
+    # split by the timeline's spans: dispatch (the scoring call), responses
+    # (JSON results and drift digests) and the rest (parsing, bucketing)
+    def timed_ticks(groups) -> dict:
+        def run():
+            t1 = time.perf_counter()
+            for al in groups:
+                tick(al)
+            return (time.perf_counter() - t1) * 1e3
+        wall, recs = _serve_timeline(run)
+        disp, resp = _span_ms(recs, "serve_dispatch"), _span_ms(recs, "serve_request")
+        return {"wall": wall, "dispatch": disp, "responses": resp,
+                "rest": wall - disp - resp}
+
+    scaling = {}
+    for s in (2, 4, 8):
+        al = buckets["float32"][:s]
+        tick(al)
+        runs = {"fused": [], "serial": []}
+        for _ in range(SERVE_SCALING_REPS):
+            runs["fused"].append(timed_ticks([al]))
+            runs["serial"].append(timed_ticks([[a] for a in al]))
+        med = {kind: {part: float(np.median([r[part] for r in rs])) for part in rs[0]}
+               for kind, rs in runs.items()}
+        scaling[str(s)] = {"fused_tick_ms": med["fused"]["wall"],
+                           "serial_ticks_ms": med["serial"]["wall"],
+                           "ratio": med["fused"]["wall"] / med["serial"]["wall"],
+                           "fused_parts_ms": med["fused"], "serial_parts_ms": med["serial"],
+                           "reps": SERVE_SCALING_REPS}
+    stack_ms = []
+    for _ in range(3):
+        daemon._stack_cache.clear()   # the next tick stacks the weights again
+        t1 = time.perf_counter()
+        tick(buckets["float32"])
+        stack_ms.append((time.perf_counter() - t1) * 1e3)
+    split = {"fused_8": _device_split(torch, lambda: tick(buckets["float32"])),
+             "fused_2": _device_split(torch, lambda: tick(buckets["float32"][:2])),
+             "serial_1": _device_split(torch, lambda: tick(["f0"]))}
+
+    # request latency: single days and 34-day ranges, one request per tick
+    lat = {"day": [], "range_34": []}
+    for i in range(SERVE_LATENCY_N):
+        lat["day"].append(daemon.handle({"model": "f0", "day": dates[20 + i % 60]})["latency_ms"])
+    for _ in range(SERVE_LATENCY_N):
+        r = daemon.handle({"model": "f1", "start": dates[19], "end": dates[52]})
+        check(r["ok"] and len(r["results"]) == 34, "serve: the 34-day range")
+        lat["range_34"].append(r["latency_ms"])
+    latency = {k: _lat_stats(v) for k, v in lat.items()}
+
+    # (c) serve_stall of 50 ms against deadline_ms 20: misses, the breaker,
+    # fast-fails, a half-open probe, health degrading and recovering
+    sick = ScoringDaemon(registry, dataset, breaker_k=2, breaker_cooldown_s=0.5,
+                         health_window=10)
+    req = {"model": "f2", "day": dates[50]}
+    states, health = [], []
+    for _ in range(6):
+        states.append(sick.handle(dict(req))["ok"])
+    sick.deadline_ms = 20.0
+    health.append(sick.health()["status"])
+    with chaos.active(ChaosPlan([Fault("serve_stall", times=2, delay_s=0.05)])):
+        stalled = [sick.handle(dict(req)) for _ in range(3)]
+    health.append(sick.health()["status"])
+    check([("deadline exceeded" in (r.get("error") or "")) for r in stalled[:2]] == [True, True]
+          and not stalled[2]["ok"] and stalled[2].get("retry_after_s", 0) > 0
+          and sick.open_breakers() == [registry.resolve_key("f2")],
+          f"serve (c): {stalled}")
+    time.sleep(0.55)
+    probe = sick.handle(dict(req))
+    check(probe["ok"] and sick.open_breakers() == [], f"serve (c): the probe {probe}")
+    for _ in range(10):
+        sick.handle(dict(req))
+    health.append(sick.health()["status"])
+    check(health == ["ok", "degraded", "ok"], f"serve (c): health {health}")
+    resilience = {"stalled": [{k: r.get(k) for k in ("ok", "error", "retry_after_s",
+                                                      "latency_ms")} for r in stalled],
+                  "probe_latency_ms": probe["latency_ms"], "health": health,
+                  "deadline_misses": sick.deadline_misses,
+                  "breaker_fast_fails": sick.breaker_fast_fails}
+
+    # (d) a budget that fits 4 of 6 weights directories: LRU evictions, a
+    # cold start bitwise the scores before it, serve_cold_fail healed
+    dirs = []
+    for i in range(6):
+        c = cfg_of(seed + 100 + i)
+        dirs.append(save_weights(load_model(c, device="cpu"), c,
+                                 os.path.join(work.name, f"w{i}")))
+    nb = registry.get("f0").nbytes
+    budget = ModelRegistry(device="cuda", budget_bytes=int(4.5 * nb))
+    budget.register_checkpoint(dirs[0])
+    pre = budget.score("w0", dataset, days32[:4])
+    for p in dirs[1:]:
+        budget.register_checkpoint(p)
+    st = budget.stats()
+    check(st["evictions"] == 2 and [e["alias"] for e in st["entries"]] == ["w2", "w3", "w4", "w5"],
+          f"serve (d): {st['evictions']} evictions, resident "
+          f"{[e['alias'] for e in st['entries']]}")
+    t1 = time.perf_counter()
+    post = budget.score("w0", dataset, days32[:4])
+    cold_ms = (time.perf_counter() - t1) * 1e3
+    check(_same_bytes(pre, post) and budget.cold_starts == 1,
+          "serve (d): the cold start's scores differ from before the eviction")
+    plan = ChaosPlan([Fault("serve_cold_fail")])
+    with chaos.active(plan):
+        budget.get("w1")
+    check(budget.cold_starts == 2 and len(plan.fired) == 1, "serve (d): serve_cold_fail")
+    cold = {"budget_bytes": budget.budget_bytes, "entry_bytes": nb,
+            "evictions": budget.evictions, "cold_starts": budget.cold_starts,
+            "cold_start_ms": cold_ms, "resident": [e["alias"] for e in budget.stats()["entries"]]}
+
+    # (e) POST /admit of a candidate on 5 holdout days while four keep-alive
+    # clients send single-day requests through a TickScheduler: the
+    # admission runs on the scheduler's admission thread while ticks go on;
+    # nothing dropped, each answer from the model serving when it arrived
+    live = ModelRegistry(device="cuda")
+    inc_key = live.register_checkpoint(dirs[2], alias="prod")
+    gate = ScoringDaemon(live, dataset)
+    day = dates[60]
+    ref = {inc_key: live.score(inc_key, dataset, np.array([60]))[0, :300]}
+    sched = TickScheduler(gate, tick_ms=2.0)
+    port, srv_thread = _start_front(serve_http, gate, sched)
+    stop, answers = threading.Event(), []
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        while not stop.is_set():
+            t_in = time.perf_counter()
+            status, body = _http(conn, "POST", "/score", {"id": c, "model": "prod", "day": day})
+            answers.append((t_in, time.perf_counter(), status, json.loads(body)))
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for th in threads:
+        th.start()
+    time.sleep(0.3)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t_admit = time.perf_counter()
+    status, body = _http(conn, "POST", "/admit", {
+        "path": dirs[3], "alias": "prod", "holdout_days": [int(d) for d in days32[-5:]],
+        "min_margin": 1.0})
+    t_done = time.perf_counter()
+    verdict = json.loads(body)
+    time.sleep(0.3)
+    stop.set()
+    for th in threads:
+        th.join(60)
+    _http(conn, "POST", "/score", {"cmd": "shutdown"})
+    conn.close()
+    srv_thread.join(60)
+    check(status == 200 and not srv_thread.is_alive() and not any(t.is_alive() for t in threads),
+          f"serve (e): POST /admit {status}, the front {srv_thread.is_alive()}")
+    cand_key = verdict.get("model")
+    check(verdict.get("promoted") and live.resolve_key("prod") == cand_key
+          and inc_key not in live.keys(), f"serve (e): {verdict}")
+    ref[cand_key] = live.score(cand_key, dataset, np.array([60]))[0, :300]
+    check(all(st == 200 and resp["ok"] for _, _, st, resp in answers),
+          "serve (e): a request failed")
+    # each client's own answers: the incumbent's, then the candidate's
+    for c in range(4):
+        seq = [resp["model"] for _, _, _, resp in answers if resp["id"] == c]
+        flips = sum(1 for a, b in zip(seq, seq[1:]) if a != b)
+        check(seq and seq[0] == inc_key and seq[-1] == cand_key and flips == 1,
+              f"serve (e): client {c}'s answers flip {flips} times")
+    check(all(resp["model"] == cand_key for t_in, _, _, resp in answers if t_in > t_done)
+          and all(resp["model"] == inc_key for _, t_out, _, resp in answers if t_out < t_admit),
+          "serve (e): an answer from a model that was not serving at its arrival")
+    check(all(_same_bytes(_resp_scores(resp), ref[resp["model"]]) for *_, resp in answers),
+          "serve (e): an answer's scores differ from its model's")
+    # the ticks went on while the admission loaded and scored its gate
+    during = [(t_out - t_in) * 1e3 for t_in, t_out, _, _ in answers
+              if t_in >= t_admit and t_out <= t_done]
+    overlapping = [(t_out - t_in) * 1e3 for t_in, t_out, _, _ in answers
+                   if t_in < t_done and t_out > t_admit]
+    check(len(during) > 0, "serve (e): no request was answered while the admission ran")
+    admit = {"requests": len(answers), "admit_s": t_done - t_admit,
+             "answered_during_admit": len(during),
+             "wait_ms": _lat_stats([(t_out - t_in) * 1e3 for t_in, t_out, _, _ in answers]),
+             "wait_ms_overlapping_admit": _lat_stats(overlapping),
+             "verdict": {k: verdict.get(k) for k in (
+                 "promoted", "reason", "candidate_rank_ic", "incumbent_rank_ic",
+                 "holdout_days")},
+             "scheduler": sched.stats()}
+
+    # (f) the threaded HTTP front with concurrent clients
+    front = ScoringDaemon(registry, dataset)
+    sched = TickScheduler(front, tick_ms=2.0)
+    port, srv_thread = _start_front(serve_http, front, sched)
+    per_client, http_lat = SERVE_HTTP_PER_CLIENT, []
+    lock = threading.Lock()
+
+    def http_client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        for k in range(per_client):
+            t1 = time.perf_counter()
+            status, body = _http(conn, "POST", "/score",
+                                 {"id": k, "model": f"f{(c + k) % SERVE_F32}",
+                                  "day": dates[20 + (k % 50)]})
+            dt = (time.perf_counter() - t1) * 1e3
+            check(status == 200 and json.loads(body)["ok"], f"serve (f): {body[:200]}")
+            with lock:
+                http_lat.append(dt)
+        conn.close()
+
+    clients = [threading.Thread(target=http_client, args=(c,)) for c in range(8)]
+    t1 = time.perf_counter()
+    for th in clients:
+        th.start()
+    for th in clients:
+        th.join(300)
+    http_s = time.perf_counter() - t1
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    _, metrics = _http(conn, "GET", "/metrics")
+    status, healthz = _http(conn, "GET", "/healthz")
+    _http(conn, "POST", "/score", {"cmd": "shutdown"})
+    conn.close()
+    srv_thread.join(60)
+    n_http = 8 * per_client
+    check(len(http_lat) == n_http and status == 200 and not srv_thread.is_alive(),
+          f"serve (f): {len(http_lat)} answers, /healthz {status}")
+    check(f"factorvae_serve_request_latency_seconds_count {n_http}" in metrics
+          and 'factorvae_compile_total{kind="compile"}' in metrics,
+          "serve (f): the /metrics scrape")
+    http_out = {"requests": n_http, "clients": 8, "seconds": http_s,
+                "requests_per_s": n_http / http_s, **_lat_stats(http_lat),
+                "scheduler": sched.stats(), "healthz": json.loads(healthz)["status"],
+                "fused_requests": front.fused_requests, "dispatches": front.dispatches,
+                "metrics_bytes": len(metrics)}
+
+    # (g) the serve CLI's --batch as a subprocess on the card, equal to the
+    # same requests in this process
+    reqs = [{"id": 1, "model": "w0", "start": dates[40], "end": dates[71]},
+            {"id": 2, "model": "w1", "start": dates[40], "end": dates[71]},
+            {"id": 3, "model": "w1", "day": dates[60], "top": 10}, {"id": 4, "cmd": "ping"}]
+    req_file = os.path.join(work.name, "reqs.jsonl")
+    with open(req_file, "w") as fh:
+        fh.write("\n".join(json.dumps(r) for r in reqs) + "\n")
+    out_file = os.path.join(work.name, "out.jsonl")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "factorvae_tpu_torch.serve", "--model", dirs[0], "--model",
+         dirs[1], "--synthetic", "80,300", "--seed", str(seed), "--batch", req_file,
+         "--out", out_file], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t1
+    check(proc.returncode == 0, f"serve (g): the CLI exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    with open(out_file) as fh:
+        got = [json.loads(line) for line in fh]
+    inproc = ModelRegistry(device="cuda")
+    for p in dirs[:2]:
+        inproc.register_checkpoint(p)
+    import io
+
+    sink = io.StringIO()
+    serve_batch_file(ScoringDaemon(inproc, dataset), req_file, sink)
+    want_cli = [json.loads(line) for line in sink.getvalue().splitlines()]
+
+    def strip(r):
+        return {k: v for k, v in r.items() if k != "latency_ms"}
+
+    check([strip(r) for r in got] == [strip(r) for r in want_cli]
+          and [r.get("batched_with") for r in got[:2]] == [2, 2],
+          "serve (g): the CLI's responses differ from in-process handle_batch")
+    work.cleanup()
+
+    return {"phase": "serve", "card": card,
+            "config": "flagship C158/T20/H64/K96/M128 on the 80-day panel of 300 stocks",
+            "models": {"float32": SERVE_F32, "bfloat16": 2, "int8": 2},
+            "admit_s": admit_s, "warmup_s": warm, "launches": launches,
+            "buckets": per_bucket, "fused_vs_serial_max_rel_err": errs,
+            "tolerance": SERVE_TOL, "kernel_vs_plain": kernel_errs,
+            "fused_vs_cpu": cpu_errs, "scaling": scaling, "restack_tick_ms": stack_ms,
+            "device_split": split, "latency": latency, "resilience": resilience,
+            "budget": cold, "admit": admit, "http": http_out,
+            "cli": {"seconds": cli_s, "responses": len(got)}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2238,7 +2868,8 @@ def main(argv=None) -> int:
         "precision": lambda: phase_precision(torch, args.seed, counters),
         "cli": lambda: phase_cli(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "fleet": lambda: phase_fleet(torch, args.seed, counters, phases[0]["nvidia_smi"]),
-        "stream": lambda: phase_stream(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "stream": lambda: phase_stream(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "serve": lambda: phase_serve(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -2280,6 +2911,7 @@ def main(argv=None) -> int:
                      "launches_mixed": by["precision"]["mixed_epoch"]["launches"][name],
                      "launches_fleet": by["fleet"]["launches"][name],
                      "launches_stream": by["stream"]["train"]["launches"][name],
+                     "launches_serve": by["serve"]["launches"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],
                      "tolerance": ph["tolerance"],

@@ -8,6 +8,10 @@ loaded. `build()` starts one nvcc per missing library, all at once.
 
 No `--use_fast_math`: it would change `expf`/`tanhf` and widen every
 tolerance against the plain PyTorch versions.
+
+`compile_event_counts()` is this process's build taxonomy, the daemon's
+`compile_total` metric: `compile` counts the libraries `build` compiled,
+`compile_cached` those `load` found already built by an earlier process.
 """
 
 from __future__ import annotations
@@ -26,6 +30,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+_compiled: set = set()        # libraries nvcc built in this process
+_counts = {"compile": 0, "compile_cached": 0}
+
+
+def compile_event_counts() -> dict:
+    """{"compile": n, "compile_cached": n} of this process's libraries."""
+    return dict(_counts)
 
 
 def nvcc_path() -> str:
@@ -75,6 +86,8 @@ def build(names=KERNELS) -> dict:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)   # atomic: a reader never sees half a file
+            _compiled.add(name)
+            _counts["compile"] += 1
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
@@ -87,6 +100,8 @@ def load(name: str) -> ctypes.CDLL:
         path = library_path(name)
         if not path.exists():
             build((name,))
+        elif name not in _compiled:
+            _counts["compile_cached"] += 1
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib

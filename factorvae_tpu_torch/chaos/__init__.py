@@ -23,6 +23,17 @@ The ported kinds and their injection points:
                          1 before the manifest       (SIGKILL, chaos/ops.py)
     corrupt_append_slab  PanelStore.append_panel,    sha256 check before the
                          after the slab lands        manifest commit
+    serve_cold_fail      ModelRegistry.get, a        the cold start's bounded
+                         tombstone's reload          retry with backoff
+    serve_stall          ModelRegistry.score         the daemon's deadline
+                         (`delay_s` of latency)      and circuit breaker
+    serve_malformed      none: tests feed garbage    {"ok": false} answers
+    fidelity_gate_reject ScoringDaemon.admit         the candidate is retired,
+                         (`request` = the Nth        the incumbent serves on
+                         admission) forces a reject
+    kill_between_admit_  ScoringDaemon.admit, after  a re-run re-admits the
+    and_drain            the verdict, before the     same bytes and completes
+                         alias flip (SIGKILL)        the flip
 
 A plan that names any other kind of the JAX package is refused, never
 ignored.
@@ -38,7 +49,8 @@ import threading
 from typing import Iterator, List, Optional, Sequence
 
 KINDS = ("nan_grads", "stream_fail", "stream_stall", "kill_mid_append",
-         "corrupt_append_slab")
+         "corrupt_append_slab", "serve_cold_fail", "serve_stall", "serve_malformed",
+         "fidelity_gate_reject", "kill_between_admit_and_drain")
 ENV_VAR = "FACTORVAE_CHAOS"
 
 _COORDS = ("epoch", "step", "lane", "chunk", "request")

@@ -28,6 +28,8 @@ Crash discipline, exercised by the chaos kinds `kill_mid_append` and
 
 `load_panel` gives the whole history as one `Panel`; a consumer that holds
 the previous panel takes only the new slab (`PanelDataset.extend_days`).
+With a timeline installed, a committed slab is an `append_slab` mark and a
+rejected one an `append_slab_rejected` mark.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import numpy as np
 from factorvae_tpu_torch import chaos
 from factorvae_tpu_torch.chaos import ops as chaos_ops
 from factorvae_tpu_torch.data.panel import Panel
+from factorvae_tpu_torch.utils.logging import timeline_event
 
 MANIFEST_NAME = "MANIFEST.json"
 SLAB_DIRNAME = "slabs"
@@ -235,12 +238,16 @@ class PanelStore:
         on_disk = _sha256_file(final)
         if on_disk != record["sha256"]:
             os.remove(final)
+            timeline_event("append_slab_rejected", cat="recovery", resource="data",
+                           slab=name, expected=record["sha256"], actual=on_disk)
             raise AppendError(
                 f"slab {name} failed sha256 validation before commit (wrote "
                 f"{record['sha256'][:12]}…, read back {on_disk[:12]}…); the slab was "
                 "removed and the manifest is untouched: retry the append")
         self._manifest["slabs"].append(record)
         self._commit_manifest()
+        timeline_event("append_slab", cat="data", resource="data", slab=name,
+                       days=record["num_days"], start=record["start"], end=record["end"])
         return dict(record)
 
     def verify(self) -> Optional[str]:

@@ -34,7 +34,10 @@ waiting for an unfinished chunk), both also per chunk, `copy_seconds` (the
 copies' device time, CUDA events), `retries`, `staging_waits` (staging
 buffers found still being read by their copy) and `overlap_frac`. A failed produce retries
 `MAX_RETRIES` times with backoff, then raises; the chaos kinds
-`stream_fail` and `stream_stall` inject there.
+`stream_fail` and `stream_stall` inject there. With a timeline installed
+(`utils/logging.py`) each produce is a `chunk_produce` span on the "stream"
+lane, each wait a `chunk_wait` span on "stream_wait", and each retry a
+`stream_retry` mark.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch
 
 from factorvae_tpu_torch.chaos import fault as chaos_fault
 from factorvae_tpu_torch.data.windows import gather_days, mini_panel_maps
+from factorvae_tpu_torch.utils.logging import timeline_event, timeline_span_at
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int64): torch.int64}
 
@@ -139,6 +143,8 @@ class ChunkStream:
                     raise
                 with self._lock:
                     self.retries += 1
+                timeline_event("stream_retry", cat="recovery", resource="stream", chunk=i,
+                               attempt=attempt + 1, error=str(e))
                 time.sleep(self.RETRY_BACKOFF_S * (2 ** attempt))
         raise last      # unreachable
 
@@ -189,11 +195,14 @@ class ChunkStream:
                 return None
         else:
             out = (tuple(torch.from_numpy(a) for a in arrays), None)
-        seconds = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        seconds = t1 - t0
         with self._lock:
             self.bytes_put += nbytes
             self.produce_seconds += seconds
             self.chunk_produce_seconds[i] = seconds
+        timeline_span_at("chunk_produce", t0, t1, cat="stream", resource="stream", chunk=i,
+                         bytes=nbytes)
         return out
 
     def _copy(self, buf: int, sources: list):
@@ -231,10 +240,13 @@ class ChunkStream:
                     t0 = time.perf_counter()
                     tensors, ready = fut.result()
                     fut = nxt
-                    waited = time.perf_counter() - t0
+                    t1 = time.perf_counter()
+                    waited = t1 - t0
                     with self._lock:
                         self.wait_seconds += waited
                         self.chunk_wait_seconds[i] = waited
+                    timeline_span_at("chunk_wait", t0, t1, cat="stream",
+                                     resource="stream_wait", chunk=i)
                     if ready is not None:
                         stream = torch.cuda.current_stream(self.device)
                         stream.wait_event(ready)

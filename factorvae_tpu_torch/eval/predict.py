@@ -19,10 +19,13 @@ the weights are quantized once (`ensure_quantized`; a registry entry
 arrives quantized) and dequantized to the compute dtype for each chunk.
 
 Fleets: `predict_panel_fleet` scores S stacked parameter sets (a
-`train/fleet.FleetTrainer`'s) per chunk through `torch.func.vmap` of the
-model, so K1 and K4 launch once per chunk for all lanes; the lanes share
-the chunk's windows and, when sampling, its noise (the scoring seed of the
-serial sweep). One lane is `predict_panel` of that lane's model.
+`train/fleet.FleetTrainer`'s, or `stack_params` of S registry entries')
+per chunk through `torch.func.vmap` of the model, so K1 and K4 launch once
+per chunk for all lanes; the lanes share the chunk's windows and, when
+sampling, its noise (the scoring seed of the serial sweep). With `int8` the
+stacked tree holds QTensors with per-lane scales (a dense one is quantized
+lane by lane) and is dequantized for each chunk. One lane is
+`predict_panel` of that lane's model.
 
 `score_table` lays the scores out as the reference's score frame (one row
 per valid (day, stock), day-major); `export_scores` writes it as the JAX
@@ -42,7 +45,13 @@ import torch
 from factorvae_tpu_torch.data.loader import PanelDataset
 from factorvae_tpu_torch.data.stream import epoch_chunks
 from factorvae_tpu_torch.models.factorvae import call_with, model_from_params, with_compute_dtype
-from factorvae_tpu_torch.ops.quant import dequantize_params, ensure_quantized
+from factorvae_tpu_torch.ops.quant import (
+    QTensor,
+    dequantize_params,
+    ensure_quantized,
+    is_quantized,
+    quantize_params,
+)
 
 
 def _score_chunks(dataset, days: np.ndarray, chunk: int):
@@ -93,15 +102,44 @@ def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
     return out
 
 
+def stack_params(trees: list) -> dict:
+    """S parameter trees (name -> tensor, or QTensor in a quantized tree)
+    stacked on a leading lane axis; a QTensor stacks its q and s apart, so
+    each lane keeps its own scales."""
+    out = {}
+    for name, first in trees[0].items():
+        vals = [t[name] for t in trees]
+        if isinstance(first, QTensor):
+            out[name] = QTensor(torch.stack([v.q for v in vals]),
+                                torch.stack([v.s for v in vals]))
+        else:
+            out[name] = torch.stack([v.detach() for v in vals])
+    return out
+
+
+def lane_params(params: dict, lane: int) -> dict:
+    """Lane `lane` of a stacked tree (QTensors included)."""
+    return {n: QTensor(v.q[lane], v.s[lane]) if isinstance(v, QTensor) else v[lane]
+            for n, v in params.items()}
+
+
 def predict_panel_fleet(params: dict, config, dataset: PanelDataset, days: np.ndarray,
-                        stochastic: Optional[bool] = None, seed: int = 0) -> np.ndarray:
+                        stochastic: Optional[bool] = None, seed: int = 0,
+                        int8: bool = False) -> np.ndarray:
     """(S, len(days), N_max) float32 scores of S stacked parameter sets
-    (name -> (S, ...) tensors on `dataset.device`) under `config`, in
-    `predict_panel`'s 32-day chunks. Lane i
-    equals `predict_panel` of lane i's weights: bitwise at S = 1, which
-    takes that path, within f32 rounding else (the batched products)."""
+    (name -> (S, ...) tensors on `dataset.device`, QTensors with `int8`)
+    under `config`, in `predict_panel`'s 32-day chunks. Lane i equals
+    `predict_panel` of lane i's weights: bitwise at S = 1, which takes that
+    path, within f32 rounding else (the batched products)."""
     lanes = next(iter(params.values())).shape[0]
+    if int8 and not is_quantized(params):
+        params = stack_params([quantize_params(lane_params(params, i))
+                               for i in range(lanes)])
     if lanes == 1:
+        if int8:
+            return predict_panel(model_from_params(config.model, None), config, dataset,
+                                 days, stochastic, seed, int8=True,
+                                 params=lane_params(params, 0))[None]
         return predict_panel(model_from_params(config.model, params, 0), config, dataset,
                              days, stochastic, seed)[None]
     model = model_from_params(config.model, None)
@@ -122,7 +160,8 @@ def predict_panel_fleet(params: dict, config, dataset: PanelDataset, days: np.nd
             mask = mask & (day_idx >= 0)[:, None]
             eps = (torch.randn(mask.shape, generator=generator, device=dataset.device)
                    if sample else None)
-            scores = torch.func.vmap(one, in_dims=(0, None, None, None))(params, x, mask, eps)
+            weights = dequantize_params(params, model.cfg.dtype) if int8 else params
+            scores = torch.func.vmap(one, in_dims=(0, None, None, None))(weights, x, mask, eps)
             out[:, c0:c0 + n_sel] = scores[:, :n_sel].cpu().numpy()
     return out
 

@@ -1,29 +1,55 @@
-"""Registry of resident scoring models (`factorvae_tpu/serve/registry.py`,
-minimal).
+"""Registry of resident scoring models (`factorvae_tpu/serve/registry.py`).
 
-An entry is keyed by the canonical hash of its Config (`config.config_hash`),
-suffixed `:{precision}` below float32, and may carry an alias. `admit` takes
-an in-memory model with its Config, or a weights directory written by
-`params.save_weights`, at one rung of the precision ladder: float32,
-bfloat16 (float32 weights, the extractor computing in bfloat16) or int8
-(weights quantized once at admission, `ops/quant.py`, dequantized for each
-scoring call; float32 activations). An int8 entry keeps only the quantized
-weights resident. AOT artifacts, byte budgets, eviction and cold starts of
-the JAX registry are not ported yet.
+- **Keying.** An entry is keyed by the canonical hash of its Config
+  (`config.config_hash`), suffixed `:{precision}` below float32, and may
+  carry an alias.
+- **Sources.** `register_params` admits an in-memory model (or its
+  state_dict) with its Config; `register_checkpoint` a weights directory
+  written by `params.save_weights` (Config from its `serve_config.json`).
+  `admit` is the thin front over both. AOT artifacts (`register_artifact`)
+  wait for ROADMAP Queue 1 item 6's second half, `torch.export`.
+- **Precision ladder.** float32, bfloat16 (float32 weights, the extractor
+  computing in bfloat16) or int8 (weights quantized once at admission,
+  `ops/quant.py`, dequantized for each scoring call; float32 activations).
+  An int8 entry keeps only the quantized weights resident. The rung is the
+  caller's choice, else float32: the port has no plan table (item 9).
+- **Budget.** Eviction is LRU by parameter bytes against `budget_bytes` (0:
+  unbounded). An evicted entry from a weights directory leaves a tombstone,
+  and the next `get` cold-starts it from disk, retrying `COLD_RETRIES`
+  times with exponential backoff; a failed cold start answers every later
+  request with a RegistryError and keeps its tombstone. In-memory entries
+  are gone when evicted, and their aliases with them.
+- **Identity.** `digest` is the sha256 of the serving weights. Re-admitting
+  other bytes under a key bumps its `generation` and retires (tombstones)
+  its sibling rungs, which were made from the old bytes; the same bytes
+  refresh the entry in place. `version` moves on every admission,
+  eviction, retirement and alias flip (the daemon's stacked-weights cache
+  keys on it).
+- **Warmth.** `compiled` / `compile_s` mark an entry's first scoring call,
+  which pays the kernels' first load; `warmup` makes that call up front.
+
+The chaos hooks: `serve_stall` in `score`, `serve_cold_fail` in a cold
+start.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
-from typing import Optional
+import threading
+import time
+from collections import OrderedDict
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from factorvae_tpu_torch.chaos import fault as chaos_fault
 from factorvae_tpu_torch.config import Config, config_hash
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
-from factorvae_tpu_torch.ops.quant import ensure_quantized, tree_nbytes
+from factorvae_tpu_torch.ops.quant import QTensor, ensure_quantized, tree_nbytes
+from factorvae_tpu_torch.utils.logging import timeline_event, timeline_span
 
 PRECISIONS = ("float32", "bfloat16", "int8")
 
@@ -43,71 +69,168 @@ def precision_config(config: Config, precision: str) -> Config:
                                                                  compute_dtype=dtype))
 
 
+def checkpoint_config(path: str) -> Config:
+    """The Config of a weights directory (its `serve_config.json`)."""
+    from factorvae_tpu_torch.params import CONFIG_FILE, read_config
+
+    path = os.path.abspath(path)
+    if not os.path.exists(os.path.join(path, CONFIG_FILE)):
+        raise RegistryError(
+            f"cannot resolve the Config for weights directory {path}: no "
+            f"{CONFIG_FILE} (params.save_weights writes one beside the weights)")
+    return read_config(path)
+
+
+def _digest(tree: Mapping) -> str:
+    """sha256 over the serving tree's tensors in name order."""
+    h = hashlib.sha256()
+    for name in sorted(tree):
+        v = tree[name]
+        for t in ((v.q, v.s) if isinstance(v, QTensor) else (v,)):
+            arr = t.detach().cpu().contiguous()
+            h.update(name.encode() + str(arr.dtype).encode() + str(tuple(arr.shape)).encode())
+            h.update(arr.view(torch.uint8).numpy().tobytes() if arr.numel() else b"")
+    return h.hexdigest()
+
+
 @dataclasses.dataclass
 class Entry:
+    """One resident model: `model` computes in the rung's dtype (int8: the
+    structure alone, on the meta device, beside `qparams`); `score_config`
+    carries the rung's compute dtype."""
+
     key: str
     config: Config
-    model: torch.nn.Module               # int8: the structure, on the meta device
+    model: torch.nn.Module
     alias: Optional[str] = None
-    source: str = "params"               # params | weights
+    source: str = "params"                # params | checkpoint
+    source_path: Optional[str] = None     # reload origin of a cold start
     nbytes: int = 0
     requests: int = 0
     precision: str = "float32"
     score_config: Optional[Config] = None
-    qparams: Optional[dict] = None       # int8: the quantized weights
+    qparams: Optional[dict] = None        # int8: the quantized weights
+    compiled: bool = False                # first scoring call made
+    compile_s: Optional[float] = None
+    digest: Optional[str] = None
+    generation: int = 1
+
+    @property
+    def int8(self) -> bool:
+        return self.precision == "int8"
+
+    @property
+    def params(self) -> dict:
+        """The serving tree: name -> tensor, QTensors for int8."""
+        if self.qparams is not None:
+            return self.qparams
+        return {n: t.detach() for n, t in self.model.state_dict().items()}
 
     def describe(self) -> dict:
         m = self.config.model
-        return {"key": self.key, "alias": self.alias, "source": self.source,
-                "precision": self.precision, "nbytes": self.nbytes,
-                "requests": self.requests,
+        return {"key": self.key, "alias": self.alias, "precision": self.precision,
+                "source": self.source, "nbytes": self.nbytes, "compiled": self.compiled,
+                "compile_s": self.compile_s, "requests": self.requests,
+                "generation": self.generation,
                 "arch": {"c": m.num_features, "t": m.seq_len, "h": m.hidden_size,
                          "k": m.num_factors, "m": m.num_portfolios}}
 
 
 class ModelRegistry:
-    """Models that a daemon scores with, loaded onto `device`."""
+    """LRU-by-bytes registry of the models a daemon scores with, on `device`."""
 
-    def __init__(self, device="cuda"):
+    COLD_RETRIES = 2
+    COLD_BACKOFF_S = 0.05
+
+    def __init__(self, device="cuda", budget_bytes: int = 0):
         self.device = torch.device(device)
-        self._entries: dict = {}
+        self.budget_bytes = int(budget_bytes)
+        # admission, lookup, eviction and the tallies; re-entrant because a
+        # cold start's register_checkpoint re-enters through _admit. Disk
+        # reloads and backoff sleeps run outside it.
+        self._lock = threading.RLock()
+        self._entries: "OrderedDict[str, Entry]" = OrderedDict()
         self._aliases: dict = {}
+        self._tombstones: dict = {}
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
+        self.cold_starts = 0
+        self.readmissions = 0
+        self.version = 0
 
-    def admit(self, source, config: Optional[Config] = None,
-              alias: Optional[str] = None, precision: str = "float32") -> str:
-        """Admit a model (with its `config`) or a weights directory at
-        `precision` (one of PRECISIONS); returns the key. Re-admitting a key
-        replaces its entry. On a CUDA device a hidden size above the
-        kernels' maximum is refused before any weights are read."""
-        from factorvae_tpu_torch.models.factorvae import (
-            FactorVAE,
-            load_model,
-            with_compute_dtype,
-        )
-        from factorvae_tpu_torch.params import read_config
+    # ---- admission -------------------------------------------------------
 
+    def _admit(self, entry: Entry) -> str:
+        with self._lock:
+            self.version += 1
+            prev = self._entries.get(entry.key)
+            if prev is not None:
+                if prev.digest != entry.digest:
+                    # other bytes under the same key: a new generation, and
+                    # the sibling rungs made from the old bytes retire
+                    entry.generation = prev.generation + 1
+                    self.readmissions += 1
+                    stale = self._retire_siblings_locked(entry.key)
+                    timeline_event("registry_readmit", cat="serve", resource="serve",
+                                   model=entry.key, generation=entry.generation,
+                                   stale_siblings=stale)
+                else:
+                    entry.generation = prev.generation
+            self._entries[entry.key] = entry
+            self._entries.move_to_end(entry.key)
+            self._tombstones.pop(entry.key, None)
+            if entry.alias:
+                self._aliases[entry.alias] = entry.key
+            self._evict_to_budget()
+            return entry.key
+
+    def _retire_siblings_locked(self, key: str) -> list:
+        base = key.split(":", 1)[0]
+        stale = [k for k in self._entries if k != key and k.split(":", 1)[0] == base]
+        for k in stale:
+            self.version += 1
+            self._tombstone_or_drop(k, self._entries.pop(k))
+        return stale
+
+    def _tombstone_or_drop(self, key: str, entry: Entry) -> None:
+        """After `entry` left `_entries`: a weights-directory source leaves a
+        tombstone; an in-memory one takes its aliases with it."""
+        if entry.source_path:
+            self._tombstones[key] = {"source": entry.source,
+                                     "source_path": entry.source_path,
+                                     "precision": entry.precision,
+                                     "config": entry.config, "alias": entry.alias}
+        else:
+            for alias, k in list(self._aliases.items()):
+                if k == key:
+                    del self._aliases[alias]
+
+    def register_params(self, params: Union[torch.nn.Module, Mapping], config: Config,
+                        precision: Optional[str] = None, n_stocks: Optional[int] = None,
+                        alias: Optional[str] = None, source: str = "params",
+                        source_path: Optional[str] = None) -> str:
+        """Admit an in-memory model (a FactorVAE on this registry's device,
+        or a state_dict loaded into one) with its Config; returns the key.
+        `n_stocks` is taken for the JAX signature: with no plan table the
+        rung is `precision`, else float32. On a CUDA device a hidden size
+        above the kernels' maximum is refused."""
+        from factorvae_tpu_torch.models.factorvae import FactorVAE, with_compute_dtype
+
+        precision = precision or "float32"
         if precision not in PRECISIONS:
             raise RegistryError(f"precision must be one of {PRECISIONS}; got {precision!r}")
-        if isinstance(source, torch.nn.Module):
-            if config is None:
-                raise RegistryError("an in-memory model needs its Config")
-            refused = hidden_refusal(config.model.hidden_size, self.device)
-            if refused:
-                raise RegistryError(refused)
-            model, kind = source, "params"
+        if config is None:
+            raise RegistryError("an in-memory model needs its Config")
+        refused = hidden_refusal(config.model.hidden_size, self.device)
+        if refused:
+            raise RegistryError(refused)
+        if isinstance(params, torch.nn.Module):
+            model = params
         else:
-            path = os.path.abspath(str(source))
-            if not os.path.isdir(path):
-                raise RegistryError(f"no weights directory at {path}")
-            config = config or read_config(path)
-            refused = hidden_refusal(config.model.hidden_size, self.device)
-            if refused:
-                raise RegistryError(refused)
-            model = load_model(config, checkpoint_path=path, device=self.device)
-            kind = "weights"
-            alias = alias or os.path.basename(path)
+            model = FactorVAE(config.model)
+            model.load_state_dict(params)
+            model = model.to(self.device)
         key = config_hash(config.to_dict())
         if precision != "float32":
             key = f"{key}:{precision}"
@@ -119,53 +242,201 @@ class ModelRegistry:
                 model = FactorVAE(score_config.model)
         else:               # shares the weights; computes in the rung's dtype
             model = with_compute_dtype(model, score_config.model.compute_dtype)
-        nbytes = tree_nbytes(qparams if qparams is not None else model)
-        self._entries[key] = Entry(key=key, config=config, model=model.eval(),
-                                   alias=alias, source=kind, nbytes=int(nbytes),
-                                   precision=precision, score_config=score_config,
-                                   qparams=qparams)
-        if alias:
-            self._aliases[alias] = key
-        return key
+        model = model.eval()
+        entry = Entry(key=key, config=config, model=model, alias=alias, source=source,
+                      source_path=source_path, precision=precision,
+                      score_config=score_config, qparams=qparams)
+        entry.nbytes = int(tree_nbytes(qparams if qparams is not None else model))
+        entry.digest = _digest(entry.params)
+        return self._admit(entry)
+
+    def register_checkpoint(self, path: str, config: Optional[Config] = None,
+                            precision: Optional[str] = None,
+                            n_stocks: Optional[int] = None,
+                            alias: Optional[str] = None) -> str:
+        """Admit a weights directory (`params.save_weights` layout); alias
+        defaults to the directory's name. The hidden-size refusal comes
+        before any weights are read."""
+        from factorvae_tpu_torch.models.factorvae import load_model
+
+        path = os.path.abspath(str(path))
+        if not os.path.isdir(path):
+            raise RegistryError(f"no weights directory at {path}")
+        config = config or checkpoint_config(path)
+        refused = hidden_refusal(config.model.hidden_size, self.device)
+        if refused:
+            raise RegistryError(refused)
+        model = load_model(config, checkpoint_path=path, device=self.device)
+        return self.register_params(model, config, precision=precision, n_stocks=n_stocks,
+                                    alias=alias or os.path.basename(path),
+                                    source="checkpoint", source_path=path)
+
+    def register_artifact(self, path_or_blob, alias: Optional[str] = None,
+                          expected_sha256: Optional[str] = None) -> str:
+        raise RegistryError(
+            "AOT artifacts are not ported: the export moves to torch.export with "
+            "ROADMAP Queue 1 item 6; admit a weights directory instead")
+
+    def admit(self, source, config: Optional[Config] = None, alias: Optional[str] = None,
+              precision: str = "float32") -> str:
+        """`register_params` for a model, `register_checkpoint` for a path."""
+        if isinstance(source, (torch.nn.Module, Mapping)):
+            return self.register_params(source, config, precision=precision, alias=alias)
+        return self.register_checkpoint(source, config=config, precision=precision,
+                                        alias=alias)
+
+    # ---- lookup / eviction ----------------------------------------------
 
     def resolve_key(self, name: str) -> str:
-        if name in self._entries:
-            return name
-        if name in self._aliases:
-            return self._aliases[name]
-        known = sorted(set(self._entries) | set(self._aliases))
+        with self._lock:
+            if name in self._entries or name in self._tombstones:
+                return name
+            if name in self._aliases:
+                return self._aliases[name]
+            known = sorted(set(self._entries) | set(self._aliases) | set(self._tombstones))
         raise RegistryError(
             f"unknown model {name!r} (known: {', '.join(known) or 'none'})")
 
     def get(self, name: str) -> Entry:
-        try:
-            key = self.resolve_key(name)
-        except RegistryError:
+        """Entry by key or alias, LRU-touched. An evicted weights-directory
+        entry cold-starts back in (a miss); an unknown name is a miss and a
+        RegistryError."""
+        with self._lock:
+            try:
+                key = self.resolve_key(name)
+            except RegistryError:
+                self.misses += 1
+                raise
+            entry = self._entries.get(key)
+            if entry is not None:
+                self.hits += 1
+                self._entries.move_to_end(key)
+                return entry
+            stone = self._tombstones[key]
             self.misses += 1
-            raise
-        self.hits += 1
-        return self._entries[key]
+        for attempt in range(self.COLD_RETRIES + 1):
+            try:
+                if chaos_fault("serve_cold_fail") is not None:
+                    raise RuntimeError("chaos: injected cold-start reload failure")
+                self.register_checkpoint(stone["source_path"], config=stone["config"],
+                                         precision=stone["precision"],
+                                         alias=stone["alias"])
+                break
+            except RegistryError:
+                raise           # deterministic: a retry cannot heal it
+            except Exception as e:      # noqa: BLE001 - retried, then a RegistryError
+                if attempt == self.COLD_RETRIES:
+                    raise RegistryError(
+                        f"cold-start of evicted model {name!r} from {stone['source']} "
+                        f"{stone['source_path']} failed after {attempt + 1} attempts: "
+                        f"{e}") from e
+                timeline_event("cold_start_retry", cat="recovery", resource="serve",
+                               model=key, attempt=attempt + 1, error=str(e))
+                time.sleep(self.COLD_BACKOFF_S * (2 ** attempt))
+        with self._lock:
+            self.cold_starts += 1
+            self._tombstones.pop(key, None)
+            entry = self._entries.get(key)
+        if entry is None:
+            raise RegistryError(
+                f"cold-started model {name!r} was evicted by a concurrent admission "
+                "before it could serve; retry")
+        return entry
+
+    def _evict_to_budget(self) -> None:
+        if self.budget_bytes <= 0:
+            return
+        while (len(self._entries) > 1
+               and sum(e.nbytes for e in self._entries.values()) > self.budget_bytes):
+            key, entry = self._entries.popitem(last=False)
+            self.version += 1
+            self.evictions += 1
+            self._tombstone_or_drop(key, entry)
+
+    def set_alias(self, alias: str, name: str) -> str:
+        """Point `alias` at an entry (a promotion's flip); returns its key."""
+        with self._lock:
+            key = self.resolve_key(name)
+            self._aliases[str(alias)] = key
+            self.version += 1
+            return key
+
+    def retire(self, name: str) -> bool:
+        """Remove an entry from the warm set (tombstoned when it has a
+        source on disk). False, and nothing done, for a name already gone."""
+        with self._lock:
+            try:
+                key = self.resolve_key(name)
+            except RegistryError:
+                return False
+            entry = self._entries.pop(key, None)
+            if entry is None:
+                return False
+            self.version += 1
+            self._tombstone_or_drop(key, entry)
+        timeline_event("registry_retire", cat="serve", resource="serve", model=key)
+        return True
+
+    def total_bytes(self) -> int:
+        with self._lock:
+            return sum(e.nbytes for e in self._entries.values())
 
     def keys(self) -> list:
-        return list(self._entries)
+        with self._lock:
+            return list(self._entries)
 
     def stats(self) -> dict:
-        return {
-            "models": len(self._entries),
-            "bytes": sum(e.nbytes for e in self._entries.values()),
-            "hits": self.hits,
-            "misses": self.misses,
-            "aliases": dict(sorted(self._aliases.items())),
-            "entries": [e.describe() for e in self._entries.values()],
-        }
+        with self._lock:
+            return {"models": len(self._entries), "bytes": self.total_bytes(),
+                    "budget_bytes": self.budget_bytes, "hits": self.hits,
+                    "misses": self.misses, "evictions": self.evictions,
+                    "cold_starts": self.cold_starts, "readmissions": self.readmissions,
+                    "aliases": dict(sorted(self._aliases.items())),
+                    "entries": [e.describe() for e in self._entries.values()]}
 
-    def score(self, entry: Entry, dataset, days: np.ndarray,
-              stochastic: Optional[bool] = False, seed: int = 0) -> np.ndarray:
-        """(len(days), N_max) scores of one entry: `eval.predict.predict_panel`."""
+    # ---- scoring ---------------------------------------------------------
+
+    def score(self, name, dataset, days: np.ndarray, stochastic: Optional[bool] = False,
+              seed: int = 0, chunk: Optional[int] = None,
+              entry: Optional[Entry] = None) -> np.ndarray:
+        """(len(days), N_max) scores of one entry (by name, or the Entry
+        itself): `eval.predict.predict_panel`, so the float32 rung is
+        bitwise that path."""
         from factorvae_tpu_torch.eval.predict import predict_panel
 
-        out = predict_panel(entry.model, entry.score_config, dataset, days,
-                            stochastic=stochastic, seed=seed,
-                            int8=entry.precision == "int8", params=entry.qparams)
+        if isinstance(name, Entry):
+            entry = name
+        if entry is None:
+            entry = self.get(name)
+        stall = chaos_fault("serve_stall")
+        if stall is not None:
+            time.sleep(stall.delay_s)
+        t0 = time.perf_counter()
+        first = not entry.compiled
+        kw = {} if chunk is None else {"chunk": int(chunk)}
+        with timeline_span(f"serve_score:{entry.key}", cat="serve", resource="device",
+                           model=entry.key, n_days=int(len(days))):
+            out = predict_panel(entry.model, entry.score_config, dataset, days,
+                                stochastic=stochastic, seed=seed, int8=entry.int8,
+                                params=entry.qparams, **kw)
+        if first:
+            entry.compiled = True
+            entry.compile_s = round(time.perf_counter() - t0, 6)
         entry.requests += 1
         return out
+
+    def warmup(self, dataset, names: Optional[list] = None,
+               stochastic: Optional[bool] = False) -> dict:
+        """One one-day scoring call for every (or each named) entry not yet
+        warm; returns {key: compile_s}."""
+        days = dataset.split_days(None, None)[:1]
+        walls = {}
+        with self._lock:
+            keys = list(names or self._entries)
+        for key in keys:
+            entry = self.get(key)
+            if entry.compiled:
+                continue
+            self.score(key, dataset, days, stochastic=stochastic)
+            walls[entry.key] = entry.compile_s
+        return walls

@@ -5,25 +5,39 @@ it as `[event] k=v, ...` on stdout. A file-backed stream opens with a
 `run_meta` record (torch, its CUDA version, the card, the git sha, the
 config hash), so a RUN.jsonl says what produced it. `use_wandb` degrades
 to JSONL only, with one line on stderr, when wandb cannot be imported or
-started. The JAX package's host `Timeline` is not ported (ROADMAP Queue 1
-item 11).
+started.
+
+`Timeline` is the span/event half: spans on `time.perf_counter` relative to
+the timeline's origin, written as `span` / `mark` records into the same
+stream, with the JAX package's keys (`name`, `cat`, `resource`, `t0`, `t1`,
+`dur`, `thread` / `t`), so the JAX `obs.timeline` renderer reads a port
+RUN.jsonl unchanged. Producers deep in the stack (the stream's worker, the
+daemon, the registry) reach the installed timeline through
+`install_timeline` and the helpers `timeline_span`, `timeline_event`,
+`timeline_span_at`: each is a no-op when no timeline is installed. A span
+that one thread opens and another closes (a queued request) uses the
+`timeline_span_begin` / `timeline_span_end` token pair. Spans may carry
+trace identity (`trace`, `span`, `parent`; `obs/trace.py`) as extra fields.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Iterator, Optional
 
 import torch
 
 from factorvae_tpu_torch.config import config_hash
 
-__all__ = ["MetricsLogger", "backend_env", "config_hash", "run_meta"]
+__all__ = ["MetricsLogger", "Timeline", "backend_env", "config_hash", "current_timeline",
+           "install_timeline", "run_meta", "timeline_event", "timeline_now",
+           "timeline_span", "timeline_span_at", "timeline_span_begin", "timeline_span_end"]
 
 
 def _git_sha() -> Optional[str]:
@@ -57,6 +71,7 @@ def run_meta(config: Optional[dict] = None, run_name: Optional[str] = None) -> d
     cuda = torch.cuda.is_available()
     meta: dict = {"run_name": run_name, "git_sha": _git_sha(), "env": backend_env(),
                   "torch": torch.__version__, "cuda": torch.version.cuda,
+                  "platform": "cuda" if cuda else "cpu",
                   "device": torch.cuda.get_device_name(0) if cuda else None,
                   "device_count": torch.cuda.device_count() if cuda else 0}
     if config is not None:
@@ -120,3 +135,115 @@ class MetricsLogger:
 
     def __exit__(self, exc_type, exc, tb) -> None:
         self.finish()
+
+
+class Timeline:
+    """Span/event emitter over a MetricsLogger stream. Record shapes:
+
+        {"event": "span", "name", "cat", "resource", "t0", "t1", "dur", "thread", ...}
+        {"event": "mark", "name", "cat", "resource", "t", ...}
+
+    `resource` is the lane the Gantt renderer groups by ("device", "serve",
+    "stream", ...); `cat` is the subsystem."""
+
+    _clock = staticmethod(time.perf_counter)
+
+    def __init__(self, logger: MetricsLogger, origin: Optional[float] = None):
+        self.logger = logger
+        self.origin = self._clock() if origin is None else origin
+
+    def rel(self, mono: float) -> float:
+        return mono - self.origin
+
+    def event(self, name: str, cat: str = "host", resource: str = "host",
+              **fields: Any) -> None:
+        self.logger.log("mark", _echo=False, name=name, cat=cat, resource=resource,
+                        t=round(self.rel(self._clock()), 6), **fields)
+
+    def span_at(self, name: str, t0: float, t1: float, cat: str = "host",
+                resource: str = "host", **fields: Any) -> None:
+        """A span from already-measured perf_counter endpoints."""
+        self.logger.log("span", _echo=False, name=name, cat=cat, resource=resource,
+                        t0=round(self.rel(t0), 6), t1=round(self.rel(t1), 6),
+                        dur=round(t1 - t0, 6), thread=threading.current_thread().name,
+                        **fields)
+
+    @contextlib.contextmanager
+    def span(self, name: str, cat: str = "host", resource: str = "host",
+             **fields: Any) -> Iterator[None]:
+        t0 = self._clock()
+        try:
+            yield
+        finally:
+            self.span_at(name, t0, self._clock(), cat=cat, resource=resource, **fields)
+
+
+# a module global, not a contextvar: worker threads must see it too
+_TIMELINE: Optional[Timeline] = None
+
+
+def install_timeline(tl: Optional[Timeline]) -> Optional[Timeline]:
+    """Install the process-wide timeline; returns the previous one."""
+    global _TIMELINE
+    prev, _TIMELINE = _TIMELINE, tl
+    return prev
+
+
+def current_timeline() -> Optional[Timeline]:
+    return _TIMELINE
+
+
+@contextlib.contextmanager
+def timeline_span(name: str, cat: str = "host", resource: str = "host",
+                  **fields: Any) -> Iterator[None]:
+    """`Timeline.span` on the installed timeline; a no-op without one."""
+    tl = _TIMELINE
+    if tl is None:
+        yield
+        return
+    with tl.span(name, cat=cat, resource=resource, **fields):
+        yield
+
+
+def timeline_event(name: str, cat: str = "host", resource: str = "host",
+                   **fields: Any) -> None:
+    tl = _TIMELINE
+    if tl is not None:
+        tl.event(name, cat=cat, resource=resource, **fields)
+
+
+def timeline_span_at(name: str, t0: float, t1: float, cat: str = "host",
+                     resource: str = "host", **fields: Any) -> None:
+    tl = _TIMELINE
+    if tl is not None:
+        tl.span_at(name, t0, t1, cat=cat, resource=resource, **fields)
+
+
+def timeline_now() -> Optional[float]:
+    """Seconds since the installed timeline's origin, or None without one."""
+    tl = _TIMELINE
+    return None if tl is None else round(tl.rel(tl._clock()), 6)
+
+
+def timeline_span_begin(name: str, cat: str = "host", resource: str = "host",
+                        **fields: Any) -> Optional[dict]:
+    """Open a span that another thread closes with `timeline_span_end`:
+    an opaque token, or None without a timeline. Within one function use
+    `timeline_span`, which cannot leak the span on an exception."""
+    tl = _TIMELINE
+    if tl is None:
+        return None
+    return {"name": name, "cat": cat, "resource": resource, "t0": tl._clock(),
+            "fields": dict(fields)}
+
+
+def timeline_span_end(token: Optional[dict], **extra: Any) -> None:
+    """Close a `timeline_span_begin` span (a no-op on None), with `extra`
+    fields over the begin-time ones, on the timeline installed now."""
+    if token is None:
+        return
+    tl = _TIMELINE
+    if tl is None:
+        return
+    tl.span_at(token["name"], token["t0"], tl._clock(), cat=token["cat"],
+               resource=token["resource"], **{**token["fields"], **extra})

@@ -1,11 +1,12 @@
 """Guards of the PyTorch port: what it imports (every module, the training,
-CLI, quantization, fleet, stream and append ones included, and a scoring
-pass at each precision rung and on a stream-resident panel, a float32 and
-a mixed training epoch, a fleet's epoch and its lane-batched scoring pass,
-and a CLI run without --backtest with no JAX, Flax, pandas or JAX-package
-module loaded), that the JAX weights carry across without loss, and that
-`chip_smoke.py` refuses to run without a GPU instead of falling back to
-the CPU."""
+CLI, quantization, fleet, stream, append, serving and observability ones
+included, and a scoring pass at each precision rung and on a
+stream-resident panel, a float32 and a mixed training epoch, a fleet's epoch
+and its lane-batched scoring pass, a CLI run without --backtest, and a
+scoring daemon's fused ticks at each rung with its metrics, drift, trace
+and scheduler, with no JAX, Flax, pandas or JAX-package module loaded),
+that the JAX weights carry across without loss, and that `chip_smoke.py`
+refuses to run without a GPU instead of falling back to the CPU."""
 
 from __future__ import annotations
 
@@ -115,6 +116,29 @@ assert {"factorvae_tpu_torch.cli", "factorvae_tpu_torch.ops.stats",
         "factorvae_tpu_torch.eval.metrics", "factorvae_tpu_torch.eval.backtest",
         "factorvae_tpu_torch.eval.plots", "factorvae_tpu_torch.utils.logging",
         "factorvae_tpu_torch.chaos"} <= set(names)
+
+# the daemon: fused ticks at each rung, the exposition, a scheduler tick
+from factorvae_tpu_torch.obs.metrics import daemon_metrics
+from factorvae_tpu_torch.serve.daemon import ScoringDaemon, TickScheduler
+from factorvae_tpu_torch.serve.registry import ModelRegistry
+
+reg = ModelRegistry(device="cpu")
+rungs = ("float32", "bfloat16", "int8")
+for s in (0, 1):
+    c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=s))
+    for p in rungs:
+        reg.register_params(load_model(c, device="cpu"), c, precision=p, alias=f"{p}{s}")
+daemon = ScoringDaemon(reg, ds)
+out = daemon.handle_batch([{"model": f"{p}{s}", "day": 6, "trace": {"trace_id": "t",
+                            "span_id": "s"}} for p in rungs for s in (0, 1)])
+assert all(r["ok"] and r["batched_with"] == 2 for r in out), out
+assert "factorvae_compile_total" in daemon_metrics(daemon)
+sched = TickScheduler(daemon)
+assert sched.submit([{"model": "float320", "day": 7}])[0]["ok"]
+sched.close()
+assert {"factorvae_tpu_torch.serve.daemon", "factorvae_tpu_torch.serve.registry",
+        "factorvae_tpu_torch.serve.__main__", "factorvae_tpu_torch.obs.trace",
+        "factorvae_tpu_torch.obs.drift", "factorvae_tpu_torch.obs.metrics"} <= set(names)
 
 def banned(mod):
     top = mod.split(".")[0]

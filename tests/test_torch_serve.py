@@ -1,19 +1,33 @@
-"""The whole slice on the CPU: the port's `predict_panel` against the JAX
-`predict_panel`, and the port's daemon, registry and CLI.
+"""The serving path on the CPU: the port's `predict_panel` against the JAX
+`predict_panel`, and the port's registry, daemon, scheduler, HTTP front and
+CLI against the JAX package's.
 
-Shapes: C=12, T=6, H=8, K=4, M=10 on a 30-day synthetic panel of 13
-stocks (padded to 16) with missing rows. Weights from the JAX `load_model`,
-copied in with `flax_to_torch`. The scores hold at the repo's torch-oracle
-tolerance, f32 with rtol=1e-5, atol=1e-6, against the JAX scores with its
-Pallas kernels (interpret mode) and with the XLA path.
+Shapes: C=12, T=6, H=8, K=4, M=10 on a 30-day synthetic panel of 13 stocks
+(padded to 16) for the first classes; C 8, T 5, H 8, K 4, M 8 on a 30-day
+panel of 12 stocks (padded to 16) for the daemon's (`srv`). Weights from
+the JAX `load_model`, copied in with `flax_to_torch`. Scores hold at the
+repo's torch-oracle tolerance, f32 with rtol=1e-5, atol=1e-6, against the
+JAX scores (Pallas in interpret mode, or the XLA path). The JAX daemon and
+the port's answer the same tick field for field; their keys (config hashes)
+differ, because the port's Config has no `use_pallas_*` fields, so the port's
+keys are mapped to the JAX keys of the same alias before comparing, and an
+"unknown model" error is compared up to its list of known names. The
+registry's walk, the breaker's and health's state sequences and the admit
+gate's decision are held equal to the JAX package's on the same inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import http.client
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -184,3 +198,781 @@ def test_serve_cli_answers_stdin_on_cpu():
     assert [r["ok"] for r in resp] == [True, True, True]
     assert resp[0]["n"] == 2 and resp[1]["registry"]["entries"][0]["arch"]["k"] == 96
     assert torch.isfinite(torch.tensor(resp[0]["results"][0]["scores"])).all()
+
+
+# ---------------------------------------------------------------------------
+# the full daemon against the JAX package's (C 8, T 5, H 8, K 4, M 8)
+
+from factorvae_tpu import chaos as jchaos  # noqa: E402
+from factorvae_tpu.eval.predict import predict_panel_fleet as jpredict_panel_fleet  # noqa: E402
+from factorvae_tpu.obs.metrics import daemon_metrics as jdaemon_metrics  # noqa: E402
+from factorvae_tpu.ops.quant import ensure_quantized as jensure_quantized  # noqa: E402
+from factorvae_tpu.serve.daemon import ScoringDaemon as JScoringDaemon  # noqa: E402
+from factorvae_tpu.serve.registry import ModelRegistry as JModelRegistry  # noqa: E402
+from factorvae_tpu.train.checkpoint import save_params as jsave_params  # noqa: E402
+from factorvae_tpu_torch import chaos  # noqa: E402
+from factorvae_tpu_torch.eval import predict as tpredict  # noqa: E402
+from factorvae_tpu_torch.ops.quant import quantize_params  # noqa: E402
+from factorvae_tpu_torch.serve.daemon import (  # noqa: E402
+    TickScheduler,
+    serve_batch_file,
+    serve_http,
+)
+from factorvae_tpu_torch.serve.registry import RegistryError  # noqa: E402
+from factorvae_tpu_torch.utils import logging as tlogging  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SC, ST, SH, SK, SM = 8, 5, 8, 4, 8
+HOLDOUT = [20, 21, 22, 23, 24]
+
+
+def _srv_cfgs(seed):
+    jcfg = jconfig.Config(
+        model=jconfig.ModelConfig(num_features=SC, hidden_size=SH, num_factors=SK,
+                                  num_portfolios=SM, seq_len=ST,
+                                  stochastic_inference=False, use_pallas_gru=True,
+                                  use_pallas_attention=True),
+        data=jconfig.DataConfig(seq_len=ST), train=jconfig.TrainConfig(seed=seed))
+    return jcfg, tconfig.Config.from_dict(jcfg.to_dict())
+
+
+@pytest.fixture(scope="module")
+def srv():
+    jp = synthetic_panel(num_days=30, num_instruments=12, num_features=SC,
+                         missing_prob=0.2, seed=5)
+    tp = Panel(values=jp.values, valid=jp.valid,
+               dates=jp.dates.values.astype("datetime64[D]"),
+               instruments=np.asarray(jp.instruments))
+    models = []
+    for seed in range(4):
+        jcfg, tcfg = _srv_cfgs(seed)
+        models.append((jcfg, tcfg, jload_model(jcfg, n_max=16)[1]))
+    return dict(jds=JPanelDataset(jp, seq_len=ST), tds=PanelDataset(tp, seq_len=ST, device="cpu"),
+                models=models)
+
+
+class _Side:
+    """One package's daemon, registry and chaos, so that a case runs the same
+    steps on both."""
+
+    def __init__(self, srv, port: bool):
+        self.port = port
+        self.srv = srv
+        self.ds = srv["tds"] if port else srv["jds"]
+        self.chaos = chaos if port else jchaos
+
+    def registry(self, **kw):
+        return ModelRegistry(device="cpu", **kw) if self.port else JModelRegistry(**kw)
+
+    def register(self, reg, i, precision=None, alias=None, cfg_of=None):
+        jcfg, tcfg, params = self.srv["models"][i]
+        if cfg_of is not None:
+            jcfg, tcfg, _ = self.srv["models"][cfg_of]
+        if self.port:
+            return reg.register_params(flax_to_torch(params), tcfg, precision=precision,
+                                       alias=alias)
+        return reg.register_params(params, jcfg, precision=precision, alias=alias)
+
+    def daemon(self, reg=None, **kw):
+        if reg is None:
+            reg = self.registry()
+            self.register(reg, 0, alias="m0")
+        kw.setdefault("stochastic", False)
+        return (ScoringDaemon if self.port else JScoringDaemon)(reg, self.ds, **kw)
+
+    def plan(self, *faults):
+        return self.chaos.ChaosPlan([self.chaos.Fault(*f[:1], **f[1]) for f in faults])
+
+
+def _sides(srv):
+    return _Side(srv, port=False), _Side(srv, port=True)
+
+
+# ---- the registry ----------------------------------------------------------
+
+
+def _registry_walk(S):
+    trail = []
+
+    def snap(reg, op):
+        st = reg.stats()
+        trail.append((op, [e["alias"] for e in st["entries"]], reg.version, reg.hits,
+                      reg.misses, reg.evictions, reg.readmissions,
+                      [(e["alias"], e["generation"], e["nbytes"]) for e in st["entries"]]))
+
+    probe = S.registry()
+    S.register(probe, 0)
+    nb = probe.total_bytes()
+    reg = S.registry(budget_bytes=int(2.5 * nb))
+    for i in (0, 1):
+        S.register(reg, i, alias=f"a{i}")
+        snap(reg, f"admit a{i}")
+    reg.get("a0")
+    snap(reg, "touch a0")
+    S.register(reg, 2, alias="a2")          # a1 is the least recently used
+    snap(reg, "admit a2")
+    with pytest.raises(ValueError, match="unknown model 'a1'"):
+        reg.get("a1")                       # in-memory: gone with its alias
+    snap(reg, "get a1")
+    S.register(reg, 0, precision="int8", alias="q0")
+    snap(reg, "admit q0")
+    # the generation walk, unbounded
+    reg = S.registry()
+    S.register(reg, 0, alias="g")
+    S.register(reg, 0, precision="int8", alias="gq")
+    S.register(reg, 0, alias="g")           # the same bytes: a refresh
+    snap(reg, "refresh")
+    S.register(reg, 3, alias="g", cfg_of=0)  # other bytes under the key
+    snap(reg, "readmit")
+    S.register(reg, 1, alias="g", cfg_of=0)
+    snap(reg, "readmit again")
+    return trail
+
+
+def test_registry_walk_matches_jax(srv):
+    j, t = (_registry_walk(S) for S in _sides(srv))
+    assert t == j
+    assert t[-1][-1] == [("g", 3, t[-1][-1][0][2])] and t[-2][6] == 1
+
+
+def _save_both(srv, i, tmp_path, name):
+    """Weights directories of model i: the JAX layout and the port's."""
+    jcfg, tcfg, params = srv["models"][i]
+    jsave_params(str(tmp_path / "jax"), name, params)
+    with open(tmp_path / "jax" / name / "serve_config.json", "w") as fh:
+        json.dump(jcfg.to_dict(), fh)
+    model = FactorVAE(tcfg.model)
+    model.load_state_dict(flax_to_torch(params))
+    save_weights(model, tcfg, str(tmp_path / "port" / name))
+    return str(tmp_path / "jax" / name), str(tmp_path / "port" / name)
+
+
+class TestRegistryColdStart:
+    def _evicted(self, srv, tmp_path):
+        _, path = _save_both(srv, 0, tmp_path, "w0")
+        reg = ModelRegistry(device="cpu")
+        key = reg.register_checkpoint(path)
+        days = srv["tds"].split_days(None, None)[-6:]
+        before = reg.score("w0", srv["tds"], days)
+        reg.budget_bytes = 1                  # only the newest survives
+        _, tcfg, params = srv["models"][1]
+        reg.register_params(flax_to_torch(params), tcfg)
+        assert key not in reg.keys() and reg.evictions == 1
+        return reg, key, path, days, before
+
+    def test_cold_start_scores_bitwise_as_before(self, srv, tmp_path):
+        reg, key, _, days, before = self._evicted(srv, tmp_path)
+        entry = reg.get("w0")
+        assert entry.key == key and reg.cold_starts == 1 and reg.misses == 1
+        assert np.array_equal(reg.score("w0", srv["tds"], days), before, equal_nan=True)
+        assert entry.source == "checkpoint" and entry.generation == 1
+
+    def test_failed_cold_start_stays_actionable(self, srv, tmp_path, monkeypatch):
+        monkeypatch.setattr(ModelRegistry, "COLD_BACKOFF_S", 0.001)
+        reg, _, path, _, _ = self._evicted(srv, tmp_path)
+        shutil.rmtree(path)
+        for _ in range(2):        # the tombstone survives a failed reload
+            with pytest.raises(RegistryError):
+                reg.get("w0")
+        assert reg.cold_starts == 0
+        daemon = ScoringDaemon(reg, srv["tds"])
+        resp = daemon.handle({"model": "w0", "day": 20})
+        assert not resp["ok"] and daemon.health()["window"] == 1    # the daemon's fault
+
+    def test_serve_cold_fail_heals_with_one_retry(self, srv, tmp_path, monkeypatch):
+        monkeypatch.setattr(ModelRegistry, "COLD_BACKOFF_S", 0.001)
+        reg, key, _, _, _ = self._evicted(srv, tmp_path)
+        plan = chaos.ChaosPlan([chaos.Fault("serve_cold_fail")])
+        with chaos.active(plan):
+            assert reg.get("w0").key == key
+        assert reg.cold_starts == 1 and plan.fired == [{"kind": "serve_cold_fail"}]
+
+    def test_artifacts_are_refused_naming_item_6(self, srv):
+        with pytest.raises(RegistryError, match="item 6"):
+            ModelRegistry(device="cpu").register_artifact(b"blob")
+
+
+# ---- fused dispatch ----------------------------------------------------------
+
+_FUSED_TICK = [
+    {"id": 1, "model": "f0", "day": 20, "top": 3}, {"id": 2, "model": "f1", "day": 20, "top": 3},
+    {"id": 3, "model": "f0", "day": 20, "top": 3},
+    {"id": 4, "model": "b0", "day": 21}, {"id": 5, "model": "b1", "day": 21},
+    {"id": 6, "model": "q0", "days": [22, 23]}, {"id": 7, "model": "q1", "days": [22, 23]},
+    {"id": 8, "model": "f1", "day": 999}, {"id": 9, "model": "ghost", "day": 3},
+    {"id": 10, "model": "f0", "start": "2020-01-25", "end": "2020-02-05"},
+    {"id": 11, "cmd": "ping"}, {"id": 12, "cmd": "models"}, {"id": 13, "cmd": "reboot"},
+]
+
+
+def _fused_registry(S):
+    reg = S.registry()
+    keys = {}
+    for i in (0, 1):
+        for prec, pre in (("float32", "f"), ("bfloat16", "b"), ("int8", "q")):
+            keys[f"{pre}{i}"] = S.register(reg, i, precision=prec, alias=f"{pre}{i}")
+    return reg, keys
+
+
+def _normal(resp, keymap=None):
+    """A response without its timings, its port keys as JAX keys. An
+    entry's `compiled` is left out: the JAX registry marks only a serial
+    call (a fused one warms its fleet program instead), the port's marks the
+    first scoring call of either kind."""
+    out = {k: v for k, v in resp.items() if k not in ("latency_ms", "run_meta")}
+    if keymap and out.get("model") in keymap:
+        out["model"] = keymap[out["model"]]
+    if "error" in out:
+        out["error"] = out["error"].split(" (known:")[0]
+    if "models" in out:
+        out["models"] = [{**{k: v for k, v in e.items() if k not in ("compiled", "compile_s")},
+                          "key": (keymap or {}).get(e["key"], e["key"])}
+                         for e in out["models"]]
+    return out
+
+
+class TestFusedDispatch:
+    def test_tick_matches_the_jax_daemon(self, srv):
+        (js, ts) = _sides(srv)
+        jreg, jkeys = _fused_registry(js)
+        treg, tkeys = _fused_registry(ts)
+        keymap = {tkeys[a]: jkeys[a] for a in tkeys}
+        jout = JScoringDaemon(jreg, srv["jds"]).handle_batch(_FUSED_TICK)
+        tdaemon = ScoringDaemon(treg, srv["tds"])
+        tout = tdaemon.handle_batch(_FUSED_TICK)
+        # f0 twice with f1, the bf16 pair, the int8 pair; the range is f0's alone
+        assert [r["batched_with"] for r in tout if "batched_with" in r] == [2] * 7 + [1]
+        for jr, tr in zip(jout, tout):
+            jn, tn = _normal(jr), _normal(tr, keymap)
+            jres, tres = jn.pop("results", []), tn.pop("results", [])
+            assert tn == jn, tr.get("id")
+            assert len(tres) == len(jres)
+            for a, b in zip(tres, jres):
+                assert a["day"] == b["day"] and a["instruments"] == b["instruments"]
+                np.testing.assert_allclose(a["scores"], b["scores"], **SCORE_TOL)
+        st = tdaemon.stats()
+        assert st["fused_requests"] == 7 and st["dispatches"] == 4
+        # every entry the tick scored, fused or serial, has made its first call
+        assert all(e["compiled"] for e in st["registry"]["entries"])
+
+    def test_fused_lanes_match_serial_and_one_lane_is_bitwise(self, srv):
+        _, ts = _sides(srv)
+        reg, _ = _fused_registry(ts)
+        ds, days = srv["tds"], np.arange(3, 30)
+        for pre in ("f", "b", "q"):
+            entries = [reg.get(f"{pre}{i}") for i in (0, 1)]
+            lanes = tpredict.predict_panel_fleet(
+                tpredict.stack_params([e.params for e in entries]),
+                entries[0].score_config, ds, days, stochastic=False, int8=entries[0].int8)
+            for e, got in zip(entries, lanes):
+                want = reg.score(e, ds, days)
+                np.testing.assert_allclose(got, want, **SCORE_TOL)
+                one = tpredict.predict_panel_fleet(
+                    tpredict.stack_params([e.params]), e.score_config, ds, days,
+                    stochastic=False, int8=e.int8)[0]
+                assert np.array_equal(one, want, equal_nan=True), pre
+
+    def test_fleet_int8_matches_jax(self, srv):
+        import jax
+        import jax.numpy as jnp
+
+        days = np.arange(4, 30)
+        trees = [m[2] for m in srv["models"][:3]]
+        jstacked = jax.tree.map(lambda *xs: jnp.stack(xs),
+                                *[jensure_quantized(t) for t in trees])
+        want = jpredict_panel_fleet(jstacked, srv["models"][0][0], srv["jds"], days,
+                                    stochastic=False, int8=True)
+        stacked = tpredict.stack_params([quantize_params(flax_to_torch(t)) for t in trees])
+        got = tpredict.predict_panel_fleet(stacked, srv["models"][0][1], srv["tds"], days,
+                                           stochastic=False, int8=True)
+        assert got.shape == want.shape == (3, 26, 16)
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, **SCORE_TOL)
+        # a dense stacked tree is quantized lane by lane: the same scores
+        dense = tpredict.stack_params([flax_to_torch(t) for t in trees])
+        again = tpredict.predict_panel_fleet(dense, srv["models"][0][1], srv["tds"], days,
+                                             stochastic=False, int8=True)
+        assert np.array_equal(again, got, equal_nan=True)
+
+    def test_a_failed_group_falls_back_to_serial(self, srv, monkeypatch, tmp_path):
+        _, ts = _sides(srv)
+        reg, _ = _fused_registry(ts)
+        daemon = ScoringDaemon(reg, srv["tds"])
+
+        def broken(*a, **k):
+            raise RuntimeError("lane-batched launch failed")
+
+        monkeypatch.setattr(tpredict, "predict_panel_fleet", broken)
+        path = str(tmp_path / "run.jsonl")
+        logger = tlogging.MetricsLogger(jsonl_path=path, echo=False)
+        prev = tlogging.install_timeline(tlogging.Timeline(logger))
+        try:
+            out = daemon.handle_batch([{"id": i, "model": f"f{i}", "day": 20}
+                                       for i in (0, 1)])
+        finally:
+            tlogging.install_timeline(prev)
+            logger.finish()
+        assert [(r["ok"], r["batched_with"]) for r in out] == [(True, 1), (True, 1)]
+        marks = [json.loads(x) for x in open(path)]
+        (fb,) = [m for m in marks if m.get("name") == "fused_fallback"]
+        assert fb["models"] == 2 and "lane-batched" in fb["error"]
+        assert daemon.dispatches == 2 and daemon.fused_requests == 0
+
+
+# ---- resilience: the JAX TestServeChaos cases, on both daemons ---------------
+
+
+def _state(resp) -> tuple:
+    err = resp.get("error") or ""
+    kind = ("deadline" if "deadline exceeded" in err else "circuit" if "circuit open" in err
+            else "error" if err else None)
+    return (resp["ok"], kind, "retry_after_s" in resp)
+
+
+def _health(d) -> tuple:
+    h = d.health()
+    return (d.deadline_misses, d.breaker_fast_fails, bool(d.open_breakers()), h["status"],
+            h["error_rate"], h["window"])
+
+
+# Each case arms the server's deadline after its unstalled requests, and
+# stalls by more than the deadline, so that no state depends on how fast
+# the host runs a tick.
+
+
+def _case_stall_breaker_recovery(S):
+    d = S.daemon(breaker_k=2, breaker_cooldown_s=1.0)
+    day = 20
+    trail = [_state(d.handle({"model": "m0", "day": day}))]
+    d.deadline_ms = 150.0
+    with S.chaos.active(S.plan(("serve_stall", dict(times=2, delay_s=0.25)))):
+        trail += [_state(d.handle({"model": "m0", "day": day})) for _ in range(3)]
+    trail.append(_health(d))
+    time.sleep(1.05)
+    d.deadline_ms = 10_000.0
+    trail += [_state(d.handle({"model": "m0", "day": day})), _health(d)]
+    return trail
+
+
+def _case_client_deadline(S):
+    d = S.daemon(breaker_k=2, breaker_cooldown_s=60.0)
+    trail = [_state(d.handle({"model": "m0", "day": 20}))]
+    trail += [_state(d.handle({"model": "m0", "day": 20, "deadline_ms": 0.001}))
+              for _ in range(3)]
+    return trail + [_health(d), _state(d.handle({"model": "m0", "day": 20}))]
+
+
+def _case_client_past_server(S):
+    d = S.daemon(breaker_k=1, breaker_cooldown_s=60.0)
+    trail = [_state(d.handle({"model": "m0", "day": 20}))]
+    d.deadline_ms = 100.0
+    with S.chaos.active(S.plan(("serve_stall", dict(times=1, delay_s=0.25)))):
+        trail.append(_state(d.handle({"model": "m0", "day": 20, "deadline_ms": 10.0})))
+    return trail + [_health(d)]
+
+
+def _case_raised_client_deadline(S):
+    d = S.daemon(breaker_k=1, breaker_cooldown_s=60.0)
+    trail = [_state(d.handle({"model": "m0", "day": 20}))]
+    d.deadline_ms = 100.0
+    with S.chaos.active(S.plan(("serve_stall", dict(times=1, delay_s=0.25)))):
+        trail.append(_state(d.handle({"model": "m0", "day": 20, "deadline_ms": 60000.0})))
+    return trail + [_health(d)]
+
+
+def _case_shared_tick_failure(S):
+    d = S.daemon(breaker_k=3, breaker_cooldown_s=60.0, health_window=10)
+    trail = [_state(d.handle({"model": "m0", "day": 20}))]
+    d.deadline_ms = 100.0
+    with S.chaos.active(S.plan(("serve_stall", dict(times=1, delay_s=0.25)))):
+        trail += [_state(r) for r in d.handle_batch([{"id": i, "model": "m0", "day": 20}
+                                                     for i in range(3)])]
+    return trail + [_health(d)]
+
+
+def _case_fast_fails_do_not_poison(S):
+    d = S.daemon(breaker_k=1, breaker_cooldown_s=60.0, health_window=10, failing_at=0.5)
+    trail = [_state(d.handle({"model": "m0", "day": 20})) for _ in range(3)]
+    d.deadline_ms = 100.0
+    with S.chaos.active(S.plan(("serve_stall", dict(times=1, delay_s=0.25)))):
+        trail.append(_state(d.handle({"model": "m0", "day": 20})))
+    trail += [_state(d.handle({"model": "m0", "day": 20})) for _ in range(8)]
+    return trail + [_health(d)]
+
+
+def _case_health_window(S):
+    d = S.daemon(health_window=10, degraded_at=0.1, failing_at=0.5, breaker_k=5)
+    trail = [_health(d), _state(d.handle({"model": "m0", "day": 20}))]
+    d.deadline_ms = 1e-6
+    trail += [_state(d.handle({"model": "m0", "day": 20})) for _ in range(2)]
+    trail.append(_health(d))
+    d.deadline_ms = 0.0
+    trail += [_state(d.handle({"model": "m0", "day": 20})) for _ in range(7)]
+    return trail + [_health(d)]
+
+
+def _case_client_garbage(S):
+    d = S.daemon(health_window=10, degraded_at=0.1, failing_at=0.5)
+    trail = [_state(d.handle({"model": "m0", "day": 20}))]
+    for bad in ({"model": "no_such_model", "day": 20}, {"model": "m0", "day": "not-a-date"},
+                {"model": "m0"}, {"model": "m0", "day": 20, "deadline_ms": "x"},
+                {"model": "m0", "day": 10 ** 9}, "not an object"):
+        trail += [_state(d.handle(bad)) for _ in range(4)]
+    return trail + [_health(d)]
+
+
+def _case_drain(S):
+    d = S.daemon()
+    trail = [_state(d.handle({"model": "m0", "day": 20}))]
+    d.request_drain()
+    h = d.health()
+    trail += [(h["status"], h["ok"], d.closing)]
+    d.request_drain()
+    return trail + [d.health()["status"]]
+
+
+_CASES = {f.__name__[len("_case_"):]: f for f in (
+    _case_stall_breaker_recovery, _case_client_deadline, _case_client_past_server,
+    _case_raised_client_deadline, _case_shared_tick_failure, _case_fast_fails_do_not_poison,
+    _case_health_window, _case_client_garbage, _case_drain)}
+
+
+@pytest.mark.parametrize("case", list(_CASES))
+def test_resilience_states_match_jax(srv, case):
+    j, t = (_CASES[case](S) for S in _sides(srv))
+    assert t == j and len(t) >= 2
+
+
+# ---- admission ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cand,inc", [(1, 0), (0, 1)], ids=["1_over_0", "0_over_1"])
+def test_admit_gate_matches_jax(srv, tmp_path, cand, inc):
+    outs = []
+    for S in _sides(srv):
+        side = tmp_path / ("port" if S.port else "jax")
+        inc_j, inc_t = _save_both(srv, inc, side, "inc")
+        cand_j, cand_t = _save_both(srv, cand, side, "cand")
+        reg = S.registry()
+        reg.register_checkpoint(inc_t if S.port else inc_j, alias="prod")
+        d = S.daemon(reg)
+        boot = d.admit(cand_t if S.port else cand_j, "fresh")      # no incumbent
+        out = d.admit(cand_t if S.port else cand_j, "prod", holdout_days=HOLDOUT)
+        serving = d.handle({"model": "prod", "day": 20})
+        outs.append((boot, out, serving["model"] == out["model"], reg.stats()["aliases"],
+                     d.promotions))
+    (jb, jo, jserv, jal, jp), (tb, to, tserv, tal, tp) = outs
+    assert tb["promoted"] and tb["incumbent"] is None and tb["reason"] == jb["reason"]
+    assert to["holdout_days"] == jo["holdout_days"] == HOLDOUT
+    np.testing.assert_allclose(to["candidate_rank_ic"], jo["candidate_rank_ic"], rtol=1e-5)
+    np.testing.assert_allclose(to["incumbent_rank_ic"], jo["incumbent_rank_ic"], rtol=1e-5)
+    assert (to["promoted"], tserv, tp) == (jo["promoted"], jserv, jp)
+    assert sorted(tal) == sorted(jal)
+
+
+def _admit_rig(srv, tmp_path):
+    _, inc = _save_both(srv, 0, tmp_path, "inc")
+    _, cand = _save_both(srv, 1, tmp_path, "cand")
+    reg = ModelRegistry(device="cpu")
+    inc_key = reg.register_checkpoint(inc, alias="prod")
+    return ScoringDaemon(reg, srv["tds"]), reg, inc_key, cand
+
+
+def test_fidelity_gate_reject_keeps_the_incumbent(srv, tmp_path):
+    d, reg, inc_key, cand = _admit_rig(srv, tmp_path)
+    with chaos.active(chaos.ChaosPlan([chaos.Fault("fidelity_gate_reject", request=1)])):
+        out = d.admit(cand, "prod", holdout_days=HOLDOUT, min_margin=1.0)
+    assert not out["promoted"] and "forced" in out["reason"]
+    assert reg.keys() == [inc_key] and reg.resolve_key("prod") == inc_key
+    assert d.handle({"model": "prod", "day": 20})["model"] == inc_key
+
+
+_KILL_SCRIPT = r"""
+import json, sys
+from factorvae_tpu_torch import config
+from factorvae_tpu_torch.data.loader import PanelDataset
+from factorvae_tpu_torch.data.panel import Panel
+from factorvae_tpu_torch.serve.daemon import ScoringDaemon
+from factorvae_tpu_torch.serve.registry import ModelRegistry
+import numpy as np
+z = np.load(sys.argv[1])
+panel = Panel(values=z["values"], valid=z["valid"], dates=z["dates"],
+              instruments=z["instruments"])
+reg = ModelRegistry(device="cpu")
+reg.register_checkpoint(sys.argv[2], alias="prod")
+d = ScoringDaemon(reg, PanelDataset(panel, seq_len=5, device="cpu"))
+print(json.dumps(d.admit(sys.argv[3], "prod", holdout_days=[20, 21, 22, 23, 24],
+                         min_margin=1.0)), flush=True)
+"""
+
+
+def test_kill_between_admit_and_drain_then_rerun_flips(srv, tmp_path):
+    d, reg, inc_key, cand = _admit_rig(srv, tmp_path)
+    ds = srv["tds"]
+    panel_file = str(tmp_path / "panel.npz")
+    np.savez(panel_file, values=ds.panel.values, valid=ds.panel.valid, dates=ds.panel.dates,
+             instruments=np.asarray(ds.panel.instruments, str))
+    plan = chaos.ChaosPlan([chaos.Fault("kill_between_admit_and_drain", request=1)])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env[chaos.ENV_VAR] = plan.to_json()
+    proc = subprocess.run([sys.executable, "-c", _KILL_SCRIPT, panel_file,
+                           str(tmp_path / "port" / "inc"), cand],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == -9 and proc.stdout == "", proc.stderr
+    # the re-run admits the same bytes and completes the flip
+    out = d.admit(cand, "prod", holdout_days=HOLDOUT, min_margin=1.0)
+    again = d.admit(cand, "prod", holdout_days=HOLDOUT, min_margin=1.0)
+    assert out["promoted"] and out["incumbent"] == inc_key
+    assert again["promoted"] and again["generation"] == 1
+    assert reg.resolve_key("prod") == out["model"] and inc_key not in reg.keys()
+    assert d.handle({"model": "prod", "day": 20})["model"] == out["model"]
+
+
+# ---- the scheduler and the HTTP front ----------------------------------------
+
+
+def _two_model_daemon(srv, **kw):
+    _, ts = _sides(srv)
+    reg = ts.registry()
+    for i in (0, 1):
+        ts.register(reg, i, alias=f"m{i}")
+    return ScoringDaemon(reg, srv["tds"], **kw)
+
+
+def test_scheduler_answers_eight_threads_in_order(srv):
+    d = _two_model_daemon(srv)
+    sched = TickScheduler(d, tick_ms=50.0, max_tick_batch=64)
+    results = {}
+    go = threading.Barrier(8)
+
+    def client(c):
+        # two models on one day fuse within a submission, and across clients
+        reqs = [{"id": f"{c}-{k}", "model": f"m{k % 2}", "day": 20 + c % 3} for k in range(3)]
+        go.wait()
+        results[c] = sched.submit(reqs + [{"_parse_error": "bad JSON: x"}])
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)          # interleave the clients as tightly as it can
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+    sched.close()
+    for c, resp in results.items():
+        assert [r["id"] for r in resp] == [f"{c}-0", f"{c}-1", f"{c}-2", None]
+        assert all(r["ok"] for r in resp[:3]) and not resp[3]["ok"]
+    st = sched.stats()
+    assert len(results) == 8 and st["scheduled"] == 24 and st["fused_ticks"] > 0
+    assert d.fused_requests > 0
+    assert sched.submit([{"model": "m0", "day": 20}])[0]["error"] == "daemon is shutting down"
+
+
+def test_scheduler_close_answers_what_is_queued(srv):
+    d = _two_model_daemon(srv)
+    sched = TickScheduler(d, tick_ms=0.0, max_tick_batch=1)
+    got = []
+    with chaos.active(chaos.ChaosPlan([chaos.Fault("serve_stall", delay_s=0.3)])):
+        threads = [threading.Thread(target=lambda i=i: got.append(
+            sched.submit([{"id": i, "model": "m0", "day": 20}])[0])) for i in range(4)]
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 60
+        while sched.stats()["scheduled"] < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)          # the first tick stalls; the others queue behind it
+        sched.close()
+        for th in threads:
+            th.join(60)
+    assert sorted(r["id"] for r in got) == [0, 1, 2, 3] and all(r["ok"] for r in got)
+    assert sched.stats()["queued"] == 0 and not sched._thread.is_alive()
+
+
+def test_scheduler_admits_while_ticks_go_on(srv, tmp_path, monkeypatch):
+    d = _two_model_daemon(srv)
+    inc_key = d.registry.resolve_key("m0")
+    _, cand = _save_both(srv, 2, tmp_path, "cand")
+    sched = TickScheduler(d, tick_ms=1.0)
+    in_gate, release = threading.Event(), threading.Event()
+    gate = d._gate_rank_ic
+
+    def held_gate(key, days):        # the gate's scoring, held until released
+        in_gate.set()
+        assert release.wait(30), "the tick was not answered while the gate ran"
+        return gate(key, days)
+
+    monkeypatch.setattr(d, "_gate_rank_ic", held_gate)
+    out = []
+    admit = threading.Thread(target=lambda: out.extend(sched.submit([
+        {"id": "a", "cmd": "admit", "path": cand, "alias": "m0", "holdout_days": HOLDOUT,
+         "min_margin": 1.0}])))
+    admit.start()
+    try:
+        assert in_gate.wait(30)
+        # a tick during the admission answers, from the incumbent
+        (resp,) = sched.submit([{"id": 1, "model": "m0", "day": 20}])
+        assert resp["ok"] and resp["model"] == inc_key
+    finally:
+        release.set()
+        admit.join(60)
+    (verdict,) = out
+    assert verdict["id"] == "a" and verdict["cmd"] == "admit" and verdict["promoted"]
+    (after,) = sched.submit([{"id": 2, "model": "m0", "day": 20}])
+    assert after["model"] == verdict["model"] != inc_key
+    sched.close()
+    st = sched.stats()
+    assert st["admitted"] == 1 and st["queued"] == 0 and not sched._admit_thread.is_alive()
+
+
+class _Front:
+    """serve_http on 127.0.0.1, any free port, in a thread."""
+
+    def __init__(self, daemon, scheduler=None):
+        self.daemon = daemon
+        bound = threading.Event()
+        self.port = None
+
+        def ready(server):
+            self.port = server.server_address[1]
+            bound.set()
+
+        self.thread = threading.Thread(target=serve_http, args=(daemon, 0),
+                                       kwargs=dict(scheduler=scheduler, ready=ready))
+        self.thread.start()
+        assert bound.wait(30)
+
+    def call(self, method, path, body=None, headers=None, conn=None):
+        c = conn or http.client.HTTPConnection("127.0.0.1", self.port, timeout=60)
+        c.request(method, path, body=None if body is None else json.dumps(body),
+                  headers=headers or {})
+        r = c.getresponse()
+        data = r.read().decode()
+        if conn is None:
+            c.close()
+        ctype = r.getheader("Content-Type")
+        return r.status, (json.loads(data) if "json" in ctype else data)
+
+    def stop(self):
+        self.call("POST", "/score", {"cmd": "shutdown"})
+        self.thread.join(30)
+        assert not self.thread.is_alive()
+
+
+@pytest.mark.parametrize("threaded", [False, True], ids=["single", "scheduler"])
+def test_http_endpoints(srv, tmp_path, threaded):
+    d = _two_model_daemon(srv)
+    _, cand = _save_both(srv, 2, tmp_path, "cand")
+    path = str(tmp_path / "run.jsonl")
+    logger = tlogging.MetricsLogger(jsonl_path=path, echo=False)
+    prev = tlogging.install_timeline(tlogging.Timeline(logger))
+    front = _Front(d, TickScheduler(d, tick_ms=5.0) if threaded else None)
+    try:
+        status, one = front.call("POST", "/score", {"id": 1, "model": "m0", "day": 20},
+                                 headers={"X-Factorvae-Trace": "edge-7;lb"})
+        assert status == 200 and one["ok"] and one["id"] == 1
+        status, many = front.call("POST", "/score", [{"id": 2, "model": "m0", "day": 21},
+                                                     {"id": 3, "model": "m1", "day": 21}])
+        assert [r["batched_with"] for r in many] == [2, 2]
+        assert front.call("POST", "/score", [])[1] == []
+        status, stats = front.call("GET", "/stats")
+        assert status == 200 and stats["fused_requests"] == 2
+        assert ("scheduler" in stats) == threaded
+        status, models = front.call("GET", "/models")
+        assert {m["alias"] for m in models["models"]} == {"m0", "m1"} and models["run_meta"]
+        status, health = front.call("GET", "/healthz")
+        assert status == 200 and health["status"] == "ok" and health["mono"] >= 0
+        status, text = front.call("GET", "/metrics")
+        assert status == 200 and "factorvae_serve_request_latency_seconds_bucket" in text
+        assert front.call("POST", "/admit", {"alias": "prod"})[0] == 400
+        status, adm = front.call("POST", "/admit", {"path": cand, "alias": "prod"})
+        assert status == 200 and adm["promoted"] and adm["incumbent"] is None
+        status, prof = front.call("POST", "/profile", {"action": "start"})
+        assert status == 501 and "item 11" in prof["error"]
+        assert front.call("GET", "/nope")[0] == 404
+    finally:
+        front.stop()
+        tlogging.install_timeline(prev)
+        logger.finish()
+    spans = [json.loads(x) for x in open(path)]
+    traced = [s for s in spans if s.get("trace") == "edge-7"]
+    names = {s["name"] for s in traced}
+    assert {"serve_dispatch", "serve_request"} <= names
+    if threaded:
+        (q,) = [s for s in traced if s["name"] == "serve_queue"]
+        assert q["parent"] == "lb" and q["resource"] == "scheduler"
+
+
+def test_http_metrics_families_match_jax_and_503_while_draining(srv):
+    tick = [{"id": 1, "model": "m0", "day": 20}, {"id": 2, "model": "m1", "day": 20},
+            {"id": 3, "model": "m0", "day": 21}, {"id": 4, "model": "ghost", "day": 1}]
+    js, _ = _sides(srv)
+    jreg = js.registry()
+    for i in (0, 1):
+        js.register(jreg, i, alias=f"m{i}")
+    jd = JScoringDaemon(jreg, srv["jds"])
+    jd.handle_batch(tick)
+    d = _two_model_daemon(srv)
+    front = _Front(d, TickScheduler(d, tick_ms=1.0))
+    conn = http.client.HTTPConnection("127.0.0.1", front.port, timeout=60)
+    front.call("POST", "/score", tick, conn=conn)
+    _, text = front.call("GET", "/metrics", conn=conn)
+
+    def families(t):
+        return sorted(line for line in t.splitlines() if line.startswith("# TYPE"))
+
+    assert families(text) == families(jdaemon_metrics(jd))
+    assert front.call("GET", "/healthz", conn=conn)[0] == 200
+    d.request_drain()      # the loop ends; the kept-alive connection still answers
+    status, health = front.call("GET", "/healthz", conn=conn)
+    assert status == 503 and health["status"] == "draining"
+    conn.close()
+    front.thread.join(30)
+    assert not front.thread.is_alive()
+
+
+# ---- the serve CLI ---------------------------------------------------------
+
+
+def test_cli_batch_equals_handle_batch(srv, tmp_path):
+    paths = [_save_both(srv, i, tmp_path, f"w{i}")[1] for i in (0, 1)]
+    reqs = [{"id": 1, "model": "w0", "day": 20, "top": 4}, {"id": 2, "model": "w1", "day": 20},
+            {"id": 3, "model": "w1", "days": [21, 22]}, {"id": 4, "model": "w0", "day": 99},
+            {"id": 5, "cmd": "ping"}]
+    req_file = tmp_path / "reqs.jsonl"
+    req_file.write_text("\n".join(json.dumps(r) for r in reqs) + "\nnot json\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "factorvae_tpu_torch.serve", "--model", paths[0], "--model",
+         paths[1], "--synthetic", "30,12", "--device", "cpu", "--batch", str(req_file),
+         "--out", str(tmp_path / "out.jsonl"), "--compile_cache", str(tmp_path / "cc"),
+         "--warmup", "--budget_mb", "10"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = [json.loads(x) for x in open(tmp_path / "out.jsonl")]
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+
+    reg = ModelRegistry(device="cpu")
+    for p in paths:
+        reg.register_checkpoint(p)
+    ds = PanelDataset(synthetic_panel_dense(30, 12, SC, seed=0), seq_len=ST, device="cpu")
+    reg.warmup(ds)
+    sink = io.StringIO()
+    assert serve_batch_file(ScoringDaemon(reg, ds), str(req_file), sink) == 6
+    want = [json.loads(x) for x in sink.getvalue().splitlines()]
+    assert [_normal(r) for r in got] == [_normal(r) for r in want]
+    assert [r["batched_with"] for r in got[:3]] == [2, 2, 1] and not got[5]["ok"]
+
+
+@pytest.mark.parametrize("flag", [
+    ["--workers", "2"], ["--router_port", "8800"], ["--aot_store", "x"], ["--join", "u"],
+    ["--advertise_host", "h"], ["--slo_ms", "5"], ["--hedge_ms", "5"], ["--no_hedge"],
+    ["--autoscale", "4"], ["--max_inflight", "8"]], ids=lambda f: f[0].lstrip("-"))
+def test_cli_refuses_the_pool_flags_naming_item_6(flag, capsys):
+    from factorvae_tpu_torch.serve.__main__ import main
+
+    # the dataset does not exist: the refusal comes before it is read
+    assert main(["--dataset", "/nonexistent.pkl", *flag]) == 2
+    assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
