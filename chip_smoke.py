@@ -177,13 +177,50 @@ named phases, and prints neither the kernels line nor the result):
               keep-alive clients of 150 single-day requests: requests/s,
               p50/p99/max, a /metrics scrape, /healthz 200; (g) `python -m factorvae_tpu_torch.serve --batch`
               as a subprocess, equal to in-process serve_batch_file.
-14. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+14. pool   -- the serving fleet at flagship width on the 80-day panel,
+              f32 unless stated: (a) one model's weights exported on the
+              CPU as an f32 and an int8 AOT artifact (`torch.export`), loaded
+              on the card and admitted to a ModelRegistry; a 32-day request
+              to each with every launch counter set to 0 just before it: K1's
+              serving variant and K4 32 times each (one exported call per
+              day), nothing else, each launch within K1_TOL / K4_TOL of the
+              kernel's plain version on its inputs; the scores within
+              POOL_TOL (relative) of the in-process path (f32, and the int8
+              rung) and of the artifact on the CPU; sizes, export seconds,
+              load ms, and the 32-day and one-day latency of both paths; (b)
+              the fleet's CLI (`--workers 2 --router_port`) over four
+              weights directories, as a subprocess: its router's process
+              without a CUDA context, worker 1's /metrics compile 0 and
+              compile_cached >= 2, four 32-day requests routed within
+              POOL_TOL of the in-process scores, the workers' own launch
+              counters (`/stats`) before and after them (K1's serving variant
+              and K4 only), sticky owners, /stats with both workers' scrape
+              URLs, the merged /metrics with one HELP/TYPE per family, each
+              worker's reserved device memory, SIGTERM reaping every worker;
+              (c) 8 keep-alive clients x 150 single-day requests through the
+              router at 1, 2 and 4 workers, and the same load on one daemon
+              (`--http --scheduler`): requests/s, p50/p99/max, reserved
+              memory per process; (d) a pool of 2 over the store's artifacts
+              under 4 clients: kill_worker on worker 1, no request failed,
+              its keys rerouted, the respawn from the store on its port, its
+              scores bitwise those before the kill, the MTTR; (e) admit
+              fan-out (a bootstrap, then a flip under 4 clients whose answers
+              flip once), scale_up to 3 and scale_down to 2, a launch_remote
+              join (downloads sha-verified, registered with the store's
+              digest, scores bitwise worker 0's), kill_remote_worker and the
+              re-join, POST /upgrade with zero failed requests under 4
+              clients, and a hedged forward past a 1 s serve_stall on the
+              owner (two daemons on the card behind a router): the second
+              answer wins, counted once.
+15. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
               `launches_mixed` in the precision phase's mixed epoch,
               `launches_fleet` in the fleet epoch, `launches_stream` in
-              the stream phase's stream epoch and `launches_serve` in the
-              serve phase's fused ticks), and its `fleet_*` times
+              the stream phase's stream epoch, `launches_serve` in the
+              serve phase's fused ticks, `launches_artifact` in the pool
+              phase's f32 artifact request and `launches_pool` in the
+              fleet's workers for its routed requests), and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
               `fleet_bound_ms`, ...).
 
@@ -2827,6 +2864,634 @@ def phase_serve(torch, seed: int, counters, card: str) -> dict:
             "cli": {"seconds": cli_s, "responses": len(got)}}
 
 
+POOL_TOL = 1e-5            # artifact / routed scores vs the in-process path, max |a - b| / max(1, max |b|)
+POOL_MODELS = 4            # weights directories the fleets serve (one per worker at 4 workers)
+POOL_LOAD_CLIENTS = 8      # keep-alive clients of the load runs
+POOL_LOAD_PER_CLIENT = 150
+POOL_REPS = 5              # artifact and in-process 32-day requests timed, medians kept
+
+
+def _worker_launches(urls) -> dict:
+    """Kernel launches summed over the workers' own counters (`/stats`)."""
+    from factorvae_tpu_torch.serve.pool import http_json
+
+    out: dict = {}
+    for url in urls:
+        for name, n in http_json(url + "/stats", timeout=60)["kernel_launches"].items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def _worker_memory(urls) -> list:
+    from factorvae_tpu_torch.serve.pool import http_json
+
+    return [http_json(url + "/stats", timeout=60)["panel"]["memory_reserved"] for url in urls]
+
+
+class _SmiSampler:
+    """`nvidia-smi` every 200 ms while it runs: utilization.gpu (the share of
+    time a kernel of any process ran), the SM clock and the power draw. A
+    yardstick for the load runs, not a check."""
+
+    def __init__(self):
+        import threading
+
+        self.rows, self.proc, self.thread = [], None, None
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu,clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits", "-lms", "200"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            return             # no nvidia-smi: stop() reports no samples
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                self.rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+
+    def stop(self) -> dict:
+        if self.proc is not None:
+            self.proc.terminate()
+            self.proc.wait(timeout=30)
+            self.thread.join(timeout=30)
+        rows = np.asarray(self.rows[1:])    # the first sample may predate the load
+        if rows.ndim != 2 or len(rows) == 0:
+            return {"error": "nvidia-smi gave no samples"}
+        return {"gpu_util_pct_mean": float(rows[:, 0].mean()),
+                "sm_clock_mhz_median": float(np.median(rows[:, 1])),
+                "power_w_mean": float(rows[:, 2].mean()), "samples": int(len(rows))}
+
+
+def _daemon_counts(urls) -> dict:
+    """Requests served, dispatches, fused requests and ticks summed over the
+    daemons at `urls` (`/stats`)."""
+    from factorvae_tpu_torch.serve.pool import http_json
+
+    out = dict.fromkeys(("requests_served", "dispatches", "fused_requests", "ticks"), 0)
+    for url in urls:
+        st = http_json(url + "/stats", timeout=60)
+        for k in out:
+            out[k] += st[k]
+    return out
+
+
+def _load_run(port, dates, clients, per_client, what: str, sample: bool = False,
+              daemons=()) -> dict:
+    """`clients` keep-alive clients, `per_client` single-day requests each,
+    the models in turn: requests/s and latency, with `sample` the card's
+    utilization meanwhile, and what the daemons at `daemons` did for them
+    (dispatches, fused requests, ticks); every answer must be ok."""
+    import http.client
+    import threading
+
+    lat, fails, lock = [], [], threading.Lock()
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        for k in range(per_client):
+            t1 = time.perf_counter()
+            status, body = _http(conn, "POST", "/score",
+                                 {"id": k, "model": f"m{(c + k) % POOL_MODELS}",
+                                  "day": dates[20 + (k % 50)]})
+            dt = (time.perf_counter() - t1) * 1e3
+            with lock:
+                lat.append(dt)
+                if status != 200 or not json.loads(body).get("ok"):
+                    fails.append(body[:200])
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    before = _daemon_counts(daemons)
+    smi = _SmiSampler() if sample else None
+    t1 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    seconds = time.perf_counter() - t1
+    card = smi.stop() if smi is not None else None
+    after = _daemon_counts(daemons)
+    check(not fails and len(lat) == clients * per_client and not any(
+        th.is_alive() for th in threads), f"pool (c) {what}: {len(fails)} failed: {fails[:2]}")
+    return {"requests": len(lat), "clients": clients, "seconds": seconds,
+            "requests_per_s": len(lat) / seconds, **_lat_stats(lat), "card": card,
+            "daemons": {k: after[k] - before[k] for k in after}}
+
+
+class _Hammer:
+    """Keep-alive clients sending single-day requests until stopped; each
+    answer kept as (t_in, t_out, status, response)."""
+
+    def __init__(self, port, requests, clients=4):
+        import http.client
+        import threading
+
+        self.answers, self._stop = [], threading.Event()
+
+        def run(c):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            k = 0
+            while not self._stop.is_set():
+                req = dict(requests[(c + k) % len(requests)], id=c)
+                t_in = time.perf_counter()
+                try:
+                    status, body = _http(conn, "POST", "/score", req)
+                    resp = json.loads(body)
+                except (OSError, ValueError) as e:
+                    status, resp = 0, {"ok": False, "error": f"client: {e}"}
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+                self.answers.append((t_in, time.perf_counter(), status, resp))
+                k += 1
+            conn.close()
+
+        self.threads = [threading.Thread(target=run, args=(c,)) for c in range(clients)]
+        for th in self.threads:
+            th.start()
+
+    def stop(self) -> list:
+        self._stop.set()
+        for th in self.threads:
+            th.join(120)
+        check(not any(th.is_alive() for th in self.threads), "pool: a client hung")
+        return [a for a in self.answers if a[2] != 200 or not a[3].get("ok")]
+
+
+def _wait_for(cond, timeout_s: float, what: str, step: float = 0.05) -> float:
+    """Seconds until `cond()` holds; a failed check after `timeout_s`."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout_s, f"pool: {what} within {timeout_s:g}s")
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def _family_heads_unique(text: str) -> bool:
+    heads = [ln for ln in text.splitlines() if ln.startswith(("# HELP", "# TYPE"))]
+    return len(heads) == len(set(heads)) and len(heads) > 0
+
+
+def phase_pool(torch, seed: int, counters, card: str) -> dict:
+    """The serving fleet at flagship width on the 80-day panel (see the
+    module docstring, phase 14)."""
+    import http.client
+    import tempfile
+
+    from factorvae_tpu_torch import chaos
+    from factorvae_tpu_torch.chaos import ChaosPlan, Fault
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.eval.export_aot import export_prediction
+    from factorvae_tpu_torch.models.factorvae import load_model
+    from factorvae_tpu_torch.ops.kernels import plain
+    from factorvae_tpu_torch.ops.kernels.attention import attention_fwd_plain
+    from factorvae_tpu_torch.ops.kernels.gru import gru_fwd_plain
+    from factorvae_tpu_torch.params import save_weights
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.serve.daemon import ScoringDaemon, TickScheduler, serve_http
+    from factorvae_tpu_torch.serve.pool import WorkerPool, free_port, http_json, http_text
+    from factorvae_tpu_torch.serve.registry import ModelRegistry
+    from factorvae_tpu_torch.serve.router import Router
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()     # the earlier phases' cached blocks, for the workers
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = get_preset("flagship")
+    m = base.model
+    panel = synthetic_panel_dense(80, 300, m.num_features, seed=seed)
+    dataset = PanelDataset(panel, seq_len=m.seq_len, device="cuda")
+    dates = [str(d) for d in dataset.dates]
+    days32 = dataset.split_days(dates[40], dates[71])
+    check(len(days32) == 32 and dataset.n_max == 304, "pool: the 32-day request")
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_pool_")
+
+    def cfg_of(s):
+        return dataclasses.replace(base, train=dataclasses.replace(base.train, seed=s))
+
+    dirs = [save_weights(load_model(cfg_of(seed + 300 + i), device="cpu"), cfg_of(seed + 300 + i),
+                         os.path.join(work.name, "weights", f"m{i}"))
+            for i in range(POOL_MODELS + 2)]
+    inproc = ModelRegistry(device="cuda")
+    for i, p in enumerate(dirs):
+        inproc.register_checkpoint(p, alias=f"m{i}")
+    inproc.register_checkpoint(dirs[0], precision="int8", alias="m0q")
+
+    # (a) artifacts: f32 and int8 exported on the CPU, loaded on the card
+    c0 = cfg_of(seed + 300)
+    cpu_model = load_model(c0, dirs[0], device="cpu")
+    arts, sizes, export_s, load_ms = {}, {}, {}, {}
+    reg = ModelRegistry(device="cuda")
+    for rung, int8 in (("float32", False), ("int8", True)):
+        t1 = time.perf_counter()
+        blob = export_prediction(cpu_model, c0, dataset.n_max, int8=int8, platform="cuda")
+        export_s[rung] = time.perf_counter() - t1
+        arts[rung] = os.path.join(work.name, f"a_{rung}")
+        with open(arts[rung], "wb") as fh:
+            fh.write(blob)
+        sizes[rung] = len(blob)
+        t1 = time.perf_counter()
+        reg.register_artifact(arts[rung], alias=rung)
+        load_ms[rung] = (time.perf_counter() - t1) * 1e3
+        reg.score(rung, dataset, days32[:1])             # the first call
+    torch.cuda.synchronize()
+    want = {"float32": inproc.score("m0", dataset, days32),
+            "int8": inproc.score("m0q", dataset, days32)}
+    got, per_rung, seen = {}, {}, []
+    tag = {"rung": None}
+    real = _recording(seen, tag)
+    try:
+        for rung in ("float32", "int8"):
+            tag["rung"] = rung
+            for c in counters:
+                c.launches = 0
+            got[rung] = reg.score(rung, dataset, days32)
+            torch.cuda.synchronize()
+            per_rung[rung] = {c.__name__: c.launches for c in counters}
+    finally:
+        _restore(real)
+    launches_artifact = per_rung["float32"]
+    for rung, ls in per_rung.items():
+        check(ls["gru_fwd"] == 32 and ls["attention_fwd"] == 32
+              and all(n == 0 for k, n in ls.items() if k not in ("gru_fwd", "attention_fwd")),
+              f"pool (a): the {rung} artifact's 32-day request launched {ls}")
+    plain_fn = {"gru_fwd": gru_fwd_plain, "attention_fwd": attention_fwd_plain}
+    kernel_errs: dict = {}
+    with torch.inference_mode():
+        for rung, name, args, out in seen:
+            ref = plain(plain_fn[name], args[0].ndim == 4, *args)
+            key = f"{rung}/{name}"
+            e = kernel_errs.setdefault(key, {"max_abs_err": 0.0, "launches": 0,
+                                             "shape": list(args[0].shape)})
+            e["max_abs_err"] = max(e["max_abs_err"], float((out - ref).abs().max()))
+            e["launches"] += 1
+    del seen
+    for key, e in kernel_errs.items():
+        tol = K1_TOL if key.endswith("gru_fwd") else K4_TOL
+        check(e["launches"] == 32 and e["max_abs_err"] <= tol,
+              f"pool (a): {key} vs its plain version {e} > {tol}")
+    vs_inproc = {r: _np_rel(got[r][:, :300], want[r][:, :300]) for r in got}
+    for r, e in vs_inproc.items():
+        check(bool(np.isfinite(got[r][:, :300]).all()) and e <= POOL_TOL,
+              f"pool (a): the {r} artifact vs the in-process path {e} > {POOL_TOL}")
+    cpu_reg = ModelRegistry(device="cpu")
+    cpu_reg.register_artifact(arts["float32"], alias="a")
+    cpu_scores = cpu_reg.score("a", PanelDataset(panel, seq_len=m.seq_len, device="cpu"), days32)
+    vs_cpu = _np_rel(got["float32"][:, :300], cpu_scores[:, :300])
+    check(vs_cpu <= POOL_TOL, f"pool (a): the artifact on the card vs on the CPU {vs_cpu}")
+
+    def med_ms(fn):
+        ts = []
+        for _ in range(POOL_REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(ts))
+
+    latency = {"artifact_32_days_ms": med_ms(lambda: reg.score("float32", dataset, days32)),
+               "inprocess_32_days_ms": med_ms(lambda: inproc.score("m0", dataset, days32)),
+               "artifact_int8_32_days_ms": med_ms(lambda: reg.score("int8", dataset, days32)),
+               "artifact_1_day_ms": med_ms(lambda: reg.score("float32", dataset, days32[:1])),
+               "inprocess_1_day_ms": med_ms(lambda: inproc.score("m0", dataset, days32[:1])),
+               "launches_per_32_days": {"artifact": 32, "inprocess": 1}}
+    artifact = {"bytes": sizes, "export_s_cpu": export_s, "load_ms": load_ms,
+                "launches": per_rung, "kernel_vs_plain": kernel_errs,
+                "vs_inprocess_max_rel_err": vs_inproc, "vs_cpu_max_rel_err": vs_cpu,
+                "tolerance": POOL_TOL, "latency": latency}
+    print(f"[pool] (a) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+
+    # (b) the fleet's CLI: 2 workers and the router over the weights
+    # directories; the router's process exports the store on the CPU
+    store = os.path.join(work.name, "store")
+    rport = free_port()
+    router_url = f"http://127.0.0.1:{rport}"
+    cmd = [sys.executable, "-m", "factorvae_tpu_torch.serve"]
+    for p in dirs[:POOL_MODELS]:
+        cmd += ["--model", p]
+    cmd += ["--synthetic", "80,300", "--seed", str(seed), "--workers", "2",
+            "--router_port", str(rport), "--aot_store", store]
+    log_path = os.path.join(work.name, "pool_cli.log")
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=repo)
+
+    def fleet_up():
+        if proc.poll() is not None:
+            with open(log_path) as fh:
+                check(False, f"pool (b): the fleet's CLI exited {proc.returncode}: "
+                             f"{fh.read()[-2000:]}")
+        try:
+            return http_json(router_url + "/healthz", timeout=2)["workers_healthy"] == 2
+        except Exception:      # noqa: BLE001 - not listening yet
+            return False
+
+    try:
+        start_s = _wait_for(fleet_up, 400, "the fleet's CLI answering with 2 workers", 0.2)
+        stats = http_json(router_url + "/stats", timeout=60)
+        workers = stats["pool"]["workers"]
+        urls = [w["url"] for w in workers]
+        check(stats["router"]["cuda_initialized"] is False,
+              "pool (b): the router's process made a CUDA context")
+        check([w["worker_id"] for w in workers] == ["w0", "w1"]
+              and all(w["metrics"] == w["url"] + "/metrics" and w["stats"] == w["url"] + "/stats"
+                      for w in workers), f"pool (b): /stats workers {workers}")
+        compile_w1 = {kind: float(line.rsplit(" ", 1)[1])
+                      for kind in ("compile", "compile_cached")
+                      for line in http_text(urls[1] + "/metrics").splitlines()
+                      if line.startswith(f'factorvae_compile_total{{kind="{kind}"}}')}
+        check(compile_w1.get("compile") == 0 and compile_w1.get("compile_cached", 0) >= 2,
+              f"pool (b): worker 1's build taxonomy {compile_w1}")
+        reqs = [{"id": i, "model": f"m{i}", "start": dates[40], "end": dates[71]}
+                for i in range(POOL_MODELS)]
+        before = _worker_launches(urls)
+        t1 = time.perf_counter()
+        routed = http_json(router_url + "/score", reqs, timeout=300)
+        routed_ms = (time.perf_counter() - t1) * 1e3
+        after = _worker_launches(urls)
+        launches_pool = {k: after[k] - before[k] for k in after}
+        check(launches_pool["gru_fwd"] > 0 and launches_pool["attention_fwd"] > 0
+              and all(n == 0 for k, n in launches_pool.items()
+                      if k not in ("gru_fwd", "attention_fwd")),
+              f"pool (b): the workers' launches {launches_pool}")
+        routed_err = 0.0
+        for i, resp in enumerate(routed):
+            check(resp["ok"], f"pool (b): {resp.get('error')}")
+            ref = inproc.score(f"m{i}", dataset, days32)[:, :300].reshape(-1)
+            routed_err = max(routed_err, _np_rel(_resp_scores(resp), ref))
+        check(routed_err <= POOL_TOL, f"pool (b): routed vs in-process {routed_err}")
+        owners = {r["model"]: r["worker"] for r in routed}
+        for _ in range(3):
+            again = http_json(router_url + "/score",
+                              [{"model": f"m{i}", "day": dates[60]} for i in range(POOL_MODELS)])
+            check({r["model"]: r["worker"] for r in again} == owners,
+                  "pool (b): a key moved to another worker")
+        merged = http_text(router_url + "/metrics")
+        check(_family_heads_unique(merged)
+              and all(f'factorvae_serve_ticks_total{{worker_id="{w}"}}' in merged
+                      for w in ("w0", "w1")), "pool (b): the merged /metrics")
+        memory_b = _worker_memory(urls)
+        pids = [w["pid"] for w in workers]
+    finally:
+        proc.terminate()
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(timeout=30)
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    check(rc == 0 and not alive, f"pool (b): SIGTERM left rc {rc}, live workers {alive}")
+    check(all(os.path.isfile(os.path.join(store, f"m{i}")) for i in range(POOL_MODELS)),
+          "pool (b): the store's artifacts")
+    cli_fleet = {"start_s": start_s, "workers": 2, "compile_w1": compile_w1,
+                 "routed_4x32_days_ms": routed_ms, "routed_vs_inprocess_max_rel_err": routed_err,
+                 "owners": owners, "memory_reserved": memory_b,
+                 "metrics_bytes": len(merged), "router_cuda_initialized": False}
+    print(f"[pool] (b) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+
+    # (c) load: the router over 1, 2 and 4 workers, then the single daemon
+    load = {}
+    for n in (1, 2, 4):
+        pool = WorkerPool(dirs[:POOL_MODELS], ["--synthetic", "80,300"], n, store,
+                          work_dir=os.path.join(work.name, f"load{n}"), device="cuda",
+                          extra_args=["--seed", str(seed)])
+        router = Router(pool, hedge=False)
+        try:
+            t1 = time.perf_counter()
+            pool.start()
+            up_s = time.perf_counter() - t1
+            port = router.start()
+            _load_run(port, dates, POOL_LOAD_CLIENTS, 4, f"{n} workers' warm-up")
+            run = _load_run(port, dates, POOL_LOAD_CLIENTS, POOL_LOAD_PER_CLIENT,
+                            f"{n} workers", sample=True,
+                            daemons=[w.url for w in pool.workers])
+            run.update(start_s=up_s, memory_reserved=_worker_memory([w.url for w in
+                                                                      pool.workers]),
+                       router=router.stats()["router"])
+            load[str(n)] = run
+        finally:
+            router.stop()
+    sport = free_port()
+    cmd = [sys.executable, "-m", "factorvae_tpu_torch.serve"]
+    for p in dirs[:POOL_MODELS]:
+        cmd += ["--model", p]
+    cmd += ["--synthetic", "80,300", "--seed", str(seed), "--http", str(sport), "--scheduler",
+            "--warmup"]
+    single = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                              cwd=repo)
+    try:
+        def single_up():
+            check(single.poll() is None, "pool (c): the single daemon exited")
+            try:
+                return http_json(f"http://127.0.0.1:{sport}/healthz", timeout=2)["ok"]
+            except Exception:      # noqa: BLE001 - not listening yet
+                return False
+
+        _wait_for(single_up, 300, "the single daemon", 0.2)
+        _load_run(sport, dates, POOL_LOAD_CLIENTS, 4, "the single daemon's warm-up")
+        load["single_daemon"] = _load_run(sport, dates, POOL_LOAD_CLIENTS,
+                                          POOL_LOAD_PER_CLIENT, "the single daemon",
+                                          sample=True,
+                                          daemons=[f"http://127.0.0.1:{sport}"])
+        load["single_daemon"]["memory_reserved"] = _worker_memory(
+            [f"http://127.0.0.1:{sport}"])
+    finally:
+        single.terminate()
+        single.wait(timeout=120)
+    print(f"[pool] (c) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+
+    # (d) kill_worker under load, on a pool over the store's artifacts
+    arts4 = [os.path.join(store, f"m{i}") for i in range(POOL_MODELS)]
+    pool = WorkerPool(arts4, ["--synthetic", "80,300"], 2, store,
+                      work_dir=os.path.join(work.name, "chaos"), device="cuda",
+                      extra_args=["--seed", str(seed)], health_interval_s=0.2)
+    router = Router(pool, hedge=False)
+    try:
+        pool.start()
+        rport = router.start()
+        probe = [{"model": f"m{i}", "day": dates[50]} for i in range(POOL_MODELS)]
+        before = http_json(f"http://127.0.0.1:{rport}/score", probe, timeout=300)
+        victim = pool.worker("w1")
+        vkeys = [r["model"] for r in before if r["worker"] == "w1"]
+        check(vkeys and all(r["ok"] for r in before), f"pool (d): worker 1 owns {vkeys}")
+        port_before = victim.port
+        hammer = _Hammer(rport, probe, clients=4)
+        time.sleep(0.5)
+        plan = ChaosPlan([Fault("kill_worker", request=victim.index)])
+        with chaos.active(plan):
+            _wait_for(lambda: plan.fired, 30, "kill_worker firing", 0.005)
+            t_kill = time.perf_counter()
+            mttr = _wait_for(lambda: victim.restarts == 1 and victim.state == "ok", 300,
+                             "the killed worker healthy again", 0.02)
+        time.sleep(0.5)
+        failed = hammer.stop()
+        n_answers = len(hammer.answers)
+        during = [a for a in hammer.answers if t_kill <= a[0] <= t_kill + mttr]
+        rerouted = [a for a in during if a[3].get("worker") == "w0"
+                    and a[3].get("model") in vkeys]
+        # the killed worker's own answers now: its keys moved to worker 0
+        # while it was down, so ask it directly
+        vidx = [i for i, r in enumerate(before) if r["worker"] == "w1"]
+        after = http_json(victim.url + "/score", [probe[i] for i in vidx], timeout=300)
+        after = after if isinstance(after, list) else [after]
+        check(not failed, f"pool (d): {len(failed)} failed requests: {failed[:2]}")
+        check(rerouted and victim.respawn_source == "aot_store" and victim.port == port_before,
+              f"pool (d): rerouted {len(rerouted)}, source {victim.respawn_source}")
+        check([a["results"] for a in after]
+              == [before[i]["results"] for i in vidx],
+              "pool (d): the respawned worker's scores differ from before the kill")
+        # how much of the MTTR a bare process that imports torch and makes
+        # its CUDA context takes
+        t1 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import torch; torch.zeros(1, device='cuda'); "
+                        "torch.cuda.synchronize()"], check=True, timeout=300)
+        bare_start_s = time.perf_counter() - t1
+        kill = {"mttr_s": mttr, "bare_cuda_process_s": bare_start_s,
+                "requests": n_answers, "failed": 0,
+                "answered_while_down": len(during), "rerouted": len(rerouted),
+                "router": {k: router.stats()["router"][k]
+                           for k in ("reroutes", "proxy_errors", "requests")},
+                "respawn_source": victim.respawn_source, "port_kept": True}
+        print(f"[pool] (d) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+
+        # (e) the control plane: admit fan-out, scaling, a remote join and
+        # its kill, a rolling upgrade, then a hedged forward
+        days5 = [int(d) for d in days32[-5:]]
+        boot = pool.admit_fanout({"path": dirs[POOL_MODELS], "alias": "prod"})
+        check(boot["ok"] and all(w["promoted"] for w in boot["workers"]),
+              f"pool (e): the bootstrap admission {boot}")
+        prod = [{"model": "prod", "day": dates[60]}]
+        hammer = _Hammer(rport, prod, clients=4)
+        time.sleep(0.5)
+        t1 = time.perf_counter()
+        flip = pool.admit_fanout({"path": dirs[POOL_MODELS + 1], "alias": "prod",
+                                  "holdout_days": days5, "min_margin": 1.0})
+        admit_s = time.perf_counter() - t1
+        time.sleep(0.5)
+        failed = hammer.stop()
+        admit_requests = len(hammer.answers)
+        check(not failed and flip["ok"] and all(w["promoted"] for w in flip["workers"])
+              and len(flip["workers"]) == 2, f"pool (e): the admission {flip} {failed[:2]}")
+        inc, cand = boot["workers"][0]["model"], flip["workers"][0]["model"]
+        for c in range(4):
+            seq = [a[3]["model"] for a in hammer.answers if a[3].get("id") == c]
+            flips = sum(1 for x, y in zip(seq, seq[1:]) if x != y)
+            check(seq and seq[0] == inc and seq[-1] == cand and flips == 1,
+                  f"pool (e): client {c}'s answers flip {flips} times")
+        t1 = time.perf_counter()
+        w2 = pool.scale_up()
+        up_s = time.perf_counter() - t1
+        check(w2 is not None and len(pool.healthy_ids()) == 3
+              and w2.respawn_source == "aot_store", "pool (e): scale_up to 3")
+        down = pool.scale_down()
+        check(down is w2 and len(pool.workers) == 2 and w2.proc.poll() is not None,
+              "pool (e): scale_down to 2")
+        pool.router_url = f"http://127.0.0.1:{rport}"
+        t1 = time.perf_counter()
+        agent = pool.launch_remote()
+        _wait_for(lambda: agent.capability is not None and agent.state == "ok", 300,
+                  "the remote agent registered", 0.05)
+        join_s = time.perf_counter() - t1
+        check(agent.capability == pool.store.capability_digest(),
+              "pool (e): the agent's capability digest")
+        agent_store = os.path.join(pool.work_dir, f"r{agent.index}_store")
+        man = {a["alias"]: a["sha256"] for a in pool.store.manifest()}
+        from factorvae_tpu_torch.serve.pool import file_sha256
+
+        check(sorted(man) == sorted(n for n in os.listdir(agent_store)
+                                    if not n.endswith(".meta.json"))
+              and all(file_sha256(os.path.join(agent_store, a)) == s for a, s in man.items()),
+              "pool (e): the agent's downloads")
+        via_agent = http_json(agent.url + "/score", probe[0], timeout=300)
+        via_w0 = http_json(pool.worker("w0").url + "/score", probe[0], timeout=300)
+        check(via_agent["ok"] and via_agent["results"] == via_w0["results"],
+              "pool (e): the remote agent's scores differ from worker 0's")
+        agent.capability = None
+        plan = ChaosPlan([Fault("kill_remote_worker", request=agent.index)])
+        with chaos.active(plan):
+            _wait_for(lambda: plan.fired, 30, "kill_remote_worker firing", 0.005)
+            t_kill = time.perf_counter()
+            rejoin_s = _wait_for(lambda: agent.restarts == 1 and agent.state == "ok"
+                                 and agent.capability is not None, 300,
+                                 "the remote agent's re-join", 0.05)
+        check(pool.stats()["remote_kills"] == 1 and agent.respawn_source == "artifact_service",
+              "pool (e): kill_remote_worker")
+        pool.deregister(agent.wid)
+        hammer = _Hammer(rport, probe, clients=4)
+        t1 = time.perf_counter()
+        started = http_json(f"http://127.0.0.1:{rport}/upgrade", {}, timeout=60)
+        _wait_for(lambda: (http_json(f"http://127.0.0.1:{rport}/stats", timeout=60)
+                           .get("last_upgrade") or {}).get("ok") is not None, 600,
+                  "the rolling upgrade", 0.2)
+        upgrade_s = time.perf_counter() - t1
+        time.sleep(0.5)
+        failed = hammer.stop()
+        upgrade = http_json(f"http://127.0.0.1:{rport}/stats", timeout=60)["last_upgrade"]
+        check(started["ok"] and upgrade["ok"] and len(upgrade["workers"]) == 2 and not failed,
+              f"pool (e): the rolling upgrade {upgrade}, {len(failed)} failed: {failed[:2]}")
+        control = {"admit_s": admit_s, "admit_requests": admit_requests,
+                   "scale_up_s": up_s, "remote_join_s": join_s,
+                   "remote_rejoin_s": rejoin_s, "upgrade_s": upgrade_s,
+                   "upgrade": upgrade, "upgrade_requests": len(hammer.answers),
+                   "failed": 0}
+    finally:
+        router.stop()
+
+    # a hedged forward: two daemons on the card behind a router, the key's
+    # owner stalled by serve_stall; the duplicate's answer wins, counted once
+    hreg = ModelRegistry(device="cuda")
+    hreg.register_checkpoint(dirs[0], alias="m0")
+    fronts = []
+    for _ in range(2):
+        d = ScoringDaemon(hreg, dataset)
+        fronts.append((d,) + _start_front(serve_http, d, TickScheduler(d, tick_ms=2.0)))
+    hpool = WorkerPool([], ["--synthetic", "80,300"], 1, os.path.join(work.name, "hstore"),
+                       work_dir=os.path.join(work.name, "hedge"), device="cuda")
+    hws = [hpool.adopt_remote("127.0.0.1", port) for _, port, _ in fronts]
+    hrouter = Router(hpool, hedge_ms=50.0)
+    hrouter._assign["m0"] = hws[0].wid
+    hport = hrouter.start()
+    try:
+        with chaos.active(ChaosPlan([Fault("serve_stall", delay_s=1.0)])):
+            t1 = time.perf_counter()
+            won = http_json(f"http://127.0.0.1:{hport}/score",
+                            {"id": 1, "model": "m0", "day": dates[60]}, timeout=60)
+            hedge_ms = (time.perf_counter() - t1) * 1e3
+            time.sleep(1.2)        # the stalled leg lands and is discarded
+        hs = hrouter.stats()["router"]
+        check(won["ok"] and won["worker"] == hws[1].wid and hedge_ms < 1000
+              and (hs["requests"], hs["forwarded"]) == (1, 1)
+              and hs["hedge"]["hedges"] == 1 and hs["hedge"]["hedge_wins"] == 1
+              and hrouter.lat_hist.count == 1 and hs["proxy_errors"] == 0,
+              f"pool (e): the hedged forward {hs} in {hedge_ms}ms")
+        hedge = {"answer_ms": hedge_ms, "stall_ms": 1000.0, "hedge_delay_ms": 50.0,
+                 "router": {k: hs[k] for k in ("requests", "forwarded", "proxy_errors")},
+                 "hedges": hs["hedge"]["hedges"], "hedge_wins": hs["hedge"]["hedge_wins"]}
+    finally:
+        hrouter.stop(stop_pool=False)
+        for d, port, th in fronts:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            _http(conn, "POST", "/score", {"cmd": "shutdown"})
+            conn.close()
+            th.join(60)
+    work.cleanup()
+    return {"phase": "pool", "card": card,
+            "config": "flagship C158/T20/H64/K96/M128 on the 80-day panel of 300 stocks",
+            "launches_artifact": launches_artifact, "launches_pool": launches_pool,
+            "artifact": artifact, "cli_fleet": cli_fleet, "load": load, "kill": kill,
+            "control": control, "hedge": hedge, "seconds": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2869,7 +3534,8 @@ def main(argv=None) -> int:
         "cli": lambda: phase_cli(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "fleet": lambda: phase_fleet(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "stream": lambda: phase_stream(torch, args.seed, counters, phases[0]["nvidia_smi"]),
-        "serve": lambda: phase_serve(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "serve": lambda: phase_serve(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "pool": lambda: phase_pool(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -2912,6 +3578,8 @@ def main(argv=None) -> int:
                      "launches_fleet": by["fleet"]["launches"][name],
                      "launches_stream": by["stream"]["train"]["launches"][name],
                      "launches_serve": by["serve"]["launches"][name],
+                     "launches_artifact": by["pool"]["launches_artifact"][name],
+                     "launches_pool": by["pool"]["launches_pool"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],
                      "tolerance": ph["tolerance"],

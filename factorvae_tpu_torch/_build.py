@@ -4,7 +4,11 @@ Each `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, compiled for Hopper (`sm_90a`) into `_build/` at first use. The
 library's file name carries a hash of its source, of the shared headers and
 of the flags, so an edited source is rebuilt and a stale library is never
-loaded. `build()` starts one nvcc per missing library, all at once.
+loaded. `build()` starts one nvcc per missing library, all at once, holding
+an exclusive lock on `_build/.build.lock` (`fcntl.flock`, released by the
+kernel if the process dies) from the check to the rename: two processes
+that miss the same library (a pool's workers joining at once) build it
+once, and the second finds it built.
 
 No `--use_fast_math`: it would change `expf`/`tanhf` and widen every
 tolerance against the plain PyTorch versions.
@@ -16,7 +20,9 @@ tolerance against the plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -62,10 +68,28 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS) -> dict:
-    """Compile every missing library in parallel; returns {name: ptxas log}
-    (empty for a library that was already built). Raises on a failed build."""
+@contextlib.contextmanager
+def _exclusive():
+    """This process alone between a library's existence check and its
+    rename into place."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every missing library in parallel, under the build lock;
+    returns {name: ptxas log} (empty for a library that was already built).
+    Raises on a failed build."""
+    with _exclusive():
+        return _build_missing(names)
+
+
+def _build_missing(names) -> dict:
     procs = {}
     for name in names:
         out = library_path(name)
@@ -100,7 +124,7 @@ def load(name: str) -> ctypes.CDLL:
         path = library_path(name)
         if not path.exists():
             build((name,))
-        elif name not in _compiled:
+        if name not in _compiled:     # built by an earlier or a concurrent process
             _counts["compile_cached"] += 1
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib

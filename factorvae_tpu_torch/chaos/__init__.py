@@ -34,6 +34,13 @@ The ported kinds and their injection points:
     kill_between_admit_  ScoringDaemon.admit, after  a re-run re-admits the
     and_drain            the verdict, before the     same bytes and completes
                          alias flip (SIGKILL)        the flip
+    kill_worker          WorkerPool's watcher tick   the router reroutes; the
+                         (`request` = the worker's   watcher respawns the
+                         index): SIGKILL a local     worker from the AOT store
+                         worker                      on the same port
+    kill_remote_worker   the same, for a pool-       the agent's cold re-join:
+                         launched remote agent       verified downloads, then
+                                                     re-registration
 
 A plan that names any other kind of the JAX package is refused, never
 ignored.
@@ -50,7 +57,8 @@ from typing import Iterator, List, Optional, Sequence
 
 KINDS = ("nan_grads", "stream_fail", "stream_stall", "kill_mid_append",
          "corrupt_append_slab", "serve_cold_fail", "serve_stall", "serve_malformed",
-         "fidelity_gate_reject", "kill_between_admit_and_drain")
+         "fidelity_gate_reject", "kill_between_admit_and_drain", "kill_worker",
+         "kill_remote_worker")
 ENV_VAR = "FACTORVAE_CHAOS"
 
 _COORDS = ("epoch", "step", "lane", "chunk", "request")

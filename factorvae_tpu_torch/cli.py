@@ -9,7 +9,9 @@ best-validation weights and full-state checkpoints (`--resume` continues
 from the newest; a bad streak rolls back, `train/trainer.py`), scores
 [--score_start, --score_end] from the best weights, writes the score CSV
 under the reference's name, logs RankIC and RankIC_IR, and with
-`--backtest` runs the TopkDropout backtest. Every flag of the JAX CLI is
+`--backtest` runs the TopkDropout backtest; `--export PATH` writes an AOT
+artifact of the best weights (`eval/export_aot.py`, for `--export_platform`
+cuda or cpu, default `--device`). Every flag of the JAX CLI is
 accepted with its name and default; `--device` (default cuda) picks the
 card, where the CUDA kernels always run, or the CPU.
 
@@ -163,8 +165,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backtest_n_drop", type=int, default=10)
     p.add_argument("--backtest_plot", type=str, default=None, metavar="PNG",
                    help="with --backtest, write the report_graph figure here")
-    p.add_argument("--export", type=str, default=None, metavar="PATH", help=_REFUSED)
-    p.add_argument("--export_platform", type=str, default=None, help=_REFUSED)
+    p.add_argument("--export", type=str, default=None, metavar="PATH",
+                   help="write an AOT artifact of the best-val weights here "
+                        "(eval/export_aot.py: a torch.export program the serving "
+                        "registry admits); int8 with --int8_scores")
+    p.add_argument("--export_platform", type=str, default=None,
+                   help="the device the artifact is for: cuda or cpu (default: "
+                        "--device); the export itself runs on the CPU")
     p.add_argument("--device", default="cuda",
                    help="cuda (the card, through the CUDA kernels) or cpu (their "
                         "plain PyTorch versions)")
@@ -180,13 +187,15 @@ def refusal(args: argparse.Namespace) -> Optional[str]:
         (args.compile_cache not in (None, "off"), "--compile_cache", 9),
         (args.obs is True, "--obs", 11),
         (args.prom_textfile is not None, "--prom_textfile", 11),
-        (args.profile is not None, "--profile", 11), (args.debug_nans, "--debug_nans", 11),
-        (args.export is not None, "--export", 6),
-        (args.export_platform is not None, "--export_platform", 6))
+        (args.profile is not None, "--profile", 11), (args.debug_nans, "--debug_nans", 11))
     for given, flag, item in not_ported:
         if given:
             return (f"{flag} is not ported to factorvae_tpu_torch yet "
                     f"(ROADMAP Queue 1 item {item})")
+    if args.export_platform not in (None, "cuda", "cpu"):
+        return (f"--export_platform {args.export_platform}: the port exports "
+                "torch.export programs for cuda or cpu; a TPU artifact is the JAX "
+                "package's (python -m factorvae_tpu.cli --export)")
     if args.pallas is False:
         return ("--no-pallas: factorvae_tpu_torch has no switch that turns a kernel "
                 "off on the card (ROADMAP: on CUDA the kernels always run); "
@@ -314,8 +323,8 @@ def main(argv=None) -> int:
 
 def run(cfg: Config, args: argparse.Namespace, panel) -> int:
     """Everything after the panel is built: train (or restore the best
-    weights for --score_only), score, export, RankIC, --backtest. Returns
-    the exit code."""
+    weights for --score_only), score, export the CSV, RankIC, --backtest,
+    --export's artifact. Returns the exit code."""
     logger = MetricsLogger(jsonl_path=args.metrics_jsonl, use_wandb=cfg.train.wandb,
                            run_name=cfg.train.run_name, config=cfg.to_dict())
     try:
@@ -382,6 +391,16 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
                    export_s=export_s)
         if args.backtest:
             _backtest(cfg, args, table, logger)
+        if args.export:
+            from factorvae_tpu_torch.eval.export_aot import export_prediction
+
+            blob = export_prediction(
+                model, cfg, n_max=dataset.n_max, stochastic=cfg.model.stochastic_inference,
+                int8=args.int8_scores,
+                platform=args.export_platform or torch.device(args.device).type)
+            with open(args.export, "wb") as fh:
+                fh.write(blob)
+            logger.log("export", path=args.export, bytes=len(blob))
         return 0
     finally:
         logger.finish()

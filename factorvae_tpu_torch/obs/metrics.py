@@ -12,16 +12,18 @@ family names. It reads counters only and scores nothing.
 ones `_build.load` found already built in the build directory (the port's
 cache: a restarted daemon on a built tree scrapes compile 0).
 
-The fleet merge (`merge_expositions`), the router's autoscale families and
-the trainer's `TextfileExporter` wait for the rest of ROADMAP Queue 1 item
-6 and item 11.
+`merge_expositions` is the router's fleet scrape: every worker's
+exposition relabeled with its `worker_id` and merged under one HELP/TYPE
+per family; `autoscale_families` renders the signals the autoscaler
+decides from. The trainer's `TextfileExporter` waits for ROADMAP Queue 1
+item 11.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 #: the exposition-format content type /metrics answers with
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -160,6 +162,81 @@ def inject_labels(sample: str, labels: dict) -> str:
                 + sample[brace + 1:])
     name, _, rest = sample.partition(" ")
     return f"{name}{{{inner}}} {rest}"
+
+
+def merge_expositions(
+        parts: Sequence[Tuple[dict, str]],
+        extra_families: Sequence[Tuple[str, str, str, List[str]]] = (),
+) -> str:
+    """One valid exposition from several: `parts` is [(labels, text), ...];
+    every sample line of `text` gains `labels` (the fleet scrape's
+    `worker_id`), and a family that appears in several payloads keeps one
+    `# HELP` / `# TYPE` header. `extra_families` (the router's own) render
+    first. Samples within a family follow `parts` order, so one worker's
+    histogram buckets stay together."""
+    from collections import OrderedDict
+
+    merged: "OrderedDict[str, List]" = OrderedDict()
+    for name, typ, help_, lines in extra_families:
+        merged[name] = [typ, help_, list(lines)]
+    for labels, text in parts:
+        family = None
+        for line in (text or "").splitlines():
+            if line.startswith("# HELP "):
+                name, _, help_ = line[len("# HELP "):].partition(" ")
+                family = name
+                merged.setdefault(name, ["untyped", help_, []])
+                merged[name][1] = merged[name][1] or help_
+            elif line.startswith("# TYPE "):
+                name, _, typ = line[len("# TYPE "):].partition(" ")
+                family = name
+                merged.setdefault(name, [typ or "untyped", "", []])
+                if typ:
+                    merged[name][0] = typ
+            elif line.startswith("#") or not line.strip():
+                continue
+            else:
+                sample = inject_labels(line, labels)
+                name = line.split("{", 1)[0].split(" ", 1)[0]
+                if family is None or not (name == family
+                                          or name.startswith(family + "_")):
+                    family = name
+                    merged.setdefault(name, ["untyped", "", []])
+                merged[family][2].append(sample)
+    return render_families([(n, t, h, ls) for n, (t, h, ls) in merged.items()])
+
+
+def autoscale_families(signals: Dict) -> List[Tuple[str, str, str, List[str]]]:
+    """The router's autoscaler signals as exposition families: queue depth,
+    observed p50/p99 against the declared SLO, worker counts, and in-flight
+    forwards per `worker_id`. An absent signal renders no sample."""
+    p = f"{PREFIX}_router"
+    fam: List[Tuple[str, str, str, List[str]]] = []
+    for key, name, help_ in (
+            ("queue_depth", f"{p}_queue_depth",
+             "client requests queued/in flight at the router (the "
+             "autoscaler's load signal)"),
+            ("p50_ms", f"{p}_observed_p50_ms",
+             "median client-request latency over the router's sliding "
+             "window"),
+            ("p99_ms", f"{p}_observed_p99_ms",
+             "p99 client-request latency over the router's sliding "
+             "window (compared against the declared SLO)"),
+            ("slo_ms", f"{p}_slo_ms",
+             "declared latency SLO the autoscaler defends (0 = none "
+             "declared)"),
+            ("workers_healthy", f"{p}_autoscale_workers_healthy",
+             "healthy workers the autoscaler can spread load over"),
+            ("workers_total", f"{p}_autoscale_workers_total",
+             "pool worker slots, healthy or not")):
+        v = signals.get(key)
+        fam.append((name, "gauge", help_, [] if v is None else [metric_line(name, v)]))
+    inflight = signals.get("worker_inflight") or {}
+    fam.append((f"{p}_worker_inflight", "gauge",
+                "forwards currently in flight per worker",
+                [metric_line(f"{p}_worker_inflight", v, {"worker_id": wid})
+                 for wid, v in sorted(inflight.items())]))
+    return fam
 
 
 # ---------------------------------------------------------------------------

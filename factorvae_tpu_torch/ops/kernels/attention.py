@@ -15,6 +15,10 @@ written on a day that has a non-finite one (the exact path); the backward
 recomputes the forward's scores and softmax with the forward's own device
 code. `launch_group` picks the heads per CTA from the card's SM count.
 
+`attention_fwd_op` is `attention_fwd` without a keep-mask registered as the
+op `factorvae_tpu_torch::attention_fwd` (`torch.library.custom_op`), which
+`torch.export` records in an exported program's graph.
+
 `attention_fwd` and `attention_bwd` launch their kernels for CUDA tensors
 and run `attention_fwd_plain` / `attention_bwd_plain` for CPU tensors; there
 is no fallback between the two. `attention` is the differentiable op:
@@ -268,6 +272,38 @@ def attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val,
 attention_fwd.launches = 0
 
 
+@torch.library.custom_op("factorvae_tpu_torch::attention_fwd", mutates_args=())
+def attention_fwd_op(latent: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
+                     w_key: torch.Tensor, b_key: torch.Tensor, w_val: torch.Tensor,
+                     b_val: torch.Tensor) -> torch.Tensor:
+    """K4 without a keep-mask (the serving forward) as a registered op, the
+    form an exported program (`eval/export_aot.py`) calls: on CUDA tensors
+    `attention_fwd` (the kernel, counted in `attention_fwd.launches`), on CPU
+    tensors its plain version. Shapes as in `attention_fwd`."""
+    raise ValueError(f"factorvae_tpu_torch::attention_fwd runs on cuda or cpu tensors; "
+                     f"got {latent.device}")
+
+
+@attention_fwd_op.register_kernel("cuda")
+def _attention_fwd_op_cuda(latent, mask, query, w_key, b_key, w_val, b_val):
+    return attention_fwd(latent, mask, query, w_key, b_key, w_val, b_val)
+
+
+@attention_fwd_op.register_kernel("cpu")
+def _attention_fwd_op_cpu(latent, mask, query, w_key, b_key, w_val, b_val):
+    args = upcast(latent, query, w_key, b_key, w_val, b_val)
+    latent, query, w_key, b_key, w_val, b_val = args
+    _validate("attention_fwd", latent, mask, query, w_key, b_key, w_val, b_val, None)
+    return plain(attention_fwd_plain, latent.ndim == 4, latent, mask, query, w_key,
+                 b_key, w_val, b_val)
+
+
+@attention_fwd_op.register_fake
+def _attention_fwd_op_fake(latent, mask, query, w_key, b_key, w_val, b_val):
+    return latent.new_empty(tuple(latent.shape[:-2]) + (query.shape[-2], latent.shape[-1]),
+                            dtype=torch.float32)
+
+
 def _bwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, dctx, keep,
                 group: int, exact: bool = False):
     """K5 on lane-axis CUDA tensors, kernel 1 with `group` heads per CTA:
@@ -352,8 +388,11 @@ def attention(latent, mask, query, w_key, b_key, w_val, b_val,
     """Differentiable `attention_fwd`, for one model or S (lane-axis
     tensors, or a `torch.func.vmap` over models): the forward is K4, the
     backward K5 (the plain versions on the CPU). The mask and keep-mask get
-    no gradient."""
+    no gradient. Under `torch.export`, without a keep-mask, it is the op
+    `attention_fwd_op`, so the exported program launches K4 where it runs."""
     latent, query, w_key, b_key, w_val, b_val, keep = upcast(
         latent, query, w_key, b_key, w_val, b_val, keep)
+    if keep is None and torch.compiler.is_exporting():
+        return attention_fwd_op(latent, mask, query, w_key, b_key, w_val, b_val)
     return _AttentionFunction.apply(latent, mask, query, w_key, b_key, w_val,
                                     b_val, keep)

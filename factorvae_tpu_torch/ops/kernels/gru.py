@@ -19,6 +19,10 @@ Wrappers, each with its own launch count:
   `gru_fwd_residuals`.
 - `gru_dwh`: dWh and db, summed over every row and step.
 
+`gru_fwd_op` is `gru_fwd` registered as the op
+`factorvae_tpu_torch::gru_fwd` (`torch.library.custom_op`), which
+`torch.export` records in an exported program's graph.
+
 Each launches its kernel for CUDA tensors and runs its plain version
 (`*_plain`) for CPU tensors; there is no fallback between the two. `gru` is
 the differentiable recurrence: forward K1 (the residual variant when a
@@ -277,6 +281,33 @@ def gru_fwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Ten
 gru_fwd.launches = 0
 
 
+@torch.library.custom_op("factorvae_tpu_torch::gru_fwd", mutates_args=())
+def gru_fwd_op(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
+    """K1's serving variant as a registered op, the form an exported program
+    (`eval/export_aot.py`) calls: on CUDA tensors `gru_fwd` (the kernel,
+    counted in `gru_fwd.launches`), on CPU tensors its plain version.
+    Shapes as in `gru_fwd`."""
+    raise ValueError(f"factorvae_tpu_torch::gru_fwd runs on cuda or cpu tensors; "
+                     f"got {xi.device}")
+
+
+@gru_fwd_op.register_kernel("cuda")
+def _gru_fwd_op_cuda(xi, w_h, b_h):
+    return gru_fwd(xi, w_h, b_h)
+
+
+@gru_fwd_op.register_kernel("cpu")
+def _gru_fwd_op_cpu(xi, w_h, b_h):
+    xi, w_h, b_h = upcast(xi, w_h, b_h)
+    _check("gru_fwd", xi, w_h, b_h)
+    return plain(gru_fwd_plain, xi.ndim == 4, xi, w_h, b_h)
+
+
+@gru_fwd_op.register_fake
+def _gru_fwd_op_fake(xi, w_h, b_h):
+    return xi.new_empty(tuple(xi.shape[:-2]) + (xi.shape[-1] // 3,), dtype=torch.float32)
+
+
 def gru_fwd_residuals(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor):
     """`gru_fwd` that also returns the residuals of the backward walk: (h
     (N, H), hseq (N, T, H), gseq (N, T, 3H)), h before each step and g =
@@ -436,8 +467,12 @@ def gru(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Tensor:
     `torch.func.vmap` over models). When autograd will need a gradient (grad
     mode on and an input that requires one) the forward is the residual
     variant and the backward walks from its residuals; under `no_grad` or
-    `inference_mode` it is the serving variant, and nothing is kept."""
+    `inference_mode` it is the serving variant, and nothing is kept. Under
+    `torch.export` it is the op `gru_fwd_op`, so the exported program
+    launches K1 where it runs."""
     xi, w_h, b_h = upcast(xi, w_h, b_h)
+    if torch.compiler.is_exporting():
+        return gru_fwd_op(xi, w_h, b_h)
     keep = torch.is_grad_enabled() and any(a.requires_grad for a in (xi, w_h, b_h))
     out = _GRUFunction.apply(xi, w_h, b_h, keep)
     return out[0] if isinstance(out, tuple) else out

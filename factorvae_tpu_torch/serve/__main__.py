@@ -7,39 +7,54 @@
     python -m factorvae_tpu_torch.serve --model DIR --dataset panel.pkl --batch reqs.jsonl
     python -m factorvae_tpu_torch.serve --model DIR --dataset panel.pkl --http 8787 --scheduler
 
+    # N workers behind the sticky router, their AOT store, an autoscaler
+    python -m factorvae_tpu_torch.serve --model DIR0 --model DIR1 --synthetic 80,300 \\
+        --workers 2 --router_port 8800 [--autoscale 4 --slo_ms 50]
+    # a worker that joins that fleet from its artifact service
+    python -m factorvae_tpu_torch.serve --join http://127.0.0.1:8800 --http 8790
+
 Serves a synthetic dense panel (`--synthetic DAYS,STOCKS`) or a reference
-pickle (`--dataset`). Models come from weights directories (`--model DIR`,
-repeatable; alias = the directory name) or, without one, a preset with
+pickle (`--dataset`). Models come from weights directories or AOT artifact
+files (`--model PATH`, repeatable; alias = the file's name;
+`eval/export_aot.py`) or, without one, a preset with
 random weights drawn from `--seed` (alias = the preset name), each admitted
 at `--precision` (float32, bfloat16 or int8; `plan`, the default, resolves
 to float32: the port has no plan table yet, and the JAX package's plan
 rows were measured on a TPU). Requests come from stdin (JSONL; an array
 line is one tick), a `--batch` file, or HTTP (`--http PORT`, threaded with
-`--scheduler`). Runs on CUDA unless `--device cpu` is given. The worker
-pool, the router and the AOT store (`--workers` above 1, `--router_port`,
-`--aot_store`, `--join`, ...) are ROADMAP Queue 1 item 6's second half and
-exit 2. Startup lines go to stderr; stdout is the response stream.
+`--scheduler`). Runs on CUDA unless `--device cpu` is given.
+
+`--workers N` above 1 starts the fleet instead (`serve/pool.py`,
+`serve/router.py`): N daemon processes behind a router on `--router_port`,
+with the AOT store at `--aot_store`, the shed bound `--max_inflight`, the
+hedge delay `--hedge_ms` (default: measured, the router's p90; `--no_hedge`
+turns hedging off), the declared SLO `--slo_ms` (default: none; the port
+has no plan table to take one from) and, with `--autoscale MAX`, an
+autoscaler between N and MAX workers. This process builds no panel and
+never touches the card: it routes, and exports the store on the CPU.
+`--join URL` makes this daemon a remote worker of that fleet
+(`serve/remote.py`): it downloads the fleet's artifacts into `--aot_store`,
+verified, mirrors the fleet's panel arguments, serves, and registers as
+`--advertise_host`. Startup lines go to stderr; stdout is the response
+stream.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
-
-# flag -> the value that means "not asked for"; anything else exits 2
-_POOL_FLAGS = {"workers": 1, "router_port": None, "aot_store": None, "join": None,
-               "advertise_host": None, "slo_ms": None, "hedge_ms": None,
-               "no_hedge": False, "autoscale": 0, "max_inflight": None}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m factorvae_tpu_torch.serve",
                                 description="long-lived scoring daemon over a registry "
                                             "of resident models")
-    p.add_argument("--model", action="append", default=[], metavar="DIR",
-                   help="weights directory (params.save_weights layout), repeatable")
+    p.add_argument("--model", action="append", default=[], metavar="PATH",
+                   help="weights directory (params.save_weights layout) or AOT "
+                        "artifact file (cli --export), repeatable")
     p.add_argument("--preset", default="flagship",
                    help="preset served with random weights when no --model")
     p.add_argument("--seed", type=int, default=0,
@@ -90,32 +105,173 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted and ignored: the kernels' build directory "
                         "(factorvae_tpu_torch/_build) is the port's cache")
     p.add_argument("--device", default="cuda")
-    g = p.add_argument_group("worker pool and router (not ported: ROADMAP Queue 1 item 6)")
-    g.add_argument("--workers", type=int, default=1)
-    g.add_argument("--router_port", type=int, default=None)
-    g.add_argument("--aot_store", default=None)
-    g.add_argument("--join", default=None)
-    g.add_argument("--advertise_host", default=None)
-    g.add_argument("--slo_ms", type=float, default=None)
-    g.add_argument("--hedge_ms", type=float, default=None)
-    g.add_argument("--no_hedge", action="store_true")
-    g.add_argument("--autoscale", type=int, default=0)
-    g.add_argument("--max_inflight", type=int, default=None)
+    g = p.add_argument_group("worker pool, router and remote workers")
+    g.add_argument("--workers", type=int, default=1,
+                   help="above 1: N daemon processes behind a sticky router")
+    g.add_argument("--router_port", type=int, default=8800,
+                   help="the router's port with --workers above 1")
+    g.add_argument("--aot_store", default=None, metavar="DIR",
+                   help="the AOT artifact store the pool exports into and respawns "
+                        "from (default: <work dir>/aot_store); with --join, where the "
+                        "downloads land")
+    g.add_argument("--join", default=None, metavar="URL",
+                   help="join the fleet behind this router as a remote worker")
+    g.add_argument("--advertise_host", default="127.0.0.1",
+                   help="the address registered with --join (what the router "
+                        "forwards to)")
+    g.add_argument("--slo_ms", type=float, default=None,
+                   help="declared p99 SLO the router publishes and --autoscale defends "
+                        "(default: none)")
+    g.add_argument("--hedge_ms", type=float, default=None,
+                   help="hedged-forward delay (default: the router's measured p90)")
+    g.add_argument("--no_hedge", action="store_true", help="no hedged forwards")
+    g.add_argument("--autoscale", type=int, default=0, metavar="MAX",
+                   help="scale the fleet between --workers and MAX workers (0: off)")
+    g.add_argument("--max_inflight", type=int, default=64,
+                   help="router shed bound on client requests in flight (0: none)")
     return p
 
 
-def _refusal(args) -> "str | None":
-    for name, off in _POOL_FLAGS.items():
-        if getattr(args, name) != off:
-            return (f"--{name} is not ported: the worker pool, router, remote workers "
-                    "and autoscaler are ROADMAP Queue 1 item 6")
+def _pool_refusal(args) -> "str | None":
+    """The error line for pool flags that cannot run, or None."""
+    if args.workers < 1:
+        return f"--workers must be at least 1; got {args.workers}"
+    if args.join:
+        if not args.join.startswith(("http://", "https://")):
+            return f"--join wants the router's URL (http://host:port); got {args.join!r}"
+        if args.workers > 1:
+            return ("--join runs one worker; scale by joining more hosts or with "
+                    "--autoscale on the router")
+        if not args.advertise_host:
+            return "--advertise_host must name an address"
+    if args.workers > 1:
+        if not args.model:
+            return "--workers above 1 needs --model (the weights the workers serve)"
+        if not 0 < args.router_port < 65536:
+            return f"--router_port must be a TCP port; got {args.router_port}"
+        if args.aot_store and os.path.isfile(args.aot_store):
+            return f"--aot_store {args.aot_store} is a file, not a directory"
+    if args.slo_ms is not None and args.slo_ms < 0:
+        return f"--slo_ms must be >= 0; got {args.slo_ms:g}"
+    if args.hedge_ms is not None:
+        if args.hedge_ms < 0:
+            return f"--hedge_ms must be >= 0; got {args.hedge_ms:g}"
+        if args.no_hedge:
+            return "--hedge_ms and --no_hedge contradict each other"
+    if args.autoscale and args.autoscale <= args.workers:
+        return (f"--autoscale MAX must exceed --workers ({args.workers}); got "
+                f"{args.autoscale}")
+    if args.autoscale < 0:
+        return f"--autoscale must be >= 0; got {args.autoscale}"
+    if args.max_inflight < 0:
+        return f"--max_inflight must be >= 0; got {args.max_inflight}"
     return None
 
 
+def build_fleet(args, work_dir: str):
+    """(pool, router, autoscaler or None) configured from the pool flags,
+    nothing started. The workers get this command's panel, precision and
+    resilience flags; `--slo_ms` and `--hedge_ms` default to no SLO and a
+    measured hedge delay."""
+    from factorvae_tpu_torch.serve.autoscale import AutoScaler
+    from factorvae_tpu_torch.serve.pool import WorkerPool
+    from factorvae_tpu_torch.serve.router import Router
+
+    dataset_args = (["--dataset", args.dataset] if args.dataset
+                    else ["--synthetic", args.synthetic])
+    if args.max_stocks is not None:
+        dataset_args += ["--max_stocks", str(args.max_stocks)]
+    extra = ["--seed", str(args.seed), "--breaker_k", str(args.breaker_k),
+             "--breaker_cooldown_s", str(args.breaker_cooldown_s),
+             "--drift_threshold", str(args.drift_threshold)]
+    if args.precision != "plan":
+        extra += ["--precision", args.precision]
+    if args.budget_mb:
+        extra += ["--budget_mb", str(args.budget_mb)]
+    if args.stochastic:
+        extra.append("--stochastic")
+    if args.deadline_ms:
+        extra += ["--deadline_ms", str(args.deadline_ms)]
+    if args.trace_off:
+        extra.append("--trace_off")
+    pool = WorkerPool(args.model, dataset_args, args.workers,
+                      args.aot_store or os.path.join(work_dir, "aot_store"),
+                      work_dir=work_dir, device=args.device, extra_args=extra,
+                      tick_ms=args.tick_ms, max_tick_batch=args.max_batch,
+                      metrics_base=args.metrics_jsonl)
+    pool.router_url = f"http://127.0.0.1:{args.router_port}"
+    slo_ms = args.slo_ms or 0.0
+    router = Router(pool, max_inflight=args.max_inflight, slo_ms=slo_ms,
+                    hedge_ms=-1.0 if args.hedge_ms is None else args.hedge_ms,
+                    hedge=not args.no_hedge, trace=not args.trace_off)
+    scaler = None
+    if args.autoscale:
+        scaler = AutoScaler(pool, router, min_workers=args.workers,
+                            max_workers=args.autoscale, slo_ms=slo_ms)
+        router.autoscaler = scaler
+    return pool, router, scaler
+
+
+def run_pool(args) -> int:
+    """The fleet (`--workers` above 1): start the pool, then route on
+    `--router_port` until SIGTERM drains it."""
+    import tempfile
+
+    from factorvae_tpu_torch.serve.pool import PoolError
+    from factorvae_tpu_torch.utils.logging import MetricsLogger, Timeline, install_timeline
+
+    work_dir = tempfile.mkdtemp(prefix="serve_pool_")
+    logger = MetricsLogger(jsonl_path=args.metrics_jsonl, echo=False, run_name="serve_router")
+    prev_tl = install_timeline(Timeline(logger)) if args.metrics_jsonl else None
+    pool, router, scaler = build_fleet(args, work_dir)
+    try:
+        print(f"[pool] starting {args.workers} worker(s) on {args.device} (aot store "
+              f"{pool.store.root}, logs {work_dir})", file=sys.stderr)
+        pool.start()
+        for w in pool.stats()["workers"]:
+            print(f"[pool] {w['worker_id']} pid={w['pid']} {w['url']} ({w['state']})",
+                  file=sys.stderr)
+        if scaler is not None:
+            scaler.start()
+            print(f"[pool] autoscaler: {args.workers}..{args.autoscale} workers, SLO "
+                  f"{router.slo_ms:g}ms", file=sys.stderr)
+        print(f"[pool] router ready: http://127.0.0.1:{args.router_port}/score "
+              f"({args.workers} workers, hedge={'off' if args.no_hedge else 'on'})",
+              file=sys.stderr)
+        try:
+            router.serve(args.router_port)
+        finally:
+            if scaler is not None:
+                scaler.stop()
+        return 0
+    except PoolError as e:
+        print(f"error: {e}", file=sys.stderr)
+        pool.stop()
+        return 2
+    finally:
+        if args.metrics_jsonl:
+            install_timeline(prev_tl)
+        logger.finish()
+
+
+def _artifact_header(path: str) -> "dict | None":
+    """The AOT header of an artifact file; None for a weights directory."""
+    from factorvae_tpu_torch.eval.export_aot import ArtifactError, read_artifact_header
+
+    if os.path.isdir(path):
+        return None
+    with open(path, "rb") as fh:
+        header = read_artifact_header(fh.read())
+    if header is None:
+        raise ArtifactError(f"{path} is neither a weights directory nor an AOT artifact")
+    return header
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     precision = "float32" if args.precision == "plan" else args.precision
-    refused = _refusal(args)
+    refused = _pool_refusal(args)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
@@ -123,14 +279,33 @@ def main(argv=None) -> int:
         print("error: no CUDA device; pass --device cpu to serve on the CPU",
               file=sys.stderr)
         return 2
+    if args.join:
+        from factorvae_tpu_torch.serve import remote
+        from factorvae_tpu_torch.serve.pool import free_port
+
+        if args.http is None:
+            args.http = free_port()
+        args.scheduler = True
+        try:
+            capability = remote.prepare_join(args, parser)
+        except remote.JoinError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(f"[join] synced {len(args.model)} artifact(s) from {args.join} into "
+              f"{args.aot_store}", file=sys.stderr)
+        remote.register_when_healthy(args.join, args.http, capability,
+                                     host=args.advertise_host)
     if bool(args.synthetic) == bool(args.dataset):
         print("error: pass exactly one of --synthetic DAYS,STOCKS and --dataset",
               file=sys.stderr)
         return 2
+    if args.workers > 1:
+        return run_pool(args)
 
     import dataclasses
 
     from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.eval.export_aot import ArtifactError
     from factorvae_tpu_torch.models.factorvae import load_model
     from factorvae_tpu_torch.ops.kernels import hidden_refusal
     from factorvae_tpu_torch.presets import get_preset
@@ -149,18 +324,24 @@ def main(argv=None) -> int:
     from factorvae_tpu_torch.utils.logging import MetricsLogger, Timeline, install_timeline
 
     try:
-        if args.model:
-            config = checkpoint_config(args.model[0])
+        headers = {path: _artifact_header(path) for path in args.model}
+        if args.model and headers[args.model[0]] is not None:
+            first = headers[args.model[0]]     # the panel follows the artifact
+            num_features, seq_len = int(first["num_features"]), int(first["seq_len"])
         else:
-            config = get_preset(args.preset)
-            config = dataclasses.replace(
-                config, train=dataclasses.replace(config.train, seed=args.seed))
-    except (KeyError, OSError, ValueError) as e:
+            if args.model:
+                config = checkpoint_config(args.model[0])
+            else:
+                config = get_preset(args.preset)
+                config = dataclasses.replace(
+                    config, train=dataclasses.replace(config.train, seed=args.seed))
+            refused = hidden_refusal(config.model.hidden_size, args.device)
+            if refused:        # before the panel is read
+                print(f"error: {refused}", file=sys.stderr)
+                return 2
+            num_features, seq_len = config.model.num_features, config.model.seq_len
+    except (ArtifactError, KeyError, OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
-        return 2
-    refused = hidden_refusal(config.model.hidden_size, args.device)
-    if refused:        # before the panel is read
-        print(f"error: {refused}", file=sys.stderr)
         return 2
 
     if args.synthetic:
@@ -171,14 +352,13 @@ def main(argv=None) -> int:
         except ValueError:
             print("error: --synthetic wants DAYS,STOCKS (e.g. 80,300)", file=sys.stderr)
             return 2
-        panel = synthetic_panel_dense(n_days, n_stocks, config.model.num_features,
-                                      seed=args.seed)
+        panel = synthetic_panel_dense(n_days, n_stocks, num_features, seed=args.seed)
     else:
         from factorvae_tpu_torch.data.panel import build_panel, load_frame
 
         panel = build_panel(load_frame(args.dataset))
-    dataset = PanelDataset(panel, seq_len=config.model.seq_len,
-                           max_stocks=args.max_stocks, device=args.device)
+    dataset = PanelDataset(panel, seq_len=seq_len, max_stocks=args.max_stocks,
+                           device=args.device)
 
     logger = MetricsLogger(jsonl_path=args.metrics_jsonl, echo=False, run_name="serve")
     prev_tl = install_timeline(Timeline(logger)) if args.metrics_jsonl else None
@@ -187,9 +367,14 @@ def main(argv=None) -> int:
                                  budget_bytes=int(args.budget_mb * 1e6))
         try:
             if args.model:
+                expected = getattr(args, "_expected_sha256", {})
                 for path in args.model:
-                    key = registry.register_checkpoint(path, precision=precision,
-                                                       n_stocks=dataset.n_max)
+                    if headers[path] is not None:
+                        key = registry.register_artifact(
+                            path, expected_sha256=expected.get(path))
+                    else:
+                        key = registry.register_checkpoint(path, precision=precision,
+                                                           n_stocks=dataset.n_max)
                     entry = registry.get(key)
                     print(f"[serve] admitted {path} as {key} (alias {entry.alias}, "
                           f"{entry.precision}, {entry.nbytes} bytes)", file=sys.stderr)

@@ -19,7 +19,8 @@ bucket of two or more distinct models stacks their weights once into the
 stacks, cleared when `registry.version` moves), so K1 and K4 launch once
 per 32-day chunk for the whole bucket, the S models on the kernels' lane
 axis. Duplicates of one model share one serial dispatch; a lone model takes
-the serial path (`registry.score`, bitwise `predict_panel`). A fused group
+the serial path (`registry.score`, bitwise `predict_panel`), and so does an
+AOT artifact entry, whose program is fixed at export. A fused group
 that fails marks `fused_fallback` and serves each member serially, on the
 same kernels.
 
@@ -82,6 +83,9 @@ from factorvae_tpu_torch.utils.logging import (
 )
 
 _CMDS = ("ping", "stats", "models", "shutdown", "admit")
+#: the answer to a request that a draining scheduler never scored (a router
+#: forwards such a request to another worker)
+SHUTTING_DOWN = "daemon is shutting down"
 
 
 @dataclasses.dataclass
@@ -280,8 +284,13 @@ class ScoringDaemon:
 
     def _bucket_key(self, r: _Resolved):
         """Requests fuse when one lane-batched call serves them all: the same
-        scoring architecture and compute dtype, int8 flag and days."""
-        return (r.entry.score_config.model, r.entry.int8, tuple(int(d) for d in r.days))
+        scoring architecture and compute dtype, int8 flag and days. An
+        artifact entry's program is fixed at export, so its requests form a
+        bucket of their own and take the serial path."""
+        days = tuple(int(d) for d in r.days)
+        if r.entry.artifact is not None:
+            return ("artifact", r.entry.key, days)
+        return (r.entry.score_config.model, r.entry.int8, days)
 
     def _stacked(self, entries: list) -> dict:
         from factorvae_tpu_torch.eval.predict import stack_params
@@ -708,6 +717,16 @@ class ScoringDaemon:
                     for k, b in self._breakers.items()}
 
     def stats(self) -> dict:
+        import torch
+
+        from factorvae_tpu_torch.ops.kernels import attention, gru
+
+        launches = {f.__name__: f.launches for f in (
+            gru.gru_fwd, gru.gru_fwd_residuals, gru.gru_bwd, gru.gru_dwh,
+            attention.attention_fwd, attention.attention_bwd)}
+        device = self.dataset.device
+        reserved = (torch.cuda.memory_reserved(device)
+                    if torch.device(device).type == "cuda" else None)
         with self._lock:
             return {"run_meta": self.run_meta,
                     "requests_served": self.requests_served,
@@ -716,10 +735,15 @@ class ScoringDaemon:
                     "ticks": self.ticks, "admits": self.admits,
                     "promotions": self.promotions, "health": self.health(),
                     "registry": self.registry.stats(), "drift": self.drift.stats(),
+                    # this process's kernel launch counters: each worker of
+                    # a pool reports its own
+                    "kernel_launches": launches,
                     "panel": {"n_days": int(len(self.dataset.dates)),
                               "n_max": int(self.dataset.n_max),
                               "residency": self.dataset.residency,
-                              "device": str(self.dataset.device)}}
+                              "device": str(self.dataset.device),
+                              # the caching allocator's hold on the card
+                              "memory_reserved": reserved}}
 
 
 class TickScheduler:
@@ -772,7 +796,7 @@ class TickScheduler:
         sub = {"left": 0, "done": done}
         with self._lock:
             if self._closing:
-                return [{"id": None, "ok": False, "error": "daemon is shutting down"}
+                return [{"id": None, "ok": False, "error": SHUTTING_DOWN}
                         for _ in requests]
             for i, r in enumerate(requests):
                 if isinstance(r, dict) and "_parse_error" in r:
@@ -899,7 +923,7 @@ class TickScheduler:
                 timeline_span_end(item[4], outcome="cancelled")
                 item[4] = None
             self._answer(leftovers, [{"id": None, "ok": False,
-                                      "error": "daemon is shutting down"}
+                                      "error": SHUTTING_DOWN}
                                      for _ in leftovers])
 
 
@@ -1075,7 +1099,12 @@ def serve_http(daemon: ScoringDaemon, port: int, host: str = "127.0.0.1",
             self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
-            self.wfile.write(body)
+            try:
+                self.wfile.write(body)
+            except (BrokenPipeError, ConnectionResetError):
+                # the client left: a router shuts the socket of a hedged
+                # forward that lost its race
+                self.close_connection = True
 
         def _send(self, code: int, payload) -> None:
             self._send_body(code, json.dumps(payload).encode(), "application/json")

@@ -6,16 +6,19 @@
 - **Sources.** `register_params` admits an in-memory model (or its
   state_dict) with its Config; `register_checkpoint` a weights directory
   written by `params.save_weights` (Config from its `serve_config.json`).
-  `admit` is the thin front over both. AOT artifacts (`register_artifact`)
-  wait for ROADMAP Queue 1 item 6's second half, `torch.export`.
+  `admit` is the thin front over both. `register_artifact` admits an AOT
+  artifact (`eval/export_aot.py`, a `torch.export` program) keyed by its
+  header's config hash; its sha256 gate runs before anything is
+  deserialized. An artifact entry scores day by day, one exported call per
+  day (`_score_artifact`), and never joins a fused dispatch.
 - **Precision ladder.** float32, bfloat16 (float32 weights, the extractor
   computing in bfloat16) or int8 (weights quantized once at admission,
   `ops/quant.py`, dequantized for each scoring call; float32 activations).
   An int8 entry keeps only the quantized weights resident. The rung is the
   caller's choice, else float32: the port has no plan table (item 9).
 - **Budget.** Eviction is LRU by parameter bytes against `budget_bytes` (0:
-  unbounded). An evicted entry from a weights directory leaves a tombstone,
-  and the next `get` cold-starts it from disk, retrying `COLD_RETRIES`
+  unbounded). An evicted entry from a weights directory or an artifact file
+  leaves a tombstone, and the next `get` cold-starts it from disk, retrying `COLD_RETRIES`
   times with exponential backoff; a failed cold start answers every later
   request with a RegistryError and keeps its tombstone. In-memory entries
   are gone when evicted, and their aliases with them.
@@ -100,10 +103,10 @@ class Entry:
     carries the rung's compute dtype."""
 
     key: str
-    config: Config
-    model: torch.nn.Module
+    config: Optional[Config]              # None for an artifact
+    model: Optional[torch.nn.Module]      # None for an artifact
     alias: Optional[str] = None
-    source: str = "params"                # params | checkpoint
+    source: str = "params"                # params | checkpoint | artifact
     source_path: Optional[str] = None     # reload origin of a cold start
     nbytes: int = 0
     requests: int = 0
@@ -114,6 +117,7 @@ class Entry:
     compile_s: Optional[float] = None
     digest: Optional[str] = None
     generation: int = 1
+    artifact: Optional[object] = None     # eval.export_aot.LoadedArtifact
 
     @property
     def int8(self) -> bool:
@@ -127,13 +131,17 @@ class Entry:
         return {n: t.detach() for n, t in self.model.state_dict().items()}
 
     def describe(self) -> dict:
-        m = self.config.model
+        if self.artifact is not None:     # the header knows the call's shape only
+            h = self.artifact.header
+            arch = {"c": h["num_features"], "t": h["seq_len"], "n_max": h["n_max"]}
+        else:
+            m = self.config.model
+            arch = {"c": m.num_features, "t": m.seq_len, "h": m.hidden_size,
+                    "k": m.num_factors, "m": m.num_portfolios}
         return {"key": self.key, "alias": self.alias, "precision": self.precision,
                 "source": self.source, "nbytes": self.nbytes, "compiled": self.compiled,
                 "compile_s": self.compile_s, "requests": self.requests,
-                "generation": self.generation,
-                "arch": {"c": m.num_features, "t": m.seq_len, "h": m.hidden_size,
-                         "k": m.num_factors, "m": m.num_portfolios}}
+                "generation": self.generation, "arch": arch}
 
 
 class ModelRegistry:
@@ -273,9 +281,42 @@ class ModelRegistry:
 
     def register_artifact(self, path_or_blob, alias: Optional[str] = None,
                           expected_sha256: Optional[str] = None) -> str:
-        raise RegistryError(
-            "AOT artifacts are not ported: the export moves to torch.export with "
-            "ROADMAP Queue 1 item 6; admit a weights directory instead")
+        """Admit an AOT artifact (a file, or its bytes) through
+        `export_aot.load_exported`, moved to this registry's device; the key
+        is the header's config hash (`:int8` for an int8 artifact), the alias
+        defaults to the file's name. With `expected_sha256` (a remote worker
+        passes the artifact service's content address), bytes that hash to
+        anything else are refused before they are deserialized."""
+        from factorvae_tpu_torch.eval.export_aot import ArtifactError, load_exported
+
+        path = None
+        if isinstance(path_or_blob, (bytes, bytearray)):
+            blob = bytes(path_or_blob)
+        else:
+            path = os.path.abspath(str(path_or_blob))
+            with open(path, "rb") as fh:
+                blob = fh.read()
+        digest = hashlib.sha256(blob).hexdigest()
+        if expected_sha256 is not None and digest != expected_sha256:
+            timeline_event("serve_quarantine", cat="recovery", resource="serve",
+                           path=path or "<bytes>", reason="artifact sha256 mismatch")
+            raise RegistryError(
+                f"artifact {path or '<bytes>'} hashes to {digest[:12]}… but the store "
+                f"advertised {expected_sha256[:12]}…: the bytes are corrupt; re-fetch "
+                "from the artifact service (GET /artifact/<sha256>)")
+        try:
+            art = load_exported(blob, device=self.device)
+        except ArtifactError as e:
+            raise RegistryError(str(e)) from None
+        precision = "int8" if art.header.get("int8") else "float32"
+        key = str(art.header["config_hash"])
+        if precision != "float32":
+            key = f"{key}:{precision}"
+        entry = Entry(key=key, config=None, model=None, precision=precision,
+                      artifact=art, nbytes=len(blob), source="artifact", source_path=path,
+                      alias=alias or (os.path.basename(path) if path else None),
+                      digest=digest)
+        return self._admit(entry)
 
     def admit(self, source, config: Optional[Config] = None, alias: Optional[str] = None,
               precision: str = "float32") -> str:
@@ -318,9 +359,12 @@ class ModelRegistry:
             try:
                 if chaos_fault("serve_cold_fail") is not None:
                     raise RuntimeError("chaos: injected cold-start reload failure")
-                self.register_checkpoint(stone["source_path"], config=stone["config"],
-                                         precision=stone["precision"],
-                                         alias=stone["alias"])
+                if stone["source"] == "artifact":
+                    self.register_artifact(stone["source_path"], alias=stone["alias"])
+                else:
+                    self.register_checkpoint(stone["source_path"], config=stone["config"],
+                                             precision=stone["precision"],
+                                             alias=stone["alias"])
                 break
             except RegistryError:
                 raise           # deterministic: a retry cannot heal it
@@ -401,7 +445,7 @@ class ModelRegistry:
               entry: Optional[Entry] = None) -> np.ndarray:
         """(len(days), N_max) scores of one entry (by name, or the Entry
         itself): `eval.predict.predict_panel`, so the float32 rung is
-        bitwise that path."""
+        bitwise that path; an artifact entry calls its program day by day."""
         from factorvae_tpu_torch.eval.predict import predict_panel
 
         if isinstance(name, Entry):
@@ -416,13 +460,34 @@ class ModelRegistry:
         kw = {} if chunk is None else {"chunk": int(chunk)}
         with timeline_span(f"serve_score:{entry.key}", cat="serve", resource="device",
                            model=entry.key, n_days=int(len(days))):
-            out = predict_panel(entry.model, entry.score_config, dataset, days,
-                                stochastic=stochastic, seed=seed, int8=entry.int8,
-                                params=entry.qparams, **kw)
+            if entry.artifact is not None:
+                out = self._score_artifact(entry, dataset, days)
+            else:
+                out = predict_panel(entry.model, entry.score_config, dataset, days,
+                                    stochastic=stochastic, seed=seed, int8=entry.int8,
+                                    params=entry.qparams, **kw)
         if first:
             entry.compiled = True
             entry.compile_s = round(time.perf_counter() - t0, 6)
         entry.requests += 1
+        return out
+
+    @staticmethod
+    def _score_artifact(entry: Entry, dataset, days: np.ndarray) -> np.ndarray:
+        """One exported call per day (D = 1), on the dataset's windows (a
+        stream dataset's one-day mini-panels)."""
+        from factorvae_tpu_torch.eval.predict import _score_chunks
+
+        n_max = int(entry.artifact.header["n_max"])
+        if n_max != int(dataset.n_max):
+            raise RegistryError(
+                f"artifact {entry.alias or entry.key} was exported for n_max={n_max} "
+                f"but the serving panel pads to {dataset.n_max}; re-export at this "
+                "width or align --max_stocks")
+        out = np.full((len(days), n_max), np.nan, np.float32)
+        for c0, _, ds, day_idx in _score_chunks(dataset, np.asarray(days, np.int64), 1):
+            x, _, mask = ds.gather(day_idx)
+            out[c0] = entry.artifact.call(x, mask)[0].cpu().numpy()
         return out
 
     def warmup(self, dataset, names: Optional[list] = None,

@@ -358,8 +358,6 @@ REFUSED = [
     (["--prom_textfile", "x.prom"], "--prom_textfile", 11),
     (["--profile", "trace"], "--profile", 11),
     (["--debug_nans"], "--debug_nans", 11),
-    (["--export", "model.bin"], "--export", 6),
-    (["--export_platform", "tpu"], "--export_platform", 6),
     (["--no-pallas"], "--no-pallas", None),
     # above the CUDA kernels' kMaxH on the card (ROADMAP Queue 2 "Limits")
     (["--hidden_size", "96", "--device", "cuda"], "hidden_size 96", None),
@@ -494,6 +492,47 @@ CONFIG_ARGV = [
     ["--kl_weight", "0.1", "--stochastic_scores"],
     ["--days_per_step", "8", "--deterministic_scores", "--no-obs"],
 ]
+
+
+class TestCliExport:
+    def test_export_writes_an_artifact_whose_scores_equal_score_only(self, data, port_run):
+        """--score_only --export on the trained run's best weights: the
+        artifact (one exported call per day) gives the CSV's scores, at the
+        repo's score tolerance (the CSV is scored 32 days per call)."""
+        import shutil
+
+        from factorvae_tpu_torch.eval.predict import score_table
+        from factorvae_tpu_torch.serve.registry import ModelRegistry
+
+        out = os.path.join(str(data[0]), "exported")
+        shutil.copytree(os.path.join(port_run["out"], "models"), os.path.join(out, "models"))
+        path = os.path.join(out, "model.aot")
+        argv = _argv(data, "exported", *DETERMINISTIC, "--device", "cpu", "--score_only",
+                     "--export", path)
+        assert cli.main(argv) == 0
+        args = cli.build_parser().parse_args(argv)
+        cfg = cli.config_from_args(args)
+        exported = _named(_events(argv[argv.index("--metrics_jsonl") + 1]), "export")
+        assert exported[0]["path"] == path and exported[0]["bytes"] == os.path.getsize(path)
+        dataset = PanelDataset(cli.build_panel(cli.load_frame(data[1])), seq_len=T,
+                               device="cpu")
+        reg = ModelRegistry(device="cpu")
+        reg.register_artifact(path)
+        assert reg.get("model.aot").artifact.header["platforms"] == ["cpu"]
+        days = dataset.split_days(args.score_start, args.score_end)
+        table = score_table(dataset, days, reg.score("model.aot", dataset, days))
+        _, rows = _csv(os.path.join(out, "scores", cfg.score_name() + ".csv"))
+        assert len(rows) == len(table["score"])
+        np.testing.assert_allclose(np.asarray(table["score"], np.float32), _floats(rows, 2),
+                                   rtol=SCORE_RTOL, atol=SCORE_ATOL)
+
+    def test_export_platform_tpu_is_refused_by_name(self, data, monkeypatch, capsys):
+        opened = _read_nothing(monkeypatch)
+        assert cli.main(_argv(data, "refused", "--device", "cpu", "--export", "m.aot",
+                              "--export_platform", "tpu")) == 2
+        err = capsys.readouterr().err.strip()
+        assert err.startswith("error: --export_platform tpu") and len(err.splitlines()) == 1
+        assert "cuda or cpu" in err and opened == []
 
 
 class TestConfigFromArgs:

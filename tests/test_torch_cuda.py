@@ -735,3 +735,55 @@ class TestChunkStreamOnCard:
         peak = torch.cuda.max_memory_allocated() - before
         chunk = 4 * _CHUNK_FLOATS
         assert 2 * chunk <= peak < 3 * chunk
+
+
+# ---- the registered ops and the AOT artifact -----------------------------------------
+
+
+def test_registered_ops_launch_the_kernels(dev):
+    """`factorvae_tpu_torch::gru_fwd` and `::attention_fwd` on CUDA tensors
+    are the wrappers: one launch each, bitwise the wrappers' outputs."""
+    rng = np.random.default_rng(11)
+    xi, w_h, b_h = _to(dev, rng.normal(size=(304, 20, 192)).astype(np.float32),
+                       (rng.normal(size=(64, 192)) * 0.1).astype(np.float32),
+                       (rng.normal(size=(192,)) * 0.1).astype(np.float32))
+    k1 = gru_fwd.launches
+    got = torch.ops.factorvae_tpu_torch.gru_fwd(xi, w_h, b_h)
+    assert gru_fwd.launches == k1 + 1
+    assert torch.equal(got, gru_fwd(xi, w_h, b_h))
+    latent, q, wk, bk, wv, bv = _to(
+        dev, rng.normal(size=(1, 304, 64)).astype(np.float32),
+        rng.normal(size=(96, 64)).astype(np.float32),
+        (rng.normal(size=(96, 64, 64)) * 0.1).astype(np.float32),
+        (rng.normal(size=(96, 64)) * 0.1).astype(np.float32),
+        (rng.normal(size=(96, 64, 64)) * 0.1).astype(np.float32),
+        (rng.normal(size=(96, 64)) * 0.1).astype(np.float32))
+    mask = torch.ones((1, 304), dtype=torch.bool, device=dev)
+    mask[0, 300:] = False
+    k4 = attention_fwd.launches
+    ctx = torch.ops.factorvae_tpu_torch.attention_fwd(latent, mask, q, wk, bk, wv, bv)
+    assert attention_fwd.launches == k4 + 1
+    assert torch.equal(ctx, attention_fwd(latent, mask, q, wk, bk, wv, bv))
+
+
+def test_cpu_exported_artifact_on_the_card_matches_the_cpu(dev):
+    """An artifact exported on the CPU, moved to the card at load, launches
+    K1 and K4 once per call and scores within the tolerance of the same
+    artifact on the CPU."""
+    from factorvae_tpu_torch.config import Config, ModelConfig
+    from factorvae_tpu_torch.eval.export_aot import export_prediction, load_exported
+    from factorvae_tpu_torch.models.factorvae import load_model
+
+    cfg = Config(model=ModelConfig(num_features=16, hidden_size=32, num_factors=8,
+                                   num_portfolios=16, seq_len=10))
+    blob = export_prediction(load_model(cfg, device="cpu"), cfg, 64, platform="cuda")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(1, 64, 10, 16)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((1, 64)) < 0.9)
+    want = load_exported(blob, device="cpu").call(x, mask)
+    art = load_exported(blob)
+    assert art.device.type == "cuda"
+    k1, k4 = gru_fwd.launches, attention_fwd.launches
+    got = art.call(x.to(dev), mask.to(dev))
+    assert (gru_fwd.launches - k1, attention_fwd.launches - k4) == (1, 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)

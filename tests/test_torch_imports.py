@@ -4,7 +4,8 @@ included, and a scoring pass at each precision rung and on a
 stream-resident panel, a float32 and a mixed training epoch, a fleet's epoch
 and its lane-batched scoring pass, a CLI run without --backtest, and a
 scoring daemon's fused ticks at each rung with its metrics, drift, trace
-and scheduler, with no JAX, Flax, pandas or JAX-package module loaded),
+and scheduler, and an AOT artifact admitted and scored, with no JAX, Flax,
+pandas or JAX-package module loaded),
 that the JAX weights carry across without loss, and that `chip_smoke.py`
 refuses to run without a GPU instead of falling back to the CPU."""
 
@@ -139,6 +140,16 @@ sched.close()
 assert {"factorvae_tpu_torch.serve.daemon", "factorvae_tpu_torch.serve.registry",
         "factorvae_tpu_torch.serve.__main__", "factorvae_tpu_torch.obs.trace",
         "factorvae_tpu_torch.obs.drift", "factorvae_tpu_torch.obs.metrics"} <= set(names)
+
+# the fleet's modules, and an AOT artifact admitted and scored day by day
+from factorvae_tpu_torch.eval.export_aot import export_prediction
+
+reg.register_artifact(export_prediction(load_model(cfg, device="cpu"), cfg, ds.n_max,
+                                        platform="cpu"), alias="aot")
+assert np.isfinite(reg.score("aot", ds, ds.split_days(None, None))[:, :5]).all()
+assert {"factorvae_tpu_torch.serve.pool", "factorvae_tpu_torch.serve.router",
+        "factorvae_tpu_torch.serve.remote", "factorvae_tpu_torch.serve.autoscale",
+        "factorvae_tpu_torch.eval.export_aot"} <= set(names)
 
 def banned(mod):
     top = mod.split(".")[0]

@@ -387,9 +387,29 @@ class TestRegistryColdStart:
             assert reg.get("w0").key == key
         assert reg.cold_starts == 1 and plan.fired == [{"kind": "serve_cold_fail"}]
 
-    def test_artifacts_are_refused_naming_item_6(self, srv):
-        with pytest.raises(RegistryError, match="item 6"):
-            ModelRegistry(device="cpu").register_artifact(b"blob")
+    def test_register_artifact_admits_a_port_artifact(self, srv):
+        """An AOT artifact admits under its header's config hash and scores
+        as `predict_panel` does (one exported call per day); a JAX artifact
+        is refused in one line naming its format."""
+        from factorvae_tpu.eval.export_aot import export_prediction as jexport
+        from factorvae_tpu_torch.eval.export_aot import export_prediction
+
+        jcfg, tcfg, params = srv["models"][0]
+        model = FactorVAE(tcfg.model)
+        model.load_state_dict(flax_to_torch(params))
+        ds = srv["tds"]
+        reg = ModelRegistry(device="cpu")
+        key = reg.register_artifact(export_prediction(model, tcfg, ds.n_max, platform="cpu"),
+                                    alias="a0")
+        entry = reg.get("a0")
+        assert key == tconfig.config_hash(tcfg.to_dict()) and entry.source == "artifact"
+        days = np.arange(ST, 30)
+        np.testing.assert_allclose(reg.score("a0", ds, days),
+                                   predict_panel(model.eval(), tcfg, ds, days, stochastic=False),
+                                   **SCORE_TOL)
+        with pytest.raises(RegistryError, match="JAX StableHLO") as ei:
+            reg.register_artifact(jexport(params, jcfg, n_max=ds.n_max))
+        assert "\n" not in str(ei.value)
 
 
 # ---- fused dispatch ----------------------------------------------------------
@@ -966,13 +986,105 @@ def test_cli_batch_equals_handle_batch(srv, tmp_path):
     assert [r["batched_with"] for r in got[:3]] == [2, 2, 1] and not got[5]["ok"]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--workers", "2"], ["--router_port", "8800"], ["--aot_store", "x"], ["--join", "u"],
-    ["--advertise_host", "h"], ["--slo_ms", "5"], ["--hedge_ms", "5"], ["--no_hedge"],
-    ["--autoscale", "4"], ["--max_inflight", "8"]], ids=lambda f: f[0].lstrip("-"))
-def test_cli_refuses_the_pool_flags_naming_item_6(flag, capsys):
+def _fleet_of(argv, tmp_path):
+    from factorvae_tpu_torch.serve.__main__ import _pool_refusal, build_fleet, build_parser
+
+    args = build_parser().parse_args(["--model", str(tmp_path / "w0"), "--synthetic", "30,12",
+                                      "--device", "cpu", "--workers", "2", *argv])
+    assert _pool_refusal(args) is None
+    return build_fleet(args, str(tmp_path / "work"))
+
+
+def _wired_workers(tmp_path):
+    pool, _, _ = _fleet_of(["--workers", "3"], tmp_path)
+    return [w.wid for w in pool.workers] == ["w0", "w1", "w2"]
+
+
+def _wired_router_port(tmp_path):
+    pool, _, _ = _fleet_of(["--router_port", "8811"], tmp_path)
+    return pool.router_url == "http://127.0.0.1:8811"
+
+
+def _wired_aot_store(tmp_path):
+    pool, _, _ = _fleet_of(["--aot_store", str(tmp_path / "store")], tmp_path)
+    return pool.store.root == str(tmp_path / "store") and pool.store.platform == "cpu"
+
+
+def _wired_join(tmp_path, capsys):
     from factorvae_tpu_torch.serve.__main__ import main
 
-    # the dataset does not exist: the refusal comes before it is read
-    assert main(["--dataset", "/nonexistent.pkl", *flag]) == 2
-    assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
+    # the agent asks the (absent) router for its artifacts, and says so
+    assert main(["--join", "http://127.0.0.1:9", "--device", "cpu",
+                 "--aot_store", str(tmp_path / "join")]) == 2
+    return "cannot reach the fleet's artifact service" in capsys.readouterr().err
+
+
+def _wired_advertise_host(tmp_path, monkeypatch):
+    from factorvae_tpu_torch.serve import __main__ as cli_main
+    from factorvae_tpu_torch.serve import remote
+
+    seen = {}
+    monkeypatch.setattr(remote, "prepare_join", lambda args, parser: "cap")
+    monkeypatch.setattr(remote, "register_when_healthy",
+                        lambda url, port, cap, host: seen.update(host=host, cap=cap))
+    # registration is wired; serving then stops at the missing panel
+    assert cli_main.main(["--join", "http://127.0.0.1:9", "--advertise_host", "10.0.0.7",
+                          "--device", "cpu"]) == 2
+    return seen == {"host": "10.0.0.7", "cap": "cap"}
+
+
+def _wired_slo_ms(tmp_path):
+    _, router, scaler = _fleet_of(["--slo_ms", "50", "--autoscale", "4"], tmp_path)
+    return router.slo_ms == 50.0 and scaler.slo_ms == 50.0
+
+
+def _wired_hedge_ms(tmp_path):
+    _, router, _ = _fleet_of(["--hedge_ms", "5"], tmp_path)
+    measured = _fleet_of([], tmp_path)[1]
+    return router._hedge_delay_s() == 0.005 and measured.hedge_ms == -1.0
+
+
+def _wired_no_hedge(tmp_path):
+    _, router, _ = _fleet_of(["--no_hedge"], tmp_path)
+    return not router.hedge_enabled and router._hedge_delay_s() is None
+
+
+def _wired_autoscale(tmp_path):
+    _, router, scaler = _fleet_of(["--autoscale", "4"], tmp_path)
+    return (router.autoscaler is scaler and (scaler.min_workers, scaler.max_workers)
+            == (2, 4) and _fleet_of([], tmp_path)[2] is None)
+
+
+def _wired_max_inflight(tmp_path):
+    _, router, _ = _fleet_of(["--max_inflight", "8"], tmp_path)
+    return router.max_inflight == 8
+
+
+@pytest.mark.parametrize("wired,bad", [
+    (_wired_workers, ["--workers", "0"]),
+    (_wired_router_port, ["--workers", "2", "--model", "w", "--router_port", "70000"]),
+    (_wired_aot_store, ["--workers", "2", "--model", "w", "--aot_store", __file__]),
+    (_wired_join, ["--join", "u"]),
+    (_wired_advertise_host, ["--join", "http://127.0.0.1:9", "--advertise_host", ""]),
+    (_wired_slo_ms, ["--slo_ms", "-5"]),
+    (_wired_hedge_ms, ["--hedge_ms", "-1"]),
+    (_wired_no_hedge, ["--no_hedge", "--hedge_ms", "5"]),
+    (_wired_autoscale, ["--workers", "2", "--model", "w", "--autoscale", "2"]),
+    (_wired_max_inflight, ["--max_inflight", "-1"])],
+    ids=lambda c: c.__name__[len("_wired_"):] if callable(c) else None)
+def test_cli_wires_the_pool_flag(wired, bad, tmp_path, capsys, monkeypatch):
+    """Each pool flag reaches the WorkerPool, Router or AutoScaler it
+    configures (or the remote join); a bad value exits 2 naming the flag,
+    before the dataset is read."""
+    import inspect
+
+    from factorvae_tpu_torch.serve.__main__ import main
+
+    extra = {"capsys": capsys, "monkeypatch": monkeypatch}
+    kw = {k: v for k, v in extra.items() if k in inspect.signature(wired).parameters}
+    assert wired(tmp_path, **kw)
+    capsys.readouterr()
+    assert main(["--dataset", "/nonexistent.pkl", *bad]) == 2
+    err = capsys.readouterr().err.strip()
+    assert err.startswith("error: --") and len(err.splitlines()) == 1
+    assert bad[-2] in err or bad[0] in err
