@@ -212,15 +212,50 @@ named phases, and prints neither the kernels line nor the result):
               clients, and a hedged forward past a 1 s serve_stall on the
               owner (two daemons on the card behind a router): the second
               answer wins, counted once.
-15. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+15. stacked -- the stacked GRU at flagship width, gru_layers = 2, on the
+              80-day panel: (a) the extractor's latent of one training day
+              and one deterministic training step (dropout 0, nll) on the
+              card against the same on the CPU from the same weights, at the
+              train phase's limits (latent and loss TRAIN_LOSS_RTOL, each
+              parameter's gradient TRAIN_GRAD_RTOL); (b) the launches of a
+              no-grad forward (K1's serving variant once, for the top layer)
+              and of the step (K1's residual variant, the walk, dWh, K4 and
+              K5 once each, whatever L is); (c) a warm L = 2 epoch against a
+              warm L = 1 epoch, with every launch counter set to 0 just
+              before the L = 2 one (each training kernel once per step, K1's
+              serving variant once per validation batch).
+16. wf     -- the walk-forward refit at flagship width, 300 stocks: (a) in
+              this process, a PanelStore seeded with 120 synthetic days
+              (22.9 MB of f32), a stream-resident dataset, the daemon behind
+              serve_http with a TickScheduler and 4 keep-alive clients
+              scoring the newest day throughout; the bootstrap (one epoch),
+              then one cycle of 2 new days with every launch counter set to
+              0 just before it: every kernel launched, no request failed,
+              each stage's seconds, one K1 and one K4 launch of the judge
+              stage against their plain versions (K1_TOL / K4_TOL), the
+              refit's weights bitwise a plain warm_refit on the card from
+              the same warm weights; (b) the refit's seconds blocked in
+              Checkpointer.save with async against sync saves (3 epochs
+              each), and the sha256 seconds per manifest; (c)
+              corrupt_checkpoint on the newest epoch (restore falls back a
+              step and quarantines it) and corrupt_artifact on the promoted
+              weights (register_checkpoint refuses them); (d) `python -m
+              factorvae_tpu_torch.wf` as a subprocess: a clean cycle, then
+              kill_mid_refit (FACTORVAE_CHAOS) killing the second, then the
+              re-run resuming it, against a never-killed run: the refit's
+              weights.pt and the store's slabs byte-identical, the seconds
+              to resume.
+17. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
               `launches_mixed` in the precision phase's mixed epoch,
               `launches_fleet` in the fleet epoch, `launches_stream` in
               the stream phase's stream epoch, `launches_serve` in the
               serve phase's fused ticks, `launches_artifact` in the pool
-              phase's f32 artifact request and `launches_pool` in the
-              fleet's workers for its routed requests), and its `fleet_*` times
+              phase's f32 artifact request, `launches_pool` in the
+              fleet's workers for its routed requests, `launches_stacked`
+              in the stacked phase's L = 2 epoch and `launches_wf` in the wf
+              phase's in-process cycle), and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
               `fleet_bound_ms`, ...).
 
@@ -2398,7 +2433,7 @@ def _recording(seen: list, tag: dict) -> dict:
     """Wrap K1's and K4's launch helpers (`_fwd_launch` of the gru and the
     attention kernel modules) so that every launch keeps its inputs (as the
     kernel gets them: upcast and checked) and its output in `seen`, under
-    the current `tag["rung"]`. The launch itself is unchanged, and so are
+    the current `tag["rung"]` (none while it is None). The launch itself is unchanged, and so are
     the wrappers' launch counters. Returns the originals, for `_restore`."""
     from factorvae_tpu_torch.ops.kernels import attention as attention_module
     from factorvae_tpu_torch.ops.kernels import gru as gru_module
@@ -2407,12 +2442,14 @@ def _recording(seen: list, tag: dict) -> dict:
 
     def gru_launch(name, xi, w_h, b_h, residuals, shape):
         res = real[gru_module](name, xi, w_h, b_h, residuals, shape)
-        seen.append((tag["rung"], name, (xi, w_h, b_h), res[0]))
+        if tag["rung"] is not None:
+            seen.append((tag["rung"], name, (xi, w_h, b_h), res[0]))
         return res
 
     def attention_launch(*args):
         res = real[attention_module](*args)
-        seen.append((tag["rung"], "attention_fwd", args[:8], res[0]))
+        if tag["rung"] is not None:
+            seen.append((tag["rung"], "attention_fwd", args[:8], res[0]))
         return res
 
     gru_module._fwd_launch = gru_launch
@@ -3492,6 +3529,401 @@ def phase_pool(torch, seed: int, counters, card: str) -> dict:
             "control": control, "hedge": hedge, "seconds": time.perf_counter() - t_phase}
 
 
+STACKED_LAYERS = 2
+
+
+def _grads_vs_cpu(torch, g_gpu: dict, g_cpu: dict) -> tuple:
+    """Per-parameter max |a - b| / max |b| of two gradient sets, leaving out
+    the parameters whose CPU gradient is zero up to rounding (held to
+    ZERO_GRAD_ATOL on the card instead, as in the train phase)."""
+    g_max = {k: float(g.abs().max()) for k, g in g_cpu.items()}
+    zero = sorted(k for k, v in g_max.items() if v <= ZERO_GRAD_ATOL)
+    errs = {k: float((g_gpu[k] - g_cpu[k]).abs().max()) / g_max[k]
+            for k in g_cpu if k not in zero}
+    for k in zero:
+        check(float(g_gpu[k].abs().max()) <= ZERO_GRAD_ATOL,
+              f"stacked: {k} (zero gradient on the CPU) has |g| "
+              f"{float(g_gpu[k].abs().max())} on the card")
+    return errs, zero
+
+
+def phase_stacked(torch, seed: int, counters, card: str) -> dict:
+    """The stacked GRU at flagship width, L = 2 (the module docstring's
+    phase 15)."""
+    import tempfile
+
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.train.loop import train_step
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    base = get_preset("flagship")
+    panel = synthetic_panel_dense(80, 300, base.model.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_stacked_")
+
+    def cfg_of(layers, **model):
+        return dataclasses.replace(
+            base, model=dataclasses.replace(base.model, gru_layers=layers, **model),
+            data=dataclasses.replace(base.data, start_time=dates[0], fit_end_time=dates[49],
+                                     val_start_time=dates[50], val_end_time=dates[69]),
+            train=dataclasses.replace(base.train, seed=seed, num_epochs=1, days_per_step=1,
+                                      checkpoint_every=0,
+                                      save_dir=os.path.join(work.name, f"l{layers}")))
+
+    dataset = PanelDataset(panel, seq_len=base.model.seq_len, device="cuda")
+    cpu_ds = PanelDataset(panel, seq_len=base.model.seq_len, device="cpu")
+    # (a) one deterministic training step and a no-grad forward, card and CPU,
+    # from the same weights
+    det = cfg_of(STACKED_LAYERS, dropout_rate=0.0, recon_loss="nll")
+    runs = {}
+    for device, ds in (("cuda", dataset), ("cpu", cpu_ds)):
+        tr = Trainer(det, ds, device=device)
+        st = tr.init_state()
+        order = tr._order(tr.train_days, True, 0)
+        x, _, _ = ds.gather(order[0])
+        with torch.no_grad():
+            for c in counters:
+                c.launches = 0
+            latent = st.model.feature_extractor(x.reshape(-1, *x.shape[2:]))
+            forward = {c.__name__: c.launches for c in counters}
+            for c in counters:
+                c.launches = 0
+        aux = train_step(st, ds, order[0], guard=True)
+        step = {c.__name__: c.launches for c in counters}
+        runs[device] = (latent.cpu(), float(aux["loss_sum"] / aux["days"]),
+                        {k: p.grad.detach().cpu() for k, p in st.model.named_parameters()},
+                        forward, step)
+    (lat_g, loss_g, g_gpu, fwd_launch, step_launch), (lat_c, loss_c, g_cpu, _, _) = (
+        runs["cuda"], runs["cpu"])
+    lat_err = float((lat_g - lat_c).abs().max()) / max(1.0, float(lat_c.abs().max()))
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_errs, zero = _grads_vs_cpu(torch, g_gpu, g_cpu)
+    check(lat_err <= TRAIN_LOSS_RTOL,
+          f"stacked: the extractor's latent differs by {lat_err} > {TRAIN_LOSS_RTOL}")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"stacked: the step's loss differs by {loss_rel} > {TRAIN_LOSS_RTOL}")
+    check(max(grad_errs.values()) <= TRAIN_GRAD_RTOL,
+          f"stacked: gradients differ: {grad_errs} > {TRAIN_GRAD_RTOL}")
+    # (b) K1 once per forward (the top layer), the walk and dWh once per backward
+    check(fwd_launch["gru_fwd"] == 1 and fwd_launch["gru_fwd_residuals"] == 0
+          and fwd_launch["gru_bwd"] == 0,
+          f"stacked: a no-grad forward launched {fwd_launch}")
+    check(all(step_launch[k] == 1 for k in ("gru_fwd_residuals", "gru_bwd", "gru_dwh",
+                                            "attention_fwd", "attention_bwd"))
+          and step_launch["gru_fwd"] == 0, f"stacked: a training step launched {step_launch}")
+    # (c) a warm L = 2 epoch against a warm L = 1 epoch on the same panel; the
+    # counts of the L = 2 epoch are the phase's launches
+    epochs, launches = {}, None
+    for layers in (1, STACKED_LAYERS):
+        tr = Trainer(cfg_of(layers), dataset, device="cuda")
+        tr.fit()                                       # the first epoch pays set-up
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        _, out = tr.fit()
+        torch.cuda.synchronize()
+        rec = out["history"][0]
+        check(np.isfinite(rec["train_loss"]) and np.isfinite(rec["val_loss"])
+              and rec["skipped_steps"] == 0, f"stacked: the L = {layers} epoch {rec}")
+        epochs[f"L{layers}"] = {"epoch_s_warm": rec["seconds"], "train_loss": rec["train_loss"],
+                                "val_loss": rec["val_loss"], "steps": tr.steps_per_epoch}
+        if layers == STACKED_LAYERS:
+            launches = {c.__name__: c.launches for c in counters}
+            steps = tr.steps_per_epoch
+            val_batches = -(-len(tr.val_days) // tr.batch_days)
+            check(launches["gru_fwd_residuals"] == launches["gru_bwd"] == launches["gru_dwh"]
+                  == launches["attention_bwd"] == steps
+                  and launches["gru_fwd"] == val_batches,
+                  f"stacked: {steps} steps, {val_batches} validation batches, {launches}")
+    work.cleanup()
+    return {"phase": "stacked", "card": card,
+            "config": f"flagship C158/T20/H64/K96/M128, gru_layers={STACKED_LAYERS}, f32, "
+                      "days_per_step=1, 80 days x 300 stocks",
+            "latent_max_rel_err": lat_err, "step_loss_rel_err": loss_rel,
+            "grad_max_rel_err": max(grad_errs.values()),
+            "grad_errors_top": dict(sorted(grad_errs.items(), key=lambda kv: -kv[1])[:5]),
+            "zero_grad_params": zero,
+            "limits": {"latent_and_loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL},
+            "forward_launches": fwd_launch, "step_launches": step_launch,
+            "epochs": epochs,
+            "epoch_ratio_L2_over_L1": (epochs[f"L{STACKED_LAYERS}"]["epoch_s_warm"]
+                                       / epochs["L1"]["epoch_s_warm"]),
+            "launches": launches}
+
+
+WF_SEED_DAYS = 120      # the store's first slab: 120 x 300 x 159 f32, 22.9 MB
+WF_STOCKS = 300
+WF_NEW_DAYS = 2
+WF_CLIENTS = 4
+WF_SAVE_EPOCHS = 3      # the save-time comparison's refits
+
+
+def _wf_command(repo: str, m, run_dir: str, cycles: int, seed: int, chaos_json=None):
+    """`python -m factorvae_tpu_torch.wf` at the widths of the ModelConfig
+    `m` on the card, as a subprocess: a Popen whose stdout carries the cycle
+    summaries."""
+    import subprocess as sp
+
+    env = {k: v for k, v in os.environ.items() if k != "FACTORVAE_CHAOS"}
+    if chaos_json is not None:
+        env["FACTORVAE_CHAOS"] = chaos_json
+    argv = [sys.executable, "-m", "factorvae_tpu_torch.wf", "--run_dir", run_dir,
+            "--cycles", str(cycles), "--force_refit", "--epochs", "1",
+            "--init_days", str(WF_SEED_DAYS), "--new_days", str(WF_NEW_DAYS),
+            "--stocks", str(WF_STOCKS), "--features", str(m.num_features),
+            "--hidden", str(m.hidden_size), "--factors", str(m.num_factors),
+            "--portfolios", str(m.num_portfolios), "--seq_len", str(m.seq_len),
+            "--min_margin", "2",
+            "--seed", str(seed)]
+    return sp.Popen(argv, cwd=repo, env=env, stdout=sp.PIPE, stderr=sp.PIPE, text=True)
+
+
+def _wf_wait(proc, what: str, want_rc: int = 0) -> list:
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == want_rc,
+          f"wf (d): {what} exited {proc.returncode}, not {want_rc}: {err[-1500:]}")
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+def phase_wf(torch, seed: int, counters, card: str) -> dict:
+    """The walk-forward refit at flagship width on the card (the module
+    docstring's phase 16)."""
+    import http.client
+    import shutil
+    import tempfile
+    import threading
+
+    from factorvae_tpu_torch.chaos import ChaosPlan, Fault
+    from factorvae_tpu_torch.chaos import ops as chaos_ops
+    from factorvae_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+    from factorvae_tpu_torch.data.append import PanelStore
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import continuation_panel, synthetic_panel_dense
+    from factorvae_tpu_torch.ops.kernels import plain
+    from factorvae_tpu_torch.ops.kernels.attention import attention_fwd_plain
+    from factorvae_tpu_torch.ops.kernels.gru import gru_fwd_plain
+    from factorvae_tpu_torch.params import read_state_dict
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.serve.daemon import ScoringDaemon, TickScheduler, serve_http
+    from factorvae_tpu_torch.serve.registry import ModelRegistry, RegistryError
+    from factorvae_tpu_torch.train.checkpoint import Checkpointer
+    from factorvae_tpu_torch.train.trainer import Trainer
+    from factorvae_tpu_torch.wf.operator import WalkForwardOperator, warm_refit
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    m = get_preset("flagship").model
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_wf_")
+    # (a) in process, the command's rig: a store of 120 days, a stream-resident
+    # dataset, the daemon behind serve_http --scheduler with 4 clients
+    store = PanelStore.create(os.path.join(work.name, "store"),
+                              synthetic_panel_dense(WF_SEED_DAYS, WF_STOCKS, m.num_features,
+                                                    seed=seed))
+    dataset = PanelDataset(store.load_panel(), seq_len=m.seq_len, device="cuda",
+                           residency="stream")
+    # the command's Config (wf/__main__.py) at these widths
+    cfg = Config(
+        model=ModelConfig(num_features=m.num_features, hidden_size=m.hidden_size,
+                          num_factors=m.num_factors, num_portfolios=m.num_portfolios,
+                          seq_len=m.seq_len, stochastic_inference=False),
+        data=DataConfig(seq_len=m.seq_len, start_time=None, fit_end_time=None,
+                        val_start_time=None, val_end_time=None, panel_residency="stream"),
+        train=TrainConfig(seed=seed, run_name="walkforward", num_epochs=1))
+    daemon = ScoringDaemon(ModelRegistry(device="cuda"), dataset, stochastic=False,
+                           seed=seed, drift_threshold=0.5)
+    op = WalkForwardOperator(store, dataset, daemon, cfg, os.path.join(work.name, "run"),
+                             refit_epochs=1, force_refit=True, min_margin=2.0,
+                             drift_threshold=0.5, device="cuda")
+    t0 = time.perf_counter()
+    op.ensure_incumbent(epochs=1)
+    torch.cuda.synchronize()
+    bootstrap_s = time.perf_counter() - t0
+    cand_cfg = op._candidate_config("probe")
+    warm0 = op._warm_params(Trainer(cand_cfg, dataset, device="cuda").init_state())
+    probe_day = int(dataset.split_days(None, None)[-1])
+    sched = TickScheduler(daemon, tick_ms=2.0)
+    port, srv_thread = _start_front(serve_http, daemon, sched)
+    stop, answers = threading.Event(), []
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        while not stop.is_set():
+            status, body = _http(conn, "POST", "/score",
+                                 {"id": c, "model": "prod", "day": probe_day})
+            answers.append((status, json.loads(body)))
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(WF_CLIENTS)]
+    for th in threads:
+        th.start()
+    # each judge-stage launch of K1 and K4 keeps its inputs, for the plain check
+    seen, tag = [], {"rung": None}
+    real_judge = op._stage_judge
+
+    def judge(incoming):
+        tag["rung"] = "judge"
+        try:
+            return real_judge(incoming)
+        finally:
+            tag["rung"] = None
+
+    op._stage_judge = judge
+    real = _recording(seen, tag)
+    piece = continuation_panel(store.instruments, store.end_date, WF_NEW_DAYS,
+                               m.num_features, seed=seed * 100003 + 2)
+    try:
+        time.sleep(0.2)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        summary = op.run_cycle(piece)
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        _restore(real)
+        op._stage_judge = real_judge
+        time.sleep(0.2)
+        stop.set()
+        for th in threads:
+            th.join(60)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        _http(conn, "POST", "/score", {"cmd": "shutdown"})
+        conn.close()
+        srv_thread.join(60)
+    check(summary["triggered"] and summary["promoted"] and all(summary["ran"].values()),
+          f"wf (a): the cycle {summary['ran']} promoted={summary['promoted']}")
+    check(answers and all(st == 200 and resp.get("ok") for st, resp in answers),
+          f"wf (a): {sum(1 for st, r in answers if st != 200 or not r.get('ok'))} of "
+          f"{len(answers)} requests failed during the cycle")
+    promoted = summary["stages"]["promote"]["model"]
+    flips = [resp["model"] for _, resp in answers]
+    check(flips[-1] == promoted, "wf (a): the clients never saw the promoted model")
+    for name, count in launches.items():
+        check(count > 0, f"wf (a): {name} was not launched in the cycle: {launches}")
+    plain_fn = {"gru_fwd": gru_fwd_plain, "attention_fwd": attention_fwd_plain}
+    judge_errs = {}
+    with torch.inference_mode():
+        for name in plain_fn:
+            hit = next(((args, out) for rung, n, args, out in seen
+                        if rung == "judge" and n == name), None)
+            check(hit is not None, f"wf (a): no {name} launch in the judge stage")
+            args, out = hit
+            ref = plain(plain_fn[name], args[0].ndim == 4, *args)
+            judge_errs[name] = {"max_abs_err": float((out - ref).abs().max()),
+                                "shape": list(args[0].shape)}
+    del seen
+    check(judge_errs["gru_fwd"]["max_abs_err"] <= K1_TOL
+          and judge_errs["attention_fwd"]["max_abs_err"] <= K4_TOL,
+          f"wf (a): the judge's launches vs their plain versions {judge_errs}")
+    # the cycle's refit is bitwise a plain warm_refit from the same warm weights
+    refit = summary["stages"]["refit"]
+    plain_cfg = op._candidate_config(summary["cycle"])
+    plain_cfg = dataclasses.replace(plain_cfg, train=dataclasses.replace(
+        plain_cfg.train, save_dir=os.path.join(work.name, "plain")))
+    state, info, _ = warm_refit(plain_cfg, dataset, warm_params=warm0, device="cuda")
+    cycle_sd = read_state_dict(refit["warm"]["path"])
+    plain_sd = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    check(all(torch.equal(cycle_sd[k], plain_sd[k]) for k in plain_sd)
+          and info["best_val"] == refit["warm"]["best_val"],
+          "wf (a): the cycle's refit is not bitwise a plain warm_refit")
+
+    # (b) the refit's time blocked in save(): async against sync saves, and
+    # the sha256 pass per manifest
+    saves = {}
+    for mode in (True, False):
+        c = dataclasses.replace(plain_cfg, train=dataclasses.replace(
+            plain_cfg.train, num_epochs=WF_SAVE_EPOCHS, async_checkpointing=mode,
+            save_dir=os.path.join(work.name, f"save_{mode}")))
+        tr = Trainer(c, dataset, device="cuda")
+        st = tr.init_state()
+        st.model.load_state_dict(warm0)
+        tr.fit(state=st)
+        ck = tr.last_checkpointer
+        check(ck.all_steps() == list(range(WF_SAVE_EPOCHS))
+              and all(ck.verify_step(s) == (True, None) for s in ck.all_steps()),
+              f"wf (b): the {'async' if mode else 'sync'} refit's checkpoints")
+        saves["async" if mode else "sync"] = {
+            "save_blocked_s": ck.save_seconds, "manifest_sha256_s": ck.manifest_seconds,
+            "payload_bytes": os.path.getsize(ck._path(0)), "dir": ck.directory}
+    check(saves["async"]["payload_bytes"] == saves["sync"]["payload_bytes"],
+          "wf (b): async and sync payloads differ in size")
+
+    # (c) corrupt_checkpoint on the newest epoch: restore falls back and
+    # quarantines; corrupt_artifact: register_checkpoint refuses
+    ck = Checkpointer(saves["async"].pop("dir"))
+    saves["sync"].pop("dir")
+    newest = ck.latest_step()
+    chaos_ops.corrupt_checkpoint_step(ck.directory, newest, rng_seed=seed)
+    template = Trainer(plain_cfg, dataset, device="cuda").init_state()
+    meta = ck.restore(template)
+    quarantined = ck.quarantined_steps()
+    check(meta["epoch"] == newest - 1 and quarantined == [newest],
+          f"wf (c): restore gave epoch {meta['epoch']}, quarantined {quarantined}")
+    bad = os.path.join(work.name, "corrupt_weights")
+    shutil.copytree(refit["warm"]["path"], bad)
+    shutil.copy(refit["warm"]["path"] + ".manifest.json", bad + ".manifest.json")
+    chaos_ops.corrupt_file(os.path.join(bad, "weights.pt"), rng_seed=seed)
+    try:
+        ModelRegistry(device="cuda").register_checkpoint(bad)
+        refused = None
+    except RegistryError as e:
+        refused = str(e)
+    check(refused is not None and "failed manifest verification" in refused,
+          f"wf (c): the registry admitted corrupted weights ({refused})")
+
+    # (d) the command as a subprocess: a clean cycle, kill_mid_refit in the
+    # second, the re-run resuming it; against the never-killed run
+    # (bootstrap and two cycles), which runs beside the clean cycle
+    ref_dir, kill_dir = (os.path.join(work.name, d) for d in ("ref", "killed"))
+    t_d = time.perf_counter()
+    ref_proc = _wf_command(repo, m, ref_dir, 2, seed)
+    clean_proc = _wf_command(repo, m, kill_dir, 1, seed)
+    _wf_wait(clean_proc, "the clean cycle")
+    ref = _wf_wait(ref_proc, "the reference run")
+    t0 = time.perf_counter()
+    _wf_wait(_wf_command(repo, m, kill_dir, 1, seed, ChaosPlan(
+        [Fault("kill_mid_refit", step=1)]).to_json()), "the killed cycle", want_rc=-9)
+    killed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = _wf_wait(_wf_command(repo, m, kill_dir, 1, seed), "the resume")[-1]
+    resume_s = time.perf_counter() - t0
+    check(resumed["cycle"] == ref[-1]["cycle"] == "c00003" and resumed["promoted"]
+          and resumed["ran"]["append"] is False and resumed["ran"]["refit"] is True,
+          f"wf (d): the resumed cycle {resumed['cycle']} ran {resumed['ran']}")
+    slabs = [s["sha256"] for s in PanelStore(os.path.join(kill_dir, "store")).slabs]
+    ref_slabs = [s["sha256"] for s in PanelStore(os.path.join(ref_dir, "store")).slabs]
+    with open(os.path.join(resumed["stages"]["refit"]["warm"]["path"], "weights.pt"),
+              "rb") as a, open(os.path.join(ref[-1]["stages"]["refit"]["warm"]["path"],
+                                            "weights.pt"), "rb") as b:
+        same_weights = a.read() == b.read()
+    check(slabs == ref_slabs and same_weights,
+          f"wf (d): slabs equal {slabs == ref_slabs}, weights equal {same_weights}")
+    command_s = time.perf_counter() - t_d
+    work.cleanup()
+    return {"phase": "wf", "card": card,
+            "config": "flagship C158/T20/H64/K96/M128, f32, 300 stocks, a seed store of "
+                      f"{WF_SEED_DAYS} days, {WF_NEW_DAYS} new days a cycle, stream "
+                      "residency, 1 bootstrap and 1 refit epoch, force_refit, min_margin 2",
+            "panel_mb": WF_SEED_DAYS * WF_STOCKS * (m.num_features + 1) * 4 / 1e6,
+            "bootstrap_s": bootstrap_s, "cycle_s": cycle_s,
+            "stage_s": summary["walls"], "refit_to_serve_s": summary.get("refit_to_serve_s"),
+            "requests": len(answers), "failed_requests": 0, "clients": WF_CLIENTS,
+            "launches": launches, "judge_kernel_vs_plain": judge_errs,
+            "tolerance": {"gru_fwd": K1_TOL, "attention_fwd": K4_TOL},
+            "refit_bitwise_plain_warm_refit": True,
+            "saves": saves,
+            "corrupt_checkpoint": {"quarantined": quarantined,
+                                   "restored_epoch": meta["epoch"]},
+            "corrupt_artifact_refused": refused.split(" — ")[0],
+            "subprocess": {"killed_rc": -9, "killed_s": killed_s, "resume_s": resume_s,
+                       "resumed_stage_s": resumed["walls"], "ran": resumed["ran"],
+                       "weights_bytes_equal": same_weights, "slabs_equal": True,
+                       "phase_d_wall_s": command_s}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3535,7 +3967,9 @@ def main(argv=None) -> int:
         "fleet": lambda: phase_fleet(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "stream": lambda: phase_stream(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "serve": lambda: phase_serve(torch, args.seed, counters, phases[0]["nvidia_smi"]),
-        "pool": lambda: phase_pool(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "pool": lambda: phase_pool(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "stacked": lambda: phase_stacked(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "wf": lambda: phase_wf(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -3580,6 +4014,8 @@ def main(argv=None) -> int:
                      "launches_serve": by["serve"]["launches"][name],
                      "launches_artifact": by["pool"]["launches_artifact"][name],
                      "launches_pool": by["pool"]["launches_pool"][name],
+                     "launches_stacked": by["stacked"]["launches"][name],
+                     "launches_wf": by["wf"]["launches"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],
                      "tolerance": ph["tolerance"],

@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the trainer's recovery
-(`factorvae_tpu/chaos/__init__.py`, in part).
+"""Deterministic fault injection for the port's recovery paths
+(`factorvae_tpu/chaos/__init__.py`).
 
 A `ChaosPlan` is a seeded list of `Fault`s, each pinned to coordinates and
 bounded by a fire count. It is installed in-process (`install`, or the
@@ -9,31 +9,48 @@ JSON, which is read once, at the process's first query. An injection point asks 
 match, which consumes one firing; so a fault at epoch 2 fires once, and
 the epoch replayed after a rollback runs clean.
 
-The ported kinds and their injection points:
+The kinds (`KINDS`, the JAX package's tuple) and their injection points:
 
     kind                 injection point             recovery exercised
     nan_grads            a train epoch's gradients   the finite guard skips
                          (train/loop.py; `epoch`,    the steps; the
                          fleets also `lane`)         trainer's rollback
+    kill_mid_save        Checkpointer.save (`step`): the step is lost whole;
+                         the write queued (async)    the manifest-less step
+                         or committed before its     restores unverified;
+                         manifest (sync); SIGKILL    resume continues bitwise
+    corrupt_checkpoint   host-side byte flips:       sha256 manifest ->
+    corrupt_artifact     ops.corrupt_checkpoint_step quarantine and restore's
+                         / ops.corrupt_file          fallback; the registry
+                                                     refuses the weights
+    torn_jsonl           ops.tear_jsonl              the walk-forward
+                                                     journal's .bak fallback
+                                                     (the timeline readers'
+                                                     tolerance comes with
+                                                     ROADMAP item 11)
     stream_fail          ChunkStream._produce        bounded retry with
     stream_stall         (`chunk`; data/stream.py)   backoff; `delay_s` of
                                                      latency for a stall
-    kill_mid_append      PanelStore.append_panel,    the re-run overwrites
-                         `step` 0 before the slab,   the orphan slab
-                         1 before the manifest       (SIGKILL, chaos/ops.py)
-    corrupt_append_slab  PanelStore.append_panel,    sha256 check before the
-                         after the slab lands        manifest commit
     serve_cold_fail      ModelRegistry.get, a        the cold start's bounded
                          tombstone's reload          retry with backoff
     serve_stall          ModelRegistry.score         the daemon's deadline
                          (`delay_s` of latency)      and circuit breaker
     serve_malformed      none: tests feed garbage    {"ok": false} answers
-    fidelity_gate_reject ScoringDaemon.admit         the candidate is retired,
-                         (`request` = the Nth        the incumbent serves on
-                         admission) forces a reject
+    kill_mid_append      PanelStore.append_panel,    the re-run overwrites
+                         `step` 0 before the slab,   the orphan slab
+                         1 before the manifest       (SIGKILL, chaos/ops.py)
+    corrupt_append_slab  PanelStore.append_panel,    sha256 check before the
+                         after the slab lands        manifest commit
+    kill_mid_refit       WalkForwardOperator's       the journaled refit
+                         refit stage, `step` 0       stage re-runs; the
+                         before the fit, 1 after it  candidate's checkpoints
+                         before the journal commit   resume the fit bitwise
     kill_between_admit_  ScoringDaemon.admit, after  a re-run re-admits the
     and_drain            the verdict, before the     same bytes and completes
                          alias flip (SIGKILL)        the flip
+    fidelity_gate_reject ScoringDaemon.admit         the candidate is retired,
+                         (`request` = the Nth        the incumbent serves on
+                         admission) forces a reject
     kill_worker          WorkerPool's watcher tick   the router reroutes; the
                          (`request` = the worker's   watcher respawns the
                          index): SIGKILL a local     worker from the AOT store
@@ -42,8 +59,7 @@ The ported kinds and their injection points:
                          launched remote agent       verified downloads, then
                                                      re-registration
 
-A plan that names any other kind of the JAX package is refused, never
-ignored.
+A plan that names any other kind is refused, never ignored.
 """
 
 from __future__ import annotations
@@ -55,10 +71,27 @@ import os
 import threading
 from typing import Iterator, List, Optional, Sequence
 
-KINDS = ("nan_grads", "stream_fail", "stream_stall", "kill_mid_append",
-         "corrupt_append_slab", "serve_cold_fail", "serve_stall", "serve_malformed",
-         "fidelity_gate_reject", "kill_between_admit_and_drain", "kill_worker",
-         "kill_remote_worker")
+KINDS = (
+    "nan_grads",
+    "kill_mid_save",
+    "corrupt_checkpoint",
+    "corrupt_artifact",
+    "torn_jsonl",
+    "stream_fail",
+    "stream_stall",
+    "serve_cold_fail",
+    "serve_stall",
+    "serve_malformed",
+    # walk-forward cycle stages (wf/)
+    "kill_mid_append",
+    "corrupt_append_slab",
+    "kill_mid_refit",
+    "kill_between_admit_and_drain",
+    "fidelity_gate_reject",
+    # the serving fleet (serve/pool.py)
+    "kill_worker",
+    "kill_remote_worker",
+)
 ENV_VAR = "FACTORVAE_CHAOS"
 
 _COORDS = ("epoch", "step", "lane", "chunk", "request")
@@ -82,9 +115,7 @@ class Fault:
 
     def __post_init__(self) -> None:
         if self.kind not in KINDS:
-            raise ValueError(
-                f"chaos fault kind {self.kind!r} is not ported: factorvae_tpu_torch "
-                f"injects only {KINDS} (the others wait for ROADMAP Queue 1 item 8)")
+            raise ValueError(f"unknown chaos fault kind {self.kind!r}; choose from {KINDS}")
 
     def matches(self, coords: dict) -> bool:
         """Every pinned coordinate must be present in the query and equal."""

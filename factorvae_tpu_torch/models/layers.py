@@ -1,9 +1,13 @@
-"""Shared building blocks: initializers, Dense, LayerNorm, GRU
-(`factorvae_tpu/models/layers.py`).
+"""Shared building blocks: initializers, Dense, LayerNorm, GRU and the
+stacked GRU (`factorvae_tpu/models/layers.py`).
 
 The GRU's input projection for all T steps is one matmul outside the
 recurrence, as in the JAX package; the recurrence itself is the
-differentiable `ops/kernels/gru.gru` (forward K1, backward K2).
+differentiable `ops/kernels/gru.gru` (forward K1, backward K2). A stacked
+GRU's lower layers return their whole hidden sequence, which the JAX
+package computes on XLA's scan and never on its Pallas kernel; here they
+are `gru_sequence`, the same scan in PyTorch ops, and only the top layer
+reaches the kernels.
 
 Compute dtypes follow flax's `dtype=`: a layer given a dtype casts its
 input and parameters to it; without one it computes in the promoted dtype
@@ -189,7 +193,66 @@ class GRU(nn.Module):
         init_weight(self.hidden_kernel, self.hidden_size, torch_init, generator)
         init_bias(self.hidden_bias, self.hidden_size, torch_init, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_sequence: bool = False) -> torch.Tensor:
+        """(N, H), or with `return_sequence` the hidden state after every
+        step (N, T, H) through `gru_sequence`."""
+        if return_sequence:
+            xi = self.input_proj(x)              # (N, T, 3H) in the compute dtype
+            return gru_sequence(xi, self.hidden_kernel, self.hidden_bias,
+                                self.dtype or x.dtype)
         xi = self.input_proj(x, upcast=True)     # (N, T, 3H) f32, one matmul
         h = gru(xi, self.hidden_kernel, self.hidden_bias)
         return h.to(self.dtype or x.dtype)
+
+
+def gru_sequence(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The GRU recurrence over xi (N, T, 3H) returning every step's hidden
+    state (N, T, H): the JAX scan of a sequence-returning layer, step for
+    step (g = h . Wh + b, gates [r | z | n]), in `dtype` as the JAX layer
+    computes it. Plain PyTorch ops, so autograd differentiates it and
+    `torch.func.vmap` batches it over models."""
+    xi, w_h, b_h = (t.to(dtype) for t in (xi, w_h, b_h))
+    h_dim = w_h.shape[0]
+    h = xi.new_zeros(xi.shape[:-2] + (h_dim,))
+    seq = []
+    for t in range(xi.shape[-2]):
+        x_t = xi[..., t, :]
+        g = h @ w_h + b_h
+        r = torch.sigmoid(x_t[..., :h_dim] + g[..., :h_dim])
+        z = torch.sigmoid(x_t[..., h_dim:2 * h_dim] + g[..., h_dim:2 * h_dim])
+        n = torch.tanh(x_t[..., 2 * h_dim:] + r * g[..., 2 * h_dim:])
+        h = (1.0 - z) * n + z * h
+        seq.append(h)
+    return torch.stack(seq, dim=-2)
+
+
+class StackedGRU(nn.Module):
+    """`num_layers` GRU layers (torch nn.GRU(num_layers=L) semantics): each
+    layer takes the whole hidden sequence of the layer below, and the top
+    layer returns its last hidden state. Layer i is the submodule
+    `layer_{i}`, as the JAX tree nests `gru/layer_{i}`. The lower layers run
+    `gru_sequence`; the top layer runs the kernels as `GRU` does, so a
+    forward launches K1 once and a backward walks once, whatever L is."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", GRU(input_size if i == 0 else hidden_size,
+                                              hidden_size, dtype))
+
+    def layers(self) -> list:
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def reset_parameters(self, torch_init: bool = True,
+                         generator: Optional[torch.Generator] = None) -> None:
+        for layer in self.layers():
+            layer.reset_parameters(torch_init, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        *lower, top = self.layers()
+        for layer in lower:
+            x = layer(x, return_sequence=True)
+        return top(x)

@@ -12,12 +12,17 @@ returns) to the `state_dict` of `models.factorvae.FactorVAE`;
   every other leaf (GRU hidden_kernel/hidden_bias with their [r|z|n] gate
   blocks, the predictor's stacked (K,H,H)/(K,H) leaves)  <-> same name
 
+A stacked GRU's nested levels (`feature_extractor/gru/layer_{i}/...`) map
+level for level to `feature_extractor.gru.layer_{i}....`.
+
 Every leaf is used exactly once: two leaves that map to one key raise here,
 and a tree that does not cover the model's state_dict exactly is refused by
 the strict `load_state_dict`.
 
 `save_weights` writes `weights.pt` and `serve_config.json` (the drop-in
-name the JAX serving registry also reads) into one directory.
+name the JAX serving registry also reads) into one directory, then the
+sibling manifest `<dir>.manifest.json` (sha256 of both files) that
+`train.checkpoint.verify_params_dir` checks before the registry loads them.
 """
 
 from __future__ import annotations
@@ -104,6 +109,9 @@ def save_weights(model: torch.nn.Module, config: Config, path: str) -> str:
     torch.save(state, os.path.join(path, WEIGHTS_FILE))
     with open(os.path.join(path, CONFIG_FILE), "w") as fh:
         json.dump(config.to_dict(), fh, indent=1)
+    from factorvae_tpu_torch.train.checkpoint import write_params_manifest
+
+    write_params_manifest(path)
     return path
 
 

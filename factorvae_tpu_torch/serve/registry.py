@@ -5,7 +5,11 @@
   carry an alias.
 - **Sources.** `register_params` admits an in-memory model (or its
   state_dict) with its Config; `register_checkpoint` a weights directory
-  written by `params.save_weights` (Config from its `serve_config.json`).
+  written by `params.save_weights` (Config from its `serve_config.json`),
+  after `train.checkpoint.verify_params_dir` checks it against its sibling
+  manifest: a directory that fails is refused with a `serve_quarantine`
+  mark (a cold start goes through the same check), one without a manifest
+  admits unverified.
   `admit` is the thin front over both. `register_artifact` admits an AOT
   artifact (`eval/export_aot.py`, a `torch.export` program) keyed by its
   header's config hash; its sha256 gate runs before anything is
@@ -263,13 +267,23 @@ class ModelRegistry:
                             n_stocks: Optional[int] = None,
                             alias: Optional[str] = None) -> str:
         """Admit a weights directory (`params.save_weights` layout); alias
-        defaults to the directory's name. The hidden-size refusal comes
-        before any weights are read."""
+        defaults to the directory's name. The manifest check and the
+        hidden-size refusal come before any weights are loaded."""
         from factorvae_tpu_torch.models.factorvae import load_model
+
+        from factorvae_tpu_torch.train.checkpoint import verify_params_dir
 
         path = os.path.abspath(str(path))
         if not os.path.isdir(path):
             raise RegistryError(f"no weights directory at {path}")
+        bad = verify_params_dir(path)
+        if bad is not None:
+            timeline_event("serve_quarantine", cat="recovery", resource="serve",
+                           path=path, reason=bad)
+            raise RegistryError(
+                f"checkpoint {path} failed manifest verification ({bad}) — the weights "
+                "on disk are not the bytes save_params wrote; re-export from the "
+                "full-state checkpoint or retrain")
         config = config or checkpoint_config(path)
         refused = hidden_refusal(config.model.hidden_size, self.device)
         if refused:

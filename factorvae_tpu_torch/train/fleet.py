@@ -32,9 +32,11 @@ Semantics, as the JAX package's:
   the serial trainer's), and each improved lane's best weights are saved
   under its own `checkpoint_name()`, which a serial `--score_only` loads.
 - Full-state checkpoints are written per lane in lockstep, in the serial
-  `Checkpointer`'s format, so a serial `Trainer` resumes any member;
-  `fit(resume=True)` restores the whole group at the largest epoch every
-  member has.
+  `Checkpointer`'s format (asynchronously under
+  `train.async_checkpointing`, drained before `fit` returns), so a serial
+  `Trainer` resumes any member; `fit(resume=True)` restores the whole group
+  at the largest epoch every member has verified against its manifest (a
+  corrupt member step is quarantined, and the group settles below it).
 - A lane with `recover_after` bad epochs in a row (a non-finite train loss
   or skipped steps) rolls back alone to its last checkpoint saved at a
   clean epoch; the others go on, and no lr changes (`_rollback_lanes`).
@@ -66,7 +68,7 @@ from factorvae_tpu_torch.data.stream import epoch_chunks
 from factorvae_tpu_torch.models.factorvae import model_from_params
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import read_state_dict, save_weights
-from factorvae_tpu_torch.train.checkpoint import Checkpointer
+from factorvae_tpu_torch.train.checkpoint import Checkpointer, CheckpointIntegrityError
 from factorvae_tpu_torch.train.loop import (
     eval_epoch,
     lane_eval_epoch,
@@ -304,7 +306,8 @@ class FleetTrainer:
             hyper=self.hyper, lane_labels=self.lane_labels(),
             flatten_days=config.model.flatten_days, days_per_step=self.batch_days,
             compute_dtype=self.train_dtype, model_compute_dtype=config.model.compute_dtype,
-            mixed_precision=self.mixed, checkpoint_saves="synchronous",
+            mixed_precision=self.mixed,
+            checkpoint_saves="async" if config.train.async_checkpointing else "synchronous",
             n_real=dataset.n_real, n_padded=dataset.n_max,
             obs_probes=config.train.obs_probes, device=str(self.device),
             panel_residency="stream" if self.stream else "hbm",
@@ -555,6 +558,7 @@ class FleetTrainer:
                 for i in range(self.num_seeds):
                     if lane_streak[i] == 0:
                         lane_anchor[i] = epoch
+        self.close_checkpoints()
         self.logger.log("fleet_best", seeds=self.seeds,
                         best_val=[float(v) for v in best_val])
         return self._stacked(run), {"history": history, "best_val": best_val,
@@ -568,9 +572,15 @@ class FleetTrainer:
 
     def lane_checkpointer(self, i: int) -> Checkpointer:
         if i not in self._ckpts:
-            self._ckpts[i] = Checkpointer(self._lane_dir(i),
-                                          keep=self.lane_cfgs[i].train.keep_checkpoints)
+            t = self.lane_cfgs[i].train
+            self._ckpts[i] = Checkpointer(self._lane_dir(i), keep=t.keep_checkpoints,
+                                          async_save=t.async_checkpointing)
         return self._ckpts[i]
+
+    def close_checkpoints(self) -> None:
+        """Drain every lane's queued checkpoint saves."""
+        for ck in self._ckpts.values():
+            ck.close()
 
     def _save_best(self, best_params: dict, lanes) -> None:
         """Lane i's best weights under its `checkpoint_name()`, for each of
@@ -591,11 +601,13 @@ class FleetTrainer:
 
     def _restore_checkpoints(self):
         """(run state, best_val (S,), start epoch, per-lane clean flags) from
-        the per-lane checkpoints at the largest epoch every member has, or
-        None (logged when the members share no epoch)."""
+        the per-lane checkpoints at the largest epoch every member has
+        verified, or None (logged when the members share no epoch). A member
+        step that fails at restore is quarantined there, and the scan runs
+        again below it."""
         common = None
         for i in range(self.num_seeds):
-            steps = set(self.lane_checkpointer(i).all_steps())
+            steps = set(self.lane_checkpointer(i).verified_steps())
             if not steps:
                 return None
             common = steps if common is None else common & steps
@@ -608,7 +620,13 @@ class FleetTrainer:
         states, best_vals, cleans = [], [], []
         for i in range(self.num_seeds):
             st = self.init_lane_state(i)
-            meta = self.lane_checkpointer(i).restore(st, step=epoch)
+            try:
+                meta = self.lane_checkpointer(i).restore(st, step=epoch, verified=True)
+            except CheckpointIntegrityError as e:
+                self.logger.log("fleet_resume_retry", seed=self.seeds[i], step=epoch,
+                                error=str(e), note="member checkpoint failed at restore; "
+                                                   "rescanning for an older common step")
+                return self._restore_checkpoints()
             set_lr_scale(st, self._lane_train_cfg(i), 1.0)
             states.append(st)
             best_vals.append(float(meta.get("best_val", float("inf"))))
@@ -645,7 +663,7 @@ class FleetTrainer:
             restored = lane_anchor[i]
             try:
                 ckpt.restore(st, step=restored)
-            except FileNotFoundError:
+            except (FileNotFoundError, CheckpointIntegrityError):   # evicted or corrupt
                 try:
                     restored = int(ckpt.restore(st)["epoch"])
                 except FileNotFoundError:

@@ -159,6 +159,7 @@ def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations
                                          "perturb_factor": f, "lr": new_lr,
                                          "kl_weight": new_klw})
         gen_records.append(rec)
+        trainer.close_checkpoints()      # the exploit rows land before the state file
         finite = fitness[np.isfinite(fitness)]
         logger.log("pbt_generation", **{k: v for k, v in rec.items() if k != "fitness"},
                    best_fitness=float(finite.min()) if finite.size else float("nan"))

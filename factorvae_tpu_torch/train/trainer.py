@@ -40,11 +40,14 @@ are the "hbm" epoch's, bitwise. `last_stream_stats` is the last train
 epoch's `ChunkStream` and its transfer ledger.
 
 Refused in `__init__`, each naming its ROADMAP item, as the CLI does: a
-stock-sharded mesh, rematerialization, and on a CUDA device a hidden size
-above the kernels' maximum. Fleets of models are
-`train/fleet.FleetTrainer`, whose one-lane fleet is this trainer.
-Checkpoints are saved synchronously (`train.async_checkpointing` is
-accepted; the files are the same).
+stock-sharded mesh, the observability probes (`train.obs_probes`),
+rematerialization, and on a CUDA device a hidden size above the kernels'
+maximum. Fleets of models are `train/fleet.FleetTrainer`, whose one-lane
+fleet is this trainer. Checkpoints are saved on a background thread when
+`train.async_checkpointing` (the default), else synchronously; the files
+are the same (`train/checkpoint.py`), and `fit` drains the queue before it
+returns. A resume or a rollback restores only a step that verifies against
+its manifest, falling back to an older one.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from factorvae_tpu_torch.data.stream import epoch_chunks
 from factorvae_tpu_torch.models.factorvae import FactorVAE
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import save_weights
-from factorvae_tpu_torch.train.checkpoint import Checkpointer
+from factorvae_tpu_torch.train.checkpoint import Checkpointer, CheckpointIntegrityError
 from factorvae_tpu_torch.train.loop import eval_epoch, train_epoch
 from factorvae_tpu_torch.train.state import (
     TrainState,
@@ -116,6 +119,7 @@ class Trainer:
                              f"runs on {self.device}")
         for given, knob, item in (
                 (config.mesh.stock_axis > 1, "mesh.stock_axis > 1", 12),
+                (config.train.obs_probes, "train.obs_probes", 11),
                 (config.train.remat != "none", f"train.remat={config.train.remat!r}", 15)):
             if given:
                 raise NotImplementedError(f"{knob} is not ported to factorvae_tpu_torch "
@@ -138,6 +142,7 @@ class Trainer:
         self.stream = dataset.residency == "stream"
         self.steps_per_chunk = max(1, config.data.stream_chunk_days // self.batch_days)
         self.last_stream_stats = None
+        self.last_checkpointer: Optional[Checkpointer] = None   # the last fit's
         # the peak lr's factor: the rollback recovery backs it off, and it
         # holds for later fits of this trainer, as in the JAX package
         self._lr_scale = 1.0
@@ -145,7 +150,7 @@ class Trainer:
             "execution_layout", flatten_days=config.model.flatten_days,
             days_per_step=self.batch_days, compute_dtype=self.train_dtype,
             model_compute_dtype=config.model.compute_dtype, mixed_precision=self.mixed,
-            checkpoint_saves="synchronous",
+            checkpoint_saves="async" if config.train.async_checkpointing else "synchronous",
             n_real=dataset.n_real, n_padded=dataset.n_max,
             dead_compute_frac=round(dataset.dead_compute_frac, 4),
             obs_probes=config.train.obs_probes, device=str(self.device),
@@ -197,7 +202,17 @@ class Trainer:
         if tcfg.checkpoint_every:
             ckpt = Checkpointer(os.path.join(tcfg.save_dir,
                                              f"{cfg.checkpoint_name()}_ckpt"),
-                                keep=tcfg.keep_checkpoints)
+                                keep=tcfg.keep_checkpoints,
+                                async_save=tcfg.async_checkpointing)
+        try:
+            return self._fit(state, resume, epochs, ckpt)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+            self.last_checkpointer = ckpt
+
+    def _fit(self, state, resume: bool, epochs: int, ckpt):
+        cfg, tcfg = self.cfg, self.cfg.train
         start_epoch, best_val = 0, float("inf")
         # the rollback anchor: the newest checkpoint saved at a clean epoch
         last_good_step: Optional[int] = None
@@ -288,8 +303,19 @@ class Trainer:
                 try:
                     ckpt.restore(state, step=last_good_step)
                     restored = last_good_step
-                except FileNotFoundError:   # retention evicted the anchor
-                    restored = int(ckpt.restore(state)["epoch"])
+                except (FileNotFoundError, CheckpointIntegrityError):   # evicted or corrupt
+                    # the newest step that verifies (restore quarantines as it
+                    # scans); with none left, go on forward
+                    try:
+                        restored = int(ckpt.restore(state)["epoch"])
+                    except FileNotFoundError:
+                        set_lr_scale(state, tcfg, self._lr_scale)
+                        self.logger.log("recovery", kind="rollback_unavailable",
+                                        epoch=epoch, lr_scale=self._lr_scale,
+                                        note="no verifiable checkpoint to roll back to; "
+                                             "continuing with lr backoff only")
+                        epoch += 1
+                        continue
                 set_lr_scale(state, tcfg, self._lr_scale)
                 self.logger.log("recovery", kind="rollback", epoch=epoch,
                                 restored_step=restored, lr_scale=self._lr_scale,

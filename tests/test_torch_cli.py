@@ -344,8 +344,8 @@ class TestChaosEnvironment:
         monkeypatch.setattr(chaos, "_PLAN", None)
         monkeypatch.setattr(chaos, "_ENV_CHECKED", False)
         monkeypatch.setenv(chaos.ENV_VAR, json.dumps(
-            {"seed": 0, "faults": [{"kind": "kill_mid_save", "step": 1}]}))
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 8"):
+            {"seed": 0, "faults": [{"kind": "kill_everything", "step": 1}]}))
+        with pytest.raises(ValueError, match="unknown chaos fault kind 'kill_everything'"):
             chaos.fault("nan_grads", epoch=1)
 
 

@@ -636,6 +636,53 @@ class TestWithinThePort:
         assert out_s["history"] == []                  # already at its last epoch
         assert all(torch.equal(st_b.params[n][1], p) for n, p in st_s.model.named_parameters())
 
+    def test_group_resume_takes_the_largest_common_verified_step(self, panels, tmp_path):
+        """A corrupt member step (the chaos kind corrupt_checkpoint) is
+        quarantined by the resume's scan, and the group settles on the
+        largest epoch every lane has verified, bitwise the unbroken run."""
+        from factorvae_tpu_torch.chaos import ops as chaos_ops
+
+        ds = panels[3]
+        full_cfg = _cfg(panels, tmp_path / "full", checkpoint_every=1, num_epochs=3)
+        st_a, out_a = FleetTrainer(full_cfg, ds, seeds=SEEDS[:2], device="cpu").fit()
+        cfg = _cfg(panels, tmp_path / "part", checkpoint_every=1, num_epochs=3)
+        FleetTrainer(cfg, ds, seeds=SEEDS[:2], device="cpu").fit(num_epochs=2)
+        lane1 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=SEEDS[1]))
+        ckpt_dir = os.path.join(cfg.train.save_dir, f"{lane1.checkpoint_name()}_ckpt")
+        chaos_ops.corrupt_checkpoint_step(ckpt_dir, 1, rng_seed=0)
+        trainer = FleetTrainer(cfg, ds, seeds=SEEDS[:2], device="cpu")
+        assert trainer._restore_checkpoints()[2] == 1      # epoch 0 is the common step
+        assert trainer.lane_checkpointer(1).quarantined_steps() == [1]
+        assert trainer.lane_checkpointer(0).quarantined_steps() == []
+        st_b, out_b = trainer.fit(resume=True)
+        assert [r["epoch"] for r in out_b["history"]] == [1, 2]
+        # the replayed epoch 1 replaced the damaged bytes and lifted the mark
+        assert trainer.lane_checkpointer(1).verify_step(1) == (True, None)
+        assert all(torch.equal(st_a.params[n], st_b.params[n]) for n in st_a.params)
+
+    def test_stacked_gru_lanes_track_their_solo_runs(self, panels, tmp_path):
+        """gru_layers = 2: a fleet of 2 seeds runs the lower layers under
+        torch.func.vmap; each lane's losses follow its solo Trainer, and
+        predict_panel_fleet's lanes follow predict_panel."""
+        ds = panels[3]
+        cfg = _cfg(panels, tmp_path / "fleet")
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, gru_layers=2))
+        st, out = FleetTrainer(cfg, ds, seeds=SEEDS[:2], device="cpu").fit()
+        days = ds.split_days(None, None)
+        scores = predict_panel_fleet(st.params, cfg, ds, days, stochastic=False)
+        for i, seed in enumerate(SEEDS[:2]):
+            solo = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, seed=seed, save_dir=str(tmp_path / f"solo{seed}")))
+            st_s, o = Trainer(solo, ds, device="cpu").fit()
+            for key in ("train_loss", "val_loss"):
+                np.testing.assert_allclose([r[key][i] for r in out["history"]],
+                                           [r[key] for r in o["history"]], rtol=LOSS_RTOL)
+            _assert_params({n: p[i:i + 1] for n, p in st.params.items()},
+                           [{n: p.detach() for n, p in st_s.model.named_parameters()}],
+                           cfg, len(o["history"]), o["history"][0]["step"])
+            want = predict_panel(st_s.model, solo, ds, days, stochastic=False)
+            np.testing.assert_allclose(scores[i], want, **SCORE_TOL)
+
     def test_stack_unstack_round_trip_and_select_best(self, panels, tmp_path):
         ds = panels[3]
         tr = FleetTrainer(_cfg(panels, tmp_path), ds, seeds=SEEDS, device="cpu")

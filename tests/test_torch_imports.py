@@ -4,7 +4,8 @@ included, and a scoring pass at each precision rung and on a
 stream-resident panel, a float32 and a mixed training epoch, a fleet's epoch
 and its lane-batched scoring pass, a CLI run without --backtest, and a
 scoring daemon's fused ticks at each rung with its metrics, drift, trace
-and scheduler, and an AOT artifact admitted and scored, with no JAX, Flax,
+and scheduler, an AOT artifact admitted and scored, and a walk-forward
+cycle through its command line, with no JAX, Flax,
 pandas or JAX-package module loaded),
 that the JAX weights carry across without loss, and that `chip_smoke.py`
 refuses to run without a GPU instead of falling back to the CPU."""
@@ -150,6 +151,17 @@ assert np.isfinite(reg.score("aot", ds, ds.split_days(None, None))[:, :5]).all()
 assert {"factorvae_tpu_torch.serve.pool", "factorvae_tpu_torch.serve.router",
         "factorvae_tpu_torch.serve.remote", "factorvae_tpu_torch.serve.autoscale",
         "factorvae_tpu_torch.eval.export_aot"} <= set(names)
+
+# the walk-forward command: bootstrap and one cycle on a synthetic store
+from factorvae_tpu_torch.wf.__main__ import main as wf_main
+
+with tempfile.TemporaryDirectory() as run:
+    assert wf_main(["--run_dir", run, "--force_refit", "--epochs", "1", "--init_days", "12",
+                    "--stocks", "5", "--features", "6", "--hidden", "4", "--factors", "3",
+                    "--portfolios", "5", "--seq_len", "4", "--min_margin", "2",
+                    "--device", "cpu"]) == 0
+assert {"factorvae_tpu_torch.wf", "factorvae_tpu_torch.wf.journal",
+        "factorvae_tpu_torch.wf.operator", "factorvae_tpu_torch.wf.__main__"} <= set(names)
 
 def banned(mod):
     top = mod.split(".")[0]

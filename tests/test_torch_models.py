@@ -41,7 +41,7 @@ from factorvae_tpu_torch.ops.masked import (
     masked_mse,
     masked_softmax,
 )
-from factorvae_tpu_torch.params import flax_to_torch
+from factorvae_tpu_torch.params import flax_to_torch, torch_to_flax
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 C, T, H, K, M, N, B = 12, 6, 8, 4, 10, 16, 3
@@ -386,6 +386,126 @@ class TestPrediction:
         assert bf16.feature_extractor.proj.dtype == torch.bfloat16     # bf16 now builds
         with pytest.raises(ValueError, match="compute_dtype"):
             dataclasses.replace(cfg.model, compute_dtype="float16")
-        with pytest.raises(NotImplementedError):
-            FactorVAE(dataclasses.replace(cfg.model, gru_layers=2))
+        stacked = FactorVAE(dataclasses.replace(cfg.model, gru_layers=2))   # L = 2 builds
+        _, jparams = jload_model(jconfig.Config(model=dataclasses.replace(
+            _jcfg(False), gru_layers=2)), n_max=8)
+        assert sum(p.numel() for p in stacked.parameters()) == sum(
+            np.asarray(leaf).size for leaf in jax.tree_util.tree_leaves(jparams))
+        with pytest.raises(ValueError, match="gru_layers"):
+            FactorVAE(dataclasses.replace(cfg.model, gru_layers=0))
         json.dumps(cfg.to_dict())
+
+
+LAYERS = pytest.mark.parametrize("layers", [2, 3], ids=["L2", "L3"])
+GRU_GRAD_TOL = dict(rtol=2e-5, atol=5e-6)
+
+
+@pytest.fixture(scope="module")
+def stacked_weights():
+    """gru_layers -> (JAX model tree, the port's FactorVAE with its weights),
+    for L = 2 and 3."""
+    out = {}
+    for layers in (2, 3):
+        jcfg = dataclasses.replace(_jcfg(False), gru_layers=layers)
+        _, params = jload_model(jconfig.Config(model=jcfg), n_max=8)
+        model = FactorVAE(tconfig.ModelConfig(num_features=C, hidden_size=H, num_factors=K,
+                                              num_portfolios=M, seq_len=T,
+                                              gru_layers=layers))
+        model.load_state_dict(flax_to_torch(params))
+        out[layers] = (params, model.eval())
+    return out
+
+
+class TestStackedGRU:
+    """The stacked GRU (`gru_layers` 2 and 3) against the JAX `StackedGRU`:
+    its lower layers are XLA's scan in the JAX package and `gru_sequence`
+    here; the top layer is the kernels' recurrence (plain versions on the
+    CPU) here and the XLA scan there."""
+
+    @LAYERS
+    def test_nested_names_round_trip_through_flax(self, stacked_weights, layers):
+        params, model = stacked_weights[layers]
+        names = {k for k in model.state_dict() if ".gru." in k}
+        assert names == {f"feature_extractor.gru.layer_{i}.{leaf}" for i in range(layers)
+                         for leaf in ("input_proj.weight", "input_proj.bias",
+                                      "hidden_kernel", "hidden_bias")}
+        back = jax.tree_util.tree_leaves_with_path(torch_to_flax(model.state_dict()))
+        want = dict(jax.tree_util.tree_leaves_with_path(params))
+        assert len(back) == len(want)
+        for path, leaf in back:
+            assert np.array_equal(leaf, np.asarray(want[path])), path
+
+    @LAYERS
+    @PALLAS
+    def test_extractor(self, stacked_weights, layers, pallas):
+        params, model = stacked_weights[layers]
+        _, x, _ = _inputs()
+        flat = x.reshape(B * N, T, C)
+        jcfg = dataclasses.replace(_jcfg(pallas), gru_layers=layers)
+        want = JExtractor(jcfg).apply(
+            {"params": params["params"]["model"]["feature_extractor"]}, jnp.asarray(flat))
+        got = model.feature_extractor(_t(flat)).detach().numpy()
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+    @LAYERS
+    def test_extractor_gradients_and_one_kernel_walk(self, stacked_weights, layers,
+                                                     monkeypatch):
+        """The input's and every parameter's gradient against jax.grad at
+        the GRU's tolerance; the kernels' recurrence (its residual variant)
+        runs once per forward, for the top layer, whatever L is."""
+        from factorvae_tpu_torch.ops.kernels import gru as gru_module
+
+        params, model = stacked_weights[layers]
+        rng, x, _ = _inputs(5)
+        flat = x.reshape(B * N, T, C)
+        cot = rng.normal(size=(B * N, H)).astype(np.float32)
+        jext = JExtractor(dataclasses.replace(_jcfg(False), gru_layers=layers))
+        tree = params["params"]["model"]["feature_extractor"]
+
+        def loss(p, a):
+            return jnp.sum(jext.apply({"params": p}, a) * jnp.asarray(cot))
+
+        want_p, want_x = jax.grad(loss, argnums=(0, 1))(tree, jnp.asarray(flat))
+        calls = []
+        real = gru_module.gru_fwd_residuals
+        monkeypatch.setattr(gru_module, "gru_fwd_residuals",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        ext = model.feature_extractor
+        leaf = _t(flat).requires_grad_()
+        names, tensors = zip(*ext.named_parameters())
+        grads = torch.autograd.grad(ext(leaf), (leaf, *tensors), _t(cot))
+        assert calls == [1]
+        np.testing.assert_allclose(grads[0].numpy(), np.asarray(want_x), **GRU_GRAD_TOL)
+        want = flax_to_torch({"feature_extractor": want_p})
+        for name, g in zip(names, grads[1:]):
+            np.testing.assert_allclose(g.numpy(), want[f"feature_extractor.{name}"].numpy(),
+                                       **GRU_GRAD_TOL, err_msg=name)
+
+    @LAYERS
+    @PALLAS
+    def test_training_forward_matches_jax(self, stacked_weights, layers, pallas):
+        params, model = stacked_weights[layers]
+        rng, x, mask = _inputs(13)
+        returns = rng.normal(size=(B, N)).astype(np.float32)
+        mask[2] = False
+        cfg = dataclasses.replace(_jcfg(pallas), gru_layers=layers, recon_loss="nll",
+                                  dropout_rate=0.0)
+        k = jax.random.PRNGKey(0)
+        want = JFactorVAE(cfg).apply(
+            {"params": params["params"]["model"]}, jnp.asarray(x), jnp.asarray(returns),
+            jnp.asarray(mask), train=True, rngs={"sample": k, "dropout": k},
+            method=JFactorVAE.day_batched_forward)
+        port = FactorVAE(dataclasses.replace(model.cfg, recon_loss="nll", dropout_rate=0.0))
+        port.load_state_dict(model.state_dict())
+        eps = _t(rng.normal(size=(B, N)).astype(np.float32))
+        with torch.no_grad():
+            got = port.day_batched_forward(_t(x), _t(returns), _t(mask), train=True, eps=eps)
+        for name in ("loss", "recon_loss", "kl", "pred_mu", "pred_sigma"):
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(want, name)), **TOL, err_msg=name)
+        want_pred = JFactorVAE(cfg).apply(
+            {"params": params["params"]["model"]}, jnp.asarray(x), jnp.asarray(mask),
+            stochastic=False, method=JFactorVAE.day_batched_prediction)
+        with torch.no_grad():
+            got_pred = port.day_batched_prediction(_t(x), _t(mask), stochastic=False)
+        np.testing.assert_allclose(got_pred.numpy(), np.asarray(want_pred), **TOL)

@@ -542,7 +542,9 @@ class TestMixedTrainer:
         layouts = [kw for name, kw in events if name == "execution_layout"]
         assert [(e["compute_dtype"], e["mixed_precision"]) for e in layouts] == [
             ("bfloat16", True), ("float32", False)]
-        assert all(e["checkpoint_saves"] == "synchronous" for e in layouts)
+        # train.async_checkpointing defaults to True: saves go to the writer thread
+        assert cfg.train.async_checkpointing and f32.train.async_checkpointing
+        assert all(e["checkpoint_saves"] == "async" for e in layouts)
         state = tr.init_state()
         assert state.loss_scale is None and state.good_steps is None
 

@@ -276,8 +276,8 @@ class TestChunkStream:
         assert s.chunk_wait_seconds[0] - s.chunk_produce_seconds[0] >= 0.05
 
     def test_an_unported_kind_is_still_refused(self):
-        with pytest.raises(ValueError, match="item 8"):
-            chaos.Fault("kill_mid_save")
+        with pytest.raises(ValueError, match="unknown chaos fault kind 'kill_everything'"):
+            chaos.Fault("kill_everything")
 
 
 # ---------------------------------------------------------------------------

@@ -167,6 +167,27 @@ class TestTrainerParity:
         np.testing.assert_allclose(out["best_val"], jout["best_val"], rtol=2e-5)
 
 
+class TestStackedTrainer:
+    def test_an_l2_epoch_tracks_the_jax_trainer(self, panels, tmp_path):
+        """One epoch at gru_layers = 2 from the same weights: train and val
+        losses within the trainer's rtol 2e-5, the same step count."""
+        jp, tp = panels
+        jcfg = _jconfig(tp, tmp_path, epochs=1, gru_layers=2)
+        jtr = JTrainer(jcfg, JPanelDataset(jp, seq_len=T))
+        jstate = jtr.init_state()
+        weights = flax_to_torch(jstate.params)
+        _, jout = jtr.fit(state=jstate)
+        tr = Trainer(_port(jcfg, tmp_path), PanelDataset(tp, seq_len=T, device="cpu"),
+                     device="cpu")
+        state = tr.init_state()
+        state.model.load_state_dict(weights)
+        state, out = tr.fit(state=state)
+        got = [(r["train_loss"], r["val_loss"]) for r in out["history"]]
+        want = [(r["train_loss"], r["val_loss"]) for r in jout["history"]]
+        np.testing.assert_allclose(got, want, rtol=2e-5)
+        assert [r["step"] for r in out["history"]] == [r["step"] for r in jout["history"]]
+
+
 def _small_trainer(tp, tmp_path, name="run", **train):
     d = [str(x) for x in tp.dates]
     cfg = tconfig.Config(
@@ -273,3 +294,11 @@ class TestResume:
             tr.cfg.train, compute_dtype="int8"))
         with pytest.raises(ValueError, match="serving rung"):
             Trainer(int8, tr.ds, device="cpu")
+
+    def test_obs_probes_are_refused_naming_item_11(self, panels, tmp_path):
+        _, tp = panels
+        tr = _small_trainer(tp, tmp_path, checkpoint_every=0)
+        probes = dataclasses.replace(tr.cfg, train=dataclasses.replace(
+            tr.cfg.train, obs_probes=True))
+        with pytest.raises(NotImplementedError, match="obs_probes.*item 11"):
+            Trainer(probes, tr.ds, device="cpu")
