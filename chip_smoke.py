@@ -196,7 +196,13 @@ named phases, and prints neither the kernels line nor the result):
               counters (`/stats`) before and after them (K1's serving variant
               and K4 only), sticky owners, /stats with both workers' scrape
               URLs, the merged /metrics with one HELP/TYPE per family, each
-              worker's reserved device memory, SIGTERM reaping every worker;
+              worker's reserved device memory, and (with --metrics_jsonl on
+              the router and its workers) `obs.collect.collect_fleet` over
+              the router: the three streams merged on the router's clock by
+              the pool's clock probes, every worker span of a routed request
+              inside its router_forward span up to half the probe's round
+              trip, each worker's offset and round trip; SIGTERM reaping
+              every worker;
               (c) 8 keep-alive clients x 150 single-day requests through the
               router at 1, 2 and 4 workers, and the same load on one daemon
               (`--http --scheduler`): requests/s, p50/p99/max, reserved
@@ -245,7 +251,41 @@ named phases, and prints neither the kernels line nor the result):
               re-run resuming it, against a never-killed run: the refit's
               weights.pt and the store's slabs byte-identical, the seconds
               to resume.
-17. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+17. obs    -- the run observatory at flagship width, f32, on the 80-day
+              panel: (a) the probes: one deterministic step (dropout 0, nll)
+              with obs_probes on the card and on the CPU from the same
+              weights (each probe within OBS_STEP_RTOL, the non-finite counts
+              equal); warm epochs with probes off and on from the same init,
+              ABAB x3 (weights and losses bitwise, the walls' medians: the
+              probes' cost); a nan_grads epoch (nonfinite_grads > 0,
+              update_norm_mean NaN, obs.report's nonfinite flag, the
+              rollback); a seed fleet of four with probes, each lane within
+              OBS_LANE_RTOL of its seed's solo run; (b) a PROFILE_REQUEST
+              before epoch 1 of a run with a metrics stream, with every
+              launch counter set to 0 just before that epoch: its
+              profile_capture record (files >= 1, total_us > 0, no error),
+              the capture's kernels by CUDA function (K1's residual variant,
+              the walk, dWh, K4, K5) counted equal to the launch counters'
+              rise over the train epoch, less the kernel records CUPTI lost
+              (matched to their launch calls by correlation id; the
+              capture's other lost records reported), and each wrapper's
+              host ranges
+              equal to its counter; device us per launch, and the busy
+              share (capture device time over the train_epoch span) beside
+              `_busy_share`'s reading of 5 probed steps; (c) the CLI with
+              --obs --prom_textfile --profile on a stream-resident panel:
+              the .prom file of the last epoch, `python -m
+              factorvae_tpu_torch.utils.trace_summary` exiting 0 with the
+              kernels listed, no report flag, the device, stream and
+              checkpoint lanes with their overlap_frac, then a --debug_nans
+              run; (d) the daemon's POST /profile start and stop around
+              single-day and 34-day requests on serve_http with a
+              TickScheduler, a warm-up request first: the answer's K1
+              serving and K4 rows, and the kernels after the warm-up counted
+              equal to the launch counters (as in (b)), and whether the tick
+              thread's
+              CPU rows were captured.
+18. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
               `launches_mixed` in the precision phase's mixed epoch,
@@ -254,8 +294,10 @@ named phases, and prints neither the kernels line nor the result):
               serve phase's fused ticks, `launches_artifact` in the pool
               phase's f32 artifact request, `launches_pool` in the
               fleet's workers for its routed requests, `launches_stacked`
-              in the stacked phase's L = 2 epoch and `launches_wf` in the wf
-              phase's in-process cycle), and its `fleet_*` times
+              in the stacked phase's L = 2 epoch, `launches_wf` in the wf
+              phase's in-process cycle and `launches_obs` in the obs phase's
+              profiled epoch), the obs phase's `profiler_us_per_launch`
+              beside `graph_ms`, and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
               `fleet_bound_ms`, ...).
 
@@ -3212,7 +3254,8 @@ def phase_pool(torch, seed: int, counters, card: str) -> dict:
     for p in dirs[:POOL_MODELS]:
         cmd += ["--model", p]
     cmd += ["--synthetic", "80,300", "--seed", str(seed), "--workers", "2",
-            "--router_port", str(rport), "--aot_store", store]
+            "--router_port", str(rport), "--aot_store", store,
+            "--metrics_jsonl", os.path.join(work.name, "fleet.jsonl")]
     log_path = os.path.join(work.name, "pool_cli.log")
     with open(log_path, "wb") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=repo)
@@ -3272,6 +3315,7 @@ def phase_pool(torch, seed: int, counters, card: str) -> dict:
               and all(f'factorvae_serve_ticks_total{{worker_id="{w}"}}' in merged
                       for w in ("w0", "w1")), "pool (b): the merged /metrics")
         memory_b = _worker_memory(urls)
+        collected = _collect_fleet_check(router_url)
         pids = [w["pid"] for w in workers]
     finally:
         proc.terminate()
@@ -3293,7 +3337,8 @@ def phase_pool(torch, seed: int, counters, card: str) -> dict:
     cli_fleet = {"start_s": start_s, "workers": 2, "compile_w1": compile_w1,
                  "routed_4x32_days_ms": routed_ms, "routed_vs_inprocess_max_rel_err": routed_err,
                  "owners": owners, "memory_reserved": memory_b,
-                 "metrics_bytes": len(merged), "router_cuda_initialized": False}
+                 "metrics_bytes": len(merged), "router_cuda_initialized": False,
+                 "collect": collected}
     print(f"[pool] (b) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
 
     # (c) load: the router over 1, 2 and 4 workers, then the single daemon
@@ -3924,6 +3969,523 @@ def phase_wf(torch, seed: int, counters, card: str) -> dict:
                        "phase_d_wall_s": command_s}}
 
 
+# Limits of the obs phase. One deterministic step with the probes, card
+# against CPU from the same weights: the gradient norm at the train phase's
+# gradient limit (TRAIN_GRAD_RTOL), the factor moments at TRAIN_LOSS_RTOL,
+# the update and the parameter norm at 1e-3 and 1e-4: a first Adam step
+# moves each element by about +-lr whatever its gradient's size, so the
+# parameters whose gradient is zero up to rounding (ZERO_GRAD_ATOL: the
+# portfolio bias, key-bias rows) step in directions that differ between
+# the devices, by up to 2 lr an element (the parameter norm read up to
+# 1.9e-5 apart, relative, on an H100); the non-finite counts equal. A fleet
+# lane against its seed's solo run on the card: the fleet phase's loss
+# limit 1e-5 for the losses, and the probes at the step's limits above
+# (the update norm at 5e-3: the zero-gradient parameters' noise steps add
+# up over an epoch, as on the CPU, tests/test_torch_probes.py).
+OBS_STEP_RTOL = {"grad_norm": TRAIN_GRAD_RTOL, "param_norm": 1e-4,
+                 "update_norm": 1e-3, "mu_spread_sum": TRAIN_LOSS_RTOL,
+                 "sigma_mean_sum": TRAIN_LOSS_RTOL}
+OBS_LANE_RTOL = {"grad_norm_max": TRAIN_GRAD_RTOL, "grad_norm_mean": TRAIN_GRAD_RTOL,
+                 "update_norm_mean": 5e-3, "param_norm_last": TRAIN_LOSS_RTOL,
+                 "factor_mu_spread": TRAIN_LOSS_RTOL, "factor_sigma_mean": TRAIN_LOSS_RTOL}
+OBS_REPS = 3           # ABAB pairs of warm epochs, probes off and on
+# A kernel wrapper's launch in a Kineto trace: the CUDA functions one launch
+# runs; the first one runs once per launch (the count held against the
+# wrapper's launch counter), the device time per launch sums them all.
+KERNEL_FUNCTIONS = {
+    "gru_fwd_residuals": (r"gru_fwd_kernel<[^,>]+,\s*true",),
+    "gru_fwd": (r"gru_fwd_kernel<[^,>]+,\s*false",),
+    "gru_bwd": (r"gru_walk_kernel",),
+    "gru_dwh": (r"gru_dwh_kernel", r"gru_dwh_reduce_kernel"),
+    "attention_fwd": (r"attention_fwd_kernel",),
+    "attention_bwd": (r"attention_bwd_head_kernel", r"attention_bwd_weights_kernel",
+                      r"attention_bwd_latent_kernel"),
+}
+
+
+def _scalar_rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+def _kernel_rows(by_name) -> dict:
+    """{wrapper: {"count", "device_us", "us_per_launch", "functions"}} of a
+    trace summary's (name, us, count) rows."""
+    import re
+
+    out = {}
+    for wrapper, patterns in KERNEL_FUNCTIONS.items():
+        first = [(n, us, c) for n, us, c in by_name if re.search(patterns[0], n)]
+        every = [(n, us, c) for n, us, c in by_name
+                 if any(re.search(p, n) for p in patterns)]
+        count = sum(c for _, _, c in first)
+        us = sum(u for _, u, _ in every)
+        out[wrapper] = {"count": count, "device_us": us,
+                        "us_per_launch": us / count if count else None,
+                        "functions": sorted({n.split("::")[-1].split("(")[0]
+                                             for n, _, _ in every})}
+    return out
+
+
+def _launch_accounting(log_dir: str, counted: dict, before: dict = None) -> dict:
+    """How a capture saw each wrapper's launches. `counted` maps a wrapper to
+    its launch counter's rise over the counted part of the capture, `before`
+    to its launches earlier in the same capture (a warm-up). Per wrapper:
+    `ranges`, its `launch_range`s on the host (the profiler's own host
+    events are not lost); `kernels`, the records of its first CUDA function
+    (`KERNEL_FUNCTIONS`) that start after its first counted range; `lost`,
+    the counted ranges whose first launch call has no kernel record (by
+    correlation id). `lost_total` counts every launch call of the capture
+    without a kernel record. CUPTI drops records in some captures (0 to 40
+    of ~25,500 in a flagship epoch's on an H100), and those of the first
+    launches after a capture starts (the daemon's capture starts with a
+    warm-up request)."""
+    import re
+
+    from factorvae_tpu_torch.utils.trace_summary import _load_events, find_trace_files
+
+    before = before or {}
+    events = [e for f in find_trace_files(log_dir) for e in _load_events(f)
+              if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    recorded = {(e.get("args") or {}).get("correlation") for e in kernels}
+    calls: dict = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "aunch" in e.get("name", ""):
+            calls.setdefault((e.get("pid"), e.get("tid")), []).append(e)
+    every = [c for cs in calls.values() for c in cs]
+    out = {"lost_total": sum((c.get("args") or {}).get("correlation") not in recorded
+                             for c in every),
+           "launch_calls": len(every), "kernel_records": len(recorded)}
+    for name, want in counted.items():
+        ranges = sorted((e for e in events
+                         if e.get("cat") == "user_annotation" and e["name"] == name),
+                        key=lambda e: e["ts"])
+        mine = ranges[before.get(name, 0):]
+        since = mine[0]["ts"] if mine else float("inf")
+        lost = 0
+        for r in mine:
+            inside = sorted((c for c in calls.get((r.get("pid"), r.get("tid")), ())
+                             if r["ts"] <= c["ts"] <= r["ts"] + r["dur"]),
+                            key=lambda c: c["ts"])
+            lost += bool(inside) and (inside[0].get("args") or {}).get(
+                "correlation") not in recorded
+        out[name] = {"ranges": len(ranges), "counted_ranges": len(mine), "lost": int(lost),
+                     "kernels": sum(1 for e in kernels if e["ts"] >= since and re.search(
+                         KERNEL_FUNCTIONS[name][0], e["name"]))}
+    return out
+
+
+def _check_counts(what: str, acct: dict, counted: dict, before: dict = None) -> None:
+    """Each wrapper's host ranges equal its launches in the capture, and its
+    kernels after its first counted range, plus the records CUPTI lost in
+    those ranges, equal its launch counter's rise. The capture's other lost
+    records (`lost_total`: 0 to 40 of ~25,500 in an epoch's, up to 44 of
+    512 in the daemon's on an H100) are reported, not held."""
+    before = before or {}
+    for name, want in counted.items():
+        a = acct[name]
+        check(want > 0 and a["ranges"] == want + before.get(name, 0)
+              and a["kernels"] + a["lost"] == want,
+              f"{what}: {name} kernels {a['kernels']} + lost {a['lost']}, host ranges "
+              f"{a['ranges']} (before {before.get(name, 0)}) vs its launch counter {want}")
+
+
+def _obs_logger(path, on_event):
+    """A MetricsLogger on `path` that calls on_event(event, fields) after
+    each record."""
+    from factorvae_tpu_torch.utils.logging import MetricsLogger
+
+    class Hooked(MetricsLogger):
+        def log(self, event, _echo=None, **fields):
+            super().log(event, _echo, **fields)
+            on_event(event, fields)
+
+    return Hooked(jsonl_path=path, echo=False)
+
+
+def _probe_step(torch, trainer_cls, cfg, ds, weights) -> dict:
+    """One deterministic train step with the probes from `weights`: its
+    probe aux as floats."""
+    from factorvae_tpu_torch.train.loop import train_step
+
+    tr = trainer_cls(cfg, ds, device=str(ds.device))
+    st = tr.init_state()
+    st.model.load_state_dict(weights)
+    aux = train_step(st, ds, tr._order(tr.train_days, True, 0)[0], guard=True, probes=True)
+    return {k: float(v) for k, v in aux.items()}
+
+
+def phase_obs(torch, seed: int, counters, card: str) -> dict:
+    """The run observatory at flagship width on the 80-day panel (see the
+    module docstring, phase 18)."""
+    import http.client
+    import tempfile
+
+    from factorvae_tpu_torch import chaos, cli
+    from factorvae_tpu_torch.chaos import ChaosPlan, Fault
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.panel import panel_to_frame
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.models.factorvae import load_model
+    from factorvae_tpu_torch.obs import report, timeline
+    from factorvae_tpu_torch.obs.metrics import TextfileExporter
+    from factorvae_tpu_torch.obs.probes import TRAIN_PROBE_KEYS
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.serve.daemon import ScoringDaemon, TickScheduler, serve_http
+    from factorvae_tpu_torch.serve.registry import ModelRegistry
+    from factorvae_tpu_torch.train.fleet import FleetTrainer
+    from factorvae_tpu_torch.train.loop import train_epoch
+    from factorvae_tpu_torch.train.trainer import Trainer
+    from factorvae_tpu_torch.utils.logging import Timeline, install_timeline
+    from factorvae_tpu_torch.utils.profiling import PROFILE_REQUEST_BASENAME
+    from factorvae_tpu_torch.utils.trace_summary import summarize_trace
+
+    t_phase = time.perf_counter()
+    base = get_preset("flagship")
+    m = base.model
+    panel = synthetic_panel_dense(80, 300, m.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_obs_")
+    root = work.name
+
+    def cfg_of(save, probes=True, **train):
+        return dataclasses.replace(
+            base,
+            data=dataclasses.replace(base.data, start_time=dates[0], fit_end_time=dates[49],
+                                     val_start_time=dates[50], val_end_time=dates[69]),
+            train=dataclasses.replace(base.train, **{
+                **dict(seed=seed, num_epochs=1, days_per_step=1, checkpoint_every=0,
+                       obs_probes=probes, save_dir=os.path.join(root, save)), **train}))
+
+    dataset = PanelDataset(panel, seq_len=m.seq_len, device="cuda")
+    by_name = {c.__name__: c for c in counters}
+
+    # (a) probes. One deterministic step, card against CPU, same weights.
+    det = cfg_of("det")
+    det = dataclasses.replace(det, model=dataclasses.replace(m, dropout_rate=0.0,
+                                                             recon_loss="nll"))
+    weights = {k: v.cpu() for k, v in
+               Trainer(det, dataset, device="cuda").init_state().model.state_dict().items()}
+    step = {dev: _probe_step(torch, Trainer, det,
+                             dataset if dev == "cuda" else
+                             PanelDataset(panel, seq_len=m.seq_len, device="cpu"), weights)
+            for dev in ("cuda", "cpu")}
+    step_err = {k: abs(step["cuda"][k] - step["cpu"][k]) / abs(step["cpu"][k])
+                for k in OBS_STEP_RTOL}
+    for k, lim in OBS_STEP_RTOL.items():
+        check(step_err[k] <= lim, f"obs (a): step probe {k} card {step['cuda'][k]} vs CPU "
+                                  f"{step['cpu'][k]} ({step_err[k]} > {lim})")
+    for k in ("nonfinite_grads", "nf_loss"):
+        check(step["cuda"][k] == step["cpu"][k] == 0.0, f"obs (a): step {k} {step}")
+
+    # warm epochs, probes off and on, ABAB from the same init: bitwise, and
+    # the probes' cost
+    Trainer(cfg_of("warm", probes=False), dataset, device="cuda").fit()
+    walls, fits = {"off": [], "on": []}, {}
+    for rep in range(OBS_REPS):
+        for mode in ("off", "on"):
+            tr = Trainer(cfg_of(f"ab_{mode}_{rep}", probes=mode == "on"), dataset,
+                         device="cuda")
+            torch.cuda.synchronize()
+            state, out = tr.fit()
+            torch.cuda.synchronize()
+            walls[mode].append(out["history"][0]["seconds"])
+            if rep == 0:
+                fits[mode] = (state, out["history"][0])
+    (s_off, r_off), (s_on, r_on) = fits["off"], fits["on"]
+    sd_off, sd_on = s_off.model.state_dict(), s_on.model.state_dict()
+    bitwise_weights = all(torch.equal(sd_off[k], sd_on[k]) for k in sd_off)
+    loss_keys = ("train_loss", "train_recon", "train_kl", "val_loss", "val_recon", "val_kl")
+    bitwise_losses = all(r_off[k] == r_on[k] for k in loss_keys)
+    check(bitwise_weights and bitwise_losses,
+          "obs (a): probes on changed the weights or the losses of the epoch")
+    check(all(np.isfinite(r_on[k]) for k in TRAIN_PROBE_KEYS),
+          f"obs (a): probes {dict((k, r_on[k]) for k in TRAIN_PROBE_KEYS)}")
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    cost = {"epoch_s": walls, "median_s": med,
+            "probe_cost_frac": med["on"] / med["off"] - 1.0,
+            "probe_cost_ms_per_step": (med["on"] - med["off"]) * 1e3 / 50,
+            "order": "off, on x3 (ABAB)", "steps": 50}
+    print(f"[obs] (a) step and cost done at {time.perf_counter() - t_phase:.1f}s",
+          file=sys.stderr)
+
+    # a nan_grads epoch: the probes see it, the report flags it, the
+    # rollback answers it
+    nan_path = os.path.join(root, "nan.jsonl")
+    nan_logger = _obs_logger(nan_path, lambda e, f: None)
+    prev_tl = install_timeline(Timeline(nan_logger))
+    try:
+        with chaos.active(ChaosPlan([Fault("nan_grads", epoch=1)])):
+            _, nan_out = Trainer(cfg_of("nan", num_epochs=3, days_per_step=5,
+                                        checkpoint_every=1, recover_after=1),
+                                 dataset, device="cuda", logger=nan_logger).fit()
+    finally:
+        install_timeline(prev_tl)
+        nan_logger.finish()
+    poisoned = nan_out["history"][1]
+    nan_run, _ = timeline.open_run(nan_path)
+    nan_flags = sorted({(f["flag"], f["epoch"]) for f in report.build_report(nan_run)["flags"]},
+                       key=str)
+    rollbacks = [r for r in nan_run["events"] if r.get("event") == "recovery"]
+    check(poisoned["nonfinite_grads"] > 0 and np.isnan(poisoned["update_norm_mean"]),
+          f"obs (a): the nan_grads epoch's probes {poisoned}")
+    check(("nonfinite", 1) in nan_flags, f"obs (a): the report's flags {nan_flags}")
+    check([(r["kind"], r["epoch"]) for r in rollbacks][:1] == [("rollback", 1)],
+          f"obs (a): the recovery trail {rollbacks}")
+    nan_grads = {"epochs": [r["epoch"] for r in nan_out["history"]],
+                 "nonfinite_grads": poisoned["nonfinite_grads"],
+                 "update_norm_mean": poisoned["update_norm_mean"],
+                 "skipped_steps": poisoned["skipped_steps"], "report_flags": nan_flags,
+                 "recovery": [(r["kind"], r["epoch"], r.get("restored_step"))
+                              for r in rollbacks]}
+
+    # a seed fleet of four with probes against each seed's solo run
+    seeds = [seed + i for i in range(4)]
+    fcfg = cfg_of("fleet")
+    _, fout = FleetTrainer(fcfg, dataset, seeds=seeds, device="cuda").fit()
+    frec = fout["history"][0]
+    lane_err = {k: 0.0 for k in OBS_LANE_RTOL}
+    loss_err = 0.0
+    for i, s in enumerate(seeds):
+        solo_cfg = dataclasses.replace(fcfg, train=dataclasses.replace(fcfg.train, seed=s))
+        _, solo = Trainer(solo_cfg, dataset, device="cuda").fit()
+        srec = solo["history"][0]
+        loss_err = max(loss_err, _scalar_rel(frec["train_loss"][i], srec["train_loss"]))
+        for k in OBS_LANE_RTOL:
+            lane_err[k] = max(lane_err[k], _scalar_rel(frec[k][i], srec[k]))
+        check(frec["nonfinite_grads"][i] == srec["nonfinite_grads"] == 0,
+              f"obs (a): lane {i} non-finite gradients")
+    check(all(np.isfinite(frec[k]).all() for k in TRAIN_PROBE_KEYS),
+          f"obs (a): the fleet's probes {dict((k, frec[k]) for k in TRAIN_PROBE_KEYS)}")
+    check(loss_err <= 1e-5, f"obs (a): a fleet lane's loss vs its solo run {loss_err}")
+    for k, lim in OBS_LANE_RTOL.items():
+        check(lane_err[k] <= lim, f"obs (a): a fleet lane's {k} vs its solo run "
+                                  f"{lane_err[k]} > {lim}")
+    probes = {"step": {"cuda": step["cuda"], "cpu": step["cpu"], "rel_err": step_err,
+                       "limits": OBS_STEP_RTOL},
+              "bitwise_off_on": {"weights": bitwise_weights, "losses": bitwise_losses},
+              "epoch_probes": {k: r_on[k] for k in TRAIN_PROBE_KEYS},
+              "cost": cost, "nan_grads": nan_grads,
+              "fleet": {"seeds": seeds, "lane_vs_solo_rel_err": lane_err,
+                        "loss_rel_err": loss_err, "limits": OBS_LANE_RTOL,
+                        "probes": {k: frec[k] for k in TRAIN_PROBE_KEYS}}}
+    print(f"[obs] (a) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+
+    # (b) the trainer's on-demand capture: a PROFILE_REQUEST before epoch 1
+    # of a run with a metrics stream. The counters go to 0 when epoch 0's
+    # record is written, just before epoch 1; they are read at the capture's
+    # record (its train epoch) and at epoch 1's record (the whole epoch).
+    marks = {}
+
+    def on_event(event, fields):
+        if event == "epoch" and fields["epoch"] == 0:
+            with open(os.path.join(root, "prof", PROFILE_REQUEST_BASENAME), "w") as fh:
+                fh.write("")
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+        elif event == "profile_capture":
+            marks["train"] = {c.__name__: c.launches for c in counters}
+        elif event == "epoch" and fields["epoch"] == 1:
+            torch.cuda.synchronize()
+            marks["epoch"] = {c.__name__: c.launches for c in counters}
+
+    os.makedirs(os.path.join(root, "prof"))
+    prof_path = os.path.join(root, "prof", "run.jsonl")
+    prof_logger = _obs_logger(prof_path, on_event)
+    prev_tl = install_timeline(Timeline(prof_logger))
+    try:
+        ptr = Trainer(cfg_of("prof_models", num_epochs=2), dataset, device="cuda",
+                      logger=prof_logger)
+        pstate, pout = ptr.fit()
+    finally:
+        install_timeline(prev_tl)
+        prof_logger.finish()
+    prun, _ = timeline.open_run(prof_path)
+    (cap,) = [r for r in prun["events"] if r.get("event") == "profile_capture"]
+    check("error" not in cap and cap.get("files", 0) >= 1 and cap.get("total_us", 0) > 0,
+          f"obs (b): the profile_capture record {cap}")
+    launches = marks["epoch"]
+    for name, n in launches.items():
+        check(n > 0, f"obs (b): {name} was not launched in the profiled epoch {launches}")
+    summary = summarize_trace(cap["dir"], top=100000)
+    krows = _kernel_rows(summary["by_name"])
+    trained = ("gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_fwd", "attention_bwd")
+    acct = _launch_accounting(cap["dir"], {n: marks["train"][n] for n in trained})
+    _check_counts("obs (b)", acct, {n: marks["train"][n] for n in trained})
+    (span,) = [s for s in prun["spans"] if s["name"] == "train_epoch_1"]
+    steps = ptr.steps_per_epoch
+    busy = {"capture_device_ms": cap["total_us"] / 1e3, "train_epoch_span_ms": span["dur"] * 1e3,
+            "busy_share": cap["total_us"] / 1e6 / span["dur"]}
+    # `_busy_share` over 5 probed steps, as the fleet phase reads it
+    bchunks = [(d, o[:5]) for d, o in ptr._chunks(ptr.train_days, True, 2)][:1]
+    busy["_busy_share_5_steps"] = _busy_share(
+        torch, lambda: train_epoch(pstate, bchunks, guard=True, probes=True))
+    profiler = {"record": {k: cap[k] for k in ("epoch", "files", "total_us", "host_us", "top")},
+                "launches_train_epoch": marks["train"], "launches": launches,
+                "kernels": krows, "accounting": acct, "busy": busy, "steps": steps,
+                "host_rows": summary["host_by_name"][:12],
+                "transfer": summary["transfer"]}
+    print(f"[obs] (b) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+
+    # (c) the CLI: --obs --prom_textfile --profile on a stream-resident
+    # panel (a stream lane) with checkpoints (a checkpoint lane), then
+    # --debug_nans
+    pkl = os.path.join(root, "panel.pkl")
+    panel_to_frame(panel).to_pickle(pkl)
+    out = os.path.join(root, "cli")
+    cli_argv = ["--preset", "flagship", "--dataset", pkl, "--seed", str(seed),
+                "--run_name", "obs", "--start_time", dates[0], "--fit_end_time", dates[49],
+                "--val_start_time", dates[50], "--val_end_time", dates[69],
+                "--score_start", dates[70], "--score_end", dates[79],
+                "--deterministic_scores", "--num_epochs", "2",
+                "--panel_residency", "stream", "--stream_chunk_days", "16",
+                "--save_dir", f"{out}/models", "--score_dir", f"{out}/scores",
+                "--metrics_jsonl", f"{out}/RUN.jsonl"]
+    prom, trace_dir = f"{out}/x.prom", f"{out}/trace"
+    drive = _cli_drive(torch, cli, counters, cli_argv + ["--obs", "--prom_textfile", prom,
+                                                         "--profile", trace_dir])
+    epochs = _of(drive, "epoch")
+    prom_text = open(prom).read()
+    again = TextfileExporter(f"{out}/again.prom")
+    for rec in epochs:
+        again.export_epoch({k: v for k, v in rec.items() if k not in ("ts", "event")})
+    check(len(epochs) == 2 and "factorvae_train_epoch 1\n" in prom_text
+          and prom_text == open(f"{out}/again.prom").read(),
+          "obs (c): the .prom file is not the last epoch's")
+    proc = subprocess.run([sys.executable, "-m", "factorvae_tpu_torch.utils.trace_summary",
+                           trace_dir, "--top", "40"], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0 and "gru_walk_kernel" in proc.stdout
+          and "attention_fwd_kernel" in proc.stdout,
+          f"obs (c): trace_summary exited {proc.returncode}: {proc.stdout[-800:]}"
+          f"{proc.stderr[-800:]}")
+    crun, cwarn = timeline.open_run(f"{out}/RUN.jsonl")
+    cflags = report.build_report(crun)["flags"]
+    check(cflags == [] and cwarn == [], f"obs (c): the clean run's report flags {cflags}")
+    overlap = timeline.overlap_report(timeline.span_sections(crun)[-1])
+    lanes = {r["resource"]: r["overlap_frac"] for r in overlap}
+    check({"device", "stream", "checkpoint"} <= set(lanes),
+          f"obs (c): timeline lanes {sorted(lanes)}")
+    nans = _cli_drive(torch, cli, counters,
+                      cli_argv[:-1] + [f"{out}/nans.jsonl", "--num_epochs", "1",
+                                       "--days_per_step", "5",
+                                       "--save_dir", f"{out}/nans_models", "--debug_nans"])
+    cli_out = {"launches": drive["launches"], "wall_s": drive["wall_s"],
+               "prom_bytes": len(prom_text), "trace_summary_head": proc.stdout.splitlines()[:8],
+               "report_flags": cflags, "overlap": overlap,
+               "debug_nans": {"wall_s": nans["wall_s"],
+                              "train_loss": _of(nans, "epoch")[0]["train_loss"]}}
+    print(f"[obs] (c) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+
+    # (d) the daemon: POST /profile around single-day and 34-day requests
+    reg = ModelRegistry(device="cuda")
+    mcfg = dataclasses.replace(base, train=dataclasses.replace(base.train, seed=seed))
+    reg.register_params(load_model(mcfg, device="cuda"), mcfg, alias="m")
+    daemon = ScoringDaemon(reg, dataset)
+    daemon.handle_batch([{"model": "m", "day": dates[60]}])          # warm
+    port, srv_thread = _start_front(serve_http, daemon, TickScheduler(daemon, tick_ms=2.0))
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    status, body = _http(conn, "POST", "/profile",
+                         {"action": "start", "log_dir": os.path.join(root, "daemon_prof")})
+    check(status == 200, f"obs (d): POST /profile start {status} {body}")
+    # a warm-up request inside the capture: CUPTI may miss a capture's first
+    # launches; the requests after it are the counted ones
+    status, body = _http(conn, "POST", "/score", {"id": -1, "model": "m", "day": dates[59]})
+    check(status == 200 and json.loads(body)["ok"], f"obs (d): {body[:200]}")
+    warm = {c.__name__: c.launches for c in counters}
+    for c in counters:
+        c.launches = 0
+    for i in range(3):
+        status, body = _http(conn, "POST", "/score", {"id": i, "model": "m",
+                                                      "day": dates[60 + i]})
+        check(status == 200 and json.loads(body)["ok"], f"obs (d): {body[:200]}")
+    for i in range(2):
+        status, body = _http(conn, "POST", "/score", {"id": 10 + i, "model": "m",
+                                                      "start": dates[30], "end": dates[63]})
+        check(status == 200 and json.loads(body)["ok"], f"obs (d): {body[:200]}")
+    # every kernel row of the capture, so that no launch shape drops out
+    status, body = _http(conn, "POST", "/profile", {"action": "stop", "top": 400})
+    served = {c.__name__: c.launches for c in counters}
+    _http(conn, "POST", "/score", {"cmd": "shutdown"})
+    conn.close()
+    srv_thread.join(60)
+    answer = json.loads(body)
+    check(status == 200 and answer["ok"] and answer["files"] >= 1,
+          f"obs (d): POST /profile stop {status} {body[:400]}")
+    drows = _kernel_rows([tuple(r) for r in answer["top"]])
+    check(all(drows[n]["count"] >= served[n] for n in ("gru_fwd", "attention_fwd")),
+          f"obs (d): the answer's rows {drows} vs the counters {served}")
+    dcounted = {n: served[n] for n in ("gru_fwd", "attention_fwd")}
+    dacct = _launch_accounting(answer["log_dir"], dcounted, warm)
+    _check_counts("obs (d)", dacct, dcounted, warm)
+    dsum = summarize_trace(answer["log_dir"], top=100000)
+    host_names = {n for n, _, _ in dsum["host_by_name"]}
+    daemon_out = {"launches": served, "top": answer["top"][:8], "kernels": {
+        k: drows[k] for k in ("gru_fwd", "attention_fwd")}, "accounting": dacct,
+        "total_us": answer["total_us"], "host_us": answer["host_us"],
+        # the tick thread's CPU rows: its launch ranges and aten ops
+        "tick_thread_cpu_rows": {"gru_fwd_range": "gru_fwd" in host_names,
+                                 "attention_fwd_range": "attention_fwd" in host_names,
+                                 "host_rows": len(host_names)}}
+    print(f"[obs] (d) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+    work.cleanup()
+    return {"phase": "obs", "card": card,
+            "config": "flagship C158/T20/H64/K96/M128, f32, 80 days x 300 stocks, "
+                      "days_per_step=1",
+            "launches": launches, "probes": probes, "profiler": profiler, "cli": cli_out,
+            "daemon": daemon_out,
+            # K1's serving variant from the daemon's capture (one-day and
+            # 32-day chunks), every other kernel from the training epoch's
+            "profiler_us_per_launch": {k: v["us_per_launch"] or drows.get(k, {}).get(
+                "us_per_launch") for k, v in krows.items()}}
+
+
+def _collect_fleet_check(router_url: str) -> dict:
+    """The pool phase's fleet through `obs/collect.collect_fleet`: the
+    router's and both workers' streams merged on the router's clock; every
+    worker span of a routed request inside its router_forward span, up to
+    half the clock probe's round trip."""
+    from factorvae_tpu_torch.obs.collect import collect_fleet, estimate_offsets
+
+    t0 = time.perf_counter()
+    merged, since = collect_fleet(router_url, timeout=60)
+    wall_s = time.perf_counter() - t0
+    procs = sorted({r["proc"] for r in merged})
+    check(procs == ["router", "w0", "w1"], f"pool (e): merged processes {procs}")
+    check(all(r.get("aligned", True) for r in merged), "pool (e): a worker without a probe")
+    offsets = estimate_offsets([r for r in merged if r["proc"] == "router"])
+    legs: dict = {}
+    for r in merged:
+        if (r.get("event") == "span" and r["proc"] == "router"
+                and r["name"] == "router_forward" and r.get("trace")):
+            legs.setdefault(r["trace"], []).append(r)
+    inside, outside, worst = 0, [], 0.0
+    for r in merged:
+        if r.get("event") != "span" or r["proc"] == "router" or r.get("trace") not in legs:
+            continue
+        slack = offsets[r["proc"]]["rtt"] / 2.0
+        mine = [f for f in legs[r["trace"]] if f.get("worker") == r["proc"]]
+        gap = min((max(f["t0"] - r["t0"], r["t1"] - f["t1"], 0.0) for f in mine),
+                  default=float("inf"))
+        worst = max(worst, gap)
+        if gap <= slack:
+            inside += 1
+        else:
+            outside.append((r["name"], r["trace"], gap, slack))
+    check(inside > 0 and not outside,
+          f"pool (e): worker spans outside their router spans {outside[:5]}")
+    return {"records": len(merged), "by_proc": {p: sum(r["proc"] == p for r in merged)
+                                                 for p in procs},
+            "since": since, "wall_s": wall_s,
+            "offsets": {w: {"offset_s": o["offset"], "rtt_ms": o["rtt"] * 1e3,
+                            "probes": o["probes"]} for w, o in offsets.items()},
+            "routed_worker_spans_inside": inside, "worst_gap_s": worst}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3969,7 +4531,8 @@ def main(argv=None) -> int:
         "serve": lambda: phase_serve(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "pool": lambda: phase_pool(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "stacked": lambda: phase_stacked(torch, args.seed, counters, phases[0]["nvidia_smi"]),
-        "wf": lambda: phase_wf(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "wf": lambda: phase_wf(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "obs": lambda: phase_obs(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -4016,6 +4579,8 @@ def main(argv=None) -> int:
                      "launches_pool": by["pool"]["launches_pool"][name],
                      "launches_stacked": by["stacked"]["launches"][name],
                      "launches_wf": by["wf"]["launches"][name],
+                     "launches_obs": by["obs"]["launches"][name],
+                     "profiler_us_per_launch": by["obs"]["profiler_us_per_launch"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],
                      "tolerance": ph["tolerance"],

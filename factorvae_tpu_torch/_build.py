@@ -16,6 +16,10 @@ tolerance against the plain PyTorch versions.
 `compile_event_counts()` is this process's build taxonomy, the daemon's
 `compile_total` metric: `compile` counts the libraries `build` compiled,
 `compile_cached` those `load` found already built by an earlier process.
+Each also writes one record of that name onto the installed timeline
+(`utils/logging.timeline_compile`): `fn` the library, `wall_s` from nvcc's
+start to its exit being seen (the builds run in parallel) or the ctypes load
+of a cached library, and `cached`.
 """
 
 from __future__ import annotations
@@ -27,7 +31,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from factorvae_tpu_torch.utils.logging import timeline_compile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -99,10 +106,10 @@ def _build_missing(names) -> dict:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+                       tmp, out, time.perf_counter())
     logs = {name: "" for name in names}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         logs[name] = log
         if proc.returncode != 0:
@@ -112,6 +119,7 @@ def _build_missing(names) -> dict:
             os.replace(tmp, out)   # atomic: a reader never sees half a file
             _compiled.add(name)
             _counts["compile"] += 1
+            timeline_compile(name, t0, time.perf_counter())
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
@@ -124,8 +132,10 @@ def load(name: str) -> ctypes.CDLL:
         path = library_path(name)
         if not path.exists():
             build((name,))
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(path))
         if name not in _compiled:     # built by an earlier or a concurrent process
             _counts["compile_cached"] += 1
-        lib = ctypes.CDLL(str(path))
+            timeline_compile(name, t0, time.perf_counter(), cached=True)
         _loaded[name] = lib
     return lib

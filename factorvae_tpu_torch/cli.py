@@ -41,12 +41,24 @@ explicit `--bf16`/`--no-bf16` beats a preset. Unset, the port computes in
 float32: the JAX CLI's bfloat16 default is the best setting measured on a
 TPU, and the port carries over no default tuned there.
 
+Observability: `--metrics_jsonl PATH` (or `--obs`, whose stream defaults
+to `RUN.jsonl`) installs a `Timeline` on the stream, so epochs, stream
+chunks, checkpoint saves and kernel builds write their spans there;
+`--obs` also turns on the training-health probes (`train.obs_probes`) and
+logs an `obs` record. `--prom_textfile PATH` rewrites a Prometheus textfile
+after each epoch (`obs/metrics.TextfileExporter`). `--profile DIR` captures
+training and scoring under `torch.profiler` (`utils/profiling.trace`;
+`python -m factorvae_tpu_torch.utils.trace_summary DIR` reads it), and
+`--debug_nans` runs them in autograd's anomaly mode, which raises where a
+backward function returns a NaN (`utils/profiling.debug_nans`).
+
 After the panel is built, `run` imports pandas only for `--backtest`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -63,7 +75,9 @@ from factorvae_tpu_torch.eval.predict import export_scores, predict_panel, score
 from factorvae_tpu_torch.models.factorvae import load_model
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.train.trainer import Trainer
-from factorvae_tpu_torch.utils.logging import MetricsLogger
+from factorvae_tpu_torch.obs.metrics import TextfileExporter, install_exporter
+from factorvae_tpu_torch.utils.logging import MetricsLogger, Timeline, install_timeline
+from factorvae_tpu_torch.utils.profiling import debug_nans, trace
 
 _REFUSED = "not ported yet: exits with code 2"
 
@@ -147,17 +161,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "compute dtype for each scoring chunk")
     p.add_argument("--metrics_jsonl", type=str, default=None)
     p.add_argument("--prom_textfile", type=str, default=None, metavar="PATH",
-                   help=_REFUSED)
+                   help="rewrite a Prometheus textfile of each epoch's metrics here "
+                        "(atomically, after every epoch)")
     p.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
                    help="'off' only; a directory is " + _REFUSED)
     p.add_argument("--obs", action=argparse.BooleanOptionalAction, default=None,
-                   help="--no-obs only; --obs is " + _REFUSED)
+                   help="training-health probes in every epoch record, and a metrics "
+                        "stream with a timeline (RUN.jsonl unless --metrics_jsonl)")
     p.add_argument("--preset", type=str, default=None,
                    help="named config preset (factorvae_tpu_torch.presets). It fixes "
                         "the architecture; explicitly passed data and training "
                         "flags override its values")
-    p.add_argument("--profile", type=str, default=None, help=_REFUSED)
-    p.add_argument("--debug_nans", action="store_true", help=_REFUSED)
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="capture training and scoring with torch.profiler into DIR")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="autograd anomaly mode: raise where a backward function "
+                        "returns a NaN")
     p.add_argument("--backtest", action="store_true",
                    help="run the TopkDropout backtest on the scores (backtest.ipynb "
                         "cell 6: topk 50, n_drop 10, costs 5bp/15bp)")
@@ -184,10 +203,7 @@ def refusal(args: argparse.Namespace) -> Optional[str]:
     not_ported = (
         (args.mesh, "--mesh", 12), (args.mesh_stock is not None, "--mesh_stock", 12),
         (args.auto_plan, "--auto_plan", 9),
-        (args.compile_cache not in (None, "off"), "--compile_cache", 9),
-        (args.obs is True, "--obs", 11),
-        (args.prom_textfile is not None, "--prom_textfile", 11),
-        (args.profile is not None, "--profile", 11), (args.debug_nans, "--debug_nans", 11))
+        (args.compile_cache not in (None, "off"), "--compile_cache", 9))
     for given, flag, item in not_ported:
         if given:
             return (f"{flag} is not ported to factorvae_tpu_torch yet "
@@ -325,10 +341,18 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
     """Everything after the panel is built: train (or restore the best
     weights for --score_only), score, export the CSV, RankIC, --backtest,
     --export's artifact. Returns the exit code."""
-    logger = MetricsLogger(jsonl_path=args.metrics_jsonl, use_wandb=cfg.train.wandb,
+    metrics_path = args.metrics_jsonl or ("RUN.jsonl" if args.obs else None)
+    logger = MetricsLogger(jsonl_path=metrics_path, use_wandb=cfg.train.wandb,
                            run_name=cfg.train.run_name, config=cfg.to_dict())
+    prev_tl = install_timeline(Timeline(logger)) if metrics_path else None
+    prev_exp = (install_exporter(TextfileExporter(args.prom_textfile))
+                if args.prom_textfile else None)
+    # --profile and --debug_nans hold over training and scoring
+    observed = contextlib.ExitStack()
     try:
         logger.log("config", json=cfg.to_json())
+        if args.obs:
+            logger.log("obs", probes=cfg.train.obs_probes, run_jsonl=metrics_path)
         if panel.num_features != cfg.model.num_features:
             print(f"error: model expects {cfg.model.num_features} features "
                   f"(--num_latent/preset) but {cfg.data.dataset_path} has "
@@ -339,6 +363,9 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
                                pad_multiple=cfg.data.pad_multiple, device=args.device,
                                residency=cfg.data.panel_residency)
         best = os.path.join(cfg.train.save_dir, cfg.checkpoint_name())
+        observed.enter_context(trace(args.profile))
+        if args.debug_nans:
+            observed.enter_context(debug_nans())
         if args.score_only:
             if not os.path.isdir(best):
                 print(f"error: no checkpoint at {best}; train first", file=sys.stderr)
@@ -389,6 +416,7 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
         logger.log("scores", path=path, rank_ic=ic["RankIC"], rank_ic_ir=ic["RankIC_IR"],
                    days=len(days), windows=len(table["score"]), score_s=score_s,
                    export_s=export_s)
+        observed.close()
         if args.backtest:
             _backtest(cfg, args, table, logger)
         if args.export:
@@ -403,7 +431,12 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
             logger.log("export", path=args.export, bytes=len(blob))
         return 0
     finally:
+        observed.close()
         logger.finish()
+        if metrics_path:
+            install_timeline(prev_tl)
+        if args.prom_textfile:
+            install_exporter(prev_exp)
 
 
 def _winner(df, ckpt_of) -> "object | None":

@@ -33,12 +33,16 @@ Differences by design from the JAX artifact:
 `int8=True` bakes the weights as per-channel int8 `q` and float32 `s`
 (`ops/quant.py`) and dequantizes them inside the program, as the int8
 scoring path does for each chunk.
+
+Each `torch.export` writes one `compile` record (`fn` "export:<checkpoint
+name>") onto the installed timeline (`utils/logging.timeline_compile`).
 """
 
 from __future__ import annotations
 
 import io
 import json
+import time
 from typing import Optional
 
 import torch
@@ -47,6 +51,7 @@ from torch import nn
 from factorvae_tpu_torch.config import Config, config_hash
 from factorvae_tpu_torch.models.factorvae import call_with, model_from_params
 from factorvae_tpu_torch.ops.quant import QTensor, quantize_params
+from factorvae_tpu_torch.utils.logging import timeline_compile
 
 ARTIFACT_MAGIC = b"FVAE-AOT1"
 FORMAT = "factorvae-aot-torch/1"
@@ -115,8 +120,10 @@ def export_prediction(model: nn.Module, config: Config, n_max: int,
     module = _Prediction(cfg, params, eps).eval()
     args = (torch.zeros((1, int(n_max), cfg.seq_len, cfg.num_features), dtype=torch.float32),
             torch.ones((1, int(n_max)), dtype=torch.bool))
+    t0 = time.perf_counter()
     with torch.no_grad():
         program = torch.export.export(module, args)
+    timeline_compile(f"export:{config.checkpoint_name()}", t0, time.perf_counter())
     buf = io.BytesIO()
     torch.export.save(program, buf)
     header = {

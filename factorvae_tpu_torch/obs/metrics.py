@@ -15,13 +15,16 @@ cache: a restarted daemon on a built tree scrapes compile 0).
 `merge_expositions` is the router's fleet scrape: every worker's
 exposition relabeled with its `worker_id` and merged under one HELP/TYPE
 per family; `autoscale_families` renders the signals the autoscaler
-decides from. The trainer's `TextfileExporter` waits for ROADMAP Queue 1
-item 11.
+decides from. `TextfileExporter` is the trainers' Prometheus textfile
+(`--prom_textfile`): `export_epoch_metrics(rec)` rewrites it atomically
+after each epoch when one is installed, byte for byte the JAX exporter's
+text for the same record.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -395,3 +398,113 @@ def _render_daemon_metrics(daemon, compile_event_counts) -> str:
                 "correlation sits below its active threshold",
                 drifting_lines))
     return render_families(fam)
+
+
+# ---------------------------------------------------------------------------
+# trainer-side textfile exporter
+# ---------------------------------------------------------------------------
+
+#: epoch-record keys exported as gauges when present (probe keys ride
+#: along automatically — anything numeric and not in the skip set goes)
+_EPOCH_SKIP = {"epoch", "step"}
+
+
+class TextfileExporter:
+    """Write one epoch's metrics as a Prometheus textfile (the
+    node-exporter textfile-collector convention). The write is atomic
+    (tmp + rename) so a scraper never reads a torn exposition."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.epochs = 0
+
+    @staticmethod
+    def _lanes(v) -> List[Tuple[Optional[int], float]]:
+        """Numeric lanes of an epoch-record value: scalars are one
+        unlabeled lane; fleet per-seed lists get a seed_lane label."""
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            return [(None, float(v))]
+        if isinstance(v, list):
+            return [(i, float(x)) for i, x in enumerate(v)
+                    if isinstance(x, (int, float))
+                    and not isinstance(x, bool)]
+        return []
+
+    def export_epoch(self, rec: Dict) -> None:
+        self.epochs += 1
+        p = PREFIX
+        fam: List[Tuple[str, str, str, List[str]]] = [
+            (f"{p}_train_epochs_total", "counter",
+             "epochs exported this run",
+             [metric_line(f"{p}_train_epochs_total", self.epochs)]),
+        ]
+        if isinstance(rec.get("epoch"), (int, float)):
+            fam.append((f"{p}_train_epoch", "gauge",
+                        "most recent epoch number",
+                        [metric_line(f"{p}_train_epoch",
+                                     rec["epoch"])]))
+        if isinstance(rec.get("step"), (int, float)):
+            fam.append((f"{p}_train_step", "gauge",
+                        "optimizer step after the epoch",
+                        [metric_line(f"{p}_train_step", rec["step"])]))
+        # Fleet lane-config labels: hyper lanes race
+        # DIFFERENT configs, so every per-lane gauge carries the config
+        # that produced it (lr/kl_weight/config hash) next to its
+        # seed_lane index — the scrape-side twin of the obs.report flag
+        # labels. Absent on serial runs.
+        lane_names = rec.get("lane_labels")
+        if not (isinstance(lane_names, list)
+                and all(isinstance(x, str) for x in lane_names)):
+            lane_names = None
+
+        def _labels(lane):
+            if lane is None:
+                return None
+            lab = {"seed_lane": str(lane)}
+            if lane_names and lane < len(lane_names):
+                lab["lane_config"] = lane_names[lane]
+            return lab
+
+        for key in sorted(rec):
+            if key in _EPOCH_SKIP or key.startswith("_"):
+                continue
+            lanes = self._lanes(rec[key])
+            if not lanes:
+                continue
+            name = f"{p}_train_{key}"
+            lines = [metric_line(name, v, _labels(lane))
+                     for lane, v in lanes]
+            fam.append((name, "gauge",
+                        f"epoch-record metric '{key}'", lines))
+        text = render_families(fam)
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as fh:
+            fh.write(text)
+        os.replace(tmp, self.path)
+
+
+# Module-level registry, mirroring utils.logging.install_timeline: the
+# epoch loops call `export_epoch_metrics(rec)` unconditionally; without
+# an installed exporter that is one `is None` check.
+_EXPORTER: Optional[TextfileExporter] = None
+
+
+def install_exporter(exp: Optional[TextfileExporter]
+                     ) -> Optional[TextfileExporter]:
+    """Install the process-wide textfile exporter; returns the previous
+    one so callers (tests, the CLI's finally block) can restore it."""
+    global _EXPORTER
+    prev = _EXPORTER
+    _EXPORTER = exp
+    return prev
+
+
+def current_exporter() -> Optional[TextfileExporter]:
+    return _EXPORTER
+
+
+def export_epoch_metrics(rec: Dict) -> None:
+    exp = _EXPORTER
+    if exp is not None:
+        exp.export_epoch(rec)

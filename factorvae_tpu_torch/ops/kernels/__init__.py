@@ -5,8 +5,14 @@ then with a leading lane axis (the fleets of `train/fleet.py`); one model's
 tensors are a launch of one lane, with no view made. The helpers below run
 a plain version lane by lane, and move a `torch.func.vmap` rule's batch
 dimension to the front.
+
+Each wrapper's launch runs inside `launch_range(name)`: while a
+`torch.profiler` capture runs, the host timeline names the launch (the
+kernels, called through ctypes, have no aten op above them); otherwise it
+is a null context.
 """
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -34,6 +40,14 @@ def hidden_refusal(hidden_size: int, device) -> "str | None":
                 f"{MAX_HIDDEN} (ROADMAP Queue 2 \"Limits\"); the plain versions on "
                 "--device cpu take any size")
     return None
+
+
+def launch_range(name: str):
+    """A `record_function` range named `name` while a profiler runs, else a
+    null context."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def plain(fn, lanes: bool, *args, **kw):

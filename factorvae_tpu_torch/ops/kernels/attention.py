@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 
 from factorvae_tpu_torch import _build
-from factorvae_tpu_torch.ops.kernels import lane_major, plain, upcast
+from factorvae_tpu_torch.ops.kernels import lane_major, launch_range, plain, upcast
 from factorvae_tpu_torch.ops.masked import masked_softmax
 
 
@@ -243,9 +243,10 @@ def _fwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, keep, group: in
     ptrs, _alive = _pointers(latent, mask, keep, (query, w_key, b_key, w_val, b_val))
     with torch.cuda.device(latent.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_fwd(*ptrs, out.data_ptr(),
-                                days.data_ptr() if exact else None,
-                                b, n, k, h, group, s, stream)
+        with launch_range("attention_fwd"):
+            err = lib.attention_fwd(*ptrs, out.data_ptr(),
+                                    days.data_ptr() if exact else None,
+                                    b, n, k, h, group, s, stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd launch failed at S={s}, B={b}, N={n}, K={k}, "
                            f"H={h}, G={group}: cudaError {err}")
@@ -329,8 +330,9 @@ def _bwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, dctx, keep,
     ptrs += [o.data_ptr() for o in outs] + [scratch.data_ptr()]
     with torch.cuda.device(latent.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_bwd(*ptrs, days.data_ptr() if exact else None,
-                                b, n, k, h, group, s, stream)
+        with launch_range("attention_bwd"):
+            err = lib.attention_bwd(*ptrs, days.data_ptr() if exact else None,
+                                    b, n, k, h, group, s, stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd launch failed at S={s}, B={b}, N={n}, K={k}, "
                            f"H={h}, G={group}: cudaError {err}")

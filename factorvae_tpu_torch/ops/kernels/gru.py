@@ -49,7 +49,7 @@ import functools
 import torch
 
 from factorvae_tpu_torch import _build
-from factorvae_tpu_torch.ops.kernels import lane_major, plain, upcast
+from factorvae_tpu_torch.ops.kernels import lane_major, launch_range, plain, upcast
 
 TILE_ROWS = (16, 8)      # rows per tile the kernels take, preferred first
 CLUSTERS = (1, 2, 4)     # CTAs per cluster the kernels take
@@ -258,10 +258,11 @@ def _fwd_launch(name: str, xi, w_h, b_h, residuals: bool, shape: tuple):
         gseq = torch.empty_like(xi)
     if n == 0 or lanes == 0:
         return out, hseq, gseq, False
-    err = lib.gru_fwd(xi.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), out.data_ptr(),
-                      hseq.data_ptr() if residuals else None,
-                      gseq.data_ptr() if residuals else None,
-                      n, t_len, h_dim, *shape, lanes, _stream(xi.device))
+    with launch_range(name):
+        err = lib.gru_fwd(xi.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), out.data_ptr(),
+                          hseq.data_ptr() if residuals else None,
+                          gseq.data_ptr() if residuals else None,
+                          n, t_len, h_dim, *shape, lanes, _stream(xi.device))
     _raise_if(err, name, xi.shape, shape)
     return out, hseq, gseq, True
 
@@ -339,9 +340,10 @@ def _dwh_launch(hseq, dxi, dgn):
     db_h = hseq.new_empty(lane + (3 * h_dim,))
     m_rows = n * t_len
     scratch = hseq.new_empty((lib.gru_dwh_scratch_floats(m_rows, h_dim, lanes),))
-    err = lib.gru_dwh(hseq.data_ptr(), dxi.data_ptr(), dgn.data_ptr(), dw_h.data_ptr(),
-                      db_h.data_ptr(), scratch.data_ptr(), m_rows, h_dim, lanes,
-                      _stream(hseq.device))
+    with launch_range("gru_dwh"):
+        err = lib.gru_dwh(hseq.data_ptr(), dxi.data_ptr(), dgn.data_ptr(), dw_h.data_ptr(),
+                          db_h.data_ptr(), scratch.data_ptr(), m_rows, h_dim, lanes,
+                          _stream(hseq.device))
     _raise_if(err, "gru_dwh", dxi.shape, None)
     return dw_h, db_h
 
@@ -384,9 +386,10 @@ def _walk_launch(xi, w_h, hseq, gseq, dh, shape: tuple):
     hseq, gseq = hseq.contiguous(), gseq.contiguous()
     dxi = torch.empty_like(xi)
     dgn = torch.empty_like(hseq)
-    err = lib.gru_walk(xi.data_ptr(), w_h.data_ptr(), hseq.data_ptr(), gseq.data_ptr(),
-                       dh.data_ptr(), dxi.data_ptr(), dgn.data_ptr(), n, t_len, h_dim,
-                       *shape, lanes, _stream(xi.device))
+    with launch_range("gru_bwd"):
+        err = lib.gru_walk(xi.data_ptr(), w_h.data_ptr(), hseq.data_ptr(), gseq.data_ptr(),
+                           dh.data_ptr(), dxi.data_ptr(), dgn.data_ptr(), n, t_len, h_dim,
+                           *shape, lanes, _stream(xi.device))
     _raise_if(err, "gru_bwd", xi.shape, shape)
     return dxi, dgn
 

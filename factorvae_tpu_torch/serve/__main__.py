@@ -221,7 +221,9 @@ def run_pool(args) -> int:
     from factorvae_tpu_torch.utils.logging import MetricsLogger, Timeline, install_timeline
 
     work_dir = tempfile.mkdtemp(prefix="serve_pool_")
-    logger = MetricsLogger(jsonl_path=args.metrics_jsonl, echo=False, run_name="serve_router")
+    # the router never makes a CUDA context, its stream's header included
+    logger = MetricsLogger(jsonl_path=args.metrics_jsonl, echo=False, run_name="serve_router",
+                           device_name=False)
     prev_tl = install_timeline(Timeline(logger)) if args.metrics_jsonl else None
     pool, router, scaler = build_fleet(args, work_dir)
     try:

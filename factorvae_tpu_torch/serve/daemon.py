@@ -1072,13 +1072,61 @@ def serve_batch_file(daemon: ScoringDaemon, path: str, out, max_batch: int = 64)
     return answered
 
 
+def _serve_runstream(handler) -> None:
+    """`GET /runstream?since=<byte offset>`, the fleet collector's transport
+    (`obs/collect.py`), on the daemon's front and the router's: this
+    process's metrics stream from `since`, cut at its last newline
+    (`obs/live.tail_bytes`: a torn last line is never served), with the
+    offset to resume from in `X-Runstream-Next`. A process without a
+    metrics stream answers an empty payload."""
+    from urllib.parse import parse_qs, urlparse
+
+    from factorvae_tpu_torch.obs.live import tail_bytes
+    from factorvae_tpu_torch.utils.logging import current_timeline
+
+    q = parse_qs(urlparse(handler.path).query)
+    try:
+        since = int(q.get("since", ["0"])[0])
+    except ValueError:
+        since = 0
+    jsonl = getattr(getattr(current_timeline(), "logger", None), "jsonl_path", None)
+    payload, nxt = tail_bytes(jsonl, since) if jsonl else (b"", 0)
+    handler.send_response(200)
+    handler.send_header("Content-Type", "application/x-ndjson")
+    handler.send_header("Content-Length", str(len(payload)))
+    handler.send_header("X-Runstream-Next", str(nxt))
+    handler.end_headers()
+    handler.wfile.write(payload)
+
+
+def _profile_answer(req) -> tuple:
+    """(HTTP code, payload) of a POST /profile body."""
+    from factorvae_tpu_torch.utils.profiling import ProfilerError, start_profile, stop_profile
+
+    req = req if isinstance(req, dict) else {}
+    action = req.get("action")
+    try:
+        if action == "start":
+            return 200, {"ok": True, "action": "start",
+                         "log_dir": start_profile(req.get("log_dir"))}
+        if action == "stop":
+            return 200, {"ok": True, "action": "stop",
+                         **stop_profile(top=int(req.get("top", 10)))}
+    except ProfilerError as e:
+        return 409, {"ok": False, "error": str(e)}
+    return 400, {"ok": False, "error": "POST /profile wants {\"action\": \"start\"|"
+                                      "\"stop\"} (optional \"log_dir\" on start)"}
+
+
 def serve_http(daemon: ScoringDaemon, port: int, host: str = "127.0.0.1",
                scheduler: Optional[TickScheduler] = None, ready=None):
-    """A stdlib HTTP front: POST /score (an object or an array) and /admit;
-    GET /stats, /models, /healthz (503 only when failing or draining) and
-    /metrics (Prometheus text). A request's `X-Factorvae-Trace` header is
-    its trace context. POST /profile answers 501: `torch.profiler` capture
-    is ROADMAP Queue 1 item 11. Blocks until a shutdown request or a SIGTERM
+    """A stdlib HTTP front: POST /score (an object or an array), /admit and
+    /profile ({"action": "start" | "stop"}, optional "log_dir" on start and
+    "top" on stop: a `torch.profiler` capture of every thread, whose stop
+    answers the capture's summary); GET /stats, /models, /healthz (503 only
+    when failing or draining), /metrics (Prometheus text) and
+    /runstream?since=N (`_serve_runstream`). A request's `X-Factorvae-Trace`
+    header is its trace context. Blocks until a shutdown request or a SIGTERM
     drain. Single-threaded, unless a `scheduler` is given: then a
     ThreadingHTTPServer whose /score goes through the scheduler's tick
     thread and /admit through its admission thread, so no handler thread
@@ -1124,6 +1172,8 @@ def serve_http(daemon: ScoringDaemon, port: int, host: str = "127.0.0.1",
                                  "models": daemon.registry.stats()["entries"]})
             elif self.path == "/metrics":
                 self._send_body(200, daemon_metrics(daemon).encode(), CONTENT_TYPE)
+            elif self.path.startswith("/runstream"):
+                _serve_runstream(self)
             else:
                 self._send(404, {"ok": False, "error": f"unknown path {self.path}"})
 
@@ -1156,9 +1206,7 @@ def serve_http(daemon: ScoringDaemon, port: int, host: str = "127.0.0.1",
             n = int(self.headers.get("Content-Length") or 0)
             requests = _parse_line(self.rfile.read(n).decode())
             if self.path == "/profile":
-                self._send(501, {"ok": False, "error":
-                                 "POST /profile is not ported: torch.profiler capture "
-                                 "is ROADMAP Queue 1 item 11"})
+                self._send(*_profile_answer(requests[0] if requests else {}))
                 return
             if daemon.trace_enabled:
                 hdr = parse_header(self.headers.get(TRACE_HEADER))

@@ -34,6 +34,9 @@ routing, failover, shedding, hedging and the fleet's control plane.
   (`r-<request count>`, or a child of an incoming `X-Factorvae-Trace`),
   carried on every forward leg as the header and a per-request `trace`
   field; hedge legs are sibling spans `h0`/`h1`, failover attempts chain.
+  `GET /runstream?since=N` serves the router's metrics stream from byte N
+  (the daemon's `_serve_runstream`), which `obs/collect.collect_fleet`
+  merges with its workers' onto the router's clock.
 
 Requests without a model (`cmd` requests) route to the owner of the key
 `#cmd`; a shutdown command is not fanned out (stopping the fleet is the
@@ -615,6 +618,10 @@ class Router:
                     self._send_body(200, router.metrics().encode(), CONTENT_TYPE)
                 elif self.path == "/artifacts":
                     self._send(200, router.pool.artifact_manifest())
+                elif self.path.startswith("/runstream"):
+                    from factorvae_tpu_torch.serve.daemon import _serve_runstream
+
+                    _serve_runstream(self)
                 elif self.path.startswith("/artifact/"):
                     sha = self.path[len("/artifact/"):]
                     path = router.pool.store.blob_path(sha)
@@ -630,9 +637,9 @@ class Router:
                 else:
                     self._send(404, {"ok": False, "error":
                                      f"unknown path {self.path} (the router serves "
-                                     "/score /admit /stats /metrics /healthz /artifacts "
-                                     "/artifact/<sha256> /register /deregister "
-                                     "/upgrade)"})
+                                     "/score /admit /stats /metrics /healthz /runstream "
+                                     "/artifacts /artifact/<sha256> /register "
+                                     "/deregister /upgrade)"})
 
             def _control_body(self) -> Optional[dict]:
                 n = int(self.headers.get("Content-Length") or 0)

@@ -37,8 +37,9 @@ Semantics, as the JAX package's:
   `Trainer` resumes any member; `fit(resume=True)` restores the whole group
   at the largest epoch every member has verified against its manifest (a
   corrupt member step is quarantined, and the group settles below it).
-- A lane with `recover_after` bad epochs in a row (a non-finite train loss
-  or skipped steps) rolls back alone to its last checkpoint saved at a
+- A lane with `recover_after` bad epochs in a row (a non-finite train loss,
+  skipped steps, or with `train.obs_probes` on float32 a non-finite
+  gradient element) rolls back alone to its last checkpoint saved at a
   clean epoch; the others go on, and no lr changes (`_rollback_lanes`).
 
 - A stream-resident dataset (`PanelDataset(residency="stream")`) is
@@ -47,9 +48,15 @@ Semantics, as the JAX package's:
   shared validation order gets one mini-panel per chunk
   (`data/stream.stream_epoch_batches`); bitwise the "hbm" fleet.
 
+- Observability as the serial trainer's: `train.obs_probes` lifts each
+  lane's probes into the `fleet_epoch` record as per-lane lists, each
+  epoch runs in `train_epoch_{e}` / `val_epoch_{e}` spans, rewrites the
+  installed textfile, marks the watermarks, and answers a
+  `PROFILE_REQUEST` with a `profile_capture` record.
+
 Refused in `__init__`, naming their ROADMAP Queue 1 items: a stock-sharded
-mesh (12), obs probes (11) and rematerialization (15); on a CUDA device a
-hidden size above the kernels' maximum.
+mesh (12) and rematerialization (15); on a CUDA device a hidden size above
+the kernels' maximum.
 """
 
 from __future__ import annotations
@@ -66,6 +73,9 @@ from factorvae_tpu_torch import chaos
 from factorvae_tpu_torch.config import Config, config_hash
 from factorvae_tpu_torch.data.stream import epoch_chunks
 from factorvae_tpu_torch.models.factorvae import model_from_params
+from factorvae_tpu_torch.obs.memory import watermark_event
+from factorvae_tpu_torch.obs.metrics import export_epoch_metrics
+from factorvae_tpu_torch.obs.probes import EVAL_PROBE_KEYS, TRAIN_PROBE_KEYS
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import read_state_dict, save_weights
 from factorvae_tpu_torch.train.checkpoint import Checkpointer, CheckpointIntegrityError
@@ -83,8 +93,14 @@ from factorvae_tpu_torch.train.state import (
     resolve_train_dtype,
     set_lr_scale,
 )
-from factorvae_tpu_torch.train.trainer import eval_generator, init_train_state
-from factorvae_tpu_torch.utils.logging import MetricsLogger
+from factorvae_tpu_torch.train.trainer import (
+    eval_generator,
+    init_train_state,
+    log_profile_capture,
+    profile_run_dir,
+)
+from factorvae_tpu_torch.utils.logging import MetricsLogger, timeline_event, timeline_span
+from factorvae_tpu_torch.utils.profiling import maybe_profile_epoch
 
 #: the per-lane Config fields a fleet may vary: lr and kl_weight as run-time
 #: scalars, the seed as the lane's identity, run_name and save_dir for its
@@ -276,7 +292,6 @@ class FleetTrainer:
                              f"on {self.device}")
         for given, knob, item in (
                 (config.mesh.stock_axis > 1, "a fleet on a mesh (mesh.stock_axis > 1)", 12),
-                (config.train.obs_probes, "a fleet with train.obs_probes", 11),
                 (config.train.remat != "none", f"train.remat={config.train.remat!r}", 15)):
             if given:
                 raise NotImplementedError(f"{knob} is not ported to factorvae_tpu_torch "
@@ -401,11 +416,13 @@ class FleetTrainer:
         orders = self._epoch_orders(epoch)
         poison = self._poison(epoch)
         guard = self.cfg.train.finite_guard
+        probes = self.cfg.train.obs_probes
         dtype = self.model_cfg.dtype
         if self.num_seeds == 1:
             chunks = self._chunks(orders[0])
             m = train_epoch(run, chunks, guard=guard, poison=bool(poison[0]),
-                            compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg)
+                            compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
+                            probes=probes)
             m = {k: [v] for k, v in m.items()}
         else:
             chunks = self._chunks(orders)
@@ -413,7 +430,7 @@ class FleetTrainer:
                 self.model, run, chunks, peaks=[c.train.lr for c in self.lane_cfgs],
                 train_cfg=self.cfg.train, total_steps=self.total_steps, guard=guard,
                 poison=poison, compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
-                kl_weight=self._kl_weight())
+                kl_weight=self._kl_weight(), probes=probes)
         if self.stream:
             self.last_stream_stats = chunks
         return m
@@ -421,11 +438,13 @@ class FleetTrainer:
     def _run_eval_epoch(self, run, val_order: np.ndarray, epoch: int) -> dict:
         generators = self._eval_generators(epoch)
         dtype = self.model_cfg.dtype
+        probes = self.cfg.train.obs_probes
         if self.num_seeds == 1:
-            m = eval_epoch(run.model, self._chunks(val_order), generators[0], dtype)
+            m = eval_epoch(run.model, self._chunks(val_order), generators[0], dtype,
+                           probes=probes)
             return {k: [v] for k, v in m.items()}
         return lane_eval_epoch(self.model, run.params, self._chunks(val_order), generators,
-                               dtype, self._kl_weight())
+                               dtype, self._kl_weight(), probes=probes)
 
     def evaluate_lanes(self, state: FleetState, epoch: int) -> Optional[list]:
         """Each lane's validation loss of `state` (a `fit` result) with
@@ -481,12 +500,19 @@ class FleetTrainer:
         val_order = self._val_order()
         ckpt_every = max(1, tcfg.checkpoint_every or 0)
         history = []
+        run_dir = profile_run_dir(self.logger)
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
-            train_m = self._run_train_epoch(run, epoch)
+            with maybe_profile_epoch(run_dir, epoch) as (prof, prof_dir), \
+                    timeline_span(f"train_epoch_{epoch}", cat="train", resource="device",
+                                  epoch=epoch, seeds=self.num_seeds):
+                train_m = self._run_train_epoch(run, epoch)
+            log_profile_capture(self.logger, epoch, prof, prof_dir)
             val_m = None
             if val_order is not None:
-                val_m = self._run_eval_epoch(run, val_order, epoch)
+                with timeline_span(f"val_epoch_{epoch}", cat="eval", resource="device",
+                                   epoch=epoch, seeds=self.num_seeds):
+                    val_m = self._run_eval_epoch(run, val_order, epoch)
                 selection = val_m["loss"]
             else:
                 selection = train_m["loss"]
@@ -516,8 +542,14 @@ class FleetTrainer:
             for key in ("skipped_steps", "loss_scale", "loss_scale_floor_steps"):
                 if key in train_m:
                     rec[key] = train_m[key]
+            if tcfg.obs_probes:
+                rec.update({k: train_m[k] for k in TRAIN_PROBE_KEYS})
+                if val_m is not None:
+                    rec.update({"val_" + k: val_m[k] for k in EVAL_PROBE_KEYS})
             history.append(rec)
             self.logger.log("fleet_epoch", **rec)
+            export_epoch_metrics(rec)
+            watermark_event(epoch=epoch, seeds=self.num_seeds)
 
             # per-lane recovery: a bad lane rolls back alone
             loss_np = np.asarray(train_m["loss"], np.float64)
@@ -527,7 +559,9 @@ class FleetTrainer:
                 bad_lanes = (~np.isfinite(loss_np) | (skip_np > budget)
                              | (np.asarray(train_m["loss_scale"]) <= tcfg.loss_scale_floor))
             else:
-                bad_lanes = ~np.isfinite(loss_np) | (skip_np > 0)
+                nf_np = np.nan_to_num(np.asarray(
+                    train_m.get("nonfinite_grads", [0.0] * self.num_seeds), np.float64))
+                bad_lanes = ~np.isfinite(loss_np) | (skip_np > 0) | (nf_np > 0)
             for i in range(self.num_seeds):
                 lane_streak[i] = lane_streak[i] + 1 if bad_lanes[i] else 0
             to_roll = [i for i in range(self.num_seeds)
@@ -549,6 +583,8 @@ class FleetTrainer:
                     self.logger.log("recovery", kind="lane_rollback_unavailable", lane=i,
                                     seed=self.seeds[i], epoch=epoch,
                                     note=f"{reason}; lane continues un-rolled")
+                    timeline_event("recovery_rollback_unavailable", cat="recovery",
+                                   resource="recovery", epoch=epoch, lane=i, reason=reason)
             improved = [i for i in range(self.num_seeds)
                         if np.isfinite(best_val[i]) and best_val[i] < prev_best[i]]
             self._save_best(best_params, improved)
@@ -678,4 +714,6 @@ class FleetTrainer:
                 set_lane(run, i, st)
             self.logger.log("recovery", kind="lane_rollback", lane=i, seed=self.seeds[i],
                             epoch=epoch, restored_step=restored)
+            timeline_event("recovery_rollback", cat="recovery", resource="recovery", lane=i,
+                           seed=self.seeds[i], epoch=epoch, step=restored)
         return run

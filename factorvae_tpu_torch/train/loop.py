@@ -37,6 +37,12 @@ as `eps` and `keep`; the forward is `torch.func.vmap` of the model over the
 stacked parameters, whose CUDA kernels each launch once for all lanes.
 A hyper-fleet reads kl_weight as an (S,) tensor. The finite guard is a
 per-lane select; the host reads the (S,) flags once per step.
+
+With `probes` (`TrainConfig.obs_probes`) every step adds the health probes
+of `obs/probes.py` into its aux sums on the device: the per-day loss and
+factor probes from the forward, the gradient, update and parameter norms
+and the non-finite gradient count after the unscale and the poison. They
+read no value to the host, draw nothing and leave the update as it is.
 """
 
 from __future__ import annotations
@@ -47,6 +53,15 @@ import numpy as np
 import torch
 
 from factorvae_tpu_torch.models.factorvae import call_with
+from factorvae_tpu_torch.obs.probes import (
+    MERGE,
+    finalize_eval_probes,
+    finalize_train_probes,
+    flatten,
+    grad_probes,
+    loss_probes,
+    update_probes,
+)
 from factorvae_tpu_torch.train.state import (
     FleetState,
     TrainState,
@@ -66,10 +81,11 @@ def weighted_day_loss(model, dataset, days: torch.Tensor, *, train: bool,
                       generator: Optional[torch.Generator] = None,
                       eps: Optional[torch.Tensor] = None,
                       keep: Optional[torch.Tensor] = None,
-                      params: Optional[dict] = None):
+                      params: Optional[dict] = None, probes: bool = False):
     """(loss, aux): the mean loss over the real days of the batch and the
     per-step sums the epoch metrics are made of (detached). `params`, when
-    given, replace the model's own (the compute copy of a mixed step)."""
+    given, replace the model's own (the compute copy of a mixed step);
+    `probes` adds the forward's `loss_probes`."""
     x, y, mask = batch_for(dataset, days)
     day_w = (days >= 0).to(torch.float32)
     kw = dict(train=train, eps=eps, keep=keep, generator=generator)
@@ -88,6 +104,8 @@ def weighted_day_loss(model, dataset, days: torch.Tensor, *, train: bool,
         "wloss_sum": torch.sum(out.loss * n_valid),
         "samples": torch.sum(n_valid),
     }
+    if probes:
+        aux.update(loss_probes(out, day_w))
     return loss, {k: v.detach() for k, v in aux.items()}
 
 
@@ -102,17 +120,19 @@ def _grads(model) -> list:
 
 def train_step(state: TrainState, dataset, days: torch.Tensor, *, guard: bool,
                poison: bool = False, compute_dtype: torch.dtype = torch.float32,
-               loss_scale_cfg: Optional[tuple] = None) -> dict:
+               loss_scale_cfg: Optional[tuple] = None, probes: bool = False) -> dict:
     """One update from the batch `days`; returns the step's aux sums. A
     `compute_dtype` other than float32 takes the mixed step, whose
     `loss_scale_cfg` is (growth, backoff, growth_interval, floor); its aux
-    also holds the loss scale after the step (a host float32)."""
+    also holds the loss scale after the step (a host float32). `probes`
+    adds the step's health probes to the aux."""
     model, optimizer = state.model, state.optimizer
     mixed = compute_dtype != torch.float32
     optimizer.zero_grad(set_to_none=True)
     loss, aux = weighted_day_loss(model, dataset, days, train=True,
                                   generator=state.generator,
-                                  params=cast_compute(model, compute_dtype) if mixed else None)
+                                  params=cast_compute(model, compute_dtype) if mixed else None,
+                                  probes=probes)
     if mixed:
         (loss * float(state.loss_scale)).backward()
         inv = float(np.float32(1.0) / state.loss_scale)
@@ -123,14 +143,21 @@ def train_step(state: TrainState, dataset, days: torch.Tensor, *, guard: bool,
     if poison:
         for g in _grads(model):
             g.mul_(float("nan"))
-    apply = True
+    apply, ok = True, None
     if guard or mixed:
         ok = all_finite(_grads(model))
         aux["skipped"] = (~ok).to(torch.float32)
         apply = bool(ok)          # the gate's one host read per step
+    if probes:
+        params = list(model.parameters())
+        aux.update(grad_probes(_grads(model)))
+        before = flatten(params)
     if apply:
         optimizer.step()
         state.scheduler.step()
+    if probes:
+        # a skipped step reads NaN, as optax's un-gated update does
+        aux.update(update_probes(before, params, None if apply else ok))
     state.step += 1
     if mixed:
         state.loss_scale, state.good_steps = walk_loss_scale(
@@ -164,7 +191,10 @@ def loss_scale_probes(scales: list, floor: float) -> dict:
 
 
 def _accumulate(total: Optional[dict], aux: dict) -> dict:
-    return aux if total is None else {k: total[k] + aux[k] for k in total}
+    if total is None:
+        return aux
+    return {k: MERGE[k](total[k], aux[k]) if k in MERGE else total[k] + aux[k]
+            for k in total}
 
 
 def finalize_train(sums: dict) -> dict:
@@ -173,12 +203,16 @@ def finalize_train(sums: dict) -> dict:
          "kl": sums["kl_sum"] / days, "days": sums["days"]}
     if "skipped" in sums:
         m["skipped_steps"] = sums["skipped"]
+    if "probe_steps" in sums:
+        m.update(finalize_train_probes(sums, days))
     return m
 
 
 def finalize_eval(sums: dict) -> dict:
     m = finalize_train(sums)
     m["loss_sample_weighted"] = sums["wloss_sum"] / torch.clamp(sums["samples"], min=1.0)
+    if "nf_loss" in sums:
+        m.update(finalize_eval_probes(sums, torch.clamp(sums["days"], min=1.0)))
     return m
 
 
@@ -191,15 +225,16 @@ def to_host(metrics: dict) -> dict:
 
 def train_epoch(state: TrainState, chunks, *, guard: bool, poison: bool = False,
                 compute_dtype: torch.dtype = torch.float32,
-                loss_scale_cfg: Optional[tuple] = None) -> dict:
+                loss_scale_cfg: Optional[tuple] = None, probes: bool = False) -> dict:
     """The epoch's (dataset, order (steps, B)) chunks, in step order
     (`data/stream.epoch_chunks`) -> the epoch's metrics (floats); a mixed
-    epoch's also hold `loss_scale_probes`."""
+    epoch's also hold `loss_scale_probes`, a probed one `TRAIN_PROBE_KEYS`."""
     sums, scales = None, []
     for dataset, order in chunks:
         for i in range(order.shape[0]):
             aux = train_step(state, dataset, order[i], guard=guard, poison=poison,
-                             compute_dtype=compute_dtype, loss_scale_cfg=loss_scale_cfg)
+                             compute_dtype=compute_dtype, loss_scale_cfg=loss_scale_cfg,
+                             probes=probes)
             if "loss_scale" in aux:
                 scales.append(aux.pop("loss_scale"))
             sums = _accumulate(sums, aux)
@@ -211,18 +246,19 @@ def train_epoch(state: TrainState, chunks, *, guard: bool, poison: bool = False,
 
 @torch.no_grad()
 def eval_epoch(model, chunks, generator: torch.Generator,
-               compute_dtype: torch.dtype = torch.float32) -> dict:
+               compute_dtype: torch.dtype = torch.float32, probes: bool = False) -> dict:
     """Validation metrics over the (dataset, order (steps, B)) chunks:
     dropout off, the reconstruction still sampled (the reference's
     validate()), `generator` drawn across the chunks in order. A
     `compute_dtype` other than float32 computes with the model's compute
-    copy, as a mixed run's train steps do."""
+    copy, as a mixed run's train steps do; `probes` adds
+    `EVAL_PROBE_KEYS`."""
     params = cast_compute(model, compute_dtype) if compute_dtype != torch.float32 else None
     sums = None
     for dataset, order in chunks:
         for i in range(order.shape[0]):
             _, aux = weighted_day_loss(model, dataset, order[i], train=False,
-                                       generator=generator, params=params)
+                                       generator=generator, params=params, probes=probes)
             sums = _accumulate(sums, aux)
     return to_host(finalize_eval(sums))
 
@@ -255,12 +291,14 @@ def lane_noise(model, generators, b: int, n: int, *, train: bool, device):
 
 
 def lane_day_loss(model, params: dict, dataset, days: torch.Tensor, *, train: bool,
-                  generators, kl_weight: Optional[torch.Tensor] = None):
+                  generators, kl_weight: Optional[torch.Tensor] = None,
+                  probes: bool = False):
     """(loss (S,), aux of (S,) sums): `weighted_day_loss` of S models at once,
     lane i with its parameters params[name][i], its day batch days[i] and
     its own noise, through `torch.func.vmap` over `call_with`. With
     `kl_weight` (S,) each lane's loss is recon + kl_weight[i] * kl (a
-    hyper-fleet's runtime scalar); without it the model's own loss."""
+    hyper-fleet's runtime scalar); without it the model's own loss. `probes`
+    adds each lane's `loss_probes`."""
     x, y, mask = lane_batch(dataset, days)
     eps, keep = lane_noise(model, generators, days.shape[1], x.shape[2], train=train,
                            device=x.device)
@@ -276,6 +314,8 @@ def lane_day_loss(model, params: dict, dataset, days: torch.Tensor, *, train: bo
         aux = {"loss_sum": loss_sum, "recon_sum": torch.sum(out.recon_loss * day_w),
                "kl_sum": torch.sum(out.kl * day_w), "days": count,
                "wloss_sum": torch.sum(per_day * n_valid), "samples": torch.sum(n_valid)}
+        if probes:
+            aux.update(loss_probes(out, day_w))
         return loss_sum / torch.clamp(count, min=1.0), aux
 
     in_dims = (0, 0, 0, 0, 0, 0, None if keep is None else 0,
@@ -301,7 +341,7 @@ def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
                     poison: Optional[np.ndarray] = None,
                     compute_dtype: torch.dtype = torch.float32,
                     loss_scale_cfg: Optional[tuple] = None,
-                    kl_weight: Optional[torch.Tensor] = None) -> dict:
+                    kl_weight: Optional[torch.Tensor] = None, probes: bool = False) -> dict:
     """One update of every lane from its batch days[i] (`train_step` lane by
     lane): the gradients of the summed lane losses (lane i's part is its
     own loss's, the lanes sharing nothing), lane i's loss scale on a mixed
@@ -315,7 +355,8 @@ def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
     mixed = compute_dtype != torch.float32
     use = cast_params(model, params, compute_dtype) if mixed else params
     loss, aux = lane_day_loss(model, use, dataset, days, train=True,
-                              generators=state.generators, kl_weight=kl_weight)
+                              generators=state.generators, kl_weight=kl_weight,
+                              probes=probes)
     grads = lambda: [p.grad for p in params.values() if p.grad is not None]  # noqa: E731
     device = loss.device
     if mixed:
@@ -331,12 +372,20 @@ def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
                                  device=device)
         for g in grads():
             g.mul_(_lane_view(factor, g))
-    apply = np.ones(state.num_lanes, bool)
+    lanes = state.num_lanes
+    apply = np.ones(lanes, bool)
+    ok = None
     if guard or mixed:
         ok = lane_all_finite(grads())
         aux["skipped"] = (~ok).to(torch.float32)
         apply = ok.cpu().numpy()          # the gate's one host read per step
+    if probes:
+        tensors = list(params.values())
+        aux.update(grad_probes(grads(), lanes))
+        before = flatten(tensors, lanes)
     lane_adam_step(state, peaks, train_cfg, total_steps, apply)
+    if probes:
+        aux.update(update_probes(before, tensors, ok, lanes))
     state.steps = state.steps + 1
     if mixed:
         walked = [walk_loss_scale(s, int(g), bool(a), loss_scale_cfg)
@@ -351,7 +400,8 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
                      total_steps: int, guard: bool, poison: Optional[np.ndarray] = None,
                      compute_dtype: torch.dtype = torch.float32,
                      loss_scale_cfg: Optional[tuple] = None,
-                     kl_weight: Optional[torch.Tensor] = None) -> dict:
+                     kl_weight: Optional[torch.Tensor] = None,
+                     probes: bool = False) -> dict:
     """The epoch's (dataset, order (S, steps, B)) chunks, lane i's own day
     order -> the epoch's metrics, each a list of S floats (`train_epoch`
     lane by lane)."""
@@ -361,7 +411,8 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
             aux = lane_train_step(model, state, dataset, order[:, i], peaks=peaks,
                                   train_cfg=train_cfg, total_steps=total_steps, guard=guard,
                                   poison=poison, compute_dtype=compute_dtype,
-                                  loss_scale_cfg=loss_scale_cfg, kl_weight=kl_weight)
+                                  loss_scale_cfg=loss_scale_cfg, kl_weight=kl_weight,
+                                  probes=probes)
             if "loss_scale" in aux:
                 scales.append(aux.pop("loss_scale"))
             sums = _accumulate(sums, aux)
@@ -377,7 +428,8 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
 @torch.no_grad()
 def lane_eval_epoch(model, params: dict, chunks, generators,
                     compute_dtype: torch.dtype = torch.float32,
-                    kl_weight: Optional[torch.Tensor] = None) -> dict:
+                    kl_weight: Optional[torch.Tensor] = None,
+                    probes: bool = False) -> dict:
     """Validation metrics of S models over the (dataset, shared order
     (steps, B)) chunks, lane i with its parameters and its generator -> each
     metric a list of S floats (`eval_epoch` lane by lane)."""
@@ -389,6 +441,7 @@ def lane_eval_epoch(model, params: dict, chunks, generators,
         for i in range(order.shape[0]):
             days = order[i].expand(lanes, -1)
             _, aux = lane_day_loss(model, params, dataset, days, train=False,
-                                   generators=generators, kl_weight=kl_weight)
+                                   generators=generators, kl_weight=kl_weight,
+                                   probes=probes)
             sums = _accumulate(sums, aux)
     return to_host(finalize_eval(sums))

@@ -39,11 +39,21 @@ chunk ahead (`data/stream.py`); the steps, the generators and the metrics
 are the "hbm" epoch's, bitwise. `last_stream_stats` is the last train
 epoch's `ChunkStream` and its transfer ledger.
 
+Observability (`factorvae_tpu/train/trainer.py`): with `train.obs_probes`
+each epoch record gains the health probes of `obs/probes.py`
+(`TRAIN_PROBE_KEYS`, and `val_`-prefixed `EVAL_PROBE_KEYS`), and on float32
+a non-finite gradient element counts as a bad epoch for the rollback. Each
+epoch runs inside `train_epoch_{e}` / `val_epoch_{e}` timeline spans on the
+"device" resource, rewrites the installed Prometheus textfile
+(`obs/metrics.export_epoch_metrics`) and marks the allocator's watermarks
+(`obs/memory.watermark_event`). A `PROFILE_REQUEST` file beside the metrics
+stream runs the next train epoch under `torch.profiler`
+(`utils/profiling.maybe_profile_epoch`) and logs its `profile_capture`.
+
 Refused in `__init__`, each naming its ROADMAP item, as the CLI does: a
-stock-sharded mesh, the observability probes (`train.obs_probes`),
-rematerialization, and on a CUDA device a hidden size above the kernels'
-maximum. Fleets of models are `train/fleet.FleetTrainer`, whose one-lane
-fleet is this trainer. Checkpoints are saved on a background thread when
+stock-sharded mesh, rematerialization, and on a CUDA device a hidden size
+above the kernels' maximum. Fleets of models are `train/fleet.FleetTrainer`,
+whose one-lane fleet is this trainer. Checkpoints are saved on a background thread when
 `train.async_checkpointing` (the default), else synchronously; the files
 are the same (`train/checkpoint.py`), and `fit` drains the queue before it
 returns. A resume or a rollback restores only a step that verifies against
@@ -64,6 +74,9 @@ from factorvae_tpu_torch import chaos
 from factorvae_tpu_torch.config import Config
 from factorvae_tpu_torch.data.stream import epoch_chunks
 from factorvae_tpu_torch.models.factorvae import FactorVAE
+from factorvae_tpu_torch.obs.memory import watermark_event
+from factorvae_tpu_torch.obs.metrics import export_epoch_metrics
+from factorvae_tpu_torch.obs.probes import EVAL_PROBE_KEYS, TRAIN_PROBE_KEYS
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import save_weights
 from factorvae_tpu_torch.train.checkpoint import Checkpointer, CheckpointIntegrityError
@@ -77,7 +90,12 @@ from factorvae_tpu_torch.train.state import (
     set_horizon,
     set_lr_scale,
 )
-from factorvae_tpu_torch.utils.logging import MetricsLogger
+from factorvae_tpu_torch.utils.logging import MetricsLogger, timeline_event, timeline_span
+from factorvae_tpu_torch.utils.profiling import (
+    maybe_profile_epoch,
+    step_annotation,
+    summarize_capture,
+)
 
 _TRAIN_NOISE, _EVAL_NOISE = 1, 2      # stream ids of seed_for
 
@@ -97,6 +115,24 @@ def init_train_state(model_cfg, train_cfg, total_steps: int, device) -> TrainSta
     if model_cfg.compute_dtype != "float32":
         state = dataclasses.replace(state, **mixed_fields(train_cfg))
     return state
+
+
+def profile_run_dir(logger) -> Optional[str]:
+    """The directory polled for a `PROFILE_REQUEST`: the metrics stream's
+    (None without one, so a run without a stream never stats the disk)."""
+    path = getattr(logger, "jsonl_path", None)
+    return os.path.dirname(os.path.abspath(path)) if path else None
+
+
+def log_profile_capture(logger, epoch: int, prof: bool, prof_dir: Optional[str]) -> None:
+    """The `profile_capture` record of an epoch that a `PROFILE_REQUEST`
+    asked for: the capture's summary, or the error that kept it from
+    starting."""
+    if prof:
+        logger.log("profile_capture", epoch=epoch, dir=prof_dir,
+                   **summarize_capture(prof_dir, top=5))
+    elif prof_dir:
+        logger.log("profile_capture", epoch=epoch, error=prof_dir)
 
 
 def eval_generator(seed: int, epoch: int, device) -> torch.Generator:
@@ -119,7 +155,6 @@ class Trainer:
                              f"runs on {self.device}")
         for given, knob, item in (
                 (config.mesh.stock_axis > 1, "mesh.stock_axis > 1", 12),
-                (config.train.obs_probes, "train.obs_probes", 11),
                 (config.train.remat != "none", f"train.remat={config.train.remat!r}", 15)):
             if given:
                 raise NotImplementedError(f"{knob} is not ported to factorvae_tpu_torch "
@@ -237,21 +272,31 @@ class Trainer:
         recover_after = max(0, int(tcfg.recover_after))
         bad_streak = rollbacks = 0
         history = []
+        probes = tcfg.obs_probes
+        run_dir = profile_run_dir(self.logger)
         epoch = start_epoch
         while epoch < epochs:
             t0 = time.perf_counter()
             poison = chaos.fault("nan_grads", epoch=epoch) is not None
             chunks = self._chunks(self.train_days, True, epoch)
-            train_m = train_epoch(state, chunks, guard=tcfg.finite_guard, poison=poison,
-                                  compute_dtype=self.model_cfg.dtype,
-                                  loss_scale_cfg=self.loss_scale_cfg)
+            with maybe_profile_epoch(run_dir, epoch) as (prof, prof_dir), \
+                    step_annotation(f"train_epoch_{epoch}"), \
+                    timeline_span(f"train_epoch_{epoch}", cat="train", resource="device",
+                                  epoch=epoch):
+                train_m = train_epoch(state, chunks, guard=tcfg.finite_guard, poison=poison,
+                                      compute_dtype=self.model_cfg.dtype,
+                                      loss_scale_cfg=self.loss_scale_cfg, probes=probes)
+            log_profile_capture(self.logger, epoch, prof, prof_dir)
             if self.stream:
                 self.last_stream_stats = chunks
             rec = {"epoch": epoch, "train_loss": train_m["loss"],
                    "train_recon": train_m["recon"], "train_kl": train_m["kl"]}
             if len(self.val_days):
-                val_m = eval_epoch(state.model, self._chunks(self.val_days, False, 0),
-                                   self._eval_generator(epoch), self.model_cfg.dtype)
+                with timeline_span(f"val_epoch_{epoch}", cat="eval", resource="device",
+                                   epoch=epoch):
+                    val_m = eval_epoch(state.model, self._chunks(self.val_days, False, 0),
+                                       self._eval_generator(epoch), self.model_cfg.dtype,
+                                       probes=probes)
                 rec.update(val_loss=val_m["loss"], val_recon=val_m["recon"],
                            val_kl=val_m["kl"])
                 selection = val_m["loss"]
@@ -265,19 +310,27 @@ class Trainer:
             for key in ("skipped_steps", "loss_scale", "loss_scale_floor_steps"):
                 if key in train_m:
                     rec[key] = train_m[key]
+            if probes:
+                rec.update({k: train_m[k] for k in TRAIN_PROBE_KEYS})
+                if len(self.val_days):
+                    rec.update({"val_" + k: val_m[k] for k in EVAL_PROBE_KEYS})
             history.append(rec)
             self.logger.log("epoch", **rec)
+            export_epoch_metrics(rec)
+            watermark_event(epoch=epoch)
 
-            # the recovery escalation: on f32 any skipped step is a bad
-            # signal; a mixed run expects about one overflow per growth of
-            # the scale, and a scale at its floor has stopped learning
+            # the recovery escalation: on f32 any skipped step (or, with the
+            # probes, any non-finite gradient element) is a bad signal; a
+            # mixed run expects about one overflow per growth of the scale,
+            # and a scale at its floor has stopped learning
             skipped = train_m.get("skipped_steps", 0.0)
             if self.mixed:
                 budget = self.steps_per_epoch // max(1, tcfg.loss_scale_growth_interval) + 1
                 bad = (not np.isfinite(train_m["loss"]) or skipped > budget
                        or train_m["loss_scale"] <= tcfg.loss_scale_floor)
             else:
-                bad = not np.isfinite(train_m["loss"]) or skipped > 0
+                bad = (not np.isfinite(train_m["loss"]) or skipped > 0
+                       or train_m.get("nonfinite_grads", 0.0) > 0)
             bad_streak = bad_streak + 1 if bad else 0
             escalate = bool(recover_after and bad_streak >= recover_after)
             can_roll = (rollbacks < tcfg.recover_max_rollbacks and ckpt is not None
@@ -296,6 +349,8 @@ class Trainer:
                 self.logger.log("recovery", kind="rollback_unavailable", epoch=epoch,
                                 lr_scale=self._lr_scale,
                                 note=f"{reason}; continuing with lr backoff only")
+                timeline_event("recovery_rollback_unavailable", cat="recovery",
+                               resource="recovery", epoch=epoch, reason=reason)
             if escalate and can_roll:
                 rollbacks += 1
                 bad_streak = 0
@@ -320,6 +375,8 @@ class Trainer:
                 self.logger.log("recovery", kind="rollback", epoch=epoch,
                                 restored_step=restored, lr_scale=self._lr_scale,
                                 rollbacks=rollbacks)
+                timeline_event("recovery_rollback", cat="recovery", resource="recovery",
+                               epoch=epoch, step=restored, lr_scale=self._lr_scale)
                 epoch = restored + 1
                 continue
 

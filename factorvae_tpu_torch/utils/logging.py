@@ -66,13 +66,16 @@ def backend_env() -> dict:
     }
 
 
-def run_meta(config: Optional[dict] = None, run_name: Optional[str] = None) -> dict:
-    """Header fields for the first record of a metrics stream."""
+def run_meta(config: Optional[dict] = None, run_name: Optional[str] = None,
+             device_name: bool = True) -> dict:
+    """Header fields for the first record of a metrics stream. Reading the
+    card's name makes a CUDA context: a process that must not make one (the
+    router) passes device_name=False and the header's `device` is None."""
     cuda = torch.cuda.is_available()
     meta: dict = {"run_name": run_name, "git_sha": _git_sha(), "env": backend_env(),
                   "torch": torch.__version__, "cuda": torch.version.cuda,
                   "platform": "cuda" if cuda else "cpu",
-                  "device": torch.cuda.get_device_name(0) if cuda else None,
+                  "device": torch.cuda.get_device_name(0) if cuda and device_name else None,
                   "device_count": torch.cuda.device_count() if cuda else 0}
     if config is not None:
         meta["config_hash"] = config_hash(config)
@@ -84,7 +87,8 @@ class MetricsLogger:
 
     def __init__(self, jsonl_path: Optional[str] = None, use_wandb: bool = False,
                  wandb_project: str = "factorvae-tpu", run_name: Optional[str] = None,
-                 config: Optional[dict] = None, echo: bool = True, echo_to: Any = None):
+                 config: Optional[dict] = None, echo: bool = True, echo_to: Any = None,
+                 device_name: bool = True):
         self.jsonl_path = jsonl_path
         self.echo = echo
         self._echo_to = echo_to
@@ -94,7 +98,8 @@ class MetricsLogger:
         if jsonl_path:
             os.makedirs(os.path.dirname(os.path.abspath(jsonl_path)), exist_ok=True)
             self._fh = open(jsonl_path, "a")
-            self.log("run_meta", _echo=False, **run_meta(config, run_name=run_name))
+            self.log("run_meta", _echo=False, **run_meta(config, run_name=run_name,
+                                                         device_name=device_name))
         if use_wandb:
             try:
                 import wandb  # type: ignore
@@ -247,3 +252,22 @@ def timeline_span_end(token: Optional[dict], **extra: Any) -> None:
         return
     tl.span_at(token["name"], token["t0"], tl._clock(), cat=token["cat"],
                resource=token["resource"], **{**token["fields"], **extra})
+
+
+def timeline_compile(fn: str, t0: float, t1: float, cached: bool = False) -> None:
+    """The record of one program build, in the schema the JAX package's
+    jit watchdog writes (`factorvae_tpu/obs/watchdog.py`): a `compile`
+    record (`compile_cached` when an earlier process had built it) with
+    `fn`, `wall_s` and `cached`, and a span on the "compile" lane. The port
+    has no jit: its builds are the kernel libraries' nvcc runs (`_build.py`)
+    and `torch.export` (`eval/export_aot.py`). The program bill that JAX
+    reads from XLA has no source here, so `flops`, `peak_bytes`, `lower_s`
+    and `compile_s` are null, as JAX's guarded accessors give them where
+    the API is missing. A no-op without a timeline."""
+    tl = _TIMELINE
+    if tl is None:
+        return
+    tl.span_at(f"build:{fn}", t0, t1, cat="compile", resource="compile", cached=cached)
+    tl.logger.log("compile_cached" if cached else "compile", _echo=False, fn=fn,
+                  wall_s=round(t1 - t0, 6), cached=cached, compiles=1, flops=None,
+                  peak_bytes=None, lower_s=None, compile_s=None)

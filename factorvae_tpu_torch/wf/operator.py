@@ -41,7 +41,7 @@ stage's context (`obs/trace`).
 A no-fault cycle's refit parameters are bitwise a plain `warm_refit` on the
 grown panel: the operator adds journaling around the fit, no arithmetic in
 it. The refit builds its `Trainer` from the caller's config, so it refuses
-what `Trainer` refuses (`train.obs_probes`, a stock mesh, remat; each
+what `Trainer` refuses (a stock mesh, remat; each
 names its ROADMAP item) as a `WalkForwardError`.
 """
 

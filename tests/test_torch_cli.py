@@ -144,9 +144,19 @@ def port_run(data, jax_run):
 class TestCliAgainstJax:
     def test_events_losses_and_artifact_names(self, jax_run, port_run):
         got, want = port_run["events"], jax_run["events"]
-        names = {e["event"] for e in got}
+        # --metrics_jsonl installs a timeline in both CLIs: its spans and marks
+        # come beside the run's records, and the epochs' spans are the JAX ones
+        timeline = {"span", "mark"}
+        names = {e["event"] for e in got} - timeline
         assert names == {"run_meta", "config", "execution_layout", "epoch", "best", "scores"}
-        assert [e["event"] for e in got] == [e["event"] for e in want if e["event"] in names]
+        assert ([e["event"] for e in got if e["event"] not in timeline]
+                == [e["event"] for e in want if e["event"] in names])
+
+        def epoch_spans(events):
+            return [(e["name"], e["resource"]) for e in events if e["event"] == "span"
+                    and e["name"].startswith(("train_epoch_", "val_epoch_"))]
+
+        assert epoch_spans(got) == epoch_spans(want) != []
         for key in ("train_loss", "val_loss"):
             np.testing.assert_allclose([e[key] for e in _named(got, "epoch")],
                                        [e[key] for e in _named(want, "epoch")],
@@ -354,14 +364,78 @@ REFUSED = [
     (["--mesh_stock", "2"], "--mesh_stock", 12),
     (["--auto_plan"], "--auto_plan", 9),
     (["--compile_cache", "xla_cache"], "--compile_cache", 9),
-    (["--obs"], "--obs", 11),
-    (["--prom_textfile", "x.prom"], "--prom_textfile", 11),
-    (["--profile", "trace"], "--profile", 11),
-    (["--debug_nans"], "--debug_nans", 11),
     (["--no-pallas"], "--no-pallas", None),
     # above the CUDA kernels' kMaxH on the card (ROADMAP Queue 2 "Limits")
     (["--hidden_size", "96", "--device", "cuda"], "hidden_size 96", None),
 ]
+
+
+class TestCliObs:
+    """The observability flags, each on a CPU run of the CLI."""
+
+    def test_obs_logs_probes_and_a_timeline_into_run_jsonl(self, data, monkeypatch, tmp_path):
+        from factorvae_tpu.obs import report as jreport
+        from factorvae_tpu.obs import timeline as jtimeline
+
+        from factorvae_tpu_torch.obs.probes import EVAL_PROBE_KEYS, TRAIN_PROBE_KEYS
+
+        monkeypatch.chdir(tmp_path)
+        argv = [a for a in _argv(data, "obs", "--device", "cpu", "--obs", epochs=2)]
+        i = argv.index("--metrics_jsonl")
+        del argv[i:i + 2]                                # --obs alone: RUN.jsonl here
+        assert cli.main(argv) == 0
+        recs = [json.loads(x) for x in open(tmp_path / "RUN.jsonl")]
+        (obs,) = [r for r in recs if r["event"] == "obs"]
+        assert obs == {**obs, "probes": True, "run_jsonl": "RUN.jsonl"}
+        epochs = [r for r in recs if r["event"] == "epoch"]
+        assert len(epochs) == 2
+        for rec in epochs:
+            assert set(TRAIN_PROBE_KEYS) <= set(rec)
+            assert {"val_" + k for k in EVAL_PROBE_KEYS} <= set(rec)
+        run = jtimeline.load_run(str(tmp_path / "RUN.jsonl"))
+        assert {"train_epoch_0", "val_epoch_1"} <= {s["name"] for s in run["spans"]}
+        assert jreport.build_report(run)["flags"] == []
+
+    def test_prom_textfile_holds_the_last_epoch(self, data):
+        from factorvae_tpu.obs import metrics as jmetrics
+
+        root = data[0]
+        prom = os.path.join(str(root), "obs_prom", "x.prom")
+        assert cli.main(_argv(data, "obs_prom", "--device", "cpu", "--prom_textfile", prom,
+                              epochs=2)) == 0
+        epochs = [r for r in map(json.loads, open(os.path.join(str(root), "obs_prom",
+                                                                 "run.jsonl")))
+                  if r["event"] == "epoch"]
+        jexp = jmetrics.TextfileExporter(prom + ".jax")
+        for rec in epochs:
+            jexp.export_epoch({k: v for k, v in rec.items() if k not in ("ts", "event")})
+        text = open(prom).read()
+        assert text == open(prom + ".jax").read()
+        assert "factorvae_train_epoch 1" in text and "factorvae_train_epochs_total 2" in text
+
+    def test_profile_captures_training_and_scoring(self, data, capsys):
+        from factorvae_tpu_torch.utils import trace_summary
+
+        out = os.path.join(str(data[0]), "obs_profile", "trace")
+        assert cli.main(_argv(data, "obs_profile", "--device", "cpu", "--profile", out,
+                              epochs=1)) == 0
+        capsys.readouterr()
+        assert trace_summary.main([out, "--top", "40"]) == 0
+        text = capsys.readouterr().out
+        assert "trace files : 1" in text and "train_epoch_0" in text
+
+    def test_debug_nans_runs_training_in_anomaly_mode(self, data, monkeypatch):
+        seen = []
+        fit = Trainer.fit
+
+        def spy(self, *a, **kw):
+            seen.append((torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()))
+            return fit(self, *a, **kw)
+
+        monkeypatch.setattr(Trainer, "fit", spy)
+        assert cli.main(_argv(data, "obs_nans", "--device", "cpu", "--debug_nans",
+                              epochs=1)) == 0
+        assert seen == [(True, True)] and not torch.is_anomaly_enabled()
 
 
 def _read_nothing(monkeypatch):

@@ -787,3 +787,46 @@ def test_cpu_exported_artifact_on_the_card_matches_the_cpu(dev):
     got = art.call(x.to(dev), mask.to(dev))
     assert (gru_fwd.launches - k1, attention_fwd.launches - k4) == (1, 1)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+
+
+def test_a_capture_names_every_kernel_by_its_cuda_function(dev, tmp_path):
+    """One training step's kernels (K1's residual variant, the walk, dWh,
+    K4, K5) and K1's serving variant under `utils/profiling.trace`: the
+    Kineto trace's kernel rows counted by CUDA function equal the launch
+    counters' rise, and the host rows name each launch (`launch_range`)."""
+    import re
+
+    from factorvae_tpu_torch.utils.profiling import trace
+    from factorvae_tpu_torch.utils.trace_summary import summarize_trace
+
+    rng = np.random.default_rng(11)
+    n, t, h, k = 64, 8, 32, 8
+    xi, w_h, b_h = _to(dev, rng.normal(size=(n, t, 3 * h)).astype(np.float32),
+                       (rng.normal(size=(h, 3 * h)) * 0.1).astype(np.float32),
+                       (rng.normal(size=(3 * h,)) * 0.1).astype(np.float32))
+    args, keep, dctx, _ = _attention_case(dev, 2, n, k, h, 3, poison=False)
+    counters = (gru_fwd, gru_fwd_residuals, gru_bwd, gru_dwh, attention_fwd, attention_bwd)
+    gru_fwd(xi, w_h, b_h)                                   # built and loaded before
+    before = [c.launches for c in counters]
+    with trace(str(tmp_path)):
+        gru_fwd(xi, w_h, b_h)
+        _, hseq, gseq = gru_fwd_residuals(xi, w_h, b_h)
+        gru_bwd(xi, w_h, b_h, torch.ones((n, h), device=dev), residuals=(hseq, gseq))
+        attention_fwd(*args, keep=keep)
+        attention_bwd(*args, dctx, keep=keep)
+    rise = {c.__name__: c.launches - b for c, b in zip(counters, before)}
+    assert rise == {"gru_fwd": 1, "gru_fwd_residuals": 1, "gru_bwd": 1, "gru_dwh": 1,
+                    "attention_fwd": 1, "attention_bwd": 1}
+    s = summarize_trace(str(tmp_path), top=10000)
+    by = [(name, count) for name, _, count in s["by_name"]]
+
+    def count(pattern):
+        return sum(c for name, c in by if re.search(pattern, name))
+
+    assert count(r"gru_fwd_kernel<[^,>]+,\s*false") == 1
+    assert count(r"gru_fwd_kernel<[^,>]+,\s*true") == 1
+    assert count(r"gru_walk_kernel") == count(r"gru_dwh_kernel") == 1
+    assert count(r"attention_fwd_kernel") == count(r"attention_bwd_head_kernel") == 1
+    host = {name for name, _, _ in s["host_by_name"]}
+    assert {"gru_fwd", "gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_fwd",
+            "attention_bwd"} <= host

@@ -487,7 +487,7 @@ class TestHyperFleet:
             validate_lane_configs(cfg, [lanes[0], same])
         assert lane_label(lanes[1], False) == f"seed={cfg.train.seed}"
         assert lane_label(lanes[1], True).startswith(f"seed={cfg.train.seed} lr=0.003 klw=0.1 ")
-        for knob, item in ((dict(obs_probes=True), 11), (dict(remat="full"), 15)):
+        for knob, item in ((dict(remat="dots"), 15), (dict(remat="full"), 15)):
             bad = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **knob))
             with pytest.raises(NotImplementedError, match=f"item {item}"):
                 FleetTrainer(bad, ds, seeds=SEEDS, device="cpu")

@@ -4,8 +4,9 @@ included, and a scoring pass at each precision rung and on a
 stream-resident panel, a float32 and a mixed training epoch, a fleet's epoch
 and its lane-batched scoring pass, a CLI run without --backtest, and a
 scoring daemon's fused ticks at each rung with its metrics, drift, trace
-and scheduler, an AOT artifact admitted and scored, and a walk-forward
-cycle through its command line, with no JAX, Flax,
+and scheduler, an AOT artifact admitted and scored, a walk-forward
+cycle through its command line, and a probed epoch under a profiler
+capture read back by the run readers, with no JAX, Flax,
 pandas or JAX-package module loaded),
 that the JAX weights carry across without loss, and that `chip_smoke.py`
 refuses to run without a GPU instead of falling back to the CPU."""
@@ -162,6 +163,32 @@ with tempfile.TemporaryDirectory() as run:
                     "--device", "cpu"]) == 0
 assert {"factorvae_tpu_torch.wf", "factorvae_tpu_torch.wf.journal",
         "factorvae_tpu_torch.wf.operator", "factorvae_tpu_torch.wf.__main__"} <= set(names)
+
+# the run observatory: a probed epoch with a timeline and a capture, read back
+from factorvae_tpu_torch.obs import report, timeline
+from factorvae_tpu_torch.utils import logging as tlog
+from factorvae_tpu_torch.utils.profiling import trace
+from factorvae_tpu_torch.utils.trace_summary import summarize_trace
+
+with tempfile.TemporaryDirectory() as run:
+    logger = tlog.MetricsLogger(jsonl_path=run + "/run.jsonl", echo=False)
+    prev = tlog.install_timeline(tlog.Timeline(logger))
+    tcfg = config.Config(model=cfg.model, data=config.DataConfig(seq_len=4),
+                         train=config.TrainConfig(num_epochs=1, obs_probes=True,
+                                                  save_dir=run + "/m"))
+    with trace(run + "/trace"):
+        _, out = Trainer(tcfg, ds, device="cpu", logger=logger).fit()
+    tlog.install_timeline(prev)
+    logger.finish()
+    assert np.isfinite(out["history"][0]["grad_norm_mean"])
+    rep = report.build_report(timeline.open_run(run + "/run.jsonl")[0])
+    assert rep["num_epochs"] == 1 and rep["flags"] == []
+    assert summarize_trace(run + "/trace")["total_us"] > 0
+assert {"factorvae_tpu_torch.obs.probes", "factorvae_tpu_torch.obs.report",
+        "factorvae_tpu_torch.obs.timeline", "factorvae_tpu_torch.obs.live",
+        "factorvae_tpu_torch.obs.collect", "factorvae_tpu_torch.obs.memory",
+        "factorvae_tpu_torch.utils.profiling",
+        "factorvae_tpu_torch.utils.trace_summary"} <= set(names)
 
 def banned(mod):
     top = mod.split(".")[0]

@@ -942,8 +942,12 @@ def test_http_endpoints(srv, tmp_path, threaded):
         assert front.call("POST", "/admit", {"alias": "prod"})[0] == 400
         status, adm = front.call("POST", "/admit", {"path": cand, "alias": "prod"})
         assert status == 200 and adm["promoted"] and adm["incumbent"] is None
-        status, prof = front.call("POST", "/profile", {"action": "start"})
-        assert status == 501 and "item 11" in prof["error"]
+        status, prof = front.call("POST", "/profile", {"action": "start",
+                                                       "log_dir": str(tmp_path / "prof")})
+        assert status == 200 and prof["ok"] and prof["log_dir"] == str(tmp_path / "prof")
+        front.call("POST", "/score", {"id": 4, "model": "m0", "day": 22})
+        status, prof = front.call("POST", "/profile", {"action": "stop"})
+        assert status == 200 and prof["ok"] and prof["files"] == 1 and prof["total_us"] > 0
         assert front.call("GET", "/nope")[0] == 404
     finally:
         front.stop()

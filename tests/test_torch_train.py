@@ -295,10 +295,10 @@ class TestResume:
         with pytest.raises(ValueError, match="serving rung"):
             Trainer(int8, tr.ds, device="cpu")
 
-    def test_obs_probes_are_refused_naming_item_11(self, panels, tmp_path):
+    def test_remat_is_refused_naming_item_15(self, panels, tmp_path):
         _, tp = panels
         tr = _small_trainer(tp, tmp_path, checkpoint_every=0)
-        probes = dataclasses.replace(tr.cfg, train=dataclasses.replace(
-            tr.cfg.train, obs_probes=True))
-        with pytest.raises(NotImplementedError, match="obs_probes.*item 11"):
-            Trainer(probes, tr.ds, device="cpu")
+        remat = dataclasses.replace(tr.cfg, train=dataclasses.replace(
+            tr.cfg.train, remat="dots"))
+        with pytest.raises(NotImplementedError, match="remat.*item 15"):
+            Trainer(remat, tr.ds, device="cpu")

@@ -246,14 +246,46 @@ class TestRefitStages:
                                    rtol=1e-6, atol=1e-7)
         assert np.isfinite(got)
 
+    def test_a_probed_refit_tracks_the_jax_one_and_its_own_unprobed_run(self, panels,
+                                                                         tmp_path):
+        """`train.obs_probes` through the refit: the probes of each epoch
+        within `tests/test_torch_probes.py`'s tolerances of the JAX refit's,
+        and the weights bitwise the unprobed refit's."""
+        from factorvae_tpu_torch.obs.probes import TRAIN_PROBE_KEYS
+
+        jp, tp = panels
+        jcfg = _jcfg(jp, tmp_path / "jax")
+        jcfg = dataclasses.replace(jcfg, train=dataclasses.replace(jcfg.train,
+                                                                   obs_probes=True))
+        jds = JPanelDataset(jp, seq_len=T)
+        warm = JTrainer(_jcfg(jp, tmp_path / "w", seed=7), jds).init_state().params
+        warm_sd = flax_to_torch(warm)              # before the JAX refit donates it
+        _, jinfo, _ = jwarm_refit(jcfg, jds, warm_params=warm)
+        tds = PanelDataset(tp, seq_len=T, device="cpu")
+        runs = {}
+        for on in (True, False):
+            tcfg = Config.from_dict(jcfg.to_dict())
+            tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(
+                tcfg.train, obs_probes=on, save_dir=str(tmp_path / f"port_{on}")))
+            runs[on] = warm_refit(tcfg, tds, warm_params=warm_sd)
+        rtol = {"grad_norm_max": 1e-4, "grad_norm_mean": 1e-4, "update_norm_mean": 5e-3,
+                "param_norm_last": 2e-5, "factor_mu_spread": 2e-5, "factor_sigma_mean": 2e-5,
+                "nonfinite_grads": 0.0, "nonfinite_loss": 0.0}
+        for got, want in zip(runs[True][1]["history"], jinfo["history"]):
+            for key in TRAIN_PROBE_KEYS:
+                np.testing.assert_allclose(got[key], want[key], rtol=rtol[key], atol=0,
+                                           err_msg=key)
+        on_sd, off_sd = runs[True][0].model.state_dict(), runs[False][0].model.state_dict()
+        assert all(torch.equal(on_sd[k], off_sd[k]) for k in on_sd)
+
     def test_a_refused_trainer_knob_is_an_operator_error(self, panels, tmp_path):
-        """The refit trains with the caller's config: `train.obs_probes`
-        (ROADMAP Queue 1 item 11) is refused as a WalkForwardError."""
+        """The refit trains with the caller's config: `train.remat` (ROADMAP
+        Queue 1 item 15) is refused as a WalkForwardError."""
         jp, tp = panels
         tcfg = Config.from_dict(_jcfg(jp, tmp_path).to_dict())
         tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(tcfg.train,
-                                                                   obs_probes=True))
-        with pytest.raises(WalkForwardError, match="obs_probes.*item 11"):
+                                                                   remat="full"))
+        with pytest.raises(WalkForwardError, match="remat.*item 15"):
             warm_refit(tcfg, PanelDataset(tp, seq_len=T, device="cpu"))
 
 
