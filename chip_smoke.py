@@ -88,7 +88,10 @@ named phases, and prints neither the kernels line nor the result):
               --deterministic_scores --backtest; (b) --resume to 4 epochs,
               which must start at epoch 3; (c) --score_only, which must give
               (b)'s RankIC; (d) --score_only --device cpu on the first 8
-              scored days, held against (c)'s CSV; (e) a fresh --save_dir
+              scored days, held against (c)'s CSV, and both CSVs of those
+              days through `python -m factorvae_tpu_torch.eval.compare` (the
+              CPU's as the reference): exit 0, the Rank-IC delta within
+              0.002; (e) a fresh --save_dir
               under a chaos plan (`chaos.active`) poisoning epochs 1 and 2 of
               4 with nan_grads: the trail
               must be epochs 0, 1, 2, 1, 2, 3 with one rollback to epoch 0 at
@@ -285,7 +288,39 @@ named phases, and prints neither the kernels line nor the result):
               equal to the launch counters (as in (b)), and whether the tick
               thread's
               CPU rows were captured.
-18. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+18. remat  -- rematerialized training at flagship width on the 80-day
+              panel: (a) one step from the same init under train.remat
+              "none", "dots" and "full" at days_per_step 1 and 8 (the
+              preset's dropout and mse, the noise drawn before the
+              checkpoint), every launch counter set to 0 just before each:
+              K1's residual variant and K4 twice under "dots" and "full"
+              (forward and recompute), once under "none", the walk, dWh and
+              K5 once; the loss, aux, every gradient and the generator's
+              state against "none" (bitwise, or within TRAIN_LOSS_RTOL /
+              TRAIN_GRAD_RTOL, the generator bitwise); the peak device
+              memory a second step adds (torch.cuda.max_memory_allocated,
+              reset before it) and the memory a forward holds for its
+              backward; a deterministic "full" step on the same days at
+              each days_per_step, card against CPU, at the train phase's
+              limits (zero-gradient parameters and key-bias rows set apart
+              as there; a bias whose rows cancel its gradient held to
+              SUM_RTOL of its terms); (b) step ms per rung and
+              days_per_step, ABC CBA rounds, medians; (c) a mixed (bf16)
+              step under "dots" against "none"; (d) a seed fleet of four,
+              one epoch under "full" against "none" (parameters within
+              TRAIN_PARAM_ATOL); (e) one warm Trainer epoch per rung, every
+              launch counter set to 0 just before it; the "full" epoch's
+              launches: K1's residual variant and K4 twice per step, the
+              walk, dWh and K5 once, K1's serving variant and K4 once per
+              validation batch.
+19. factors -- `eval.factors.decompose` at flagship width over a 34-day
+              range of the 80-day panel (two 32-day chunks), every launch
+              counter set to 0 just before it: K1's serving variant and K4
+              once per chunk, nothing else; the factors, exposures and loss
+              frames' shapes and finiteness; the same range on the CPU
+              (factors, exposures and the KL within FACTORS_TOL); ms per
+              32-day chunk.
+20. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
               `launches_mixed` in the precision phase's mixed epoch,
@@ -295,8 +330,10 @@ named phases, and prints neither the kernels line nor the result):
               phase's f32 artifact request, `launches_pool` in the
               fleet's workers for its routed requests, `launches_stacked`
               in the stacked phase's L = 2 epoch, `launches_wf` in the wf
-              phase's in-process cycle and `launches_obs` in the obs phase's
-              profiled epoch), the obs phase's `profiler_us_per_launch`
+              phase's in-process cycle, `launches_obs` in the obs phase's
+              profiled epoch, `launches_remat` in the remat phase's "full"
+              epoch and `launches_factors` in the factors phase's range),
+              the obs phase's `profiler_us_per_launch`
               beside `graph_ms`, and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
               `fleet_bound_ms`, ...).
@@ -369,6 +406,17 @@ TRAIN_GRAD_RTOL = 5e-5
 TRAIN_PARAM_ATOL = 1e-5
 ZERO_GRAD_ATOL = 1e-6
 ZERO_GRAD_ROWS = ("factor_predictor.key_bias",)    # (K, H): a row per head
+# A bias's gradient is its layer's output gradient summed over the step's
+# rows, and where those terms cancel the card and the CPU agree on the sum
+# only as well as on the terms. The alpha head's mu bias, one number, sums
+# 300 terms to 1/110 - 1/91,000 of their magnitudes on the 50 train days of
+# the 80-day panel, so max |a - b| / max |b| read up to 1.3e-4 there while
+# |a - b| stayed within 5e-8 of the terms' magnitudes on every day
+# (scripts/torch_grad_conditioning.py, NVIDIA H100 80GB HBM3, 700.00 W).
+# Where the CPU step records its terms, a bias entry is held to the larger
+# of TRAIN_GRAD_RTOL x max |g| and SUM_RTOL x the sum of its terms'
+# magnitudes: the first, unless the rows cancel the entry 50-fold or more.
+SUM_RTOL = 1e-6
 # A bfloat16 chunk, card against CPU: the per-day Spearman rank correlation
 # of the scores (the serve gate of docs/precision.md). The two devices run
 # the same bf16 rounding points but sum their products in other orders.
@@ -1625,6 +1673,25 @@ def phase_cli(torch, seed: int, counters, card: str) -> dict:
     check(len(cpu_scores) == n_cpu, f"cli (d): {len(cpu_scores)} CPU rows, not {n_cpu}")
     cpu_err = float(np.max(np.abs(card_scores[:n_cpu] - cpu_scores)))
     check(cpu_err <= SLICE_TOL, f"cli (d): card vs CPU scores differ by {cpu_err}")
+    # the same days through the score-file comparison, as the reference's
+    # schema (datetime, instrument, score), the CPU's as the reference
+    parity_csv = {}
+    for who, run in (("cpu", cpu), ("card", c)):
+        with open(_of(run, "scores")[0]["path"]) as fh:
+            rows = [line.rstrip("\n").split(",")[:3] for line in fh][:1 + n_cpu]
+        parity_csv[who] = os.path.join(root, f"{who}_days.csv")
+        with open(parity_csv[who], "w") as fh:
+            fh.writelines(",".join(r) + "\n" for r in rows)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "factorvae_tpu_torch.eval.compare",
+                           parity_csv["cpu"], parity_csv["card"], "--labels", pkl],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    parity = json.loads(proc.stdout) if proc.returncode in (0, 1) else {}
+    check(proc.returncode == 0 and parity.get("within_tolerance") is True
+          and abs(parity["delta_rank_ic"]) <= 0.002 and parity["ours_days"] == CLI_CPU_DAYS,
+          f"cli (d): eval.compare rc {proc.returncode} {proc.stdout[-400:]} {proc.stderr[-400:]}")
+    parity["wall_s"] = time.perf_counter() - t0
     # (e) nan_grads at epochs 1 and 2 of 4, a fresh save_dir
     plan = ChaosPlan([Fault("nan_grads", epoch=1), Fault("nan_grads", epoch=2)])
     e = _cli_drive(torch, cli, counters, argv("e", "--num_epochs", "4"), plan=plan)
@@ -1679,6 +1746,7 @@ def phase_cli(torch, seed: int, counters, card: str) -> dict:
                        "rank_ic": rank_ic[0], "score_only_rank_ic": rank_ic[1]},
             "cpu_scores": {"days": CLI_CPU_DAYS, "rows": n_cpu, "max_abs_err": cpu_err,
                            "tolerance": SLICE_TOL},
+            "compare": parity,
             "chaos": {"trail": trail, "recovery": {k: rec[0][k] for k in (
                 "kind", "epoch", "restored_step", "lr_scale", "rollbacks")}},
             "bf16_int8": {"launches": lf, "epoch": {k: ef[k] for k in (
@@ -3577,19 +3645,67 @@ def phase_pool(torch, seed: int, counters, card: str) -> dict:
 STACKED_LAYERS = 2
 
 
-def _grads_vs_cpu(torch, g_gpu: dict, g_cpu: dict) -> tuple:
+def _bias_terms(model) -> tuple:
+    """({bias name: per entry, the sum of |output gradient| over the rows
+    the backward adds into it}, the hooks' handles) for every `Dense` layer
+    of `model`, filled by its next backward."""
+    from factorvae_tpu_torch.models.layers import Dense
+
+    terms, handles = {}, []
+    for name, mod in model.named_modules():
+        if isinstance(mod, Dense):
+            def add(g, key=f"{name}.bias"):
+                terms[key] = terms.get(key, 0) + g.detach().abs().reshape(
+                    -1, g.shape[-1]).sum(0).cpu()
+
+            def watch(m, args, out, add=add):
+                out.register_hook(add)
+
+            handles.append(mod.register_forward_hook(watch))
+    return terms, handles
+
+
+def _grads_vs_cpu(torch, g_gpu: dict, g_cpu: dict, what: str = "stacked",
+                  terms: dict = None) -> tuple:
     """Per-parameter max |a - b| / max |b| of two gradient sets, leaving out
-    the parameters whose CPU gradient is zero up to rounding (held to
-    ZERO_GRAD_ATOL on the card instead, as in the train phase)."""
+    what is zero up to rounding on the CPU, as the train phase does: whole
+    parameters, and the rows of ZERO_GRAD_ROWS (the key bias of a head whose
+    valid scores are all positive). Those are held to ZERO_GRAD_ATOL on the
+    card instead. With the CPU step's bias `terms` (`_bias_terms`), a bias
+    entry's difference is taken over the larger of max |b| and the sum of
+    its terms' magnitudes x SUM_RTOL / TRAIN_GRAD_RTOL. Returns (errors,
+    zero parameters, {name: the zero rows, their largest card gradient, and
+    the parameter's error with them in}, {bias: its largest cancellation
+    and its error against max |b| alone})."""
     g_max = {k: float(g.abs().max()) for k, g in g_cpu.items()}
     zero = sorted(k for k, v in g_max.items() if v <= ZERO_GRAD_ATOL)
-    errs = {k: float((g_gpu[k] - g_cpu[k]).abs().max()) / g_max[k]
-            for k in g_cpu if k not in zero}
     for k in zero:
         check(float(g_gpu[k].abs().max()) <= ZERO_GRAD_ATOL,
-              f"stacked: {k} (zero gradient on the CPU) has |g| "
+              f"{what}: {k} (zero gradient on the CPU) has |g| "
               f"{float(g_gpu[k].abs().max())} on the card")
-    return errs, zero
+    errs, zero_rows, cancelled = {}, {}, {}
+    for k in g_cpu:
+        if k in zero:
+            continue
+        diff = (g_gpu[k] - g_cpu[k]).abs()
+        errs[k] = float(diff.max()) / g_max[k]
+        if terms and k in terms:
+            scale = torch.clamp(terms[k] * (SUM_RTOL / TRAIN_GRAD_RTOL), min=g_max[k])
+            kappa = float((terms[k] / g_cpu[k].abs().clamp(min=1e-30)).max())
+            if kappa >= TRAIN_GRAD_RTOL / SUM_RTOL:
+                cancelled[k] = {"kappa_max": kappa, "err_against_max": errs[k]}
+            errs[k] = float((diff / scale).max())
+            continue
+        rows = _row_max(g_cpu[k]) <= ZERO_GRAD_ATOL if k in ZERO_GRAD_ROWS else None
+        if rows is None or not bool(rows.any()):
+            continue
+        card = float(_row_max(g_gpu[k])[rows].max())
+        check(card <= ZERO_GRAD_ATOL, f"{what}: {k}'s {int(rows.sum())} zero rows on the "
+                                      f"CPU have |g| {card} on the card")
+        zero_rows[k] = {"rows": int(rows.sum()), "of": int(rows.numel()),
+                        "card_grad_max": card, "err_with_rows": errs[k]}
+        errs[k] = float(_row_max(diff)[~rows].max()) / g_max[k]
+    return errs, zero, zero_rows, cancelled
 
 
 def phase_stacked(torch, seed: int, counters, card: str) -> dict:
@@ -3644,7 +3760,7 @@ def phase_stacked(torch, seed: int, counters, card: str) -> dict:
         runs["cuda"], runs["cpu"])
     lat_err = float((lat_g - lat_c).abs().max()) / max(1.0, float(lat_c.abs().max()))
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
-    grad_errs, zero = _grads_vs_cpu(torch, g_gpu, g_cpu)
+    grad_errs, zero, zero_rows, _ = _grads_vs_cpu(torch, g_gpu, g_cpu)
     check(lat_err <= TRAIN_LOSS_RTOL,
           f"stacked: the extractor's latent differs by {lat_err} > {TRAIN_LOSS_RTOL}")
     check(loss_rel <= TRAIN_LOSS_RTOL,
@@ -3689,7 +3805,7 @@ def phase_stacked(torch, seed: int, counters, card: str) -> dict:
             "latent_max_rel_err": lat_err, "step_loss_rel_err": loss_rel,
             "grad_max_rel_err": max(grad_errs.values()),
             "grad_errors_top": dict(sorted(grad_errs.items(), key=lambda kv: -kv[1])[:5]),
-            "zero_grad_params": zero,
+            "zero_grad_params": zero, "zero_grad_rows": zero_rows,
             "limits": {"latent_and_loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL},
             "forward_launches": fwd_launch, "step_launches": step_launch,
             "epochs": epochs,
@@ -4444,6 +4560,309 @@ def phase_obs(torch, seed: int, counters, card: str) -> dict:
                 "us_per_launch") for k, v in krows.items()}}
 
 
+# ---- rematerialized training and the factor decomposition -------------------
+
+REMAT_RUNGS = ("none", "dots", "full")
+REMAT_DAYS_PER_STEP = (1, 8)
+REMAT_REPS = 6          # rounds of timed steps, the rungs in ABC CBA order, medians kept
+REMAT_FLEET_LANES = 4
+
+
+def _step_result(torch, state, aux) -> dict:
+    """A step's loss, aux sums, gradients and generator state, on the host."""
+    return {"loss": float(aux["loss_sum"] / aux["days"]),
+            "aux": {k: v.detach().cpu() for k, v in aux.items() if torch.is_tensor(v)},
+            "grads": {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+            "generator": state.generator.get_state().cpu()}
+
+
+def _against(torch, got: dict, want: dict) -> dict:
+    """`got` against `want` (two `_step_result`s): bitwise or not, and the
+    largest relative gradient and loss differences."""
+    same = (got["loss"] == want["loss"]
+            and all(torch.equal(got["grads"][k], want["grads"][k]) for k in want["grads"])
+            and all(torch.equal(got["aux"][k], want["aux"][k]) for k in want["aux"])
+            and torch.equal(got["generator"], want["generator"]))
+    grad = max(float((got["grads"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+               for k, g in want["grads"].items() if float(g.abs().max()) > ZERO_GRAD_ATOL)
+    return {"bitwise": bool(same), "loss_rel_err": abs(got["loss"] - want["loss"])
+            / abs(want["loss"]), "grad_max_rel_err": grad}
+
+
+def phase_remat(torch, seed: int, counters, card: str) -> dict:
+    """Rematerialized training at flagship width (the module docstring's
+    phase 18)."""
+    import tempfile
+
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.train.fleet import FleetTrainer
+    from factorvae_tpu_torch.train.loop import (
+        day_noise,
+        rematerialized,
+        train_step,
+        weighted_day_loss,
+    )
+    from factorvae_tpu_torch.train.trainer import Trainer, init_train_state
+
+    base = get_preset("flagship")
+    panel = synthetic_panel_dense(80, 300, base.model.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_remat_")
+    dataset = PanelDataset(panel, seq_len=base.model.seq_len, device="cuda")
+    cpu_ds = PanelDataset(panel, seq_len=base.model.seq_len, device="cpu")
+    scale_cfg = (base.train.loss_scale_growth, base.train.loss_scale_backoff,
+                 base.train.loss_scale_growth_interval, base.train.loss_scale_floor)
+
+    def cfg_of(remat, dps=1, **model):
+        return dataclasses.replace(
+            base, model=dataclasses.replace(base.model, **model),
+            data=dataclasses.replace(base.data, start_time=dates[0], fit_end_time=dates[49],
+                                     val_start_time=dates[50], val_end_time=dates[69]),
+            train=dataclasses.replace(base.train, seed=seed, num_epochs=1, days_per_step=dps,
+                                      checkpoint_every=0, remat=remat,
+                                      save_dir=os.path.join(work.name, remat)))
+
+    def one_step(cfg, ds, device, days, dtype=torch.float32, terms=None):
+        state = init_train_state(cfg.model, cfg.train, 100, device)
+        handles = []
+        if terms is not None:
+            got, handles = _bias_terms(state.model)
+        for c in counters:
+            c.launches = 0
+        aux = train_step(state, ds, days, guard=True, compute_dtype=dtype,
+                         loss_scale_cfg=scale_cfg, remat=cfg.train.remat)
+        for h in handles:
+            h.remove()
+        if terms is not None:
+            terms.update(got)
+        return state, _step_result(torch, state, aux), {c.__name__: c.launches
+                                                        for c in counters}
+
+    # (a) one step per rung at days_per_step 1 and 8 from the same init (the
+    # preset's dropout and mse: the noise path), each against "none"; the
+    # launches; the peak memory of a second step on that state
+    steps, states = {}, {}
+    for dps in REMAT_DAYS_PER_STEP:
+        days = torch.arange(5, 5 + dps, device="cuda")
+        ref = None
+        for rung in REMAT_RUNGS:
+            state, res, launched = one_step(cfg_of(rung, dps), dataset, "cuda", days)
+            twice = 1 if rung == "none" else 2
+            check(launched["gru_fwd_residuals"] == launched["attention_fwd"] == twice
+                  and launched["gru_bwd"] == launched["gru_dwh"]
+                  == launched["attention_bwd"] == 1 and launched["gru_fwd"] == 0,
+                  f"remat (a): a {rung} step at days_per_step {dps} launched {launched}")
+            ref = ref or res
+            vs = _against(torch, res, ref)
+            check(vs["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                  and vs["grad_max_rel_err"] <= TRAIN_GRAD_RTOL
+                  and torch.equal(res["generator"], ref["generator"]),
+                  f"remat (a): {rung} against none at days_per_step {dps}: {vs}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            train_step(state, dataset, days, guard=True, remat=rung)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            # what the forward leaves held for the backward, the one thing a
+            # checkpoint around the whole day loss lowers
+            eps, keep = day_noise(state.model, torch.Generator(device="cuda").manual_seed(seed),
+                                  dps, dataset.values.shape[0], train=True, device="cuda")
+            before = torch.cuda.memory_allocated()
+            loss, _ = rematerialized(rung, weighted_day_loss, state.model, dataset, days,
+                                     train=True, eps=eps, keep=keep)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - before
+            del loss
+            steps[f"dps{dps}_{rung}"] = {"launches": launched, "vs_none": vs,
+                                         "peak_bytes": peak, "held_bytes": held}
+            states[(dps, rung)] = state
+    # card against CPU: a deterministic (dropout 0, nll) "full" step on the
+    # card against the plain "none" step on the CPU (bitwise its "full":
+    # tests/test_torch_remat.py), which records its bias terms, on the same
+    # days at each days_per_step, at the train phase's limits
+    card_cpu = {}
+    for dps in REMAT_DAYS_PER_STEP:
+        terms = {}
+        res = {"cuda": one_step(cfg_of("full", dps, dropout_rate=0.0, recon_loss="nll"),
+                                dataset, "cuda", torch.arange(5, 5 + dps, device="cuda"))[1],
+               "cpu": one_step(cfg_of("none", dps, dropout_rate=0.0, recon_loss="nll"),
+                               cpu_ds, "cpu", torch.arange(5, 5 + dps), terms=terms)[1]}
+        loss_rel = abs(res["cuda"]["loss"] - res["cpu"]["loss"]) / abs(res["cpu"]["loss"])
+        grad_errs, zero, zero_rows, cancelled = _grads_vs_cpu(
+            torch, res["cuda"]["grads"], res["cpu"]["grads"], "remat", terms)
+        card_cpu[f"dps{dps}_full"] = {
+            "days": [5, 4 + dps], "loss_rel_err": loss_rel,
+            "grad_max_rel_err": max(grad_errs.values()),
+            "grad_errors_top": dict(sorted(grad_errs.items(), key=lambda kv: -kv[1])[:3]),
+            "zero_grad_params": zero, "zero_grad_rows": zero_rows,
+            "cancelled_biases": cancelled}
+        check(loss_rel <= TRAIN_LOSS_RTOL and max(grad_errs.values()) <= TRAIN_GRAD_RTOL,
+              f"remat (a): full at days_per_step {dps}, card vs CPU: {card_cpu[f'dps{dps}_full']}")
+    # (b) step ms per rung on the warm states, ABC CBA, medians
+    times = {f"dps{dps}_{r}": [] for dps in REMAT_DAYS_PER_STEP for r in REMAT_RUNGS}
+    for rep in range(REMAT_REPS):
+        for dps in REMAT_DAYS_PER_STEP:
+            days = torch.arange(5, 5 + dps, device="cuda")
+            for rung in (REMAT_RUNGS if rep % 2 == 0 else REMAT_RUNGS[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(states[(dps, rung)], dataset, days, guard=True, remat=rung)
+                torch.cuda.synchronize()
+                times[f"dps{dps}_{rung}"].append((time.perf_counter() - t0) * 1e3)
+    for key, vals in times.items():
+        steps[key]["step_ms"] = float(np.median(vals))
+        steps[key]["step_ms_all"] = vals
+    # (c) a mixed step under "dots" against "none"
+    mixed_cfg = {r: dataclasses.replace(cfg_of(r), model=dataclasses.replace(
+        base.model, compute_dtype="bfloat16")) for r in ("none", "dots")}
+    days = torch.arange(5, 6, device="cuda")
+    _, mixed_none, _ = one_step(mixed_cfg["none"], dataset, "cuda", days, torch.bfloat16)
+    _, mixed_dots, mixed_launched = one_step(mixed_cfg["dots"], dataset, "cuda", days,
+                                             torch.bfloat16)
+    mixed = _against(torch, mixed_dots, mixed_none)
+    check(mixed["loss_rel_err"] <= TRAIN_LOSS_RTOL and mixed["grad_max_rel_err"] <= TRAIN_GRAD_RTOL
+          and mixed_launched["gru_fwd_residuals"] == 2,
+          f"remat (c): a mixed step under dots {mixed}, launches {mixed_launched}")
+    # (d) a seed fleet of four under "full" against "none", one epoch
+    seeds = list(range(seed, seed + REMAT_FLEET_LANES))
+    fleets = {}
+    for rung in ("none", "full"):
+        for c in counters:
+            c.launches = 0
+        fstate, fout = FleetTrainer(cfg_of(rung), dataset, seeds=seeds, device="cuda").fit()
+        fleets[rung] = (fstate, fout, {c.__name__: c.launches for c in counters})
+    fparams = {k: (fleets["full"][0].params[k] - v).abs().max().item()
+               for k, v in fleets["none"][0].params.items()}
+    fleet_bitwise = all(torch.equal(fleets["full"][0].params[k], v)
+                        for k, v in fleets["none"][0].params.items())
+    fleet_steps = 50
+    check(fleets["full"][2]["gru_fwd_residuals"] == 2 * fleet_steps
+          and fleets["full"][2]["gru_bwd"] == fleet_steps,
+          f"remat (d): a fleet epoch under full launched {fleets['full'][2]}")
+    check(max(fparams.values()) <= TRAIN_PARAM_ATOL,
+          f"remat (d): the fleet's parameters differ from none's by {max(fparams.values())}")
+    # (e) one warm Trainer epoch per rung; the "full" epoch's launches are
+    # the phase's
+    epochs, launches = {}, None
+    for rung in REMAT_RUNGS:
+        tr = Trainer(cfg_of(rung), dataset, device="cuda")
+        tr.fit()
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        _, out = tr.fit()
+        torch.cuda.synchronize()
+        rec = out["history"][0]
+        check(np.isfinite(rec["train_loss"]) and rec["skipped_steps"] == 0,
+              f"remat (e): the {rung} epoch {rec}")
+        epochs[rung] = {"epoch_s_warm": rec["seconds"], "train_loss": rec["train_loss"],
+                        "val_loss": rec["val_loss"]}
+        if rung == "full":
+            launches = {c.__name__: c.launches for c in counters}
+            n, val = tr.steps_per_epoch, -(-len(tr.val_days) // tr.batch_days)
+            check(launches["gru_fwd_residuals"] == 2 * n and launches["gru_bwd"] == n
+                  and launches["gru_dwh"] == n and launches["attention_bwd"] == n
+                  and launches["attention_fwd"] == 2 * n + val and launches["gru_fwd"] == val,
+                  f"remat (e): {n} steps, {val} validation batches, {launches}")
+    for rung in ("dots", "full"):
+        rel = abs(epochs[rung]["train_loss"] - epochs["none"]["train_loss"]) / abs(
+            epochs["none"]["train_loss"])
+        epochs[rung]["train_loss_rel_err_vs_none"] = rel
+        check(rel <= TRAIN_LOSS_RTOL, f"remat (e): the {rung} epoch's loss differs from "
+                                      f"none's by {rel}")
+    work.cleanup()
+    return {"phase": "remat", "card": card,
+            "config": "flagship C158/T20/H64/K96/M128, f32 (mixed: bf16 compute), dropout "
+                      "0.1, mse, 80 days x 300 stocks",
+            "steps": steps,
+            "limits": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL,
+                       "sum_rtol": SUM_RTOL},
+            "card_vs_cpu": card_cpu,
+            "mixed_dots_vs_none": mixed,
+            "fleet_full_vs_none": {"lanes": REMAT_FLEET_LANES, "bitwise": fleet_bitwise,
+                                   "param_max_abs_err": max(fparams.values()),
+                                   "limit": TRAIN_PARAM_ATOL,
+                                   "launches_full": fleets["full"][2]},
+            "epochs": epochs, "launches": launches}
+
+
+FACTORS_DAYS = 34          # crosses a 32-day chunk
+FACTORS_TOL = 1e-5         # card vs CPU frames, max |a - b| / max(1, max |b|)
+FACTORS_REPS = 5
+
+
+def phase_factors(torch, seed: int, counters, card: str) -> dict:
+    """`eval.factors.decompose` at flagship width (the module docstring's
+    phase 19)."""
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.eval.factors import decompose
+    from factorvae_tpu_torch.models.factorvae import load_model
+    from factorvae_tpu_torch.presets import get_preset
+
+    cfg = get_preset("flagship")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=seed))
+    panel = synthetic_panel_dense(80, 300, cfg.model.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    start, end = dates[40], dates[40 + FACTORS_DAYS - 1]
+    dataset = PanelDataset(panel, seq_len=cfg.model.seq_len, device="cuda")
+    model = load_model(cfg, device="cuda")
+    decompose(model, cfg, dataset, start=start, end=end)               # warm
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    got = decompose(model, cfg, dataset, start=start, end=end)
+    torch.cuda.synchronize()
+    range_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    chunks = -(-FACTORS_DAYS // 32)
+    check(launches["gru_fwd"] == launches["attention_fwd"] == chunks
+          and all(launches[n] == 0 for n in ("gru_fwd_residuals", "gru_bwd", "gru_dwh",
+                                             "attention_bwd")),
+          f"factors: {chunks} chunks but launches {launches}")
+    n_valid = int(panel.valid[40:40 + FACTORS_DAYS].sum())
+    k = cfg.model.num_factors
+    check(got["factors"].shape == (FACTORS_DAYS * k, 4)
+          and got["exposures"].shape == (n_valid, k + 2)
+          and got["loss"].shape == (FACTORS_DAYS, 3)
+          and all(np.isfinite(f.to_numpy()).all() for f in got.values()),
+          f"factors: frames {[f.shape for f in got.values()]}")
+    cpu = decompose(load_model(cfg, device="cpu"), cfg,
+                    PanelDataset(panel, seq_len=cfg.model.seq_len, device="cpu"),
+                    start=start, end=end)
+    errs = {}
+    for name, cols in (("factors", None), ("exposures", None), ("loss", ["kl"])):
+        a, b = got[name], cpu[name]
+        check(a.index.equals(b.index) and list(a.columns) == list(b.columns),
+              f"factors: the {name} frames' index or columns differ")
+        a, b = (a.to_numpy() if cols is None else a[cols].to_numpy(),
+                b.to_numpy() if cols is None else b[cols].to_numpy())
+        errs[name] = float(np.max(np.abs(a - b))) / max(1.0, float(np.max(np.abs(b))))
+    check(max(errs.values()) <= FACTORS_TOL, f"factors: card vs CPU {errs} > {FACTORS_TOL}")
+    # ms per chunk: one full 32-day chunk, repeated
+    one = []
+    for _ in range(FACTORS_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decompose(model, cfg, dataset, start=dates[40], end=dates[71])
+        torch.cuda.synchronize()
+        one.append((time.perf_counter() - t0) * 1e3)
+    return {"phase": "factors", "card": card,
+            "config": "flagship C158/T20/H64/K96/M128, f32, mse, 80 days x 300 stocks, "
+                      f"a {FACTORS_DAYS}-day range in 32-day chunks",
+            "launches": launches, "chunks": chunks, "range_s": range_s,
+            "chunk_ms": float(np.median(one)), "chunk_ms_all": one,
+            "rows": {name: len(f) for name, f in got.items()},
+            "card_vs_cpu": errs, "tolerance": FACTORS_TOL,
+            "card_vs_cpu_compared": "factors, exposures, loss.kl (the recon column takes "
+                                    "the decoder's sampled draw, the card's and the CPU's "
+                                    "generators differ)"}
+
+
 def _collect_fleet_check(router_url: str) -> dict:
     """The pool phase's fleet through `obs/collect.collect_fleet`: the
     router's and both workers' streams merged on the router's clock; every
@@ -4532,7 +4951,10 @@ def main(argv=None) -> int:
         "pool": lambda: phase_pool(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "stacked": lambda: phase_stacked(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "wf": lambda: phase_wf(torch, args.seed, counters, phases[0]["nvidia_smi"]),
-        "obs": lambda: phase_obs(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "obs": lambda: phase_obs(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "remat": lambda: phase_remat(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "factors": lambda: phase_factors(torch, args.seed, counters,
+                                         phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -4580,6 +5002,8 @@ def main(argv=None) -> int:
                      "launches_stacked": by["stacked"]["launches"][name],
                      "launches_wf": by["wf"]["launches"][name],
                      "launches_obs": by["obs"]["launches"][name],
+                     "launches_remat": by["remat"]["launches"][name],
+                     "launches_factors": by["factors"]["launches"][name],
                      "profiler_us_per_launch": by["obs"]["profiler_us_per_launch"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],

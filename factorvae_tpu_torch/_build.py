@@ -31,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -45,11 +46,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict = {}
 _compiled: set = set()        # libraries nvcc built in this process
 _counts = {"compile": 0, "compile_cached": 0}
+# the daemon's scheduler thread loads libraries too
+_COUNTS_LOCK = threading.Lock()
 
 
 def compile_event_counts() -> dict:
     """{"compile": n, "compile_cached": n} of this process's libraries."""
-    return dict(_counts)
+    with _COUNTS_LOCK:
+        return dict(_counts)
 
 
 def nvcc_path() -> str:
@@ -118,7 +122,8 @@ def _build_missing(names) -> dict:
         else:
             os.replace(tmp, out)   # atomic: a reader never sees half a file
             _compiled.add(name)
-            _counts["compile"] += 1
+            with _COUNTS_LOCK:
+                _counts["compile"] += 1
             timeline_compile(name, t0, time.perf_counter())
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -135,7 +140,8 @@ def load(name: str) -> ctypes.CDLL:
         t0 = time.perf_counter()
         lib = ctypes.CDLL(str(path))
         if name not in _compiled:     # built by an earlier or a concurrent process
-            _counts["compile_cached"] += 1
+            with _COUNTS_LOCK:
+                _counts["compile_cached"] += 1
             timeline_compile(name, t0, time.perf_counter(), cached=True)
         _loaded[name] = lib
     return lib

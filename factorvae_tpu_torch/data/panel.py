@@ -42,6 +42,14 @@ class Panel:
     def num_features(self) -> int:
         return self.values.shape[-1] - 1
 
+    def date_slice(self, start: Optional[str], end: Optional[str]) -> "Panel":
+        """The panel restricted to the trading days in [start, end], both
+        inclusive, as pandas' `slice_locs`: a bound between trading days
+        takes the days inside it, one outside the calendar clips to it."""
+        lo, hi = self.locate(start, end)
+        return Panel(values=self.values[:, lo:hi], valid=self.valid[lo:hi],
+                     dates=self.dates[lo:hi], instruments=self.instruments)
+
     def locate(self, start: Optional[str], end: Optional[str]) -> tuple:
         """Day-index range [lo, hi) of the dates in [start, end] (both
         inclusive; None leaves that side open)."""

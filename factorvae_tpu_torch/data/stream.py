@@ -151,7 +151,8 @@ class ChunkStream:
     def _settle(self, buf: int) -> None:
         """Wait for the copy that last read staging buffer `buf` and book its
         device time."""
-        done = self._copied[buf]
+        with self._lock:
+            done = self._copied[buf]
         if done is None:
             return
         start, end = done
@@ -161,7 +162,7 @@ class ChunkStream:
         end.synchronize()
         with self._lock:
             self.copy_seconds += start.elapsed_time(end) / 1e3
-        self._copied[buf] = None
+            self._copied[buf] = None
 
     def _alloc_for(self, buf: int, views: list):
         bufs = self._staging[buf]
@@ -219,7 +220,8 @@ class ChunkStream:
                 start.record()
                 tensors = tuple(s.to(self.device, non_blocking=True) for s in sources)
                 end.record()
-            self._copied[buf] = (start, end)
+            with self._lock:
+                self._copied[buf] = (start, end)
             return tensors, end
         except BaseException:
             # no copy may still read the buffer that a retry gathers into
@@ -285,7 +287,7 @@ class ChunkStream:
                    "overlap_frac": overlap_frac(self.wait_seconds, self.produce_seconds),
                    "chunk_produce_seconds": list(self.chunk_produce_seconds),
                    "chunk_wait_seconds": list(self.chunk_wait_seconds)}
-        out["h2d_gb_per_s"] = (self.bytes_put / out["copy_seconds"] / 1e9
+        out["h2d_gb_per_s"] = (out["bytes_put"] / out["copy_seconds"] / 1e9
                                if out["copy_seconds"] > 0 else None)
         return out
 

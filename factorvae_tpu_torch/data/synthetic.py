@@ -1,4 +1,11 @@
-"""Synthetic dense panels (`factorvae_tpu/data/synthetic.py`).
+"""Synthetic panels (`factorvae_tpu/data/synthetic.py`).
+
+`synthetic_frame` is the reference-schema frame (MultiIndex (datetime,
+instrument), C feature columns and LABEL0) with dropped (day, instrument)
+rows and a planted linear signal; its `np.random.default_rng(seed)` draws
+come in the JAX function's order, so both packages give the same frame,
+and `synthetic_panel` is `build_panel` of it. Only these two import pandas,
+when called.
 
 `synthetic_panel_dense` draws the same numbers from the same seed as the JAX
 package's function: full cross-section every day, features ~ N(0, 1),
@@ -12,12 +19,47 @@ from __future__ import annotations
 
 import numpy as np
 
-from factorvae_tpu_torch.data.panel import Panel
+from factorvae_tpu_torch.data.panel import Panel, build_panel
 
 
 def business_days(start: str, periods: int) -> np.ndarray:
     first = np.busday_offset(np.datetime64(start, "D"), 0, roll="forward")
     return np.busday_offset(first, np.arange(periods), roll="forward")
+
+
+def synthetic_frame(num_days: int = 30, num_instruments: int = 12,
+                    num_features: int = 16, missing_prob: float = 0.1,
+                    signal: float = 0.5, seed: int = 0, label_scale: float = 1.0):
+    """Reference-schema frame over `num_days` business days from
+    2020-01-01: each (day, instrument) row is dropped with probability
+    `missing_prob`, its features ~ N(0, 1), and LABEL0 = label_scale *
+    (signal * features @ w + (1 - signal) * noise)."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    dates = pd.bdate_range("2020-01-01", periods=num_days)
+    instruments = np.array([f"SH{600000 + k}" for k in range(num_instruments)])
+    w = rng.normal(size=(num_features,)) / np.sqrt(num_features)
+    rows, feats, labels = [], [], []
+    for d in dates:
+        for inst in instruments:
+            if rng.random() < missing_prob:
+                continue
+            f = rng.normal(size=(num_features,)).astype(np.float32)
+            y = label_scale * (signal * float(f @ w) + (1 - signal) * float(rng.normal()))
+            rows.append((d, inst))
+            feats.append(f)
+            labels.append(y)
+    idx = pd.MultiIndex.from_tuples(rows, names=["datetime", "instrument"])
+    df = pd.DataFrame(np.asarray(feats), index=idx,
+                      columns=[f"F{i}" for i in range(num_features)])
+    df["LABEL0"] = np.asarray(labels, dtype=np.float32)
+    return df
+
+
+def synthetic_panel(**kw) -> Panel:
+    """`build_panel` of `synthetic_frame(**kw)`."""
+    return build_panel(synthetic_frame(**kw))
 
 
 def synthetic_panel_dense(num_days: int, num_instruments: int, num_features: int,

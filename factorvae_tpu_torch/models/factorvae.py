@@ -97,12 +97,34 @@ class FactorVAE(nn.Module):
         decoder samples with `eps` (B, N), the predictor's dropout (train
         only) uses `keep` (B, K, N); either is drawn from `generator` when
         not given, eps first."""
-        cfg = self.cfg
+        return self._forward_from_latent(self._latent(x), returns, mask, train=train,
+                                         eps=eps, keep=keep, generator=generator)
+
+    def day_batched_decomposition(self, x: torch.Tensor, returns: torch.Tensor,
+                                  mask: torch.Tensor, *,
+                                  eps: Optional[torch.Tensor] = None,
+                                  generator: Optional[torch.Generator] = None):
+        """The eval forward of `day_batched_forward` (no dropout) and the
+        decoder's internals from the same latent: (out, alpha_mu (B, N),
+        alpha_sigma (B, N), beta (B, N, K)). The extractor runs once."""
+        latent = self._latent(x)
+        out = self._forward_from_latent(latent, returns, mask, train=False, eps=eps,
+                                        generator=generator)
+        alpha_mu, alpha_sigma = self.factor_decoder.alpha_layer(latent)
+        return out, alpha_mu, alpha_sigma, self.factor_decoder.beta_layer(latent)
+
+    def _latent(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, N, T, C) -> latent (B, N, H), the extractor on the
+        flattened (B*N) rows."""
         b, n = x.shape[0], x.shape[1]
+        return self.feature_extractor(
+            x.reshape((b * n,) + tuple(x.shape[2:]))).reshape(b, n, -1)
+
+    def _forward_from_latent(self, latent, returns, mask, *, train, eps=None, keep=None,
+                             generator=None) -> FactorVAEOutput:
+        cfg = self.cfg
         loss_mask = mask & torch.isfinite(returns)
         returns = torch.where(loss_mask, returns, 0.0)
-        latent = self.feature_extractor(
-            x.reshape((b * n,) + tuple(x.shape[2:]))).reshape(b, n, -1)
         factor_mu, factor_sigma = self.factor_encoder.day_batched(latent, returns, mask)
         sample, (recon_mu, recon_sigma) = self.factor_decoder(
             latent, factor_mu, factor_sigma, sample=True, eps=eps, generator=generator)
@@ -142,9 +164,7 @@ class FactorVAE(nn.Module):
         """x (B, N, T, C), mask (B, N) -> scores (B, N), NaN on padded
         stocks. The per-stock extractor runs on the flattened (B*N) rows;
         the attention and the factor combination stay per day."""
-        b, n = x.shape[0], x.shape[1]
-        latent = self.feature_extractor(
-            x.reshape((b * n,) + tuple(x.shape[2:]))).reshape(b, n, -1)
+        latent = self._latent(x)
         pred_mu, pred_sigma = self.factor_predictor.day_batched(latent, mask)
         y_pred, _ = self.factor_decoder(
             latent, pred_mu, pred_sigma, sample=self._stochastic(stochastic),

@@ -153,15 +153,17 @@ class AutoScaler:
     # ---- loop ------------------------------------------------------------
 
     def start(self) -> None:
+        # graftlint: disable=JGL009 a threading.Event: set/clear/wait take its own lock
         self._stop.clear()
         self._thread = threading.Thread(target=self._loop, name="autoscaler", daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop the loop and join it (an action in flight finishes first)."""
         self._stop.set()
-        t, self._thread = self._thread, None
-        if t is not None and t.is_alive():
-            t.join(timeout=60)
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join(timeout=60)
+        self._thread = None
 
     def _loop(self) -> None:
         while not self._stop.wait(self.interval_s):

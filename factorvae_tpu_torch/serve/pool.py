@@ -658,8 +658,10 @@ class WorkerPool:
             with self._lock:
                 w.respawn_source = source
         self._wait_healthy([w])
+        with self._lock:
+            n_workers = len(self.workers)
         timeline_event("scale_up", cat="serve", resource="pool", worker=w.wid,
-                       kind=w.kind, workers=len(self.workers))
+                       kind=w.kind, workers=n_workers)
         return w
 
     def scale_down(self, wid: Optional[str] = None) -> Optional[Worker]:
@@ -674,8 +676,10 @@ class WorkerPool:
             if w is None:
                 return None
         self._retire(w)
+        with self._lock:
+            n_workers = len(self.workers)
         timeline_event("scale_down", cat="serve", resource="pool", worker=w.wid,
-                       workers=len(self.workers))
+                       workers=n_workers)
         return w
 
     def rolling_upgrade(self) -> dict:

@@ -58,6 +58,7 @@ import queue
 import re
 import threading
 import time
+import warnings
 import weakref
 from typing import Optional, Tuple
 
@@ -163,8 +164,8 @@ def _drain_all() -> None:
     for ck in list(_LIVE):
         try:
             ck.wait_until_finished()
-        except Exception:       # noqa: BLE001 - exiting; the step is lost, as in a kill
-            pass
+        except Exception as e:  # noqa: BLE001 - exiting; the step is lost, as in a kill
+            warnings.warn(f"a checkpoint write queued at exit failed: {e}")
 
 
 class Checkpointer:
@@ -295,6 +296,7 @@ class Checkpointer:
     def _enqueue(self, job) -> None:
         with self._lock:
             if self._worker is None or not self._worker.is_alive():
+                # graftlint: disable=JGL011 close() joins it and the atexit drain waits for every queued write; a write is tmp + fsync + rename, so a kill leaves no torn file
                 self._worker = threading.Thread(target=self._run, daemon=True,
                                                 name="ckpt-writer")
                 self._worker.start()
@@ -335,7 +337,8 @@ class Checkpointer:
         doc = dict(step_manifest(self.directory, [name], cfg_hash), step=int(step))
         os.makedirs(os.path.join(self.directory, MANIFEST_DIRNAME), exist_ok=True)
         write_json_atomic(self._manifest_path(step), doc)
-        self.manifest_seconds.append(time.perf_counter() - t0)
+        with self._lock:
+            self.manifest_seconds.append(time.perf_counter() - t0)
 
     def _evict(self) -> None:
         for old in self._committed()[:-self.keep]:

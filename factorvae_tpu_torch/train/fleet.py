@@ -54,9 +54,11 @@ Semantics, as the JAX package's:
   installed textfile, marks the watermarks, and answers a
   `PROFILE_REQUEST` with a `profile_capture` record.
 
-Refused in `__init__`, naming their ROADMAP Queue 1 items: a stock-sharded
-mesh (12) and rematerialization (15); on a CUDA device a hidden size above
-the kernels' maximum.
+`train.remat` recomputes each fleet step's forward in its backward, the
+checkpoint around the vmapped `lane_day_loss` (`train/loop.py`); like the
+serial step's, it lowers no peak memory. Refused in
+`__init__`, naming its ROADMAP Queue 1 item: a stock-sharded mesh (12); on a
+CUDA device a hidden size above the kernels' maximum.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import read_state_dict, save_weights
 from factorvae_tpu_torch.train.checkpoint import Checkpointer, CheckpointIntegrityError
 from factorvae_tpu_torch.train.loop import (
+    check_remat,
     eval_epoch,
     lane_eval_epoch,
     lane_train_epoch,
@@ -290,12 +293,11 @@ class FleetTrainer:
         if dataset.device.type != self.device.type:
             raise ValueError(f"the dataset lives on {dataset.device}, the fleet runs "
                              f"on {self.device}")
-        for given, knob, item in (
-                (config.mesh.stock_axis > 1, "a fleet on a mesh (mesh.stock_axis > 1)", 12),
-                (config.train.remat != "none", f"train.remat={config.train.remat!r}", 15)):
-            if given:
-                raise NotImplementedError(f"{knob} is not ported to factorvae_tpu_torch "
-                                          f"yet (ROADMAP Queue 1 item {item})")
+        if config.mesh.stock_axis > 1:
+            raise NotImplementedError("a fleet on a mesh (mesh.stock_axis > 1) is not "
+                                      "ported to factorvae_tpu_torch yet (ROADMAP Queue 1 "
+                                      "item 12)")
+        check_remat(config.train.remat)
         self.train_dtype = resolve_train_dtype(config.train, config.model)
         self.mixed = self.train_dtype != "float32"
         self.model_cfg = dataclasses.replace(config.model, compute_dtype=self.train_dtype)
@@ -422,7 +424,7 @@ class FleetTrainer:
             chunks = self._chunks(orders[0])
             m = train_epoch(run, chunks, guard=guard, poison=bool(poison[0]),
                             compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
-                            probes=probes)
+                            probes=probes, remat=self.cfg.train.remat)
             m = {k: [v] for k, v in m.items()}
         else:
             chunks = self._chunks(orders)
@@ -430,7 +432,7 @@ class FleetTrainer:
                 self.model, run, chunks, peaks=[c.train.lr for c in self.lane_cfgs],
                 train_cfg=self.cfg.train, total_steps=self.total_steps, guard=guard,
                 poison=poison, compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
-                kl_weight=self._kl_weight(), probes=probes)
+                kl_weight=self._kl_weight(), probes=probes, remat=self.cfg.train.remat)
         if self.stream:
             self.last_stream_stats = chunks
         return m

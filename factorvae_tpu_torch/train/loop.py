@@ -38,6 +38,28 @@ stacked parameters, whose CUDA kernels each launch once for all lanes.
 A hyper-fleet reads kl_weight as an (S,) tensor. The finite guard is a
 per-lane select; the host reads the (S,) flags once per step.
 
+Rematerialization (`TrainConfig.remat`, the JAX package's `jax.checkpoint`
+of the train day loss): "full" wraps the step's day loss (`weighted_day_loss`,
+or the fleet's `lane_day_loss` around its vmap) in
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`, so the backward
+reruns the forward, K1's residual variant and K4 included, instead of
+keeping its activations; "dots" does the same with a selective policy that
+keeps the outputs of the matrix products (`aten.mm`, `addmm`, `bmm`,
+`baddbmm`) and recomputes the rest. The kernels are ctypes launches inside
+`autograd.Function`s, not aten ops, so "dots" recomputes them, as JAX's
+`checkpoint_dots` recomputes a `pallas_call`. Eval never checkpoints. Every
+train step draws its noise (eps, then the dropout keep-mask) before the
+day loss, in the order and shapes the forward would draw it, so a
+recompute sees the same numbers and the generator's stream is the same
+under every rung; nothing inside the checkpoint draws, so it keeps no RNG
+state. Loss and gradients equal remat "none"'s.
+
+At this placement (one checkpoint around the whole day loss, as the JAX
+package places it) remat lowers no peak: the memory a step adds peaks in
+the backward, after the recompute has rebuilt every activation the forward
+of "none" keeps. It lowers only what is held between the forward and the
+backward, and costs the recompute's time.
+
 With `probes` (`TrainConfig.obs_probes`) every step adds the health probes
 of `obs/probes.py` into its aux sums on the device: the per-day loss and
 factor probes from the forward, the gradient, update and parameter norms
@@ -47,10 +69,16 @@ read no value to the host, draw nothing and leave the update as it is.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from factorvae_tpu_torch.models.factorvae import call_with
 from factorvae_tpu_torch.obs.probes import (
@@ -69,6 +97,54 @@ from factorvae_tpu_torch.train.state import (
     cast_params,
     lane_adam_step,
 )
+
+
+REMAT = ("none", "dots", "full")
+
+_aten = torch.ops.aten
+#: the products "dots" keeps (`jax.checkpoint_policies.checkpoint_dots`)
+DOT_OPS = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default)
+
+
+def check_remat(remat: str) -> str:
+    """`remat` itself, or the JAX package's ValueError."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: expected 'none', 'dots' or 'full' "
+                         "(TrainConfig.remat)")
+    return remat
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def rematerialized(remat: str, fn, *args, **kwargs):
+    """`fn(*args, **kwargs)`, under "dots" or "full" through
+    `torch.utils.checkpoint`: its backward recomputes the forward (all of
+    it, or all but the products). `fn` must draw no random numbers. Around
+    a whole day loss this saves no peak memory (the module docstring)."""
+    if check_remat(remat) == "none":
+        return fn(*args, **kwargs)
+    extra = {}
+    if remat == "dots":
+        extra["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      **extra, **kwargs)
+
+
+def day_noise(model, generator: torch.Generator, b: int, n: int, *, train: bool,
+              device):
+    """One forward's noise over B days of N stocks, drawn from `generator` as
+    the forward draws it, in that order: the decoder's eps (B, N), then with
+    train and dropout the predictor's keep mask (B, K, N), else None."""
+    eps = torch.randn((b, n), generator=generator, device=device, dtype=torch.float32)
+    keep = None
+    if train and model.cfg.dropout_rate > 0.0:
+        keep = model.factor_predictor.keep_mask((b, model.cfg.num_factors, n), device,
+                                                generator)
+    return eps, keep
 
 
 def batch_for(dataset, days: torch.Tensor):
@@ -120,19 +196,24 @@ def _grads(model) -> list:
 
 def train_step(state: TrainState, dataset, days: torch.Tensor, *, guard: bool,
                poison: bool = False, compute_dtype: torch.dtype = torch.float32,
-               loss_scale_cfg: Optional[tuple] = None, probes: bool = False) -> dict:
+               loss_scale_cfg: Optional[tuple] = None, probes: bool = False,
+               remat: str = "none") -> dict:
     """One update from the batch `days`; returns the step's aux sums. A
     `compute_dtype` other than float32 takes the mixed step, whose
     `loss_scale_cfg` is (growth, backoff, growth_interval, floor); its aux
     also holds the loss scale after the step (a host float32). `probes`
-    adds the step's health probes to the aux."""
+    adds the step's health probes to the aux; `remat` "dots" or "full"
+    recomputes the day loss's forward in the backward."""
     model, optimizer = state.model, state.optimizer
     mixed = compute_dtype != torch.float32
     optimizer.zero_grad(set_to_none=True)
-    loss, aux = weighted_day_loss(model, dataset, days, train=True,
-                                  generator=state.generator,
-                                  params=cast_compute(model, compute_dtype) if mixed else None,
-                                  probes=probes)
+    params = cast_compute(model, compute_dtype) if mixed else None
+    # drawn before the forward, so a checkpoint's recompute sees the same noise
+    eps, keep = day_noise(model, state.generator, days.shape[0],
+                          dataset.values.shape[0], train=True, device=days.device)
+    loss, aux = rematerialized(remat, weighted_day_loss, model, dataset, days,
+                               train=True, eps=eps, keep=keep, params=params,
+                               probes=probes)
     if mixed:
         (loss * float(state.loss_scale)).backward()
         inv = float(np.float32(1.0) / state.loss_scale)
@@ -225,7 +306,8 @@ def to_host(metrics: dict) -> dict:
 
 def train_epoch(state: TrainState, chunks, *, guard: bool, poison: bool = False,
                 compute_dtype: torch.dtype = torch.float32,
-                loss_scale_cfg: Optional[tuple] = None, probes: bool = False) -> dict:
+                loss_scale_cfg: Optional[tuple] = None, probes: bool = False,
+                remat: str = "none") -> dict:
     """The epoch's (dataset, order (steps, B)) chunks, in step order
     (`data/stream.epoch_chunks`) -> the epoch's metrics (floats); a mixed
     epoch's also hold `loss_scale_probes`, a probed one `TRAIN_PROBE_KEYS`."""
@@ -234,7 +316,7 @@ def train_epoch(state: TrainState, chunks, *, guard: bool, poison: bool = False,
         for i in range(order.shape[0]):
             aux = train_step(state, dataset, order[i], guard=guard, poison=poison,
                              compute_dtype=compute_dtype, loss_scale_cfg=loss_scale_cfg,
-                             probes=probes)
+                             probes=probes, remat=remat)
             if "loss_scale" in aux:
                 scales.append(aux.pop("loss_scale"))
             sums = _accumulate(sums, aux)
@@ -280,28 +362,25 @@ def lane_noise(model, generators, b: int, n: int, *, train: bool, device):
     its own generator as its solo run's model draws it, in that order: the
     decoder's eps (B, N), then with train and dropout the predictor's keep
     mask (B, K, N). Returns (eps (S, B, N), keep (S, B, K, N) or None)."""
-    drop = train and model.cfg.dropout_rate > 0.0
-    eps, keep = [], []
-    for g in generators:
-        eps.append(torch.randn((b, n), generator=g, device=device, dtype=torch.float32))
-        if drop:
-            keep.append(model.factor_predictor.keep_mask(
-                (b, model.cfg.num_factors, n), device, g))
-    return torch.stack(eps), (torch.stack(keep) if drop else None)
+    noise = [day_noise(model, g, b, n, train=train, device=device) for g in generators]
+    keep = [k for _, k in noise]
+    return (torch.stack([e for e, _ in noise]),
+            None if keep[0] is None else torch.stack(keep))
 
 
 def lane_day_loss(model, params: dict, dataset, days: torch.Tensor, *, train: bool,
                   generators, kl_weight: Optional[torch.Tensor] = None,
-                  probes: bool = False):
+                  probes: bool = False, noise: Optional[tuple] = None):
     """(loss (S,), aux of (S,) sums): `weighted_day_loss` of S models at once,
     lane i with its parameters params[name][i], its day batch days[i] and
     its own noise, through `torch.func.vmap` over `call_with`. With
     `kl_weight` (S,) each lane's loss is recon + kl_weight[i] * kl (a
     hyper-fleet's runtime scalar); without it the model's own loss. `probes`
-    adds each lane's `loss_probes`."""
+    adds each lane's `loss_probes`. `noise` is `lane_noise`'s (eps, keep);
+    the train step draws it first, an eval draws it here."""
     x, y, mask = lane_batch(dataset, days)
-    eps, keep = lane_noise(model, generators, days.shape[1], x.shape[2], train=train,
-                           device=x.device)
+    eps, keep = noise or lane_noise(model, generators, days.shape[1], x.shape[2],
+                                    train=train, device=x.device)
 
     def one(p, x, y, mask, d, eps, keep, klw):
         day_w = (d >= 0).to(torch.float32)
@@ -341,7 +420,8 @@ def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
                     poison: Optional[np.ndarray] = None,
                     compute_dtype: torch.dtype = torch.float32,
                     loss_scale_cfg: Optional[tuple] = None,
-                    kl_weight: Optional[torch.Tensor] = None, probes: bool = False) -> dict:
+                    kl_weight: Optional[torch.Tensor] = None, probes: bool = False,
+                    remat: str = "none") -> dict:
     """One update of every lane from its batch days[i] (`train_step` lane by
     lane): the gradients of the summed lane losses (lane i's part is its
     own loss's, the lanes sharing nothing), lane i's loss scale on a mixed
@@ -354,9 +434,12 @@ def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
         p.grad = None
     mixed = compute_dtype != torch.float32
     use = cast_params(model, params, compute_dtype) if mixed else params
-    loss, aux = lane_day_loss(model, use, dataset, days, train=True,
-                              generators=state.generators, kl_weight=kl_weight,
-                              probes=probes)
+    # drawn before the forward, so a checkpoint's recompute sees the same noise
+    noise = lane_noise(model, state.generators, days.shape[1], dataset.values.shape[0],
+                       train=True, device=days.device)
+    loss, aux = rematerialized(remat, lane_day_loss, model, use, dataset, days, train=True,
+                               generators=state.generators, kl_weight=kl_weight,
+                               probes=probes, noise=noise)
     grads = lambda: [p.grad for p in params.values() if p.grad is not None]  # noqa: E731
     device = loss.device
     if mixed:
@@ -401,7 +484,7 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
                      compute_dtype: torch.dtype = torch.float32,
                      loss_scale_cfg: Optional[tuple] = None,
                      kl_weight: Optional[torch.Tensor] = None,
-                     probes: bool = False) -> dict:
+                     probes: bool = False, remat: str = "none") -> dict:
     """The epoch's (dataset, order (S, steps, B)) chunks, lane i's own day
     order -> the epoch's metrics, each a list of S floats (`train_epoch`
     lane by lane)."""
@@ -412,7 +495,7 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
                                   train_cfg=train_cfg, total_steps=total_steps, guard=guard,
                                   poison=poison, compute_dtype=compute_dtype,
                                   loss_scale_cfg=loss_scale_cfg, kl_weight=kl_weight,
-                                  probes=probes)
+                                  probes=probes, remat=remat)
             if "loss_scale" in aux:
                 scales.append(aux.pop("loss_scale"))
             sums = _accumulate(sums, aux)

@@ -50,9 +50,12 @@ epoch runs inside `train_epoch_{e}` / `val_epoch_{e}` timeline spans on the
 stream runs the next train epoch under `torch.profiler`
 (`utils/profiling.maybe_profile_epoch`) and logs its `profile_capture`.
 
-Refused in `__init__`, each naming its ROADMAP item, as the CLI does: a
-stock-sharded mesh, rematerialization, and on a CUDA device a hidden size
-above the kernels' maximum. Fleets of models are `train/fleet.FleetTrainer`,
+`train.remat` "dots" or "full" recomputes each step's forward in its
+backward (`train/loop.rematerialized`), with the loss and gradients of
+"none" and no lower peak memory (its checkpoint wraps the whole day loss);
+another value raises the JAX package's ValueError. Refused in
+`__init__`, each naming its ROADMAP item, as the CLI does: a stock-sharded
+mesh, and on a CUDA device a hidden size above the kernels' maximum. Fleets of models are `train/fleet.FleetTrainer`,
 whose one-lane fleet is this trainer. Checkpoints are saved on a background thread when
 `train.async_checkpointing` (the default), else synchronously; the files
 are the same (`train/checkpoint.py`), and `fit` drains the queue before it
@@ -80,7 +83,7 @@ from factorvae_tpu_torch.obs.probes import EVAL_PROBE_KEYS, TRAIN_PROBE_KEYS
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import save_weights
 from factorvae_tpu_torch.train.checkpoint import Checkpointer, CheckpointIntegrityError
-from factorvae_tpu_torch.train.loop import eval_epoch, train_epoch
+from factorvae_tpu_torch.train.loop import check_remat, eval_epoch, train_epoch
 from factorvae_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
@@ -153,12 +156,10 @@ class Trainer:
         if dataset.device.type != self.device.type:
             raise ValueError(f"the dataset lives on {dataset.device}, the trainer "
                              f"runs on {self.device}")
-        for given, knob, item in (
-                (config.mesh.stock_axis > 1, "mesh.stock_axis > 1", 12),
-                (config.train.remat != "none", f"train.remat={config.train.remat!r}", 15)):
-            if given:
-                raise NotImplementedError(f"{knob} is not ported to factorvae_tpu_torch "
-                                          f"yet (ROADMAP Queue 1 item {item})")
+        if config.mesh.stock_axis > 1:
+            raise NotImplementedError("mesh.stock_axis > 1 is not ported to "
+                                      "factorvae_tpu_torch yet (ROADMAP Queue 1 item 12)")
+        check_remat(config.train.remat)
         self.train_dtype = resolve_train_dtype(config.train, config.model)
         self.mixed = self.train_dtype != "float32"
         self.model_cfg = dataclasses.replace(config.model, compute_dtype=self.train_dtype)
@@ -285,7 +286,8 @@ class Trainer:
                                   epoch=epoch):
                 train_m = train_epoch(state, chunks, guard=tcfg.finite_guard, poison=poison,
                                       compute_dtype=self.model_cfg.dtype,
-                                      loss_scale_cfg=self.loss_scale_cfg, probes=probes)
+                                      loss_scale_cfg=self.loss_scale_cfg, probes=probes,
+                                      remat=tcfg.remat)
             log_profile_capture(self.logger, epoch, prof, prof_dir)
             if self.stream:
                 self.last_stream_stats = chunks

@@ -40,9 +40,9 @@ stage's context (`obs/trace`).
 
 A no-fault cycle's refit parameters are bitwise a plain `warm_refit` on the
 grown panel: the operator adds journaling around the fit, no arithmetic in
-it. The refit builds its `Trainer` from the caller's config, so it refuses
-what `Trainer` refuses (a stock mesh, remat; each
-names its ROADMAP item) as a `WalkForwardError`.
+it. The refit builds its `Trainer` from the caller's config, so it trains
+under the caller's `train.remat` and refuses what `Trainer` refuses (a
+stock mesh, naming its ROADMAP item) as a `WalkForwardError`.
 """
 
 from __future__ import annotations

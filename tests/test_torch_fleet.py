@@ -487,10 +487,12 @@ class TestHyperFleet:
             validate_lane_configs(cfg, [lanes[0], same])
         assert lane_label(lanes[1], False) == f"seed={cfg.train.seed}"
         assert lane_label(lanes[1], True).startswith(f"seed={cfg.train.seed} lr=0.003 klw=0.1 ")
-        for knob, item in ((dict(remat="dots"), 15), (dict(remat="full"), 15)):
-            bad = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **knob))
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                FleetTrainer(bad, ds, seeds=SEEDS, device="cpu")
+        for rung in ("dots", "full"):     # ported: tests/test_torch_remat.py
+            remat = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=rung))
+            assert FleetTrainer(remat, ds, seeds=SEEDS, device="cpu").cfg.train.remat == rung
+        bad = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat="some"))
+        with pytest.raises(ValueError, match="expected 'none', 'dots' or 'full'"):
+            FleetTrainer(bad, ds, seeds=SEEDS, device="cpu")
         mesh = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, stock_axis=2))
         with pytest.raises(NotImplementedError, match="item 12"):
             FleetTrainer(mesh, ds, seeds=SEEDS, device="cpu")

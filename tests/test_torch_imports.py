@@ -6,7 +6,8 @@ and its lane-batched scoring pass, a CLI run without --backtest, and a
 scoring daemon's fused ticks at each rung with its metrics, drift, trace
 and scheduler, an AOT artifact admitted and scored, a walk-forward
 cycle through its command line, and a probed epoch under a profiler
-capture read back by the run readers, with no JAX, Flax,
+capture read back by the run readers, rematerialized epochs (serial and a
+fleet), the static analyzer on a module, with no JAX, Flax,
 pandas or JAX-package module loaded),
 that the JAX weights carry across without loss, and that `chip_smoke.py`
 refuses to run without a GPU instead of falling back to the CPU."""
@@ -189,6 +190,27 @@ assert {"factorvae_tpu_torch.obs.probes", "factorvae_tpu_torch.obs.report",
         "factorvae_tpu_torch.obs.collect", "factorvae_tpu_torch.obs.memory",
         "factorvae_tpu_torch.utils.profiling",
         "factorvae_tpu_torch.utils.trace_summary"} <= set(names)
+
+# the eleventh slice: rematerialized epochs, a seed fleet under "full"; the
+# decomposition, comparison, ETL and analysis modules import without pandas
+for rung in ("dots", "full"):
+    with tempfile.TemporaryDirectory() as run:
+        rcfg = config.Config(model=cfg.model, data=config.DataConfig(seq_len=4),
+                             train=config.TrainConfig(num_epochs=1, remat=rung,
+                                                      checkpoint_every=0, save_dir=run))
+        _, out = Trainer(rcfg, ds, device="cpu").fit()
+        assert np.isfinite(out["history"][0]["train_loss"])
+        if rung == "full":
+            _, out = FleetTrainer(rcfg, ds, seeds=[0, 1], device="cpu").fit()
+            assert np.isfinite(out["history"][0]["train_loss"]).all()
+from factorvae_tpu_torch.analysis import analyze_paths
+assert analyze_paths([pkg.__path__[0] + "/train/loop.py"]) == []
+assert {"factorvae_tpu_torch.eval.factors", "factorvae_tpu_torch.eval.compare",
+        "factorvae_tpu_torch.data.etl", "factorvae_tpu_torch.analysis",
+        "factorvae_tpu_torch.analysis.engine", "factorvae_tpu_torch.analysis.rules",
+        "factorvae_tpu_torch.analysis.project", "factorvae_tpu_torch.analysis.concurrency",
+        "factorvae_tpu_torch.analysis.sanitize",
+        "factorvae_tpu_torch.analysis.__main__"} <= set(names)
 
 def banned(mod):
     top = mod.split(".")[0]

@@ -638,14 +638,25 @@ class TestRefusals:
 
     @pytest.mark.parametrize("knob,item", [
         (dict(mesh=dict(stock_axis=2)), 12),
-        (dict(train=dict(remat="dots")), 15)], ids=["mesh_stock", "remat"])
+        (dict(train=dict(remat="dots")), None)], ids=["mesh_stock", "remat"])
     def test_unported_config_knobs(self, panels, tmp_path, knob, item):
+        """A stock mesh is refused naming its ROADMAP item; remat (item 15,
+        ported) trains a mixed epoch bitwise the one of remat "none"."""
         _, tp = panels
-        cfg = _port(_jmixed(tp, tmp_path), save_dir=str(tmp_path / "k"))
-        cfg = dataclasses.replace(cfg, **{sec: dataclasses.replace(getattr(cfg, sec), **kw)
-                                          for sec, kw in knob.items()})
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}\\)"):
-            Trainer(cfg, PanelDataset(tp, seq_len=T, device="cpu"), device="cpu")
+        base = _port(_jmixed(tp, tmp_path), save_dir=str(tmp_path / "k"))
+        cfg = dataclasses.replace(base, **{sec: dataclasses.replace(getattr(base, sec), **kw)
+                                           for sec, kw in knob.items()})
+        ds = PanelDataset(tp, seq_len=T, device="cpu")
+        if item is not None:
+            with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}\\)"):
+                Trainer(cfg, ds, device="cpu")
+            return
+        runs = [Trainer(c, ds, device="cpu").fit(num_epochs=1) for c in (base, cfg)]
+        (plain, plain_out), (remat, remat_out) = runs
+        assert plain_out["history"][0]["train_loss"] == remat_out["history"][0]["train_loss"]
+        a, b = plain.model.state_dict(), remat.model.state_dict()
+        assert all(torch.equal(a[k], b[k]) for k in a)
+        assert plain.loss_scale == remat.loss_scale
 
     def test_stream_residency_is_accepted(self, panels, tmp_path):
         """A mixed trainer on a stream-resident dataset streams its epochs

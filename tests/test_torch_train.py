@@ -296,9 +296,19 @@ class TestResume:
             Trainer(int8, tr.ds, device="cpu")
 
     def test_remat_is_refused_naming_item_15(self, panels, tmp_path):
+        """Rematerialization is ported (ROADMAP Queue 1 item 15): "dots"
+        and "full" train, bitwise the weights of "none" after an epoch
+        (tests/test_torch_remat.py holds them step by step); a rung that
+        does not exist is still refused, with the JAX package's message."""
         _, tp = panels
         tr = _small_trainer(tp, tmp_path, checkpoint_every=0)
-        remat = dataclasses.replace(tr.cfg, train=dataclasses.replace(
-            tr.cfg.train, remat="dots"))
-        with pytest.raises(NotImplementedError, match="remat.*item 15"):
-            Trainer(remat, tr.ds, device="cpu")
+        state, _ = tr.fit(num_epochs=1)
+        for rung in ("dots", "full"):
+            remat = dataclasses.replace(tr.cfg, train=dataclasses.replace(
+                tr.cfg.train, remat=rung))
+            rstate, _ = Trainer(remat, tr.ds, device="cpu").fit(num_epochs=1)
+            _assert_same(_snapshot(rstate), _snapshot(state))
+        bad = dataclasses.replace(tr.cfg, train=dataclasses.replace(tr.cfg.train,
+                                                                    remat="some"))
+        with pytest.raises(ValueError, match="expected 'none', 'dots' or 'full'"):
+            Trainer(bad, tr.ds, device="cpu")

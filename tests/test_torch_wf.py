@@ -279,13 +279,13 @@ class TestRefitStages:
         assert all(torch.equal(on_sd[k], off_sd[k]) for k in on_sd)
 
     def test_a_refused_trainer_knob_is_an_operator_error(self, panels, tmp_path):
-        """The refit trains with the caller's config: `train.remat` (ROADMAP
-        Queue 1 item 15) is refused as a WalkForwardError."""
+        """The refit trains with the caller's config: a stock mesh (ROADMAP
+        Queue 1 item 12) is refused as a WalkForwardError. (`train.remat`
+        trains: tests/test_torch_remat.py.)"""
         jp, tp = panels
         tcfg = Config.from_dict(_jcfg(jp, tmp_path).to_dict())
-        tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(tcfg.train,
-                                                                   remat="full"))
-        with pytest.raises(WalkForwardError, match="remat.*item 15"):
+        tcfg = dataclasses.replace(tcfg, mesh=dataclasses.replace(tcfg.mesh, stock_axis=2))
+        with pytest.raises(WalkForwardError, match="mesh.stock_axis.*item 12"):
             warm_refit(tcfg, PanelDataset(tp, seq_len=T, device="cpu"))
 
 
