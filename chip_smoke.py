@@ -320,7 +320,26 @@ named phases, and prints neither the kernels line nor the result):
               frames' shapes and finiteness; the same range on the CPU
               (factors, exposures and the KL within FACTORS_TOL); ms per
               32-day chunk.
-20. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+20. plan    -- the execution planner: (a) `python -m
+              factorvae_tpu_torch.autotune --config flagship --fleet --hyper
+              --stream --serve --train_precision --remat` (its default
+              --days 8 --reps 2) into a temporary table, in this process,
+              then the train race alone for alpha360-k60 (T = 60: K3's walk);
+              every race must hold its default candidate, every kernel must
+              launch in the flagship races, and the training kernels and K4
+              in the alpha360-k60 race; (b) `cli --auto_plan` on a 60-day
+              pickle of 300 stocks against that table: the `plan` record is
+              the 300-stock row's, the trained days_per_step, dtype and pad
+              (300) are the row's, and the scores CSV is byte for byte that
+              of a run given the same knobs as flags; (c) `cli
+              --compile_cache DIR` in two fresh processes: the first compiles
+              the four libraries into DIR, the second loads all four as
+              compile_cached and compiles none; (d) `serve --precision plan`
+              (HTTP, --scheduler) against the row with a bfloat16 serve
+              block: admitted at bfloat16, the tick and batch the row's, and
+              the fleet's SLO and hedge the row's; (e) flagship scores at the
+              plan's pad (300) against pad_multiple 8's 304, within SLICE_TOL.
+21. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
               `launches_mixed` in the precision phase's mixed epoch,
@@ -332,7 +351,8 @@ named phases, and prints neither the kernels line nor the result):
               in the stacked phase's L = 2 epoch, `launches_wf` in the wf
               phase's in-process cycle, `launches_obs` in the obs phase's
               profiled epoch, `launches_remat` in the remat phase's "full"
-              epoch and `launches_factors` in the factors phase's range),
+              epoch, `launches_factors` in the factors phase's range and
+              `launches_plan` in the plan phase's races),
               the obs phase's `profiler_us_per_launch`
               beside `graph_ms`, and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
@@ -424,6 +444,8 @@ BF16_SPEARMAN = 0.99
 
 
 def emit(obj) -> None:
+    """One JSON line; keys starting with "_" go only to the --out file."""
+    obj = {k: v for k, v in obj.items() if not str(k).startswith("_")}
     print(json.dumps(obj), flush=True)
 
 
@@ -4863,6 +4885,278 @@ def phase_factors(torch, seed: int, counters, card: str) -> dict:
                                     "generators differ)"}
 
 
+PLAN_DAYS = 8              # the autotune tool's --days and --reps (its defaults)
+PLAN_REPS = 2
+PLAN_CLI_DAYS = 60         # 30 train + 10 validation + 20 scored days
+PLAN_SERVE_ROW = {"precision": "bfloat16", "tick_ms": 5.0, "max_tick_batch": 16,
+                  "slo_ms": 50.0, "hedge_ms": 3.0}
+
+
+def _autotune(torch, counters, argv) -> tuple:
+    """`python -m factorvae_tpu_torch.autotune ARGV` in this process (its
+    rows' JSON and its progress kept, not printed) with every launch
+    counter set to 0 just before; (rows, launches, wall_s, progress)."""
+    import contextlib
+    import io
+
+    from factorvae_tpu_torch import autotune
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = autotune.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"plan (a): autotune {' '.join(argv)} exited {rc}:\n{err.getvalue()[-4000:]}")
+    return (json.loads(out.getvalue())["rows"], {c.__name__: c.launches for c in counters},
+            wall, err.getvalue().splitlines())
+
+
+def _defaults_held(r: dict, races: tuple) -> list:
+    """The races of row `r` whose measured candidates lack the default."""
+    m = r["measured"]
+    want = {"train": "flat=1_dps1_float32", "score": "flat=1_float32", "fleet": "S=1",
+            "hyper": "S=1", "stream": "hbm", "train_remat": "none"}
+    missing = [k for k in races if k in want and want[k] not in m.get(k, {})]
+    if "serve" in races and "float32" not in m["serve"]["rates"]:
+        missing.append("serve")
+    if "train_precision" in races and m["train_precision"]["s_per_day"]["float32"] is None:
+        missing.append("train_precision")
+    return missing
+
+
+def phase_plan(torch, seed: int, counters, card: str) -> dict:
+    """The execution planner on the card (the module docstring's phase 20)."""
+    import signal
+    import tempfile
+
+    from factorvae_tpu_torch import cli
+    from factorvae_tpu_torch import plan as planlib
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.panel import panel_to_frame
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.eval.predict import predict_panel
+    from factorvae_tpu_torch.models.factorvae import load_model
+    from factorvae_tpu_torch.params import save_weights
+    from factorvae_tpu_torch.presets import get_preset
+    from factorvae_tpu_torch.serve.__main__ import build_parser, fleet_plan_defaults
+    from factorvae_tpu_torch.serve.pool import free_port
+
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_plan_")
+    root = work.name
+    table = os.path.join(root, "plan_table.json")
+    knobs = ["--device", "cuda", "--days", str(PLAN_DAYS), "--reps", str(PLAN_REPS),
+             "--out", table]
+    # (a) the races: every block at flagship width (300 and 356 stocks), then
+    # the train race alone at the alpha360-k60 shape (T = 60: K3's walk)
+    races = ("train", "score", "fleet", "hyper", "stream", "serve", "train_precision",
+             "train_remat")
+    flag_rows, l_flag, flag_s, progress = _autotune(
+        torch, counters, ["--config", "flagship", "--fleet", "--hyper", "--stream",
+                          "--serve", "--train_precision", "--remat", *knobs])
+    k60_rows, l_k60, k60_s, _ = _autotune(torch, counters,
+                                          ["--config", "alpha360-k60", *knobs])
+    launches = {k: l_flag[k] + l_k60[k] for k in l_flag}
+    check(all(v > 0 for v in l_flag.values()),
+          f"plan (a): a kernel was not launched by the flagship races: {l_flag}")
+    check(all(l_k60[k] > 0 for k in ("gru_fwd_residuals", "gru_bwd", "gru_dwh",
+                                     "attention_fwd", "attention_bwd")),
+          f"plan (a): the alpha360-k60 train race at T = 60 launched {l_k60}")
+    for rows, held in ((flag_rows, races), (k60_rows, ("train", "score"))):
+        for r in rows:
+            per_width = ([v for k, v in r["measured"].items() if k.startswith("n=")]
+                         or [r["measured"]])
+            for m in per_width:
+                missing = _defaults_held({**r, "measured": m}, held)
+                check(not missing, f"plan (a): row {r['n_min']}-{r['n_max']} lacks the "
+                                   f"default candidate of {missing}")
+    table_rows = planlib.load_table(table)
+    check(len(table_rows) == len(flag_rows) + len(k60_rows)
+          and all(card in r["source"] for r in table_rows),
+          f"plan (a): the table holds {len(table_rows)} rows")
+    flag300 = next(r for r in flag_rows if r["n_min"] <= 300 <= r["n_max"])
+    winners = [{k: r.get(k) for k in ("n_min", "n_max", "train", "score", "fleet", "hyper",
+                                      "stream", "serve", "train_precision", "train_remat")}
+               for r in flag_rows + k60_rows]
+
+    # (b) the CLI with --auto_plan against that table, and the same knobs
+    # given as flags
+    cfg = get_preset("flagship")
+    panel = synthetic_panel_dense(PLAN_CLI_DAYS, 300, cfg.model.num_features, seed=seed)
+    d = [str(x) for x in panel.dates]
+    pkl = os.path.join(root, "panel.pkl")
+    panel_to_frame(panel).to_pickle(pkl)
+    m = cfg.model
+    base = ["--dataset", pkl, "--num_latent", str(m.num_features), "--hidden_size",
+            str(m.hidden_size), "--num_factor", str(m.num_factors), "--num_portfolio",
+            str(m.num_portfolios), "--seq_len", str(m.seq_len),
+            "--device", "cuda", "--seed", str(seed), "--run_name", "plan", "--num_epochs", "1",
+            "--start_time", d[0], "--fit_end_time", d[29], "--val_start_time", d[30],
+            "--val_end_time", d[39], "--score_start", d[40], "--score_end", d[-1]]
+
+    def argv(out, *extra):
+        return base + ["--save_dir", f"{root}/{out}/models", "--score_dir",
+                       f"{root}/{out}/scores", "--metrics_jsonl", f"{root}/{out}/run.jsonl",
+                       *extra]
+
+    no_rows = os.environ.get(planlib.PLAN_TABLE_ENV)     # main's empty table
+    os.environ[planlib.PLAN_TABLE_ENV] = table
+    try:
+        auto = _cli_drive(torch, cli, counters, argv("auto", "--auto_plan"))
+    finally:
+        os.environ[planlib.PLAN_TABLE_ENV] = no_rows
+    (rec,) = _of(auto, "plan")
+    pl = planlib.plan_for_config(cfg, 300, platform="cuda", table=[flag300])
+    check(rec["provenance"] == "measured" and rec["source"] == flag300["source"]
+          and all(rec[k] == v for k, v in pl.to_dict().items())
+          and rec["kernels_resolved"] == {"attention": "cuda", "gru": "cuda"},
+          f"plan (b): the plan record {rec} is not the row's {pl}")
+    (layout,) = _of(auto, "execution_layout")
+    train_dtype = pl.train_compute_dtype or pl.compute_dtype
+    check((layout["days_per_step"], layout["compute_dtype"], layout["n_padded"])
+          == (pl.days_per_step, train_dtype, pl.pad_target) and pl.pad_target == 300,
+          f"plan (b): trained with {layout}, the row says {pl}")
+    check(all(v > 0 for v in auto["launches"].values()),
+          f"plan (b): launches {auto['launches']}")
+    flags = ["--days_per_step", str(pl.days_per_step), "--max_stocks", str(pl.pad_target),
+             "--panel_residency", pl.panel_residency, "--stream_chunk_days",
+             str(pl.stream_chunk_days), "--bf16" if train_dtype == "bfloat16" else "--no-bf16"]
+    explicit = _cli_drive(torch, cli, counters, argv("flags", *flags))
+    if pl.score_compute_dtype != train_dtype:     # no flag sets the scoring dtype alone
+        explicit = _cli_drive(torch, cli, counters, argv(
+            "flags", *flags[:-1], "--score_only",
+            "--bf16" if pl.score_compute_dtype == "bfloat16" else "--no-bf16"))
+    auto_csv, flags_csv = _of(auto, "scores")[0]["path"], _of(explicit, "scores")[0]["path"]
+    with open(auto_csv, "rb") as a, open(flags_csv, "rb") as b:
+        csv_equal = a.read() == b.read()
+    check(csv_equal, f"plan (b): {auto_csv} and {flags_csv} differ")
+
+    # (c) --compile_cache DIR in two fresh processes
+    cache = os.path.join(root, "compile_cache")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc_runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "factorvae_tpu_torch.cli",
+                            *argv(f"cache{i}", "--compile_cache", cache)],
+                           cwd=repo, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"plan (c): process {i} exited {r.returncode}:\n"
+                                 f"{r.stderr[-3000:]}")
+        with open(f"{root}/cache{i}/run.jsonl") as fh:
+            events = [json.loads(line) for line in fh]
+        proc_runs.append({"wall_s": wall,
+                          "compile": len([e for e in events if e["event"] == "compile"]),
+                          "compile_cached": len([e for e in events
+                                                 if e["event"] == "compile_cached"]),
+                          "compile_cache": [e["dir"] for e in events
+                                            if e["event"] == "compile_cache"]})
+    libs = sorted(f for f in os.listdir(cache) if f.endswith(".so"))
+    check(proc_runs[0]["compile"] == 4 and proc_runs[0]["compile_cached"] == 0
+          and proc_runs[1]["compile"] == 0 and proc_runs[1]["compile_cached"] == 4
+          and len(libs) == 4 and all(p["compile_cache"] == [cache] for p in proc_runs),
+          f"plan (c): {proc_runs}, libraries {libs}")
+
+    # (d) serve --precision plan against a row with a bf16 serve block
+    serve_table = os.path.join(root, "serve_table.json")
+    planlib.save_rows([{**flag300, "serve": PLAN_SERVE_ROW}], path=serve_table)
+    weights = save_weights(load_model(cfg, device="cuda"), cfg, os.path.join(root, "w0"))
+    env = {**os.environ, planlib.PLAN_TABLE_ENV: serve_table}
+    port = free_port()
+    proc = subprocess.Popen([sys.executable, "-m", "factorvae_tpu_torch.serve", "--model",
+                             weights, "--synthetic", "40,300", "--max_stocks", "300",
+                             "--http", str(port), "--scheduler"], cwd=repo, env=env,
+                            stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)
+    lines = []
+    try:
+        while True:
+            line = proc.stderr.readline()
+            check(line != "", f"plan (d): the daemon exited early:\n{''.join(lines)}")
+            lines.append(line)
+            if "/score" in line:
+                break
+        import http.client
+
+        def score():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                conn.request("POST", "/score", headers={"Content-Type": "application/json"},
+                             body=json.dumps({"id": 1, "model": "w0", "day": 30}))
+                return json.loads(conn.getresponse().read())
+            finally:
+                conn.close()
+
+        deadline = time.monotonic() + 60      # the line comes just before it listens
+        while True:
+            try:
+                resp = score()
+                break
+            except ConnectionRefusedError:
+                check(time.monotonic() < deadline, "plan (d): the daemon never listened")
+                time.sleep(0.1)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    admitted = [x for x in lines if "[serve] admitted" in x]
+    sched = [x for x in lines if "continuous batching" in x]
+    os.environ[planlib.PLAN_TABLE_ENV] = serve_table
+    try:
+        slo_hedge = fleet_plan_defaults(build_parser().parse_args(
+            ["--model", weights, "--synthetic", "40,300", "--workers", "2"]), 300)
+    finally:
+        os.environ[planlib.PLAN_TABLE_ENV] = no_rows
+    check(len(admitted) == 1 and "bfloat16" in admitted[0]
+          and resp.get("ok") and str(resp.get("model", "")).endswith(":bfloat16")
+          and sched == ["[serve] continuous batching: tick_ms=5 max_tick_batch=16\n"]
+          and slo_hedge == (50.0, 3.0),
+          f"plan (d): {admitted}, {sched}, response ok={resp.get('ok')} "
+          f"model={resp.get('model')}, fleet (slo, hedge) {slo_hedge}")
+
+    # (e) flagship scores at the plan's pad (300) against pad_multiple 8's 304
+    model = load_model(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                          seed=seed)),
+                       device="cuda")
+    days = np.arange(20, 52)
+    pads = {}
+    for n_max in (300, None):
+        ds = PanelDataset(panel, seq_len=cfg.model.seq_len, max_stocks=n_max, device="cuda")
+        pads[ds.n_max] = predict_panel(model, cfg, ds, days, stochastic=False)
+    a, b = pads[300], pads[304][:, :300]
+    check(np.isfinite(a).all() and np.isnan(pads[304][:, 300:]).all(),
+          "plan (e): the scores are not finite where the panel is valid")
+    pad_err = float(np.max(np.abs(a - b))) / max(1.0, float(np.max(np.abs(b))))
+    check(pad_err <= SLICE_TOL, f"plan (e): pad 300 vs 304: {pad_err} > {SLICE_TOL}")
+    work.cleanup()
+    return {"phase": "plan", "card": card,
+            "config": f"autotune --days {PLAN_DAYS} --reps {PLAN_REPS}: flagship "
+                      "C158/T20/H64/K96/M128 at 300 and 356 stocks (every race), "
+                      "alpha360-k60 C360/T60/H60/K60/M128 at 300 (train and score); the CLI "
+                      f"on a {PLAN_CLI_DAYS}-day pickle of 300 stocks, one epoch",
+            "launches": launches, "launches_races_flagship": l_flag,
+            "launches_races_alpha360_k60": l_k60, "launches_auto_plan_cli": auto["launches"],
+            "races_s": {"flagship": flag_s, "alpha360_k60": k60_s},
+            "winners": winners,
+            "sources": [r["source"] for r in flag_rows + k60_rows],
+            "_rows": flag_rows + k60_rows, "_progress": progress,
+            "auto_plan": {"plan": {k: rec[k] for k in pl.to_dict()},
+                          "execution_layout": {k: layout[k] for k in (
+                              "days_per_step", "compute_dtype", "n_padded")},
+                          "csv_byte_equal_to_flags": csv_equal, "flags": flags,
+                          "wall_s": auto["wall_s"]},
+            "compile_cache": {"processes": proc_runs, "libraries": libs},
+            "serve_plan": {"admitted": admitted[0].strip(), "scheduler": sched[0].strip(),
+                           "fleet_slo_hedge_ms": slo_hedge, "row_serve": PLAN_SERVE_ROW},
+            "pad_300_vs_304": {"max_rel_err": pad_err, "tolerance": SLICE_TOL,
+                               "days": len(days)}}
+
+
 def _collect_fleet_check(router_url: str) -> dict:
     """The pool phase's fleet through `obs/collect.collect_fleet`: the
     router's and both workers' streams merged on the router's clock; every
@@ -4929,6 +5223,15 @@ def main(argv=None) -> int:
         gru_fwd_residuals,
     )
 
+    # Every phase pins the knobs it checks: the checkout's measured plan rows
+    # (PLAN_TABLE_TORCH.json) must not move a daemon's `--precision plan` or
+    # an admission's rung under them; the plan phase makes its own tables.
+    import tempfile
+
+    from factorvae_tpu_torch.plan import PLAN_TABLE_ENV
+
+    no_rows = tempfile.TemporaryDirectory(prefix="chip_smoke_no_plan_")
+    os.environ[PLAN_TABLE_ENV] = os.path.join(no_rows.name, "no_rows.json")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # bf16 products accumulate in f32, as XLA's do
@@ -4954,7 +5257,8 @@ def main(argv=None) -> int:
         "obs": lambda: phase_obs(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "remat": lambda: phase_remat(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "factors": lambda: phase_factors(torch, args.seed, counters,
-                                         phases[0]["nvidia_smi"])}
+                                         phases[0]["nvidia_smi"]),
+        "plan": lambda: phase_plan(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -5004,6 +5308,7 @@ def main(argv=None) -> int:
                      "launches_obs": by["obs"]["launches"][name],
                      "launches_remat": by["remat"]["launches"][name],
                      "launches_factors": by["factors"]["launches"][name],
+                     "launches_plan": by["plan"]["launches"][name],
                      "profiler_us_per_launch": by["obs"]["profiler_us_per_launch"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],

@@ -1,11 +1,14 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` becomes its own shared library with a plain C
-interface, compiled for Hopper (`sm_90a`) into `_build/` at first use. The
+interface, compiled for Hopper (`sm_90a`) into the build directory at first
+use: `factorvae_tpu_torch/_build/`, or the directory `set_build_dir` names
+(`plan.setup_compilation_cache`, the entry points' `--compile_cache DIR`,
+so that every process given one DIR shares its libraries). The
 library's file name carries a hash of its source, of the shared headers and
 of the flags, so an edited source is rebuilt and a stale library is never
 loaded. `build()` starts one nvcc per missing library, all at once, holding
-an exclusive lock on `_build/.build.lock` (`fcntl.flock`, released by the
+an exclusive lock on the directory's `.build.lock` (`fcntl.flock`, released by the
 kernel if the process dies) from the check to the rename: two processes
 that miss the same library (a pool's workers joining at once) build it
 once, and the second finds it built.
@@ -38,7 +41,8 @@ from pathlib import Path
 from factorvae_tpu_torch.utils.logging import timeline_compile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR        # moved by set_build_dir
 KERNELS = ("gru_fwd", "gru_bwd", "attention_fwd", "attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,6 +58,14 @@ def compile_event_counts() -> dict:
     """{"compile": n, "compile_cached": n} of this process's libraries."""
     with _COUNTS_LOCK:
         return dict(_counts)
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the libraries in `path` from now on (a library this
+    process already loaded stays loaded: its name pins its source)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    return BUILD_DIR
 
 
 def nvcc_path() -> str:

@@ -28,8 +28,20 @@ lockstep checkpoints.
 fleets and scoring take it in chunks of `--stream_chunk_days` copied to the
 device one chunk ahead (`data/stream.py`), with the "hbm" run's results.
 
-The flags of paths this package does not port yet exit with code 2 and a
-line naming their ROADMAP Queue 1 item, before the dataset is read, as does
+`--auto_plan` takes the knobs the flags leave unset from the port's plan
+table (`plan.py`, `PLAN_TABLE_TORCH.json`) for this shape, width and
+`--device`: days_per_step, the training and scoring dtypes, the pad target,
+the residency, the probes, remat, and the fleets' program widths
+(`seeds_per_program` for `--fleet_seeds`; `lanes_per_program`, else
+`seeds_per_program` above 1, else the whole grid for `--hyper_grid`); the
+`plan` record says what it resolved and from where. An explicit flag keeps
+its value. `--compile_cache DIR` (default `$FACTORVAE_COMPILE_CACHE`; `off`
+turns it off) builds and loads the CUDA kernels' libraries in DIR, so a
+later process given DIR compiles none.
+
+The flags of paths this package does not port yet (`--mesh`,
+`--mesh_stock`) exit with code 2 and a line naming their ROADMAP Queue 1
+item, before the dataset is read, as does
 a hidden size above the CUDA kernels' maximum on `--device cuda`.
 `--pallas` and `--pallas_auto` change nothing (the kernels always run on
 CUDA), and `--num_workers` is unused, as in the JAX CLI.
@@ -67,6 +79,7 @@ from typing import Optional
 
 import torch
 
+from factorvae_tpu_torch import plan as planlib
 from factorvae_tpu_torch.config import Config, DataConfig, MeshConfig, ModelConfig, TrainConfig
 from factorvae_tpu_torch.data.loader import PanelDataset
 from factorvae_tpu_torch.data.panel import build_panel, load_frame
@@ -143,7 +156,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream_chunk_days", type=int, default=None,
                    help="days per chunk under --panel_residency stream (default 32)")
     p.add_argument("--auto_plan", action=argparse.BooleanOptionalAction, default=False,
-                   help=_REFUSED)
+                   help="take the unset knobs from the measured plan row for this shape "
+                        "and device (plan.py), else the conservative default")
     p.add_argument("--score_only", action="store_true",
                    help="skip training; score [--score_start, --score_end] from "
                         "the best checkpoint")
@@ -164,7 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rewrite a Prometheus textfile of each epoch's metrics here "
                         "(atomically, after every epoch)")
     p.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
-                   help="'off' only; a directory is " + _REFUSED)
+                   help="build and load the CUDA kernels' libraries in DIR (default: "
+                        "$FACTORVAE_COMPILE_CACHE; 'off' keeps the checkout's _build/)")
     p.add_argument("--obs", action=argparse.BooleanOptionalAction, default=None,
                    help="training-health probes in every epoch record, and a metrics "
                         "stream with a timeline (RUN.jsonl unless --metrics_jsonl)")
@@ -200,10 +215,8 @@ def build_parser() -> argparse.ArgumentParser:
 def refusal(args: argparse.Namespace) -> Optional[str]:
     """The error line for a flag of a path this package does not port, or
     None."""
-    not_ported = (
-        (args.mesh, "--mesh", 12), (args.mesh_stock is not None, "--mesh_stock", 12),
-        (args.auto_plan, "--auto_plan", 9),
-        (args.compile_cache not in (None, "off"), "--compile_cache", 9))
+    not_ported = ((args.mesh, "--mesh", 12),
+                  (args.mesh_stock is not None, "--mesh_stock", 12))
     for given, flag, item in not_ported:
         if given:
             return (f"{flag} is not ported to factorvae_tpu_torch yet "
@@ -338,9 +351,10 @@ def main(argv=None) -> int:
 
 
 def run(cfg: Config, args: argparse.Namespace, panel) -> int:
-    """Everything after the panel is built: train (or restore the best
-    weights for --score_only), score, export the CSV, RankIC, --backtest,
-    --export's artifact. Returns the exit code."""
+    """Everything after the panel is built: the compile cache and the plan,
+    train (or restore the best weights for --score_only), score, export the
+    CSV, RankIC, --backtest, --export's artifact. Returns the exit code."""
+    cache_dir = planlib.setup_compilation_cache(args.compile_cache)
     metrics_path = args.metrics_jsonl or ("RUN.jsonl" if args.obs else None)
     logger = MetricsLogger(jsonl_path=metrics_path, use_wandb=cfg.train.wandb,
                            run_name=cfg.train.run_name, config=cfg.to_dict())
@@ -351,6 +365,21 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
     observed = contextlib.ExitStack()
     try:
         logger.log("config", json=cfg.to_json())
+        if cache_dir:
+            logger.log("compile_cache", dir=cache_dir)
+        plan = None
+        if args.auto_plan:
+            plan = planlib.plan_for_config(cfg, panel.num_instruments, platform=args.device)
+            cfg = planlib.apply_plan(
+                cfg, plan, keep_days_per_step=args.days_per_step is not None,
+                keep_dtype=args.bf16 is not None, keep_pad=args.max_stocks is not None,
+                keep_residency=(args.panel_residency is not None
+                                or args.stream_chunk_days is not None),
+                keep_obs=args.obs is not None,
+                # --mesh is refused (ROADMAP Queue 1 item 12)
+                keep_mesh=True)
+            logger.log("plan", **plan.describe(planlib.shape_of(cfg, panel.num_instruments),
+                                               platform=args.device))
         if args.obs:
             logger.log("obs", probes=cfg.train.obs_probes, run_jsonl=metrics_path)
         if panel.num_features != cfg.model.num_features:
@@ -373,8 +402,8 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
             model = load_model(cfg, best, device=args.device)
         elif args.hyper_grid or (args.fleet_seeds or 1) > 1:
             try:
-                won = (_hyper_grid(cfg, args, dataset, logger) if args.hyper_grid
-                       else _fleet_seeds(cfg, args, dataset, logger))
+                won = (_hyper_grid(cfg, args, dataset, logger, plan) if args.hyper_grid
+                       else _fleet_seeds(cfg, args, dataset, logger, plan))
             except ValueError as e:
                 if "empty training split" not in str(e):
                     raise
@@ -404,9 +433,16 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
             model = (load_model(cfg, best, device=args.device) if os.path.isdir(best)
                      else state.model.eval())
 
+        score_cfg = cfg
+        if plan is not None:
+            # the plan's scoring knobs; an explicit --bf16/--no-bf16 wins
+            m = planlib.score_model_config(cfg.model, plan)
+            if args.bf16 is not None:
+                m = dataclasses.replace(m, compute_dtype=cfg.model.compute_dtype)
+            score_cfg = dataclasses.replace(cfg, model=m)
         t0 = time.perf_counter()
         days = dataset.split_days(args.score_start, args.score_end)
-        scores = predict_panel(model, cfg, dataset, days, int8=args.int8_scores)
+        scores = predict_panel(model, score_cfg, dataset, days, int8=args.int8_scores)
         score_s = time.perf_counter() - t0
         table = score_table(dataset, days, scores, with_labels=True)
         t0 = time.perf_counter()
@@ -452,14 +488,16 @@ def _winner(df, ckpt_of) -> "object | None":
     return None if ranked.empty else ranked.idxmax()
 
 
-def _fleet_seeds(cfg: Config, args: argparse.Namespace, dataset, logger):
+def _fleet_seeds(cfg: Config, args: argparse.Namespace, dataset, logger, plan):
     """--fleet_seeds: (the winning seed's Config, its best-weights path), or
-    the error line."""
+    the error line. Under --auto_plan the seeds train in fleets of the
+    plan's `seeds_per_program`."""
     from factorvae_tpu_torch.eval.sweep import seed_sweep
 
     seeds = list(range(cfg.train.seed, cfg.train.seed + args.fleet_seeds))
     df = seed_sweep(cfg, dataset, seeds=seeds, score_start=args.score_start,
                     score_end=args.score_end, logger=logger, fleet=True,
+                    seeds_per_program=plan.seeds_per_program if plan else None,
                     fleet_resume=args.resume, device=args.device)
 
     def seed_cfg(seed):
@@ -477,9 +515,12 @@ def _fleet_seeds(cfg: Config, args: argparse.Namespace, dataset, logger):
     return seed_cfg(best_seed), ckpt(best_seed)
 
 
-def _hyper_grid(cfg: Config, args: argparse.Namespace, dataset, logger):
+def _hyper_grid(cfg: Config, args: argparse.Namespace, dataset, logger, plan):
     """--hyper_grid: (the winning point's Config, its best-weights path), or
-    the error line."""
+    the error line. Under --auto_plan a bucket trains in fleets of the
+    plan's `lanes_per_program`, else of its `seeds_per_program` above 1
+    (1 is no signal: single-lane fleets would serialize the grid), else
+    whole."""
     from factorvae_tpu_torch.eval.sweep import (
         _point_config,
         grid_sweep,
@@ -490,8 +531,13 @@ def _hyper_grid(cfg: Config, args: argparse.Namespace, dataset, logger):
     points = parse_hyper_grid(args.hyper_grid)
     if not points:
         return "--hyper_grid parsed to zero points (format: LR:KLW,LR:KLW,...)"
+    lpp = None
+    if plan is not None:
+        lpp = plan.lanes_per_program or (
+            plan.seeds_per_program if plan.seeds_per_program > 1 else None)
     df = grid_sweep(cfg, dataset, points, score_start=args.score_start,
-                    score_end=args.score_end, logger=logger, device=args.device)
+                    score_end=args.score_end, logger=logger, lanes_per_program=lpp,
+                    device=args.device)
     by_label = {point_label(p): p for p in points}
 
     def point_cfg(label):

@@ -9,9 +9,11 @@ reports per-seed Rank-IC with their mean and spread; `grid_sweep` races an
 
 Execution:
 - serial (`seed_sweep` default): one `Trainer` per seed, one after another;
-- `fleet=True`: the seeds not adopted from `prior_records` train together
-  in one fleet (`train/fleet.FleetTrainer`) and score in one lane-batched
-  pass (`eval/predict.predict_panel_fleet`). The frame,
+- `fleet=True`: the seeds not adopted from `prior_records` train in fleets
+  of `seeds_per_program` (default: all of them in one;
+  `train/fleet.FleetTrainer`), in order, each scored in one lane-batched
+  pass (`eval/predict.predict_panel_fleet`); `grid_sweep` trains each shape
+  bucket in programs of `lanes_per_program` lanes the same way. The frame,
   the per-seed artifacts (best weights under the serial names), `on_seed`
   and the adoption of finished seeds are the serial sweep's; per-seed
   numbers match it within f32 rounding, bitwise for a one-seed fleet.
@@ -84,22 +86,28 @@ def _fleet_scoring_params(state, out, names, logger: MetricsLogger) -> dict:
 
 
 def _fleet_records(config: Config, dataset, pending: Sequence[int], days: np.ndarray,
-                   logger: MetricsLogger, on_seed, fleet_resume: bool, device) -> list:
-    """Train `pending` seeds in one fleet and score it in one lane-batched
-    pass; records in `pending` order."""
-    trainer = FleetTrainer(config, dataset, pending, device=device, logger=logger)
-    state, out = trainer.fit(resume=fleet_resume)
-    scoring = _fleet_scoring_params(state, out, [{"seed": int(s)} for s in pending], logger)
-    scores = predict_panel_fleet(scoring, config, dataset, days, stochastic=False)
+                   logger: MetricsLogger, on_seed, fleet_resume: bool, device,
+                   seeds_per_program: Optional[int] = None) -> list:
+    """Train `pending` seeds in fleets of `seeds_per_program` (None or 0:
+    one fleet), each scored in one lane-batched pass; records in `pending`
+    order."""
+    spp = len(pending) if not seeds_per_program else max(1, int(seeds_per_program))
     records = []
-    for i, seed in enumerate(pending):
-        ic, ir = _rank_ic(dataset, days, scores[i])
-        rec = {"seed": int(seed), "rank_ic": ic, "rank_ic_ir": ir,
-               "best_val": float(out["best_val"][i])}
-        records.append(rec)
-        logger.log("sweep_seed", **rec)
-        if on_seed is not None:
-            on_seed(rec)
+    for g0 in range(0, len(pending), spp):
+        group = list(pending[g0:g0 + spp])
+        trainer = FleetTrainer(config, dataset, group, device=device, logger=logger)
+        state, out = trainer.fit(resume=fleet_resume)
+        scoring = _fleet_scoring_params(state, out, [{"seed": int(s)} for s in group],
+                                        logger)
+        scores = predict_panel_fleet(scoring, config, dataset, days, stochastic=False)
+        for i, seed in enumerate(group):
+            ic, ir = _rank_ic(dataset, days, scores[i])
+            rec = {"seed": int(seed), "rank_ic": ic, "rank_ic_ir": ir,
+                   "best_val": float(out["best_val"][i])}
+            records.append(rec)
+            logger.log("sweep_seed", **rec)
+            if on_seed is not None:
+                on_seed(rec)
     return records
 
 
@@ -107,16 +115,18 @@ def seed_sweep(config: Config, dataset, seeds: Sequence[int],
                score_start: Optional[str] = None, score_end: Optional[str] = None,
                logger: Optional[MetricsLogger] = None, on_seed=None,
                prior_records: Optional[dict] = None, fleet: bool = False,
-               fleet_resume: bool = False, device="cuda"):
+               seeds_per_program: Optional[int] = None, fleet_resume: bool = False,
+               device="cuda"):
     """A DataFrame indexed by seed with columns [rank_ic, rank_ic_ir,
     best_val]; `.attrs["summary"]` holds their mean and spread.
 
     `on_seed(rec)` fires after each seed, adopted ones included, so a long
     sweep can persist partial results. `prior_records` maps seed -> a
     finished record (or a bare rank_ic) that is adopted without training.
-    `fleet=True` trains the other seeds in one fleet and scores it in one
-    pass; `fleet_resume` lets the fleet restore from its lockstep
-    checkpoints. The frame keeps the order of `seeds` either way."""
+    `fleet=True` trains the other seeds in fleets of `seeds_per_program`
+    (None or 0: one fleet), each scored in one pass; `fleet_resume` lets a
+    fleet restore from its lockstep checkpoints. The frame keeps the order
+    of `seeds` either way."""
     import pandas as pd
 
     logger = logger or MetricsLogger(echo=False)
@@ -154,7 +164,7 @@ def seed_sweep(config: Config, dataset, seeds: Sequence[int],
             on_seed(rec)
     if pending:
         records.extend(_fleet_records(config, dataset, pending, days, logger, on_seed,
-                                      fleet_resume, device))
+                                      fleet_resume, device, seeds_per_program))
         order = {int(s): i for i, s in enumerate(seeds)}
         records.sort(key=lambda r: order[r["seed"]])
     df = pd.DataFrame(records).set_index("seed")
@@ -245,11 +255,13 @@ def _point_config(config: Config, point: dict, label: str) -> Config:
 def grid_sweep(config: Config, dataset, points: Sequence[dict],
                score_start: Optional[str] = None, score_end: Optional[str] = None,
                logger: Optional[MetricsLogger] = None, on_point=None,
-               prior_records: Optional[dict] = None, device="cuda"):
+               prior_records: Optional[dict] = None,
+               lanes_per_program: Optional[int] = None, device="cuda"):
     """Race a grid of points (dicts over SHAPE_KEYS and LANE_KEYS) through
-    hyper-fleets: the points bucket by shape, each bucket trains as one
-    fleet, and every lane scores from its best-validation snapshot in one
-    lane-batched pass.
+    hyper-fleets: the points bucket by shape, each bucket trains in fleets
+    of `lanes_per_program` lanes (None or 0: the whole bucket in one), in
+    order, and every lane scores from its best-validation snapshot in one
+    lane-batched pass per fleet.
 
     Returns a DataFrame indexed by `point_label` with the point's fields and
     [rank_ic, rank_ic_ir, best_val]; `.attrs["summary"]` names the winner.
@@ -277,28 +289,35 @@ def grid_sweep(config: Config, dataset, points: Sequence[dict],
     pending = [(lbl, p) for lbl, p in zip(labels, points) if lbl not in records]
     days = dataset.split_days(score_start, score_end)
     for bucket_key, members in shape_buckets([p for _, p in pending]):
-        group_labels = [pending[i][0] for i, _ in members]
-        group = [p for _, p in members]
+        bucket_labels = [pending[i][0] for i, _ in members]
+        bucket_points = [p for _, p in members]
+        lpp = (len(bucket_points) if not lanes_per_program
+               else max(1, int(lanes_per_program)))
         shape_kw = {k: v for k, v in zip(SHAPE_KEYS, bucket_key) if v is not None}
         bucket_cfg = dataclasses.replace(config,
                                          model=dataclasses.replace(config.model, **shape_kw))
-        logger.log("grid_bucket", shape=shape_kw, points=group_labels,
-                   lanes_per_program=len(group))
-        lane_cfgs = [_point_config(config, p, lbl) for p, lbl in zip(group, group_labels)]
-        trainer = FleetTrainer(bucket_cfg, dataset, lane_configs=lane_cfgs, device=device,
-                               logger=logger)
-        state, out = trainer.fit()
-        scoring = _fleet_scoring_params(state, out, [{"label": lbl} for lbl in group_labels],
-                                        logger)
-        scores = predict_panel_fleet(scoring, bucket_cfg, dataset, days, stochastic=False)
-        for i, (lbl, point) in enumerate(zip(group_labels, group)):
-            ic, ir = _rank_ic(dataset, days, scores[i])
-            rec = {"label": lbl, **point, "rank_ic": ic, "rank_ic_ir": ir,
-                   "best_val": float(out["best_val"][i])}
-            records[lbl] = rec
-            logger.log("grid_point", **rec)
-            if on_point is not None:
-                on_point(rec)
+        logger.log("grid_bucket", shape=shape_kw, points=bucket_labels,
+                   lanes_per_program=lpp)
+        for g0 in range(0, len(bucket_points), lpp):
+            group_labels = bucket_labels[g0:g0 + lpp]
+            group = bucket_points[g0:g0 + lpp]
+            lane_cfgs = [_point_config(config, p, lbl)
+                         for p, lbl in zip(group, group_labels)]
+            trainer = FleetTrainer(bucket_cfg, dataset, lane_configs=lane_cfgs,
+                                   device=device, logger=logger)
+            state, out = trainer.fit()
+            scoring = _fleet_scoring_params(
+                state, out, [{"label": lbl} for lbl in group_labels], logger)
+            scores = predict_panel_fleet(scoring, bucket_cfg, dataset, days,
+                                         stochastic=False)
+            for i, (lbl, point) in enumerate(zip(group_labels, group)):
+                ic, ir = _rank_ic(dataset, days, scores[i])
+                rec = {"label": lbl, **point, "rank_ic": ic, "rank_ic_ir": ir,
+                       "best_val": float(out["best_val"][i])}
+                records[lbl] = rec
+                logger.log("grid_point", **rec)
+                if on_point is not None:
+                    on_point(rec)
     df = pd.DataFrame([records[lbl] for lbl in labels]).set_index("label")
     finite = df["rank_ic"].dropna()
     df.attrs["summary"] = {

@@ -18,20 +18,24 @@ pickle (`--dataset`). Models come from weights directories or AOT artifact
 files (`--model PATH`, repeatable; alias = the file's name;
 `eval/export_aot.py`) or, without one, a preset with
 random weights drawn from `--seed` (alias = the preset name), each admitted
-at `--precision` (float32, bfloat16 or int8; `plan`, the default, resolves
-to float32: the port has no plan table yet, and the JAX package's plan
-rows were measured on a TPU). Requests come from stdin (JSONL; an array
-line is one tick), a `--batch` file, or HTTP (`--http PORT`, threaded with
-`--scheduler`). Runs on CUDA unless `--device cpu` is given.
+at `--precision` (float32, bfloat16 or int8; `plan`, the default, takes the
+`serve` block of the port's plan row for the model's shape at the panel's
+width and `--device`, `plan.py`, else float32). Requests come from stdin
+(JSONL; an array line is one tick), a `--batch` file, or HTTP (`--http
+PORT`, threaded with `--scheduler`, whose `--tick_ms` and `--max_batch`
+default to the plan row's, else 2 ms and 64). `--compile_cache DIR`
+(default `$FACTORVAE_COMPILE_CACHE`) builds and loads the kernels'
+libraries in DIR. Runs on CUDA unless `--device cpu` is given.
 
 `--workers N` above 1 starts the fleet instead (`serve/pool.py`,
 `serve/router.py`): N daemon processes behind a router on `--router_port`,
 with the AOT store at `--aot_store`, the shed bound `--max_inflight`, the
-hedge delay `--hedge_ms` (default: measured, the router's p90; `--no_hedge`
-turns hedging off), the declared SLO `--slo_ms` (default: none; the port
-has no plan table to take one from) and, with `--autoscale MAX`, an
-autoscaler between N and MAX workers. This process builds no panel and
-never touches the card: it routes, and exports the store on the CPU.
+hedge delay `--hedge_ms` and the declared SLO `--slo_ms` (default: the plan
+row of the first weights directory at the fleet's panel width, else a
+measured hedge delay, the router's p90, and no SLO; `--no_hedge` turns
+hedging off) and, with `--autoscale MAX`, an autoscaler between N and MAX
+workers; the workers get `--compile_cache`. This process builds no panel
+and never touches the card: it routes, and exports the store on the CPU.
 `--join URL` makes this daemon a remote worker of that fleet
 (`serve/remote.py`): it downloads the fleet's artifacts into `--aot_store`,
 verified, mirrors the fleet's panel arguments, serves, and registers as
@@ -66,8 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sample at inference (default: deterministic scores)")
     p.add_argument("--precision", choices=["plan", "float32", "bfloat16", "int8"],
                    default="plan",
-                   help="the rung every model is admitted at; plan = float32 (no "
-                        "plan table is ported)")
+                   help="the rung every model is admitted at; plan = the plan row's "
+                        "serve block for its shape and the panel width, else float32")
     p.add_argument("--budget_mb", type=float, default=0,
                    help="registry bytes budget; LRU eviction past it (0 = unbounded). "
                         "Evicted weights directories cold-start back in on demand")
@@ -81,9 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve HTTP on 127.0.0.1:PORT instead of stdin")
     p.add_argument("--tick_ms", type=float, default=None,
                    help="batching window: stdin lines (default 20) or, with "
-                        "--scheduler, how long an under-full tick waits (default 2)")
+                        "--scheduler, how long an under-full tick waits (default: "
+                        "the plan row's, else 2)")
     p.add_argument("--max_batch", type=int, default=None,
-                   help="most requests per tick (default 64)")
+                   help="most requests per tick (default: with --scheduler the plan "
+                        "row's, else 64)")
     p.add_argument("--scheduler", action="store_true",
                    help="with --http: continuous batching (a threaded server and one "
                         "scheduler thread; concurrent clients fuse into shared ticks)")
@@ -102,8 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace_off", action="store_true",
                    help="no trace contexts or trace fields on spans")
     p.add_argument("--compile_cache", default=None, metavar="DIR",
-                   help="accepted and ignored: the kernels' build directory "
-                        "(factorvae_tpu_torch/_build) is the port's cache")
+                   help="build and load the CUDA kernels' libraries in DIR (default: "
+                        "$FACTORVAE_COMPILE_CACHE; 'off' keeps the checkout's _build/)")
     p.add_argument("--device", default="cuda")
     g = p.add_argument_group("worker pool, router and remote workers")
     g.add_argument("--workers", type=int, default=1,
@@ -121,9 +127,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "forwards to)")
     g.add_argument("--slo_ms", type=float, default=None,
                    help="declared p99 SLO the router publishes and --autoscale defends "
-                        "(default: none)")
+                        "(default: the plan row's, else none)")
     g.add_argument("--hedge_ms", type=float, default=None,
-                   help="hedged-forward delay (default: the router's measured p90)")
+                   help="hedged-forward delay (default: the plan row's, else the "
+                        "router's measured p90)")
     g.add_argument("--no_hedge", action="store_true", help="no hedged forwards")
     g.add_argument("--autoscale", type=int, default=0, metavar="MAX",
                    help="scale the fleet between --workers and MAX workers (0: off)")
@@ -168,11 +175,54 @@ def _pool_refusal(args) -> "str | None":
     return None
 
 
+def serving_plan(config, n_max: int, device: str):
+    """The plan for serving `config` (None: an artifact, which carries no
+    Config) at panel width `n_max` on `device`: the default source of the
+    serving knobs the flags leave unset."""
+    if config is None:
+        return None
+    from factorvae_tpu_torch import plan as planlib
+
+    return planlib.plan_for_config(config, n_max, platform=device)
+
+
+def scheduler_knobs(args, pl) -> tuple:
+    """(tick_ms, max_tick_batch) of a `--scheduler` front: the flags, else
+    the plan row's measured values, else 2 ms and 64."""
+    tick_ms = args.tick_ms if args.tick_ms is not None else (
+        pl.serve_tick_ms if pl is not None and pl.serve_tick_ms >= 0 else 2.0)
+    max_tick = args.max_batch if args.max_batch is not None else (
+        pl.serve_max_tick_batch if pl is not None and pl.serve_max_tick_batch > 0 else 64)
+    return tick_ms, max_tick
+
+
+def fleet_plan_defaults(args, n_max: int) -> tuple:
+    """(slo_ms, hedge_ms) of a fleet: the flags, else the plan row of the
+    first weights directory at the width worker 0 reported, else no SLO (0)
+    and a measured hedge delay (-1)."""
+    from factorvae_tpu_torch.serve.registry import RegistryError, checkpoint_config
+
+    slo_ms, hedge_ms = args.slo_ms, args.hedge_ms
+    if slo_ms is None or hedge_ms is None:
+        pl = None
+        if args.model and os.path.isdir(args.model[0]) and n_max:
+            try:
+                pl = serving_plan(checkpoint_config(args.model[0]), n_max, args.device)
+            except RegistryError:         # no serve_config.json: no shape to look up
+                pl = None
+        if slo_ms is None:
+            slo_ms = pl.serve_slo_ms if pl is not None else 0.0
+        if hedge_ms is None:
+            hedge_ms = pl.serve_hedge_ms if pl is not None else -1.0
+    return slo_ms, hedge_ms
+
+
 def build_fleet(args, work_dir: str):
     """(pool, router, autoscaler or None) configured from the pool flags,
-    nothing started. The workers get this command's panel, precision and
-    resilience flags; `--slo_ms` and `--hedge_ms` default to no SLO and a
-    measured hedge delay."""
+    nothing started. The workers get this command's panel, precision,
+    compile-cache and resilience flags; an unset `--slo_ms` or `--hedge_ms`
+    holds no SLO and a measured hedge delay until `run_pool` reads the plan
+    row at the width worker 0 reports (`fleet_plan_defaults`)."""
     from factorvae_tpu_torch.serve.autoscale import AutoScaler
     from factorvae_tpu_torch.serve.pool import WorkerPool
     from factorvae_tpu_torch.serve.router import Router
@@ -198,7 +248,7 @@ def build_fleet(args, work_dir: str):
                       args.aot_store or os.path.join(work_dir, "aot_store"),
                       work_dir=work_dir, device=args.device, extra_args=extra,
                       tick_ms=args.tick_ms, max_tick_batch=args.max_batch,
-                      metrics_base=args.metrics_jsonl)
+                      metrics_base=args.metrics_jsonl, compile_cache=args.compile_cache)
     pool.router_url = f"http://127.0.0.1:{args.router_port}"
     slo_ms = args.slo_ms or 0.0
     router = Router(pool, max_inflight=args.max_inflight, slo_ms=slo_ms,
@@ -230,6 +280,9 @@ def run_pool(args) -> int:
         print(f"[pool] starting {args.workers} worker(s) on {args.device} (aot store "
               f"{pool.store.root}, logs {work_dir})", file=sys.stderr)
         pool.start()
+        router.slo_ms, router.hedge_ms = fleet_plan_defaults(args, pool.n_max)
+        if scaler is not None:
+            scaler.slo_ms = router.slo_ms
         for w in pool.stats()["workers"]:
             print(f"[pool] {w['worker_id']} pid={w['pid']} {w['url']} ({w['state']})",
                   file=sys.stderr)
@@ -272,7 +325,7 @@ def _artifact_header(path: str) -> "dict | None":
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    precision = "float32" if args.precision == "plan" else args.precision
+    precision = None if args.precision == "plan" else args.precision
     refused = _pool_refusal(args)
     if refused:
         print(f"error: {refused}", file=sys.stderr)
@@ -325,6 +378,7 @@ def main(argv=None) -> int:
     )
     from factorvae_tpu_torch.utils.logging import MetricsLogger, Timeline, install_timeline
 
+    config = None                   # the first model's, when it has one
     try:
         headers = {path: _artifact_header(path) for path in args.model}
         if args.model and headers[args.model[0]] is not None:
@@ -362,6 +416,9 @@ def main(argv=None) -> int:
     dataset = PanelDataset(panel, seq_len=seq_len, max_stocks=args.max_stocks,
                            device=args.device)
 
+    from factorvae_tpu_torch import plan as planlib
+
+    cache_dir = planlib.setup_compilation_cache(args.compile_cache)
     logger = MetricsLogger(jsonl_path=args.metrics_jsonl, echo=False, run_name="serve")
     prev_tl = install_timeline(Timeline(logger)) if args.metrics_jsonl else None
     try:
@@ -383,7 +440,7 @@ def main(argv=None) -> int:
             else:
                 model = load_model(config, device=args.device)
                 registry.register_params(model, config, precision=precision,
-                                         alias=args.preset)
+                                         n_stocks=dataset.n_max, alias=args.preset)
         except RegistryError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
@@ -398,11 +455,12 @@ def main(argv=None) -> int:
             for key, wall in registry.warmup(dataset, stochastic=daemon.stochastic).items():
                 print(f"[serve] warmed {key} in {wall:.3f}s", file=sys.stderr)
         logger.log("serve_start", _echo=False, models=registry.keys(),
-                   n_days=len(dataset.dates), n_max=dataset.n_max)
+                   compile_cache=cache_dir, n_days=len(dataset.dates), n_max=dataset.n_max)
+        rungs = sorted({e["precision"] for e in registry.stats()["entries"]})
         print(f"[serve] ready: {len(registry.keys())} model(s) "
-              f"{sorted(registry.stats()['aliases'])} at {precision}, panel "
-              f"{len(dataset.dates)}d x {dataset.n_max} on {dataset.device}",
-              file=sys.stderr)
+              f"{sorted(registry.stats()['aliases'])} at {'/'.join(rungs)}, panel "
+              f"{len(dataset.dates)}d x {dataset.n_max} on {dataset.device} "
+              f"(cache: {cache_dir or 'off'})", file=sys.stderr)
         max_batch = args.max_batch or 64
         if args.batch:
             out = open(args.out, "w") if args.out else sys.stdout
@@ -415,10 +473,11 @@ def main(argv=None) -> int:
         elif args.http is not None:
             scheduler = None
             if args.scheduler:
-                tick_ms = 2.0 if args.tick_ms is None else args.tick_ms
-                scheduler = TickScheduler(daemon, tick_ms=tick_ms, max_tick_batch=max_batch)
+                tick_ms, max_tick = scheduler_knobs(
+                    args, serving_plan(config, dataset.n_max, args.device))
+                scheduler = TickScheduler(daemon, tick_ms=tick_ms, max_tick_batch=max_tick)
                 print(f"[serve] continuous batching: tick_ms={tick_ms:g} "
-                      f"max_tick_batch={max_batch}", file=sys.stderr)
+                      f"max_tick_batch={max_tick}", file=sys.stderr)
             print(f"[serve] http://127.0.0.1:{args.http}/score", file=sys.stderr)
             serve_http(daemon, args.http, scheduler=scheduler)
         else:

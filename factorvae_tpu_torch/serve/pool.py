@@ -11,10 +11,11 @@ parallelism: one interpreter, one tick thread and one response path per
 worker.
 
 **Warm joins.** Every worker of a checkout shares the kernel libraries of
-`factorvae_tpu_torch/_build/`: worker 0 builds what is missing, and a later
-worker loads them, so its `/metrics` scrapes `compile 0, compile_cached >
-0` (`_build` serialises check-then-build with a lock file, so two
-processes that miss one library build it once). On top, the pool
+`factorvae_tpu_torch/_build/`, or of the `compile_cache` directory the pool
+hands each worker (`--compile_cache`): worker 0 builds what is missing, and
+a later worker loads them, so its `/metrics` scrapes `compile 0,
+compile_cached > 0` (`_build` serialises check-then-build with a lock file,
+so two processes that miss one library build it once). On top, the pool
 pre-exports every admitted weights directory into an **AOT store**
 (`AotStore`: one `eval/export_aot.py` artifact per alias, atomic tmp +
 rename, a digest sidecar): a respawned worker admits the artifacts, with
@@ -332,7 +333,8 @@ class WorkerPool:
                  n_workers: int, store_dir: str, work_dir: Optional[str] = None,
                  device: str = "cuda", extra_args: Sequence[str] = (),
                  tick_ms: Optional[float] = None, max_tick_batch: Optional[int] = None,
-                 metrics_base: Optional[str] = None, health_interval_s: float = 0.5):
+                 metrics_base: Optional[str] = None, health_interval_s: float = 0.5,
+                 compile_cache: Optional[str] = None):
         if n_workers < 1:
             raise PoolError("a pool needs at least 1 worker")
         self.model_specs = [os.path.abspath(m) for m in model_specs]
@@ -345,6 +347,8 @@ class WorkerPool:
         self.tick_ms = tick_ms
         self.max_tick_batch = max_tick_batch
         self.metrics_base = metrics_base
+        self.compile_cache = (compile_cache if compile_cache in (None, "off")
+                              else os.path.abspath(compile_cache))
         self.health_interval_s = float(health_interval_s)
         worker_env = dict(os.environ)
         # workers run with cwd=work_dir: make this checkout importable
@@ -379,6 +383,8 @@ class WorkerPool:
         if self.metrics_base:
             base, ext = os.path.splitext(self.metrics_base)
             cmd += ["--metrics_jsonl", f"{base}_{w.wid}{ext or '.jsonl'}"]
+        if self.compile_cache is not None:
+            cmd += ["--compile_cache", self.compile_cache]
         return cmd
 
     def _worker_cmd(self, w: Worker, models: Sequence[str]) -> list:

@@ -19,7 +19,10 @@
   computing in bfloat16) or int8 (weights quantized once at admission,
   `ops/quant.py`, dequantized for each scoring call; float32 activations).
   An int8 entry keeps only the quantized weights resident. The rung is the
-  caller's choice, else float32: the port has no plan table (item 9).
+  caller's choice, else the matched plan row's `serve` block for the
+  entry's shape, the panel width given as `n_stocks` and this registry's
+  device (`plan.py`; `plan_table=` a list of rows in place of the port's
+  table), else float32.
 - **Budget.** Eviction is LRU by parameter bytes against `budget_bytes` (0:
   unbounded). An evicted entry from a weights directory or an artifact file
   leaves a tombstone, and the next `get` cold-starts it from disk, retrying `COLD_RETRIES`
@@ -154,9 +157,10 @@ class ModelRegistry:
     COLD_RETRIES = 2
     COLD_BACKOFF_S = 0.05
 
-    def __init__(self, device="cuda", budget_bytes: int = 0):
+    def __init__(self, device="cuda", budget_bytes: int = 0, plan_table=None):
         self.device = torch.device(device)
         self.budget_bytes = int(budget_bytes)
+        self._plan_table = plan_table
         # admission, lookup, eviction and the tallies; re-entrant because a
         # cold start's register_checkpoint re-enters through _admit. Disk
         # reloads and backoff sleeps run outside it.
@@ -218,22 +222,36 @@ class ModelRegistry:
                 if k == key:
                     del self._aliases[alias]
 
+    def _resolve_precision(self, config: Config, precision: Optional[str],
+                           n_stocks: Optional[int]) -> str:
+        """Explicit choice > the plan row's serve block > float32 (the only
+        honest answer without a width to look the row up at)."""
+        if precision is not None:
+            if precision not in PRECISIONS:
+                raise RegistryError(f"precision must be one of {PRECISIONS}; "
+                                    f"got {precision!r}")
+            return precision
+        if n_stocks:
+            from factorvae_tpu_torch import plan as planlib
+
+            return planlib.plan_for_config(config, int(n_stocks), platform=self.device.type,
+                                           table=self._plan_table).serve_precision
+        return "float32"
+
     def register_params(self, params: Union[torch.nn.Module, Mapping], config: Config,
                         precision: Optional[str] = None, n_stocks: Optional[int] = None,
                         alias: Optional[str] = None, source: str = "params",
                         source_path: Optional[str] = None) -> str:
         """Admit an in-memory model (a FactorVAE on this registry's device,
         or a state_dict loaded into one) with its Config; returns the key.
-        `n_stocks` is taken for the JAX signature: with no plan table the
-        rung is `precision`, else float32. On a CUDA device a hidden size
-        above the kernels' maximum is refused."""
+        The rung is `precision`, else the plan row's at width `n_stocks`,
+        else float32. On a CUDA device a hidden size above the kernels'
+        maximum is refused."""
         from factorvae_tpu_torch.models.factorvae import FactorVAE, with_compute_dtype
 
-        precision = precision or "float32"
-        if precision not in PRECISIONS:
-            raise RegistryError(f"precision must be one of {PRECISIONS}; got {precision!r}")
         if config is None:
             raise RegistryError("an in-memory model needs its Config")
+        precision = self._resolve_precision(config, precision, n_stocks)
         refused = hidden_refusal(config.model.hidden_size, self.device)
         if refused:
             raise RegistryError(refused)

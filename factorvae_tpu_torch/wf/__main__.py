@@ -22,9 +22,10 @@ reference schema) or are synthesized per target generation from the seed,
 which is what makes a killed append resumable.
 
 The JAX command's flags, plus `--device` (default cuda). `--compile_cache
-DIR` exits 2: the port has no compilation cache (ROADMAP Queue 1 item 9);
-`off` is taken. Startup lines go to stderr, one JSON summary per cycle to
-stdout. Exit 2 on an append, journal or operator error, with its message.
+DIR` (default `$FACTORVAE_COMPILE_CACHE`; `off` turns it off) builds and
+loads the CUDA kernels' libraries in DIR (`plan.setup_compilation_cache`).
+Startup lines go to stderr, one JSON summary per cycle to stdout. Exit 2 on
+an append, journal or operator error, with its message.
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics_jsonl", default=None,
                    help="RUN.jsonl stream of stage spans, train epochs and serve spans")
     p.add_argument("--compile_cache", default=None, metavar="DIR",
-                   help="not ported (ROADMAP Queue 1 item 9); 'off' is taken")
+                   help="build and load the CUDA kernels' libraries in DIR (default: "
+                        "$FACTORVAE_COMPILE_CACHE; 'off' keeps the checkout's _build/)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the card, through the CUDA kernels) or cpu (their "
                         "plain PyTorch versions)")
@@ -112,10 +114,6 @@ def _incoming(args, store, gen: int, pending: list):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.compile_cache not in (None, "off"):
-        print("error: --compile_cache is not ported to factorvae_tpu_torch yet "
-              "(ROADMAP Queue 1 item 9)", file=sys.stderr)
-        return 2
 
     import os
     import threading
@@ -131,6 +129,10 @@ def main(argv=None) -> int:
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
+    from factorvae_tpu_torch import plan as planlib
+
+    # before any kernel is built or loaded: a resumed run loads yesterday's
+    planlib.setup_compilation_cache(args.compile_cache)
 
     from factorvae_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
     from factorvae_tpu_torch.data.append import AppendError, PanelStore

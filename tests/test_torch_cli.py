@@ -362,8 +362,6 @@ class TestChaosEnvironment:
 REFUSED = [
     (["--mesh"], "--mesh", 12),
     (["--mesh_stock", "2"], "--mesh_stock", 12),
-    (["--auto_plan"], "--auto_plan", 9),
-    (["--compile_cache", "xla_cache"], "--compile_cache", 9),
     (["--no-pallas"], "--no-pallas", None),
     # above the CUDA kernels' kMaxH on the card (ROADMAP Queue 2 "Limits")
     (["--hidden_size", "96", "--device", "cuda"], "hidden_size 96", None),
@@ -465,8 +463,7 @@ class TestCliRefusals:
                                        ["--hyper_grid", "1e-3:1,3e-3:0.1"]],
                              ids=["fleet_seeds", "hyper_grid"])
     @pytest.mark.parametrize("extra,flag,item", [
-        (["--mesh"], "--mesh", 12),
-        (["--auto_plan"], "--auto_plan", 9)], ids=["mesh", "auto_plan"])
+        (["--mesh"], "--mesh", 12)], ids=["mesh"])
     def test_fleet_flags_with_an_unported_path_exit_2(self, data, monkeypatch, capsys,
                                                       fleet, extra, flag, item):
         """A fleet composes with none of the unported paths: the line names
@@ -632,3 +629,148 @@ class TestConfigFromArgs:
         got, want = flags(cli.build_parser()), flags(jcli.build_parser())
         assert set(got) - set(want) == {"device"}
         assert {k: got[k] for k in want} == want
+
+
+# ---- --auto_plan and --compile_cache ---------------------------------------
+
+# the row's width: the pickle's 11 instruments, padded to 12 under a plan
+PLAN_N = 11
+
+
+def _plan_row(platform="cpu", **blocks):
+    return {"platform": platform, "shape": {"c": C, "t": T, "h": H, "k": K, "m": M},
+            "n_min": PLAN_N, "n_max": PLAN_N, "pad_target": 12,
+            "train": {"flatten_days": True, "days_per_step": 4, "compute_dtype": "float32"},
+            "score": {"flatten_days": True, "compute_dtype": "float32"},
+            "source": "test row: train 0.0100 s/day", **blocks}
+
+
+@pytest.fixture
+def plan_table(tmp_path, monkeypatch):
+    """Point both packages' planners at a table of the given rows (the same
+    rows written by each package's save_rows)."""
+    from factorvae_tpu import plan as jplan
+    from factorvae_tpu_torch import plan as tplan
+
+    def write(*rows):
+        j, t = str(tmp_path / "jax_table.json"), str(tmp_path / "torch_table.json")
+        jplan.save_rows(rows, path=j)
+        tplan.save_rows(rows, path=t)
+        monkeypatch.setenv(jplan.PLAN_TABLE_ENV, j)
+        monkeypatch.setenv(tplan.PLAN_TABLE_ENV, t)
+    return write
+
+
+def _plan_knobs(rec: dict) -> dict:
+    kernel = ("use_pallas_attention", "use_pallas_gru", "kernel_gru", "kernel_attention",
+              "kernels_resolved", "ts", "event")
+    return {k: v for k, v in rec.items() if k not in kernel}
+
+
+class TestCliPlan:
+    def test_plan_record_equals_the_jax_clis(self, data, plan_table):
+        """Both CLIs log their `plan` record before --score_only finds no
+        checkpoint; the knobs are equal, the kernels' route is the port's."""
+        plan_table(_plan_row(fleet={"seeds_per_program": 2}, serve={"hedge_ms": 0}),
+                   _plan_row("gpu", train={"days_per_step": 8}))
+        assert jcli.main(_argv(data, "jplan", "--auto_plan", "--score_only")) == 2
+        assert cli.main(_argv(data, "tplan", "--auto_plan", "--score_only",
+                              "--device", "cpu")) == 2
+        (want,) = _named(_events(os.path.join(str(data[0]), "jplan", "run.jsonl")), "plan")
+        (got,) = _named(_events(os.path.join(str(data[0]), "tplan", "run.jsonl")), "plan")
+        assert _plan_knobs(got) == _plan_knobs(want)
+        assert got["provenance"] == "measured" and got["days_per_step"] == 4
+        assert got["pad_target"] == 12 and got["seeds_per_program"] == 2
+        assert got["kernels_resolved"] == {"attention": "plain", "gru": "plain"}
+
+    def test_auto_plan_trains_the_rows_knobs(self, data, plan_table):
+        """The trained config takes the row's days_per_step, dtype and pad,
+        and the scores CSV is byte for byte the one of a run given the same
+        knobs as explicit flags."""
+        plan_table(_plan_row())
+        root = str(data[0])
+        assert cli.main(_argv(data, "auto", "--auto_plan", "--device", "cpu", epochs=2)) == 0
+        assert cli.main(_argv(data, "flags", "--days_per_step", "4", "--max_stocks", "12",
+                              "--device", "cpu", epochs=2)) == 0
+        events = _events(os.path.join(root, "auto", "run.jsonl"))
+        (rec,) = _named(events, "plan")
+        assert rec["provenance"] == "measured" and rec["source"].startswith("test row")
+        # obs/report reads the promised rate off the record's source
+        from factorvae_tpu_torch.obs.report import plan_measured_days_per_sec
+
+        assert plan_measured_days_per_sec(events) == pytest.approx(100.0)
+        (layout,) = _named(events, "execution_layout")
+        assert (layout["days_per_step"], layout["compute_dtype"], layout["n_padded"]) == \
+            (4, "float32", 12)
+        assert _named(_events(os.path.join(root, "flags", "run.jsonl")), "plan") == []
+        (name,) = os.listdir(os.path.join(root, "auto", "scores"))
+        assert open(os.path.join(root, "auto", "scores", name), "rb").read() == \
+            open(os.path.join(root, "flags", "scores", name), "rb").read()
+
+    def test_explicit_flags_keep_precedence(self, data, plan_table):
+        plan_table(_plan_row(train_remat={"remat": "full"}))
+        assert cli.main(_argv(data, "kept", "--auto_plan", "--days_per_step", "2",
+                              "--max_stocks", "16", "--bf16", "--device", "cpu",
+                              epochs=1)) == 0
+        events = _events(os.path.join(str(data[0]), "kept", "run.jsonl"))
+        (rec,) = _named(events, "plan")
+        assert (rec["days_per_step"], rec["pad_target"], rec["compute_dtype"]) == \
+            (4, 12, "float32")
+        (layout,) = _named(events, "execution_layout")
+        assert (layout["days_per_step"], layout["n_padded"], layout["compute_dtype"]) == \
+            (2, 16, "bfloat16")
+        (cfg,) = [tconfig.Config.from_json(e["json"]) for e in _named(events, "config")]
+        assert cfg.train.remat == "none"      # the config record is the flags' config
+
+    def test_a_width_outside_every_row_takes_the_default(self, data, plan_table):
+        plan_table({**_plan_row(), "n_min": 12, "n_max": 20})
+        assert cli.main(_argv(data, "dflt", "--auto_plan", "--score_only",
+                              "--device", "cpu")) == 2
+        (rec,) = _named(_events(os.path.join(str(data[0]), "dflt", "run.jsonl")), "plan")
+        assert rec["provenance"] == "default" and rec["days_per_step"] == 1
+
+    def test_fleet_seeds_train_in_programs_of_the_rows_width(self, data, plan_table):
+        plan_table(_plan_row(train={"days_per_step": 1}, fleet={"seeds_per_program": 2}))
+        assert cli.main(_argv(data, "fleet_plan", "--auto_plan", "--fleet_seeds", "4",
+                              "--device", "cpu", epochs=1)) == 0
+        events = _events(os.path.join(str(data[0]), "fleet_plan", "run.jsonl"))
+        assert [e["seeds"] for e in _named(events, "fleet_execution_layout")] == \
+            [[3, 4], [5, 6]]
+        assert [e["seed"] for e in _named(events, "sweep_seed")] == [3, 4, 5, 6]
+        assert len(_named(events, "fleet_sweep")) == 1
+
+    @pytest.mark.parametrize("blocks,lanes,groups", [
+        ({"hyper": {"lanes_per_program": 2}, "fleet": {"seeds_per_program": 3}}, 2, [2, 1]),
+        ({"fleet": {"seeds_per_program": 2}}, 2, [2, 1]),
+        ({"fleet": {"seeds_per_program": 1}}, 3, [3])],
+        ids=["lanes", "seeds_above_1", "whole_grid"])
+    def test_hyper_grid_lanes_then_seeds_then_the_whole_grid(self, data, plan_table,
+                                                             blocks, lanes, groups):
+        plan_table(_plan_row(train={"days_per_step": 1}, **blocks))
+        out = "grid_" + "_".join(f"{k}{v}" for b in blocks.values() for k, v in b.items())
+        assert cli.main(_argv(data, out, "--auto_plan", "--hyper_grid",
+                              "1e-3:1,3e-3:0.5,2e-3:0.1", "--device", "cpu", epochs=1)) == 0
+        events = _events(os.path.join(str(data[0]), out, "run.jsonl"))
+        (bucket,) = _named(events, "grid_bucket")
+        assert bucket["lanes_per_program"] == lanes
+        assert [len(e["seeds"]) for e in _named(events, "fleet_execution_layout")] == groups
+        assert len(_named(events, "grid_point")) == 3
+
+    def test_compile_cache_dir_is_logged_and_off_is_off(self, data, monkeypatch, tmp_path):
+        from factorvae_tpu_torch import _build
+
+        monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+        monkeypatch.delenv("FACTORVAE_COMPILE_CACHE", raising=False)
+        cache = str(tmp_path / "cc")
+        assert cli.main(_argv(data, "cc", "--compile_cache", cache, "--score_only",
+                              "--device", "cpu")) == 2
+        (rec,) = _named(_events(os.path.join(str(data[0]), "cc", "run.jsonl")),
+                        "compile_cache")
+        assert rec["dir"] == cache and os.path.isdir(cache) and _build.BUILD_DIR == tmp_path / "cc"
+        monkeypatch.setenv("FACTORVAE_COMPILE_CACHE", str(tmp_path / "env"))
+        assert cli.main(_argv(data, "cc_off", "--compile_cache", "off", "--score_only",
+                              "--device", "cpu")) == 2
+        assert _named(_events(os.path.join(str(data[0]), "cc_off", "run.jsonl")),
+                      "compile_cache") == []
+        assert not (tmp_path / "env").exists()
+        assert _build.BUILD_DIR == _build.DEFAULT_BUILD_DIR

@@ -830,3 +830,39 @@ def test_a_capture_names_every_kernel_by_its_cuda_function(dev, tmp_path):
     host = {name for name, _, _ in s["host_by_name"]}
     assert {"gru_fwd", "gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_fwd",
             "attention_bwd"} <= host
+
+
+_BUILD_INTO = """
+import json, sys
+from factorvae_tpu_torch import _build, plan
+assert plan.setup_compilation_cache(sys.argv[1]) == sys.argv[1]
+for name in _build.KERNELS:
+    _build.load(name)
+print(json.dumps({"counts": _build.compile_event_counts(), "dir": str(_build.BUILD_DIR)}))
+"""
+
+
+def test_compile_cache_builds_into_dir_and_a_second_process_compiles_nothing(dev,
+                                                                               tmp_path):
+    """`--compile_cache DIR`'s mechanism: a fresh process builds every
+    library into DIR; a second fresh process given DIR loads them all as
+    compile_cached and compiles none."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cache = str(tmp_path / "cc")
+    runs = []
+    for _ in range(2):
+        r = subprocess.run([sys.executable, "-c", _BUILD_INTO, cache], cwd=repo,
+                           capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, r.stderr
+        runs.append(json.loads(r.stdout.splitlines()[-1]))
+    from factorvae_tpu_torch import _build
+
+    n = len(_build.KERNELS)
+    assert runs[0] == {"counts": {"compile": n, "compile_cached": 0}, "dir": cache}
+    assert runs[1] == {"counts": {"compile": 0, "compile_cached": n}, "dir": cache}
+    assert len([f for f in os.listdir(cache) if f.endswith(".so")]) == n

@@ -409,6 +409,32 @@ class TestSeedFleet:
                                    got.loc[[3, 5]].to_numpy(), rtol=LOSS_RTOL)
 
 
+    def test_seed_sweep_in_programs_matches_the_jax_sweep(self, panels, from_jax_weights,
+                                                          tmp_path):
+        """`seeds_per_program=2`: the seeds train as fleets [3, 4] then [5],
+        in order, and the frame equals the JAX sweep's at the same width."""
+        jp, _, jds, ds = panels
+        start, end = _score_days(jp)
+        jcfg = _jcfg(jp, tmp_path / "jax")
+        want = jseed_sweep(jcfg, jds, SEEDS, score_start=start, score_end=end, fleet=True,
+                           seeds_per_program=2)
+        log = str(tmp_path / "port.jsonl")
+        logger = MetricsLogger(jsonl_path=log, echo=False)
+        got = sweep.seed_sweep(_port(jcfg, tmp_path / "port"), ds, SEEDS, score_start=start,
+                               score_end=end, fleet=True, seeds_per_program=2,
+                               logger=logger, device="cpu")
+        logger.finish()
+        with open(log) as fh:
+            layouts = [e["seeds"] for e in map(json.loads, fh)
+                       if e["event"] == "fleet_execution_layout"]
+        assert layouts == [SEEDS[:2], SEEDS[2:]]
+        assert list(got.index) == list(want.index) == SEEDS
+        np.testing.assert_allclose(got["best_val"], want["best_val"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got[["rank_ic", "rank_ic_ir"]], want[["rank_ic",
+                                                                         "rank_ic_ir"]],
+                                   rtol=1e-4, atol=1e-5)
+
+
 def _lane_cfgs(cfg, scalars, seeds=None):
     return [sweep._point_config(cfg, {"lr": lr, "kl_weight": klw,
                                       **({"seed": seeds[i]} if seeds else {})},
@@ -453,6 +479,32 @@ class TestHyperFleet:
             return [[lbl.rsplit(" cfg=", 1)[0] for lbl in r["lane_labels"]] for r in events]
 
         assert labels(got_e) == labels(want_e)
+
+    def test_grid_sweep_in_programs_matches_jax(self, panels, from_jax_weights, tmp_path):
+        """`lanes_per_program=2`: the grid trains as hyper-fleets of two
+        lanes then one, in order; the frame equals the JAX sweep's."""
+        jp, _, jds, ds = panels
+        start, end = _score_days(jp)
+        points = [{"lr": lr, "kl_weight": klw} for lr, klw in HYPER]
+        jcfg = _jcfg(jp, tmp_path / "jax")
+        want = jgrid_sweep(jcfg, jds, points, score_start=start, score_end=end,
+                           lanes_per_program=2)
+        log = str(tmp_path / "port.jsonl")
+        logger = MetricsLogger(jsonl_path=log, echo=False)
+        got = sweep.grid_sweep(_port(jcfg, tmp_path / "port"), ds, points, score_start=start,
+                               score_end=end, logger=logger, lanes_per_program=2,
+                               device="cpu")
+        logger.finish()
+        with open(log) as fh:
+            events = list(map(json.loads, fh))
+        assert [len(e["seeds"]) for e in events if e["event"] == "fleet_execution_layout"] \
+            == [2, len(HYPER) - 2]
+        assert [e["lanes_per_program"] for e in events if e["event"] == "grid_bucket"] == [2]
+        assert list(got.index) == list(want.index)
+        assert got.attrs["summary"]["best_label"] == want.attrs["summary"]["best_label"]
+        np.testing.assert_allclose(got["best_val"], want["best_val"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got[["rank_ic", "rank_ic_ir"]],
+                                   want[["rank_ic", "rank_ic_ir"]], rtol=1e-4, atol=1e-5)
 
     def test_homogeneous_lanes_fold_to_the_seed_fleet_bitwise(self, panels, tmp_path):
         jp, _, _, ds = panels

@@ -1125,3 +1125,129 @@ def test_cli_wires_the_pool_flag(wired, bad, tmp_path, capsys, monkeypatch):
     err = capsys.readouterr().err.strip()
     assert err.startswith("error: --") and len(err.splitlines()) == 1
     assert bad[-2] in err or bad[0] in err
+
+
+# ---- the plan's serving knobs ----------------------------------------------
+
+
+def _serve_row(tcfg, platform="cpu", n_min=10, n_max=20, **blocks):
+    m = tcfg.model
+    return {"platform": platform, "n_min": n_min, "n_max": n_max,
+            "shape": {"c": m.num_features, "t": m.seq_len, "h": m.hidden_size,
+                      "k": m.num_factors, "m": m.num_portfolios},
+            "train": {"days_per_step": 1, "compute_dtype": "float32"},
+            "source": "test row", **blocks}
+
+
+SERVE_PLAN_CASES = [
+    ("bf16_row", {"serve": {"precision": "bfloat16"}}, 16, None),
+    ("int8_row", {"serve": {"precision": "int8", "tick_ms": 0}}, 16, None),
+    ("no_serve_block", {}, 16, None),
+    ("null_serve_block", {"serve": None}, 16, None),
+    ("outside_the_envelope", {"serve": {"precision": "int8"}}, 40, None),
+    ("no_width", {"serve": {"precision": "int8"}}, None, None),
+    ("explicit_float32_wins", {"serve": {"precision": "int8"}}, 16, "float32"),
+    ("explicit_bf16_wins", {}, 16, "bfloat16"),
+    ("other_platform", {"platform": "gpu", "serve": {"precision": "int8"}}, 16, None),
+]
+
+
+@pytest.mark.parametrize("case,blocks,n,explicit", SERVE_PLAN_CASES,
+                         ids=[c[0] for c in SERVE_PLAN_CASES])
+def test_registry_precision_resolves_as_the_jax_registry(srv, case, blocks, n, explicit):
+    """Explicit rung > the matched row's serve block > float32, on the same
+    table as `JModelRegistry(plan_table=...)` (both on the CPU)."""
+    jcfg, tcfg, params = srv["models"][0]
+    table = [_serve_row(tcfg, **blocks)]
+    jreg, treg = JModelRegistry(plan_table=table), ModelRegistry(device="cpu",
+                                                                 plan_table=table)
+    jk = jreg.register_params(params, jcfg, precision=explicit, n_stocks=n)
+    tk = treg.register_params(flax_to_torch(params), tcfg, precision=explicit, n_stocks=n)
+    assert treg.get(tk).precision == jreg.get(jk).precision
+    assert tk.partition(":")[2] == jk.partition(":")[2]
+    want = {"bf16_row": "bfloat16", "int8_row": "int8",
+            "explicit_bf16_wins": "bfloat16"}.get(case, "float32")
+    assert treg.get(tk).precision == want
+
+
+@pytest.fixture
+def serve_table(tmp_path, monkeypatch):
+    from factorvae_tpu_torch import plan as tplan
+
+    def write(*rows):
+        path = str(tmp_path / "torch_table.json")
+        tplan.save_rows(rows, path=path)
+        monkeypatch.setenv(tplan.PLAN_TABLE_ENV, path)
+    return write
+
+
+def test_precision_plan_admits_at_the_rows_rung(srv, tmp_path, serve_table, capsys):
+    from factorvae_tpu_torch.serve.__main__ import main
+
+    _, path = _save_both(srv, 0, tmp_path, "w0")
+    serve_table(_serve_row(srv["models"][0][1], serve={"precision": "bfloat16"}))
+    reqs = tmp_path / "reqs.jsonl"
+    reqs.write_text(json.dumps({"id": 1, "model": "w0", "day": 20}) + "\n"
+                    + json.dumps({"cmd": "stats"}) + "\n")
+    out = tmp_path / "out.jsonl"
+    assert main(["--model", path, "--synthetic", "30,12", "--device", "cpu", "--batch",
+                 str(reqs), "--out", str(out)]) == 0
+    err = capsys.readouterr().err
+    assert "(alias w0, bfloat16," in err and "at bfloat16" in err
+    resp = [json.loads(x) for x in open(out)]
+    assert resp[0]["ok"] and resp[0]["model"].endswith(":bfloat16")
+    assert [e["precision"] for e in resp[1]["registry"]["entries"]] == ["bfloat16"]
+    # an explicit rung wins over the row
+    assert main(["--model", path, "--synthetic", "30,12", "--device", "cpu", "--batch",
+                 str(reqs), "--out", str(out), "--precision", "float32"]) == 0
+    assert [e["precision"] for e in [json.loads(x) for x in open(out)][1]["registry"][
+        "entries"]] == ["float32"]
+
+
+def test_scheduler_and_fleet_defaults_come_from_the_row(srv, tmp_path, serve_table):
+    """--tick_ms / --max_batch (a --scheduler front) and --slo_ms /
+    --hedge_ms (a fleet) take the row's values when unset, the flags when
+    set, and the no-plan defaults without a row; a measured 0 survives."""
+    from factorvae_tpu_torch.serve.__main__ import (
+        build_parser,
+        fleet_plan_defaults,
+        scheduler_knobs,
+        serving_plan,
+    )
+
+    _, path = _save_both(srv, 0, tmp_path, "w0")
+    tcfg = srv["models"][0][1]
+    serve_table(_serve_row(tcfg, serve={"tick_ms": 0, "max_tick_batch": 16,
+                                        "slo_ms": 40.0, "hedge_ms": 0}))
+
+    def args(*extra):
+        return build_parser().parse_args(["--model", path, "--synthetic", "30,12",
+                                          "--device", "cpu", *extra])
+
+    pl = serving_plan(tcfg, 16, "cpu")
+    assert scheduler_knobs(args(), pl) == (0.0, 16)
+    assert scheduler_knobs(args("--tick_ms", "3", "--max_batch", "8"), pl) == (3.0, 8)
+    assert scheduler_knobs(args(), serving_plan(None, 16, "cpu")) == (2.0, 64)
+    assert scheduler_knobs(args(), serving_plan(tcfg, 40, "cpu")) == (2.0, 64)
+    assert fleet_plan_defaults(args(), 16) == (40.0, 0.0)
+    assert fleet_plan_defaults(args("--slo_ms", "10", "--hedge_ms", "7"), 16) == (10.0, 7.0)
+    assert fleet_plan_defaults(args(), 40) == (0.0, -1.0)
+    # the same values as the JAX planner on the same row
+    from factorvae_tpu import plan as jplan
+
+    jpl = jplan.plan_for_config(srv["models"][0][0], 16, platform="cpu",
+                                table=[_serve_row(tcfg, serve={"tick_ms": 0,
+                                                               "max_tick_batch": 16,
+                                                               "slo_ms": 40.0,
+                                                               "hedge_ms": 0})])
+    assert (jpl.serve_tick_ms, jpl.serve_max_tick_batch, jpl.serve_slo_ms,
+            jpl.serve_hedge_ms) == (pl.serve_tick_ms, pl.serve_max_tick_batch,
+                                    pl.serve_slo_ms, pl.serve_hedge_ms)
+
+
+def test_pool_hands_its_workers_the_compile_cache(tmp_path):
+    pool, _, _ = _fleet_of(["--compile_cache", str(tmp_path / "cc")], tmp_path)
+    cmd = pool._worker_cmd(pool.workers[0], ["m"])
+    assert cmd[cmd.index("--compile_cache") + 1] == str(tmp_path / "cc")
+    plain, _, _ = _fleet_of([], tmp_path)
+    assert "--compile_cache" not in plain._worker_cmd(plain.workers[0], ["m"])

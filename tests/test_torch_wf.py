@@ -419,10 +419,14 @@ def _wf_run(run_dir: str, fault=None, cycles: int = 1):
 
 
 class TestCommand:
-    def test_dataset_pickle_bootstrap_and_refusals(self, tmp_path, capsys):
+    def test_dataset_pickle_bootstrap_and_refusals(self, tmp_path, capsys, monkeypatch):
         """--dataset seeds the store from a reference-schema pickle; one cycle
-        prints its JSON summary; --compile_cache DIR and --device cuda
-        without a card exit 2."""
+        prints its JSON summary; --compile_cache DIR is honoured (the next
+        cycle runs with the kernels' build directory there); --device cuda
+        without a card exits 2."""
+        from factorvae_tpu_torch import _build
+
+        monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
         panel = synthetic_panel_dense(16, 8, C, seed=4)
         pkl = str(tmp_path / "panel.pkl")
         panel_to_frame(panel).to_pickle(pkl)
@@ -434,8 +438,10 @@ class TestCommand:
         assert "[wf] created store" in err
         store = PanelStore(os.path.join(run, "store"))
         assert store.num_days == 18 and store.slabs[0]["start"] == str(panel.dates[0])
-        assert wf_main([*_wf_argv(run), "--compile_cache", str(tmp_path / "c")]) == 2
-        assert "item 9" in capsys.readouterr().err
+        assert wf_main([*_wf_argv(run), "--compile_cache", str(tmp_path / "c")]) == 0
+        summary = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert summary["cycle"] == "c00003" and summary["promoted"]
+        assert _build.BUILD_DIR == tmp_path / "c" and (tmp_path / "c").is_dir()
         if not torch.cuda.is_available():
             argv = _wf_argv(run)
             argv[argv.index("--device") + 1] = "cuda"
