@@ -339,7 +339,27 @@ named phases, and prints neither the kernels line nor the result):
               block: admitted at bfloat16, the tick and batch the row's, and
               the fleet's SLO and hedge the row's; (e) flagship scores at the
               plan's pad (300) against pad_multiple 8's 304, within SLICE_TOL.
-21. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+21. mesh    -- parallelism on torch.distributed at flagship width
+              (C158/T20/H64/K96/M128) on the 80-day panel of 300 stocks
+              padded to 300, days_per_step 2, MESH_STEPS updates of the
+              epoch-0 order from the seed's weights, every launch counter set
+              to 0 just before each run. The serial run on the card is the
+              reference. (a) This process joins an NCCL group of one rank (an
+              all-reduce over it leaves its tensor as it was); the 1 x 1
+              mesh's updates are bitwise the serial ones. (b) Two spawned
+              ranks share the card over gloo and run the 2 x 1 and the 1 x 2
+              mesh: on every rank K1's residual variant, the walk, dWh, K4
+              and K5 launch; K1 is given 300 rows a launch (one day of 300
+              stocks on 2 x 1, two days of 150 on 1 x 2); the ranks'
+              parameters agree bitwise; the first update's gradients and
+              parameters and every step's loss are within the CPU tests'
+              tolerances of the serial run's (MESH_TOL, GRU_MESH_TOL,
+              MESH_LOSS_RTOL); the 1 x 2 scores of MESH_SCORE_DAYS days
+              (`predict_panel(mesh=)`) within MESH_TOL of serial scoring.
+              Each run's step walls and `comms` block (collective calls and
+              payload bytes by kind and axis, `obs/comms.py`). Two ranks on
+              one card check the mesh paths; they measure no scaling.
+22. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
               `launches_mixed` in the precision phase's mixed epoch,
@@ -351,8 +371,9 @@ named phases, and prints neither the kernels line nor the result):
               in the stacked phase's L = 2 epoch, `launches_wf` in the wf
               phase's in-process cycle, `launches_obs` in the obs phase's
               profiled epoch, `launches_remat` in the remat phase's "full"
-              epoch, `launches_factors` in the factors phase's range and
-              `launches_plan` in the plan phase's races),
+              epoch, `launches_factors` in the factors phase's range,
+              `launches_plan` in the plan phase's races and `launches_mesh`
+              in the mesh phase's 1 x 2 run, on rank 0),
               the obs phase's `profiler_us_per_launch`
               beside `graph_ms`, and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
@@ -5157,6 +5178,279 @@ def phase_plan(torch, seed: int, counters, card: str) -> dict:
                                "days": len(days)}}
 
 
+# ---- mesh: parallelism on torch.distributed ---------------------------------
+
+MESH_STEPS = 4          # updates of days_per_step 2 per mesh run
+MESH_SCORE_DAYS = 34    # 1 x 2 scoring: a 32-day chunk and a padded one
+# Mesh against serial on the card, from the same weights, at the CPU tests'
+# tolerances (tests/test_torch_parallel.py): the first update's gradients
+# (the GRU's weights at GRU_MESH_TOL), the parameters after it where the
+# serial gradient exceeds the atol (elsewhere within 2 lr: Adam's first
+# step is +-lr whatever the gradient), each step's loss, and the 1 x 2
+# scores.
+MESH_TOL = dict(rtol=1e-5, atol=1e-6)
+GRU_MESH_TOL = dict(rtol=2e-5, atol=5e-6)
+MESH_LOSS_RTOL = 2e-5
+
+
+def _mesh_setup(seed: int):
+    """(config, panel) of the mesh phase: the flagship preset on the 80-day
+    panel of 300 stocks, days_per_step 2, padded to 300 (pad_multiple 2),
+    so each of two 'stock' ranks holds 150 rows."""
+    import tempfile
+
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.presets import get_preset
+
+    base = get_preset("flagship")
+    panel = synthetic_panel_dense(80, 300, base.model.num_features, seed=seed)
+    dates = [str(d) for d in panel.dates]
+    cfg = dataclasses.replace(
+        base,
+        data=dataclasses.replace(base.data, start_time=dates[0], fit_end_time=dates[49],
+                                 val_start_time=dates[50], val_end_time=dates[69],
+                                 pad_multiple=2),
+        train=dataclasses.replace(base.train, seed=seed, num_epochs=1, days_per_step=2,
+                                  checkpoint_every=0,
+                                  save_dir=tempfile.mkdtemp(prefix="chip_smoke_mesh_")))
+    return cfg, panel
+
+
+def _mesh_run(torch, cfg, panel, mesh, counters) -> dict:
+    """MESH_STEPS updates of the epoch-0 order on `mesh` (None: serial),
+    every launch counter set to 0 just before them, the rows each launch of
+    K1's residual variant was given recorded (at its `_fwd_launch`); then, on a mesh with a 'stock' axis, the
+    scores of MESH_SCORE_DAYS days from the seed's weights."""
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.eval.predict import predict_panel
+    from factorvae_tpu_torch.models.factorvae import load_model
+    from factorvae_tpu_torch.obs.comms import comms_block
+    from factorvae_tpu_torch.ops.kernels import gru as gru_mod
+    from factorvae_tpu_torch.parallel.collective_ops import comm_counts
+    from factorvae_tpu_torch.train.loop import train_step
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    ds = PanelDataset(panel, seq_len=cfg.data.seq_len, pad_multiple=cfg.data.pad_multiple,
+                      device="cuda")
+    tr = Trainer(cfg, ds, device="cuda", mesh=mesh)
+    state = tr.init_state()
+    order = tr._order(tr.train_days, True, 0)
+    rows = []
+    real = gru_mod._fwd_launch
+
+    def recording(name, xi, *a, **kw):
+        if name == "gru_fwd_residuals":
+            rows.append(int(xi.shape[-3]))
+        return real(name, xi, *a, **kw)
+
+    gru_mod._fwd_launch = recording
+    before = comm_counts()
+    losses, walls, first = [], [], None
+    try:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        for i in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            aux = train_step(state, tr.ds, order[i], guard=True, mesh=tr.mesh_step)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if tr.mesh_step is not None:
+                aux = tr.mesh_step.reduce_sums(aux)
+            losses.append(float(aux["loss_sum"] / aux["days"]))
+            if i == 0:
+                first = {
+                    "grads": {n: p.grad.detach().cpu().numpy().copy()
+                              for n, p in state.model.named_parameters()},
+                    "params": {n: p.detach().cpu().numpy().copy()
+                               for n, p in state.model.named_parameters()}}
+    finally:
+        gru_mod._fwd_launch = real
+    launches = {c.__name__: c.launches for c in counters}
+    out = {"losses": losses, "first": first, "launches": launches, "k1_rows": rows,
+           "step_wall_s": walls, "n_local": int(ds.values.shape[0]),
+           "params": {n: p.detach().cpu().numpy().copy()
+                      for n, p in state.model.named_parameters()},
+           "comms": comms_block(comm_counts(), before, mesh=mesh, steps=MESH_STEPS,
+                                steps_per_epoch=tr.steps_per_epoch) if mesh else None}
+    if mesh is None or mesh.shape.get("stock", 1) > 1:
+        days = tr.train_days[:MESH_SCORE_DAYS]
+        t0 = time.perf_counter()
+        out["scores"] = predict_panel(load_model(cfg, device="cuda"), cfg, ds, days,
+                                      stochastic=False, mesh=mesh)
+        torch.cuda.synchronize()
+        out["score_s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_rank(rank: int, init: str, q, seed: int) -> None:
+    """One rank of the two sharing the card over gloo: the 2 x 1 and the
+    1 x 2 mesh runs (`_mesh_run`), sent back through `q`."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from factorvae_tpu_torch.config import MeshConfig
+        from factorvae_tpu_torch.ops.kernels.attention import attention_bwd, attention_fwd
+        from factorvae_tpu_torch.ops.kernels.gru import (
+            gru_bwd,
+            gru_dwh,
+            gru_fwd,
+            gru_fwd_residuals,
+        )
+        from factorvae_tpu_torch.parallel.mesh import make_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank)
+        counters = (gru_fwd, gru_fwd_residuals, gru_bwd, gru_dwh, attention_fwd,
+                    attention_bwd)
+        cfg, panel = _mesh_setup(seed)
+        out = {}
+        for sp in (1, 2):
+            mesh = make_mesh(MeshConfig(stock_axis=sp))
+            out[f"{2 // sp}x{sp}"] = _mesh_run(torch, cfg, panel, mesh, counters)
+        dist.destroy_process_group()
+        q.put((rank, "ok", out))
+    except BaseException:       # noqa: BLE001 - the parent fails the phase with it
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def _mesh_check(want: dict, got: dict, what: str, lr: float) -> dict:
+    """`got` (a mesh run) against `want` (the serial run on the card):
+    errors of the first update's gradients and parameters, the losses."""
+    g_err = p_err = 0.0
+    small = 0
+    for name, g in want["first"]["grads"].items():
+        tol = GRU_MESH_TOL if "gru" in name else MESH_TOL
+        mine = got["first"]["grads"][name]
+        check(np.allclose(mine, g, **tol), f"mesh {what}: gradient of {name} off by "
+              f"{float(np.max(np.abs(mine - g)))}")
+        g_err = max(g_err, float(np.max(np.abs(mine - g))))
+        signal = np.abs(g) > tol["atol"]
+        small += int((~signal).sum())
+        pw, pg = want["first"]["params"][name], got["first"]["params"][name]
+        check(np.allclose(pg[signal], pw[signal], **tol),
+              f"mesh {what}: {name} after the first update")
+        check(bool(np.all(np.abs(pg - pw)[~signal] <= 2 * lr * (1 + 1e-4))),
+              f"mesh {what}: {name}'s noise-gradient elements moved more than 2 lr")
+        p_err = max(p_err, float(np.max(np.abs(pg - pw)[signal], initial=0.0)))
+    loss_rel = float(np.max(np.abs(np.asarray(got["losses"]) - want["losses"])
+                            / np.abs(want["losses"])))
+    check(loss_rel <= MESH_LOSS_RTOL, f"mesh {what}: losses {got['losses']} against "
+          f"serial {want['losses']}")
+    return {"grad_max_abs_err": g_err, "param_max_abs_err": p_err,
+            "noise_grad_elements": small, "loss_max_rel_err": loss_rel}
+
+
+def phase_mesh(torch, seed: int, counters, card: str) -> dict:
+    """(a) NCCL at world size 1, this process: the 1 x 1 mesh's updates
+    bitwise the serial ones; (b) two ranks sharing the card over gloo, the
+    2 x 1 and the 1 x 2 meshes, against the serial run on the card."""
+    import queue
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from factorvae_tpu_torch.config import MeshConfig
+    from factorvae_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, panel = _mesh_setup(seed)
+    serial = _mesh_run(torch, cfg, panel, None, counters)
+    rdv = tempfile.TemporaryDirectory(prefix="chip_smoke_rdv_")
+
+    # (a) NCCL, a world of one
+    dist.init_process_group("nccl", init_method=f"file://{rdv.name}/nccl", world_size=1,
+                            rank=0)
+    try:
+        probe = torch.arange(4.0, device="cuda")
+        dist.all_reduce(probe)
+        check(torch.equal(probe, torch.arange(4.0, device="cuda")),
+              "mesh (a): an NCCL all-reduce over one rank changed its tensor")
+        one = _mesh_run(torch, cfg, panel, make_mesh(MeshConfig()), counters)
+    finally:
+        dist.destroy_process_group()
+    for name, p in serial["params"].items():
+        check(np.array_equal(one["params"][name], p), f"mesh (a): 1 x 1 {name} is not "
+              "bitwise the serial run's")
+    check(one["losses"] == serial["losses"], "mesh (a): 1 x 1 losses differ")
+    for name, n in one["launches"].items():
+        check(n > 0 or name == "gru_fwd", f"mesh (a): {name} not launched")
+
+    # (b) two gloo ranks on the one card
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, f"file://{rdv.name}/gloo", q, seed))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    ranks, errors = {}, []
+    try:
+        for _ in procs:
+            rank, kind, value = q.get(timeout=420)
+            if kind == "ok":
+                ranks[rank] = value
+            else:
+                errors.append(f"rank {rank}: {value}")
+                break
+    except queue.Empty:
+        errors.append("the two mesh ranks did not finish within 420 s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not errors, "mesh (b): " + "\n".join(errors))
+    ranks_s = time.perf_counter() - t0
+    lr = float(cfg.train.lr)
+    runs = {"1x1_nccl": {"step_wall_s": one["step_wall_s"], "comms": one["comms"],
+                         "launches": one["launches"], "bitwise_serial": True}}
+    for key in ("2x1", "1x2"):
+        r0, r1 = ranks[0][key], ranks[1][key]
+        for name in r0["params"]:
+            check(np.array_equal(r0["params"][name], r1["params"][name]),
+                  f"mesh {key}: ranks disagree on {name}")
+        for r, got in ((0, r0), (1, r1)):
+            for name in ("gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_fwd",
+                         "attention_bwd"):
+                check(got["launches"][name] > 0, f"mesh {key}: rank {r} never launched "
+                      f"{name}")
+        rows_per_day = 150 if key == "1x2" else 300
+        days_local = 2 if key == "1x2" else 1
+        check(r0["n_local"] == rows_per_day and
+              set(r0["k1_rows"]) == {rows_per_day * days_local},
+              f"mesh {key}: K1 saw rows {sorted(set(r0['k1_rows']))}, want "
+              f"{rows_per_day * days_local} ({rows_per_day} stocks x {days_local} days)")
+        errs = _mesh_check(serial, r0, key, lr)
+        runs[key] = {"step_wall_s": r0["step_wall_s"], "comms": r0["comms"],
+                     "launches": r0["launches"], "launches_rank1": r1["launches"],
+                     "k1_rows_per_launch": r0["k1_rows"][0], "ranks_bitwise": True, **errs}
+        if key == "1x2":
+            for r, got in ((0, r0), (1, r1)):
+                err = np.nanmax(np.abs(got["scores"] - serial["scores"]))
+                check(np.allclose(got["scores"], serial["scores"], equal_nan=True,
+                                  **MESH_TOL),
+                      f"mesh 1x2: rank {r}'s scores off by {err}")
+            runs[key]["scores_max_abs_err"] = float(
+                np.nanmax(np.abs(r0["scores"] - serial["scores"])))
+            runs[key]["score_s"] = r0["score_s"]
+    rdv.cleanup()
+    return {"phase": "mesh", "card": card,
+            "note": "two ranks share one card over gloo: these runs hold the mesh "
+                    "paths to the serial run, they measure no scaling",
+            "serial": {"step_wall_s": serial["step_wall_s"], "launches": serial["launches"],
+                       "score_s": serial.get("score_s")},
+            "runs": runs, "ranks_wall_s": ranks_s,
+            "launches": runs["1x2"]["launches"]}
+
+
 def _collect_fleet_check(router_url: str) -> dict:
     """The pool phase's fleet through `obs/collect.collect_fleet`: the
     router's and both workers' streams merged on the router's clock; every
@@ -5258,7 +5552,8 @@ def main(argv=None) -> int:
         "remat": lambda: phase_remat(torch, args.seed, counters, phases[0]["nvidia_smi"]),
         "factors": lambda: phase_factors(torch, args.seed, counters,
                                          phases[0]["nvidia_smi"]),
-        "plan": lambda: phase_plan(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "plan": lambda: phase_plan(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "mesh": lambda: phase_mesh(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -5309,6 +5604,7 @@ def main(argv=None) -> int:
                      "launches_remat": by["remat"]["launches"][name],
                      "launches_factors": by["factors"]["launches"][name],
                      "launches_plan": by["plan"]["launches"][name],
+                     "launches_mesh": by["mesh"]["launches"][name],
                      "profiler_us_per_launch": by["obs"]["profiler_us_per_launch"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],

@@ -41,8 +41,8 @@ and nothing falls back to the CPU. A row's `source` carries the card's name
 and power limit, the commit (`_commit`), the command and `train <x> s/day`,
 the form `obs/report` reads.
 
-`--kernels` and `--mesh` exit 2: on CUDA the kernels always run, and the
-mesh is ROADMAP Queue 1 item 12. Progress goes to stderr (and to
+`--kernels` and `--mesh` exit 2: on CUDA the kernels always run, and a
+race over mesh shapes needs more than one card (ROADMAP Queue 1 item 16). Progress goes to stderr (and to
 `--metrics_jsonl`); stdout is the rows' JSON.
 """
 
@@ -693,8 +693,8 @@ def main(argv=None) -> int:
               "the kernels always run)", file=sys.stderr)
         return 2
     if args.mesh:
-        print("error: --mesh is not ported to factorvae_tpu_torch yet (ROADMAP Queue 1 "
-              "item 12)", file=sys.stderr)
+        print("error: --mesh: a race over mesh shapes needs more than one card; not "
+              "ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)", file=sys.stderr)
         return 2
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device; pass --device cpu to race on the CPU", file=sys.stderr)

@@ -39,10 +39,21 @@ its value. `--compile_cache DIR` (default `$FACTORVAE_COMPILE_CACHE`; `off`
 turns it off) builds and loads the CUDA kernels' libraries in DIR, so a
 later process given DIR compiles none.
 
-The flags of paths this package does not port yet (`--mesh`,
-`--mesh_stock`) exit with code 2 and a line naming their ROADMAP Queue 1
-item, before the dataset is read, as does
-a hidden size above the CUDA kernels' maximum on `--device cuda`.
+Parallelism: `--mesh` runs on a ('data', 'stock') mesh of every rank of
+the world (`parallel/mesh.py`), with `--mesh_stock` ranks on the 'stock'
+axis; under `torchrun` (`python -m torch.distributed.run
+--nproc_per_node N -m factorvae_tpu_torch.cli --mesh ...`) one rank per
+card, and in a single process the 1 x 1 mesh. The process group's backend
+follows `--device`: NCCL on cuda (each rank takes `cuda:LOCAL_RANK`), gloo
+on the CPU (ranks sharing one card over gloo are `parallel.multihost.
+maybe_initialize(backend="gloo")`'s, from Python). The cross-section pads to a multiple of
+the 'stock' size too (`config.stock_pad_multiple`). Rank 0 writes the
+metrics stream, the checkpoints, the weights and the scores CSV; every rank
+trains and scores its shard. A plan row's mesh block applies only under
+`--mesh` without `--mesh_stock`, as in the JAX CLI.
+
+A hidden size above the CUDA kernels' maximum on `--device cuda` exits
+with code 2 before the dataset is read.
 `--pallas` and `--pallas_auto` change nothing (the kernels always run on
 CUDA), and `--num_workers` is unused, as in the JAX CLI.
 
@@ -92,9 +103,6 @@ from factorvae_tpu_torch.obs.metrics import TextfileExporter, install_exporter
 from factorvae_tpu_torch.utils.logging import MetricsLogger, Timeline, install_timeline
 from factorvae_tpu_torch.utils.profiling import debug_nans, trace
 
-_REFUSED = "not ported yet: exits with code 2"
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Train a FactorVAE model on stock data (PyTorch/CUDA port)")
@@ -122,8 +130,15 @@ def build_parser() -> argparse.ArgumentParser:
     # --- extensions of the JAX CLI ---
     p.add_argument("--days_per_step", type=int, default=None,
                    help="days whose grads are averaged per update (1 = reference)")
-    p.add_argument("--mesh", action="store_true", help=_REFUSED)
-    p.add_argument("--mesh_stock", type=int, default=None, help=_REFUSED)
+    p.add_argument("--mesh", action="store_true",
+                   help="shard over every rank of the world (a data x stock mesh; "
+                        "torchrun starts one rank per card). Composes with "
+                        "--fleet_seeds (seed lanes ride the 'data' axis) and "
+                        "--panel_residency stream (each rank's rows of every chunk)")
+    p.add_argument("--mesh_stock", type=int, default=None,
+                   help="size of the 'stock' (cross-section) mesh axis "
+                        "(default: 1, or a measured plan row's 'mesh' block under "
+                        "--auto_plan)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest full-state checkpoint")
     p.add_argument("--fleet_seeds", type=int, default=None,
@@ -215,12 +230,8 @@ def build_parser() -> argparse.ArgumentParser:
 def refusal(args: argparse.Namespace) -> Optional[str]:
     """The error line for a flag of a path this package does not port, or
     None."""
-    not_ported = ((args.mesh, "--mesh", 12),
-                  (args.mesh_stock is not None, "--mesh_stock", 12))
-    for given, flag, item in not_ported:
-        if given:
-            return (f"{flag} is not ported to factorvae_tpu_torch yet "
-                    f"(ROADMAP Queue 1 item {item})")
+    if args.mesh_stock is not None and args.mesh_stock < 1:
+        return f"--mesh_stock {args.mesh_stock}: the 'stock' axis needs at least one rank"
     if args.export_platform not in (None, "cuda", "cpu"):
         return (f"--export_platform {args.export_platform}: the port exports "
                 "torch.export programs for cuda or cpu; a TPU artifact is the JAX "
@@ -332,6 +343,16 @@ def config_from_args(args: argparse.Namespace) -> Config:
     )
 
 
+def _join_world(args: argparse.Namespace) -> argparse.Namespace:
+    """`args` of a --mesh run after joining torchrun's process group (a no-op
+    in a single process: a world of one), `--device` this rank's card."""
+    from factorvae_tpu_torch.parallel import multihost
+
+    multihost.maybe_initialize(device=args.device)
+    return argparse.Namespace(**{**vars(args),
+                                 "device": str(multihost.local_device(args.device))})
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     refused = refusal(args)
@@ -346,8 +367,12 @@ def main(argv=None) -> int:
         print(f"error: dataset not found: {cfg.data.dataset_path} "
               f"(see data/README.md for the qlib ETL recipe)", file=sys.stderr)
         return 2
-    return run(cfg, args, build_panel(load_frame(cfg.data.dataset_path,
-                                                 cfg.data.select_feature)))
+    try:
+        return run(cfg, args, build_panel(load_frame(cfg.data.dataset_path,
+                                                     cfg.data.select_feature)))
+    finally:
+        if args.mesh and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 def run(cfg: Config, args: argparse.Namespace, panel) -> int:
@@ -355,9 +380,15 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
     train (or restore the best weights for --score_only), score, export the
     CSV, RankIC, --backtest, --export's artifact. Returns the exit code."""
     cache_dir = planlib.setup_compilation_cache(args.compile_cache)
+    if args.mesh:
+        args = _join_world(args)
+    rank0 = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
     metrics_path = args.metrics_jsonl or ("RUN.jsonl" if args.obs else None)
-    logger = MetricsLogger(jsonl_path=metrics_path, use_wandb=cfg.train.wandb,
-                           run_name=cfg.train.run_name, config=cfg.to_dict())
+    if not rank0:
+        metrics_path = None
+    logger = (MetricsLogger(jsonl_path=metrics_path, use_wandb=cfg.train.wandb,
+                            run_name=cfg.train.run_name, config=cfg.to_dict()) if rank0
+              else MetricsLogger(echo=False))
     prev_tl = install_timeline(Timeline(logger)) if metrics_path else None
     prev_exp = (install_exporter(TextfileExporter(args.prom_textfile))
                 if args.prom_textfile else None)
@@ -369,15 +400,17 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
             logger.log("compile_cache", dir=cache_dir)
         plan = None
         if args.auto_plan:
-            plan = planlib.plan_for_config(cfg, panel.num_instruments, platform=args.device)
+            plan = planlib.plan_for_config(cfg, panel.num_instruments, platform=args.device,
+                                           shard=(args.mesh_stock or 1) if args.mesh else 1)
             cfg = planlib.apply_plan(
                 cfg, plan, keep_days_per_step=args.days_per_step is not None,
                 keep_dtype=args.bf16 is not None, keep_pad=args.max_stocks is not None,
                 keep_residency=(args.panel_residency is not None
                                 or args.stream_chunk_days is not None),
                 keep_obs=args.obs is not None,
-                # --mesh is refused (ROADMAP Queue 1 item 12)
-                keep_mesh=True)
+                # a measured mesh-shape row only matters under --mesh, and an
+                # explicit --mesh_stock still wins
+                keep_mesh=not args.mesh or args.mesh_stock is not None)
             logger.log("plan", **plan.describe(planlib.shape_of(cfg, panel.num_instruments),
                                                platform=args.device))
         if args.obs:
@@ -387,9 +420,24 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
                   f"(--num_latent/preset) but {cfg.data.dataset_path} has "
                   f"{panel.num_features}", file=sys.stderr)
             return 2
+        # the mesh the run trains and scores on, built after the plan (whose
+        # row may shape it): a shape the world cannot hold exits 2
+        run_mesh, pad = None, cfg.data.pad_multiple
+        if args.mesh:
+            from factorvae_tpu_torch.config import stock_pad_multiple
+            from factorvae_tpu_torch.parallel.mesh import make_mesh
+
+            try:
+                run_mesh = make_mesh(cfg.mesh)
+            except ValueError as e:
+                print(f"error: cannot build the requested (data x stock) mesh over the "
+                      f"visible ranks: {e} (--mesh_stock overrides a plan row's shape)",
+                      file=sys.stderr)
+                return 2
+            pad = stock_pad_multiple(pad, cfg.mesh.stock_axis)
         dataset = PanelDataset(panel, seq_len=cfg.data.seq_len,
                                max_stocks=cfg.data.max_stocks,
-                               pad_multiple=cfg.data.pad_multiple, device=args.device,
+                               pad_multiple=pad, device=args.device,
                                residency=cfg.data.panel_residency)
         best = os.path.join(cfg.train.save_dir, cfg.checkpoint_name())
         observed.enter_context(trace(args.profile))
@@ -402,8 +450,9 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
             model = load_model(cfg, best, device=args.device)
         elif args.hyper_grid or (args.fleet_seeds or 1) > 1:
             try:
-                won = (_hyper_grid(cfg, args, dataset, logger, plan) if args.hyper_grid
-                       else _fleet_seeds(cfg, args, dataset, logger, plan))
+                won = (_hyper_grid(cfg, args, dataset, logger, plan, run_mesh)
+                       if args.hyper_grid
+                       else _fleet_seeds(cfg, args, dataset, logger, plan, run_mesh))
             except ValueError as e:
                 if "empty training split" not in str(e):
                     raise
@@ -418,7 +467,8 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
             model = load_model(cfg, best, device=args.device)
         else:
             try:
-                trainer = Trainer(cfg, dataset, device=args.device, logger=logger)
+                trainer = Trainer(cfg, dataset, device=args.device, logger=logger,
+                                  mesh=run_mesh)
             except ValueError as e:
                 if "empty training split" not in str(e):
                     raise
@@ -442,17 +492,20 @@ def run(cfg: Config, args: argparse.Namespace, panel) -> int:
             score_cfg = dataclasses.replace(cfg, model=m)
         t0 = time.perf_counter()
         days = dataset.split_days(args.score_start, args.score_end)
-        scores = predict_panel(model, score_cfg, dataset, days, int8=args.int8_scores)
+        scores = predict_panel(model, score_cfg, dataset, days, int8=args.int8_scores,
+                               mesh=run_mesh)
         score_s = time.perf_counter() - t0
         table = score_table(dataset, days, scores, with_labels=True)
         t0 = time.perf_counter()
-        path = export_scores(table, cfg, args.score_dir)
+        path = export_scores(table, cfg, args.score_dir) if rank0 else None
         export_s = time.perf_counter() - t0
         ic = rank_ic_of_panel(scores, dataset.day_labels(days), dataset.valid[days])
         logger.log("scores", path=path, rank_ic=ic["RankIC"], rank_ic_ir=ic["RankIC_IR"],
                    days=len(days), windows=len(table["score"]), score_s=score_s,
                    export_s=export_s)
         observed.close()
+        if not rank0:
+            return 0
         if args.backtest:
             _backtest(cfg, args, table, logger)
         if args.export:
@@ -488,7 +541,8 @@ def _winner(df, ckpt_of) -> "object | None":
     return None if ranked.empty else ranked.idxmax()
 
 
-def _fleet_seeds(cfg: Config, args: argparse.Namespace, dataset, logger, plan):
+def _fleet_seeds(cfg: Config, args: argparse.Namespace, dataset, logger, plan,
+                 mesh=None):
     """--fleet_seeds: (the winning seed's Config, its best-weights path), or
     the error line. Under --auto_plan the seeds train in fleets of the
     plan's `seeds_per_program`."""
@@ -498,7 +552,7 @@ def _fleet_seeds(cfg: Config, args: argparse.Namespace, dataset, logger, plan):
     df = seed_sweep(cfg, dataset, seeds=seeds, score_start=args.score_start,
                     score_end=args.score_end, logger=logger, fleet=True,
                     seeds_per_program=plan.seeds_per_program if plan else None,
-                    fleet_resume=args.resume, device=args.device)
+                    fleet_resume=args.resume, device=args.device, mesh=mesh)
 
     def seed_cfg(seed):
         return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=int(seed)))
@@ -515,7 +569,8 @@ def _fleet_seeds(cfg: Config, args: argparse.Namespace, dataset, logger, plan):
     return seed_cfg(best_seed), ckpt(best_seed)
 
 
-def _hyper_grid(cfg: Config, args: argparse.Namespace, dataset, logger, plan):
+def _hyper_grid(cfg: Config, args: argparse.Namespace, dataset, logger, plan,
+                mesh=None):
     """--hyper_grid: (the winning point's Config, its best-weights path), or
     the error line. Under --auto_plan a bucket trains in fleets of the
     plan's `lanes_per_program`, else of its `seeds_per_program` above 1
@@ -537,7 +592,7 @@ def _hyper_grid(cfg: Config, args: argparse.Namespace, dataset, logger, plan):
             plan.seeds_per_program if plan.seeds_per_program > 1 else None)
     df = grid_sweep(cfg, dataset, points, score_start=args.score_start,
                     score_end=args.score_end, logger=logger, lanes_per_program=lpp,
-                    device=args.device)
+                    device=args.device, mesh=mesh)
     by_label = {point_label(p): p for p in points}
 
     def point_cfg(label):

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -127,8 +128,29 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    data_axis: int = -1
+    """Rank-grid layout (`parallel/mesh.py`): 'data' takes trading days (or
+    a fleet's seed lanes), 'stock' the cross-section, whose rows pad to a
+    multiple of `stock_pad_multiple` so that every 'stock' rank holds as
+    many."""
+
+    data_axis: int = -1   # -1: every rank the 'stock' axis leaves
     stock_axis: int = 1
+
+    def shape(self, n_devices: int) -> tuple:
+        stock = max(1, self.stock_axis)
+        if n_devices % stock != 0:
+            raise ValueError(f"{n_devices} devices not divisible by stock axis {stock}")
+        data = self.data_axis if self.data_axis > 0 else n_devices // stock
+        if data * stock != n_devices:
+            raise ValueError(
+                f"mesh {data}x{stock} != {n_devices} devices")
+        return (data, stock)
+
+
+def stock_pad_multiple(pad_multiple: int, stock_axis: int) -> int:
+    """The padding quantum of the cross-section on a mesh: a multiple of
+    `DataConfig.pad_multiple` that the 'stock' axis also divides."""
+    return math.lcm(max(1, int(pad_multiple)), max(1, int(stock_axis)))
 
 
 @dataclass(frozen=True)

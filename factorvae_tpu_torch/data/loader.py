@@ -150,6 +150,12 @@ class PanelDataset:
         days = np.asarray(days, np.int64)
         if self.residency == "stream":
             return self.values_np[:, days, -1].T.copy()
+        if getattr(self, "stock_rows", None) is not None:
+            # a mesh rank keeps its rows on the device; the labels of every
+            # stock come from the host panel
+            out = np.full((len(days), self.n_max), np.nan, np.float32)
+            out[:, :self.n_real] = self.panel.values[:, days, -1].T
+            return out
         idx = torch.as_tensor(days, device=self.device)
         return self.values[:, idx, -1].transpose(0, 1).cpu().numpy()
 

@@ -45,7 +45,7 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -300,7 +300,8 @@ def chunk_slices(n_steps: int, steps_per_chunk: int) -> list:
     return [(s, min(s + steps_per_chunk, n_steps)) for s in range(0, n_steps, steps_per_chunk)]
 
 
-def stream_epoch_batches(dataset, order: np.ndarray, steps_per_chunk: int) -> ChunkStream:
+def stream_epoch_batches(dataset, order: np.ndarray, steps_per_chunk: int,
+                         placement: Optional[Callable] = None) -> ChunkStream:
     """A ChunkStream over a stream-resident dataset's day order, yielding
     (MiniPanel, local order) per chunk of `steps_per_chunk` steps.
 
@@ -308,11 +309,16 @@ def stream_epoch_batches(dataset, order: np.ndarray, steps_per_chunk: int) -> Ch
     order per lane of a fleet. A fleet chunk stacks its lanes' mini-panels
     along the day axis (lane s's rows, local days and fill maps offset by
     s·m·T), so one gather over it serves every lane. The stream is also kept
-    as `dataset.last_stream`, whose ledger a caller may read."""
+    as `dataset.last_stream`, whose ledger a caller may read. `placement`
+    (`parallel/sharding.chunk_placement`) maps the host panel's (values,
+    last_valid, next_valid) to this rank's stocks of them, so a rank on a
+    mesh builds and copies only its rows of every mini-panel."""
     order = np.asarray(order, np.int64)
     lanes = order if order.ndim == 3 else order[None]
     slices = chunk_slices(lanes.shape[1], steps_per_chunk)
     values, lv, nv = dataset.values_np, dataset.last_valid_np, dataset.next_valid_np
+    if placement is not None:
+        values, lv, nv = placement(values, lv, nv)
     t, n, c1 = dataset.seq_len, values.shape[0], values.shape[-1]
 
     def make_chunk(i, alloc):
@@ -345,10 +351,11 @@ def stream_epoch_batches(dataset, order: np.ndarray, steps_per_chunk: int) -> Ch
     return stream
 
 
-def epoch_chunks(dataset, order: np.ndarray, steps_per_chunk: int):
+def epoch_chunks(dataset, order: np.ndarray, steps_per_chunk: int,
+                 placement: Optional[Callable] = None):
     """The (dataset, order tensor) pairs an epoch's loop walks: one pair of
     the resident panel under "hbm", a ChunkStream of mini-panels under
-    "stream"."""
+    "stream" (`placement` as in `stream_epoch_batches`)."""
     if dataset.residency == "stream":
-        return stream_epoch_batches(dataset, order, steps_per_chunk)
+        return stream_epoch_batches(dataset, order, steps_per_chunk, placement)
     return [(dataset, torch.as_tensor(np.asarray(order, np.int64), device=dataset.device))]

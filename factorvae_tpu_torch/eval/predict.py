@@ -27,6 +27,14 @@ stacked tree holds QTensors with per-lane scales (a dense one is quantized
 lane by lane) and is dequantized for each chunk. One lane is
 `predict_panel` of that lane's model.
 
+On a mesh (`mesh=`), each rank holds its 'stock' rows of the panel
+(`parallel/sharding.shard_dataset`, or the stream's `chunk_placement`),
+scores every day of the range on them (K1 on its rows, the predictor's
+gather and K4 on the whole day) and all-gathers the chunk's scores over
+'stock', so every rank returns the whole (days, N_max) array. A sampled
+score draws each chunk's noise at the whole cross-section's shape and keeps
+its stocks, so it is the serial run's noise.
+
 `score_table` lays the scores out as the reference's score frame (one row
 per valid (day, stock), day-major); `export_scores` writes it as the JAX
 package's CSV with the `csv` module, and `score_frame` makes it the
@@ -54,14 +62,14 @@ from factorvae_tpu_torch.ops.quant import (
 )
 
 
-def _score_chunks(dataset, days: np.ndarray, chunk: int):
+def _score_chunks(dataset, days: np.ndarray, chunk: int, placement=None):
     """(c0, real days, dataset or mini-panel, day_idx (chunk,) with -1
     padding on the device) for each chunk of `days`."""
     n_days = len(days)
     padded = np.full(-(-n_days // chunk) * chunk, -1, np.int64)
     padded[:n_days] = days
     c0 = 0
-    for ds, order in epoch_chunks(dataset, padded.reshape(-1, chunk), 1):
+    for ds, order in epoch_chunks(dataset, padded.reshape(-1, chunk), 1, placement):
         for day_idx in order:
             yield c0, min(chunk, n_days - c0), ds, day_idx
             c0 += chunk
@@ -70,14 +78,15 @@ def _score_chunks(dataset, days: np.ndarray, chunk: int):
 def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
                   stochastic: Optional[bool] = None, seed: int = 0,
                   chunk: int = 32, int8: bool = False,
-                  params: Optional[dict] = None) -> np.ndarray:
+                  params: Optional[dict] = None, mesh=None) -> np.ndarray:
     """(len(days), N_max) float32 scores; padded or absent stocks are NaN.
 
     `model` is a `FactorVAE` on `dataset.device` and `config` the Config to
     score under: its `model.compute_dtype` is the compute dtype. `params`
     (parameter name -> tensor, or a `quantize_params` tree) replace the
     model's own weights; with `int8`, the weights (these or the model's) are
-    quantized unless they already are."""
+    quantized unless they already are. On a `mesh` every rank scores its
+    stocks and returns the whole array (the module docstring)."""
     model = with_compute_dtype(model, config.model.compute_dtype)
     if int8:
         params = ensure_quantized(model if params is None else params)
@@ -88,18 +97,42 @@ def predict_panel(model, config, dataset: PanelDataset, days: np.ndarray,
     sample = model.cfg.stochastic_inference if stochastic is None else stochastic
     if sample:
         generator = torch.Generator(device=dataset.device).manual_seed(seed)
+    placement, stock = _mesh_scoring(mesh, dataset)
     with torch.inference_mode():
-        for c0, n_sel, ds, day_idx in _score_chunks(dataset, days, chunk):
+        for c0, n_sel, ds, day_idx in _score_chunks(dataset, days, chunk, placement):
             x, _, mask = ds.gather(torch.clamp(day_idx, min=0))
             mask = mask & (day_idx >= 0)[:, None]
             kw = dict(stochastic=sample, generator=generator)
+            if stock is not None:
+                n = mask.shape[1]
+                kw["stock"] = stock
+                if sample:
+                    kw["eps"] = torch.randn((mask.shape[0], n * stock.size), generator=generator,
+                                            device=mask.device, dtype=model.cfg.dtype
+                                            )[:, stock.index * n:(stock.index + 1) * n]
             if params is None:
                 scores = model.day_batched_prediction(x, mask, **kw)
             else:
                 weights = dequantize_params(params, model.cfg.dtype) if int8 else params
                 scores = call_with(model, weights, "day_batched_prediction", x, mask, **kw)
+            if stock is not None:
+                from factorvae_tpu_torch.parallel.collective_ops import all_gather_stocks
+
+                scores = all_gather_stocks(scores, stock, dim=1)
             out[c0:c0 + n_sel] = scores[:n_sel].cpu().numpy()
     return out
+
+
+def _mesh_scoring(mesh, dataset):
+    """(stream placement, 'stock' Axis) of scoring on `mesh`, the dataset
+    sharded in place; (None, None) without one."""
+    if mesh is None:
+        return None, None
+    from factorvae_tpu_torch.parallel.mesh import STOCK_AXIS
+    from factorvae_tpu_torch.parallel.sharding import chunk_placement, shard_dataset
+
+    shard_dataset(mesh, dataset)
+    return chunk_placement(mesh), mesh.axis(STOCK_AXIS)
 
 
 def stack_params(trees: list) -> dict:
@@ -125,12 +158,13 @@ def lane_params(params: dict, lane: int) -> dict:
 
 def predict_panel_fleet(params: dict, config, dataset: PanelDataset, days: np.ndarray,
                         stochastic: Optional[bool] = None, seed: int = 0,
-                        int8: bool = False) -> np.ndarray:
+                        int8: bool = False, mesh=None) -> np.ndarray:
     """(S, len(days), N_max) float32 scores of S stacked parameter sets
     (name -> (S, ...) tensors on `dataset.device`, QTensors with `int8`)
     under `config`, in `predict_panel`'s 32-day chunks. Lane i equals
     `predict_panel` of lane i's weights: bitwise at S = 1, which takes that
-    path, within f32 rounding else (the batched products)."""
+    path, within f32 rounding else (the batched products). On a `mesh`
+    every rank scores every lane over its stocks (`predict_panel`'s)."""
     lanes = next(iter(params.values())).shape[0]
     if int8 and not is_quantized(params):
         params = stack_params([quantize_params(lane_params(params, i))
@@ -139,9 +173,9 @@ def predict_panel_fleet(params: dict, config, dataset: PanelDataset, days: np.nd
         if int8:
             return predict_panel(model_from_params(config.model, None), config, dataset,
                                  days, stochastic, seed, int8=True,
-                                 params=lane_params(params, 0))[None]
+                                 params=lane_params(params, 0), mesh=mesh)[None]
         return predict_panel(model_from_params(config.model, params, 0), config, dataset,
-                             days, stochastic, seed)[None]
+                             days, stochastic, seed, mesh=mesh)[None]
     model = model_from_params(config.model, None)
     days = np.asarray(days, np.int64)
     n_days = len(days)
@@ -150,18 +184,29 @@ def predict_panel_fleet(params: dict, config, dataset: PanelDataset, days: np.nd
     generator = (torch.Generator(device=dataset.device).manual_seed(seed)
                  if sample else None)
 
+    placement, stock = _mesh_scoring(mesh, dataset)
+    kw = {} if stock is None else {"stock": stock}
+
     def one(p, x, mask, eps):
         return call_with(model, p, "day_batched_prediction", x, mask, stochastic=sample,
-                         eps=eps)
+                         eps=eps, **kw)
 
     with torch.inference_mode():
-        for c0, n_sel, ds, day_idx in _score_chunks(dataset, days, 32):
+        for c0, n_sel, ds, day_idx in _score_chunks(dataset, days, 32, placement):
             x, _, mask = ds.gather(torch.clamp(day_idx, min=0))
             mask = mask & (day_idx >= 0)[:, None]
-            eps = (torch.randn(mask.shape, generator=generator, device=dataset.device)
+            n = mask.shape[1]
+            eps = (torch.randn((mask.shape[0], n * (stock.size if stock else 1)),
+                               generator=generator, device=dataset.device)
                    if sample else None)
+            if eps is not None and stock is not None:
+                eps = eps[:, stock.index * n:(stock.index + 1) * n]
             weights = dequantize_params(params, model.cfg.dtype) if int8 else params
             scores = torch.func.vmap(one, in_dims=(0, None, None, None))(weights, x, mask, eps)
+            if stock is not None:
+                from factorvae_tpu_torch.parallel.collective_ops import all_gather_stocks
+
+                scores = all_gather_stocks(scores, stock, dim=2)
             out[:, c0:c0 + n_sel] = scores[:, :n_sel].cpu().numpy()
     return out
 
@@ -198,13 +243,13 @@ def generate_prediction_scores(model, config, dataset: PanelDataset,
                                end: Optional[str] = None,
                                stochastic: Optional[bool] = None,
                                seed: int = 0, with_labels: bool = False,
-                               int8: bool = False):
+                               int8: bool = False, mesh=None):
     """Scores DataFrame indexed by (datetime, instrument) with a 'score'
     column (and 'LABEL0' when with_labels=True)."""
     days = dataset.split_days(start, end)
     return score_frame(score_table(
         dataset, days, predict_panel(model, config, dataset, days, stochastic, seed,
-                                     int8=int8), with_labels))
+                                     int8=int8, mesh=mesh), with_labels))
 
 
 def score_frame(table: dict):

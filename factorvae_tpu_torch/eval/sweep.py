@@ -76,18 +76,19 @@ def _fleet_scoring_params(state, out, names, logger: MetricsLogger) -> dict:
     sweep does without a checkpoint."""
     best_val = np.asarray(out["best_val"])
     scoring = {n: p.detach().clone() for n, p in out["best_params"].items()}
+    final = out.get("final_params", state.params)
     for i, name in enumerate(names):
         if not np.isfinite(best_val[i]):
             logger.log("sweep_warning", **name,
                        note="best-val selection never improved; scoring FINAL-epoch params")
             for n in scoring:
-                scoring[n][i] = state.params[n][i].detach()
+                scoring[n][i] = final[n][i].detach()
     return scoring
 
 
 def _fleet_records(config: Config, dataset, pending: Sequence[int], days: np.ndarray,
                    logger: MetricsLogger, on_seed, fleet_resume: bool, device,
-                   seeds_per_program: Optional[int] = None) -> list:
+                   seeds_per_program: Optional[int] = None, mesh=None) -> list:
     """Train `pending` seeds in fleets of `seeds_per_program` (None or 0:
     one fleet), each scored in one lane-batched pass; records in `pending`
     order."""
@@ -95,11 +96,13 @@ def _fleet_records(config: Config, dataset, pending: Sequence[int], days: np.nda
     records = []
     for g0 in range(0, len(pending), spp):
         group = list(pending[g0:g0 + spp])
-        trainer = FleetTrainer(config, dataset, group, device=device, logger=logger)
+        trainer = FleetTrainer(config, dataset, group, device=device, logger=logger,
+                               mesh=mesh)
         state, out = trainer.fit(resume=fleet_resume)
         scoring = _fleet_scoring_params(state, out, [{"seed": int(s)} for s in group],
                                         logger)
-        scores = predict_panel_fleet(scoring, config, dataset, days, stochastic=False)
+        scores = predict_panel_fleet(scoring, config, dataset, days, stochastic=False,
+                                     mesh=mesh)
         for i, seed in enumerate(group):
             ic, ir = _rank_ic(dataset, days, scores[i])
             rec = {"seed": int(seed), "rank_ic": ic, "rank_ic_ir": ir,
@@ -116,7 +119,7 @@ def seed_sweep(config: Config, dataset, seeds: Sequence[int],
                logger: Optional[MetricsLogger] = None, on_seed=None,
                prior_records: Optional[dict] = None, fleet: bool = False,
                seeds_per_program: Optional[int] = None, fleet_resume: bool = False,
-               device="cuda"):
+               device="cuda", mesh=None):
     """A DataFrame indexed by seed with columns [rank_ic, rank_ic_ir,
     best_val]; `.attrs["summary"]` holds their mean and spread.
 
@@ -126,7 +129,8 @@ def seed_sweep(config: Config, dataset, seeds: Sequence[int],
     `fleet=True` trains the other seeds in fleets of `seeds_per_program`
     (None or 0: one fleet), each scored in one pass; `fleet_resume` lets a
     fleet restore from its lockstep checkpoints. The frame keeps the order
-    of `seeds` either way."""
+    of `seeds` either way. `mesh` trains and scores every fleet (or serial
+    run) on that mesh (`train/fleet.py`, `eval/predict.py`)."""
     import pandas as pd
 
     logger = logger or MetricsLogger(echo=False)
@@ -143,7 +147,7 @@ def seed_sweep(config: Config, dataset, seeds: Sequence[int],
             continue
         cfg = dataclasses.replace(config, train=dataclasses.replace(config.train,
                                                                     seed=int(seed)))
-        state, out = Trainer(cfg, dataset, device=device, logger=logger).fit()
+        state, out = Trainer(cfg, dataset, device=device, logger=logger, mesh=mesh).fit()
         # score with the seed's best-validation weights (the reference's
         # selection rule; the checkpoint name encodes the seed)
         best = os.path.join(cfg.train.save_dir, cfg.checkpoint_name())
@@ -155,7 +159,7 @@ def seed_sweep(config: Config, dataset, seeds: Sequence[int],
                             "params")
             model = state.model.eval()
         ic, ir = _rank_ic(dataset, days, predict_panel(model, cfg, dataset, days,
-                                                       stochastic=False))
+                                                       stochastic=False, mesh=mesh))
         rec = {"seed": int(seed), "rank_ic": ic, "rank_ic_ir": ir,
                "best_val": float(out["best_val"])}
         records.append(rec)
@@ -164,7 +168,7 @@ def seed_sweep(config: Config, dataset, seeds: Sequence[int],
             on_seed(rec)
     if pending:
         records.extend(_fleet_records(config, dataset, pending, days, logger, on_seed,
-                                      fleet_resume, device, seeds_per_program))
+                                      fleet_resume, device, seeds_per_program, mesh))
         order = {int(s): i for i, s in enumerate(seeds)}
         records.sort(key=lambda r: order[r["seed"]])
     df = pd.DataFrame(records).set_index("seed")
@@ -256,7 +260,7 @@ def grid_sweep(config: Config, dataset, points: Sequence[dict],
                score_start: Optional[str] = None, score_end: Optional[str] = None,
                logger: Optional[MetricsLogger] = None, on_point=None,
                prior_records: Optional[dict] = None,
-               lanes_per_program: Optional[int] = None, device="cuda"):
+               lanes_per_program: Optional[int] = None, device="cuda", mesh=None):
     """Race a grid of points (dicts over SHAPE_KEYS and LANE_KEYS) through
     hyper-fleets: the points bucket by shape, each bucket trains in fleets
     of `lanes_per_program` lanes (None or 0: the whole bucket in one), in
@@ -266,7 +270,7 @@ def grid_sweep(config: Config, dataset, points: Sequence[dict],
     Returns a DataFrame indexed by `point_label` with the point's fields and
     [rank_ic, rank_ic_ir, best_val]; `.attrs["summary"]` names the winner.
     `on_point` and `prior_records` (label -> record) are `seed_sweep`'s
-    callback and adoption."""
+    callback and adoption; `mesh` as `seed_sweep`'s."""
     import pandas as pd
 
     logger = logger or MetricsLogger(echo=False)
@@ -304,12 +308,12 @@ def grid_sweep(config: Config, dataset, points: Sequence[dict],
             lane_cfgs = [_point_config(config, p, lbl)
                          for p, lbl in zip(group, group_labels)]
             trainer = FleetTrainer(bucket_cfg, dataset, lane_configs=lane_cfgs,
-                                   device=device, logger=logger)
+                                   device=device, logger=logger, mesh=mesh)
             state, out = trainer.fit()
             scoring = _fleet_scoring_params(
                 state, out, [{"label": lbl} for lbl in group_labels], logger)
             scores = predict_panel_fleet(scoring, bucket_cfg, dataset, days,
-                                         stochastic=False)
+                                         stochastic=False, mesh=mesh)
             for i, (lbl, point) in enumerate(zip(group_labels, group)):
                 ic, ir = _rank_ic(dataset, days, scores[i])
                 rec = {"label": lbl, **point, "rank_ic": ic, "rank_ic_ir": ir,

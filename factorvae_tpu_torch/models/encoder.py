@@ -2,7 +2,9 @@
 
 Stock latents -> M portfolio weights (softmax over the stocks, masked) ->
 portfolio returns y_p = W^T y -> mu and softplus sigma heads: the posterior
-(mu, sigma) of the K factors. The training forward
+(mu, sigma) of the K factors. On a stock-sharded mesh the softmax and W^T y
+are the explicit collectives `pmax_masked_softmax` and `psum`; without a
+stock axis they are the plain ops. The training forward
 (`models/factorvae.FactorVAE.day_batched_forward`) uses it; the serving path
 does not.
 """
@@ -17,7 +19,7 @@ from torch import nn
 
 from factorvae_tpu_torch.config import ModelConfig
 from factorvae_tpu_torch.models.layers import Dense
-from factorvae_tpu_torch.ops.masked import masked_softmax
+from factorvae_tpu_torch.parallel.collective_ops import pmax_masked_softmax, psum
 
 
 class FactorEncoder(nn.Module):
@@ -40,9 +42,14 @@ class FactorEncoder(nn.Module):
         return mu[0], sigma[0]
 
     def day_batched(self, latent: torch.Tensor, returns: torch.Tensor,
-                    mask: torch.Tensor):
-        """latent (B, N, H), returns/mask (B, N) -> ((B, K), (B, K))."""
-        w = masked_softmax(self.portfolio(latent), mask[..., None], dim=1)
+                    mask: torch.Tensor, stock=None):
+        """latent (B, N, H), returns/mask (B, N) -> ((B, K), (B, K)).
+
+        With `stock` (a mesh's 'stock' `Axis`) the N rows are this rank's
+        slice of the cross-section: the softmax over stocks and the
+        portfolio sum run over the whole of it (`parallel/collective_ops`)
+        and the result is the whole day's on every rank."""
+        w = pmax_masked_softmax(self.portfolio(latent), mask[..., None], stock, dim=1)
         returns = torch.where(mask, returns, 0.0)
-        y_p = torch.einsum("bnm,bn->bm", w, returns)
+        y_p = psum(torch.einsum("bnm,bn->bm", w, returns), stock)
         return self.mu(y_p), F.softplus(self.sigma(y_p))

@@ -87,8 +87,8 @@ class FactorVAE(nn.Module):
                             mask: torch.Tensor, *, train: bool = False,
                             eps: Optional[torch.Tensor] = None,
                             keep: Optional[torch.Tensor] = None,
-                            generator: Optional[torch.Generator] = None
-                            ) -> FactorVAEOutput:
+                            generator: Optional[torch.Generator] = None,
+                            stock=None) -> FactorVAEOutput:
         """x (B, N, T, C), returns/mask (B, N) -> per-day losses (B,).
 
         The per-stock extractor runs on the flattened (B*N) rows; the
@@ -96,9 +96,15 @@ class FactorVAE(nn.Module):
         is not finite leaves the loss and is zeroed before the encoder. The
         decoder samples with `eps` (B, N), the predictor's dropout (train
         only) uses `keep` (B, K, N); either is drawn from `generator` when
-        not given, eps first."""
+        not given, eps first.
+
+        With `stock` (a mesh's 'stock' `Axis`) the N stocks are this rank's
+        slice of the cross-section, and so are eps and the per-stock
+        outputs; `keep` covers the whole cross-section, and the losses,
+        factors and prior are the whole day's on every rank."""
         return self._forward_from_latent(self._latent(x), returns, mask, train=train,
-                                         eps=eps, keep=keep, generator=generator)
+                                         eps=eps, keep=keep, generator=generator,
+                                         stock=stock)
 
     def day_batched_decomposition(self, x: torch.Tensor, returns: torch.Tensor,
                                   mask: torch.Tensor, *,
@@ -121,19 +127,21 @@ class FactorVAE(nn.Module):
             x.reshape((b * n,) + tuple(x.shape[2:]))).reshape(b, n, -1)
 
     def _forward_from_latent(self, latent, returns, mask, *, train, eps=None, keep=None,
-                             generator=None) -> FactorVAEOutput:
+                             generator=None, stock=None) -> FactorVAEOutput:
         cfg = self.cfg
         loss_mask = mask & torch.isfinite(returns)
         returns = torch.where(loss_mask, returns, 0.0)
-        factor_mu, factor_sigma = self.factor_encoder.day_batched(latent, returns, mask)
+        factor_mu, factor_sigma = self.factor_encoder.day_batched(latent, returns, mask,
+                                                                  stock=stock)
         sample, (recon_mu, recon_sigma) = self.factor_decoder(
             latent, factor_mu, factor_sigma, sample=True, eps=eps, generator=generator)
         pred_mu, pred_sigma = self.factor_predictor.day_batched(
-            latent, mask, train=train, keep=keep, generator=generator)
+            latent, mask, train=train, keep=keep, generator=generator, stock=stock)
         if cfg.recon_loss == "mse":
-            recon = masked_mse(sample, returns, loss_mask, dim=-1)
+            recon = masked_mse(sample, returns, loss_mask, dim=-1, axis=stock)
         elif cfg.recon_loss == "nll":
-            recon = masked_gaussian_nll(recon_mu, recon_sigma, returns, loss_mask, dim=-1)
+            recon = masked_gaussian_nll(recon_mu, recon_sigma, returns, loss_mask, dim=-1,
+                                        axis=stock)
         else:
             raise ValueError(f"unknown recon_loss {cfg.recon_loss!r}")
         kl = gaussian_kl_sum(factor_mu, factor_sigma, pred_mu, pred_sigma, dim=-1)
@@ -159,13 +167,14 @@ class FactorVAE(nn.Module):
     def day_batched_prediction(self, x: torch.Tensor, mask: torch.Tensor, *,
                                stochastic: Optional[bool] = None,
                                eps: Optional[torch.Tensor] = None,
-                               generator: Optional[torch.Generator] = None
-                               ) -> torch.Tensor:
+                               generator: Optional[torch.Generator] = None,
+                               stock=None) -> torch.Tensor:
         """x (B, N, T, C), mask (B, N) -> scores (B, N), NaN on padded
         stocks. The per-stock extractor runs on the flattened (B*N) rows;
-        the attention and the factor combination stay per day."""
+        the attention and the factor combination stay per day. With `stock`
+        the N rows (and eps) are this rank's slice of the cross-section."""
         latent = self._latent(x)
-        pred_mu, pred_sigma = self.factor_predictor.day_batched(latent, mask)
+        pred_mu, pred_sigma = self.factor_predictor.day_batched(latent, mask, stock=stock)
         y_pred, _ = self.factor_decoder(
             latent, pred_mu, pred_sigma, sample=self._stochastic(stochastic),
             eps=eps, generator=generator)

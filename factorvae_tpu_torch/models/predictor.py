@@ -22,6 +22,7 @@ from torch import nn
 from factorvae_tpu_torch.config import ModelConfig
 from factorvae_tpu_torch.models.layers import Dense, init_bias, init_weight
 from factorvae_tpu_torch.ops.kernels.attention import attention
+from factorvae_tpu_torch.parallel.collective_ops import all_gather_stocks
 
 
 class FactorPredictor(nn.Module):
@@ -72,12 +73,21 @@ class FactorPredictor(nn.Module):
 
     def day_batched(self, latent: torch.Tensor, mask: torch.Tensor, *,
                     train: bool = False, keep: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, stock=None):
         """latent (B, N, H), mask (B, N) -> ((B, K), (B, K)).
 
         With train=True and dropout_rate > 0 the scores go through a keep-mask
         (B, K, N): `keep` when given, else one drawn from `generator`. At
-        eval, or with dropout_rate == 0, no mask is used or drawn."""
+        eval, or with dropout_rate == 0, no mask is used or drawn.
+
+        With `stock` (a mesh's 'stock' `Axis`) latent and mask are this rank's
+        rows of the cross-section. The attention needs the whole of it, so
+        both are all-gathered over the axis and the attention (K4, K5 in the
+        backward) runs on the full day on every rank; the gather's backward
+        hands each rank the gradient of its own rows. `keep` then covers the
+        whole cross-section."""
+        latent = all_gather_stocks(latent, stock, dim=1)
+        mask = all_gather_stocks(mask, stock, dim=1)
         if train and self.cfg.dropout_rate > 0.0:
             if keep is None:
                 b, n = latent.shape[0], latent.shape[1]

@@ -26,8 +26,15 @@ def masked_softmax(x: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.
     return torch.where(ok, ex / torch.where(ok, denom, 1.0), 0.0)
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
-    """Mean of `x` over valid positions; 0 if nothing is valid."""
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None, axis=None) -> torch.Tensor:
+    """Mean of `x` over valid positions; 0 if nothing is valid. With `axis`
+    (a mesh's 'stock' `Axis`) the positions along `dim` are this rank's
+    slice and the mean is the whole's, with its global count
+    (`parallel/collective_ops.psum_masked_mean`)."""
+    if axis is not None:
+        from factorvae_tpu_torch.parallel.collective_ops import psum_masked_mean
+
+        return psum_masked_mean(x, mask, axis, dim=dim)
     mask = torch.broadcast_to(mask, x.shape)
     kept = torch.where(mask, x, 0.0)
     if dim is None:
@@ -38,16 +45,17 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
-               dim=None) -> torch.Tensor:
+               dim=None, axis=None) -> torch.Tensor:
     """Masked mean-squared error; with an all-true mask, `F.mse_loss` as
     the reference applies it to its one reparameterized sample."""
-    return masked_mean((pred - target) ** 2, mask, dim=dim)
+    return masked_mean((pred - target) ** 2, mask, dim=dim, axis=axis)
 
 
 def masked_gaussian_nll(mu: torch.Tensor, sigma: torch.Tensor, target: torch.Tensor,
-                        mask: torch.Tensor, eps: float = 1e-12, dim=None) -> torch.Tensor:
+                        mask: torch.Tensor, eps: float = 1e-12, dim=None,
+                        axis=None) -> torch.Tensor:
     """Masked mean Gaussian negative log-likelihood (the paper's analytic
     reconstruction term)."""
     var = sigma ** 2 + eps
     nll = 0.5 * (torch.log(2.0 * torch.pi * var) + (target - mu) ** 2 / var)
-    return masked_mean(nll, mask, dim=dim)
+    return masked_mean(nll, mask, dim=dim, axis=axis)

@@ -452,6 +452,60 @@ class Checkpointer:
                 worker.join()
 
 
+class RankZeroCheckpointer:
+    """A `Checkpointer` shared by the ranks of a mesh: rank 0 holds the files
+    and writes them (from its host snapshot: the ranks' states are bitwise
+    equal), every rank calls the same methods in the same order, and what
+    rank 0 reads (a step, a restored state, the error a restore raised) is
+    broadcast so every rank continues from the same bytes. A barrier closes
+    each save, so a rank never reads ahead of a file rank 0 is writing."""
+
+    def __init__(self, ckpt: Optional[Checkpointer], world):
+        self.ckpt = ckpt           # rank 0's; None on the other ranks
+        self.world = world
+
+    def _share(self, value):
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=self.world.ranks[0], group=self.world.group)
+        return box[0]
+
+    def save(self, step: int, state: TrainState, meta: dict) -> Optional[str]:
+        import torch.distributed as dist
+
+        out = self.ckpt.save(step, state, meta) if self.ckpt is not None else None
+        if self.ckpt is not None:
+            self.ckpt.wait_until_finished()
+        dist.barrier(group=self.world.group)
+        return out
+
+    def latest_step(self) -> Optional[int]:
+        return self._share(self.ckpt.latest_step() if self.ckpt is not None else None)
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> dict:
+        """Rank 0's `Checkpointer.restore`, its state and meta (or its
+        exception) broadcast to every rank."""
+        got = None
+        if self.ckpt is not None:
+            try:
+                meta = self.ckpt.restore(state, step=step)
+                got = ("ok", _snapshot(state, meta))
+            except (FileNotFoundError, CheckpointIntegrityError) as e:
+                got = ("error", (type(e).__name__, str(e)))
+        kind, value = self._share(got)
+        if kind == "error":
+            raise {"FileNotFoundError": FileNotFoundError}.get(
+                value[0], CheckpointIntegrityError)(value[1])
+        if self.ckpt is None:
+            Checkpointer._load(state, value)
+        return value["meta"]
+
+    def close(self) -> None:
+        if self.ckpt is not None:
+            self.ckpt.close()
+
+
 # ---- best-validation weights ------------------------------------------------
 
 

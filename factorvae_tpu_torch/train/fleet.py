@@ -56,9 +56,22 @@ Semantics, as the JAX package's:
 
 `train.remat` recomputes each fleet step's forward in its backward, the
 checkpoint around the vmapped `lane_day_loss` (`train/loop.py`); like the
-serial step's, it lowers no peak memory. Refused in
-`__init__`, naming its ROADMAP Queue 1 item: a stock-sharded mesh (12); on a
-CUDA device a hidden size above the kernels' maximum.
+serial step's, it lowers no peak memory. Refused in `__init__`: on a CUDA
+device a hidden size above the kernels' maximum.
+
+- On a mesh (`mesh=`, or `use_mesh=True` for `config.mesh`'s over the
+  world) the lanes lie over 'data': each rank trains its slice of them
+  (`parallel/partition.seed_slice`), with no collective between lanes, and
+  holds its 'stock' rows of the panel, the stock collectives and the
+  gradient's reduction running within its 'stock' group
+  (`train/loop.MeshStep(stacked=True)`). `compose.validate` checks the
+  lane count against the 'data' axis. The records and `fit`'s `best_val`
+  and `best_params` are the whole fleet's (all-gathered over 'data'); the
+  returned state holds this rank's lanes (`lanes`, their global indices).
+  The 'stock'-index-0 rank of each row writes its lanes' checkpoints and
+  best weights, and every rank of the row reads them on a resume or a
+  rollback; rank 0 alone logs. A hyper-fleet needs two lanes or more on
+  every 'data' rank (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -255,7 +268,11 @@ class FleetTrainer:
     def __init__(self, config: Config, dataset, seeds: Optional[Sequence[int]] = None,
                  device="cuda", logger: Optional[MetricsLogger] = None,
                  lane_configs: Optional[Sequence[Config]] = None,
-                 force_hyper: bool = False):
+                 force_hyper: bool = False, mesh=None, use_mesh: bool = False):
+        from factorvae_tpu_torch.parallel import compose
+        from factorvae_tpu_torch.train.loop import MeshStep
+        from factorvae_tpu_torch.train.trainer import build_mesh, is_rank_zero
+
         if lane_configs is not None:
             if seeds is not None:
                 raise ValueError("pass seeds or lane_configs, not both (lane configs "
@@ -283,20 +300,37 @@ class FleetTrainer:
         self.cfg = config
         self.ds = dataset
         self.device = torch.device(device)
-        self.lane_cfgs = lane_cfgs
-        self.seeds = [int(c.train.seed) for c in lane_cfgs]
-        self.num_seeds = len(lane_cfgs)
-        self.logger = logger or MetricsLogger(echo=False)
+        self.mesh = build_mesh(config, mesh, use_mesh)
+        self.all_seeds = [int(c.train.seed) for c in lane_cfgs]
+        self.logger = (logger or MetricsLogger(echo=False)) if is_rank_zero(self.mesh) \
+            else MetricsLogger(echo=False)
         refused = hidden_refusal(config.model.hidden_size, self.device)
         if refused:
             raise ValueError(refused)
         if dataset.device.type != self.device.type:
             raise ValueError(f"the dataset lives on {dataset.device}, the fleet runs "
                              f"on {self.device}")
-        if config.mesh.stock_axis > 1:
-            raise NotImplementedError("a fleet on a mesh (mesh.stock_axis > 1) is not "
-                                      "ported to factorvae_tpu_torch yet (ROADMAP Queue 1 "
-                                      "item 12)")
+        compose.validate(mesh=self.mesh, num_seeds=len(lane_cfgs),
+                         residency=dataset.residency,
+                         days_per_step=max(1, config.train.days_per_step),
+                         stream_chunk_days=config.data.stream_chunk_days, hyper=self.hyper,
+                         n_stocks=dataset.n_max)
+        self.mesh_step, self.lanes, self._writer = None, slice(0, len(lane_cfgs)), True
+        if self.mesh is not None:
+            from factorvae_tpu_torch.parallel.partition import seed_slice
+            from factorvae_tpu_torch.parallel.sharding import shard_dataset
+
+            self.mesh_step = MeshStep(self.mesh, stacked=True)
+            self.lanes = seed_slice(self.mesh, len(lane_cfgs))
+            self._writer = self.mesh_step.stock.index == 0
+            if self.hyper and self.lanes.stop - self.lanes.start < 2:
+                raise NotImplementedError(
+                    "a hyper-fleet on a mesh needs two lanes or more on every 'data' "
+                    "rank; not ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)")
+            shard_dataset(self.mesh, dataset)
+        self.lane_cfgs = lane_cfgs[self.lanes]
+        self.seeds = [int(c.train.seed) for c in self.lane_cfgs]
+        self.num_seeds = len(self.lane_cfgs)
         check_remat(config.train.remat)
         self.train_dtype = resolve_train_dtype(config.train, config.model)
         self.mixed = self.train_dtype != "float32"
@@ -319,7 +353,7 @@ class FleetTrainer:
         self.last_stream_stats = None
         self._ckpts: dict = {}
         self.logger.log(
-            "fleet_execution_layout", seeds=self.seeds, seeds_per_program=self.num_seeds,
+            "fleet_execution_layout", seeds=self.all_seeds, seeds_per_program=self.num_seeds,
             hyper=self.hyper, lane_labels=self.lane_labels(),
             flatten_days=config.model.flatten_days, days_per_step=self.batch_days,
             compute_dtype=self.train_dtype, model_compute_dtype=config.model.compute_dtype,
@@ -329,11 +363,65 @@ class FleetTrainer:
             obs_probes=config.train.obs_probes, device=str(self.device),
             panel_residency="stream" if self.stream else "hbm",
             steps_per_chunk=self.steps_per_chunk if self.stream else None)
+        if self.mesh is not None:
+            from factorvae_tpu_torch.obs.memory import shard_balance_block
+            from factorvae_tpu_torch.parallel.partition import abstract_state_tree
+
+            self.logger.log("shard_balance", **shard_balance_block(
+                self.mesh, state=abstract_state_tree(self.model_cfg, self.device, self.mixed,
+                                                     lanes=len(self.all_seeds)),
+                dataset=dataset, stacked=True))
+
+    # ---- the mesh --------------------------------------------------------
+
+    def _gather_lanes(self, values):
+        """A per-lane list (or (S_local, ...) tensor) of this rank's lanes ->
+        the whole fleet's, all-gathered over 'data' (itself without a
+        mesh). Lists come back as lists of floats."""
+        if self.mesh is None:
+            return values
+        from factorvae_tpu_torch.parallel.collective_ops import all_gather_stocks
+        from factorvae_tpu_torch.parallel.mesh import DATA_AXIS
+
+        axis = self.mesh.axis(DATA_AXIS)
+        if isinstance(values, torch.Tensor):
+            return all_gather_stocks(values.detach(), axis, dim=0)
+        t = torch.as_tensor(np.asarray(values, np.float64), device=self.device)
+        return all_gather_stocks(t, axis, dim=0).cpu().tolist()
+
+    def _full_record(self, rec: dict) -> dict:
+        """`rec` with each per-lane list gathered to the whole fleet's."""
+        if self.mesh is None:
+            return rec
+        return {k: (self._gather_lanes(v) if isinstance(v, list)
+                    and len(v) == self.num_seeds and k != "lane_labels" else v)
+                for k, v in rec.items()}
+
+    def _barrier(self) -> None:
+        from factorvae_tpu_torch.train.trainer import barrier
+
+        barrier(self.mesh)
 
     # ---- lanes -----------------------------------------------------------
 
     def lane_labels(self) -> list:
         return [lane_label(c, self.hyper) for c in self.lane_cfgs]
+
+    def all_lane_labels(self) -> list:
+        """Every lane's label, this rank's or not (a mesh splits the lanes)."""
+        labels = self.lane_labels()
+        if self.mesh is None:
+            return labels
+        import torch.distributed as dist
+
+        from factorvae_tpu_torch.parallel.mesh import DATA_AXIS
+
+        axis = self.mesh.axis(DATA_AXIS)
+        if axis.group is None:
+            return labels
+        rows = [None] * axis.size
+        dist.all_gather_object(rows, labels, group=axis.group)
+        return [x for row in rows for x in row]
 
     def set_lane_scalars(self, lane: int, lr: Optional[float] = None,
                          kl_weight: Optional[float] = None) -> None:
@@ -404,14 +492,20 @@ class FleetTrainer:
         return order.reshape(-1, self.batch_days).astype(np.int64)
 
     def _chunks(self, order: np.ndarray):
-        return epoch_chunks(self.ds, order, self.steps_per_chunk)
+        placement = None
+        if self.mesh is not None:
+            from factorvae_tpu_torch.parallel.sharding import chunk_placement
+
+            placement = chunk_placement(self.mesh)
+        return epoch_chunks(self.ds, order, self.steps_per_chunk, placement)
 
     def _eval_generators(self, epoch: int) -> list:
         return [eval_generator(s, epoch, self.device) for s in self.seeds]
 
     def _poison(self, epoch: int) -> np.ndarray:
         """(S,) bools: the lanes a `nan_grads` fault poisons this epoch."""
-        return np.asarray([chaos.fault("nan_grads", epoch=epoch, lane=i) is not None
+        return np.asarray([chaos.fault("nan_grads", epoch=epoch,
+                                       lane=self.lanes.start + i) is not None
                            for i in range(self.num_seeds)])
 
     def _run_train_epoch(self, run, epoch: int) -> dict:
@@ -424,7 +518,7 @@ class FleetTrainer:
             chunks = self._chunks(orders[0])
             m = train_epoch(run, chunks, guard=guard, poison=bool(poison[0]),
                             compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
-                            probes=probes, remat=self.cfg.train.remat)
+                            probes=probes, remat=self.cfg.train.remat, mesh=self.mesh_step)
             m = {k: [v] for k, v in m.items()}
         else:
             chunks = self._chunks(orders)
@@ -432,7 +526,8 @@ class FleetTrainer:
                 self.model, run, chunks, peaks=[c.train.lr for c in self.lane_cfgs],
                 train_cfg=self.cfg.train, total_steps=self.total_steps, guard=guard,
                 poison=poison, compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
-                kl_weight=self._kl_weight(), probes=probes, remat=self.cfg.train.remat)
+                kl_weight=self._kl_weight(), probes=probes, remat=self.cfg.train.remat,
+                mesh=self.mesh_step)
         if self.stream:
             self.last_stream_stats = chunks
         return m
@@ -443,10 +538,10 @@ class FleetTrainer:
         probes = self.cfg.train.obs_probes
         if self.num_seeds == 1:
             m = eval_epoch(run.model, self._chunks(val_order), generators[0], dtype,
-                           probes=probes)
+                           probes=probes, mesh=self.mesh_step)
             return {k: [v] for k, v in m.items()}
         return lane_eval_epoch(self.model, run.params, self._chunks(val_order), generators,
-                               dtype, self._kl_weight(), probes=probes)
+                               dtype, self._kl_weight(), probes=probes, mesh=self.mesh_step)
 
     def evaluate_lanes(self, state: FleetState, epoch: int) -> Optional[list]:
         """Each lane's validation loss of `state` (a `fit` result) with
@@ -470,8 +565,10 @@ class FleetTrainer:
     def fit(self, num_epochs: Optional[int] = None, resume: bool = False):
         """Train the whole fleet. Returns (state, out): the final
         `FleetState` (stacked at S = 1 too) and `out` with `history`
-        (per-epoch records, per-lane values as lists), `best_val` (S,) and
-        `best_params` (the per-lane best-validation snapshots, stacked).
+        (per-epoch records, per-lane values as lists), `best_val` (S,),
+        `best_params` (the per-lane best-validation snapshots, stacked) and
+        `final_params` (the final parameters, stacked); on a mesh `state`
+        holds this rank's lanes and the rest is the whole fleet's.
         Each lane's best weights are also saved under its
         `checkpoint_name()`.
 
@@ -539,8 +636,9 @@ class FleetTrainer:
                 lr=lrs if self.hyper else lrs[0],
                 step=int(run.step if self.num_seeds == 1 else run.steps[0]),
                 seconds=seconds,
-                seed_days_per_sec=self.num_seeds * train_m["days"][0] / max(seconds, 1e-9),
-                lane_labels=self.lane_labels())
+                seed_days_per_sec=len(self.all_seeds) * train_m["days"][0]
+                / max(seconds, 1e-9),
+                lane_labels=self.all_lane_labels())
             for key in ("skipped_steps", "loss_scale", "loss_scale_floor_steps"):
                 if key in train_m:
                     rec[key] = train_m[key]
@@ -548,10 +646,11 @@ class FleetTrainer:
                 rec.update({k: train_m[k] for k in TRAIN_PROBE_KEYS})
                 if val_m is not None:
                     rec.update({"val_" + k: val_m[k] for k in EVAL_PROBE_KEYS})
+            rec = self._full_record(rec)
             history.append(rec)
             self.logger.log("fleet_epoch", **rec)
             export_epoch_metrics(rec)
-            watermark_event(epoch=epoch, seeds=self.num_seeds)
+            watermark_event(epoch=epoch, seeds=len(self.all_seeds))
 
             # per-lane recovery: a bad lane rolls back alone
             loss_np = np.asarray(train_m["loss"], np.float64)
@@ -597,10 +696,16 @@ class FleetTrainer:
                     if lane_streak[i] == 0:
                         lane_anchor[i] = epoch
         self.close_checkpoints()
-        self.logger.log("fleet_best", seeds=self.seeds,
+        self._barrier()
+        final = self._params(run)
+        if self.mesh is not None:
+            best_val = np.asarray(self._gather_lanes([float(v) for v in best_val]))
+            best_params = {n: self._gather_lanes(p) for n, p in best_params.items()}
+            final = {n: self._gather_lanes(p) for n, p in final.items()}
+        self.logger.log("fleet_best", seeds=self.all_seeds,
                         best_val=[float(v) for v in best_val])
         return self._stacked(run), {"history": history, "best_val": best_val,
-                                    "best_params": best_params}
+                                    "best_params": best_params, "final_params": final}
 
     # ---- checkpoints -----------------------------------------------------
 
@@ -623,19 +728,24 @@ class FleetTrainer:
     def _save_best(self, best_params: dict, lanes) -> None:
         """Lane i's best weights under its `checkpoint_name()`, for each of
         `lanes`: the file a serial `--score_only` loads."""
-        for i in lanes:
+        for i in lanes if self._writer else ():
             c = self.lane_cfgs[i]
             save_weights(model_from_params(self.model_cfg, best_params, i), c,
                          os.path.join(c.train.save_dir, c.checkpoint_name()))
+        self._barrier()
 
     def _save_checkpoints(self, run, epoch: int, best_val, clean) -> None:
         """One full-state checkpoint per lane at `epoch`, in the serial
-        format (a serial `Trainer` resumes any member)."""
-        for i in range(self.num_seeds):
+        format (a serial `Trainer` resumes any member). On a mesh the
+        'stock'-index-0 rank writes them, drained before every rank goes on."""
+        for i in range(self.num_seeds) if self._writer else ():
             self.lane_checkpointer(i).save(
                 epoch, self._lane_state(run, i),
                 {"epoch": epoch, "best_val": float(best_val[i]),
                  "config": self.lane_cfgs[i].to_dict(), "clean": bool(clean[i])})
+            if self.mesh is not None:
+                self.lane_checkpointer(i).wait_until_finished()
+        self._barrier()
 
     def _restore_checkpoints(self):
         """(run state, best_val (S,), start epoch, per-lane clean flags) from

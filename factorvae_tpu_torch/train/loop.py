@@ -65,6 +65,23 @@ of `obs/probes.py` into its aux sums on the device: the per-day loss and
 factor probes from the forward, the gradient, update and parameter norms
 and the non-finite gradient count after the unscale and the poison. They
 read no value to the host, draw nothing and leave the update as it is.
+
+On a mesh (`parallel/mesh.py`, the `mesh` argument) each rank holds its
+'stock' rows of the panel (`parallel/sharding.shard_dataset`) and takes its
+'data' slice of every update's days. The noise is drawn at the update's
+full (B, N) shape from the one generator every rank seeds alike, and each
+rank keeps its days and stocks of it, so the model is the serial run's.
+Every rank computes its days' whole loss (the cross-stock reductions and
+the predictor's gather are `parallel/collective_ops`, whose backwards are
+the true adjoints), divided by the update's real-day count; the gradients
+are then summed over the world and divided by the 'stock' size
+(`collective_ops.reduce_gradients`). The finite guard, the loss scale and
+the probes read the reduced gradients, which are the same on every rank,
+so every rank applies or skips the same steps and the parameters stay
+bitwise equal across ranks. The per-day metric sums are summed over the
+batch axes once per epoch. A fleet on a mesh lays its lanes over 'data'
+(each rank steps its own lanes) and shares no collective between lanes:
+its gradients are reduced over 'stock' alone.
 """
 
 from __future__ import annotations
@@ -81,6 +98,7 @@ from torch.utils.checkpoint import (
 )
 
 from factorvae_tpu_torch.models.factorvae import call_with
+from factorvae_tpu_torch.parallel.collective_ops import all_reduce, psum, reduce_gradients
 from factorvae_tpu_torch.obs.probes import (
     MERGE,
     finalize_eval_probes,
@@ -157,20 +175,26 @@ def weighted_day_loss(model, dataset, days: torch.Tensor, *, train: bool,
                       generator: Optional[torch.Generator] = None,
                       eps: Optional[torch.Tensor] = None,
                       keep: Optional[torch.Tensor] = None,
-                      params: Optional[dict] = None, probes: bool = False):
+                      params: Optional[dict] = None, probes: bool = False,
+                      stock=None, total_days: Optional[torch.Tensor] = None):
     """(loss, aux): the mean loss over the real days of the batch and the
     per-step sums the epoch metrics are made of (detached). `params`, when
     given, replace the model's own (the compute copy of a mixed step);
-    `probes` adds the forward's `loss_probes`."""
+    `probes` adds the forward's `loss_probes`. On a mesh, `stock` is the
+    'stock' `Axis` (the dataset holds this rank's rows) and `total_days`
+    the real days of the whole update, which divides this rank's days'
+    loss sum."""
     x, y, mask = batch_for(dataset, days)
     day_w = (days >= 0).to(torch.float32)
     kw = dict(train=train, eps=eps, keep=keep, generator=generator)
+    if stock is not None:
+        kw["stock"] = stock
     out = (model.day_batched_forward(x, y, mask, **kw) if params is None
            else call_with(model, params, "day_batched_forward", x, y, mask, **kw))
     loss_sum = torch.sum(out.loss * day_w)
     count = torch.sum(day_w)
-    loss = loss_sum / torch.clamp(count, min=1.0)
-    n_valid = torch.sum(mask, dim=-1).to(torch.float32) * day_w
+    loss = loss_sum / torch.clamp(count if total_days is None else total_days, min=1.0)
+    n_valid = psum(torch.sum(mask, dim=-1).to(torch.float32), stock) * day_w
     aux = {
         "loss_sum": loss_sum,
         "recon_sum": torch.sum(out.recon_loss * day_w),
@@ -194,33 +218,104 @@ def _grads(model) -> list:
     return [p.grad for p in model.parameters() if p.grad is not None]
 
 
+class MeshStep:
+    """What a step on a mesh needs: the rank's slices of a batch's days and
+    of the cross-section, the 'stock' axis and the axes its gradients and
+    its per-day sums are reduced over. `stacked` is a fleet's (lanes over
+    'data', whole day batches on a two-axis mesh)."""
+
+    def __init__(self, mesh, stacked: bool = False):
+        from factorvae_tpu_torch.parallel.mesh import HOST_AXIS, STOCK_AXIS
+
+        self.mesh = mesh
+        self.stock = mesh.axis(STOCK_AXIS)
+        self.sp = self.stock.size
+        if stacked:
+            if HOST_AXIS in mesh.axis_names:
+                raise NotImplementedError(
+                    "a fleet on a hierarchical ('host', 'data', 'stock') mesh is not "
+                    "ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)")
+            self.grad_axis, self.day_axis = self.stock, None
+        else:
+            self.grad_axis, self.day_axis = mesh.axis("world"), mesh.batch_axis()
+
+    def days(self, t: torch.Tensor, trailing: int = 1) -> torch.Tensor:
+        """This rank's days of `t`, whose day axis has `trailing - 1` axes
+        after it: a (B,) batch, eps (B, N), keep (B, K, N); whole for a
+        fleet on a two-axis mesh."""
+        if self.day_axis is None:
+            return t
+        from factorvae_tpu_torch.parallel.multihost import _slice_of
+
+        dim = t.ndim - trailing
+        sl = _slice_of(int(t.shape[dim]), self.day_axis.size, self.day_axis.index)
+        return t.narrow(dim, sl.start, sl.stop - sl.start)
+
+    def stocks(self, n_local: int) -> slice:
+        """This rank's columns of the whole cross-section of n_local * sp."""
+        return slice(self.stock.index * n_local, (self.stock.index + 1) * n_local)
+
+    def noise(self, eps: torch.Tensor, keep: Optional[torch.Tensor], n_local: int):
+        """The rank's part of noise drawn at the whole update's shape: its
+        days and stocks of eps (..., B, N), its days of keep (..., B, K, N)
+        (whole N: the attention runs on the whole day)."""
+        eps = self.days(eps, 2)[..., self.stocks(n_local)]
+        return eps, None if keep is None else self.days(keep, 3)
+
+    def reduce_sums(self, sums: dict) -> dict:
+        """The epoch's per-day sums summed over the batch axes (the rest are
+        the same on every rank), in one all-reduce."""
+        keys = [k for k in DAY_SUMS if k in sums]
+        if self.day_axis is None or self.day_axis.group is None or not keys:
+            return sums
+        total = all_reduce(torch.stack([sums[k].to(torch.float32) for k in keys]),
+                           self.day_axis)
+        return {**sums, **dict(zip(keys, total.unbind(0)))}
+
+
+#: the aux sums taken over a step's days: on a mesh each rank holds its days'
+DAY_SUMS = ("loss_sum", "recon_sum", "kl_sum", "days", "wloss_sum", "samples", "nf_loss",
+            "mu_spread_sum", "sigma_mean_sum")
+
+
 def train_step(state: TrainState, dataset, days: torch.Tensor, *, guard: bool,
                poison: bool = False, compute_dtype: torch.dtype = torch.float32,
                loss_scale_cfg: Optional[tuple] = None, probes: bool = False,
-               remat: str = "none") -> dict:
+               remat: str = "none", mesh: Optional[MeshStep] = None) -> dict:
     """One update from the batch `days`; returns the step's aux sums. A
     `compute_dtype` other than float32 takes the mixed step, whose
     `loss_scale_cfg` is (growth, backoff, growth_interval, floor); its aux
     also holds the loss scale after the step (a host float32). `probes`
     adds the step's health probes to the aux; `remat` "dots" or "full"
-    recomputes the day loss's forward in the backward."""
+    recomputes the day loss's forward in the backward. On a `mesh` the
+    rank steps its slice of `days` (the module docstring)."""
     model, optimizer = state.model, state.optimizer
     mixed = compute_dtype != torch.float32
     optimizer.zero_grad(set_to_none=True)
     params = cast_compute(model, compute_dtype) if mixed else None
+    n = dataset.values.shape[0]
     # drawn before the forward, so a checkpoint's recompute sees the same noise
     eps, keep = day_noise(model, state.generator, days.shape[0],
-                          dataset.values.shape[0], train=True, device=days.device)
+                          n * (mesh.sp if mesh else 1), train=True, device=days.device)
+    extra = {}
+    if mesh is not None:
+        eps, keep = mesh.noise(eps, keep, n)
+        extra = dict(stock=mesh.stock, total_days=torch.sum((days >= 0).to(torch.float32)))
+        days = mesh.days(days)
     loss, aux = rematerialized(remat, weighted_day_loss, model, dataset, days,
                                train=True, eps=eps, keep=keep, params=params,
-                               probes=probes)
+                               probes=probes, **extra)
     if mixed:
         (loss * float(state.loss_scale)).backward()
+        if mesh is not None:
+            reduce_gradients(_grads(model), mesh.grad_axis, mesh.sp)
         inv = float(np.float32(1.0) / state.loss_scale)
         for g in _grads(model):
             g.mul_(inv)
     else:
         loss.backward()
+        if mesh is not None:
+            reduce_gradients(_grads(model), mesh.grad_axis, mesh.sp)
     if poison:
         for g in _grads(model):
             g.mul_(float("nan"))
@@ -307,19 +402,22 @@ def to_host(metrics: dict) -> dict:
 def train_epoch(state: TrainState, chunks, *, guard: bool, poison: bool = False,
                 compute_dtype: torch.dtype = torch.float32,
                 loss_scale_cfg: Optional[tuple] = None, probes: bool = False,
-                remat: str = "none") -> dict:
+                remat: str = "none", mesh: Optional[MeshStep] = None) -> dict:
     """The epoch's (dataset, order (steps, B)) chunks, in step order
     (`data/stream.epoch_chunks`) -> the epoch's metrics (floats); a mixed
-    epoch's also hold `loss_scale_probes`, a probed one `TRAIN_PROBE_KEYS`."""
+    epoch's also hold `loss_scale_probes`, a probed one `TRAIN_PROBE_KEYS`.
+    On a `mesh` the metrics are the whole update's, on every rank."""
     sums, scales = None, []
     for dataset, order in chunks:
         for i in range(order.shape[0]):
             aux = train_step(state, dataset, order[i], guard=guard, poison=poison,
                              compute_dtype=compute_dtype, loss_scale_cfg=loss_scale_cfg,
-                             probes=probes, remat=remat)
+                             probes=probes, remat=remat, mesh=mesh)
             if "loss_scale" in aux:
                 scales.append(aux.pop("loss_scale"))
             sums = _accumulate(sums, aux)
+    if mesh is not None:
+        sums = mesh.reduce_sums(sums)
     metrics = to_host(finalize_train(sums))
     if scales:
         metrics.update(loss_scale_probes(scales, loss_scale_cfg[3]))
@@ -328,20 +426,33 @@ def train_epoch(state: TrainState, chunks, *, guard: bool, poison: bool = False,
 
 @torch.no_grad()
 def eval_epoch(model, chunks, generator: torch.Generator,
-               compute_dtype: torch.dtype = torch.float32, probes: bool = False) -> dict:
+               compute_dtype: torch.dtype = torch.float32, probes: bool = False,
+               mesh: Optional[MeshStep] = None) -> dict:
     """Validation metrics over the (dataset, order (steps, B)) chunks:
     dropout off, the reconstruction still sampled (the reference's
     validate()), `generator` drawn across the chunks in order. A
     `compute_dtype` other than float32 computes with the model's compute
     copy, as a mixed run's train steps do; `probes` adds
-    `EVAL_PROBE_KEYS`."""
+    `EVAL_PROBE_KEYS`. On a `mesh` each rank takes its days and stocks of
+    noise drawn at the whole batch's shape, as the train step does."""
     params = cast_compute(model, compute_dtype) if compute_dtype != torch.float32 else None
     sums = None
     for dataset, order in chunks:
         for i in range(order.shape[0]):
-            _, aux = weighted_day_loss(model, dataset, order[i], train=False,
-                                       generator=generator, params=params, probes=probes)
+            days, extra = order[i], {}
+            if mesh is not None:
+                n = dataset.values.shape[0]
+                eps, _ = day_noise(model, generator, days.shape[0], n * mesh.sp,
+                                   train=False, device=days.device)
+                eps, _ = mesh.noise(eps, None, n)
+                extra = dict(eps=eps, stock=mesh.stock)
+                days = mesh.days(days)
+            _, aux = weighted_day_loss(model, dataset, days, train=False,
+                                       generator=generator, params=params, probes=probes,
+                                       **extra)
             sums = _accumulate(sums, aux)
+    if mesh is not None:
+        sums = mesh.reduce_sums(sums)
     return to_host(finalize_eval(sums))
 
 
@@ -370,26 +481,36 @@ def lane_noise(model, generators, b: int, n: int, *, train: bool, device):
 
 def lane_day_loss(model, params: dict, dataset, days: torch.Tensor, *, train: bool,
                   generators, kl_weight: Optional[torch.Tensor] = None,
-                  probes: bool = False, noise: Optional[tuple] = None):
+                  probes: bool = False, noise: Optional[tuple] = None,
+                  mesh: Optional[MeshStep] = None):
     """(loss (S,), aux of (S,) sums): `weighted_day_loss` of S models at once,
     lane i with its parameters params[name][i], its day batch days[i] and
     its own noise, through `torch.func.vmap` over `call_with`. With
     `kl_weight` (S,) each lane's loss is recon + kl_weight[i] * kl (a
     hyper-fleet's runtime scalar); without it the model's own loss. `probes`
     adds each lane's `loss_probes`. `noise` is `lane_noise`'s (eps, keep);
-    the train step draws it first, an eval draws it here."""
+    the train step draws it first, an eval draws it here. On a `mesh` the
+    dataset holds this rank's stocks and `noise` the whole cross-section's,
+    of which each lane keeps this rank's stocks of eps."""
     x, y, mask = lane_batch(dataset, days)
-    eps, keep = noise or lane_noise(model, generators, days.shape[1], x.shape[2],
-                                    train=train, device=x.device)
+    n = x.shape[2]
+    eps, keep = noise or lane_noise(model, generators, days.shape[1],
+                                    n * (mesh.sp if mesh else 1), train=train,
+                                    device=x.device)
+    kw = {}
+    if mesh is not None:
+        eps, keep = mesh.noise(eps, keep, n)
+        kw["stock"] = mesh.stock
+    stock = kw.get("stock")
 
     def one(p, x, y, mask, d, eps, keep, klw):
         day_w = (d >= 0).to(torch.float32)
         out = call_with(model, p, "day_batched_forward", x, y, mask, train=train,
-                        eps=eps, keep=keep)
+                        eps=eps, keep=keep, **kw)
         per_day = out.loss if klw is None else out.recon_loss + klw * out.kl
         loss_sum = torch.sum(per_day * day_w)
         count = torch.sum(day_w)
-        n_valid = torch.sum(mask, dim=-1).to(torch.float32) * day_w
+        n_valid = psum(torch.sum(mask, dim=-1).to(torch.float32), stock) * day_w
         aux = {"loss_sum": loss_sum, "recon_sum": torch.sum(out.recon_loss * day_w),
                "kl_sum": torch.sum(out.kl * day_w), "days": count,
                "wloss_sum": torch.sum(per_day * n_valid), "samples": torch.sum(n_valid)}
@@ -421,35 +542,42 @@ def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
                     compute_dtype: torch.dtype = torch.float32,
                     loss_scale_cfg: Optional[tuple] = None,
                     kl_weight: Optional[torch.Tensor] = None, probes: bool = False,
-                    remat: str = "none") -> dict:
+                    remat: str = "none", mesh: Optional[MeshStep] = None) -> dict:
     """One update of every lane from its batch days[i] (`train_step` lane by
     lane): the gradients of the summed lane losses (lane i's part is its
     own loss's, the lanes sharing nothing), lane i's loss scale on a mixed
     fleet, the NaN poison on the lanes `poison` flags, then the per-lane
     finite guard and `lane_adam_step` with lane i's peak lr `peaks[i]`.
     Returns the step's aux sums, each (S,); a mixed fleet's also hold the
-    (S,) loss scales after the step (host float32)."""
+    (S,) loss scales after the step (host float32). On a `mesh` (a
+    stacked `MeshStep`) the state holds this rank's lanes and the dataset
+    its stocks; the gradients are reduced over 'stock'."""
     params = state.params
     for p in params.values():
         p.grad = None
     mixed = compute_dtype != torch.float32
     use = cast_params(model, params, compute_dtype) if mixed else params
     # drawn before the forward, so a checkpoint's recompute sees the same noise
-    noise = lane_noise(model, state.generators, days.shape[1], dataset.values.shape[0],
+    noise = lane_noise(model, state.generators, days.shape[1],
+                       dataset.values.shape[0] * (mesh.sp if mesh else 1),
                        train=True, device=days.device)
     loss, aux = rematerialized(remat, lane_day_loss, model, use, dataset, days, train=True,
                                generators=state.generators, kl_weight=kl_weight,
-                               probes=probes, noise=noise)
+                               probes=probes, noise=noise, mesh=mesh)
     grads = lambda: [p.grad for p in params.values() if p.grad is not None]  # noqa: E731
     device = loss.device
     if mixed:
         scale = torch.as_tensor(state.loss_scale, device=device)
         (loss * scale).sum().backward()
+        if mesh is not None:
+            reduce_gradients(grads(), mesh.grad_axis, mesh.sp)
         inv = torch.as_tensor(np.float32(1.0) / state.loss_scale, device=device)
         for g in grads():
             g.mul_(_lane_view(inv, g))
     else:
         loss.sum().backward()
+        if mesh is not None:
+            reduce_gradients(grads(), mesh.grad_axis, mesh.sp)
     if poison is not None and poison.any():
         factor = torch.as_tensor(np.where(poison, np.float32("nan"), np.float32(1.0)),
                                  device=device)
@@ -484,10 +612,11 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
                      compute_dtype: torch.dtype = torch.float32,
                      loss_scale_cfg: Optional[tuple] = None,
                      kl_weight: Optional[torch.Tensor] = None,
-                     probes: bool = False, remat: str = "none") -> dict:
+                     probes: bool = False, remat: str = "none",
+                     mesh: Optional[MeshStep] = None) -> dict:
     """The epoch's (dataset, order (S, steps, B)) chunks, lane i's own day
     order -> the epoch's metrics, each a list of S floats (`train_epoch`
-    lane by lane)."""
+    lane by lane); on a `mesh`, of this rank's lanes."""
     sums, scales = None, []
     for dataset, order in chunks:
         for i in range(order.shape[1]):
@@ -495,7 +624,7 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
                                   train_cfg=train_cfg, total_steps=total_steps, guard=guard,
                                   poison=poison, compute_dtype=compute_dtype,
                                   loss_scale_cfg=loss_scale_cfg, kl_weight=kl_weight,
-                                  probes=probes, remat=remat)
+                                  probes=probes, remat=remat, mesh=mesh)
             if "loss_scale" in aux:
                 scales.append(aux.pop("loss_scale"))
             sums = _accumulate(sums, aux)
@@ -512,10 +641,11 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
 def lane_eval_epoch(model, params: dict, chunks, generators,
                     compute_dtype: torch.dtype = torch.float32,
                     kl_weight: Optional[torch.Tensor] = None,
-                    probes: bool = False) -> dict:
+                    probes: bool = False, mesh: Optional[MeshStep] = None) -> dict:
     """Validation metrics of S models over the (dataset, shared order
     (steps, B)) chunks, lane i with its parameters and its generator -> each
-    metric a list of S floats (`eval_epoch` lane by lane)."""
+    metric a list of S floats (`eval_epoch` lane by lane); on a `mesh`, of
+    this rank's lanes over its stocks."""
     if compute_dtype != torch.float32:
         params = cast_params(model, params, compute_dtype)
     lanes = len(generators)
@@ -525,6 +655,6 @@ def lane_eval_epoch(model, params: dict, chunks, generators,
             days = order[i].expand(lanes, -1)
             _, aux = lane_day_loss(model, params, dataset, days, train=False,
                                    generators=generators, kl_weight=kl_weight,
-                                   probes=probes)
+                                   probes=probes, mesh=mesh)
             sums = _accumulate(sums, aux)
     return to_host(finalize_eval(sums))

@@ -66,7 +66,8 @@ def _with_scalars(c: Config, lr: float, kl_weight: float) -> Config:
 
 def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations: int,
             epochs_per_generation: int, logger: Optional[MetricsLogger] = None,
-            resume: bool = False, stop_after: Optional[int] = None, device="cuda"):
+            resume: bool = False, stop_after: Optional[int] = None, device="cuda",
+            mesh=None):
     """G generations of population-based training over one hyper-fleet.
 
     `lane_configs` seeds the population (per-lane lr, kl_weight and seed;
@@ -80,7 +81,13 @@ def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations
 
     Returns (trainer, result): result holds the per-generation records
     (fitness, winners, exploited lanes, the scalars' walk), the final lane
-    configs, state, best_val and best_params."""
+    configs, state, best_val and best_params.
+
+    `mesh` trains the population on a mesh whose 'data' axis is 1: every
+    rank holds every lane over its 'stock' rows (`train/fleet.py`), and the
+    exploit's checkpoint rows and the state file are written by the fleet's
+    writing rank. Lanes split over 'data' would put a winner and its loser
+    on different ranks: refused (ROADMAP Queue 1 item 16)."""
     logger = logger or MetricsLogger(echo=False)
     generations, epg = int(generations), int(epochs_per_generation)
     if generations < 1 or epg < 1:
@@ -109,8 +116,12 @@ def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations
 
     # force_hyper: a homogeneous population would fold to baked scalars, and
     # the first explore step would have no run-time scalar to move
+    if mesh is not None and int(mesh.shape.get("data", 1)) > 1:
+        raise NotImplementedError(
+            "population-based training with lanes over a 'data' axis above 1 is not "
+            "ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)")
     trainer = FleetTrainer(config, dataset, lane_configs=lane_cfgs, device=device,
-                           logger=logger, force_hyper=True)
+                           logger=logger, force_hyper=True, mesh=mesh)
     num_lanes = trainer.num_seeds
     n_exploit = max(1, int(round(num_lanes * EXPLOIT_FRAC))) if num_lanes > 1 else 0
     n_exploit = min(n_exploit, num_lanes // 2)
@@ -149,23 +160,27 @@ def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations
                 new_klw = float(np.clip(w_cfg.model.kl_weight * f, *KL_WEIGHT_BOUNDS))
                 trainer.set_lane_scalars(loser, lr=new_lr, kl_weight=new_klw)
                 # exploit: the winner's checkpoint row into the loser's directory
-                row = trainer.init_lane_state(loser)
-                trainer.lane_checkpointer(winner).restore(row, step=gather_epoch)
-                trainer.lane_checkpointer(loser).save(
-                    gather_epoch, row,
-                    {"epoch": gather_epoch, "best_val": float(out["best_val"][loser]),
-                     "config": trainer.lane_cfgs[loser].to_dict(), "clean": True})
+                if trainer._writer:
+                    row = trainer.init_lane_state(loser)
+                    trainer.lane_checkpointer(winner).restore(row, step=gather_epoch)
+                    trainer.lane_checkpointer(loser).save(
+                        gather_epoch, row,
+                        {"epoch": gather_epoch, "best_val": float(out["best_val"][loser]),
+                         "config": trainer.lane_cfgs[loser].to_dict(), "clean": True})
                 rec["exploited"].append({"lane": loser, "from": winner,
                                          "perturb_factor": f, "lr": new_lr,
                                          "kl_weight": new_klw})
         gen_records.append(rec)
         trainer.close_checkpoints()      # the exploit rows land before the state file
+        trainer._barrier()
         finite = fitness[np.isfinite(fitness)]
         logger.log("pbt_generation", **{k: v for k, v in rec.items() if k != "fitness"},
                    best_fitness=float(finite.min()) if finite.size else float("nan"))
-        _write_pbt_state(state_path, gen + 1,
-                         [{"lr": c.train.lr, "kl_weight": c.model.kl_weight}
-                          for c in trainer.lane_cfgs])
+        if trainer._writer:
+            _write_pbt_state(state_path, gen + 1,
+                             [{"lr": c.train.lr, "kl_weight": c.model.kl_weight}
+                              for c in trainer.lane_cfgs])
+        trainer._barrier()
         if stop_after is not None and gen >= stop_after:
             logger.log("pbt_stopped", after_generation=gen)
             break

@@ -54,13 +54,25 @@ stream runs the next train epoch under `torch.profiler`
 backward (`train/loop.rematerialized`), with the loss and gradients of
 "none" and no lower peak memory (its checkpoint wraps the whole day loss);
 another value raises the JAX package's ValueError. Refused in
-`__init__`, each naming its ROADMAP item, as the CLI does: a stock-sharded
-mesh, and on a CUDA device a hidden size above the kernels' maximum. Fleets of models are `train/fleet.FleetTrainer`,
+`__init__`, naming its ROADMAP item, as the CLI does: on a CUDA device a
+hidden size above the kernels' maximum. Fleets of models are `train/fleet.FleetTrainer`,
 whose one-lane fleet is this trainer. Checkpoints are saved on a background thread when
 `train.async_checkpointing` (the default), else synchronously; the files
 are the same (`train/checkpoint.py`), and `fit` drains the queue before it
 returns. A resume or a rollback restores only a step that verifies against
 its manifest, falling back to an older one.
+
+A mesh (`Trainer(mesh=...)`, or `use_mesh=True` to build `config.mesh`'s
+over the world; `config.mesh` alone builds none, as in the JAX package)
+runs the step of `train/loop.MeshStep`: the dataset keeps this rank's
+stock rows (`parallel/sharding.shard_dataset`, in place), each rank takes
+its days of every update, and the parameters stay bitwise equal on every
+rank. The composition is checked by `parallel/compose.validate`. Rank 0
+writes the checkpoints, the best weights and the metrics stream (the other
+ranks log nowhere); a resume or a rollback broadcasts what rank 0 restores
+(`train/checkpoint.RankZeroCheckpointer`). The `shard_balance` record is
+the rule tables' per-rank byte bill (`obs/memory.shard_balance_block`);
+`comms_block()` is the collectives the last fit ran (`obs/comms.py`).
 """
 
 from __future__ import annotations
@@ -82,8 +94,12 @@ from factorvae_tpu_torch.obs.metrics import export_epoch_metrics
 from factorvae_tpu_torch.obs.probes import EVAL_PROBE_KEYS, TRAIN_PROBE_KEYS
 from factorvae_tpu_torch.ops.kernels import hidden_refusal
 from factorvae_tpu_torch.params import save_weights
-from factorvae_tpu_torch.train.checkpoint import Checkpointer, CheckpointIntegrityError
-from factorvae_tpu_torch.train.loop import check_remat, eval_epoch, train_epoch
+from factorvae_tpu_torch.train.checkpoint import (
+    Checkpointer,
+    CheckpointIntegrityError,
+    RankZeroCheckpointer,
+)
+from factorvae_tpu_torch.train.loop import MeshStep, check_remat, eval_epoch, train_epoch
 from factorvae_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
@@ -143,22 +159,58 @@ def eval_generator(seed: int, epoch: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed_for(seed, _EVAL_NOISE, epoch))
 
 
+def build_mesh(config: Config, mesh, use_mesh: bool):
+    """The run's mesh: `mesh` when given, else `config.mesh`'s over the world
+    when `use_mesh`, else None."""
+    if mesh is not None or not use_mesh:
+        return mesh
+    from factorvae_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(config.mesh)
+
+
+def is_rank_zero(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def barrier(mesh) -> None:
+    """Wait for every rank of `mesh` (nothing without a group)."""
+    world = None if mesh is None else mesh.axis("world")
+    if world is not None and world.group is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=world.group)
+
+
 class Trainer:
     def __init__(self, config: Config, dataset, device="cuda",
-                 logger: Optional[MetricsLogger] = None):
+                 logger: Optional[MetricsLogger] = None, mesh=None,
+                 use_mesh: bool = False):
+        from factorvae_tpu_torch.parallel import compose
+
         self.cfg = config
         self.ds = dataset
         self.device = torch.device(device)
-        self.logger = logger or MetricsLogger(echo=False)
+        self.mesh = build_mesh(config, mesh, use_mesh)
+        self.logger = (logger or MetricsLogger(echo=False)) if is_rank_zero(self.mesh) \
+            else MetricsLogger(echo=False)
         refused = hidden_refusal(config.model.hidden_size, self.device)
         if refused:
             raise ValueError(refused)
         if dataset.device.type != self.device.type:
             raise ValueError(f"the dataset lives on {dataset.device}, the trainer "
                              f"runs on {self.device}")
-        if config.mesh.stock_axis > 1:
-            raise NotImplementedError("mesh.stock_axis > 1 is not ported to "
-                                      "factorvae_tpu_torch yet (ROADMAP Queue 1 item 12)")
+        compose.validate(mesh=self.mesh, residency=dataset.residency,
+                         days_per_step=max(1, config.train.days_per_step),
+                         stream_chunk_days=config.data.stream_chunk_days,
+                         n_stocks=dataset.n_max)
+        self.mesh_step = None
+        if self.mesh is not None:
+            from factorvae_tpu_torch.parallel.sharding import shard_dataset
+
+            shard_dataset(self.mesh, dataset)
+            self.mesh_step = MeshStep(self.mesh)
+        self._comms_at_fit = None
         check_remat(config.train.remat)
         self.train_dtype = resolve_train_dtype(config.train, config.model)
         self.mixed = self.train_dtype != "float32"
@@ -192,6 +244,14 @@ class Trainer:
             obs_probes=config.train.obs_probes, device=str(self.device),
             panel_residency="stream" if self.stream else "hbm",
             steps_per_chunk=self.steps_per_chunk if self.stream else None)
+        if self.mesh is not None:
+            from factorvae_tpu_torch.obs.memory import shard_balance_block
+
+            from factorvae_tpu_torch.parallel.partition import abstract_state_tree
+
+            self.logger.log("shard_balance", **shard_balance_block(
+                self.mesh, state=abstract_state_tree(self.model_cfg, self.device, self.mixed),
+                dataset=dataset))
 
     def init_state(self) -> TrainState:
         """A model with weights drawn from `train.seed` (bitwise
@@ -212,7 +272,15 @@ class Trainer:
     def _chunks(self, days, shuffle: bool, epoch: int):
         """The epoch's (dataset, order) chunks for `train_epoch`/`eval_epoch`."""
         return epoch_chunks(self.ds, self._order_np(days, shuffle, epoch),
-                            self.steps_per_chunk)
+                            self.steps_per_chunk, self._placement())
+
+    def _placement(self):
+        """The stream's mini-panel placement on a mesh, else None."""
+        if self.mesh is None:
+            return None
+        from factorvae_tpu_torch.parallel.sharding import chunk_placement
+
+        return chunk_placement(self.mesh)
 
     def _eval_generator(self, epoch: int) -> torch.Generator:
         return eval_generator(self.cfg.train.seed, epoch, self.device)
@@ -235,16 +303,24 @@ class Trainer:
             if state is not None:
                 set_horizon(state, tcfg, total)
         ckpt = None
-        if tcfg.checkpoint_every:
+        if tcfg.checkpoint_every and is_rank_zero(self.mesh):
             ckpt = Checkpointer(os.path.join(tcfg.save_dir,
                                              f"{cfg.checkpoint_name()}_ckpt"),
                                 keep=tcfg.keep_checkpoints,
                                 async_save=tcfg.async_checkpointing)
+        world = None if self.mesh is None else self.mesh.axis("world")
+        shared = ckpt
+        if tcfg.checkpoint_every and world is not None and world.group is not None:
+            shared = RankZeroCheckpointer(ckpt, world)
+        from factorvae_tpu_torch.parallel.collective_ops import comm_counts
+
+        self._comms_at_fit = comm_counts()
+        self._fit_steps = 0
         try:
-            return self._fit(state, resume, epochs, ckpt)
+            return self._fit(state, resume, epochs, shared)
         finally:
-            if ckpt is not None:
-                ckpt.close()
+            if shared is not None:
+                shared.close()
             self.last_checkpointer = ckpt
 
     def _fit(self, state, resume: bool, epochs: int, ckpt):
@@ -287,7 +363,8 @@ class Trainer:
                 train_m = train_epoch(state, chunks, guard=tcfg.finite_guard, poison=poison,
                                       compute_dtype=self.model_cfg.dtype,
                                       loss_scale_cfg=self.loss_scale_cfg, probes=probes,
-                                      remat=tcfg.remat)
+                                      remat=tcfg.remat, mesh=self.mesh_step)
+            self._fit_steps += self.steps_per_epoch
             log_profile_capture(self.logger, epoch, prof, prof_dir)
             if self.stream:
                 self.last_stream_stats = chunks
@@ -298,7 +375,7 @@ class Trainer:
                                    epoch=epoch):
                     val_m = eval_epoch(state.model, self._chunks(self.val_days, False, 0),
                                        self._eval_generator(epoch), self.model_cfg.dtype,
-                                       probes=probes)
+                                       probes=probes, mesh=self.mesh_step)
                 rec.update(val_loss=val_m["loss"], val_recon=val_m["recon"],
                            val_kl=val_m["kl"])
                 selection = val_m["loss"]
@@ -384,8 +461,10 @@ class Trainer:
 
             if selection < best_val:
                 best_val = selection
-                save_weights(state.model, cfg,
-                             os.path.join(tcfg.save_dir, cfg.checkpoint_name()))
+                if is_rank_zero(self.mesh):
+                    save_weights(state.model, cfg,
+                                 os.path.join(tcfg.save_dir, cfg.checkpoint_name()))
+                barrier(self.mesh)
             if ckpt is not None and (epoch % max(1, tcfg.checkpoint_every) == 0
                                      or epoch == epochs - 1):
                 ckpt.save(epoch, state, {"epoch": epoch, "best_val": best_val,
@@ -407,11 +486,24 @@ class Trainer:
         generator = torch.Generator(device=self.device).manual_seed(
             seed_for(seed, _EVAL_NOISE))
         return eval_epoch(model, self._chunks(days, False, 0), generator,
-                          self.model_cfg.dtype)
+                          self.model_cfg.dtype, mesh=self.mesh_step)
+
+    def comms_block(self) -> Optional[dict]:
+        """The collectives of the last `fit` (`obs/comms.comms_block`), or
+        None without a mesh."""
+        if self.mesh is None or self._comms_at_fit is None:
+            return None
+        from factorvae_tpu_torch.obs.comms import comms_block
+        from factorvae_tpu_torch.parallel.collective_ops import comm_counts
+
+        return comms_block(comm_counts(), self._comms_at_fit, mesh=self.mesh,
+                           steps=self._fit_steps, steps_per_epoch=self.steps_per_epoch)
 
     def score(self, model, start=None, end=None, **kw):
-        """Prediction scores DataFrame (`eval.predict.generate_prediction_scores`)."""
+        """Prediction scores DataFrame (`eval.predict.generate_prediction_scores`),
+        on the trainer's mesh when it has one."""
         from factorvae_tpu_torch.eval.predict import generate_prediction_scores
 
+        kw.setdefault("mesh", self.mesh)
         return generate_prediction_scores(model, self.cfg, self.ds, start=start,
                                           end=end, **kw)

@@ -41,8 +41,10 @@ stage's context (`obs/trace`).
 A no-fault cycle's refit parameters are bitwise a plain `warm_refit` on the
 grown panel: the operator adds journaling around the fit, no arithmetic in
 it. The refit builds its `Trainer` from the caller's config, so it trains
-under the caller's `train.remat` and refuses what `Trainer` refuses (a
-stock mesh, naming its ROADMAP item) as a `WalkForwardError`.
+under the caller's `train.remat` and refuses what `Trainer` refuses as a
+`WalkForwardError`. A config whose mesh block asks for more than one rank
+is refused too, naming its ROADMAP item: the JAX walk-forward builds no
+mesh, so the port has none to hold a mesh refit against.
 """
 
 from __future__ import annotations
@@ -92,6 +94,11 @@ def holdout_day_indices(dataset, n: int = 1) -> List[int]:
 def _trainer(config: Config, dataset, logger, device):
     from factorvae_tpu_torch.train.trainer import Trainer
 
+    if config.mesh.stock_axis > 1 or config.mesh.data_axis > 1:
+        raise WalkForwardError(
+            f"the refit builds no mesh (mesh.stock_axis={config.mesh.stock_axis}, "
+            f"mesh.data_axis={config.mesh.data_axis}): a walk-forward on a mesh is not "
+            "ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)")
     try:
         return Trainer(config, dataset, device=device, logger=logger)
     except NotImplementedError as e:

@@ -360,8 +360,6 @@ class TestChaosEnvironment:
 
 
 REFUSED = [
-    (["--mesh"], "--mesh", 12),
-    (["--mesh_stock", "2"], "--mesh_stock", 12),
     (["--no-pallas"], "--no-pallas", None),
     # above the CUDA kernels' kMaxH on the card (ROADMAP Queue 2 "Limits")
     (["--hidden_size", "96", "--device", "cuda"], "hidden_size 96", None),
@@ -459,22 +457,6 @@ class TestCliRefusals:
         assert "ROADMAP" in err and (item is None or f"Queue 1 item {item})" in err)
         assert opened == []
 
-    @pytest.mark.parametrize("fleet", [["--fleet_seeds", "3"],
-                                       ["--hyper_grid", "1e-3:1,3e-3:0.1"]],
-                             ids=["fleet_seeds", "hyper_grid"])
-    @pytest.mark.parametrize("extra,flag,item", [
-        (["--mesh"], "--mesh", 12)], ids=["mesh"])
-    def test_fleet_flags_with_an_unported_path_exit_2(self, data, monkeypatch, capsys,
-                                                      fleet, extra, flag, item):
-        """A fleet composes with none of the unported paths: the line names
-        the path's item, before the dataset is read."""
-        opened = _read_nothing(monkeypatch)
-        assert cli.main(_argv(data, "refused", "--device", "cpu", *fleet, *extra)) == 2
-        err = capsys.readouterr().err.strip()
-        assert err.startswith(f"error: {flag}") and len(err.splitlines()) == 1
-        assert f"ROADMAP Queue 1 item {item})" in err
-        assert opened == []
-
     @pytest.mark.parametrize("extra", [["--pallas"], ["--pallas_auto"], ["--no-bf16"],
                                        ["--fleet_seeds", "1"], ["--fleet_seeds", "3"],
                                        ["--hyper_grid", "1e-3:1,3e-3:0.1"], ["--no-obs"],
@@ -545,6 +527,43 @@ class TestCliRefusals:
         assert err.startswith(want), err
         if case == "empty_train_split":
             assert "the dataset covers [" in err
+
+
+class TestCliMesh:
+    """`--mesh` in one process is the 1 x 1 mesh (the multi-rank CLI under
+    torchrun is tests/test_torch_multihost.py): the CSV is the run's without
+    --mesh byte for byte, serial and fleets alike; a 'stock' axis the world
+    cannot hold exits 2 with one line, after the panel is read."""
+
+    @pytest.mark.parametrize("extra", [[], ["--fleet_seeds", "3"],
+                                       ["--hyper_grid", "1e-3:1,3e-3:0.1"]],
+                             ids=["serial", "fleet_seeds", "hyper_grid"])
+    def test_mesh_in_one_process_writes_the_plain_csv(self, data, extra):
+        out = {}
+        for name, mesh in (("plain", []), ("mesh", ["--mesh"])):
+            tag = f"mesh1x1_{name}_{'_'.join(extra) or 'serial'}".replace(":", "")
+            assert cli.main(_argv(data, tag, "--device", "cpu", *extra, *mesh,
+                                  epochs=1)) == 0
+            scores = os.path.join(str(data[0]), tag, "scores")
+            (csv_name,) = os.listdir(scores)
+            out[name] = open(os.path.join(scores, csv_name)).read()
+        assert out["mesh"] == out["plain"]
+
+    def test_a_stock_axis_the_world_cannot_hold_exits_2(self, data, capsys):
+        assert cli.main(_argv(data, "mesh_too_wide", "--device", "cpu", "--mesh",
+                              "--mesh_stock", "2", epochs=1)) == 2
+        err = capsys.readouterr().err.strip()
+        assert err.startswith("error: cannot build the requested (data x stock) mesh")
+        assert len(err.splitlines()) == 1 and "not divisible by stock axis 2" in err
+
+    def test_mesh_stock_below_one_is_refused_before_the_dataset(self, data, monkeypatch,
+                                                               capsys):
+        opened = _read_nothing(monkeypatch)
+        assert cli.main(_argv(data, "refused", "--device", "cpu", "--mesh",
+                              "--mesh_stock", "0")) == 2
+        err = capsys.readouterr().err.strip()
+        assert err.startswith("error: --mesh_stock 0") and len(err.splitlines()) == 1
+        assert opened == []
 
 
 CONFIG_ARGV = [

@@ -7,7 +7,8 @@ scoring daemon's fused ticks at each rung with its metrics, drift, trace
 and scheduler, an AOT artifact admitted and scored, a walk-forward
 cycle through its command line, and a probed epoch under a profiler
 capture read back by the run readers, rematerialized epochs (serial and a
-fleet), the static analyzer on a module, with no JAX, Flax,
+fleet), the static analyzer on a module, a 1 x 1 mesh's epoch, fleet and
+scoring pass (`parallel/` among the modules), with no JAX, Flax,
 pandas or JAX-package module loaded),
 that the JAX weights carry across without loss, and that `chip_smoke.py`
 refuses to run without a GPU instead of falling back to the CPU."""
@@ -211,6 +212,28 @@ assert {"factorvae_tpu_torch.eval.factors", "factorvae_tpu_torch.eval.compare",
         "factorvae_tpu_torch.analysis.project", "factorvae_tpu_torch.analysis.concurrency",
         "factorvae_tpu_torch.analysis.sanitize",
         "factorvae_tpu_torch.analysis.__main__"} <= set(names)
+
+# the thirteenth slice: a 1 x 1 mesh epoch and fleet, mesh scoring, the
+# parallel package and the comms block
+from factorvae_tpu_torch.parallel import single_device_mesh
+from factorvae_tpu_torch.parallel.collective_ops import comm_counts
+with tempfile.TemporaryDirectory() as run:
+    mcfg = config.Config(model=cfg.model, data=config.DataConfig(seq_len=4),
+                         train=config.TrainConfig(num_epochs=1, checkpoint_every=1,
+                                                  save_dir=run))
+    mds = PanelDataset(synthetic_panel_dense(12, 5, 6), seq_len=4, device="cpu")
+    tr = Trainer(mcfg, mds, device="cpu", mesh=single_device_mesh())
+    state, out = tr.fit()
+    assert np.isfinite(out["history"][0]["train_loss"]) and tr.comms_block()["collective_ops"] == 0
+    _, out = FleetTrainer(mcfg, mds, seeds=[0, 1], device="cpu", use_mesh=True).fit()
+    assert np.isfinite(out["history"][0]["train_loss"]).all()
+    s = predict_panel(state.model, mcfg, mds, mds.split_days(None, None), mesh=tr.mesh)
+    assert s.shape == (12, 8) and np.isfinite(s[:, :5]).all() and comm_counts() == {}
+assert {"factorvae_tpu_torch.parallel", "factorvae_tpu_torch.parallel.mesh",
+        "factorvae_tpu_torch.parallel.compose", "factorvae_tpu_torch.parallel.multihost",
+        "factorvae_tpu_torch.parallel.partition", "factorvae_tpu_torch.parallel.sharding",
+        "factorvae_tpu_torch.parallel.collective_ops", "factorvae_tpu_torch.parallel.ring",
+        "factorvae_tpu_torch.obs.comms"} <= set(names)
 
 def banned(mod):
     top = mod.split(".")[0]

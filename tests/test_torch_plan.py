@@ -388,7 +388,7 @@ class TestAutotune:
         assert rc == 0 and not out.exists()
 
     @pytest.mark.parametrize("flag,says", [("--kernels", "no kernel switch"),
-                                           ("--mesh", "ROADMAP Queue 1 item 12")])
+                                           ("--mesh", "ROADMAP Queue 1 item 16")])
     def test_refused_flag_exits_2_with_one_line(self, monkeypatch, capsys, tmp_path,
                                                 flag, says):
         out = tmp_path / "table.json"

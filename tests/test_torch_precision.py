@@ -637,21 +637,31 @@ class TestRefusals:
         ModelRegistry(device="cpu").admit(model, wide)
 
     @pytest.mark.parametrize("knob,item", [
-        (dict(mesh=dict(stock_axis=2)), 12),
+        (dict(mesh=dict(stock_axis=2)), None),
         (dict(train=dict(remat="dots")), None)], ids=["mesh_stock", "remat"])
     def test_unported_config_knobs(self, panels, tmp_path, knob, item):
-        """A stock mesh is refused naming its ROADMAP item; remat (item 15,
-        ported) trains a mixed epoch bitwise the one of remat "none"."""
+        """Both knobs are ported. A stock mesh in the config builds no mesh
+        (as in the JAX package: `use_mesh=True` asks for one, and a world
+        of one rank cannot hold 'stock' = 2); a mixed epoch on the 1 x 1
+        mesh is bitwise the plain one. remat (item 15) trains a mixed epoch
+        bitwise the one of remat "none"."""
+        from factorvae_tpu_torch.parallel.mesh import single_device_mesh
+
         _, tp = panels
         base = _port(_jmixed(tp, tmp_path), save_dir=str(tmp_path / "k"))
         cfg = dataclasses.replace(base, **{sec: dataclasses.replace(getattr(base, sec), **kw)
                                            for sec, kw in knob.items()})
         ds = PanelDataset(tp, seq_len=T, device="cpu")
-        if item is not None:
-            with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}\\)"):
-                Trainer(cfg, ds, device="cpu")
-            return
-        runs = [Trainer(c, ds, device="cpu").fit(num_epochs=1) for c in (base, cfg)]
+        assert item is None
+        if "mesh" in knob:
+            assert Trainer(cfg, ds, device="cpu").mesh is None
+            with pytest.raises(ValueError, match="not divisible by stock axis 2"):
+                Trainer(cfg, ds, device="cpu", use_mesh=True)
+            runs = [Trainer(base, ds, device="cpu").fit(num_epochs=1),
+                    Trainer(base, PanelDataset(tp, seq_len=T, device="cpu"), device="cpu",
+                            mesh=single_device_mesh()).fit(num_epochs=1)]
+        else:
+            runs = [Trainer(c, ds, device="cpu").fit(num_epochs=1) for c in (base, cfg)]
         (plain, plain_out), (remat, remat_out) = runs
         assert plain_out["history"][0]["train_loss"] == remat_out["history"][0]["train_loss"]
         a, b = plain.model.state_dict(), remat.model.state_dict()
