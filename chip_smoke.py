@@ -146,7 +146,12 @@ named phases, and prints neither the kernels line nor the result):
               exact), extend_days under both residencies and the daemon's
               extend_dataset: the new days' scores bitwise a fresh
               dataset's; (g) the CLI with --panel_residency stream: the
-              hbm run's CSV byte for byte. Each ledger: bytes_put,
+              hbm run's CSV byte for byte; (h) 10 consumptions of an
+              8-chunk stream of 4 MB chunks whose consumer spins ~100 ms on
+              the device per chunk: every chunk read intact, the peak of
+              device memory at least two chunks and below three each time
+              (a chunk's slot is freed when its last tensor goes). Each
+              ledger: bytes_put,
               produce_seconds, wait_seconds, copy_seconds (CUDA events),
               h2d_gb_per_s, staging_waits, retries, overlap_frac.
 13. serve  -- the full scoring daemon at flagship width on the 80-day panel:
@@ -357,8 +362,29 @@ named phases, and prints neither the kernels line nor the result):
               MESH_LOSS_RTOL); the 1 x 2 scores of MESH_SCORE_DAYS days
               (`predict_panel(mesh=)`) within MESH_TOL of serial scoring.
               Each run's step walls and `comms` block (collective calls and
-              payload bytes by kind and axis, `obs/comms.py`). Two ranks on
-              one card check the mesh paths; they measure no scaling.
+              payload bytes by kind and axis, `obs/comms.py`). (c) The same
+              two ranks train fleets, one epoch a generation, each against
+              the same run without a mesh on the card: a 2-lane hyper-fleet
+              (lr, kl_weight per lane) on 2 x 1, one lane a rank; a 4-lane
+              PBT of 2 generations on 2 x 1; a 2-seed fleet on 'host' 2 x
+              'data' 1 x 'stock' 1 (each update's days split over 'host').
+              The ranks agree bitwise on every shared leaf (the gathered
+              final and best parameters, best_val, the records, PBT's
+              generations and scalars); lane parameters within the
+              card's fleet tolerance, TRAIN_PARAM_ATOL (the elements where
+              Adam turns rounding into steps within lr a step, counted,
+              and the count beyond the CPU tests' MESH_FLEET_TOL); the
+              losses within
+              MESH_LOSS_RTOL; PBT's winners, exploited lanes and scalars
+              equal. Every rank launches K1's residual variant, the walk,
+              dWh, K4 and K5 in every run; each run's launches per rank,
+              walls and comms block. (d) In (a)'s NCCL group of one,
+              `autotune --mesh` at csi300-k60 width (one row, 300 stocks)
+              into a temporary table:
+              the 1 x 1 mesh against no mesh at the train winner's
+              days_per_step, each candidate's seconds per trained day and
+              the verdict. Two ranks on one card check the mesh paths;
+              they measure no scaling.
 22. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
@@ -372,8 +398,9 @@ named phases, and prints neither the kernels line nor the result):
               phase's in-process cycle, `launches_obs` in the obs phase's
               profiled epoch, `launches_remat` in the remat phase's "full"
               epoch, `launches_factors` in the factors phase's range,
-              `launches_plan` in the plan phase's races and `launches_mesh`
-              in the mesh phase's 1 x 2 run, on rank 0),
+              `launches_plan` in the plan phase's races, `launches_mesh`
+              in the mesh phase's 1 x 2 run, on rank 0, and
+              `launches_mesh_fleets` in its (c) fleets, per rank),
               the obs phase's `profiler_us_per_launch`
               beside `graph_ms`, and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
@@ -2190,6 +2217,9 @@ STREAM_LONG_DAYS = 3000     # the long history of the residency check (580 MB)
 # Peak device memory of a stream scoring pass must not grow with the
 # history: the 80-day and the 3,000-day panels' peaks within this many bytes.
 STREAM_MEMORY_TOL = 16 * 2 ** 20
+STREAM_BOUND_RUNS = 10      # (h): consumptions of an 8-chunk stream
+STREAM_BOUND_FLOATS = 1 << 20
+STREAM_SPIN_CYCLES = 200_000_000    # ~100 ms of device spin per chunk
 
 
 def _same_bytes(a, b) -> bool:
@@ -2426,6 +2456,37 @@ def phase_stream(torch, seed: int, counters, card: str) -> dict:
           "stream (g): the CLI's CSVs differ")
     work.cleanup()
 
+    # (h) the two-chunk bound: an 8-chunk stream of 4 MB chunks whose
+    # consumer's kernels lag ~100 ms behind its loop (a device spin), taken
+    # STREAM_BOUND_RUNS times; the peak of device memory it adds stays below
+    # three chunks every time
+    from factorvae_tpu_torch.data.stream import ChunkStream
+
+    def make_chunk(i, alloc):
+        a = alloc("values", (STREAM_BOUND_FLOATS,), np.float32)
+        a[...] = float(i)
+        return (a,)
+
+    chunk_bytes = 4 * STREAM_BOUND_FLOATS
+    bound_peaks, bound_stats = [], None
+    for _ in range(STREAM_BOUND_RUNS):
+        firsts = []     # the last run's clones go before the baseline is read
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        bound = ChunkStream(make_chunk, 8, "cuda")
+        for (t,) in bound:
+            torch.cuda._sleep(STREAM_SPIN_CYCLES)
+            firsts.append(t[:1].clone())
+        del t
+        torch.cuda.synchronize()
+        bound_peaks.append(torch.cuda.max_memory_allocated() - before)
+        check([float(f) for f in firsts] == [float(i) for i in range(8)],
+              f"stream (h): chunks read {[float(f) for f in firsts]}")
+        bound_stats = bound.stats()
+    check(all(2 * chunk_bytes <= b < 3 * chunk_bytes for b in bound_peaks),
+          f"stream (h): peaks {bound_peaks} B against chunks of {chunk_bytes} B")
+
     return {"phase": "stream", "card": card, "stream_chunk_days": STREAM_CHUNK_DAYS,
             "config": "flagship C158/T20/H64/K96/M128, f32, days_per_step=1",
             "train": {"launches": ls, "launches_hbm": a_h["launches"],
@@ -2450,6 +2511,10 @@ def phase_stream(torch, seed: int, counters, card: str) -> dict:
                           "chunk_ms": {"stream": long_stream_s * 1e3 / n_long_chunks,
                                        "hbm": long_hbm_s * 1e3 / n_long_chunks}},
             "append": {"slab": record, "extend_bitwise": extended},
+            "bound": {"runs": STREAM_BOUND_RUNS, "chunks": 8, "chunk_bytes": chunk_bytes,
+                      "peak_bytes": bound_peaks,
+                      "peak_chunks": [b / chunk_bytes for b in bound_peaks],
+                      "ledger": bound_stats},
             "cli": {"csv_bytes": len(csv_bytes["hbm"]),
                     "walls_s": {r: clis[r]["wall_s"] for r in residencies}}}
 
@@ -4913,7 +4978,7 @@ PLAN_SERVE_ROW = {"precision": "bfloat16", "tick_ms": 5.0, "max_tick_batch": 16,
                   "slo_ms": 50.0, "hedge_ms": 3.0}
 
 
-def _autotune(torch, counters, argv) -> tuple:
+def _autotune(torch, counters, argv, what: str = "plan (a)") -> tuple:
     """`python -m factorvae_tpu_torch.autotune ARGV` in this process (its
     rows' JSON and its progress kept, not printed) with every launch
     counter set to 0 just before; (rows, launches, wall_s, progress)."""
@@ -4931,7 +4996,7 @@ def _autotune(torch, counters, argv) -> tuple:
         rc = autotune.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    check(rc == 0, f"plan (a): autotune {' '.join(argv)} exited {rc}:\n{err.getvalue()[-4000:]}")
+    check(rc == 0, f"{what}: autotune {' '.join(argv)} exited {rc}:\n{err.getvalue()[-4000:]}")
     return (json.loads(out.getvalue())["rows"], {c.__name__: c.launches for c in counters},
             wall, err.getvalue().splitlines())
 
@@ -5182,6 +5247,7 @@ def phase_plan(torch, seed: int, counters, card: str) -> dict:
 
 MESH_STEPS = 4          # updates of days_per_step 2 per mesh run
 MESH_SCORE_DAYS = 34    # 1 x 2 scoring: a 32-day chunk and a padded one
+MESH_RACE_DAYS = 4      # the (d) race's synthetic panel days (`autotune --days`)
 # Mesh against serial on the card, from the same weights, at the CPU tests'
 # tolerances (tests/test_torch_parallel.py): the first update's gradients
 # (the GRU's weights at GRU_MESH_TOL), the parameters after it where the
@@ -5283,9 +5349,241 @@ def _mesh_run(torch, cfg, panel, mesh, counters) -> dict:
     return out
 
 
-def _mesh_rank(rank: int, init: str, q, seed: int) -> None:
+# Fleets on the meshes of phase (c): a hyper-fleet of two lanes (lr, kl_weight
+# per lane) and a PBT of four, both at 2 x 1, and a seed fleet of two on
+# 'host' 2 x 'data' 1 x 'stock' 1. Lane parameters are held to the card's
+# fleet tolerance, TRAIN_PARAM_ATOL: the remat phase holds a 50-step fleet
+# epoch to it against a run of the same epoch, the train phase 8 card steps
+# against the CPU's. On the CPU the same paths hold at rtol 2e-5 / atol
+# 2e-6 (tests/test_torch_mesh_fleets.py, MESH_FLEET_TOL here, whose
+# exceedances are counted): there the rounding of the vmapped products does
+# not depend on the lanes in a program, while cuBLAS may choose another
+# algorithm for 2 lanes than for 4, and Adam's steps carry the difference
+# through every later update. Where Adam turns rounding into steps (an
+# element whose gradient lies within 10 Adam eps of zero moves by
+# lr * g / (|g| + eps), so a rounding difference of 1e-9 in g moves it by up
+# to lr), the element is held to lr at every step of the run and counted:
+# the two leaves whose gradient is zero in exact arithmetic, and an element
+# whose first-step gradient or whose run's RMS gradient (Adam's
+# bias-corrected second moment in the serial run) is within
+# MESH_FLEET_NOISE of zero.
+MESH_FLEET_TOL = dict(rtol=2e-5, atol=2e-6)
+MESH_FLEET_ZERO_GRAD = ("factor_encoder.portfolio.bias", "factor_predictor.key_bias")
+MESH_FLEET_NOISE = 1e-7     # 10 x Adam's eps
+ADAM_BETA2 = 0.999
+MESH_PBT_GENERATIONS = 2
+
+
+def _mesh_lanes(cfg, seed: int) -> dict:
+    """(seed, lr, kl_weight) of each lane of the phase (c) fleets."""
+    lr = cfg.train.lr
+    return {"hyper": [(seed, lr, 1.0), (seed + 1, 2 * lr, 0.5)],
+            "pbt": [(seed, lr, 1.0), (seed + 1, 2 * lr, 0.5), (seed + 2, 0.5 * lr, 2.0),
+                    (seed + 3, 3 * lr, 0.25)],
+            "hier": [(seed, lr, 1.0), (seed + 1, lr, 1.0)]}
+
+
+def _lane_cfgs(cfg, lanes, save_dir: str, **train) -> tuple:
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, save_dir=save_dir,
+                                                             **train))
+    return cfg, [dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, kl_weight=float(klw)),
+        train=dataclasses.replace(cfg.train, seed=int(s), lr=float(lr),
+                                  run_name=f"{cfg.train.run_name}_lane{i}"))
+        for i, (s, lr, klw) in enumerate(lanes)]
+
+
+def _np_tree(tree) -> dict:
+    return {n: p.detach().cpu().numpy().copy() for n, p in tree.items()}
+
+
+def _mesh_fleet_runs(torch, cfg, panel, root: str, counters, hier_mesh=None,
+                     mesh=None, device: str = "cuda") -> dict:
+    """The phase (c) fleets on the card: without a mesh (the serial
+    reference), or on `mesh` (2 x 1) and `hier_mesh`; every launch counter
+    set to 0 just before each run."""
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.obs.comms import comms_block
+    from factorvae_tpu_torch.parallel.collective_ops import comm_counts
+    from factorvae_tpu_torch.train.fleet import FleetTrainer
+    from factorvae_tpu_torch.train.pbt import pbt_fit
+
+    lanes = _mesh_lanes(cfg, cfg.train.seed)
+    tag = "serial" if mesh is None else "mesh"
+
+    def ds():
+        return PanelDataset(panel, seq_len=cfg.data.seq_len,
+                            pad_multiple=cfg.data.pad_multiple, device=device)
+
+    def run(fn, on):
+        torch.cuda.synchronize()
+        before = comm_counts()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.update(wall_s=wall, launches={c.__name__: c.launches for c in counters},
+                   comms=comms_block(comm_counts(), before, mesh=on, steps=out["steps"],
+                                     steps_per_epoch=out["steps_per_epoch"]) if on else None)
+        return out
+
+    def rms_grad(state):
+        # Adam's bias-corrected second moment: each element's RMS gradient
+        t = torch.as_tensor(state.counts, dtype=torch.float64)
+        fix = 1.0 - ADAM_BETA2 ** t
+        return {n: (v.double() / fix.to(v.device).view((-1,) + (1,) * (v.ndim - 1)))
+                .sqrt().cpu().numpy() for n, v in state.exp_avg_sq.items()}
+
+    def fleet(run_cfg, on, **kw):
+        trainer = FleetTrainer(run_cfg, ds(), device=device, mesh=on, **kw)
+        state, fit = trainer.fit()
+        return {"rms_grad": rms_grad(state) if on is None else None,
+                "history": [(h["train_loss"], h["val_loss"]) for h in fit["history"]],
+                "best_val": [float(v) for v in fit["best_val"]],
+                "final": _np_tree(fit["final_params"]), "best": _np_tree(fit["best_params"]),
+                "hyper": trainer.hyper, "lanes": (trainer.lanes.start, trainer.lanes.stop),
+                "steps": trainer.steps_per_epoch * run_cfg.train.num_epochs,
+                "steps_per_epoch": trainer.steps_per_epoch}
+
+    def pbt(on):
+        pcfg, plane = _lane_cfgs(cfg, lanes["pbt"], os.path.join(root, tag, "pbt"),
+                                 checkpoint_every=1)
+        trainer, res = pbt_fit(pcfg, ds(), plane, generations=MESH_PBT_GENERATIONS,
+                               epochs_per_generation=1, device=device, mesh=on)
+        return {"rms_grad": rms_grad(res["state"]) if on is None else None,
+                "generations": [{k: g[k] for k in ("generation", "fitness", "winners",
+                                                  "exploited")}
+                                for g in res["generations"]],
+                "scalars": [(c.train.lr, c.model.kl_weight) for c in res["lane_configs"]],
+                "best_val": [float(v) for v in res["best_val"]],
+                "best": _np_tree(res["best_params"]),
+                "final": _np_tree({n: trainer._gather_lanes(p)
+                                   for n, p in res["state"].params.items()}),
+                "steps": trainer.steps_per_epoch * MESH_PBT_GENERATIONS,
+                "steps_per_epoch": trainer.steps_per_epoch}
+
+    hcfg, hlanes = _lane_cfgs(cfg, lanes["hyper"], os.path.join(root, tag, "hyper"))
+    fcfg, _ = _lane_cfgs(cfg, lanes["hier"], os.path.join(root, tag, "hier"))
+    return {
+        "hyper": run(lambda: fleet(hcfg, mesh, lane_configs=hlanes), mesh),
+        "pbt": run(lambda: pbt(mesh), mesh),
+        "hier": run(lambda: fleet(fcfg, hier_mesh, seeds=[s for s, _, _ in lanes["hier"]]),
+                    hier_mesh),
+    }
+
+
+def _first_step_noise(torch, cfg, panel, root: str, device: str = "cuda") -> dict:
+    """{name: elements whose gradient in some phase (c) lane's first step
+    (its solo run's, on the card) lies within MESH_FLEET_NOISE of zero}."""
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.train.loop import train_step
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    ds = PanelDataset(panel, seq_len=cfg.data.seq_len, pad_multiple=cfg.data.pad_multiple,
+                      device=device)
+    noise: dict = {}
+    seen = set()
+    for lanes in _mesh_lanes(cfg, cfg.train.seed).values():
+        _, cfgs = _lane_cfgs(cfg, lanes, os.path.join(root, "noise"))
+        for lane in cfgs:
+            key = (lane.train.seed, lane.model.kl_weight)
+            if key in seen:
+                continue
+            seen.add(key)
+            tr = Trainer(lane, ds, device=device)
+            state = tr.init_state()
+            train_step(state, tr.ds, tr._order(tr.train_days, True, 0)[0], guard=True)
+            for n, p in state.model.named_parameters():
+                small = (p.grad.abs() <= MESH_FLEET_NOISE).cpu().numpy()
+                noise[n] = noise.get(n, small) | small
+    return noise
+
+
+def _fleet_params_check(got: dict, want: dict, noise: dict, rms: dict, lr_max: float,
+                        steps: int, what: str) -> tuple:
+    """Lane parameters of a mesh run against the serial run's (the fleet
+    tolerance above): (the largest errors, the failures)."""
+    err, noise_err, counted, beyond_cpu_tol, failures = 0.0, 0.0, 0, 0, []
+    for n, w in want.items():
+        diff = np.abs(got[n] - w)
+        mask = np.broadcast_to(noise[n], w.shape) | (rms[n] <= MESH_FLEET_NOISE)
+        if n in MESH_FLEET_ZERO_GRAD:
+            mask = np.ones_like(mask)
+        ok = np.where(mask, diff <= lr_max * steps, diff <= TRAIN_PARAM_ATOL)
+        beyond_cpu_tol += int((~mask & ~np.isclose(got[n], w, **MESH_FLEET_TOL)).sum())
+        if not ok.all():
+            worst = np.unravel_index(np.argmax(np.where(ok, -1.0, diff)), w.shape)
+            failures.append(f"{what} {n}: {int((~ok).sum())} of {ok.size} off, worst "
+                            f"{float(diff[worst])} at {tuple(int(i) for i in worst)} "
+                            f"(value {float(w[worst])}, RMS gradient {float(rms[n][worst])})")
+        err = max(err, float(diff[~mask].max(initial=0.0)))
+        noise_err = max(noise_err, float(diff[mask].max(initial=0.0)))
+        counted += int(mask.sum())
+    return ({"param_max_abs_err": err, "noise_param_max_abs_err": noise_err,
+             "noise_elements": counted, "elements_beyond_cpu_tol": beyond_cpu_tol},
+            failures)
+
+
+def _mesh_fleet_check(serial: dict, ranks: list, noise: dict, cfg) -> dict:
+    """Phase (c): the ranks bitwise each other on every shared leaf, each run
+    against the serial one on the card; K1, K2, K4 and K5 on every rank."""
+    lr_max = 3 * cfg.train.lr * 1.25
+    out, failures = {}, []
+    for key in ("hyper", "pbt", "hier"):
+        want, r0 = serial[key], ranks[0][key]
+        for r, got in enumerate(ranks):
+            for name in ("gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_fwd",
+                         "attention_bwd"):
+                check(got[key]["launches"][name] > 0,
+                      f"mesh (c) {key}: rank {r} never launched {name}")
+            for leaf in ("final", "best"):
+                for n, p in r0[leaf].items():
+                    check(np.array_equal(got[key][leaf][n], p),
+                          f"mesh (c) {key}: ranks disagree on {leaf} {n}")
+            for field in ("best_val", "history", "generations", "scalars"):
+                check(got[key].get(field) == r0.get(field),
+                      f"mesh (c) {key}: ranks disagree on {field}")
+        loss_rel = 0.0
+        if key == "pbt":
+            for g, w in zip(r0["generations"], want["generations"], strict=True):
+                check(g["winners"] == w["winners"] and g["exploited"] == w["exploited"],
+                      f"mesh (c) pbt: generation {g['generation']} winners {g['winners']} "
+                      f"exploited {g['exploited']} against the serial {w['winners']} "
+                      f"{w['exploited']}")
+                loss_rel = max(loss_rel, _np_rel(np.asarray(g["fitness"]),
+                                                 np.asarray(w["fitness"])))
+            check(r0["scalars"] == want["scalars"],
+                  f"mesh (c) pbt: scalars {r0['scalars']} against {want['scalars']}")
+        else:
+            check(r0["hyper"] == (key == "hyper"), f"mesh (c) {key}: hyper {r0['hyper']}")
+            loss_rel = _np_rel(np.asarray(r0["history"]), np.asarray(want["history"]))
+        check(loss_rel <= MESH_LOSS_RTOL,
+              f"mesh (c) {key}: losses {loss_rel} off the serial run's (rel)")
+        errs, failed = _fleet_params_check(r0["final"], want["final"], noise,
+                                           want["rms_grad"], lr_max, want["steps"], key)
+        failures += failed
+        out[key] = {"wall_s": [r[key]["wall_s"] for r in ranks],
+                    "serial_wall_s": want["wall_s"],
+                    "launches_per_rank": [r[key]["launches"] for r in ranks],
+                    "serial_launches": want["launches"],
+                    "comms": r0["comms"], "lanes_per_rank": [r[key].get("lanes")
+                                                             for r in ranks],
+                    "loss_max_rel_err": loss_rel, "ranks_bitwise": True, **errs}
+        if key == "pbt":
+            out[key].update(winners=[g["winners"] for g in r0["generations"]],
+                            exploited=[g["exploited"] for g in r0["generations"]],
+                            scalars=r0["scalars"])
+    check(not failures, "mesh (c): lane parameters off the serial runs': "
+          + "; ".join(failures))
+    return out
+
+
+def _mesh_rank(rank: int, init: str, q, seed: int, root: str) -> None:
     """One rank of the two sharing the card over gloo: the 2 x 1 and the
-    1 x 2 mesh runs (`_mesh_run`), sent back through `q`."""
+    1 x 2 mesh runs (`_mesh_run`), then the fleets of phase (c) on 2 x 1
+    and on the hierarchical mesh, sent back through `q`."""
     import traceback
 
     import torch
@@ -5301,7 +5599,7 @@ def _mesh_rank(rank: int, init: str, q, seed: int) -> None:
             gru_fwd,
             gru_fwd_residuals,
         )
-        from factorvae_tpu_torch.parallel.mesh import make_mesh
+        from factorvae_tpu_torch.parallel.mesh import make_hierarchical_mesh, make_mesh
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -5314,6 +5612,9 @@ def _mesh_rank(rank: int, init: str, q, seed: int) -> None:
         for sp in (1, 2):
             mesh = make_mesh(MeshConfig(stock_axis=sp))
             out[f"{2 // sp}x{sp}"] = _mesh_run(torch, cfg, panel, mesh, counters)
+        out["fleets"] = _mesh_fleet_runs(
+            torch, cfg, panel, root, counters, mesh=make_mesh(MeshConfig(stock_axis=1)),
+            hier_mesh=make_hierarchical_mesh(MeshConfig(stock_axis=1), num_hosts=2))
         dist.destroy_process_group()
         q.put((rank, "ok", out))
     except BaseException:       # noqa: BLE001 - the parent fails the phase with it
@@ -5350,7 +5651,9 @@ def _mesh_check(want: dict, got: dict, what: str, lr: float) -> dict:
 def phase_mesh(torch, seed: int, counters, card: str) -> dict:
     """(a) NCCL at world size 1, this process: the 1 x 1 mesh's updates
     bitwise the serial ones; (b) two ranks sharing the card over gloo, the
-    2 x 1 and the 1 x 2 meshes, against the serial run on the card."""
+    2 x 1 and the 1 x 2 meshes, against the serial run on the card; (c) the
+    same ranks' fleets (hyper, PBT, hierarchical) against the serial ones
+    on the card; (d) `autotune --mesh` in (a)'s group of one."""
     import queue
     import tempfile
 
@@ -5363,6 +5666,9 @@ def phase_mesh(torch, seed: int, counters, card: str) -> dict:
     cfg, panel = _mesh_setup(seed)
     serial = _mesh_run(torch, cfg, panel, None, counters)
     rdv = tempfile.TemporaryDirectory(prefix="chip_smoke_rdv_")
+    root = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_fleets_")
+    serial_fleets = _mesh_fleet_runs(torch, cfg, panel, root.name, counters)
+    noise = _first_step_noise(torch, cfg, panel, root.name)
 
     # (a) NCCL, a world of one
     dist.init_process_group("nccl", init_method=f"file://{rdv.name}/nccl", world_size=1,
@@ -5373,6 +5679,12 @@ def phase_mesh(torch, seed: int, counters, card: str) -> dict:
         check(torch.equal(probe, torch.arange(4.0, device="cuda")),
               "mesh (a): an NCCL all-reduce over one rank changed its tensor")
         one = _mesh_run(torch, cfg, panel, make_mesh(MeshConfig()), counters)
+        # (d) the mesh race at world 1: the 1 x 1 mesh against no mesh
+        table = os.path.join(root.name, "plan_table.json")
+        race_rows, race_launches, race_s, _ = _autotune(
+            torch, counters, ["--config", "csi300-k60", "--mesh", "--device", "cuda", "--days",
+                              str(MESH_RACE_DAYS), "--reps", "1", "--out", table],
+            what="mesh (d)")
     finally:
         dist.destroy_process_group()
     for name, p in serial["params"].items():
@@ -5385,7 +5697,8 @@ def phase_mesh(torch, seed: int, counters, card: str) -> dict:
     # (b) two gloo ranks on the one card
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_mesh_rank, args=(r, f"file://{rdv.name}/gloo", q, seed))
+    procs = [ctx.Process(target=_mesh_rank, args=(r, f"file://{rdv.name}/gloo", q, seed,
+                                                  root.name))
              for r in range(2)]
     t0 = time.perf_counter()
     for p in procs:
@@ -5393,14 +5706,14 @@ def phase_mesh(torch, seed: int, counters, card: str) -> dict:
     ranks, errors = {}, []
     try:
         for _ in procs:
-            rank, kind, value = q.get(timeout=420)
+            rank, kind, value = q.get(timeout=600)
             if kind == "ok":
                 ranks[rank] = value
             else:
                 errors.append(f"rank {rank}: {value}")
                 break
     except queue.Empty:
-        errors.append("the two mesh ranks did not finish within 420 s")
+        errors.append("the two mesh ranks did not finish within 600 s")
     finally:
         for p in procs:
             p.join(timeout=30)
@@ -5441,13 +5754,33 @@ def phase_mesh(torch, seed: int, counters, card: str) -> dict:
             runs[key]["scores_max_abs_err"] = float(
                 np.nanmax(np.abs(r0["scores"] - serial["scores"])))
             runs[key]["score_s"] = r0["score_s"]
+    fleets = _mesh_fleet_check(serial_fleets, [ranks[0]["fleets"], ranks[1]["fleets"]], noise,
+                               cfg)
+    for name, n in race_launches.items():
+        check(n > 0, f"mesh (d): the race never launched {name}")
+    race = []
+    for r in race_rows:
+        m = r["measured"]
+        per = {k: v["mesh"] for k, v in m.items() if k.startswith("n=")} or \
+            {f"n={r['n_min']}": m["mesh"]}
+        for width, cands in per.items():
+            check(set(cands) == {"none", f"mesh_1x1_dps{r['train']['days_per_step']}"},
+                  f"mesh (d): candidates {sorted(cands)} at {width}")
+        race.append({"n": [r["n_min"], r["n_max"]], "s_per_day": per,
+                     "verdict": r.get("mesh") or "none", "train": r["train"],
+                     "source": "mesh race " + r["source"].split("; mesh race ")[-1]})
     rdv.cleanup()
+    root.cleanup()
     return {"phase": "mesh", "card": card,
             "note": "two ranks share one card over gloo: these runs hold the mesh "
                     "paths to the serial run, they measure no scaling",
             "serial": {"step_wall_s": serial["step_wall_s"], "launches": serial["launches"],
                        "score_s": serial.get("score_s")},
             "runs": runs, "ranks_wall_s": ranks_s,
+            "fleets": fleets, "fleet_tol": {"param_atol": TRAIN_PARAM_ATOL,
+                                            "cpu_tol": MESH_FLEET_TOL,
+                                            "noise_grad_at_most": MESH_FLEET_NOISE},
+            "race": {"rows": race, "wall_s": race_s, "launches": race_launches},
             "launches": runs["1x2"]["launches"]}
 
 
@@ -5605,6 +5938,9 @@ def main(argv=None) -> int:
                      "launches_factors": by["factors"]["launches"][name],
                      "launches_plan": by["plan"]["launches"][name],
                      "launches_mesh": by["mesh"]["launches"][name],
+                     "launches_mesh_fleets": {
+                         k: [r[name] for r in by["mesh"]["fleets"][k]["launches_per_rank"]]
+                         for k in ("hyper", "pbt", "hier")},
                      "profiler_us_per_launch": by["obs"]["profiler_us_per_launch"][name],
                      **{f"fleet_{k}": v for k, v in fleet_timing[name].items()},
                      "max_abs_err": ph["max_abs_err"],

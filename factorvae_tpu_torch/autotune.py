@@ -41,9 +41,26 @@ and nothing falls back to the CPU. A row's `source` carries the card's name
 and power limit, the commit (`_commit`), the command and `train <x> s/day`,
 the form `obs/report` reads.
 
-`--kernels` and `--mesh` exit 2: on CUDA the kernels always run, and a
-race over mesh shapes needs more than one card (ROADMAP Queue 1 item 16). Progress goes to stderr (and to
-`--metrics_jsonl`); stdout is the rows' JSON.
+`--mesh` races the mesh shape on the winning train knobs (`race_mesh`, the
+JAX tool's): the no-mesh path at every days_per_step a mesh cell runs at
+(`compose.compatible_days_per_step`), against every (data, stock) of
+`compose.mesh_shape_candidates(world)`, in seconds per trained day. The
+world is torchrun's, one rank per card on CUDA:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m factorvae_tpu_torch.autotune --mesh [--out TABLE]
+
+In a world of one (no torchrun) it races the 1 x 1 mesh against no mesh.
+Every rank runs every candidate and a candidate's time is the slowest
+rank's, so every rank takes the same winners; rank 0 alone prints and
+writes the rows. A mesh winner persists the row's `mesh` block
+(`data_axis`, `stock_axis`, `days_per_step`; `plan.plan_for` reads it);
+a no-mesh winner persists none. Ranks that share a card on CUDA are
+refused (exit 2): such a race would time gloo's host staging, not the
+card. In a world of more than one rank only the train, score and mesh
+races run (the other race flags exit 2). `--kernels` exits 2: on CUDA the
+kernels always run. Progress goes to stderr (and to `--metrics_jsonl`);
+stdout is the rows' JSON.
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ import torch
 
 from factorvae_tpu_torch import plan as planlib
 from factorvae_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from factorvae_tpu_torch.parallel.mesh import _world
 from factorvae_tpu_torch.utils.logging import MetricsLogger
 
 # real (unpadded) widths; a list races each width as its own point
@@ -106,11 +124,26 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _slowest_rank(values: list) -> list:
+    """Each value's largest over the world's ranks (a step lasts as long as
+    its slowest rank), so every rank takes the same winners; the values
+    themselves in a world of one."""
+    if _world()[1] == 1:
+        return list(values)
+    import torch.distributed as dist
+
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.cpu().tolist()
+
+
 def _interleaved(runs: dict, reps: int, device) -> tuple:
     """({key: median seconds of one run}, {key: warm-up seconds}) of the
     zero-argument callables `runs`: each runs once untimed (it builds or
     loads the libraries), then every candidate once per round, the rounds in
-    ABBA order."""
+    ABBA order. In a world of several ranks each time is the slowest
+    rank's."""
     warm, times = {}, {k: [] for k in runs}
     for key, run in runs.items():
         t0 = time.perf_counter()
@@ -125,13 +158,16 @@ def _interleaved(runs: dict, reps: int, device) -> tuple:
             runs[key]()
             _sync(device)
             times[key].append(time.perf_counter() - t0)
-    return {k: float(np.median(v)) for k, v in times.items()}, warm
+    agreed = _slowest_rank([float(np.median(times[k])) for k in keys]
+                           + [warm[k] for k in keys])
+    return dict(zip(keys, agreed[:len(keys)])), dict(zip(keys, agreed[len(keys):]))
 
 
 def _setup(shape: dict, dtype: str, dps: int, days: int, device,
-           residency: str = "hbm", chunk_days: int = 32):
+           residency: str = "hbm", chunk_days: int = 32, shard: int = 1):
     """(Config, PanelDataset) of one candidate: a synthetic panel of `days`
-    days at the shape's real width, padded by the plan's pad policy."""
+    days at the shape's real width, padded by the plan's pad policy (to a
+    multiple of `shard` 'stock' ranks)."""
     from factorvae_tpu_torch.data.loader import PanelDataset
     from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
 
@@ -146,7 +182,8 @@ def _setup(shape: dict, dtype: str, dps: int, days: int, device,
                           save_dir=_SAVE_DIR))
     panel = synthetic_panel_dense(days, shape["stocks"], shape["features"])
     ds = PanelDataset(panel, seq_len=shape["seq_len"],
-                      max_stocks=planlib.pad_target_policy(shape["stocks"]), device=device,
+                      max_stocks=planlib.pad_target_policy(shape["stocks"], shard=shard),
+                      device=device,
                       residency=residency)
     return cfg, ds
 
@@ -516,6 +553,111 @@ def race_remat(name: str, shape: dict, train_knobs: dict, days: int, reps: int, 
                       f"{measured[best]['s_per_day']:.4f} s/day"}
 
 
+def _mesh_point(shape: dict, train_knobs: dict, dps: int, days: int, device,
+                mesh_shape: Optional[tuple] = None) -> tuple:
+    """(run, trained days) of one operating point on the winning train knobs:
+    `run()` trains the next epoch, on the world's (data, stock) mesh of
+    `mesh_shape`, else without a mesh."""
+    from factorvae_tpu_torch.config import MeshConfig
+    from factorvae_tpu_torch.parallel.mesh import make_mesh
+    from factorvae_tpu_torch.train.loop import train_epoch
+    from factorvae_tpu_torch.train.trainer import Trainer
+
+    sp = int(mesh_shape[1]) if mesh_shape else 1
+    cfg, ds = _setup(shape, train_knobs["compute_dtype"], dps, days, device, shard=sp)
+    mesh = make_mesh(MeshConfig(stock_axis=sp)) if mesh_shape else None
+    trainer = Trainer(cfg, ds, device=device, logger=MetricsLogger(echo=False), mesh=mesh)
+    state = trainer.init_state()
+    epochs = itertools.count()
+
+    def run():
+        train_epoch(state, trainer._chunks(trainer.train_days, True, next(epochs)),
+                    guard=cfg.train.finite_guard, compute_dtype=trainer.model_cfg.dtype,
+                    loss_scale_cfg=trainer.loss_scale_cfg, mesh=trainer.mesh_step)
+
+    return run, len(trainer.train_days)
+
+
+def _mesh_rates(points: dict, shape: dict, train_knobs: dict, days: int, reps: int,
+                device) -> dict:
+    """{key: seconds per trained day} of the operating points {key:
+    (days_per_step, (data, stock) or None)}, timed in turns."""
+    runs, n_days = {}, {}
+    for key, (dps, mesh_shape) in points.items():
+        runs[key], n_days[key] = _mesh_point(shape, train_knobs, dps, days, device, mesh_shape)
+    secs, _ = _interleaved(runs, reps, device)
+    return {k: secs[k] / n_days[k] for k in runs}
+
+
+def race_mesh(name: str, shape: dict, train_knobs: dict, days: int, reps: int, device,
+              logger=None, world: Optional[int] = None) -> dict:
+    """The mesh race (the JAX tool's `race_mesh`): the no-mesh path at every
+    days_per_step a mesh cell runs at, and every (data, stock) of
+    `compose.mesh_shape_candidates(world)` at its dps-matched days_per_step
+    (the 1 x 1 mesh only in a world of one). Returns the block: the
+    winner's `data_axis`, `stock_axis` (0, 0 when no mesh wins) and
+    `days_per_step`, every candidate's seconds per trained day
+    (`measured`) and the `source` sentence."""
+    from factorvae_tpu_torch.parallel.compose import (
+        compatible_days_per_step,
+        mesh_shape_candidates,
+    )
+
+    world = _world()[1] if world is None else int(world)
+    base_dps = int(train_knobs["days_per_step"])
+    cells = [c for c in mesh_shape_candidates(world) if c != (1, 1) or world == 1]
+    none_dps = sorted({base_dps} | {compatible_days_per_step(base_dps, dp)
+                                    for dp, _ in cells})
+    points = {("none" if d == base_dps else f"none_dps{d}"): (d, None) for d in none_dps}
+    for dp, sp in cells:
+        d = compatible_days_per_step(base_dps, dp)
+        points[f"mesh_{dp}x{sp}_dps{d}"] = (d, (dp, sp))
+    rates = _mesh_rates(points, shape, train_knobs, days, reps, device)
+    measured = {}
+    best, best_sec, best_dps = (0, 0), None, base_dps
+    for key, (d, mesh_shape) in points.items():
+        sec = rates[key]
+        measured[key] = round(sec, 5)
+        _log(logger, "autotune_mesh_candidate", shape=name, candidate=key,
+             s_per_day=round(sec, 5))
+        if best_sec is None or sec < best_sec:
+            best, best_sec, best_dps = (mesh_shape or (0, 0)), sec, d
+    label = "none" if best == (0, 0) else f"{best[0]}x{best[1]}"
+    return {
+        "data_axis": best[0], "stock_axis": best[1], "days_per_step": best_dps,
+        "measured": measured,
+        "source": f"mesh race on {train_knobs['compute_dtype']} "
+                  f"flat={int(train_knobs['flatten_days'])} over {world} devices "
+                  f"(dps-matched no-mesh baselines): best {label} dps{best_dps} at "
+                  f"{best_sec:.4f} s/day",
+    }
+
+
+def _with_mesh_block(row: dict, block: dict) -> dict:
+    """`row` with the mesh race's measurements, its sentence appended to the
+    source and, when a mesh shape won, its `mesh` block."""
+    row = dict(row, measured=dict(row["measured"], mesh=block["measured"]),
+               source=f"{row['source']}; {block['source']}")
+    if block["data_axis"] > 0 and block["stock_axis"] > 0:
+        row["mesh"] = {"data_axis": block["data_axis"], "stock_axis": block["stock_axis"],
+                       "days_per_step": block["days_per_step"]}
+    return row
+
+
+def shared_card_refusal(device, local_ranks: int, cards: int,
+                        backend: Optional[str] = None) -> Optional[str]:
+    """The one-line refusal of a --mesh race whose ranks share a card on
+    CUDA (more ranks on the host than cards, or a gloo group on CUDA), or
+    None."""
+    if torch.device(device).type != "cuda":
+        return None
+    if local_ranks > cards or backend == "gloo":
+        return (f"--mesh: {local_ranks} rank(s) on this host share {cards} card(s) "
+                f"(backend {backend or 'nccl'}); a race over ranks that share a card times "
+                "gloo's host staging, not the card: start one rank per card")
+    return None
+
+
 def _knobs(k: dict) -> str:
     return (f"{k['compute_dtype']} flat={int(k.get('flatten_days', True))}"
             + (f" dps{k['days_per_step']}" if "days_per_step" in k else ""))
@@ -563,7 +705,7 @@ def _commit() -> str:
 def race_shape(name: str, shape: dict, days: int, reps: int, device="cuda",
                fleet: bool = False, stream: bool = False, serve: bool = False,
                hyper: bool = False, train_precision: bool = False, remat: bool = False,
-               logger=None, context: str = "") -> dict:
+               mesh: bool = False, logger=None, context: str = "") -> dict:
     """Every race for one width (`shape["stocks"]` a scalar); returns its
     plan row. `context` goes into the row's source (the card, the commit,
     the command)."""
@@ -626,11 +768,14 @@ def race_shape(name: str, shape: dict, days: int, reps: int, device="cuda",
             row["train_remat"] = {"remat": block["remat"]}
             if block["days_per_step"] != dps:
                 row["train"] = dict(best_train, days_per_step=block["days_per_step"])
+    if mesh:
+        row = _with_mesh_block(row, race_mesh(name, shape, best_train, days, reps, device,
+                                              logger=logger))
     return row
 
 
 _WINNER_BLOCKS = ("train", "score", "fleet", "stream", "serve", "hyper",
-                  "train_precision", "train_remat")
+                  "train_precision", "train_remat", "mesh")
 
 
 def race_widths(name: str, shape: dict, days: int, reps: int, **kw) -> list:
@@ -677,7 +822,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="race float32 against mixed bfloat16 training")
     p.add_argument("--remat", action="store_true", help="race the remat rung")
     p.add_argument("--kernels", action="store_true", help="refused: exits 2")
-    p.add_argument("--mesh", action="store_true", help="refused: exits 2")
+    p.add_argument("--mesh", action="store_true",
+                   help="also race the mesh shape over the world's ranks (torchrun, one "
+                        "rank per card); a mesh winner persists the row's 'mesh' block")
     p.add_argument("--dry_run", action="store_true", help="print the rows, write nothing")
     p.add_argument("--metrics_jsonl", default=None,
                    help="also append the race events (and kernel builds) to this stream")
@@ -692,42 +839,78 @@ def main(argv=None) -> int:
         print("error: --kernels: factorvae_tpu_torch has no kernel switch to race (on CUDA "
               "the kernels always run)", file=sys.stderr)
         return 2
-    if args.mesh:
-        print("error: --mesh: a race over mesh shapes needs more than one card; not "
-              "ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)", file=sys.stderr)
-        return 2
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device; pass --device cpu to race on the CPU", file=sys.stderr)
         return 2
+    import torch.distributed as dist
+
     from factorvae_tpu_torch.utils.logging import Timeline, install_timeline
 
-    on_card = torch.device(args.device).type == "cuda"
-    # the command as it measures: where the rows went is not part of it
-    shown = [a for i, a in enumerate(argv) if a != "--out" and argv[i - 1:i] != ["--out"]]
-    context = "; ".join([_card() if on_card else "cpu", _commit(),
-                         "python -m factorvae_tpu_torch.autotune " + " ".join(shown)])
-    with MetricsLogger(jsonl_path=args.metrics_jsonl, echo=True, echo_to=sys.stderr,
-                       run_name="autotune") as lg:
-        prev_tl = install_timeline(Timeline(lg)) if args.metrics_jsonl else None
-        try:
-            names = sorted(SHAPES) if args.all else [args.config]
-            rows = [r for n in names
-                    for r in race_widths(n, SHAPES[n], args.days, args.reps,
-                                         device=args.device, fleet=args.fleet,
-                                         stream=args.stream, serve=args.serve,
-                                         hyper=args.hyper,
-                                         train_precision=args.train_precision,
-                                         remat=args.remat, logger=lg, context=context)]
-            print(json.dumps({"rows": rows}, indent=1))
-            if args.dry_run:
-                lg.log("autotune_dry_run", rows=len(rows), note="table not written")
-                return 0
-            path = planlib.save_rows(rows, path=args.out)
-            lg.log("autotune_table_written", rows=len(rows), path=path)
-        finally:
-            if args.metrics_jsonl:
-                install_timeline(prev_tl)
+    joined = args.mesh and not dist.is_initialized()
+    try:
+        if args.mesh:
+            refused = _join_world(args)
+            if refused:
+                print(f"error: {refused}", file=sys.stderr)
+                return 2
+        on_card = torch.device(args.device).type == "cuda"
+        rank0 = _world()[0] == 0
+        # the command as it measures: where the rows went is not part of it
+        shown = [a for i, a in enumerate(argv) if a != "--out" and argv[i - 1:i] != ["--out"]]
+        context = "; ".join([_card() if on_card else "cpu", _commit(),
+                             "python -m factorvae_tpu_torch.autotune " + " ".join(shown)])
+        with MetricsLogger(jsonl_path=args.metrics_jsonl if rank0 else None, echo=rank0,
+                           echo_to=sys.stderr, run_name="autotune") as lg:
+            prev_tl = install_timeline(Timeline(lg)) if args.metrics_jsonl and rank0 else None
+            try:
+                names = sorted(SHAPES) if args.all else [args.config]
+                rows = [r for n in names
+                        for r in race_widths(n, SHAPES[n], args.days, args.reps,
+                                             device=args.device, fleet=args.fleet,
+                                             stream=args.stream, serve=args.serve,
+                                             hyper=args.hyper,
+                                             train_precision=args.train_precision,
+                                             remat=args.remat, mesh=args.mesh, logger=lg,
+                                             context=context)]
+                if not rank0:
+                    return 0
+                print(json.dumps({"rows": rows}, indent=1))
+                if args.dry_run:
+                    lg.log("autotune_dry_run", rows=len(rows), note="table not written")
+                    return 0
+                path = planlib.save_rows(rows, path=args.out)
+                lg.log("autotune_table_written", rows=len(rows), path=path)
+            finally:
+                if args.metrics_jsonl and rank0:
+                    install_timeline(prev_tl)
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
+
+
+def _join_world(args) -> Optional[str]:
+    """Join torchrun's world for --mesh (a no-op in one process) and make
+    `args.device` this rank's card; the refusal line, or None."""
+    import torch.distributed as dist
+
+    from factorvae_tpu_torch.parallel import multihost
+
+    on_card = torch.device(args.device).type == "cuda"
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "1") or 1)
+    backend = dist.get_backend() if dist.is_available() and dist.is_initialized() else None
+    refused = shared_card_refusal(args.device, local,
+                                  torch.cuda.device_count() if on_card else 0, backend)
+    if refused:
+        return refused
+    multihost.maybe_initialize(device=args.device)
+    args.device = str(multihost.local_device(args.device))
+    extra = [f for f in ("fleet", "hyper", "stream", "serve", "train_precision", "remat")
+             if getattr(args, f)]
+    if _world()[1] > 1 and extra:
+        return (f"--mesh in a world of {_world()[1]} ranks races the train, score and "
+                f"mesh knobs only; race --{extra[0]} in one process")
+    return None
 
 
 if __name__ == "__main__":

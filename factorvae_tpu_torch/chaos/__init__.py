@@ -25,9 +25,10 @@ The kinds (`KINDS`, the JAX package's tuple) and their injection points:
                                                      refuses the weights
     torn_jsonl           ops.tear_jsonl              the walk-forward
                                                      journal's .bak fallback
-                                                     (the timeline readers'
-                                                     tolerance comes with
-                                                     ROADMAP item 11)
+                                                     and the timeline
+                                                     readers' tolerance of a
+                                                     torn tail (obs/report,
+                                                     obs/timeline)
     stream_fail          ChunkStream._produce        bounded retry with
     stream_stall         (`chunk`; data/stream.py)   backoff; `delay_s` of
                                                      latency for a stall

@@ -49,8 +49,10 @@ on the CPU (ranks sharing one card over gloo are `parallel.multihost.
 maybe_initialize(backend="gloo")`'s, from Python). The cross-section pads to a multiple of
 the 'stock' size too (`config.stock_pad_multiple`). Rank 0 writes the
 metrics stream, the checkpoints, the weights and the scores CSV; every rank
-trains and scores its shard. A plan row's mesh block applies only under
-`--mesh` without `--mesh_stock`, as in the JAX CLI.
+trains and scores its shard. `--fleet_seeds` and `--hyper_grid` lay their
+lanes over 'data' (a grid of as many points as 'data' ranks trains one
+lane a rank). A plan row's mesh block applies only under `--mesh` without
+`--mesh_stock`, as in the JAX CLI.
 
 A hidden size above the CUDA kernels' maximum on `--device cuda` exits
 with code 2 before the dataset is read.

@@ -20,9 +20,16 @@ thread produces chunk k+1 while the consumer computes on chunk k:
   the side stream otherwise returns to that stream's pool when its last
   reference drops, and a later chunk's copy could reuse it while this
   chunk's kernels are still queued);
-- a chunk is released (its tensors dropped) when the consumer asks for the
-  next one, and the worker copies a chunk only while fewer than two are
-  alive, so device memory holds two chunks however long the history is.
+- a chunk's `release` parts are released when the consumer asks for the
+  next chunk, and the chunk's slot when the last reference to its device
+  tensors goes (a `weakref.finalize` on each; the consumer's loop variable
+  holds chunk i until chunk i+1 is yielded). The slot's release records an
+  event on the consumer's stream, and the copy that takes the slot next
+  waits for it before it allocates, so the caching allocator can hand it
+  the memory of the chunk that left. The worker copies a chunk only while
+  fewer than two are alive, so device memory holds two chunks however long
+  the history is. A consumer that keeps two chunks while asking for a
+  third gets an error, not a hang.
 
 Chunks are consumed strictly in order: chunk order is the step order, part
 of the bitwise contract with the "hbm" residency. A CPU dataset (the tests)
@@ -30,7 +37,8 @@ takes the same path with the copy as the identity and nothing pinned.
 
 `ChunkStream` keeps the transfer ledger: `bytes_put`, `produce_seconds`
 (host gather and copy enqueue, on the worker), `wait_seconds` (the consumer
-waiting for an unfinished chunk), both also per chunk, `copy_seconds` (the
+waiting for an unfinished chunk; chunk 0's wait runs from its submit, so a
+stall of the worker's first produce is booked whole), both also per chunk, `copy_seconds` (the
 copies' device time, CUDA events), `retries`, `staging_waits` (staging
 buffers found still being read by their copy) and `overlap_frac`. A failed produce retries
 `MAX_RETRIES` times with backoff, then raises; the chaos kinds
@@ -42,8 +50,10 @@ lane, each wait a `chunk_wait` span on "stream_wait", and each retry a
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
@@ -91,7 +101,9 @@ class ChunkStream:
     staging buffer on CUDA, a fresh array on the CPU) and filled in place.
     The stream yields `wrap(tensors)` of their device copies; an item, or an
     element of a tuple item, with a `release` method is released when the
-    consumer asks for the next chunk. One pass per stream."""
+    consumer asks for the next chunk. A chunk's slot is freed when its last
+    device tensor goes (`held_chunks()` lists the yielded chunks still
+    alive). One pass per stream."""
 
     #: a failed produce (the host gather, the pin or the copy) retries this
     #: many times with exponential backoff, then raises; a retry is
@@ -120,6 +132,10 @@ class ChunkStream:
         self._staging = [{}, {}]        # per buffer: name -> pinned uint8 tensor
         self._copied = [None, None]     # per buffer: (start, end) events of its last copy
         self._slots = threading.Semaphore(self.ALIVE)
+        self._freed: list = []          # consumer-stream events of freed slots, in order
+        self._alive: dict = {}          # chunk -> its device tensors still referenced
+        self._yielded: set = set()
+        self._consumer = None           # the consumer's CUDA stream
         self._closed = False
         self._copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
 
@@ -196,6 +212,7 @@ class ChunkStream:
                 return None
         else:
             out = (tuple(torch.from_numpy(a) for a in arrays), None)
+        self._track(i, out[0])
         t1 = time.perf_counter()
         seconds = t1 - t0
         with self._lock:
@@ -206,6 +223,53 @@ class ChunkStream:
                          bytes=nbytes)
         return out
 
+    # ---- the slots: a chunk holds one while any of its tensors lives ------
+
+    def _track(self, i: int, tensors) -> None:
+        with self._lock:
+            self._alive[i] = len(tensors)
+        for t in tensors:
+            weakref.finalize(t, self._tensor_gone, i).atexit = False
+
+    def _tensor_gone(self, i: int) -> None:
+        with self._lock:
+            self._alive[i] -= 1
+            if self._alive[i]:
+                return
+            del self._alive[i]
+            self._yielded.discard(i)
+        if self._cuda:
+            self._mark_freed()
+            self._slots.release()
+
+    def _mark_freed(self) -> None:
+        """An event on the consumer's stream after the last kernel queued on
+        the chunk that just went; the copy that takes its slot waits for it."""
+        if self._consumer is None:
+            return
+        event = torch.cuda.Event()
+        event.record(self._consumer)
+        with self._lock:
+            self._freed.append(event)
+
+    def held_chunks(self) -> list:
+        """The yielded chunks whose device tensors the consumer still holds."""
+        with self._lock:
+            return sorted(i for i in self._yielded if i in self._alive)
+
+    def _check_held(self, i: int) -> None:
+        """Refuse to wait for chunk i that can never get a slot: the
+        consumer holds ALIVE chunks already."""
+        if not self._cuda or len(self.held_chunks()) < self.ALIVE:
+            return
+        gc.collect()        # a chunk kept only by a reference cycle
+        held = self.held_chunks()
+        if len(held) >= self.ALIVE:
+            raise RuntimeError(
+                f"ChunkStream: the consumer still holds chunks {held} while asking for "
+                f"chunk {i}; at most {self.ALIVE} chunks live on the device, so drop a "
+                "chunk before taking the next")
+
     def _copy(self, buf: int, sources: list):
         """The chunk's pinned sources to the device on the side stream, once
         fewer than ALIVE chunks are alive: (tensors, the copy's end event)."""
@@ -213,6 +277,11 @@ class ChunkStream:
         if self._closed:
             self._slots.release()
             return None
+        with self._lock:
+            freed = self._freed.pop(0) if self._freed else None
+        if freed is not None:
+            # the consumer's kernels on the chunk that held this slot are done
+            freed.synchronize()
         try:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -234,12 +303,20 @@ class ChunkStream:
     def __iter__(self) -> Iterator:
         if self.n_chunks <= 0:
             return
+        if self._cuda:
+            self._consumer = torch.cuda.current_stream(self.device)
         with ThreadPoolExecutor(max_workers=1) as ex:
+            # chunk 0's wait runs from its submit: the consumer has nothing
+            # else to do meanwhile, and the worker may start (or stall)
+            # before the next line runs
+            t0 = time.perf_counter()
             fut = ex.submit(self._produce, 0)
             try:
                 for i in range(self.n_chunks):
                     nxt = ex.submit(self._produce, i + 1) if i + 1 < self.n_chunks else None
-                    t0 = time.perf_counter()
+                    if i:
+                        t0 = time.perf_counter()
+                    self._check_held(i)
                     tensors, ready = fut.result()
                     fut = nxt
                     t1 = time.perf_counter()
@@ -247,22 +324,16 @@ class ChunkStream:
                     with self._lock:
                         self.wait_seconds += waited
                         self.chunk_wait_seconds[i] = waited
+                        self._yielded.add(i)
                     timeline_span_at("chunk_wait", t0, t1, cat="stream",
                                      resource="stream_wait", chunk=i)
                     if ready is not None:
-                        stream = torch.cuda.current_stream(self.device)
-                        stream.wait_event(ready)
-                        for t in tensors:
-                            t.record_stream(stream)
+                        _consume_on(tensors, ready, torch.cuda.current_stream(self.device))
                     item = self._wrap(tensors)
                     del tensors
                     yield item
-                    for part in (item if isinstance(item, tuple) else (item,)):
-                        if hasattr(part, "release"):
-                            part.release()
+                    _release(item)
                     del item
-                    if self._cuda:
-                        self._slots.release()
                 if self._cuda:
                     for buf in (0, 1):
                         self._settle(buf)
@@ -290,6 +361,20 @@ class ChunkStream:
         out["h2d_gb_per_s"] = (out["bytes_put"] / out["copy_seconds"] / 1e9
                                if out["copy_seconds"] > 0 else None)
         return out
+
+
+def _consume_on(tensors, ready, stream) -> None:
+    """`stream` waits for the copy's event, and every tensor is marked as
+    used there (a helper, so no loop variable of the generator keeps one)."""
+    stream.wait_event(ready)
+    for t in tensors:
+        t.record_stream(stream)
+
+
+def _release(item) -> None:
+    for part in (item if isinstance(item, tuple) else (item,)):
+        if hasattr(part, "release"):
+            part.release()
 
 
 def chunk_slices(n_steps: int, steps_per_chunk: int) -> list:

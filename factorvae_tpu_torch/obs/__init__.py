@@ -1,7 +1,11 @@
-"""The serving observatory (`factorvae_tpu/obs/`, in part): the trace plane
-(`obs/trace.py`), the served-score drift monitors (`obs/drift.py`) and the
-daemon's Prometheus exposition (`obs/metrics.py`). Host-side Python and
-numpy only, copied rather than imported from the JAX package. The report,
-live, ledger, collect and profiling modules wait for ROADMAP Queue 1 item
-11.
+"""The observatory (`factorvae_tpu/obs/`): the trace plane (`obs/trace.py`),
+the served-score drift monitors (`obs/drift.py`), the daemon's Prometheus
+exposition and textfile exporter (`obs/metrics.py`), the training-health
+probes (`obs/probes.py`), the comms bill (`obs/comms.py`), memory
+watermarks (`obs/memory.py`), and the readers of a run's stream
+(`obs/report.py`, `obs/timeline.py`, `obs/live.py`, `obs/collect.py`).
+Host-side Python and numpy only, copied rather than imported from the JAX
+package. Profiling lives in `utils/` (`utils/profiling.py`,
+`utils/trace_summary.py`). The JAX package's `obs/ledger.py` waits for the
+port's benchmark PR (ROADMAP Queue 1 item 14).
 """

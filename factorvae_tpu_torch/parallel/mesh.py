@@ -23,6 +23,7 @@ has no groups: every collective is the identity.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -63,7 +64,8 @@ class Mesh:
     """A grid of world ranks (`devices`, the JAX mesh's device array) with
     `axis_names` and `shape` (name -> size, in axis order), this rank's
     `coords`, and an `Axis` for each axis, for the batch axes together
-    (`axis(name)`, `batch_axis()`) and for every rank (`axis("world")`)."""
+    (`axis(name)`, `batch_axis()`), for every rank (`axis("world")`) and
+    for any product of axes (`axes(*names)`)."""
 
     def __init__(self, ranks: np.ndarray, axis_names: Sequence[str]):
         ranks = np.asarray(ranks, dtype=np.int64)
@@ -78,11 +80,13 @@ class Mesh:
             raise ValueError(f"a mesh of {ranks.size} ranks over a world of {world}: "
                              "every rank of the world must sit in the mesh once")
         self.coords = tuple(int(c) for c in np.argwhere(ranks == self.rank)[0])
-        axes = {name: self._make_axis((i,)) for i, name in enumerate(self.axis_names)}
-        batch = tuple(self.axis_names.index(a) for a in batch_axes(self))
-        axes["batch"] = (axes[self.axis_names[batch[0]]] if len(batch) == 1
-                         else self._make_axis(batch))
-        axes["world"] = self._make_axis(tuple(range(ranks.ndim)))
+        # an Axis for every product of axes, made in one order on every rank
+        self._by_dims = {dims: self._make_axis(dims)
+                         for k in range(1, ranks.ndim + 1)
+                         for dims in itertools.combinations(range(ranks.ndim), k)}
+        axes = {name: self._by_dims[(i,)] for i, name in enumerate(self.axis_names)}
+        axes["batch"] = self.axes(*batch_axes(self))
+        axes["world"] = self._by_dims[tuple(range(ranks.ndim))]
         self._axes = axes       # read-only once built
 
     @property
@@ -107,6 +111,11 @@ class Mesh:
 
     def axis(self, name: str) -> Axis:
         return self._axes[name]
+
+    def axes(self, *names: str) -> Axis:
+        """The Axis over the product of the named axes (in mesh order,
+        named like "host/stock")."""
+        return self._by_dims[tuple(sorted(self.axis_names.index(n) for n in names))]
 
     def batch_axis(self) -> Axis:
         """The axes that shard the day batch together (`batch_axes`)."""

@@ -290,7 +290,8 @@ def day_batch_axes(mesh, stacked: bool = False) -> tuple:
     """Mesh axes that shard the day-batch (B) dimension. Serial runs use
     `mesh.batch_axes`; fleet runs cede 'data' to the seed axis, so day
     batches shard over 'host' when the mesh has one and are whole
-    otherwise."""
+    otherwise. `train/loop.MeshStep` takes a step's days over these axes
+    and reduces its gradients over them and 'stock'."""
     if not stacked:
         from factorvae_tpu_torch.parallel.mesh import batch_axes
 

@@ -64,14 +64,20 @@ device a hidden size above the kernels' maximum.
   (`parallel/partition.seed_slice`), with no collective between lanes, and
   holds its 'stock' rows of the panel, the stock collectives and the
   gradient's reduction running within its 'stock' group
-  (`train/loop.MeshStep(stacked=True)`). `compose.validate` checks the
-  lane count against the 'data' axis. The records and `fit`'s `best_val`
-  and `best_params` are the whole fleet's (all-gathered over 'data'); the
-  returned state holds this rank's lanes (`lanes`, their global indices).
-  The 'stock'-index-0 rank of each row writes its lanes' checkpoints and
-  best weights, and every rank of the row reads them on a resume or a
-  rollback; rank 0 alone logs. A hyper-fleet needs two lanes or more on
-  every 'data' rank (ROADMAP Queue 1 item 16).
+  (`train/loop.MeshStep(stacked=True)`). On a hierarchical ('host',
+  'data', 'stock') mesh each update's days split over 'host' as well, and
+  the gradients are reduced over 'host' and 'stock'. `compose.validate`
+  checks the lane count against the 'data' axis (and days_per_step against
+  'host'). A one-lane seed slice runs the serial step; a hyper-fleet keeps
+  the lane-stacked step with its run-time lr and kl_weight even at one
+  lane a rank. The records and `fit`'s `best_val` and `best_params` are
+  the whole fleet's (all-gathered over 'data'); the returned state holds
+  this rank's lanes (`lanes`, their global indices). Every rank holds
+  every lane's config (`all_lane_cfgs`), so lane labels, `set_lane_scalars`
+  and `lane_checkpointer` take the global lane. One rank of each lane's row
+  (index 0 along 'stock', and 'host' on a hierarchical mesh) writes its
+  lanes' checkpoints and best weights, and every rank of the row reads
+  them on a resume or a rollback; rank 0 alone logs.
 """
 
 from __future__ import annotations
@@ -322,15 +328,18 @@ class FleetTrainer:
 
             self.mesh_step = MeshStep(self.mesh, stacked=True)
             self.lanes = seed_slice(self.mesh, len(lane_cfgs))
-            self._writer = self.mesh_step.stock.index == 0
-            if self.hyper and self.lanes.stop - self.lanes.start < 2:
-                raise NotImplementedError(
-                    "a hyper-fleet on a mesh needs two lanes or more on every 'data' "
-                    "rank; not ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)")
+            # one rank of each lane's row writes: index 0 of the axes its
+            # gradients are reduced over ('stock', and 'host' when the days
+            # split over it)
+            self._writer = self.mesh_step.grad_axis.index == 0
             shard_dataset(self.mesh, dataset)
-        self.lane_cfgs = lane_cfgs[self.lanes]
+        self.all_lane_cfgs = lane_cfgs
         self.seeds = [int(c.train.seed) for c in self.lane_cfgs]
-        self.num_seeds = len(self.lane_cfgs)
+        self.num_seeds = len(self.seeds)
+        # one lane of a seed fleet runs the serial step; a hyper-fleet's
+        # lanes keep the lane-stacked step and its run-time scalars, also
+        # one to a 'data' rank
+        self._solo = self.num_seeds == 1 and not self.hyper
         check_remat(config.train.remat)
         self.train_dtype = resolve_train_dtype(config.train, config.model)
         self.mixed = self.train_dtype != "float32"
@@ -354,7 +363,7 @@ class FleetTrainer:
         self._ckpts: dict = {}
         self.logger.log(
             "fleet_execution_layout", seeds=self.all_seeds, seeds_per_program=self.num_seeds,
-            hyper=self.hyper, lane_labels=self.lane_labels(),
+            hyper=self.hyper, lane_labels=self.all_lane_labels(),
             flatten_days=config.model.flatten_days, days_per_step=self.batch_days,
             compute_dtype=self.train_dtype, model_compute_dtype=config.model.compute_dtype,
             mixed_precision=self.mixed,
@@ -404,35 +413,30 @@ class FleetTrainer:
 
     # ---- lanes -----------------------------------------------------------
 
-    def lane_labels(self) -> list:
-        return [lane_label(c, self.hyper) for c in self.lane_cfgs]
+    @property
+    def lane_cfgs(self) -> list:
+        """This rank's lanes' configs (every lane's without a mesh)."""
+        return self.all_lane_cfgs[self.lanes]
+
+    def owns(self, lane: int) -> bool:
+        """Whether global lane `lane` is one of this rank's."""
+        return self.lanes.start <= lane < self.lanes.stop
 
     def all_lane_labels(self) -> list:
-        """Every lane's label, this rank's or not (a mesh splits the lanes)."""
-        labels = self.lane_labels()
-        if self.mesh is None:
-            return labels
-        import torch.distributed as dist
-
-        from factorvae_tpu_torch.parallel.mesh import DATA_AXIS
-
-        axis = self.mesh.axis(DATA_AXIS)
-        if axis.group is None:
-            return labels
-        rows = [None] * axis.size
-        dist.all_gather_object(rows, labels, group=axis.group)
-        return [x for row in rows for x in row]
+        """Every lane's label, this rank's or not (a mesh splits the lanes;
+        every rank holds every lane's config)."""
+        return [lane_label(c, self.hyper) for c in self.all_lane_cfgs]
 
     def set_lane_scalars(self, lane: int, lr: Optional[float] = None,
                          kl_weight: Optional[float] = None) -> None:
-        """Replace one lane's lr and kl_weight (run-time values of a
-        hyper-fleet: the next epoch reads them). Its artifacts keep their
-        names."""
+        """Replace global lane `lane`'s lr and kl_weight (run-time values of
+        a hyper-fleet: the next epoch reads them) on every rank, which is
+        what its owner trains with. Its artifacts keep their names."""
         if not self.hyper:
             raise ValueError("set_lane_scalars needs a hyper-fleet (lane_configs, and "
                              "force_hyper=True for an initially homogeneous population)")
-        c = self.lane_cfgs[lane]
-        self.lane_cfgs[lane] = dataclasses.replace(
+        c = self.all_lane_cfgs[lane]
+        self.all_lane_cfgs[lane] = dataclasses.replace(
             c, model=dataclasses.replace(
                 c.model, kl_weight=c.model.kl_weight if kl_weight is None else float(kl_weight)),
             train=dataclasses.replace(c.train, lr=c.train.lr if lr is None else float(lr)))
@@ -459,22 +463,22 @@ class FleetTrainer:
         """Each lane's solo first state (`Trainer.init_state` at its
         config): a `TrainState` at S = 1, their `FleetState` else."""
         states = [self.init_lane_state(i) for i in range(self.num_seeds)]
-        return states[0] if self.num_seeds == 1 else stack_states(states)
+        return states[0] if self._solo else stack_states(states)
 
     def _lane_state(self, run, i: int) -> TrainState:
-        if self.num_seeds == 1:
+        if self._solo:
             return run
         return unstack_state(run, i, self.model_cfg, self._lane_train_cfg(i),
                              self.total_steps)
 
     def _params(self, run) -> dict:
         """The run's parameters as stacked (S, ...) tensors."""
-        if self.num_seeds == 1:
+        if self._solo:
             return {n: p.detach()[None] for n, p in run.model.named_parameters()}
         return run.params
 
     def _stacked(self, run) -> FleetState:
-        return stack_states([run]) if self.num_seeds == 1 else run
+        return stack_states([run]) if self._solo else run
 
     def _epoch_orders(self, epoch: int) -> np.ndarray:
         """(S, steps, B): each lane's day order, shuffled with its own seed,
@@ -514,7 +518,7 @@ class FleetTrainer:
         guard = self.cfg.train.finite_guard
         probes = self.cfg.train.obs_probes
         dtype = self.model_cfg.dtype
-        if self.num_seeds == 1:
+        if self._solo:
             chunks = self._chunks(orders[0])
             m = train_epoch(run, chunks, guard=guard, poison=bool(poison[0]),
                             compute_dtype=dtype, loss_scale_cfg=self.loss_scale_cfg,
@@ -536,7 +540,7 @@ class FleetTrainer:
         generators = self._eval_generators(epoch)
         dtype = self.model_cfg.dtype
         probes = self.cfg.train.obs_probes
-        if self.num_seeds == 1:
+        if self._solo:
             m = eval_epoch(run.model, self._chunks(val_order), generators[0], dtype,
                            probes=probes, mesh=self.mesh_step)
             return {k: [v] for k, v in m.items()}
@@ -546,17 +550,17 @@ class FleetTrainer:
     def evaluate_lanes(self, state: FleetState, epoch: int) -> Optional[list]:
         """Each lane's validation loss of `state` (a `fit` result) with
         epoch `epoch`'s validation noise, or None without a validation
-        split."""
+        split; on a mesh every lane's, gathered over 'data'."""
         val_order = self._val_order()
         if val_order is None:
             return None
         run = (unstack_state(state, 0, self.model_cfg, self._lane_train_cfg(0),
-                             self.total_steps) if self.num_seeds == 1 else state)
-        return self._run_eval_epoch(run, val_order, epoch)["loss"]
+                             self.total_steps) if self._solo else state)
+        return self._gather_lanes(self._run_eval_epoch(run, val_order, epoch)["loss"])
 
     def _lrs(self, run) -> list:
         """Each lane's lr at its applied updates (the serial record's lr)."""
-        counts = ([run.scheduler.last_epoch] if self.num_seeds == 1 else run.counts)
+        counts = ([run.scheduler.last_epoch] if self._solo else run.counts)
         return [learning_rate_at(c.train, self.total_steps, int(n))
                 for c, n in zip(self.lane_cfgs, counts)]
 
@@ -616,7 +620,7 @@ class FleetTrainer:
             else:
                 selection = train_m["loss"]
             prev_best = best_val.copy()
-            if self.num_seeds == 1:
+            if self._solo:
                 # the serial trainer's host branch: a copy on improvement
                 if selection[0] < best_val[0]:
                     best_val = np.asarray([selection[0]])
@@ -634,7 +638,7 @@ class FleetTrainer:
                           else [float("nan")] * self.num_seeds),
                 train_recon=train_m["recon"], train_kl=train_m["kl"],
                 lr=lrs if self.hyper else lrs[0],
-                step=int(run.step if self.num_seeds == 1 else run.steps[0]),
+                step=int(run.step if self._solo else run.steps[0]),
                 seconds=seconds,
                 seed_days_per_sec=len(self.all_seeds) * train_m["days"][0]
                 / max(seconds, 1e-9),
@@ -681,11 +685,12 @@ class FleetTrainer:
                                    f"{tcfg.recover_max_rollbacks})"
                               if lane_rollbacks[i] >= tcfg.recover_max_rollbacks
                               else "no good-epoch checkpoint anchor yet")
-                    self.logger.log("recovery", kind="lane_rollback_unavailable", lane=i,
+                    lane = self.lanes.start + i
+                    self.logger.log("recovery", kind="lane_rollback_unavailable", lane=lane,
                                     seed=self.seeds[i], epoch=epoch,
                                     note=f"{reason}; lane continues un-rolled")
                     timeline_event("recovery_rollback_unavailable", cat="recovery",
-                                   resource="recovery", epoch=epoch, lane=i, reason=reason)
+                                   resource="recovery", epoch=epoch, lane=lane, reason=reason)
             improved = [i for i in range(self.num_seeds)
                         if np.isfinite(best_val[i]) and best_val[i] < prev_best[i]]
             self._save_best(best_params, improved)
@@ -709,16 +714,15 @@ class FleetTrainer:
 
     # ---- checkpoints -----------------------------------------------------
 
-    def _lane_dir(self, i: int) -> str:
-        c = self.lane_cfgs[i]
-        return os.path.join(c.train.save_dir, f"{c.checkpoint_name()}_ckpt")
-
-    def lane_checkpointer(self, i: int) -> Checkpointer:
-        if i not in self._ckpts:
-            t = self.lane_cfgs[i].train
-            self._ckpts[i] = Checkpointer(self._lane_dir(i), keep=t.keep_checkpoints,
-                                          async_save=t.async_checkpointing)
-        return self._ckpts[i]
+    def lane_checkpointer(self, lane: int) -> Checkpointer:
+        """The Checkpointer of global lane `lane`'s directory (any rank may
+        read another's rows; its owner's writer writes them)."""
+        if lane not in self._ckpts:
+            c = self.all_lane_cfgs[lane]
+            self._ckpts[lane] = Checkpointer(
+                os.path.join(c.train.save_dir, f"{c.checkpoint_name()}_ckpt"),
+                keep=c.train.keep_checkpoints, async_save=c.train.async_checkpointing)
+        return self._ckpts[lane]
 
     def close_checkpoints(self) -> None:
         """Drain every lane's queued checkpoint saves."""
@@ -736,45 +740,64 @@ class FleetTrainer:
 
     def _save_checkpoints(self, run, epoch: int, best_val, clean) -> None:
         """One full-state checkpoint per lane at `epoch`, in the serial
-        format (a serial `Trainer` resumes any member). On a mesh the
-        'stock'-index-0 rank writes them, drained before every rank goes on."""
+        format (a serial `Trainer` resumes any member). On a mesh one rank
+        of each lane's row writes them, drained before every rank goes on."""
         for i in range(self.num_seeds) if self._writer else ():
-            self.lane_checkpointer(i).save(
-                epoch, self._lane_state(run, i),
-                {"epoch": epoch, "best_val": float(best_val[i]),
-                 "config": self.lane_cfgs[i].to_dict(), "clean": bool(clean[i])})
+            ckpt = self.lane_checkpointer(self.lanes.start + i)
+            ckpt.save(epoch, self._lane_state(run, i),
+                      {"epoch": epoch, "best_val": float(best_val[i]),
+                       "config": self.lane_cfgs[i].to_dict(), "clean": bool(clean[i])})
             if self.mesh is not None:
-                self.lane_checkpointer(i).wait_until_finished()
+                ckpt.wait_until_finished()
         self._barrier()
+
+    def _all_ranks(self, obj) -> list:
+        """`obj` of every rank of the world (`[obj]` without a mesh)."""
+        world = None if self.mesh is None else self.mesh.axis("world")
+        if world is None or world.group is None:
+            return [obj]
+        import torch.distributed as dist
+
+        out = [None] * world.size
+        dist.all_gather_object(out, obj, group=world.group)
+        return out
 
     def _restore_checkpoints(self):
         """(run state, best_val (S,), start epoch, per-lane clean flags) from
         the per-lane checkpoints at the largest epoch every member has
         verified, or None (logged when the members share no epoch). A member
         step that fails at restore is quarantined there, and the scan runs
-        again below it."""
-        common = None
+        again below it. On a mesh the members are every rank's lanes: the
+        ranks agree on the epoch, and all rescan when one fails."""
+        mine = None
         for i in range(self.num_seeds):
-            steps = set(self.lane_checkpointer(i).verified_steps())
+            steps = set(self.lane_checkpointer(self.lanes.start + i).verified_steps())
             if not steps:
-                return None
-            common = steps if common is None else common & steps
+                mine = None
+                break
+            mine = steps if mine is None else mine & steps
+        ranks = self._all_ranks(mine)
+        if any(r is None for r in ranks):
+            return None
+        common = set.intersection(*ranks)
         if not common:
             self.logger.log("fleet_resume_skipped", seeds=self.seeds,
                             note="no checkpoint step common to every fleet member; "
                                  "starting the group fresh")
             return None
         epoch = max(common)
-        states, best_vals, cleans = [], [], []
+        states, best_vals, cleans, failed = [], [], [], False
         for i in range(self.num_seeds):
             st = self.init_lane_state(i)
             try:
-                meta = self.lane_checkpointer(i).restore(st, step=epoch, verified=True)
+                meta = self.lane_checkpointer(self.lanes.start + i).restore(
+                    st, step=epoch, verified=True)
             except CheckpointIntegrityError as e:
                 self.logger.log("fleet_resume_retry", seed=self.seeds[i], step=epoch,
                                 error=str(e), note="member checkpoint failed at restore; "
                                                    "rescanning for an older common step")
-                return self._restore_checkpoints()
+                failed = True
+                break
             set_lr_scale(st, self._lane_train_cfg(i), 1.0)
             states.append(st)
             best_vals.append(float(meta.get("best_val", float("inf"))))
@@ -784,7 +807,9 @@ class FleetTrainer:
                 self.logger.log("fleet_resume_config_mismatch", seed=self.seeds[i],
                                 note="resuming with a different config than the "
                                      "checkpoint was written with")
-        run = states[0] if self.num_seeds == 1 else stack_states(states)
+        if any(self._all_ranks(failed)):
+            return self._restore_checkpoints()
+        run = states[0] if self._solo else stack_states(states)
         return run, np.asarray(best_vals), epoch + 1, cleans
 
     def _load_best(self, run, best_val) -> dict:
@@ -806,7 +831,8 @@ class FleetTrainer:
         epoch and splice it into the run; the other lanes are untouched. A
         lane whose anchor is gone falls back to its newest checkpoint."""
         for i in lanes:
-            ckpt = self.lane_checkpointer(i)
+            lane = self.lanes.start + i
+            ckpt = self.lane_checkpointer(lane)
             st = self.init_lane_state(i)
             restored = lane_anchor[i]
             try:
@@ -815,17 +841,17 @@ class FleetTrainer:
                 try:
                     restored = int(ckpt.restore(st)["epoch"])
                 except FileNotFoundError:
-                    self.logger.log("recovery", kind="lane_rollback_unavailable", lane=i,
-                                    seed=self.seeds[i], epoch=epoch,
+                    self.logger.log("recovery", kind="lane_rollback_unavailable",
+                                    lane=lane, seed=self.seeds[i], epoch=epoch,
                                     note="no checkpoint for this lane; continuing forward")
                     continue
             set_lr_scale(st, self._lane_train_cfg(i), 1.0)
-            if self.num_seeds == 1:
+            if self._solo:
                 run = st
             else:
                 set_lane(run, i, st)
-            self.logger.log("recovery", kind="lane_rollback", lane=i, seed=self.seeds[i],
+            self.logger.log("recovery", kind="lane_rollback", lane=lane, seed=self.seeds[i],
                             epoch=epoch, restored_step=restored)
-            timeline_event("recovery_rollback", cat="recovery", resource="recovery", lane=i,
-                           seed=self.seeds[i], epoch=epoch, step=restored)
+            timeline_event("recovery_rollback", cat="recovery", resource="recovery",
+                           lane=lane, seed=self.seeds[i], epoch=epoch, step=restored)
         return run

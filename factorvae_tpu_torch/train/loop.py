@@ -81,7 +81,12 @@ so every rank applies or skips the same steps and the parameters stay
 bitwise equal across ranks. The per-day metric sums are summed over the
 batch axes once per epoch. A fleet on a mesh lays its lanes over 'data'
 (each rank steps its own lanes) and shares no collective between lanes:
-its gradients are reduced over 'stock' alone.
+on a ('data', 'stock') mesh every rank of a lane takes its whole update
+and its gradients are reduced over 'stock' alone; on a hierarchical
+('host', 'data', 'stock') mesh the update's days split over 'host', each
+lane's loss divides by its whole update's real days, and the gradients
+are reduced over 'host' and 'stock' together, so the update is the serial
+fleet's up to the order of its sums.
 """
 
 from __future__ import annotations
@@ -221,28 +226,27 @@ def _grads(model) -> list:
 class MeshStep:
     """What a step on a mesh needs: the rank's slices of a batch's days and
     of the cross-section, the 'stock' axis and the axes its gradients and
-    its per-day sums are reduced over. `stacked` is a fleet's (lanes over
-    'data', whole day batches on a two-axis mesh)."""
+    its per-day sums are reduced over. The day batch splits over
+    `partition.day_batch_axes(mesh, stacked)`: the batch axes for a serial
+    step; for a fleet's (`stacked`, lanes over 'data') 'host' on a
+    hierarchical mesh, else none. The gradients are summed over the day
+    axes and 'stock' together, never over the lanes' 'data'."""
 
     def __init__(self, mesh, stacked: bool = False):
-        from factorvae_tpu_torch.parallel.mesh import HOST_AXIS, STOCK_AXIS
+        from factorvae_tpu_torch.parallel.mesh import STOCK_AXIS
+        from factorvae_tpu_torch.parallel.partition import day_batch_axes
 
         self.mesh = mesh
         self.stock = mesh.axis(STOCK_AXIS)
         self.sp = self.stock.size
-        if stacked:
-            if HOST_AXIS in mesh.axis_names:
-                raise NotImplementedError(
-                    "a fleet on a hierarchical ('host', 'data', 'stock') mesh is not "
-                    "ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)")
-            self.grad_axis, self.day_axis = self.stock, None
-        else:
-            self.grad_axis, self.day_axis = mesh.axis("world"), mesh.batch_axis()
+        day = day_batch_axes(mesh, stacked=stacked)
+        self.day_axis = mesh.axes(*day) if day else None
+        self.grad_axis = mesh.axes(*day, STOCK_AXIS)
 
     def days(self, t: torch.Tensor, trailing: int = 1) -> torch.Tensor:
         """This rank's days of `t`, whose day axis has `trailing - 1` axes
-        after it: a (B,) batch, eps (B, N), keep (B, K, N); whole for a
-        fleet on a two-axis mesh."""
+        after it: a (B,) batch, eps (B, N), keep (B, K, N), with any lane
+        axes before it; whole for a fleet on a two-axis mesh."""
         if self.day_axis is None:
             return t
         from factorvae_tpu_torch.parallel.multihost import _slice_of
@@ -490,20 +494,25 @@ def lane_day_loss(model, params: dict, dataset, days: torch.Tensor, *, train: bo
     hyper-fleet's runtime scalar); without it the model's own loss. `probes`
     adds each lane's `loss_probes`. `noise` is `lane_noise`'s (eps, keep);
     the train step draws it first, an eval draws it here. On a `mesh` the
-    dataset holds this rank's stocks and `noise` the whole cross-section's,
-    of which each lane keeps this rank's stocks of eps."""
-    x, y, mask = lane_batch(dataset, days)
-    n = x.shape[2]
+    dataset holds this rank's stocks and `noise` the whole update's, of
+    which each lane keeps this rank's days and stocks; `days` are the whole
+    update's, of which the rank takes its day slice (its 'host' share on a
+    hierarchical mesh), and each lane's loss divides by the real days of
+    its whole update."""
+    n = dataset.values.shape[0]
     eps, keep = noise or lane_noise(model, generators, days.shape[1],
                                     n * (mesh.sp if mesh else 1), train=train,
-                                    device=x.device)
-    kw = {}
+                                    device=days.device)
+    kw, total = {}, None
     if mesh is not None:
         eps, keep = mesh.noise(eps, keep, n)
         kw["stock"] = mesh.stock
+        total = torch.sum((days >= 0).to(torch.float32), dim=1)
+        days = mesh.days(days)
+    x, y, mask = lane_batch(dataset, days)
     stock = kw.get("stock")
 
-    def one(p, x, y, mask, d, eps, keep, klw):
+    def one(p, x, y, mask, d, eps, keep, klw, total):
         day_w = (d >= 0).to(torch.float32)
         out = call_with(model, p, "day_batched_forward", x, y, mask, train=train,
                         eps=eps, keep=keep, **kw)
@@ -516,12 +525,12 @@ def lane_day_loss(model, params: dict, dataset, days: torch.Tensor, *, train: bo
                "wloss_sum": torch.sum(per_day * n_valid), "samples": torch.sum(n_valid)}
         if probes:
             aux.update(loss_probes(out, day_w))
-        return loss_sum / torch.clamp(count, min=1.0), aux
+        return loss_sum / torch.clamp(count if total is None else total, min=1.0), aux
 
     in_dims = (0, 0, 0, 0, 0, 0, None if keep is None else 0,
-               None if kl_weight is None else 0)
+               None if kl_weight is None else 0, None if total is None else 0)
     loss, aux = torch.func.vmap(one, in_dims=in_dims, randomness="error")(
-        params, x, y, mask, days, eps, keep, kl_weight)
+        params, x, y, mask, days, eps, keep, kl_weight, total)
     return loss, {k: v.detach() for k, v in aux.items()}
 
 
@@ -551,7 +560,8 @@ def lane_train_step(model, state: FleetState, dataset, days: torch.Tensor, *,
     Returns the step's aux sums, each (S,); a mixed fleet's also hold the
     (S,) loss scales after the step (host float32). On a `mesh` (a
     stacked `MeshStep`) the state holds this rank's lanes and the dataset
-    its stocks; the gradients are reduced over 'stock'."""
+    its stocks; the noise is drawn at the whole update's shape, and the
+    gradients are reduced over the day axes and 'stock' (`MeshStep`)."""
     params = state.params
     for p in params.values():
         p.grad = None
@@ -628,6 +638,8 @@ def lane_train_epoch(model, state: FleetState, chunks, *, peaks, train_cfg,
             if "loss_scale" in aux:
                 scales.append(aux.pop("loss_scale"))
             sums = _accumulate(sums, aux)
+    if mesh is not None:
+        sums = mesh.reduce_sums(sums)
     metrics = to_host(finalize_train(sums))
     if scales:
         probes = [loss_scale_probes([s[i] for s in scales], loss_scale_cfg[3])
@@ -657,4 +669,6 @@ def lane_eval_epoch(model, params: dict, chunks, generators,
                                    generators=generators, kl_weight=kl_weight,
                                    probes=probes, mesh=mesh)
             sums = _accumulate(sums, aux)
+    if mesh is not None:
+        sums = mesh.reduce_sums(sums)
     return to_host(finalize_eval(sums))

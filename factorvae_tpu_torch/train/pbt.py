@@ -20,6 +20,17 @@ The controller writes `{generation, per-lane scalars}` to
 `<save_dir>/<run_name>_pbt.json` after every generation (a rename, so it is
 never half written). `pbt_fit(..., resume=True)` restores the scalars and
 every lane's checkpoint and continues bitwise as the unbroken run.
+
+On a mesh the lanes lie over 'data' (`train/fleet.py`), so a winner and
+its loser may sit on different ranks. Every rank ranks the whole
+population: the fitness is the fleet's record, gathered over 'data' with
+`parallel/collective_ops` (counted in the comms block). Every rank applies
+`set_lane_scalars` (each holds every lane's config; the loser's owner
+trains with it). The exploit reads the winner's checkpoint row after a
+barrier that follows every writer's `close_checkpoints()`; the loser's
+writer (its rank's 'stock' index 0) writes the row into the loser's
+directory. World rank 0 writes the state file once the exploit rows have
+landed, and every rank waits for it.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import numpy as np
 
 from factorvae_tpu_torch.config import Config
 from factorvae_tpu_torch.train.fleet import FleetTrainer
+from factorvae_tpu_torch.train.trainer import is_rank_zero
 from factorvae_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -83,11 +95,9 @@ def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations
     (fitness, winners, exploited lanes, the scalars' walk), the final lane
     configs, state, best_val and best_params.
 
-    `mesh` trains the population on a mesh whose 'data' axis is 1: every
-    rank holds every lane over its 'stock' rows (`train/fleet.py`), and the
-    exploit's checkpoint rows and the state file are written by the fleet's
-    writing rank. Lanes split over 'data' would put a winner and its loser
-    on different ranks: refused (ROADMAP Queue 1 item 16)."""
+    `mesh` trains the population on a mesh: its lanes over 'data', each
+    lane's rows over 'stock' (the module docstring). The records are the
+    same on every rank."""
     logger = logger or MetricsLogger(echo=False)
     generations, epg = int(generations), int(epochs_per_generation)
     if generations < 1 or epg < 1:
@@ -116,13 +126,9 @@ def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations
 
     # force_hyper: a homogeneous population would fold to baked scalars, and
     # the first explore step would have no run-time scalar to move
-    if mesh is not None and int(mesh.shape.get("data", 1)) > 1:
-        raise NotImplementedError(
-            "population-based training with lanes over a 'data' axis above 1 is not "
-            "ported to factorvae_tpu_torch (ROADMAP Queue 1 item 16)")
     trainer = FleetTrainer(config, dataset, lane_configs=lane_cfgs, device=device,
                            logger=logger, force_hyper=True, mesh=mesh)
-    num_lanes = trainer.num_seeds
+    num_lanes = len(trainer.all_lane_cfgs)
     n_exploit = max(1, int(round(num_lanes * EXPLOIT_FRAC))) if num_lanes > 1 else 0
     n_exploit = min(n_exploit, num_lanes // 2)
 
@@ -147,26 +153,32 @@ def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations
         losers = [int(i) for i in order[-n_exploit:]] if n_exploit else []
         rec = {"generation": gen, "epochs": [gen * epg, (gen + 1) * epg],
                "fitness": [float(v) for v in fitness],
-               "lane_labels": trainer.lane_labels(), "winners": winners, "exploited": []}
+               "lane_labels": trainer.all_lane_labels(), "winners": winners,
+               "exploited": []}
         if gen < generations - 1 and losers:
             gather_epoch = (gen + 1) * epg - 1
+            # every writer's rows have landed before any rank reads a winner's
+            trainer.close_checkpoints()
+            trainer._barrier()
             for j, loser in enumerate(losers):
                 winner = winners[j % len(winners)]
                 if loser == winner:
                     continue
                 f = perturb_factor(gen, loser)
-                w_cfg = trainer.lane_cfgs[winner]
+                w_cfg = trainer.all_lane_cfgs[winner]
                 new_lr = float(np.clip(w_cfg.train.lr * f, *LR_BOUNDS))
                 new_klw = float(np.clip(w_cfg.model.kl_weight * f, *KL_WEIGHT_BOUNDS))
                 trainer.set_lane_scalars(loser, lr=new_lr, kl_weight=new_klw)
-                # exploit: the winner's checkpoint row into the loser's directory
-                if trainer._writer:
-                    row = trainer.init_lane_state(loser)
+                # exploit: the winner's checkpoint row into the loser's
+                # directory, by the loser's writer
+                if trainer.owns(loser) and trainer._writer:
+                    row = trainer.init_lane_state(loser - trainer.lanes.start)
                     trainer.lane_checkpointer(winner).restore(row, step=gather_epoch)
                     trainer.lane_checkpointer(loser).save(
                         gather_epoch, row,
                         {"epoch": gather_epoch, "best_val": float(out["best_val"][loser]),
-                         "config": trainer.lane_cfgs[loser].to_dict(), "clean": True})
+                         "config": trainer.all_lane_cfgs[loser].to_dict(),
+                         "clean": True})
                 rec["exploited"].append({"lane": loser, "from": winner,
                                          "perturb_factor": f, "lr": new_lr,
                                          "kl_weight": new_klw})
@@ -176,16 +188,16 @@ def pbt_fit(config: Config, dataset, lane_configs: Sequence[Config], generations
         finite = fitness[np.isfinite(fitness)]
         logger.log("pbt_generation", **{k: v for k, v in rec.items() if k != "fitness"},
                    best_fitness=float(finite.min()) if finite.size else float("nan"))
-        if trainer._writer:
+        if is_rank_zero(trainer.mesh):
             _write_pbt_state(state_path, gen + 1,
                              [{"lr": c.train.lr, "kl_weight": c.model.kl_weight}
-                              for c in trainer.lane_cfgs])
+                              for c in trainer.all_lane_cfgs])
         trainer._barrier()
         if stop_after is not None and gen >= stop_after:
             logger.log("pbt_stopped", after_generation=gen)
             break
     return trainer, {
-        "generations": gen_records, "lane_configs": list(trainer.lane_cfgs),
+        "generations": gen_records, "lane_configs": list(trainer.all_lane_cfgs),
         "state": state,
         "best_val": out["best_val"] if out is not None else None,
         "best_params": out["best_params"] if out is not None else None,

@@ -721,11 +721,28 @@ class TestChunkStreamOnCard:
 
     def test_record_stream_keeps_a_chunk_until_its_kernels_ran(self, dev, monkeypatch):
         """The consumer's kernels lag ~100 ms behind its loop: each chunk's
-        memory must not go to a later chunk's copy before they ran. Without
-        `record_stream` (the control) it does."""
-        assert _consume(_chunk_stream(6), spin=True) == [float(i) for i in range(6)]
-        monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
-        assert _consume(_chunk_stream(6), spin=True) != [float(i) for i in range(6)]
+        memory must not go to a later chunk's copy before they ran. Each
+        guard holds alone: `record_stream` without the freed slot's event,
+        the event without `record_stream`. Without both (the control) a
+        later copy overwrites a chunk still being read."""
+        from factorvae_tpu_torch.data.stream import ChunkStream
+
+        want = [float(i) for i in range(6)]
+        assert _consume(_chunk_stream(6), spin=True) == want
+        with monkeypatch.context() as m:
+            m.setattr(ChunkStream, "_mark_freed", lambda self: None)
+            assert _consume(_chunk_stream(6), spin=True) == want
+        with monkeypatch.context() as m:
+            m.setattr(torch.Tensor, "record_stream", lambda self, s: None)
+            assert _consume(_chunk_stream(6), spin=True) == want
+            m.setattr(ChunkStream, "_mark_freed", lambda self: None)
+            assert _consume(_chunk_stream(6), spin=True) != want
+
+    def test_a_consumer_holding_two_chunks_gets_an_error(self, dev):
+        """A third chunk can never get a slot while the consumer keeps two:
+        the stream raises instead of waiting for ever."""
+        with pytest.raises(RuntimeError, match=r"still holds chunks \[0, 1\]"):
+            list(_chunk_stream(4))
 
     def test_at_most_two_chunks_on_the_device(self, dev):
         torch.cuda.synchronize()

@@ -206,3 +206,59 @@ class TestCliUnderTorchrun:
         np.testing.assert_allclose(np.asarray([float(r[2]) for r in b[1:]]),
                                    np.asarray([float(r[2]) for r in a[1:]]), rtol=1e-5,
                                    atol=1e-6)
+
+    def test_a_hyper_grid_a_lane_a_rank_picks_the_single_process_winner(self, panels,
+                                                                         tmp_path):
+        """`--hyper_grid` of 2 points under `--mesh` on 2 ranks (2 x 1, a
+        grid lane a 'data' rank): the one-process run's winner and CSV
+        (the same rows, scores within rtol 1e-5)."""
+        jp, _ = panels
+        from factorvae_tpu_torch.data.panel import Panel, panel_to_frame
+
+        tp = Panel(values=jp.values, valid=jp.valid,
+                   dates=jp.dates.values.astype("datetime64[D]"),
+                   instruments=np.asarray(jp.instruments))
+        path = str(tmp_path / "panel.pkl")
+        panel_to_frame(tp).to_pickle(path)
+        d = [str(x.date()) for x in jp.dates]
+
+        def argv(out):
+            return ["--dataset", path, "--num_latent", str(C), "--hidden_size", str(H),
+                    "--num_factor", str(K), "--num_portfolio", str(M), "--seq_len", str(T),
+                    "--start_time", d[0], "--fit_end_time", d[21], "--val_start_time",
+                    d[22], "--val_end_time", d[29], "--score_start", d[10], "--score_end",
+                    d[29], "--num_epochs", "2", "--seed", "3", "--days_per_step", "2",
+                    "--hyper_grid", "1e-3:1,3e-3:0.1", "--deterministic_scores",
+                    "--save_dir", str(tmp_path / out / "models"),
+                    "--score_dir", str(tmp_path / out / "scores"), "--device", "cpu"]
+
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+        run = dict(cwd=REPO, env=env, capture_output=True, text=True)
+        single = subprocess.run([sys.executable, "-m", "factorvae_tpu_torch.cli",
+                                 *argv("single")], timeout=120, **run)
+        assert single.returncode == 0, single.stderr
+        multi = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                "--nproc_per_node", "2", "-m", "factorvae_tpu_torch.cli",
+                                *argv("multi"), "--mesh"], timeout=180, **run)
+        assert multi.returncode == 0, multi.stderr[-4000:]
+
+        def winner(out):
+            (line,) = [ln for ln in out.splitlines() if ln.startswith("[hyper_grid]")]
+            return line.split("best_label=")[1].split(",")[0]
+
+        assert winner(multi.stdout) == winner(single.stdout)
+        assert multi.stdout.count("[scores]") == 1          # rank 0 alone logs
+
+        def read(out):
+            (name,) = os.listdir(tmp_path / out / "scores")
+            with open(tmp_path / out / "scores" / name) as fh:
+                return name, list(csv.reader(fh))
+
+        (name_a, a), (name_b, b) = read("single"), read("multi")
+        assert name_a == name_b
+        assert a[0] == b[0] and len(a) == len(b) > 10
+        assert [r[:2] for r in a] == [r[:2] for r in b]
+        np.testing.assert_allclose(np.asarray([float(r[2]) for r in b[1:]]),
+                                   np.asarray([float(r[2]) for r in a[1:]]), rtol=1e-5,
+                                   atol=1e-6)

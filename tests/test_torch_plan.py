@@ -31,6 +31,7 @@ from factorvae_tpu_torch import _build, autotune
 from factorvae_tpu_torch import config as tconfig
 from factorvae_tpu_torch import plan as tplan
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_KEYS = ("use_pallas_attention", "use_pallas_gru", "kernel_gru", "kernel_attention")
 K60 = dict(num_features=158, seq_len=20, hidden_size=60, num_factors=60, num_portfolios=128)
 FLAGSHIP = dict(num_features=158, seq_len=20, hidden_size=64, num_factors=96,
@@ -311,6 +312,11 @@ TINY = dict(stocks=[10, 12], features=6, seq_len=5, hidden=8, factors=4, portfol
 RACES = ["--fleet", "--hyper", "--stream", "--serve", "--train_precision", "--remat"]
 
 
+class _Quiet:
+    def log(self, event, **fields):
+        pass
+
+
 def _autotune(monkeypatch, capsys, out, *extra):
     monkeypatch.setitem(autotune.SHAPES, "tiny", TINY)
     rc = autotune.main(["--config", "tiny", "--device", "cpu", "--days", "4", "--reps", "1",
@@ -387,8 +393,7 @@ class TestAutotune:
         rc, _ = _autotune(monkeypatch, capsys, out, "--dry_run")
         assert rc == 0 and not out.exists()
 
-    @pytest.mark.parametrize("flag,says", [("--kernels", "no kernel switch"),
-                                           ("--mesh", "ROADMAP Queue 1 item 16")])
+    @pytest.mark.parametrize("flag,says", [("--kernels", "no kernel switch")])
     def test_refused_flag_exits_2_with_one_line(self, monkeypatch, capsys, tmp_path,
                                                 flag, says):
         out = tmp_path / "table.json"
@@ -396,6 +401,132 @@ class TestAutotune:
         err = _autotune.err.strip()
         assert rc == 2 and len(err.splitlines()) == 1 and says in err
         assert err.startswith(f"error: {flag}") and not out.exists()
+
+    def test_mesh_races_the_one_by_one_mesh_in_one_process(self, monkeypatch, capsys,
+                                                           tmp_path):
+        """`--mesh` without torchrun: a world of one, the 1 x 1 mesh against
+        no mesh at the train winner's days_per_step; a mesh block only when
+        the mesh won, which the planner reads back."""
+        out = tmp_path / "table.json"
+        rc, rows = _autotune(monkeypatch, capsys, out, "--mesh")
+        assert rc == 0
+        for r in rows:
+            for m in (r["measured"].values() if "n=10" in r["measured"] else [r["measured"]]):
+                dps = r["train"]["days_per_step"]
+                assert set(m["mesh"]) == {"none", f"mesh_1x1_dps{dps}"}
+            assert "mesh race on float32 flat=1 over 1 devices" in r["source"] or \
+                "mesh race on bfloat16 flat=1 over 1 devices" in r["source"]
+            won = min(m["mesh"], key=m["mesh"].get)
+            assert ("mesh" in r) == won.startswith("mesh_")
+            p = tplan.plan_for(tplan.ShapeKey(6, 5, 8, 4, 8, r["n_min"]), "cpu",
+                               table_path_=str(out))
+            assert (p.mesh_data_axis, p.mesh_stock_axis) == \
+                ((1, 1) if "mesh" in r else (0, 0))
+
+    @pytest.mark.parametrize("world,dps,winner", [(2, 1, (2, 1)), (2, 8, None),
+                                                  (4, 1, (2, 2)), (4, 2, (1, 4))],
+                             ids=["w2_mesh", "w2_none", "w4_2x2", "w4_1x4"])
+    def test_race_mesh_is_the_jax_race(self, monkeypatch, world, dps, winner):
+        """The same candidates, keys, winner, block and sentence as the JAX
+        tool's `race_mesh` over as many devices, from the same times."""
+        import importlib.util
+
+        import jax
+
+        spec = importlib.util.spec_from_file_location(
+            "jax_autotune_plan", os.path.join(REPO, "scripts", "autotune_plan.py"))
+        jtool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(jtool)
+
+        def seconds(d, mesh_shape):
+            s = 0.01 + 0.001 * d
+            return s - 0.005 if tuple(mesh_shape or ()) == winner else s
+
+        devices = jax.devices()
+        monkeypatch.setattr(jax, "devices", lambda *a, **k: devices[:world])
+        monkeypatch.setattr(jtool, "_time_serial_mesh",
+                            lambda shape, knobs, d, days, reps, mesh=None:
+                            seconds(d, None if mesh is None else mesh.devices.shape))
+        monkeypatch.setattr(autotune, "_mesh_rates",
+                            lambda points, *a: {k: seconds(d, m)
+                                                for k, (d, m) in points.items()})
+        knobs = {"flatten_days": True, "days_per_step": dps, "compute_dtype": "float32"}
+        shape = dict(TINY, stocks=10)
+        want = jtool.race_mesh("tiny", shape, knobs, 4, 1, logger=_Quiet())
+        got = autotune.race_mesh("tiny", shape, knobs, 4, 1, "cpu", world=world)
+        assert got == want
+        assert (got["data_axis"], got["stock_axis"]) == (winner or (0, 0))
+
+    def test_a_mesh_block_goes_into_the_row_and_back_out_of_the_planner(self, tmp_path):
+        base = row("cpu", 300, 300, source="autotune k60", measured={"train": {}})
+        block = {"data_axis": 2, "stock_axis": 1, "days_per_step": 2,
+                 "measured": {"none": 0.2, "mesh_2x1_dps2": 0.1},
+                 "source": "mesh race on float32 flat=1 over 2 devices"}
+        got = autotune._with_mesh_block(base, block)
+        assert got["mesh"] == {"data_axis": 2, "stock_axis": 1, "days_per_step": 2}
+        assert got["measured"] == {"train": {}, "mesh": block["measured"]}
+        assert got["source"] == "autotune k60; mesh race on float32 flat=1 over 2 devices"
+        none = autotune._with_mesh_block(base, dict(block, data_axis=0, stock_axis=0))
+        assert "mesh" not in none and none["measured"]["mesh"] == block["measured"]
+        path = str(tmp_path / "t.json")
+        tplan.save_rows([got], path=path)
+        tshape, jshape = _shapes(300)
+        p = tplan.plan_for(tshape, "cpu", table_path_=path)
+        jp = jplan.plan_for(jshape, "cpu", table=[got])
+        assert (p.mesh_data_axis, p.mesh_stock_axis, p.mesh_days_per_step) == (2, 1, 2) == \
+            (jp.mesh_data_axis, jp.mesh_stock_axis, jp.mesh_days_per_step)
+
+    @pytest.mark.parametrize("device,local,cards,backend,refused", [
+        ("cuda", 2, 1, None, True), ("cuda", 1, 1, "gloo", True), ("cuda", 2, 2, "nccl", False),
+        ("cuda", 1, 1, None, False), ("cpu", 4, 0, "gloo", False)],
+        ids=["two_ranks_one_card", "gloo_on_cuda", "a_card_each", "one", "cpu"])
+    def test_ranks_sharing_a_card_are_refused(self, device, local, cards, backend, refused):
+        msg = autotune.shared_card_refusal(device, local, cards, backend)
+        assert (msg is not None) == refused
+        if refused:
+            assert msg.startswith("--mesh: ") and "\n" not in msg and "share" in msg
+
+    def test_a_shared_card_race_exits_2_with_one_line(self, monkeypatch, capsys, tmp_path):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+        out = tmp_path / "table.json"
+        rc = autotune.main(["--config", "flagship", "--mesh", "--device", "cuda",
+                            "--out", str(out)])
+        err = capsys.readouterr().err.strip()
+        assert rc == 2 and len(err.splitlines()) == 1 and err.startswith("error: --mesh:")
+        assert not out.exists()
+
+    def test_two_ranks_race_the_jax_candidates(self, tmp_path):
+        """A world of 2 on the CPU (gloo): the no-mesh baselines and the
+        2 x 1 and 1 x 2 meshes at the JAX tool's keys; rank 0 alone writes
+        the table, and the planner reads its mesh block back."""
+        from factorvae_tpu.parallel.compose import (
+            compatible_days_per_step,
+            mesh_shape_candidates,
+        )
+        from torch_dist_rig import autotune_mesh, run_world
+
+        out = str(tmp_path / "table.json")
+        results = run_world(2, autotune_mesh, tmp_path, dict(TINY, stocks=[10]), out,
+                            ["--device", "cpu", "--days", "4", "--reps", "1"], timeout=180)
+        assert [r["rc"] for r in results] == [0, 0] and results[1]["rows"] is None
+        (r,) = results[0]["rows"]
+        dps = r["train"]["days_per_step"]
+        cells = [c for c in mesh_shape_candidates(2) if c != (1, 1)]
+        nones = sorted({dps} | {compatible_days_per_step(dps, dp) for dp, _ in cells})
+        want = {"none" if d == dps else f"none_dps{d}" for d in nones} | {
+            f"mesh_{dp}x{sp}_dps{compatible_days_per_step(dps, dp)}" for dp, sp in cells}
+        assert set(r["measured"]["mesh"]) == want
+        assert "over 2 devices" in r["source"]
+        won = min(r["measured"]["mesh"], key=r["measured"]["mesh"].get)
+        p = tplan.plan_for(tplan.ShapeKey(6, 5, 8, 4, 8, 10), "cpu", table_path_=out)
+        if won.startswith("mesh_"):
+            dp, sp = (int(x) for x in won.split("_")[1].split("x"))
+            assert r["mesh"]["data_axis"] == p.mesh_data_axis == dp
+            assert r["mesh"]["stock_axis"] == p.mesh_stock_axis == sp
+        else:
+            assert "mesh" not in r and p.mesh_data_axis == p.mesh_stock_axis == 0
 
     @pytest.mark.parametrize("fid,rates,want", [
         ({"bfloat16": 0.995, "int8": 0.95}, {"float32": 1, "bfloat16": 3, "int8": 5},

@@ -26,6 +26,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pandas as pd
@@ -274,6 +275,47 @@ class TestChunkStream:
             s = _marked_stream(3)
             assert [float(a[0, 0]) for a, _ in s] == [0.0, 1.0, 2.0]
         assert s.chunk_wait_seconds[0] - s.chunk_produce_seconds[0] >= 0.05
+
+    def test_a_stall_is_booked_whole_when_the_consumer_is_late(self, monkeypatch):
+        """The consumer held up after its submits (as a descheduled thread
+        is): chunk 0's wait runs from its submit, so it still holds the
+        whole 50 ms stall of the worker's first produce."""
+        import concurrent.futures.thread as cft
+
+        submit = cft.ThreadPoolExecutor.submit
+
+        def late(self, *args, **kwargs):
+            fut = submit(self, *args, **kwargs)
+            time.sleep(0.02)
+            return fut
+
+        monkeypatch.setattr(cft.ThreadPoolExecutor, "submit", late)
+        with chaos.active(chaos.ChaosPlan([chaos.Fault("stream_stall", chunk=0,
+                                                       delay_s=0.05)])):
+            s = _marked_stream(3)
+            assert [float(a[0, 0]) for a, _ in s] == [0.0, 1.0, 2.0]
+        assert s.chunk_wait_seconds[0] - s.chunk_produce_seconds[0] >= 0.05
+
+    def test_a_chunk_stays_held_while_the_consumer_keeps_it(self):
+        """A chunk's slot follows its tensors, not the generator: chunk 0 is
+        still held after the consumer took chunk 1, until its last tensor
+        (or a view of it) goes."""
+        s = _marked_stream(3)
+        it = iter(s)
+        a0, b0 = next(it)
+        assert s.held_chunks() == [0]
+        a1, b1 = next(it)
+        assert s.held_chunks() == [0, 1]
+        del a0
+        assert s.held_chunks() == [0, 1]
+        view = b0[:1]
+        del b0
+        assert s.held_chunks() == [0, 1]
+        del view
+        assert s.held_chunks() == [1]
+        del a1, b1
+        assert [float(a[0, 0]) for a, _ in it] == [2.0]
+        assert s.held_chunks() == []
 
     def test_an_unported_kind_is_still_refused(self):
         with pytest.raises(ValueError, match="unknown chaos fault kind 'kill_everything'"):

@@ -336,3 +336,152 @@ def multihost_cases(rank, arrays: dict, cfg_dict: dict, save_root: str) -> dict:
                           rcfg.train.save_dir, rcfg.checkpoint_name() + "_ckpt")))}
     out["resume"] = runs
     return out
+
+
+# ---- fleets on every mesh: hyper-fleets, PBT, the hierarchical fleet ------------
+
+
+def lane_configs(cfg_dict: dict, lanes, save_dir: str, **train) -> tuple:
+    """(base Config, lane Configs) of a hyper-fleet: `lanes` is [(seed, lr,
+    kl_weight), ...], each lane tagged with its own run_name; `train`
+    overrides the base's train fields."""
+    import dataclasses
+
+    cfg = _config(cfg_dict, save_dir=save_dir, **train)
+    out = [dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, kl_weight=float(klw)),
+        train=dataclasses.replace(cfg.train, seed=int(seed), lr=float(lr),
+                                  run_name=f"{cfg.train.run_name}_lane{i}"))
+        for i, (seed, lr, klw) in enumerate(lanes)]
+    return cfg, out
+
+
+def start_from(weights: dict) -> None:
+    """Every port fleet lane of this process starts from its seed's
+    weights (`weights[seed]`, name -> array)."""
+    import torch
+
+    from factorvae_tpu_torch.train.fleet import FleetTrainer
+
+    init = FleetTrainer.init_lane_state
+
+    def patched(self, i):
+        st = init(self, i)
+        st.model.load_state_dict({k: torch.as_tensor(v)
+                                  for k, v in weights[self.seeds[i]].items()})
+        return st
+
+    FleetTrainer.init_lane_state = patched
+
+
+def fleet_result(trainer, state, out) -> dict:
+    """A FleetTrainer's fit as numpy: the whole fleet's history, best_val,
+    best and final parameters; this rank's lanes and its comms block."""
+    return {"history": [(h["train_loss"], h["val_loss"]) for h in out["history"]],
+            "lr": [h["lr"] for h in out["history"]],
+            "labels": [h["lane_labels"] for h in out["history"]],
+            "best_val": np.asarray(out["best_val"]),
+            "best_params": to_numpy(out["best_params"]),
+            "final_params": to_numpy(out["final_params"]),
+            "lanes": (trainer.lanes.start, trainer.lanes.stop)}
+
+
+def pbt_result(res: dict) -> dict:
+    return {"generations": [{k: v for k, v in g.items() if k != "lane_labels"}
+                            for g in res["generations"]],
+            "scalars": [(c.train.lr, c.model.kl_weight) for c in res["lane_configs"]],
+            "best_val": np.asarray(res["best_val"]),
+            "best_params": to_numpy(res["best_params"]),
+            "state": to_numpy(res["state"].params)}
+
+
+def mesh_fleets(rank, arrays: dict, cfg_dict: dict, weights: dict, hyper_lanes,
+                pbt_lanes, save_root: str) -> dict:
+    """On a world of 2, the 2 x 1 mesh (one lane a 'data' rank for the
+    hyper-fleet): a hyper-fleet's fit, a PBT of 2 generations, and the same
+    PBT stopped after generation 0 and resumed."""
+    from factorvae_tpu_torch.config import MeshConfig
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.obs.comms import comms_block
+    from factorvae_tpu_torch.parallel.collective_ops import comm_counts, reset_comm_counts
+    from factorvae_tpu_torch.parallel.mesh import make_mesh
+    from factorvae_tpu_torch.train.fleet import FleetTrainer
+    from factorvae_tpu_torch.train.pbt import pbt_fit
+
+    start_from(weights)
+
+    def ds():
+        return PanelDataset(_panel(arrays), seq_len=cfg_dict["data"]["seq_len"],
+                            pad_multiple=cfg_dict["data"]["pad_multiple"], device="cpu")
+
+    out = {}
+    cfg, lanes = lane_configs(cfg_dict, hyper_lanes, os.path.join(save_root, "hyper"))
+    mesh = make_mesh(MeshConfig(stock_axis=1))
+    reset_comm_counts()
+    trainer = FleetTrainer(cfg, ds(), lane_configs=lanes, device="cpu", mesh=mesh)
+    state, fit = trainer.fit()
+    out["hyper"] = fleet_result(trainer, state, fit)
+    out["hyper"]["hyper"] = trainer.hyper
+    out["hyper"]["comms"] = comms_block(comm_counts(), mesh=mesh,
+                                        steps=trainer.steps_per_epoch * cfg.train.num_epochs,
+                                        steps_per_epoch=trainer.steps_per_epoch)
+    for name, plan in (("unbroken", [dict()]),
+                       ("resumed", [dict(stop_after=0), dict(resume=True)])):
+        pcfg, plane = lane_configs(cfg_dict, pbt_lanes, os.path.join(save_root, name),
+                                   checkpoint_every=1)
+        reset_comm_counts()
+        for extra in plan:
+            _, res = pbt_fit(pcfg, ds(), plane, generations=2, epochs_per_generation=1,
+                             device="cpu", mesh=mesh, **extra)
+        out[name] = pbt_result(res)
+        out[name]["comms"] = {f"{k}@{a}": v for (k, a), v in comm_counts().items()}
+    return out
+
+
+def hier_fleets(rank, arrays: dict, cfg_dict: dict, weights: dict, seeds,
+                save_root: str) -> dict:
+    """On a world of 4, a seed fleet on two hierarchical meshes: 'host' 2 x
+    'data' 2 x 'stock' 1 (a lane a rank, days over 'host') and 'host' 2 x
+    'data' 1 x 'stock' 2 (both lanes stacked on every rank, days over
+    'host', rows over 'stock')."""
+    from factorvae_tpu_torch.config import MeshConfig
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.obs.comms import comms_block
+    from factorvae_tpu_torch.parallel.collective_ops import comm_counts, reset_comm_counts
+    from factorvae_tpu_torch.parallel.mesh import make_hierarchical_mesh
+    from factorvae_tpu_torch.train.fleet import FleetTrainer
+
+    start_from(weights)
+    out = {}
+    for sp in (1, 2):
+        mesh = make_hierarchical_mesh(MeshConfig(stock_axis=sp), num_hosts=2)
+        key = "x".join(str(mesh.shape[a]) for a in ("host", "data", "stock"))
+        cfg = _config(cfg_dict, save_dir=os.path.join(save_root, key))
+        ds = PanelDataset(_panel(arrays), seq_len=cfg.data.seq_len,
+                          pad_multiple=cfg.data.pad_multiple, device="cpu")
+        reset_comm_counts()
+        trainer = FleetTrainer(cfg, ds, seeds=seeds, device="cpu", mesh=mesh)
+        state, fit = trainer.fit()
+        out[key] = fleet_result(trainer, state, fit)
+        out[key]["comms"] = comms_block(comm_counts(), mesh=mesh,
+                                        steps=trainer.steps_per_epoch * cfg.train.num_epochs,
+                                        steps_per_epoch=trainer.steps_per_epoch)
+        out[key]["day_axis"] = trainer.mesh_step.day_axis.name
+        out[key]["grad_axis"] = trainer.mesh_step.grad_axis.name
+    return out
+
+
+def autotune_mesh(rank, shape: dict, out: str, argv) -> dict:
+    """`autotune --mesh` on this world (the races' times agreed over the
+    ranks): its exit code, and rank 0's table."""
+    import json
+
+    from factorvae_tpu_torch import autotune
+
+    autotune.SHAPES["tiny"] = shape
+    rc = autotune.main(["--config", "tiny", "--mesh", "--out", out, *argv])
+    rows = None
+    if rank == 0 and rc == 0:
+        with open(out) as fh:
+            rows = json.load(fh)["rows"]
+    return {"rc": rc, "rows": rows}
