@@ -168,7 +168,7 @@ named phases, and prints neither the kernels line nor the result):
               spans into dispatch, responses and the rest, a re-stacking
               tick, the device time of a 2-lane, an 8-lane and a one-model
               tick by kernel kind (torch.profiler), single-day and 34-day
-              latency p50/p99/max over 1,000 requests each; (c) a
+              latency p50/p99/max over 500 requests each; (c) a
               50 ms serve_stall against deadline_ms 20: two misses, the
               breaker open, a fast-fail with retry_after_s, the half-open
               probe closing it, health ok -> degraded -> ok; (d) a budget of
@@ -211,7 +211,7 @@ named phases, and prints neither the kernels line nor the result):
               inside its router_forward span up to half the probe's round
               trip, each worker's offset and round trip; SIGTERM reaping
               every worker;
-              (c) 8 keep-alive clients x 150 single-day requests through the
+              (c) 8 keep-alive clients x 75 single-day requests through the
               router at 1, 2 and 4 workers, and the same load on one daemon
               (`--http --scheduler`): requests/s, p50/p99/max, reserved
               memory per process; (d) a pool of 2 over the store's artifacts
@@ -385,7 +385,30 @@ named phases, and prints neither the kernels line nor the result):
               days_per_step, each candidate's seconds per trained day and
               the verdict. Two ranks on one card check the mesh paths;
               they measure no scaling.
-22. kernels -- one line {"kernels": [...]} with each kernel's error, times,
+22. wide    -- hidden sizes above 64 (the kernels' H <= 128 and <= 256
+              instances): at H = 128 and 256, each kernel against its plain
+              version on the card, forward and every gradient (K1 at a
+              32-day chunk, one training day and T = 60; the walk and dWh
+              at one day and at T = 60, K3's case; K4 over 32 days and K5
+              over 8 with an all-masked day and NaN, +inf and -inf days,
+              which must be exactly the days of the exact path, with and
+              without a keep-mask), bitwise repeats, within the K phases'
+              limits; their times beside the plain versions', cuDNN's
+              nn.GRU forward and backward at the same H, and the bounds.
+              Then the entry points at the flagship's widths
+              (C158/T20/K96/M128, a 60-day pickle of 300 stocks) at each
+              H, every launch counter set to 0 just before each: (a) `cli
+              --hidden_size H` trains one epoch (30 steps; K1's residual
+              variant, the walk, dWh and K5 once per step, K1's serving
+              variant once per validation batch and scoring chunk, K4 once
+              per forward), scores and writes the CSV and its Rank-IC; (b)
+              the daemon admits (a)'s best weights and answers a one-day
+              and a 34-day request in one tick (K1's serving variant and K4
+              only), the day and two days of the range within SLICE_TOL of
+              the CPU's scores; (c) `grid_sweep` over hidden_size {64, 128,
+              256} x lr {1e-4, 3e-4}: three shape buckets, each a 2-lane
+              hyper-fleet, each training kernel once per fleet step.
+23. kernels -- one line {"kernels": [...]} with each kernel's error, times,
               bound and launches (in the train phase; `launches_serving` in
               the slice phase, `launches_cli` in the CLI's run (a),
               `launches_mixed` in the precision phase's mixed epoch,
@@ -404,7 +427,9 @@ named phases, and prints neither the kernels line nor the result):
               the obs phase's `profiler_us_per_launch`
               beside `graph_ms`, and its `fleet_*` times
               at four lanes (`fleet_ms`, `fleet_graph_ms`, `fleet_solo_x4_ms`,
-              `fleet_bound_ms`, ...).
+              `fleet_bound_ms`, ...); then the wide phase's rows, named
+              "<kernel> (H=128)" and "(H=256)", whose `launches` are that
+              H's CLI run's, beside `launches_daemon` and `launches_grid`.
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero. Times come from CUDA events: `ms` around 20
@@ -619,13 +644,69 @@ def _k1_bound(n, t, h, residuals=False) -> tuple:
     return product + elementwise, n_bytes, *gru_bound_ms(n_bytes, product, elementwise)
 
 
-def phase_k1(torch, seed: int) -> dict:
+def _k1_timing(torch, args, label: str) -> dict:
+    """K1 on xi (N, T, 3H), Wh, b: both variants' times beside the plain
+    version's and cuDNN's nn.GRU forward (checked against the plain
+    version), with the bounds."""
     from factorvae_tpu_torch.ops.kernels.gru import (
         gru_fwd,
         gru_fwd_plain,
         gru_fwd_residuals,
     )
 
+    xi, wh, bh = args
+    n, t, h = xi.shape[0], xi.shape[1], wh.shape[0]
+    gru = _cudnn_gru(torch, wh, bh)
+    with torch.no_grad():
+        library_err = float((gru(xi)[1][0] - gru_fwd_plain(*args)).abs().max())
+        library_ms = cuda_ms(torch, lambda: gru(xi))
+    check(library_err <= LIBRARY_TOL, f"K1 {label}: cuDNN GRU differs by {library_err}")
+    flops, n_bytes, b_ms, b_by = _k1_bound(n, t, h)
+    r_flops, r_bytes, r_ms, r_by = _k1_bound(n, t, h, residuals=True)
+    with torch.no_grad():
+        library_graph_ms = graph_ms(torch, lambda: gru(xi), library=True)[0]
+    out = {"shape": [n, t, h], **_timed(torch, lambda: gru_fwd(*args)),
+           "plain_ms": cuda_ms(torch, lambda: gru_fwd_plain(*args)),
+           "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+           "library_max_abs_err": library_err,
+           "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+           "residuals": {**_timed(torch, lambda: gru_fwd_residuals(*args)),
+                         "plain_ms": cuda_ms(torch, lambda: gru_fwd_plain(
+                             *args, keep_residuals=True)),
+                         "bytes": r_bytes, "bound_ms": r_ms, "bound_by": r_by,
+                         "residual_mb": 4.0 * n * t * 4 * h / 1e6}}
+    out["library_ratio"] = out["ms"] / library_ms
+    return out
+
+
+def _k1_case(torch, args, what: str) -> dict:
+    """K1's two variants on (xi, Wh, b) against the plain version: finite,
+    bitwise on a repeat and across the variants, within K1_TOL."""
+    from factorvae_tpu_torch.ops.kernels.gru import (
+        gru_fwd,
+        gru_fwd_plain,
+        gru_fwd_residuals,
+    )
+
+    got, want = gru_fwd(*args), gru_fwd_plain(*args)
+    again = gru_fwd(*args)
+    res, res_want = gru_fwd_residuals(*args), gru_fwd_plain(*args, keep_residuals=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(torch.equal(got, again), f"{what}: a repeated call is not bitwise equal")
+    check(torch.equal(got, res[0]),
+          f"{what}: the residual variant's h differs from the serving variant's")
+    err = float((got - want).abs().max())
+    res_errs = {name: float((a - b).abs().max())
+                for name, a, b in zip(("h", "hseq", "gseq"), res, res_want)}
+    check(err <= K1_TOL and max(res_errs.values()) <= K1_TOL,
+          f"{what}: max_abs_err {err}, residual variant {res_errs} > {K1_TOL}")
+    xi, wh, _ = args
+    return {"shape": [xi.shape[0], xi.shape[1], wh.shape[0]], "max_abs_err": err,
+            "residual_errors": res_errs}
+
+
+def phase_k1(torch, seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     shapes = {"flagship": (32 * 304, 20, 64), "flagship_day": (304, 20, 64),
               "alpha360_k60_T60": (304, 60, 60), "ragged_h60": (1001, 20, 60),
@@ -633,47 +714,10 @@ def phase_k1(torch, seed: int) -> dict:
     cases, inputs = {}, {}
     for label, (n, t, h) in shapes.items():
         args = inputs[label] = _gru_inputs(torch, g, n, t, h)
-        got, want = gru_fwd(*args), gru_fwd_plain(*args)
-        again = gru_fwd(*args)
-        res, res_want = gru_fwd_residuals(*args), gru_fwd_plain(*args, keep_residuals=True)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"K1 {label}: non-finite output")
-        check(torch.equal(got, again), f"K1 {label}: a repeated call is not bitwise equal")
-        check(torch.equal(got, res[0]),
-              f"K1 {label}: the residual variant's h differs from the serving variant's")
-        err = float((got - want).abs().max())
-        res_errs = {name: float((a - b).abs().max())
-                    for name, a, b in zip(("h", "hseq", "gseq"), res, res_want)}
-        check(err <= K1_TOL and max(res_errs.values()) <= K1_TOL,
-              f"K1 {label}: max_abs_err {err}, residual variant {res_errs} > {K1_TOL}")
-        cases[label] = {"shape": [n, t, h], "max_abs_err": err,
-                        "residual_errors": res_errs}
+        cases[label] = _k1_case(torch, args, f"K1 {label}")
 
-    timing = {}
-    for label in ("flagship", "flagship_day", "alpha360_k60_T60"):
-        n, t, h = shapes[label]
-        xi, wh, bh = args = inputs[label]
-        gru = _cudnn_gru(torch, wh, bh)
-        with torch.no_grad():
-            library_err = float((gru(xi)[1][0] - gru_fwd_plain(*args)).abs().max())
-            library_ms = cuda_ms(torch, lambda: gru(xi))
-        check(library_err <= LIBRARY_TOL, f"K1 {label}: cuDNN GRU differs by {library_err}")
-        flops, n_bytes, b_ms, b_by = _k1_bound(n, t, h)
-        r_flops, r_bytes, r_ms, r_by = _k1_bound(n, t, h, residuals=True)
-        with torch.no_grad():
-            library_graph_ms = graph_ms(torch, lambda: gru(xi), library=True)[0]
-        timing[label] = {
-            "shape": [n, t, h], **_timed(torch, lambda: gru_fwd(*args)),
-            "plain_ms": cuda_ms(torch, lambda: gru_fwd_plain(*args)),
-            "library_ms": library_ms, "library_graph_ms": library_graph_ms,
-            "library_max_abs_err": library_err,
-            "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
-            "residuals": {**_timed(torch, lambda: gru_fwd_residuals(*args)),
-                          "plain_ms": cuda_ms(torch, lambda: gru_fwd_plain(
-                              *args, keep_residuals=True)),
-                          "bytes": r_bytes, "bound_ms": r_ms, "bound_by": r_by,
-                          "residual_mb": 4.0 * n * t * 4 * h / 1e6}}
-        timing[label]["library_ratio"] = timing[label]["ms"] / library_ms
+    timing = {label: _k1_timing(torch, inputs[label], label)
+              for label in ("flagship", "flagship_day", "alpha360_k60_T60")}
     serving, day = timing["flagship"], timing["flagship_day"]
     return {"phase": "K1", "cases": cases, "tolerance": K1_TOL,
             "max_abs_err": max(max(v["max_abs_err"], *v["residual_errors"].values())
@@ -739,15 +783,18 @@ def _flagged(days) -> list:
     return days.nonzero().flatten().tolist()
 
 
-def phase_k4(torch, seed: int) -> dict:
+def _k4_checks(torch, g, h: int, what: str) -> dict:
+    """K4 over a flagship 32-day chunk at hidden size h against its plain
+    version: clean days (none may take the exact path), then an all-masked
+    day, a NaN row and +inf / -inf rows, without and with a keep-mask (the
+    guarded days zero, exactly they on the exact path)."""
     from factorvae_tpu_torch.ops.kernels import attention as attention_module
     from factorvae_tpu_torch.ops.kernels.attention import (
         attention_fwd,
         attention_fwd_plain,
     )
 
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    b, n, k, h, n_real = 32, 304, 96, 64, 300
+    b, n, k, n_real = 32, 304, 96, 300
     latent, mask, q, wk, bk, wv, bv = _k4_inputs(torch, g, b, n, k, h, n_real)
     weights = (q, wk, bk, wv, bv)
     group = attention_module._group(latent, k)
@@ -758,7 +805,7 @@ def phase_k4(torch, seed: int) -> dict:
     err_serving = float((got - attention_fwd_plain(latent, mask, *weights)).abs().max())
     _, clean_days, _ = attention_module._fwd_launch(latent, mask, *weights, None, group,
                                                     exact=True)
-    check(not _flagged(clean_days), "K4: a clean day took the exact path")
+    check(not _flagged(clean_days), f"{what}: a clean day took the exact path")
 
     # the guards: an all-masked day (7), a NaN latent row on day 3, and
     # +inf / -inf latent rows on days 5 / 9 placed where the folded score
@@ -777,15 +824,36 @@ def phase_k4(torch, seed: int) -> dict:
         _, days, _ = attention_module._fwd_launch(lat_g, mask_g, *weights, kp, group,
                                                   exact=True)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got_g).all()), f"K4 {label}: non-finite output")
-        check(bool((got_g[7] == 0).all()), f"K4 {label}: all-masked day not zero")
+        check(bool(torch.isfinite(got_g).all()), f"{what} {label}: non-finite output")
+        check(bool((got_g[7] == 0).all()), f"{what} {label}: all-masked day not zero")
         for day in POISONED_K4:
-            check(bool((got_g[day] == 0).all()), f"K4 {label}: poisoned day {day} not zeroed")
-        check(bool((got_g[0] != 0).any()), f"K4 {label}: day 0 all zero")
+            check(bool((got_g[day] == 0).all()),
+                  f"{what} {label}: poisoned day {day} not zeroed")
+        check(bool((got_g[0] != 0).any()), f"{what} {label}: day 0 all zero")
         exact[label] = _flagged(days)
         check(exact[label] == list(POISONED_K4),
-              f"K4 {label}: the exact path ran on days {exact[label]}, not {POISONED_K4}")
+              f"{what} {label}: the exact path ran on days {exact[label]}, not "
+              f"{POISONED_K4}")
         errs[label] = float((got_g - want_g).abs().max())
+    check(max(errs.values()) <= K4_TOL, f"{what}: max_abs_err {errs} > {K4_TOL}")
+    return {"errors": errs, "inf_rows": inf_heads,
+            "exact_path_days": {"serving": _flagged(clean_days), **exact},
+            "inputs": (latent, mask, weights), "group": group}
+
+
+def phase_k4(torch, seed: int) -> dict:
+    from factorvae_tpu_torch.ops.kernels import attention as attention_module
+    from factorvae_tpu_torch.ops.kernels.attention import (
+        attention_fwd,
+        attention_fwd_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    b, n, k, h, n_real = 32, 304, 96, 64, 300
+    chunk = _k4_checks(torch, g, h, "K4")
+    errs = chunk["errors"]
+    latent, mask, weights = chunk["inputs"]
+    group = chunk["group"]
     # other widths: csi800-k60 (N = 800, H = 60) and an H that is no
     # multiple of 4 (the kernel's zero-padded rows), with the keep-mask
     groups = {"serving": group}
@@ -809,8 +877,8 @@ def phase_k4(torch, seed: int) -> dict:
     day = _k4_inputs(torch, g, 1, n, k, h, n_real)
     groups["flagship_day"] = attention_module._group(day[0], k)
     return {"phase": "K4", "shape": [b, n, k, h], "errors": errs,
-            "max_abs_err": err, "tolerance": K4_TOL, "inf_rows": inf_heads,
-            "exact_path_days": {"serving": _flagged(clean_days), **exact},
+            "max_abs_err": err, "tolerance": K4_TOL, "inf_rows": chunk["inf_rows"],
+            "exact_path_days": chunk["exact_path_days"],
             "heads_per_cta": groups, **serving,
             "library": "none: no single PyTorch call computes this function",
             "flagship_day": {"shape": [1, n, k, h],
@@ -970,7 +1038,11 @@ def _gru_bwd_inputs(torch, g, n, t, h):
     return xi, wh, bh, dh
 
 
-def phase_k2(torch, seed: int) -> dict:
+def _k2_case(torch, args, what: str) -> dict:
+    """K2 on (xi, Wh, b, dh) against its plain version: gru_bwd with its
+    own residual forward and from given residuals (bitwise the same, and on
+    a repeat), the dWh kernel alone on the plain walk's outputs (bitwise on
+    a repeat); every gradient within K2_TOL. Returns the errors."""
     from factorvae_tpu_torch.ops.kernels.gru import (
         gru_bwd,
         gru_bwd_plain,
@@ -980,40 +1052,44 @@ def phase_k2(torch, seed: int) -> dict:
         gru_walk_plain,
     )
 
-    g = torch.Generator(device="cuda").manual_seed(seed + 2)
     names = ("dxi", "dWh", "db")
+    xi, wh, bh, dh = args
+    got, want = gru_bwd(*args), gru_bwd_plain(*args)
+    again = gru_bwd(*args)
+    # the training path: the walk from the residual variant's residuals
+    _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+    from_res = gru_bwd(*args, residuals=(hseq, gseq))
+    want_res = gru_bwd_plain(*args, residuals=(hseq, gseq))
+    # the dWh kernel alone, on the plain walk's dxi and dg_n
+    dxi_p, dgn_p = gru_walk_plain(xi, wh, hseq, gseq, dh)
+    dw = gru_dwh(hseq, dxi_p, dgn_p)
+    dw_again = gru_dwh(hseq, dxi_p, dgn_p)
+    dw_want = gru_dwh_plain(hseq, dxi_p, dgn_p)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(x).all()) for x in got), f"{what}: non-finite")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: a repeated call is not bitwise equal")
+    check(all(torch.equal(a, b) for a, b in zip(got, from_res)),
+          f"{what}: the walk from given residuals differs from gru_bwd's own")
+    check(all(torch.equal(a, b) for a, b in zip(dw, dw_again)),
+          f"{what}: a repeated dWh call is not bitwise equal")
+    errs = _grad_errors(got, want, names)
+    errs.update({"residuals_" + k: v for k, v in
+                 _grad_errors(from_res, want_res, names).items()})
+    errs.update({"dwh_kernel_" + k: v for k, v in
+                 _grad_errors((dxi_p,) + dw, (dxi_p,) + dw_want, names).items()
+                 if k != "dxi"})
+    check(max(errs.values()) <= K2_TOL, f"{what}: errors {errs} > {K2_TOL}")
+    return errs
+
+
+def phase_k2(torch, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
     cases = {}
     for label, (n, t, h) in {"flagship_day": (304, 20, 64), "flagship_8_days": (2432, 20, 64),
                              "alpha360_k60_T60": (304, 60, 60),
                              "odd_h37": (333, 7, 37)}.items():
-        args = _gru_bwd_inputs(torch, g, n, t, h)
-        xi, wh, bh, dh = args
-        got, want = gru_bwd(*args), gru_bwd_plain(*args)
-        again = gru_bwd(*args)
-        # the training path: the walk from the residual variant's residuals
-        _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
-        from_res = gru_bwd(*args, residuals=(hseq, gseq))
-        want_res = gru_bwd_plain(*args, residuals=(hseq, gseq))
-        # the dWh kernel alone, on the plain walk's dxi and dg_n
-        dxi_p, dgn_p = gru_walk_plain(xi, wh, hseq, gseq, dh)
-        dw = gru_dwh(hseq, dxi_p, dgn_p)
-        dw_again = gru_dwh(hseq, dxi_p, dgn_p)
-        dw_want = gru_dwh_plain(hseq, dxi_p, dgn_p)
-        torch.cuda.synchronize()
-        check(all(bool(torch.isfinite(x).all()) for x in got), f"K2 {label}: non-finite")
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"K2 {label}: a repeated call is not bitwise equal")
-        check(all(torch.equal(a, b) for a, b in zip(got, from_res)),
-              f"K2 {label}: the walk from given residuals differs from gru_bwd's own")
-        check(all(torch.equal(a, b) for a, b in zip(dw, dw_again)),
-              f"K2 {label}: a repeated dWh call is not bitwise equal")
-        errs = _grad_errors(got, want, names)
-        errs.update({"residuals_" + k: v for k, v in
-                     _grad_errors(from_res, want_res, names).items()})
-        errs.update({"dwh_kernel_" + k: v for k, v in
-                     _grad_errors((dxi_p,) + dw, (dxi_p,) + dw_want, names).items()
-                     if k != "dxi"})
-        check(max(errs.values()) <= K2_TOL, f"K2 {label}: errors {errs} > {K2_TOL}")
+        errs = _k2_case(torch, _gru_bwd_inputs(torch, g, n, t, h), f"K2 {label}")
         cases[label] = {"shape": [n, t, h], "errors": errs}
 
     timing = {label: _k2_timing(torch, g, *shape)
@@ -1117,60 +1193,69 @@ def _k2_timing(torch, g, n, t, h) -> dict:
                     "bound_by": dwh_b_by}}
 
 
-def phase_k5(torch, seed: int) -> dict:
+def _k5_case(torch, g, b, n, k, h, n_real, what: str) -> tuple:
+    """K5 on `b` days of (n, k, h) with n_real rows against its plain
+    version, without and with a keep-mask: finite, bitwise on a repeat,
+    every gradient within K5_TOL; at b = 8 with an all-masked day (5) and
+    NaN, +inf and -inf rows (POISONED_K5), which get no gradient and are
+    exactly the days on the exact path. Returns (the case, its inputs)."""
     from factorvae_tpu_torch.ops.kernels import attention as attention_module
     from factorvae_tpu_torch.ops.kernels.attention import (
         attention_bwd,
         attention_bwd_plain,
     )
 
-    g = torch.Generator(device="cuda").manual_seed(seed + 3)
     names = ("dlatent", "dquery", "dWk", "dbk", "dWv", "dbv")
+    latent, mask, *weights = _k4_inputs(torch, g, b, n, k, h, n_real)
+    keep = (torch.rand(b, k, n, device="cuda", generator=g) > 0.1).float() / 0.9
+    poisoned = ()
+    if b == 8:     # an all-masked day (5); NaN, +inf, -inf rows (days 2, 3, 6)
+        mask[5] = False
+        latent[2, 7, 3] = float("nan")
+        mask[2, 7] = True
+        inf_rows = _poison_inf(torch, latent, mask, weights[0], weights[1], 3, 6, 9)
+        poisoned = POISONED_K5
+    dctx = torch.randn(b, k, h, device="cuda", generator=g) * 0.1
+    group = attention_module._group(latent, k)
+    errs, exact = {}, {}
+    for kp_label, kp in (("", None), ("keep_", keep)):
+        args = (latent, mask, *weights, dctx)
+        got = attention_bwd(*args, keep=kp)
+        want = attention_bwd_plain(*args, keep=kp)
+        again = attention_bwd(*args, keep=kp)
+        _, days, _ = attention_module._bwd_launch(*args, kp, group, exact=True)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in got), f"{what}: non-finite")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{what}: a repeated call is not bitwise equal")
+        exact[kp_label + "days"] = _flagged(days)
+        check(exact[kp_label + "days"] == list(poisoned),
+              f"{what}: the exact path ran on days {exact[kp_label + 'days']}, "
+              f"not {poisoned}")
+        if b == 8:
+            check(all(bool((got[0][d] == 0).all()) for d in POISONED_K5 + (5,)),
+                  f"{what}: a guarded or the empty day got a gradient")
+            check(bool((got[0][0] != 0).any()), f"{what}: day 0 got none")
+        for name, err in _grad_errors(got, want, names).items():
+            errs[kp_label + name] = err
+    check(max(errs.values()) <= K5_TOL, f"{what}: errors {errs} > {K5_TOL}")
+    case = {"shape": [b, n, k, h], "errors": errs, "heads_per_cta": group,
+            "exact_path_days": exact}
+    if b == 8:
+        case["inf_rows"] = inf_rows
+    return case, (latent, mask, *weights, dctx, keep)
+
+
+def phase_k5(torch, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
     cases, timed = {}, {}
     for label, (b, n, k, h, n_real) in {"flagship_day": (1, 304, 96, 64, 300),
                                         "flagship_8_days": (8, 304, 96, 64, 300),
                                         "csi800_k60": (2, 800, 60, 60, 790),
                                         "odd_h37": (3, 70, 6, 37, 66)}.items():
-        latent, mask, *weights = _k4_inputs(torch, g, b, n, k, h, n_real)
-        keep = (torch.rand(b, k, n, device="cuda", generator=g) > 0.1).float() / 0.9
-        poisoned = ()
-        if b == 8:     # an all-masked day (5); NaN, +inf, -inf rows (days 2, 3, 6)
-            mask[5] = False
-            latent[2, 7, 3] = float("nan")
-            mask[2, 7] = True
-            inf_rows = _poison_inf(torch, latent, mask, weights[0], weights[1], 3, 6, 9)
-            poisoned = POISONED_K5
-        dctx = torch.randn(b, k, h, device="cuda", generator=g) * 0.1
-        group = attention_module._group(latent, k)
-        errs, exact = {}, {}
-        for kp_label, kp in (("", None), ("keep_", keep)):
-            args = (latent, mask, *weights, dctx)
-            got = attention_bwd(*args, keep=kp)
-            want = attention_bwd_plain(*args, keep=kp)
-            again = attention_bwd(*args, keep=kp)
-            _, days, _ = attention_module._bwd_launch(*args, kp, group, exact=True)
-            torch.cuda.synchronize()
-            check(all(bool(torch.isfinite(x).all()) for x in got), f"K5 {label}: non-finite")
-            check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                  f"K5 {label}: a repeated call is not bitwise equal")
-            exact[kp_label + "days"] = _flagged(days)
-            check(exact[kp_label + "days"] == list(poisoned),
-                  f"K5 {label}: the exact path ran on days {exact[kp_label + 'days']}, "
-                  f"not {poisoned}")
-            if b == 8:
-                check(all(bool((got[0][d] == 0).all()) for d in POISONED_K5 + (5,)),
-                      f"K5 {label}: a guarded or the empty day got a gradient")
-                check(bool((got[0][0] != 0).any()), f"K5 {label}: day 0 got none")
-            for name, err in _grad_errors(got, want, names).items():
-                errs[kp_label + name] = err
-        check(max(errs.values()) <= K5_TOL, f"K5 {label}: errors {errs} > {K5_TOL}")
-        cases[label] = {"shape": [b, n, k, h], "errors": errs, "heads_per_cta": group,
-                        "exact_path_days": exact}
-        if b == 8:
-            cases[label]["inf_rows"] = inf_rows
+        cases[label], inputs = _k5_case(torch, g, b, n, k, h, n_real, f"K5 {label}")
         if label in ("flagship_day", "flagship_8_days"):
-            timed[label + ("_poisoned" if poisoned else "")] = (latent, mask, *weights,
-                                                                dctx, keep)
+            timed[label + ("_poisoned" if b == 8 else "")] = inputs
     # 8 clean days, the shape of a days_per_step = 8 training step; the
     # poisoned 8 days above show the cost of the exact path (3 of 8 days)
     clean = _k4_inputs(torch, g, 8, 304, 96, 64, 300)
@@ -2526,8 +2611,10 @@ SERVE_F32 = 8              # f32 flagship models of the fused bucket
 SERVE_TOL = 1e-5           # fused lane vs its serial scores, max |a - b| / max(1, max |b|)
 SERVE_DAYS = 32            # one scoring chunk
 SERVE_SCALING_REPS = 15    # fused and serial ticks per S, medians kept
-SERVE_LATENCY_N = 1000     # requests per latency kind (p99 from 1,000)
-SERVE_HTTP_PER_CLIENT = 150  # 8 HTTP clients: 1,200 requests
+# the latency and load depths were halved (from 1,000 and 150 a client)
+# to make room for the wide phase within the script's time
+SERVE_LATENCY_N = 500      # requests per latency kind (p99 from 500)
+SERVE_HTTP_PER_CLIENT = 75   # 8 HTTP clients: 600 requests
 
 
 def _resp_scores(resp) -> np.ndarray:
@@ -3122,7 +3209,7 @@ def phase_serve(torch, seed: int, counters, card: str) -> dict:
 POOL_TOL = 1e-5            # artifact / routed scores vs the in-process path, max |a - b| / max(1, max |b|)
 POOL_MODELS = 4            # weights directories the fleets serve (one per worker at 4 workers)
 POOL_LOAD_CLIENTS = 8      # keep-alive clients of the load runs
-POOL_LOAD_PER_CLIENT = 150
+POOL_LOAD_PER_CLIENT = 75      # 600 requests a load run (150 before the wide phase)
 POOL_REPS = 5              # artifact and in-process 32-day requests timed, medians kept
 
 
@@ -4272,6 +4359,11 @@ def _launch_accounting(log_dir: str, counted: dict, before: dict = None) -> dict
               if e.get("ph") == "X"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     recorded = {(e.get("args") or {}).get("correlation") for e in kernels}
+    by_corr: dict = {}
+    for e in kernels:
+        by_corr.setdefault((e.get("args") or {}).get("correlation"), []).append(e["name"])
+    t0 = min((e["ts"] for e in events), default=0.0)
+    window = max((e["ts"] + e.get("dur", 0) for e in events), default=0.0) - t0
     calls: dict = {}
     for e in events:
         if e.get("cat") in ("cuda_runtime", "cuda_driver") and "aunch" in e.get("name", ""):
@@ -4287,15 +4379,24 @@ def _launch_accounting(log_dir: str, counted: dict, before: dict = None) -> dict
         mine = ranges[before.get(name, 0):]
         since = mine[0]["ts"] if mine else float("inf")
         lost = 0
+        unrecorded = []
         for r in mine:
             inside = sorted((c for c in calls.get((r.get("pid"), r.get("tid")), ())
                              if r["ts"] <= c["ts"] <= r["ts"] + r["dur"]),
                             key=lambda c: c["ts"])
-            lost += bool(inside) and (inside[0].get("args") or {}).get(
-                "correlation") not in recorded
+            corrs = [(c.get("args") or {}).get("correlation") for c in inside]
+            lost += bool(inside) and corrs[0] not in recorded
+            if not any(re.search(KERNEL_FUNCTIONS[name][0], k)
+                       for c in corrs for k in by_corr.get(c, ())):
+                unrecorded.append({
+                    "kernel": KERNEL_FUNCTIONS[name][0].split("<")[0], "tid": r.get("tid"),
+                    "launch_us": (inside[0]["ts"] if inside else r["ts"]) - t0,
+                    "window_us": [0.0, window], "launch_calls": len(inside),
+                    "correlations": corrs})
         out[name] = {"ranges": len(ranges), "counted_ranges": len(mine), "lost": int(lost),
                      "kernels": sum(1 for e in kernels if e["ts"] >= since and re.search(
-                         KERNEL_FUNCTIONS[name][0], e["name"]))}
+                         KERNEL_FUNCTIONS[name][0], e["name"])),
+                     "unrecorded": unrecorded}
     return out
 
 
@@ -4308,10 +4409,17 @@ def _check_counts(what: str, acct: dict, counted: dict, before: dict = None) -> 
     before = before or {}
     for name, want in counted.items():
         a = acct[name]
-        check(want > 0 and a["ranges"] == want + before.get(name, 0)
-              and a["kernels"] + a["lost"] == want,
-              f"{what}: {name} kernels {a['kernels']} + lost {a['lost']}, host ranges "
-              f"{a['ranges']} (before {before.get(name, 0)}) vs its launch counter {want}")
+        ok = (want > 0 and a["ranges"] == want + before.get(name, 0)
+              and a["kernels"] + a["lost"] == want)
+        if not ok:      # name each counted launch the capture holds no record of
+            for u in a.get("unrecorded", ()):
+                print(f"chip_smoke: {what}: {name} launch without a kernel record: "
+                      f"{json.dumps(u)}", file=sys.stderr, flush=True)
+        check(ok, f"{what}: {name} kernels {a['kernels']} + lost {a['lost']}, host ranges "
+                  f"{a['ranges']} (before {before.get(name, 0)}) vs its launch counter "
+                  f"{want}; launches without a record (kernel, thread, launch time in "
+                  f"the capture window, us): "
+                  f"{[(u['kernel'], u['tid'], round(u['launch_us'], 1), round(u['window_us'][1], 1)) for u in a.get('unrecorded', ())][:8]}")
 
 
 def _obs_logger(path, on_event):
@@ -5784,6 +5892,194 @@ def phase_mesh(torch, seed: int, counters, card: str) -> dict:
             "launches": runs["1x2"]["launches"]}
 
 
+WIDE_HIDDEN = (128, 256)
+WIDE_DAYS = 60              # 30 train + 10 validation + 20 scored days
+WIDE_GRID_HIDDEN = (64, 128, 256)
+WIDE_GRID_LR = (1e-4, 3e-4)
+
+
+def _wide_kernels(torch, g, h: int) -> dict:
+    """Each kernel at hidden size h through the K phases' checks (flagship
+    shapes; K1 and the walk also at T = 60, K3's case; K4 over a 32-day
+    chunk and K5 over 8 days, each with an all-masked day and NaN, +inf and
+    -inf days), then the kernels' times beside the plain versions',
+    cuDNN's nn.GRU forward and backward at the same H, and the bounds."""
+    k1_in = {label: _gru_inputs(torch, g, n, t, h)
+             for label, (n, t) in (("flagship", (32 * 304, 20)), ("flagship_day", (304, 20)),
+                                   ("T60", (304, 60)))}
+    k1 = {label: _k1_case(torch, args, f"wide K1 H={h} {label}")
+          for label, args in k1_in.items()}
+    k2 = {label: _k2_case(torch, _gru_bwd_inputs(torch, g, 304, t, h),
+                          f"wide K2 H={h} {label}")
+          for label, t in (("flagship_day", 20), ("T60", 60))}
+    k4 = _k4_checks(torch, g, h, f"wide K4 H={h}")
+    k5, _ = _k5_case(torch, g, 8, 304, 96, h, 300, f"wide K5 H={h} flagship_8_days")
+    worst = {"K1": max(max(c["max_abs_err"], *c["residual_errors"].values())
+                       for c in k1.values()),
+             "K2": max(v for e in k2.values() for key, v in e.items()
+                       if not key.startswith("dwh_")),
+             "dWh": max(v for e in k2.values() for key, v in e.items()
+                        if key.startswith("dwh_")),
+             "K4": max(k4["errors"].values()), "K5": max(k5["errors"].values())}
+
+    day = _k4_inputs(torch, g, 1, 304, 96, h, 300)
+    latent, mask, weights = k4["inputs"]
+    k5_day = (*day, torch.randn(1, 96, h, device="cuda", generator=g) * 0.1,
+              (torch.rand(1, 96, 304, device="cuda", generator=g) > 0.1).float() / 0.9)
+    return {"errors": {"K1": k1, "K2": k2, "K4": k4["errors"], "K5": k5["errors"]},
+            "max_abs_err": worst,
+            "exact_path_days": {"K4": k4["exact_path_days"], "K5": k5["exact_path_days"]},
+            "timing": {"K1": {label: _k1_timing(torch, k1_in[label], f"H={h} {label}")
+                              for label in ("flagship", "flagship_day")},
+                       "K2": _k2_timing(torch, g, 304, 20, h),
+                       "K3_T60": _k2_timing(torch, g, 304, 60, h),
+                       "K4": {"flagship": _k4_timing(torch, latent, mask, weights),
+                              "flagship_day": _k4_timing(torch, day[0], day[1], day[2:])},
+                       "K5": {"flagship_day": _k5_timing(torch, *k5_day)}}}
+
+
+# The flagship's widths (the CLI's reference defaults) and panel
+WIDE_WIDTHS = {"num_latent": 158, "num_factor": 96, "num_portfolio": 128, "seq_len": 20,
+               "stocks": 300}
+
+
+def _wide_paths(torch, seed: int, counters, root: str) -> dict:
+    """The wide phase's entry points at each hidden size of WIDE_HIDDEN: (a)
+    the experiment CLI trains one epoch and scores; (b) the daemon admits
+    its best weights and answers a day and a 34-day range, held against the
+    CPU; then (c) a width grid over WIDE_GRID_HIDDEN x WIDE_GRID_LR. Every
+    launch counter is set to 0 just before each and read just after."""
+    from factorvae_tpu_torch import cli
+    from factorvae_tpu_torch.data.loader import PanelDataset
+    from factorvae_tpu_torch.data.panel import panel_to_frame
+    from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
+    from factorvae_tpu_torch.eval.predict import predict_panel
+    from factorvae_tpu_torch.eval.sweep import grid_sweep
+    from factorvae_tpu_torch.models.factorvae import load_model
+    from factorvae_tpu_torch.serve.daemon import ScoringDaemon
+    from factorvae_tpu_torch.serve.registry import ModelRegistry
+
+    stocks, t = WIDE_WIDTHS["stocks"], WIDE_WIDTHS["seq_len"]
+    panel = synthetic_panel_dense(WIDE_DAYS, stocks, WIDE_WIDTHS["num_latent"], seed=seed)
+    d = [str(x) for x in panel.dates]
+    pkl = os.path.join(root, "panel.pkl")
+    panel_to_frame(panel).to_pickle(pkl)
+    dataset = PanelDataset(panel, seq_len=t, device="cuda")
+    cpu_ds = PanelDataset(panel, seq_len=t, device="cpu")
+    train_names = ("gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_bwd")
+    steps, val_batches, chunks = 30, 10, 1
+    dates = ["--start_time", d[0], "--fit_end_time", d[29], "--val_start_time", d[30],
+             "--val_end_time", d[39]]
+    model_flags = [f"--{k}={v}" for k, v in WIDE_WIDTHS.items() if k != "stocks"]
+    out = {}
+    for h in WIDE_HIDDEN:
+        argv = ["--dataset", pkl, *model_flags, "--hidden_size", str(h), "--num_epochs", "1",
+                "--seed", str(seed), "--run_name", f"wide{h}", *dates,
+                "--score_start", d[40], "--score_end", d[WIDE_DAYS - 1],
+                "--deterministic_scores", "--device", "cuda",
+                "--save_dir", f"{root}/{h}/models", "--score_dir", f"{root}/{h}/scores",
+                "--metrics_jsonl", f"{root}/{h}/run.jsonl"]
+        run = _cli_drive(torch, cli, counters, argv)
+        la = run["launches"]
+        (epoch,) = _of(run, "epoch")
+        (scores,) = _of(run, "scores")
+        check(all(la[n] == steps for n in train_names)
+              and la["gru_fwd"] == val_batches + chunks
+              and la["attention_fwd"] == la["gru_fwd"] + la["gru_fwd_residuals"],
+              f"wide cli H={h}: {steps} steps, {val_batches} validation batches, "
+              f"{chunks} scoring chunk but launches {la}")
+        check(np.isfinite(epoch["train_loss"]) and np.isfinite(epoch["val_loss"])
+              and np.isfinite(scores["rank_ic"]), f"wide cli H={h}: {epoch}, {scores}")
+        head, csv_scores = _csv_scores(scores["path"])
+        valid_rows = int(panel.valid[40:WIDE_DAYS].sum())
+        check(head == ["datetime", "instrument", "score", "LABEL0"]
+              and len(csv_scores) == valid_rows and bool(np.isfinite(csv_scores).all()),
+              f"wide cli H={h}: CSV {head}, {len(csv_scores)} rows for {valid_rows}")
+
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        best = os.path.join(cfg.train.save_dir, cfg.checkpoint_name())
+        registry = ModelRegistry(device="cuda")
+        registry.admit(best, cfg, alias=f"wide{h}")
+        daemon = ScoringDaemon(registry, dataset)
+        day_req = {"id": 1, "model": f"wide{h}", "day": d[45]}
+        range_req = {"id": 2, "model": f"wide{h}", "start": d[19], "end": d[52]}
+        daemon.handle_batch([day_req])      # warm-up
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        responses = daemon.handle_batch([day_req, range_req])
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t0) * 1e3
+        ld = {c.__name__: c.launches for c in counters}
+        check(all(r["ok"] for r in responses), f"wide daemon H={h}: {responses}")
+        check(ld["gru_fwd"] > 0 and ld["attention_fwd"] > 0
+              and all(ld[n] == 0 for n in train_names), f"wide daemon H={h}: launches {ld}")
+        ranged = np.asarray([r["scores"] for r in responses[1]["results"]], np.float32)
+        day_scores = np.asarray(responses[0]["results"][0]["scores"], np.float32)
+        check(ranged.shape == (34, stocks) and bool(np.isfinite(ranged).all()),
+              f"wide daemon H={h}: range scores {ranged.shape}")
+        # the range's first two days and the day on the CPU, same weights
+        cpu_model = load_model(cfg, checkpoint_path=best, device="cpu")
+        want = predict_panel(cpu_model, cfg, cpu_ds, np.concatenate(
+            [cpu_ds.split_days(d[19], d[20]), cpu_ds.split_days(d[45], d[45])]),
+                             stochastic=False)[:, :stocks]
+        want_two, want_day = want[:2], want[2]
+        check(day_scores.shape == want_day.shape, f"wide daemon H={h}: day scores "
+              f"{day_scores.shape}, not {want_day.shape} (a dense panel)")
+        err = max(float(np.abs(day_scores - want_day).max()),
+                  float(np.abs(ranged[:2] - want_two).max()))
+        check(err <= SLICE_TOL, f"wide daemon H={h}: card vs CPU {err} > {SLICE_TOL}")
+        check(all(la[n] > 0 for n in ("gru_fwd", "gru_fwd_residuals", "gru_bwd", "gru_dwh",
+                                      "attention_fwd", "attention_bwd")),
+              f"wide H={h}: a kernel was not launched on the main path: {la}")
+        out[str(h)] = {"cli": {"launches": la, "wall_s": run["wall_s"], "epoch": epoch,
+                               "rank_ic": scores["rank_ic"], "csv_rows": len(csv_scores)},
+                       "daemon": {"launches": ld, "tick_ms": tick_ms,
+                                  "cuda_vs_cpu_max_abs_err": err,
+                                  "latency_ms": [r.get("latency_ms") for r in responses]}}
+
+    # (c) the width grid: three shape buckets, each a 2-lane hyper-fleet on
+    # the lane-batched kernels
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        [*model_flags, "--num_epochs", "1", "--seed", str(seed), *dates,
+         "--save_dir", f"{root}/grid"]))
+    points = [{"hidden_size": h, "lr": lr} for h in WIDE_GRID_HIDDEN for lr in WIDE_GRID_LR]
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    frame = grid_sweep(cfg, dataset, points, score_start=d[40], score_end=d[WIDE_DAYS - 1],
+                       device="cuda")
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    lg = {c.__name__: c.launches for c in counters}
+    check(len(frame) == len(points) and bool(np.isfinite(frame["rank_ic"]).all())
+          and bool(np.isfinite(frame["best_val"]).all()), f"wide grid: {frame.to_dict()}")
+    check(all(lg[n] == len(WIDE_GRID_HIDDEN) * steps for n in train_names),
+          f"wide grid: {len(WIDE_GRID_HIDDEN)} buckets of {steps} fleet steps but launches "
+          f"{lg}")
+    out["grid"] = {"points": len(points), "buckets": len(WIDE_GRID_HIDDEN),
+                   "hidden": list(WIDE_GRID_HIDDEN), "lr": list(WIDE_GRID_LR), "launches": lg,
+                   "wall_s": grid_s, "best_label": frame.attrs["summary"]["best_label"],
+                   "rank_ic": {str(k): float(v) for k, v in frame["rank_ic"].items()}}
+    return out
+
+
+def phase_wide(torch, seed: int, counters, card: str) -> dict:
+    import tempfile
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    kernels = {str(h): _wide_kernels(torch, g, h) for h in WIDE_HIDDEN}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as root:
+        paths = _wide_paths(torch, seed, counters, root)
+    grid = paths.pop("grid")
+    return {"phase": "wide", "card": card, "hidden": list(WIDE_HIDDEN),
+            "config": "flagship C158/T20/K96/M128, 300 stocks padded to 304, f32, at "
+                      "hidden_size 128 and 256",
+            "kernels": kernels, "paths": paths, "grid": grid}
+
+
 def _collect_fleet_check(router_url: str) -> dict:
     """The pool phase's fleet through `obs/collect.collect_fleet`: the
     router's and both workers' streams merged on the router's clock; every
@@ -5824,6 +6120,64 @@ def _collect_fleet_check(router_url: str) -> dict:
             "offsets": {w: {"offset_s": o["offset"], "rtt_ms": o["rtt"] * 1e3,
                             "probes": o["probes"]} for w, o in offsets.items()},
             "routed_worker_spans_inside": inside, "worst_gap_s": worst}
+
+
+KERNEL_SOURCES = {
+    "gru_fwd": ("factorvae_tpu_torch/csrc/gru_fwd.cu", "factorvae_tpu/ops/pallas/gru.py:417"),
+    "gru_fwd_residuals": ("factorvae_tpu_torch/csrc/gru_fwd.cu",
+                          "factorvae_tpu/ops/pallas/gru.py:417 (the forward of gru_scan's "
+                          "VJP)"),
+    "gru_bwd": ("factorvae_tpu_torch/csrc/gru_bwd.cu",
+                "factorvae_tpu/ops/pallas/gru.py:480 (T <= 24) and "
+                "factorvae_tpu/ops/pallas/gru.py:533 (T > 24)"),
+    "gru_dwh": ("factorvae_tpu_torch/csrc/gru_bwd.cu",
+                "factorvae_tpu/ops/pallas/gru.py:480 and :533 (their dWh and db)"),
+    "attention_fwd": ("factorvae_tpu_torch/csrc/attention_fwd.cu",
+                      "factorvae_tpu/ops/pallas/attention.py:104"),
+    "attention_bwd": ("factorvae_tpu_torch/csrc/attention_bwd.cu",
+                      "factorvae_tpu/ops/pallas/attention_grad.py:112"),
+}
+
+
+def _wide_rows(wide: dict) -> list:
+    """The kernels line's rows of the wide phase: each kernel at each wide H,
+    its launches those of that H's CLI run (train and score), its daemon
+    tick's and the width grid's (every bucket) beside them."""
+    rows = []
+    for h in wide["hidden"]:
+        k = wide["kernels"][str(h)]
+        t, err = k["timing"], k["max_abs_err"]
+        path = wide["paths"][str(h)]
+        day = t["K1"]["flagship_day"]
+        for name, e, tol, tm in (
+                ("gru_fwd", err["K1"], K1_TOL, t["K1"]["flagship"]),
+                ("gru_fwd_residuals", err["K1"], K1_TOL,
+                 {**day["residuals"], "library_ms": day["library_ms"],
+                  "library_graph_ms": day["library_graph_ms"]}),
+                ("gru_bwd", err["K2"], K2_TOL, t["K2"]),
+                ("gru_dwh", err["dWh"], K2_TOL, t["K2"]["dwh"]),
+                ("attention_fwd", err["K4"], K4_TOL, t["K4"]["flagship"]),
+                ("attention_bwd", err["K5"], K5_TOL, t["K5"]["flagship_day"])):
+            src, replaces = KERNEL_SOURCES[name]
+            row = {"name": f"{name} (H={h})", "route": "cuda", "source": src,
+                   "replaces": replaces, "hidden_size": h,
+                   "launches": path["cli"]["launches"][name],
+                   "launches_daemon": path["daemon"]["launches"][name],
+                   "launches_grid": wide["grid"]["launches"][name],
+                   "max_abs_err": e, "tolerance": tol, "ms": tm["ms"],
+                   "graph_ms": tm.get("graph_ms"), "plain_ms": tm["plain_ms"],
+                   "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                   "library_ms": tm["library_ms"],
+                   "library_graph_ms": tm.get("library_graph_ms")}
+            if name == "gru_bwd":
+                t60 = t["K3_T60"]
+                row["t60"] = {key: t60[key] for key in (
+                    "shape", "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+                    "bound_ms", "bound_by")}
+                row["pair"] = {key: tm["pair"][key] for key in (
+                    "graph_ms", "library_graph_ms", "bound_ms", "bound_by")}
+            rows.append(row)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -5886,7 +6240,8 @@ def main(argv=None) -> int:
         "factors": lambda: phase_factors(torch, args.seed, counters,
                                          phases[0]["nvidia_smi"]),
         "plan": lambda: phase_plan(torch, args.seed, counters, phases[0]["nvidia_smi"]),
-        "mesh": lambda: phase_mesh(torch, args.seed, counters, phases[0]["nvidia_smi"])}
+        "mesh": lambda: phase_mesh(torch, args.seed, counters, phases[0]["nvidia_smi"]),
+        "wide": lambda: phase_wide(torch, args.seed, counters, phases[0]["nvidia_smi"])}
     names = list(steps)
     if args.only:
         names = ["device", "build"] + [n for n in args.only.split(",") if n in steps]
@@ -5906,21 +6261,10 @@ def main(argv=None) -> int:
     fk = by["fleet"]["kernels"]
     fleet_timing = {**fk["gru_flagship_day"]["timing"], **fk["attention_flagship_day"]["timing"]}
     rows = []
-    for name, ph, src, replaces in (
-            ("gru_fwd", by["K1"], "factorvae_tpu_torch/csrc/gru_fwd.cu",
-             "factorvae_tpu/ops/pallas/gru.py:417"),
-            ("gru_fwd_residuals", by["K1"]["residuals_row"],
-             "factorvae_tpu_torch/csrc/gru_fwd.cu",
-             "factorvae_tpu/ops/pallas/gru.py:417 (the forward of gru_scan's VJP)"),
-            ("gru_bwd", by["K2"], "factorvae_tpu_torch/csrc/gru_bwd.cu",
-             "factorvae_tpu/ops/pallas/gru.py:480 (T <= 24) and "
-             "factorvae_tpu/ops/pallas/gru.py:533 (T > 24)"),
-            ("gru_dwh", by["K2"]["dwh_row"], "factorvae_tpu_torch/csrc/gru_bwd.cu",
-             "factorvae_tpu/ops/pallas/gru.py:480 and :533 (their dWh and db)"),
-            ("attention_fwd", by["K4"], "factorvae_tpu_torch/csrc/attention_fwd.cu",
-             "factorvae_tpu/ops/pallas/attention.py:104"),
-            ("attention_bwd", by["K5"], "factorvae_tpu_torch/csrc/attention_bwd.cu",
-             "factorvae_tpu/ops/pallas/attention_grad.py:112")):
+    for name, ph in (("gru_fwd", by["K1"]), ("gru_fwd_residuals", by["K1"]["residuals_row"]),
+                     ("gru_bwd", by["K2"]), ("gru_dwh", by["K2"]["dwh_row"]),
+                     ("attention_fwd", by["K4"]), ("attention_bwd", by["K5"])):
+        src, replaces = KERNEL_SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "launches_serving": by["slice"]["launches"].get(name, 0),
@@ -5948,6 +6292,7 @@ def main(argv=None) -> int:
                      "ms": ph["ms"], "graph_ms": ph.get("graph_ms"),
                      "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
                      "bound_by": ph["bound_by"], "library_ms": ph["library_ms"]})
+    rows += _wide_rows(by["wide"])
     kernels = {"kernels": rows}
     emit(kernels)
     _write(args.out, {"phases": phases, **kernels})

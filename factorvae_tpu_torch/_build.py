@@ -11,7 +11,10 @@ loaded. `build()` starts one nvcc per missing library, all at once, holding
 an exclusive lock on the directory's `.build.lock` (`fcntl.flock`, released by the
 kernel if the process dies) from the check to the rename: two processes
 that miss the same library (a pool's workers joining at once) build it
-once, and the second finds it built.
+once, and the second finds it built. `load` of a kernel library that is
+not built yet builds every missing one of `KERNELS` in that one call, so a
+process with an empty build directory waits for the slowest nvcc, not for
+the sum of them one at a time.
 
 No `--use_fast_math`: it would change `expf`/`tanhf` and widen every
 tolerance against the plain PyTorch versions.
@@ -148,7 +151,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         path = library_path(name)
         if not path.exists():
-            build((name,))
+            build(KERNELS if name in KERNELS else (name,))
         t0 = time.perf_counter()
         lib = ctypes.CDLL(str(path))
         if name not in _compiled:     # built by an earlier or a concurrent process

@@ -53,6 +53,10 @@
 // MFLOP, against reading Wk and Wv and writing dWk and dWv (6.3 MB of 6.7),
 // so the bytes bound it at ~0.002 ms. What keeps it from there is latency:
 // three launches, kernel 1's weight reads and barriers, 96 CTAs at one day.
+// At H = 256 the weights are 16 times larger (101 MB read and written at
+// one day, ~0.03 ms); kernel 1 takes the S = 8 instance (rows unstaged
+// above N of about 210, the exact path streaming Wk and Wv), the latent
+// pass one slice of the heads per column.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +67,9 @@ namespace {
 using namespace attn;
 
 // The exact path for one (day, head): the as-written key and value rows.
+// Up to H = 64 (S <= 2) the head's Wk and Wv are staged whole; above, they
+// stream through shared memory kChunk columns at a time (attention_common.
+// cuh), da and w = Wv dctx summed over the chunks in order.
 template <int S>
 __device__ void exact_head(const float* lat, const int* idx, int nv, const float* kp,
                            const float* q, const float* wk, const float* bk,
@@ -81,16 +88,32 @@ __device__ void exact_head(const float* lat, const int* idx, int nv, const float
   float* bk_s = smem + L.bk;
   float* bv_s = smem + L.bv;
   float* dc_s = smem + L.dc;
+  float* wa_s = smem + L.wa;
   float* sc_s = smem + L.xs;
   float* a_s = smem + L.xa;
   float* dz_s = smem + L.xd;
   float* tile = smem + L.tile + warp * kTile * hp;
+  const size_t hh = (size_t)h * h;
   __syncthreads();            // the previous head's readers are done
-  stage_head(q, wk, bk, wv, bv, head, h, hp, q_s, wk_s, bk_s, wv_s, bv_s);
-  for (int i = tid; i < hp; i += kThreads) dc_s[i] = i < h ? dctx_row[i] : 0.0f;
+  if constexpr (S > 2) {
+    stage_vectors(q, bk, bv, head, h, hp, q_s, bk_s, bv_s);
+  } else {
+    stage_head(q, wk, bk, wv, bv, head, h, hp, q_s, wk_s, bk_s, wv_s, bv_s);
+  }
+  for (int i = tid; i < hp; i += kThreads) {
+    dc_s[i] = i < h ? dctx_row[i] : 0.0f;
+    if constexpr (S > 2) wa_s[i] = 0.0f;
+  }
   __syncthreads();
 
-  if (!head_softmax<S>(lat, idx, nv, kp, wk_s, bk_s, q_s, h, hp, tile, sc_s, a_s)) {
+  bool live;
+  if constexpr (S > 2) {
+    live = head_softmax_streamed(lat, idx, nv, kp, wk + head * hh, bk_s, q_s, h, hp, wk_s,
+                                 tile, sc_s, a_s);
+  } else {
+    live = head_softmax<S>(lat, idx, nv, kp, wk_s, bk_s, q_s, h, hp, tile, sc_s, a_s);
+  }
+  if (!live) {
     // a zero context: no gradient (a_out and dz_out come zeroed)
     for (int i = tid; i < 3 * h; i += kThreads) vec[i] = 0.0f;
     if (tid < 2) sums[tid] = 0.0f;
@@ -98,21 +121,50 @@ __device__ void exact_head(const float* lat, const int* idx, int nv, const float
   }
 
   // ---- da = nan_to_num(value) . dctx for each valid stock ----------------
-  for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
-    stage_tile(lat, idx, g, nv, h, hp, lane, tile);
-    float val[kTile][S];
-    tile_times<S>(tile, wv_s, bv_s, h, hp, lane, val);
+  if constexpr (S > 2) {
+    // and w = Wv dctx, a chunk of Wv's columns at a time
+    for (int g = tid; g < nv; g += kThreads) dz_s[g] = 0.0f;
+    for (int j0 = 0; j0 < h; j0 += kChunk) {
+      __syncthreads();        // dz_s is zeroed; the last chunk's readers are done
+      stage_chunk(wv + head * hh, j0, h, hp, wv_s);
+      __syncthreads();
+      const int j = j0 + lane;
+      const bool on = j < h;
+      const float bj = on ? bv_s[j] : 0.0f;
+      const float dj = on ? dc_s[j] : 0.0f;
+      for (int i = warp; i < h; i += kWarps) {
+        const float part = warp_sum(wv_s[i * kChunk + lane] * dj);
+        if (lane == 0) wa_s[i] += part;
+      }
+      for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
+        stage_tile(lat, idx, g, nv, h, hp, lane, tile);
+        float val[kTile];
+        tile_chunk(tile, wv_s, hp, lane, val);
 #pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      float part = 0.0f;
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        if (lane + 32 * s < h)
-          part = fmaf(nan_to_num_f(val[t][s]), dc_s[lane + 32 * s], part);
-      part = warp_sum(part);
-      if (lane == 0 && g + t < nv) dz_s[g + t] = part;
+        for (int t = 0; t < kTile; ++t) {
+          const float part = warp_sum(on ? nan_to_num_f(val[t] + bj) * dj : 0.0f);
+          if (lane == 0 && g + t < nv) dz_s[g + t] += part;
+        }
+        __syncwarp();
+      }
     }
-    __syncwarp();
+  } else {
+    for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
+      stage_tile(lat, idx, g, nv, h, hp, lane, tile);
+      float val[kTile][S];
+      tile_times<S>(tile, wv_s, bv_s, h, hp, lane, val);
+#pragma unroll
+      for (int t = 0; t < kTile; ++t) {
+        float part = 0.0f;
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (lane + 32 * s < h)
+            part = fmaf(nan_to_num_f(val[t][s]), dc_s[lane + 32 * s], part);
+        part = warp_sum(part);
+        if (lane == 0 && g + t < nv) dz_s[g + t] = part;
+      }
+      __syncwarp();
+    }
   }
   __syncthreads();
 
@@ -142,26 +194,49 @@ __device__ void exact_head(const float* lat, const int* idx, int nv, const float
   }
   __syncthreads();
 
-  // ---- lz = L^T dz, la = L^T a, w = Wv dctx, sum dz, sum a ---------------
-  if (tid < h) {
-    float acc = 0.0f;
-    for (int g = 0; g < nv; ++g) acc = fmaf(dz_s[g], lat[(size_t)idx[g] * h + tid], acc);
-    vec[tid] = acc;
-  } else if (tid >= kMaxH && tid < kMaxH + h) {
-    const int i = tid - kMaxH;
-    float acc = 0.0f;
-    for (int g = 0; g < nv; ++g) acc = fmaf(a_s[g], lat[(size_t)idx[g] * h + i], acc);
-    vec[h + i] = acc;
-  } else if (tid >= 2 * kMaxH && tid < 2 * kMaxH + h) {
-    const int i = tid - 2 * kMaxH;
-    float acc = 0.0f;
-    for (int j = 0; j < h; ++j) acc = fmaf(wv_s[i * h + j], dc_s[j], acc);
-    vec[2 * h + i] = acc;
-  } else if (tid == 3 * kMaxH || tid == 3 * kMaxH + 1) {
-    const float* v = tid == 3 * kMaxH ? dz_s : a_s;
-    float acc = 0.0f;
-    for (int g = 0; g < nv; ++g) acc += v[g];
-    sums[tid - 3 * kMaxH] = acc;
+  // ---- lz = L^T dz, la = L^T a, w = Wv dctx, sum dz, sum a: one item a
+  // thread, each an fmaf chain in order. Up to H = 64 the items sit in
+  // bands of kBand threads (3 kBand + 2 <= kThreads); above, a thread takes
+  // every kThreads-th item.
+  constexpr int kBand = 64;
+  if constexpr (S <= 2) {
+    if (tid < h) {
+      float acc = 0.0f;
+      for (int g = 0; g < nv; ++g) acc = fmaf(dz_s[g], lat[(size_t)idx[g] * h + tid], acc);
+      vec[tid] = acc;
+    } else if (tid >= kBand && tid < kBand + h) {
+      const int i = tid - kBand;
+      float acc = 0.0f;
+      for (int g = 0; g < nv; ++g) acc = fmaf(a_s[g], lat[(size_t)idx[g] * h + i], acc);
+      vec[h + i] = acc;
+    } else if (tid >= 2 * kBand && tid < 2 * kBand + h) {
+      const int i = tid - 2 * kBand;
+      float acc = 0.0f;
+      for (int j = 0; j < h; ++j) acc = fmaf(wv_s[i * h + j], dc_s[j], acc);
+      vec[2 * h + i] = acc;
+    } else if (tid == 3 * kBand || tid == 3 * kBand + 1) {
+      const float* v = tid == 3 * kBand ? dz_s : a_s;
+      float acc = 0.0f;
+      for (int g = 0; g < nv; ++g) acc += v[g];
+      sums[tid - 3 * kBand] = acc;
+    }
+  } else {
+    for (int e = tid; e < 3 * h + 2; e += kThreads) {
+      if (e < 2 * h) {
+        const float* v = e < h ? dz_s : a_s;
+        const int i = e < h ? e : e - h;
+        float acc = 0.0f;
+        for (int g = 0; g < nv; ++g) acc = fmaf(v[g], lat[(size_t)idx[g] * h + i], acc);
+        vec[e] = acc;
+      } else if (e < 3 * h) {
+        vec[e] = wa_s[e - 2 * h];
+      } else {
+        const float* v = e == 3 * h ? dz_s : a_s;
+        float acc = 0.0f;
+        for (int g = 0; g < nv; ++g) acc += v[g];
+        sums[e - 3 * h] = acc;
+      }
+    }
   }
 }
 
@@ -251,12 +326,12 @@ attention_bwd_head_kernel(const float* __restrict__ latent,
   const float scale = sqrtf((float)h + 1e-6f);
 
   // the forward's scores and weights, then w = Wv dctx and da = L w + bv . dctx
-  head_matvec(wk + (size_t)head0 * h * h, bk + (size_t)head0 * h, q + (size_t)head0 * h,
-              gn, h, L.gp, smem + L.u, smem + L.c);
+  head_matvec<(S < 2 ? 2 : S)>(wk + (size_t)head0 * h * h, bk + (size_t)head0 * h,
+                               q + (size_t)head0 * h, gn, h, L.gp, smem + L.u, smem + L.c);
   row_dots(rows, nv, h, smem + L.u, smem + L.c, gn, L.gp, sc, L.ldn);
   fold_softmax(sc, a, L.ldn, smem + L.at, L.gt, nv, idx, keep_g, n, gn, scale, ok, sa);
-  head_matvec(wv + (size_t)head0 * h * h, bv + (size_t)head0 * h, dctx + bk0 * h, gn, h,
-              L.gp, w, smem + L.cw);
+  head_matvec<(S < 2 ? 2 : S)>(wv + (size_t)head0 * h * h, bv + (size_t)head0 * h,
+                               dctx + bk0 * h, gn, h, L.gp, w, smem + L.cw);
   row_dots(rows, nv, h, w, smem + L.cw, gn, L.gp, d, L.ldn);
 
   // dz = 1[r > 0] (a da - a sum(a da)) / scale * keep, per head (one warp),
@@ -348,15 +423,16 @@ attention_bwd_weights_kernel(const float* __restrict__ q,
   }
   const float* wk_k = wk + head * hh;
 
-  if (tid < h) {
+  for (int i = tid; i <= h; i += kThreads) {   // lz and q by column, then sum dz
     float acc = 0.0f;
-    for (int b = 0; b < b_days; ++b) acc += vec[(((size_t)b * k_heads + head) * 3) * h + tid];
-    lz_s[tid] = acc;
-    q_s[tid] = q[(size_t)head * h + tid];
-  } else if (tid == kMaxH) {
-    float acc = 0.0f;
-    for (int b = 0; b < b_days; ++b) acc += sums[((size_t)b * k_heads + head) * 2];
-    sdz_s = acc;
+    if (i < h) {
+      for (int b = 0; b < b_days; ++b) acc += vec[(((size_t)b * k_heads + head) * 3) * h + i];
+      lz_s[i] = acc;
+      q_s[i] = q[(size_t)head * h + i];
+    } else {
+      for (int b = 0; b < b_days; ++b) acc += sums[((size_t)b * k_heads + head) * 2];
+      sdz_s = acc;
+    }
   }
   __syncthreads();
 
@@ -397,10 +473,11 @@ attention_bwd_weights_kernel(const float* __restrict__ q,
 }
 
 // dL[b, n, i] = sum_k dz[b,k,n] u[k,i] + a[b,k,n] w[b,k,i]: one block per
-// (day, stock), a thread per (column, quarter of the heads), each quarter an
-// fmaf chain over its heads in order, the quarters summed in order.
-constexpr int kLatentSlices = kThreads / kMaxH;
-
+// (day, stock), a thread per (column, slice of the heads), each slice an
+// fmaf chain over its heads in order, the slices summed in order. kHC is
+// the class's largest H (64, 128 or 256): kThreads / kHC slices, four at
+// H <= 64 (the tuned kernel, unchanged), one at H <= 256.
+template <int kHC>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_latent_kernel(const float* __restrict__ a,
                             const float* __restrict__ dz,
@@ -408,7 +485,8 @@ attention_bwd_latent_kernel(const float* __restrict__ a,
                             const float* __restrict__ vec,
                             float* __restrict__ dlatent,
                             int n, int k_heads, int h) {
-  __shared__ float part[kLatentSlices][kMaxH];
+  constexpr int kLatentSlices = kThreads / kHC;
+  __shared__ float part[kLatentSlices][kHC];
   {                         // this block's lane
     const size_t lane = blockIdx.y;
     const size_t bkn = (size_t)gridDim.x * k_heads;     // B * K * N
@@ -420,8 +498,8 @@ attention_bwd_latent_kernel(const float* __restrict__ a,
   }
   const int b = blockIdx.x / n;
   const int row = blockIdx.x - b * n;
-  const int i = threadIdx.x % kMaxH;
-  const int sl = threadIdx.x / kMaxH;
+  const int i = threadIdx.x % kHC;
+  const int sl = threadIdx.x / kHC;
   const int per = (k_heads + kLatentSlices - 1) / kLatentSlices;
   const int k1 = min(k_heads, (sl + 1) * per);
   float acc = 0.0f;
@@ -481,8 +559,10 @@ extern "C" long long attention_bwd_scratch_floats(int b, int n, int k_heads, int
 // Launches the three kernels on `stream`, kernel 1 with `group` heads per
 // CTA, for `lanes` = S models; returns the first cudaError_t (0 = ok). An N
 // whose row list and per-head arrays do not fit one block's shared memory
-// even with the rows left in device memory is refused (at H = 64: above N
-// of about 9,300 at G = 1, 3,700 at G = 2).
+// even with the rows left in device memory is refused (at G = 1: above N
+// of about 9,300 at H = 64, 9,200 at H = 128 and 7,900 at H = 256, where the
+// exact path's streamed chunk and row tiles bind; at H = 64 and G = 2,
+// above 3,700).
 extern "C" int attention_bwd(const float* latent, const unsigned char* mask,
                              const float* keep, const float* q,
                              const float* wk, const float* bk,
@@ -501,17 +581,26 @@ extern "C" int attention_bwd(const float* latent, const unsigned char* mask,
   float* vec = dz + bk_n * n;
   float* sums = vec + bk_n * 3 * h;
   float* u = sums + bk_n * 2;
-  int err = h <= 32
-      ? launch_head<1>(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums,
-                       exact, b, n, k_heads, h, group, lanes, st)
-      : launch_head<2>(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums,
-                       exact, b, n, k_heads, h, group, lanes, st);
+  auto head = [&](auto fn) {
+    return fn(latent, mask, keep, q, wk, bk, wv, bv, dctx, a, dz, vec, sums, exact, b, n,
+              k_heads, h, group, lanes, st);
+  };
+  int err = h <= 32 ? head(launch_head<1>) : h <= 64 ? head(launch_head<2>)
+            : h <= 128 ? head(launch_head<4>) : head(launch_head<8>);
   if (err != 0) return err;
   attention_bwd_weights_kernel<<<dim3(k_heads * kWeightParts, lanes), kThreads, 0, st>>>(
       q, wk, bk, dctx, vec, sums, dq, dwk, dbk, dwv, dbv, u, b, k_heads, h);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  attention_bwd_latent_kernel<<<dim3(b * n, lanes), kThreads, 0, st>>>(
-      a, dz, u, vec, dlatent, n, k_heads, h);
+  const dim3 grid(b * n, lanes);
+  if (h <= 64)
+    attention_bwd_latent_kernel<64><<<grid, kThreads, 0, st>>>(a, dz, u, vec, dlatent, n,
+                                                               k_heads, h);
+  else if (h <= 128)
+    attention_bwd_latent_kernel<128><<<grid, kThreads, 0, st>>>(a, dz, u, vec, dlatent, n,
+                                                                k_heads, h);
+  else
+    attention_bwd_latent_kernel<256><<<grid, kThreads, 0, st>>>(a, dz, u, vec, dlatent, n,
+                                                                k_heads, h);
   return (int)cudaGetLastError();
 }

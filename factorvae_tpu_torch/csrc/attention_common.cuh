@@ -21,6 +21,15 @@
 // the same function: with L_n = (+inf, 0, ...) the key row is +-inf by the
 // sign of Wk[0, j] and key . q is NaN (the head is guarded), while
 // L_n . u = +inf * u_0 is -inf where u_0 < 0, which the ReLU turns into 0.
+//
+// Hidden sizes: the kernels are templated on S, the columns of H a lane
+// owns where a warp spans H: S = 1 (H <= 32), 2 (H <= 64), 4 (H <= 128) and
+// 8 (H <= 256), one instance per class, picked per launch. The S <= 2
+// instances are the tuned code, unchanged. Above H = 64 the exact path no
+// longer stages a head's Wk and Wv whole (2 x 256 x 257 floats, 526 KB, at
+// H = 256): it streams them through shared memory kChunk columns at a time
+// (`stage_chunk`, `head_softmax_streamed`), a lane per column of the chunk,
+// and sums each score and each da over the chunks in order.
 
 #pragma once
 
@@ -31,7 +40,9 @@ namespace attn {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxH = 64;            // largest hidden size (2 columns per lane)
+constexpr int kMaxH = 256;           // largest hidden size (8 columns per lane)
+constexpr int kMaxStagedH = 64;      // the exact path stages Wk and Wv whole up to here
+constexpr int kChunk = 32;           // columns of a streamed weight chunk (above it)
 constexpr int kMaxLanes = 65535;     // models per launch: the grid's y extent
 constexpr int kTile = 8;             // valid rows per warp step (exact path)
 constexpr float kNegInf = -1e30f;
@@ -62,8 +73,8 @@ struct Layout {
   int sa, ok;              // (gp) sum of a; (gp ints) the head is not guarded
   int p;                   // forward: (g, h) P = a^T L
   int part;                // (4 kThreads) partial sums
-  // exact path
-  int wk, wv, tile, q, bk, bv, dc, red;
+  // exact path (wk = wv: one streamed chunk, above kMaxStagedH)
+  int wk, wv, tile, q, bk, bv, dc, wa, red;
   int xs, xa, xd;          // (ldn) scores, weights (backward), da / dz (backward)
   int total;
 };
@@ -116,10 +127,11 @@ __host__ __device__ inline Layout layout(int n, int h, int g, bool staged, bool 
   const int fold_end = o;
 
   o = base;
+  const bool streamed = h > kMaxStagedH;
   L.wk = o;
-  o += hp * h;
-  L.wv = o;
-  o += hp * h;
+  o += streamed ? hp * kChunk : hp * h;
+  L.wv = streamed ? L.wk : o;
+  if (!streamed) o += hp * h;
   L.tile = o;
   o += kWarps * kTile * hp;
   L.q = o;
@@ -130,8 +142,10 @@ __host__ __device__ inline Layout layout(int n, int h, int g, bool staged, bool 
   o += hp;
   L.dc = o;
   o += hp;
+  L.wa = o;                // streamed: w = Wv dctx, summed over the chunks
+  if (streamed) o += hp;
   L.red = o;
-  o += kWarps * hp;
+  o += kWarps * (streamed ? kChunk : hp);
   L.xs = L.xa = L.xd = o;
   o += L.ldn;
   if (bwd) {
@@ -285,41 +299,47 @@ __device__ __forceinline__ bool stage_rows(const float* lat, const int* idx, int
 
 // For the g < G heads of a group: v[i * gp + g] = mat_g[i] . x_g (i < h) and
 // cv[g] = bias_g . x_g, with mat_g = mat + g*h*h (h rows of h), bias_g =
-// bias + g*h and x_g = x + g*h, all in device memory. A warp loads 16
-// outputs' rows at once (clamped addresses, so every load is in flight
-// before the first sum), a lane the columns lane and lane + 32, then a
-// butterfly sum: each output's order of summation is
-// fixed, whatever G is. Zeroes v's padding heads [G, gp). Ends with
+// bias + g*h and x_g = x + g*h, all in device memory. A warp loads a batch
+// of outputs' rows at once (16 at S = 2; clamped addresses, so every load
+// is in flight before the first sum), a lane the columns lane + 32 s for
+// s < S, then a butterfly sum: each output's order of summation is fixed,
+// whatever G is. Zeroes v's padding heads [G, gp). Ends with
 // __syncthreads.
 constexpr int kMatvecBatch = 16;
 
+template <int S>
 __device__ __forceinline__ void head_matvec(const float* __restrict__ mat,
                                             const float* __restrict__ bias,
                                             const float* __restrict__ x, int G,
                                             int h, int gp, float* v, float* cv) {
+  constexpr int kBatch = kMatvecBatch * 2 / S;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int total = G * (h + 1);
-  const int j0 = min(lane, h - 1);
-  const int j1 = min(lane + 32, h - 1);
-  for (int o0 = warp * kMatvecBatch; o0 < total; o0 += kWarps * kMatvecBatch) {
-    float m0[kMatvecBatch], m1[kMatvecBatch], x0[kMatvecBatch], x1[kMatvecBatch];
+  int jc[S];
 #pragma unroll
-    for (int k = 0; k < kMatvecBatch; ++k) {
+  for (int s = 0; s < S; ++s) jc[s] = min(lane + 32 * s, h - 1);
+  for (int o0 = warp * kBatch; o0 < total; o0 += kWarps * kBatch) {
+    float m[kBatch][S], xv[kBatch][S];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
       const int o = min(o0 + k, total - 1);
       const int g = o / (h + 1);
       const int i = o - g * (h + 1);
-      const float* m = i < h ? mat + ((size_t)g * h + i) * h : bias + (size_t)g * h;
+      const float* mp = i < h ? mat + ((size_t)g * h + i) * h : bias + (size_t)g * h;
       const float* xg = x + (size_t)g * h;
-      m0[k] = __ldg(m + j0);
-      m1[k] = __ldg(m + j1);
-      x0[k] = __ldg(xg + j0);
-      x1[k] = __ldg(xg + j1);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        m[k][s] = __ldg(mp + jc[s]);
+        xv[k][s] = __ldg(xg + jc[s]);
+      }
     }
 #pragma unroll
-    for (int k = 0; k < kMatvecBatch; ++k) {
-      float part = lane < h ? m0[k] * x0[k] : 0.0f;
-      if (lane + 32 < h) part = fmaf(m1[k], x1[k], part);
+    for (int k = 0; k < kBatch; ++k) {
+      float part = lane < h ? m[k][0] * xv[k][0] : 0.0f;
+#pragma unroll
+      for (int s = 1; s < S; ++s)
+        if (lane + 32 * s < h) part = fmaf(m[k][s], xv[k][s], part);
       const float acc = warp_sum(part);
       const int o = o0 + k;
       if (lane == 0 && o < total) {
@@ -554,22 +574,13 @@ __device__ __forceinline__ void stage_head(const float* q, const float* wk,
   }
 }
 
-// Scores and softmax weights of one (day, head) over its nv valid rows, with
-// the key rows as written:
-//
-//   s  = (L . Wk + bk) . q / sqrt(H + 1e-6), times the keep-mask kp if any,
-//   r  = relu(s) (NaN kept)  -> sc_s[g]
-//   a  = softmax of r over the valid rows -> a_s[g] (may alias sc_s)
-//
-// Returns false, with a_s unset, when the head's context is zero: a valid
-// score is non-finite (the guard), or the day has no valid row. Every
-// thread of the block calls it, after a __syncthreads() that follows
-// compact_rows and stage_head; `tile` is the warp's (kTile, hp) slice.
-template <int S>
-__device__ bool head_softmax(const float* lat, const int* idx_s, int nv,
-                             const float* kp, const float* wk_s,
-                             const float* bk_s, const float* q_s, int h,
-                             int hp, float* tile, float* sc_s, float* a_s) {
+// The guard and the softmax of head_softmax once every valid score is in
+// sc_s: the block's max score and guard from each warp's `mx` and `bad`
+// (each warp-uniform), then a = softmax(sc) into a_s (may alias sc_s).
+// Returns false, a_s unset, for a guarded head or a day without valid rows.
+// Every thread of the block calls it. Ends with __syncthreads.
+__device__ __forceinline__ bool finish_softmax(float mx, int bad, int nv, const float* sc_s,
+                                               float* a_s) {
   __shared__ float red_f[kWarps];
   __shared__ int red_i[kWarps];
   __shared__ float shared_val;
@@ -577,31 +588,6 @@ __device__ bool head_softmax(const float* lat, const int* idx_s, int nv,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const float scale = sqrtf((float)h + 1e-6f);
-
-  // ---- pass 1: scores of the valid stocks --------------------------------
-  float mx = kNegInf;
-  int bad = 0;
-  for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
-    stage_tile(lat, idx_s, g, nv, h, hp, lane, tile);
-    float key[kTile][S];
-    tile_times<S>(tile, wk_s, bk_s, h, hp, lane, key);
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      float part = 0.0f;
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        if (lane + 32 * s < h) part = fmaf(key[t][s], q_s[lane + 32 * s], part);
-      float sc = warp_sum(part) / scale;
-      if (g + t >= nv) continue;
-      if (kp) sc = sc * kp[idx_s[g + t]];
-      sc = isnan(sc) ? sc : fmaxf(sc, 0.0f);   // ReLU that keeps NaN
-      if (!isfinite(sc)) bad = 1;
-      else mx = fmaxf(mx, sc);
-      if (lane == 0) sc_s[g + t] = sc;
-    }
-    __syncwarp();
-  }
   if (lane == 0) {
     red_f[warp] = mx;
     red_i[warp] = bad;
@@ -642,6 +628,152 @@ __device__ bool head_softmax(const float* lat, const int* idx_s, int nv,
   for (int r = tid; r < nv; r += kThreads) a_s[r] = a_s[r] / denom;
   __syncthreads();
   return true;
+}
+
+// Scores and softmax weights of one (day, head) over its nv valid rows, with
+// the key rows as written:
+//
+//   s  = (L . Wk + bk) . q / sqrt(H + 1e-6), times the keep-mask kp if any,
+//   r  = relu(s) (NaN kept)  -> sc_s[g]
+//   a  = softmax of r over the valid rows -> a_s[g] (may alias sc_s)
+//
+// Returns false, with a_s unset, when the head's context is zero: a valid
+// score is non-finite (the guard), or the day has no valid row. Every
+// thread of the block calls it, after a __syncthreads() that follows
+// compact_rows and stage_head; `tile` is the warp's (kTile, hp) slice.
+template <int S>
+__device__ bool head_softmax(const float* lat, const int* idx_s, int nv,
+                             const float* kp, const float* wk_s,
+                             const float* bk_s, const float* q_s, int h,
+                             int hp, float* tile, float* sc_s, float* a_s) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const float scale = sqrtf((float)h + 1e-6f);
+
+  // ---- pass 1: scores of the valid stocks --------------------------------
+  float mx = kNegInf;
+  int bad = 0;
+  for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
+    stage_tile(lat, idx_s, g, nv, h, hp, lane, tile);
+    float key[kTile][S];
+    tile_times<S>(tile, wk_s, bk_s, h, hp, lane, key);
+#pragma unroll
+    for (int t = 0; t < kTile; ++t) {
+      float part = 0.0f;
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (lane + 32 * s < h) part = fmaf(key[t][s], q_s[lane + 32 * s], part);
+      float sc = warp_sum(part) / scale;
+      if (g + t >= nv) continue;
+      if (kp) sc = sc * kp[idx_s[g + t]];
+      sc = isnan(sc) ? sc : fmaxf(sc, 0.0f);   // ReLU that keeps NaN
+      if (!isfinite(sc)) bad = 1;
+      else mx = fmaxf(mx, sc);
+      if (lane == 0) sc_s[g + t] = sc;
+    }
+    __syncwarp();
+  }
+  return finish_softmax(mx, bad, nv, sc_s, a_s);
+}
+
+// ---------------------------------------------------------------------------
+// The exact path above kMaxStagedH: Wk and Wv streamed kChunk columns at a time
+// ---------------------------------------------------------------------------
+
+// Head `head`'s q, bk and bv (hp, zero padded) into shared memory.
+__device__ __forceinline__ void stage_vectors(const float* q, const float* bk,
+                                              const float* bv, int head, int h, int hp,
+                                              float* q_s, float* bk_s, float* bv_s) {
+  for (int i = threadIdx.x; i < hp; i += kThreads) {
+    const bool ok = i < h;
+    q_s[i] = ok ? q[(size_t)head * h + i] : 0.0f;
+    bk_s[i] = ok ? bk[(size_t)head * h + i] : 0.0f;
+    bv_s[i] = ok ? bv[(size_t)head * h + i] : 0.0f;
+  }
+}
+
+// Columns [j0, j0 + kChunk) of a head's matrix w (h x h, device memory)
+// into chunk (hp, kChunk), zero in rows >= h and columns >= h; a row's 32
+// columns are one 128-byte read. Every thread calls it, between barriers.
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ w, int j0, int h,
+                                            int hp, float* chunk) {
+  for (int e = threadIdx.x; e < hp * kChunk; e += kThreads) {
+    const int i = e / kChunk;
+    const int j = j0 + e % kChunk;
+    chunk[e] = i < h && j < h ? __ldg(w + (size_t)i * h + j) : 0.0f;
+  }
+}
+
+// tile (kTile, hp) times the chunk (hp, kChunk): out[t] = sum over i of
+// tile[t][i] chunk[i][lane], one fmaf chain in i order.
+__device__ __forceinline__ void tile_chunk(const float* tile, const float* chunk, int hp,
+                                           int lane, float out[kTile]) {
+#pragma unroll
+  for (int t = 0; t < kTile; ++t) out[t] = 0.0f;
+  for (int i = 0; i < hp; i += 4) {
+    float4 l[kTile];
+#pragma unroll
+    for (int t = 0; t < kTile; ++t)
+      l[t] = *reinterpret_cast<const float4*>(tile + t * hp + i);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float w = chunk[(i + c) * kChunk + lane];
+#pragma unroll
+      for (int t = 0; t < kTile; ++t) out[t] = fmaf(component(l[t], c), w, out[t]);
+    }
+  }
+}
+
+// head_softmax with the key rows' Wk streamed: each valid row's score is
+// the sum, in chunk order, of its chunks' warp sums of (L_n . Wk[:, j] +
+// bk_j) q_j over the chunk's columns j; then the guard and the softmax of
+// finish_softmax. wk: this head's matrix in device memory; chunk: the
+// (hp, kChunk) buffer. A sum that meets a non-finite key element is
+// non-finite in any order, so the guard is head_softmax's. Every thread of
+// the block calls it, after a __syncthreads() that follows compact_rows
+// and stage_vectors. Ends with __syncthreads.
+__device__ bool head_softmax_streamed(const float* lat, const int* idx_s, int nv,
+                                      const float* kp, const float* __restrict__ wk,
+                                      const float* bk_s, const float* q_s, int h, int hp,
+                                      float* chunk, float* tile, float* sc_s, float* a_s) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const float scale = sqrtf((float)h + 1e-6f);
+  for (int r = tid; r < nv; r += kThreads) sc_s[r] = 0.0f;
+  for (int j0 = 0; j0 < h; j0 += kChunk) {
+    __syncthreads();          // sc_s is zeroed; the last chunk's readers are done
+    stage_chunk(wk, j0, h, hp, chunk);
+    __syncthreads();
+    const int j = j0 + lane;
+    const bool on = j < h;
+    const float qj = on ? q_s[j] : 0.0f;
+    const float bj = on ? bk_s[j] : 0.0f;
+    for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
+      stage_tile(lat, idx_s, g, nv, h, hp, lane, tile);
+      float key[kTile];
+      tile_chunk(tile, chunk, hp, lane, key);
+#pragma unroll
+      for (int t = 0; t < kTile; ++t) {
+        const float part = warp_sum(on ? (key[t] + bj) * qj : 0.0f);
+        if (lane == 0 && g + t < nv) sc_s[g + t] += part;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  float mx = kNegInf;
+  int bad = 0;
+  for (int r = tid; r < nv; r += kThreads) {
+    float sc = sc_s[r] / scale;
+    if (kp) sc = sc * kp[idx_s[r]];
+    sc = isnan(sc) ? sc : fmaxf(sc, 0.0f);     // ReLU that keeps NaN
+    if (!isfinite(sc)) bad = 1;
+    else mx = fmaxf(mx, sc);
+    sc_s[r] = sc;
+  }
+  return finish_softmax(warp_max(mx), __any_sync(0xffffffffu, bad), nv, sc_s, a_s);
 }
 
 }  // namespace attn

@@ -56,6 +56,12 @@
 // once (clamped addresses, no branch between the loads) so that one round
 // trip, not one per element, is paid. At one training day the grid is 96
 // CTAs on 132 SMs.
+//
+// Wider H (the S = 4 and S = 8 instances, H <= 128 and <= 256): the same
+// phases; a day's rows are staged up to N of about 420 at H = 128 and are
+// read through the row list at H = 256 (304 rows of 257 floats exceed a
+// block's shared memory), and the exact path streams Wk and Wv. At one
+// flagship day of H = 256 the 50 MB of Wk and Wv bound it at ~0.015 ms.
 
 #include <cuda_runtime.h>
 
@@ -65,7 +71,10 @@ namespace {
 
 using namespace attn;
 
-// The exact path for one head: the as-written key and value rows.
+// The exact path for one head: the as-written key and value rows. Up to
+// H = 64 (S <= 2) the head's Wk and Wv are staged whole and a lane owns S
+// columns; above, they stream through shared memory kChunk columns at a
+// time (attention_common.cuh), and the context is formed a chunk at a time.
 template <int S>
 __device__ void exact_head(const float* lat, const int* idx, int nv, const float* kp,
                            const float* q, const float* wk, const float* bk,
@@ -83,39 +92,76 @@ __device__ void exact_head(const float* lat, const int* idx, int nv, const float
   float* ctx_s = smem + L.red;
   float* s_s = smem + L.xs;
   float* tile = smem + L.tile + warp * kTile * hp;
-  __syncthreads();            // the previous head's readers are done
-  stage_head(q, wk, bk, wv, bv, head, h, hp, q_s, wk_s, bk_s, wv_s, bv_s);
-  __syncthreads();
-  if (!head_softmax<S>(lat, idx, nv, kp, wk_s, bk_s, q_s, h, hp, tile, s_s, s_s)) {
-    for (int j = tid; j < h; j += kThreads) out_row[j] = 0.0f;
-    return;
-  }
-  float acc[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) acc[s] = 0.0f;
-  for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
-    stage_tile(lat, idx, g, nv, h, hp, lane, tile);
-    float val[kTile][S];
-    tile_times<S>(tile, wv_s, bv_s, h, hp, lane, val);
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      if (g + t >= nv) break;
-      const float a = s_s[g + t];
-#pragma unroll
-      for (int s = 0; s < S; ++s) acc[s] = fmaf(a, nan_to_num_f(val[t][s]), acc[s]);
+  if constexpr (S > 2) {
+    const size_t hh = (size_t)h * h;
+    __syncthreads();          // the previous head's readers are done
+    stage_vectors(q, bk, bv, head, h, hp, q_s, bk_s, bv_s);
+    __syncthreads();
+    if (!head_softmax_streamed(lat, idx, nv, kp, wk + head * hh, bk_s, q_s, h, hp, wk_s,
+                               tile, s_s, s_s)) {
+      for (int j = tid; j < h; j += kThreads) out_row[j] = 0.0f;
+      return;
     }
-    __syncwarp();
-  }
+    for (int j0 = 0; j0 < h; j0 += kChunk) {
+      __syncthreads();        // the last chunk's and ctx_s's readers are done
+      stage_chunk(wv + head * hh, j0, h, hp, wv_s);
+      __syncthreads();
+      const float bj = j0 + lane < h ? bv_s[j0 + lane] : 0.0f;
+      float acc = 0.0f;
+      for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
+        stage_tile(lat, idx, g, nv, h, hp, lane, tile);
+        float val[kTile];
+        tile_chunk(tile, wv_s, hp, lane, val);
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int j = lane + 32 * s;
-    if (j < h) ctx_s[warp * hp + j] = acc[s];
-  }
-  __syncthreads();
-  for (int j = tid; j < h; j += kThreads) {
-    float v = 0.0f;
-    for (int w = 0; w < kWarps; ++w) v += ctx_s[w * hp + j];
-    out_row[j] = v;
+        for (int t = 0; t < kTile; ++t) {
+          if (g + t >= nv) break;
+          acc = fmaf(s_s[g + t], nan_to_num_f(val[t] + bj), acc);
+        }
+        __syncwarp();
+      }
+      ctx_s[warp * kChunk + lane] = acc;
+      __syncthreads();
+      if (tid < kChunk && j0 + tid < h) {
+        float v = 0.0f;
+        for (int w = 0; w < kWarps; ++w) v += ctx_s[w * kChunk + tid];
+        out_row[j0 + tid] = v;
+      }
+    }
+  } else {
+    __syncthreads();            // the previous head's readers are done
+    stage_head(q, wk, bk, wv, bv, head, h, hp, q_s, wk_s, bk_s, wv_s, bv_s);
+    __syncthreads();
+    if (!head_softmax<S>(lat, idx, nv, kp, wk_s, bk_s, q_s, h, hp, tile, s_s, s_s)) {
+      for (int j = tid; j < h; j += kThreads) out_row[j] = 0.0f;
+      return;
+    }
+    float acc[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) acc[s] = 0.0f;
+    for (int g = warp * kTile; g < nv; g += kWarps * kTile) {
+      stage_tile(lat, idx, g, nv, h, hp, lane, tile);
+      float val[kTile][S];
+      tile_times<S>(tile, wv_s, bv_s, h, hp, lane, val);
+#pragma unroll
+      for (int t = 0; t < kTile; ++t) {
+        if (g + t >= nv) break;
+        const float a = s_s[g + t];
+#pragma unroll
+        for (int s = 0; s < S; ++s) acc[s] = fmaf(a, nan_to_num_f(val[t][s]), acc[s]);
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int j = lane + 32 * s;
+      if (j < h) ctx_s[warp * hp + j] = acc[s];
+    }
+    __syncthreads();
+    for (int j = tid; j < h; j += kThreads) {
+      float v = 0.0f;
+      for (int w = 0; w < kWarps; ++w) v += ctx_s[w * hp + j];
+      out_row[j] = v;
+    }
   }
 }
 
@@ -212,8 +258,8 @@ attention_fwd_kernel(const float* __restrict__ latent,
                            : Rows{lat, idx, h, false};
   float* sc = smem + L.sc;
   int* ok = reinterpret_cast<int*>(smem + L.ok);
-  head_matvec(wk + (size_t)head0 * h * h, bk + (size_t)head0 * h, q + (size_t)head0 * h,
-              gn, h, L.gp, smem + L.u, smem + L.c);
+  head_matvec<(S < 2 ? 2 : S)>(wk + (size_t)head0 * h * h, bk + (size_t)head0 * h,
+                               q + (size_t)head0 * h, gn, h, L.gp, smem + L.u, smem + L.c);
   row_dots(rows, nv, h, smem + L.u, smem + L.c, gn, L.gp, sc, L.ldn);
   fold_softmax(sc, sc, L.ldn, smem + L.at, L.gt, nv, idx, keep_g, n, gn,
                sqrtf((float)h + 1e-6f), ok, smem + L.sa);
@@ -249,8 +295,9 @@ extern "C" int attention_fwd_max_hidden() { return kMaxH; }
 // Launches on `stream` with `group` heads per CTA, for `lanes` = S models;
 // returns the cudaError_t of the launch (0 = ok). An N whose row list and
 // scores do not fit one block's shared memory even with the rows left in
-// device memory is refused (at H = 64: above N of about 18,800 at G = 1,
-// 8,000 at G = 2).
+// device memory is refused (at G = 1: above N of about 18,800 at H = 64,
+// 18,700 at H = 128 and 15,800 at H = 256, where the exact path's streamed
+// chunk and row tiles bind).
 extern "C" int attention_fwd(const float* latent, const unsigned char* mask,
                              const float* keep, const float* q,
                              const float* wk, const float* bk,
@@ -261,9 +308,12 @@ extern "C" int attention_fwd(const float* latent, const unsigned char* mask,
     return (int)cudaErrorInvalidValue;
   if (b <= 0 || k_heads <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (h <= 32)
-    return launch<1>(latent, mask, keep, q, wk, bk, wv, bv, out, exact, b, n, k_heads, h,
-                     group, lanes, st);
-  return launch<2>(latent, mask, keep, q, wk, bk, wv, bv, out, exact, b, n, k_heads, h,
-                   group, lanes, st);
+  auto go = [&](auto fn) {
+    return fn(latent, mask, keep, q, wk, bk, wv, bv, out, exact, b, n, k_heads, h, group,
+              lanes, st);
+  };
+  if (h <= 32) return go(launch<1>);
+  if (h <= 64) return go(launch<2>);
+  if (h <= 128) return go(launch<4>);
+  return go(launch<8>);
 }

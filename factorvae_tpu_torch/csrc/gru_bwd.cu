@@ -37,7 +37,9 @@
 //    blocks takes a contiguous range of rows, stages 32 rows at a time in
 //    shared memory with cp.async and keeps a 4 x 12 tile of dWh per thread
 //    in registers; it writes its partial to its own slot, and a second
-//    kernel sums the slots in block order. Deterministic, no atomics.
+//    kernel sums the slots in block order. Deterministic, no atomics. Above
+//    H = 64 a block owns one 64 x 192 tile of dWh (the grid's z), and the
+//    row blocks are fewer (132 over all the tiles: 8 at H = 256).
 //
 // Bound: the walk is 2*N*T*H*3H FLOPs (dg . Wh^T) against its residual and
 // gradient bytes and is held back by the same latency as the forward (T
@@ -236,25 +238,45 @@ int launch_walk(const float* xi, const float* wh, const float* hseq, const float
 constexpr int kDwThreads = 256;
 constexpr int kDwRows = 32;        // rows staged in shared memory per pass
 constexpr int kDwMaxBlocks = 132;  // one per SM
+constexpr int kDwTileH = 64;       // a block's tile of dWh: kDwTileH rows (of H)
+constexpr int kDwTileJ = 192;      // x kDwTileJ columns (of 3H)
 
-long long dwh_blocks(long long m_rows) {
-  const long long b = (m_rows + kDwRows - 1) / kDwRows;
-  return b < kDwMaxBlocks ? b : kDwMaxBlocks;
+// Tiles of dWh a block's rows feed: one up to H = 64, 16 at H = 256.
+int dwh_tiles(int h) {
+  return ((h + kDwTileH - 1) / kDwTileH) * ((3 * h + kDwTileJ - 1) / kDwTileJ);
 }
 
-// Thread (kq, jq) = (tid / 16, tid % 16) owns dWh[4 kq + a, jq + 16 c] for
-// a < 4, c < 12 (H <= 64, 3H <= 192) and, for kq = 0, db[jq + 16 c].
+// Row blocks: one per 32 rows, at most one per SM over all the tiles
+// (so 132 up to H = 64, and 8 at H = 256, which keeps the partial slots,
+// one full (dWh, db) per row block, at a few MB).
+long long dwh_blocks(long long m_rows, int h) {
+  const long long b = (m_rows + kDwRows - 1) / kDwRows;
+  const long long cap = kDwMaxBlocks / dwh_tiles(h) > 0 ? kDwMaxBlocks / dwh_tiles(h) : 1;
+  return b < cap ? b : cap;
+}
+
+// Thread (kq, jq) = (tid / 16, tid % 16) owns dWh[i0 + 4 kq + a, j0 + jq +
+// 16 c] for a < 4, c < 12 and, for kq = 0 in the tiles of i0 = 0, db[j0 +
+// jq + 16 c]. The tile (i0, j0) is blockIdx.z's (kTiled, H > 64); up to
+// H = 64 one tile covers dWh (i0 = j0 = 0): the tuned kernel, unchanged.
+template <bool kTiled>
 __global__ void __launch_bounds__(kDwThreads)
 gru_dwh_kernel(const float* __restrict__ hseq, const float* __restrict__ dxi,
                const float* __restrict__ dgn, float* __restrict__ part,
                long long m_rows, long long rows_per_block, int h) {
-  __shared__ float4 hs4[kDwRows * kMaxH / 4];
-  __shared__ float ds[kDwRows * 3 * kMaxH];
+  __shared__ float4 hs4[kDwRows * kDwTileH / 4];
+  __shared__ float ds[kDwRows * kDwTileJ];
   float* hs = reinterpret_cast<float*>(hs4);
   const int h3 = 3 * h;
   const int tid = threadIdx.x;
   const int kq = tid / 16;
   const int jq = tid % 16;
+  int i0 = 0, j0 = 0;
+  if (kTiled) {
+    const int tiles_j = (h3 + kDwTileJ - 1) / kDwTileJ;
+    i0 = (blockIdx.z / tiles_j) * kDwTileH;
+    j0 = (blockIdx.z % tiles_j) * kDwTileJ;
+  }
   {                         // this block's lane: its rows and its slots
     const long long lane = blockIdx.y;
     hseq += lane * m_rows * h;
@@ -275,15 +297,15 @@ gru_dwh_kernel(const float* __restrict__ hseq, const float* __restrict__ dxi,
   for (long long c0 = m0; c0 < m1; c0 += kDwRows) {
     const int nr = (int)min((long long)kDwRows, m1 - c0);
     __syncthreads();        // the last pass has read its rows
-    for (int i = tid; i < kDwRows * kMaxH; i += kDwThreads) {
-      const int r = i / kMaxH;
-      const int k = i - r * kMaxH;
+    for (int i = tid; i < kDwRows * kDwTileH; i += kDwThreads) {
+      const int r = i / kDwTileH;
+      const int k = i - r * kDwTileH + i0;
       if (r < nr && k < h) copy_f32(hs + i, hseq + (c0 + r) * h + k);
       else hs[i] = 0.0f;
     }
-    for (int i = tid; i < kDwRows * 3 * kMaxH; i += kDwThreads) {
-      const int r = i / (3 * kMaxH);
-      const int j = i - r * 3 * kMaxH;
+    for (int i = tid; i < kDwRows * kDwTileJ; i += kDwThreads) {
+      const int r = i / kDwTileJ;
+      const int j = i - r * kDwTileJ + j0;
       if (r < nr && j < 2 * h) copy_f32(ds + i, dxi + (c0 + r) * h3 + j);
       else if (r < nr && j < h3) copy_f32(ds + i, dgn + (c0 + r) * h + j - 2 * h);
       else ds[i] = 0.0f;
@@ -291,8 +313,8 @@ gru_dwh_kernel(const float* __restrict__ hseq, const float* __restrict__ dxi,
     cp_async_wait_all();
     __syncthreads();
     for (int r = 0; r < nr; ++r) {
-      const float4 hv = hs4[r * (kMaxH / 4) + kq];
-      const float* d = ds + r * 3 * kMaxH + jq;
+      const float4 hv = hs4[r * (kDwTileH / 4) + kq];
+      const float* d = ds + r * kDwTileJ + jq;
 #pragma unroll
       for (int c = 0; c < 12; ++c) {
         const float dv = d[16 * c];
@@ -310,12 +332,12 @@ gru_dwh_kernel(const float* __restrict__ hseq, const float* __restrict__ dxi,
   float* slot = part + (size_t)blockIdx.x * (h * h3 + h3);
 #pragma unroll
   for (int c = 0; c < 12; ++c) {
-    const int j = jq + 16 * c;
+    const int j = j0 + jq + 16 * c;
     if (j >= h3) continue;
 #pragma unroll
     for (int a = 0; a < 4; ++a)
-      if (4 * kq + a < h) slot[(4 * kq + a) * h3 + j] = acc[a][c];
-    if (kq == 0) slot[h * h3 + j] = dbacc[c];
+      if (i0 + 4 * kq + a < h) slot[(i0 + 4 * kq + a) * h3 + j] = acc[a][c];
+    if (kq == 0 && i0 == 0) slot[h * h3 + j] = dbacc[c];
   }
 }
 
@@ -343,6 +365,11 @@ __global__ void gru_dwh_reduce_kernel(const float* __restrict__ part, int blocks
 
 extern "C" int gru_bwd_max_hidden() { return kMaxH; }
 
+// Bytes of dynamic shared memory a gru_walk launch takes, as gru_fwd_smem_bytes.
+extern "C" int gru_walk_smem_bytes(int h, int rows, int cluster) {
+  return (int)sizeof(float) * walk_smem_floats(h, rows, (h + cluster - 1) / cluster, cluster);
+}
+
 // The walk: dxi (S, N, T, 3H) and dg_n (S, N, T, H) from xi, Wh, the
 // residuals hseq and gseq, and dh (S, N, H), for `lanes` = S models.
 // Launches on `stream`; returns the cudaError_t (0 = ok). `rows` and
@@ -363,7 +390,7 @@ extern "C" int gru_walk(const float* xi, const float* wh, const float* hseq,
 // Floats of scratch gru_dwh needs for m_rows = N * T rows of each of `lanes`
 // models: one partial (dWh, db) slot per block and lane.
 extern "C" long long gru_dwh_scratch_floats(long long m_rows, int h, int lanes) {
-  return (long long)lanes * dwh_blocks(m_rows) * (3LL * h * h + 3 * h);
+  return (long long)lanes * dwh_blocks(m_rows, h) * (3LL * h * h + 3 * h);
 }
 
 // dWh (S, H, 3H) = hseq^T . [dxi_r | dxi_z | dg_n] and db (S, 3H) = its
@@ -375,10 +402,15 @@ extern "C" int gru_dwh(const float* hseq, const float* dxi, const float* dgn,
   if (h <= 0 || h > kMaxH || m_rows <= 0 || lanes < 1 || lanes > kMaxLanes)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const long long blocks = dwh_blocks(m_rows);
+  const long long blocks = dwh_blocks(m_rows, h);
   const long long per_block = (m_rows + blocks - 1) / blocks;
-  gru_dwh_kernel<<<dim3((unsigned)blocks, lanes), kDwThreads, 0, st>>>(
-      hseq, dxi, dgn, scratch, m_rows, per_block, h);
+  const int tiles = dwh_tiles(h);
+  if (tiles == 1)
+    gru_dwh_kernel<false><<<dim3((unsigned)blocks, lanes), kDwThreads, 0, st>>>(
+        hseq, dxi, dgn, scratch, m_rows, per_block, h);
+  else
+    gru_dwh_kernel<true><<<dim3((unsigned)blocks, lanes, tiles), kDwThreads, 0, st>>>(
+        hseq, dxi, dgn, scratch, m_rows, per_block, h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = 3 * h * h + 3 * h;

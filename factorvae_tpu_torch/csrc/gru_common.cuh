@@ -2,10 +2,20 @@
 // kernels (gru_fwd.cu, gru_bwd.cu).
 //
 // Both recurrence kernels take a tile of `R` rows (8 or 16) and split its
-// hidden units over a thread-block cluster of `c` CTAs (1, 2 or 4): CTA
+// hidden units over a thread-block cluster of `c` CTAs (1, 2, 4 or 8): CTA
 // `rank` owns units [unit_begin(rank), unit_begin(rank + 1)), with their
 // three gate columns. Each step's product runs on the tensor cores
 // (`mma_product`, 3xTF32 at f32 accuracy), its operands in shared memory.
+//
+// Hidden sizes up to kMaxH = 256: a CTA owns at most kMaxUnits = 64 units,
+// so a wider H takes a wider cluster (H <= 128: c >= 2; H <= 256: c >= 4),
+// and the per-CTA code is the same at every H: its gate columns (3 x 64)
+// and units fit one pass of its kThreads threads. Only the operands grow:
+// the full h (or dg) a step's product reads and this CTA's slice of Wh, in
+// shared memory, whose size the launch rule (ops/kernels/gru.py) checks
+// against the card's per-block limit. At H = 256 a 4-CTA cluster's slices
+// (64 units x 3 gates x 256, ~200 KB) leave no room beside them, so the rule
+// takes 8 CTAs (a portable cluster size) there.
 
 #pragma once
 
@@ -18,8 +28,9 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 192;    // threads per CTA
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxH = 64;        // largest hidden size
-constexpr int kMaxCluster = 4;   // CTAs per cluster
+constexpr int kMaxH = 256;       // largest hidden size
+constexpr int kMaxUnits = 64;    // hidden units a CTA owns at most
+constexpr int kMaxCluster = 8;   // CTAs per cluster (the portable maximum)
 
 __host__ __device__ __forceinline__ int round8(int x) { return (x + 7) & ~7; }
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
@@ -275,12 +286,14 @@ int launch_clustered(void (*kernel)(Params...), int blocks, int lanes, int clust
 }
 
 // The host's check of a launch shape: 8- or 16-row tiles, 1 to kMaxCluster
-// CTAs per cluster, each owning at least one hidden unit, 1 to kMaxLanes
-// lanes.
+// CTAs per cluster, each owning at least one and at most kMaxUnits hidden
+// units, 1 to kMaxLanes lanes. (A shape whose shared memory exceeds the
+// card's per-block limit is refused by the launch itself.)
 constexpr int kMaxLanes = 65535;   // the grid's y extent
 inline bool valid_shape(int h, int rows, int cluster, int lanes) {
   return h > 0 && h <= kMaxH && (rows == 8 || rows == 16) && cluster >= 1 &&
-         cluster <= kMaxCluster && cluster <= h && lanes >= 1 && lanes <= kMaxLanes;
+         cluster <= kMaxCluster && cluster <= h &&
+         (h + cluster - 1) / cluster <= kMaxUnits && lanes >= 1 && lanes <= kMaxLanes;
 }
 
 }  // namespace gru

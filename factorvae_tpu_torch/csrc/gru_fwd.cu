@@ -31,10 +31,17 @@
 // serving chunk (N = 9,728). Latency, not either rate, holds it back: T
 // dependent steps, each a small product, the gates and a barrier.
 //
+// At H = 256 the product is 16 times the flagship's per row and step: 2.4
+// GFLOP at one training day (N = 304, T = 20), 0.0145 ms at f32 accuracy
+// on the tensor cores, above the bytes' 0.0056 ms (0.013 ms with the
+// residuals): operations bound it there, and latency still holds it back.
+//
 // Design (the launch shape comes from the wrapper's rule,
 // `ops/kernels/gru.py:launch_shape`):
 // - A tile of R = 8 or 16 rows is split over a thread-block cluster of c = 1,
-//   2 or 4 CTAs: CTA `rank` owns H/c hidden units and their three gate
+//   2, 4 or 8 CTAs (8 only above H = 64, where a CTA's at most 64 units
+//   make H / 64 the least c; gru_common.cuh): CTA `rank` owns H/c hidden
+//   units and their three gate
 //   columns of Wh, computes that slice of g and of h', and stores its slice
 //   of h' into every CTA's shared memory (st.shared::cluster); one cluster
 //   barrier per step then gives every CTA the full h for the next product.
@@ -243,10 +250,18 @@ int launch_rows(const float* xi, const float* wh, const float* bh, float* h_out,
 
 extern "C" int gru_fwd_max_hidden() { return kMaxH; }
 
+// Bytes of dynamic shared memory a gru_fwd launch takes at hidden size h,
+// `rows` per tile and `cluster` CTAs (ops/kernels/gru.py `smem_bytes`
+// keeps a copy of this layout to pick its launch shapes).
+extern "C" int gru_fwd_smem_bytes(int h, int rows, int cluster) {
+  return (int)sizeof(float) * fwd_smem_floats(h, rows, (h + cluster - 1) / cluster, cluster);
+}
+
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
 // `hseq` and `gseq` null: the serving variant, which writes only h_out. Else
 // the training variant, which also writes hseq (S, N, T, H) and gseq (S, N,
-// T, 3H). `rows` (8 or 16) and `cluster` (1, 2 or 4) are the launch shape;
+// T, 3H). `rows` (8 or 16) and `cluster` (1, 2, 4 or 8, at most 64 units a
+// CTA: `valid_shape`) are the launch shape;
 // `lanes` = S >= 1, the models of the launch (1: one model, the shapes above
 // without their S).
 extern "C" int gru_fwd(const float* xi, const float* wh, const float* bh,

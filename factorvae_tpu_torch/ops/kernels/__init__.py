@@ -19,9 +19,11 @@ import torch
 
 # The largest hidden size every kernel takes: `kMaxH` of csrc/gru_common.cuh
 # and csrc/attention_common.cuh (each library's `*_max_hidden()` returns
-# it). The entry points refuse a larger one on a CUDA device before any
-# data is read; the plain versions on the CPU take any size.
-MAX_HIDDEN = 64
+# it). Each kernel reaches it through instances for H <= 64 (the ones tuned
+# first), <= 128 and <= 256, picked per launch. The entry points refuse a
+# larger one on a CUDA device before any data is read; the plain versions
+# on the CPU take any size.
+MAX_HIDDEN = 256
 
 
 def upcast(*tensors):

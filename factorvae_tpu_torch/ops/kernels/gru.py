@@ -52,21 +52,56 @@ from factorvae_tpu_torch import _build
 from factorvae_tpu_torch.ops.kernels import lane_major, launch_range, plain, upcast
 
 TILE_ROWS = (16, 8)      # rows per tile the kernels take, preferred first
-CLUSTERS = (1, 2, 4)     # CTAs per cluster the kernels take
+CLUSTERS = (1, 2, 4, 8)  # CTAs per cluster the kernels take (8 only above H = 64)
+MAX_UNITS = 64           # hidden units a CTA owns at most (`kMaxUnits`)
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use on an H100
+_THREADS = 192           # threads per CTA (`kThreads`)
 
 
-def launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1) -> tuple:
+def _mma_ld(k: int) -> int:
+    return ((k + 7) & ~7) + 4
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def smem_bytes(h_dim: int, rows: int, cluster: int) -> int:
+    """The larger of the two recurrence kernels' dynamic shared memory at a
+    launch shape (`fwd_smem_floats` of csrc/gru_fwd.cu, `walk_smem_floats`
+    of csrc/gru_bwd.cu): a CTA's slice of Wh beside the full h or dg. A
+    copy of those layouts, so that the rule runs without a library; a cuda
+    test holds it to the libraries' `gru_fwd_smem_bytes` and
+    `gru_walk_smem_bytes` at every shape."""
+    umax = -(-h_dim // cluster)
+    nbuf = 2 if cluster > 1 else 1
+    fwd = (nbuf * rows * _mma_ld(h_dim) + _round16(3 * umax) * _mma_ld(h_dim)
+           + rows * _THREADS + nbuf * rows * 3 * umax + 3 * umax)
+    walk = (nbuf * rows * _mma_ld(3 * h_dim) + _round16(umax) * _mma_ld(3 * h_dim)
+            + rows * _THREADS + rows * umax + nbuf * rows * 7 * umax)
+    return 4 * max(fwd, walk)
+
+
+def launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1,
+                 smem_limit: int = SMEM_PER_BLOCK) -> tuple:
     """(rows per tile, CTAs per cluster) of the GRU kernels for N rows of each
     of `lanes` models on a card of `num_sms` SMs: the first of 16-row tiles
-    alone, 8-row tiles alone, then 16- and 8-row tiles split over 2 and over
-    4 CTAs, whose grid (tiles of each lane's rows, times the lanes) has a CTA
-    for every SM; else the widest split. A cluster never has more CTAs than
-    hidden units, and a tile never takes rows of two lanes."""
+    alone, 8-row tiles alone, then 16- and 8-row tiles split over 2, 4 and
+    (above H = 64) 8 CTAs, whose grid (tiles of each lane's rows, times the
+    lanes) has a CTA for every SM; else the widest split. A cluster never
+    has more CTAs than hidden units, a CTA never owns more than MAX_UNITS
+    of them, a shape whose shared memory exceeds `smem_limit` bytes is
+    skipped, and a tile never takes rows of two lanes. Up to H = 64 this is
+    the rule the kernels were tuned under (clusters of 1, 2 and 4)."""
     shape = None
     for c in CLUSTERS:
-        if c > h_dim:
+        if c > h_dim or (c > 4 and h_dim <= MAX_UNITS):
             break
+        if -(-h_dim // c) > MAX_UNITS:
+            continue
         for rows in TILE_ROWS:
+            if smem_bytes(h_dim, rows, c) > smem_limit:
+                continue
             shape = (rows, c)
             if lanes * -(-n_rows // rows) * c >= num_sms:
                 return shape
@@ -74,15 +109,19 @@ def launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1) -> tuple
 
 
 @functools.lru_cache(maxsize=None)
-def _num_sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+def _card(device_index: int) -> tuple:
+    """(SMs, shared memory bytes a block may use) of a card."""
+    props = torch.cuda.get_device_properties(device_index)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", SMEM_PER_BLOCK))
 
 
 def _shape(xi: torch.Tensor) -> tuple:
     """`launch_shape` for xi (N, T, 3H), or lane-axis xi (S, N, T, 3H), on
     the card that holds it."""
     lanes = xi.shape[0] if xi.ndim == 4 else 1
-    return launch_shape(xi.shape[-3], xi.shape[-1] // 3, _num_sms(xi.device.index), lanes)
+    sms, smem = _card(xi.device.index)
+    return launch_shape(xi.shape[-3], xi.shape[-1] // 3, sms, lanes, smem)
 
 
 def _gates(x: torch.Tensor, g: torch.Tensor, h_dim: int):
@@ -203,11 +242,13 @@ def _check_device(name: str, tensors: dict) -> None:
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "gru_fwd": {"gru_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
-                "gru_fwd_max_hidden": ([], _I)},
+                "gru_fwd_max_hidden": ([], _I),
+                "gru_fwd_smem_bytes": ([_I] * 3, _I)},
     "gru_bwd": {"gru_walk": ([_P] * 7 + [_I] * 6 + [_P], _I),
                 "gru_dwh": ([_P] * 6 + [_L, _I, _I, _P], _I),
                 "gru_dwh_scratch_floats": ([_L, _I, _I], _L),
-                "gru_bwd_max_hidden": ([], _I)},
+                "gru_bwd_max_hidden": ([], _I),
+                "gru_walk_smem_bytes": ([_I] * 3, _I)},
 }
 
 

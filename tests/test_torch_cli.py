@@ -361,8 +361,8 @@ class TestChaosEnvironment:
 
 REFUSED = [
     (["--no-pallas"], "--no-pallas", None),
-    # above the CUDA kernels' kMaxH on the card (ROADMAP Queue 2 "Limits")
-    (["--hidden_size", "96", "--device", "cuda"], "hidden_size 96", None),
+    # above the CUDA kernels' kMaxH (256) on the card (ROADMAP Queue 2 "Limits")
+    (["--hidden_size", "257", "--device", "cuda"], "hidden_size 257", None),
 ]
 
 

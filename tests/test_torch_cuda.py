@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-Every test here needs a CUDA device and skips without one. The file imports
+Every test here needs a CUDA device and skips without one. Hidden sizes
+above 64 (up to 256, the kernels' wider instances) are cases of the same
+tests, and of `test_gru_wide_cluster_path_matches_plain` and
+`test_attention_takes_5000_rows_at_h256`. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
 PyTorch, without the repo's conftest:
 
@@ -60,6 +63,15 @@ def _to(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
+def _wh_scale(h):
+    """The scale of a test's Wh: 0.3 up to H = 64, the model's own 1/sqrt(H)
+    above. At 0.3 a wider recurrence is chaotic and its gradients explode:
+    at H = 256 the plain version in f32 drifts from f64 by 2.3e-4 (h) and
+    3.9e-2 (dxi, which reaches 444) on the CPU, beyond any f32 tolerance;
+    at 1/sqrt(H) by 2.3e-7 and 4.4e-7 (scripts/torch_gru_drift.py)."""
+    return 0.3 if h <= 64 else h ** -0.5
+
+
 def _close(got, want):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
@@ -73,11 +85,12 @@ def _close_sum(got, want):
 
 
 @pytest.mark.parametrize("n,t,h", [(9728, 20, 64), (1001, 20, 60), (37, 6, 8),
-                                   (33, 5, 37), (300, 20, 33)])
+                                   (33, 5, 37), (300, 20, 33), (37, 6, 65), (9728, 20, 128),
+                                   (333, 7, 200), (9728, 20, 256)])
 def test_gru_kernel_matches_plain(dev, n, t, h):
     rng = np.random.default_rng(n + h)
     xi, wh, bh = _to(dev, (rng.normal(size=(n, t, 3 * h)) * 0.5).astype(np.float32),
-                     (rng.normal(size=(h, 3 * h)) * 0.3).astype(np.float32),
+                     (rng.normal(size=(h, 3 * h)) * _wh_scale(h)).astype(np.float32),
                      (rng.normal(size=(3 * h,)) * 0.1).astype(np.float32))
     before = gru_fwd.launches
     got = gru_fwd(xi, wh, bh)
@@ -87,8 +100,8 @@ def test_gru_kernel_matches_plain(dev, n, t, h):
 
 def test_gru_kernel_refuses_what_it_cannot_run(dev):
     with pytest.raises(ValueError, match="exceeds"):
-        gru_fwd(torch.zeros(2, 3, 195, device=dev), torch.zeros(65, 195, device=dev),
-                torch.zeros(195, device=dev))
+        gru_fwd(torch.zeros(2, 3, 771, device=dev), torch.zeros(257, 771, device=dev),
+                torch.zeros(771, device=dev))
     with pytest.raises(TypeError):
         gru_fwd(torch.zeros(2, 3, 6, device=dev, dtype=torch.float64),
                 torch.zeros(2, 6, device=dev, dtype=torch.float64),
@@ -104,7 +117,7 @@ def test_attention_kernel_refuses_what_it_cannot_run(dev):
                              torch.zeros(k, h, device=dev))
 
     with pytest.raises(ValueError, match="exceeds"):
-        call(1, 4, 2, 65)
+        call(1, 4, 2, 257)
     before = attention_fwd.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         call(1, 40000, 1, 8)     # row list and scores exceed one block's shared
@@ -176,11 +189,12 @@ def test_predict_panel_on_the_card_matches_the_cpu(dev):
 
 
 @pytest.mark.parametrize("n,t,h", [(304, 20, 64), (2432, 20, 64), (304, 60, 60),
-                                   (72, 60, 8), (333, 7, 37), (5, 3, 4)])
+                                   (72, 60, 8), (333, 7, 37), (5, 3, 4), (333, 7, 96),
+                                   (304, 20, 256)])
 def test_gru_bwd_kernel_matches_plain_and_repeats_bitwise(dev, n, t, h):
     rng = np.random.default_rng(n * t + h)
     xi, wh, bh, dh = _to(dev, (rng.normal(size=(n, t, 3 * h)) * 0.5).astype(np.float32),
-                         (rng.normal(size=(h, 3 * h)) * 0.3).astype(np.float32),
+                         (rng.normal(size=(h, 3 * h)) * _wh_scale(h)).astype(np.float32),
                          (rng.normal(size=(3 * h,)) * 0.1).astype(np.float32),
                          rng.normal(size=(n, h)).astype(np.float32))
     before = gru_bwd.launches
@@ -214,14 +228,14 @@ def test_gru_function_runs_k1_then_k2(dev):
 
 def test_backward_kernels_refuse_what_they_cannot_run(dev):
     with pytest.raises(ValueError, match="exceeds"):
-        gru_bwd(torch.zeros(2, 3, 195, device=dev), torch.zeros(65, 195, device=dev),
-                torch.zeros(195, device=dev), torch.zeros(2, 65, device=dev))
+        gru_bwd(torch.zeros(2, 3, 771, device=dev), torch.zeros(257, 771, device=dev),
+                torch.zeros(771, device=dev), torch.zeros(2, 257, device=dev))
     with pytest.raises(ValueError, match="exceeds"):
-        attention_bwd(torch.zeros(1, 4, 65, device=dev),
+        attention_bwd(torch.zeros(1, 4, 257, device=dev),
                       torch.ones(1, 4, dtype=torch.bool, device=dev),
-                      torch.zeros(2, 65, device=dev), torch.zeros(2, 65, 65, device=dev),
-                      torch.zeros(2, 65, device=dev), torch.zeros(2, 65, 65, device=dev),
-                      torch.zeros(2, 65, device=dev), torch.zeros(1, 2, 65, device=dev))
+                      torch.zeros(2, 257, device=dev), torch.zeros(2, 257, 257, device=dev),
+                      torch.zeros(2, 257, device=dev), torch.zeros(2, 257, 257, device=dev),
+                      torch.zeros(2, 257, device=dev), torch.zeros(1, 2, 257, device=dev))
 
 
 @pytest.mark.parametrize("b,n,k,h", [(1, 304, 96, 64), (8, 304, 96, 64), (3, 10, 4, 8),
@@ -310,14 +324,18 @@ def test_trainer_on_the_card_tracks_the_cpu(dev, tmp_path):
     np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)
 
 
-GRU_SHAPES = [(304, 20, 64), (2432, 20, 64), (304, 60, 60), (333, 7, 37)]
-GRU_IDS = ["one_day", "eight_days", "T60_H60", "ragged_H37"]
+# the last four take the kernels' H <= 128 and H <= 256 instances (K3's
+# walk at T = 60 too)
+GRU_SHAPES = [(304, 20, 64), (2432, 20, 64), (304, 60, 60), (333, 7, 37),
+              (304, 20, 128), (304, 60, 128), (304, 20, 256), (2432, 20, 256)]
+GRU_IDS = ["one_day", "eight_days", "T60_H60", "ragged_H37",
+           "day_H128", "T60_H128", "day_H256", "eight_days_H256"]
 
 
 def _gru_inputs(dev, n, t, h, seed):
     rng = np.random.default_rng(seed)
     return _to(dev, (rng.normal(size=(n, t, 3 * h)) * 0.5).astype(np.float32),
-               (rng.normal(size=(h, 3 * h)) * 0.3).astype(np.float32),
+               (rng.normal(size=(h, 3 * h)) * _wh_scale(h)).astype(np.float32),
                (rng.normal(size=(3 * h,)) * 0.1).astype(np.float32),
                rng.normal(size=(n, h)).astype(np.float32))
 
@@ -386,6 +404,86 @@ def test_gru_cluster_path_matches_plain(dev, n, t, h, shape):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _wide_shapes(h):
+    """Every (rows, cluster) the GRU kernels take at a hidden size h: at most
+    gru.MAX_UNITS units a CTA, within an H100 block's shared memory."""
+    return [(rows, c) for c in gru_module.CLUSTERS for rows in gru_module.TILE_ROWS
+            if c <= h and -(-h // c) <= gru_module.MAX_UNITS
+            and gru_module.smem_bytes(h, rows, c) <= gru_module.SMEM_PER_BLOCK]
+
+
+@pytest.mark.parametrize("h,shape", [pytest.param(h, s, id=f"H{h}-{s[0]}x{s[1]}")
+                                     for h in (65, 96, 128, 200, 256) for s in _wide_shapes(h)])
+def test_gru_wide_cluster_path_matches_plain(dev, h, shape):
+    """Above H = 64, every tile and cluster shape (clusters of 2 to 8) the
+    kernels take computes the plain function, forward (both variants), the
+    walk and dWh, and repeats bitwise."""
+    xi, wh, bh, dh = _gru_inputs(dev, 333, 7, h, h + shape[1])
+    fwd = gru_module._fwd_launch("gru_fwd", xi, wh, bh, False, shape)[0]
+    _close(fwd, gru_fwd_plain(xi, wh, bh))
+    res = gru_module._fwd_launch("gru_fwd_residuals", xi, wh, bh, True, shape)[:3]
+    for g, w in zip(res, gru_fwd_plain(xi, wh, bh, keep_residuals=True)):
+        _close(g, w)
+    assert torch.equal(res[0], fwd)
+    hseq, gseq = res[1:]
+    got = gru_module._walk_launch(xi, wh, hseq, gseq, dh, shape)
+    for g, w in zip(got, gru_walk_plain(xi, wh, hseq, gseq, dh)):
+        _close(g, w)
+    again = gru_module._walk_launch(xi, wh, hseq, gseq, dh, shape)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dw = gru_dwh(hseq, *got)
+    for g, w in zip(dw, gru_dwh_plain(hseq, *got)):
+        _close_sum(g, w)
+
+
+def test_gru_smem_bytes_is_the_libraries_layout(dev):
+    """`gru.smem_bytes`, the copy of the recurrence kernels' shared memory
+    layouts that the launch rule reads, equals the libraries' own at every
+    hidden size, tile and cluster."""
+    from factorvae_tpu_torch.ops.kernels import MAX_HIDDEN
+
+    fwd, bwd = gru_module._lib("gru_fwd"), gru_module._lib("gru_bwd")
+    for h in range(1, MAX_HIDDEN + 1):
+        for c in (c for c in gru_module.CLUSTERS if c <= h):
+            for rows in gru_module.TILE_ROWS:
+                want = max(fwd.gru_fwd_smem_bytes(h, rows, c),
+                           bwd.gru_walk_smem_bytes(h, rows, c))
+                assert gru_module.smem_bytes(h, rows, c) == want, (h, rows, c)
+
+
+F64_DRIFT_MULTIPLE = 4
+
+
+def test_gru_wide_chaotic_recurrence_tracks_f64_as_plain_f32_does(dev):
+    """At H = 256 with Wh at 0.3, the scale of the cases up to H = 64, the
+    recurrence is chaotic and float32 itself drifts from float64 past the
+    tolerances above (scripts/torch_gru_drift.py). There the kernels' h,
+    dxi, dWh and db, each against the plain version in float64, stay within
+    F64_DRIFT_MULTIPLE times the plain version's own float32 error (h and
+    dxi absolute, dWh and db over max(1, max |f64|))."""
+    n, t, h = 304, 20, 256
+    rng = np.random.default_rng(11)
+    f32 = _to(dev, (rng.normal(size=(n, t, 3 * h)) * 0.5).astype(np.float32),
+              (rng.normal(size=(h, 3 * h)) * 0.3).astype(np.float32),
+              (rng.normal(size=(3 * h,)) * 0.1).astype(np.float32),
+              rng.normal(size=(n, h)).astype(np.float32))
+    f64 = [a.double() for a in f32]
+    before = gru_fwd.launches, gru_bwd.launches
+    kernel = [gru_fwd(*f32[:3]), *gru_bwd(*f32)]
+    assert (gru_fwd.launches, gru_bwd.launches) == (before[0] + 1, before[1] + 1)
+    plain = [gru_fwd_plain(*f32[:3]), *gru_bwd_plain(*f32)]
+    want = [gru_fwd_plain(*f64[:3]), *gru_bwd_plain(*f64)]
+
+    def errors(got):
+        return [float((g.double() - w).abs().max()) / (max(1.0, float(w.abs().max()))
+                                                        if i > 1 else 1.0)
+                for i, (g, w) in enumerate(zip(got, want))]
+
+    k_err, p_err = errors(kernel), errors(plain)
+    assert all(k <= F64_DRIFT_MULTIPLE * p + 1e-7 for k, p in zip(k_err, p_err)), (
+        k_err, p_err)
+
+
 def test_gru_rule_fills_the_card_at_one_day(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, cluster = launch_shape(304, 64, sms)
@@ -451,8 +549,14 @@ def _attention_case(dev, b, n, k, h, seed, poison):
     return args, keep_t, dctx_t, flagged
 
 
-ATT_SHAPES = [(1, 304, 96, 64), (6, 304, 96, 64), (5, 70, 6, 37), (1, 3000, 8, 64)]
-ATT_IDS = ["one_day", "six_days_poisoned", "H37_poisoned", "N3000_rows_unstaged"]
+# the wide ones take the H <= 128 and H <= 256 instances, whose exact path
+# streams Wk and Wv through shared memory
+ATT_SHAPES = [(1, 304, 96, 64), (6, 304, 96, 64), (5, 70, 6, 37), (1, 3000, 8, 64),
+              *((6, 70, 6, h) for h in (65, 96, 128, 200, 256)),
+              (1, 304, 96, 128), (1, 304, 96, 256)]
+ATT_IDS = ["one_day", "six_days_poisoned", "H37_poisoned", "N3000_rows_unstaged",
+           *(f"H{h}_poisoned" for h in (65, 96, 128, 200, 256)), "one_day_H128",
+           "one_day_H256"]
 
 
 @pytest.mark.parametrize("b,n,k,h,group", [
@@ -479,6 +583,30 @@ def test_attention_group_path_matches_plain(dev, b, n, k, h, group):
         assert all(bool(torch.isfinite(g).all()) for g in grads)
         for d in ([0] + flagged if flagged else []):
             assert bool((got[d] == 0).all()) and bool((grads[0][d] == 0).all())
+
+
+@pytest.mark.parametrize("poison", [False, True], ids=["fold", "exact"])
+def test_attention_takes_5000_rows_at_h256(dev, poison):
+    """5,000 valid rows a day at H = 256 through the wrappers, forward and
+    backward: on the fold path, and with a NaN day and +inf / -inf days on
+    the exact path (the day of padding beside them)."""
+    b = 5 if poison else 1
+    args, keep, dctx, flagged = _attention_case(dev, b, 5200, 4, 256, 17, poison)
+    args[1][:, :5000] = True
+    if poison:
+        args[1][0] = False
+    before = attention_fwd.launches, attention_bwd.launches
+    got = attention_fwd(*args, keep=keep)
+    _close(got, attention_fwd_plain(*args, keep=keep))
+    grads = attention_bwd(*args, dctx, keep=keep)
+    want = attention_bwd_plain(*args, dctx, keep=keep)
+    _close(grads[0], want[0])
+    for g, w in zip(grads[1:], want[1:]):
+        _close_sum(g, w)
+    assert (attention_fwd.launches, attention_bwd.launches) == (before[0] + 1,
+                                                                before[1] + 1)
+    _, days, _ = attention_module._fwd_launch(*args, keep, 1, exact=True)
+    assert [d for d in range(b) if days[d]] == flagged
 
 
 def test_attention_rule_fills_the_card(dev):
@@ -565,7 +693,7 @@ def test_entry_points_refuse_a_hidden_size_above_the_kernels(dev):
     from factorvae_tpu_torch.serve.registry import ModelRegistry, RegistryError
     from factorvae_tpu_torch.train.trainer import Trainer
 
-    cfg = config.Config(model=config.ModelConfig(num_features=12, hidden_size=96,
+    cfg = config.Config(model=config.ModelConfig(num_features=12, hidden_size=257,
                                                  num_factors=4, num_portfolios=10,
                                                  seq_len=6),
                         data=config.DataConfig(seq_len=6))
@@ -577,8 +705,10 @@ def test_entry_points_refuse_a_hidden_size_above_the_kernels(dev):
 
 
 @pytest.mark.parametrize("n,t,h,shape", [(304, 20, 64, (8, 1)), (37, 30, 8, (16, 2)),
-                                         (40, 6, 12, (8, 4))],
-                         ids=["one_day", "T30_cluster2", "ragged_cluster4"])
+                                         (40, 6, 12, (8, 4)), (304, 9, 96, (8, 4)),
+                                         (304, 9, 256, (8, 8))],
+                         ids=["one_day", "T30_cluster2", "ragged_cluster4", "H96_cluster4",
+                              "H256_cluster8"])
 def test_gru_lane_axis_is_each_lane_alone(dev, n, t, h, shape):
     """Three lanes of three weight sets in one launch of each GRU kernel:
     the lane-axis plain version's values, and each lane bitwise the
@@ -587,7 +717,7 @@ def test_gru_lane_axis_is_each_lane_alone(dev, n, t, h, shape):
 
     rng = np.random.default_rng(n * t + h)
     xi, wh, bh, dh = _to(dev, (rng.normal(size=(3, n, t, 3 * h)) * 0.5).astype(np.float32),
-                         (rng.normal(size=(3, h, 3 * h)) * 0.3).astype(np.float32),
+                         (rng.normal(size=(3, h, 3 * h)) * _wh_scale(h)).astype(np.float32),
                          (rng.normal(size=(3, 3 * h)) * 0.1).astype(np.float32),
                          rng.normal(size=(3, n, h)).astype(np.float32))
     h3, hseq, gseq, _ = gru_module._fwd_launch("gru_fwd", xi, wh, bh, True, shape)
@@ -608,8 +738,8 @@ def test_gru_lane_axis_is_each_lane_alone(dev, n, t, h, shape):
 
 
 @pytest.mark.parametrize("b,n,k,h,group", [(1, 304, 96, 64, 4), (2, 10, 6, 8, 2),
-                                           (3, 33, 5, 37, 1)],
-                         ids=["one_day_G4", "small_G2", "ragged_H37"])
+                                           (3, 33, 5, 37, 1), (2, 70, 6, 256, 2)],
+                         ids=["one_day_G4", "small_G2", "ragged_H37", "H256_G2"])
 def test_attention_lane_axis_is_each_lane_alone(dev, b, n, k, h, group):
     """Three lanes with their own days and weights in one launch of K4 and
     of K5: the lane-axis plain version's values, each lane bitwise the

@@ -1,0 +1,346 @@
+"""Hidden sizes above 64 on the port, against the JAX package, on the CPU.
+
+The CUDA kernels take every H <= 256 (`ops.kernels.MAX_HIDDEN`); on the CPU
+the wrappers run their plain versions, which take any H. These tests hold
+those plain versions at H in {65, 96, 128} against the Pallas kernels in
+interpret mode (K1; K2 at T <= 24 and K3's segmented kernel at T = 30; K4
+and K5 with a NaN day and a +inf day), the port's `Trainer` at H = 96
+against the JAX `Trainer`, `grid_sweep` over a hidden-size bucket {8, 72}
+against the JAX `grid_sweep`, the launch rule and the refusal at the new
+maximum, the CLI at H = 96, and an exported program at H = 96 (its
+registered ops traced through their fake functions). Inputs come from
+numpy.
+
+Tolerances are the repo's oracle ones: f32 at rtol 1e-5 / atol 1e-6; the
+GRU's weight gradients, summed over every row and step, at rtol 2e-5 /
+atol 5e-6; per-epoch losses at rtol 2e-5 (`tests/test_torch_train.py`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from factorvae_tpu import config as jconfig
+from factorvae_tpu.data import PanelDataset as JPanelDataset
+from factorvae_tpu.data import panel_to_frame as jpanel_to_frame
+from factorvae_tpu.data import synthetic_panel
+from factorvae_tpu.eval.sweep import grid_sweep as jgrid_sweep
+from factorvae_tpu.ops.pallas.attention import multihead_cross_section_attention
+from factorvae_tpu.ops.pallas.attention_grad import fused_attention
+from factorvae_tpu.ops.pallas.gru import _SEG_MAX, gru_scan
+from factorvae_tpu.train.fleet import FleetTrainer as JFleetTrainer
+from factorvae_tpu.train.fleet import unstack_state as junstack
+from factorvae_tpu.train.trainer import Trainer as JTrainer
+from factorvae_tpu.utils.logging import MetricsLogger as JMetricsLogger
+from factorvae_tpu_torch import cli
+from factorvae_tpu_torch import config as tconfig
+from factorvae_tpu_torch.data.loader import PanelDataset
+from factorvae_tpu_torch.data.panel import Panel
+from factorvae_tpu_torch.eval import sweep
+from factorvae_tpu_torch.ops.kernels import MAX_HIDDEN, hidden_refusal
+from factorvae_tpu_torch.ops.kernels import gru as gru_module
+from factorvae_tpu_torch.ops.kernels.attention import attention, attention_fwd
+from factorvae_tpu_torch.ops.kernels.gru import gru, gru_fwd, launch_shape, smem_bytes
+from factorvae_tpu_torch.params import flax_to_torch
+from factorvae_tpu_torch.train.fleet import FleetTrainer
+from factorvae_tpu_torch.train.trainer import Trainer
+from factorvae_tpu_torch.utils.logging import MetricsLogger
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+SUM_TOL = dict(rtol=2e-5, atol=5e-6)
+LOSS_RTOL = 2e-5
+WIDE = (65, 96, 128)
+H100_SMS = 132
+
+
+def _np(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+# ---- K1, K2, K3 -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t", [8, _SEG_MAX + 6], ids=["K2", "K3"])
+@pytest.mark.parametrize("h", WIDE)
+def test_gru_plain_matches_pallas_at_wide_h(h, t):
+    """K1's plain version and the differentiable `gru` (the residual variant
+    then the walk and dWh) against the Pallas `gru_scan` and its VJP (K2's
+    kernel at T = 8, K3's segmented kernel at T = 30)."""
+    rng = np.random.default_rng(h + t)
+    n = 5
+    xi = (rng.normal(size=(n, t, 3 * h)) * 0.5).astype(np.float32)
+    wh = (rng.normal(size=(h, 3 * h)) / np.sqrt(h)).astype(np.float32)
+    bh = (rng.normal(size=(3 * h,)) * 0.1).astype(np.float32)
+    dh = rng.normal(size=(n, h)).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (xi, wh, bh)]
+    want_h = np.asarray(gru_scan(*jargs))
+    want = jax.grad(lambda *a: jnp.sum(gru_scan(*a) * jnp.asarray(dh)),
+                    argnums=(0, 1, 2))(*jargs)
+    tx, tw, tb, tdh = _np(xi, wh, bh, dh)
+    np.testing.assert_allclose(gru_fwd(tx, tw, tb).numpy(), want_h, **TOL)
+    leaves = [a.clone().requires_grad_() for a in (tx, tw, tb)]
+    grads = torch.autograd.grad(gru(*leaves), leaves, tdh)
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(want[0]), **TOL)
+    for g, w in zip(grads[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **SUM_TOL)
+
+
+# ---- K4, K5 -----------------------------------------------------------------
+
+
+def _attention_args(rng, b, n, k, h):
+    latent = rng.normal(size=(b, n, h)).astype(np.float32)
+    mask = rng.random((b, n)) > 0.2
+    q = rng.normal(size=(k, h)).astype(np.float32)
+    wk, bk, wv, bv = ((rng.normal(size=s) / np.sqrt(h)).astype(np.float32)
+                      for s in ((k, h, h), (k, h), (k, h, h), (k, h)))
+    latent[1, 3, 0] = np.nan                  # day 1: the guard zeroes it
+    latent[2, 4, 1] = np.inf                  # day 2: +inf in a valid row
+    mask[1, 3] = mask[2, 4] = True
+    return latent, mask, q, wk, bk, wv, bv
+
+
+@pytest.mark.parametrize("h", WIDE)
+def test_attention_plain_matches_pallas_at_wide_h(h):
+    """K4's and K5's plain versions, through the differentiable `attention`,
+    against the Pallas forward kernel and the VJP of `fused_attention`
+    (its backward kernel), day by day; the poisoned days give zero."""
+    rng = np.random.default_rng(h)
+    b, n, k = 3, 10, 4
+    latent, mask, q, wk, bk, wv, bv = _attention_args(rng, b, n, k, h)
+    dctx = rng.normal(size=(b, k, h)).astype(np.float32)
+    want_ctx, want_grads = [], []
+    for d in range(b):
+        jw = [jnp.asarray(a) for a in (q, wk, bk, wv, bv)]
+        want_ctx.append(np.asarray(multihead_cross_section_attention(
+            jnp.asarray(latent[d]), jnp.asarray(mask[d]), *jw)))
+
+        def f(lat, *w, d=d):
+            return fused_attention(lat, jnp.asarray(mask[d], jnp.float32), *w, None)
+
+        _, vjp = jax.vjp(f, jnp.asarray(latent[d]), *jw)
+        want_grads.append([np.asarray(g) for g in vjp(jnp.asarray(dctx[d]))])
+    t = _np(latent, mask, q, wk, bk, wv, bv, dctx)
+    np.testing.assert_allclose(attention_fwd(*t[:7]).numpy(), np.stack(want_ctx), **TOL)
+    leaves = [a.clone().requires_grad_() for a in (t[0], *t[2:7])]
+    out = attention(leaves[0], t[1], *leaves[1:])
+    assert (out[1] == 0).all() and (out[2] == 0).all() and (out[0] != 0).any()
+    grads = torch.autograd.grad(out, leaves, t[7])
+    # day 0 is the clean one: the Pallas kernel zeroes a guarded head by a
+    # multiply, so its poisoned days leak NaN into the weight gradients,
+    # where the port selects and adds exactly zero
+    np.testing.assert_allclose(grads[0].numpy()[0], want_grads[0][0], **TOL)
+    assert (grads[0].numpy()[1:] == 0).all()
+    for i, g in enumerate(grads[1:], start=1):
+        np.testing.assert_allclose(g.numpy(), want_grads[0][i], **TOL)
+
+
+# ---- the launch rule and the refusal -----------------------------------------
+
+
+@pytest.mark.parametrize("h", [65, 96, 128, 129, 200, 256])
+@pytest.mark.parametrize("n,lanes", [(1, 1), (304, 1), (304, 4), (2432, 1), (9728, 1)])
+def test_launch_shape_rule_at_wide_h(n, lanes, h):
+    """Above H = 64 a CTA owns at most 64 units (so at least H / 64 CTAs a
+    cluster, up to 8), the shape's shared memory fits an H100's block, and
+    one flagship training day or more has a CTA for every SM."""
+    rows, cluster = launch_shape(n, h, H100_SMS, lanes)
+    assert rows in gru_module.TILE_ROWS and cluster in gru_module.CLUSTERS
+    assert -(-h // cluster) <= gru_module.MAX_UNITS and cluster <= h
+    assert smem_bytes(h, rows, cluster) <= gru_module.SMEM_PER_BLOCK
+    if n >= 304:
+        assert lanes * -(-n // rows) * cluster >= H100_SMS
+
+
+def test_launch_shape_rule_keeps_the_tuned_shapes_up_to_h64():
+    """The <= 64 class picks what it did before clusters of 8 existed."""
+    assert launch_shape(304, 64, H100_SMS) == (8, 4)
+    assert launch_shape(9728, 64, H100_SMS) == (16, 1)
+    assert launch_shape(5, 64, H100_SMS) == (8, 4)
+    assert launch_shape(304, 256, H100_SMS) == (8, 8)
+    assert max(c for h in range(1, 65) for n in (1, 40, 304)
+               for _, c in [launch_shape(n, h, H100_SMS)]) == 4
+
+
+def test_refusal_moves_to_the_new_maximum():
+    assert MAX_HIDDEN == 256
+    for h in (64, 65, 96, 128, 256):
+        assert hidden_refusal(h, "cuda") is None
+    refused = hidden_refusal(257, "cuda")
+    assert refused is not None and "Limits" in refused and "256" in refused
+    assert hidden_refusal(1024, "cpu") is None
+
+
+# ---- the trainer, the sweep and the CLI ---------------------------------------
+
+C, T, K, M = 6, 5, 4, 10
+
+
+@pytest.fixture(scope="module")
+def panels():
+    jp = synthetic_panel(num_days=36, num_instruments=11, num_features=C,
+                         missing_prob=0.2, seed=4)
+    tp = Panel(values=jp.values, valid=jp.valid,
+               dates=jp.dates.values.astype("datetime64[D]"),
+               instruments=np.asarray(jp.instruments))
+    return jp, tp
+
+
+def _jcfg(tp, save_dir, hidden, epochs=2) -> jconfig.Config:
+    d = [str(x)[:10] for x in tp.dates]
+    return jconfig.Config(
+        model=jconfig.ModelConfig(num_features=C, hidden_size=hidden, num_factors=K,
+                                  num_portfolios=M, seq_len=T, dropout_rate=0.0,
+                                  recon_loss="nll"),
+        data=jconfig.DataConfig(seq_len=T, start_time=d[0], fit_end_time=d[24],
+                                val_start_time=d[25], val_end_time=d[35]),
+        train=jconfig.TrainConfig(num_epochs=epochs, lr=1e-3, seed=3, checkpoint_every=0,
+                                  recover_after=0, save_dir=str(save_dir)))
+
+
+def _port(jcfg: jconfig.Config, save_dir) -> tconfig.Config:
+    cfg = tconfig.Config.from_dict(jcfg.to_dict())
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                              save_dir=str(save_dir)))
+
+
+def test_trainer_at_h96_tracks_the_jax_trainer(panels, tmp_path):
+    """Two epochs at H = 96 from the same weights: per-epoch train and val
+    losses within rtol 2e-5, the same steps."""
+    jp, tp = panels
+    jcfg = _jcfg(tp, tmp_path / "jax", 96)
+    jtr = JTrainer(jcfg, JPanelDataset(jp, seq_len=T))
+    jstate = jtr.init_state()
+    weights = flax_to_torch(jstate.params)
+    _, jout = jtr.fit(state=jstate)
+    tr = Trainer(_port(jcfg, tmp_path / "port"), PanelDataset(tp, seq_len=T, device="cpu"),
+                 device="cpu")
+    state = tr.init_state()
+    state.model.load_state_dict(weights)
+    _, out = tr.fit(state=state)
+    got = [(r["train_loss"], r["val_loss"]) for r in out["history"]]
+    want = [(r["train_loss"], r["val_loss"]) for r in jout["history"]]
+    assert len(got) == 2
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    assert [r["step"] for r in out["history"]] == [r["step"] for r in jout["history"]]
+
+
+def test_grid_sweep_over_hidden_sizes_matches_jax(panels, tmp_path, monkeypatch):
+    """`grid_sweep` over hidden_size {8, 72} x lr {1e-3, 3e-3}: two shape
+    buckets, each a 2-lane hyper-fleet, every lane from the JAX lane's
+    initial weights; the frame (best val, Rank-IC) and the per-epoch lane
+    losses equal the JAX sweep's."""
+    jp, tp = panels
+    d = [str(x)[:10] for x in tp.dates]
+    start, end = d[5], d[35]
+    points = [{"hidden_size": h, "lr": lr} for h in (8, 72) for lr in (1e-3, 3e-3)]
+    jcfg = _jcfg(tp, tmp_path / "jax", 8, epochs=1)
+    jds = JPanelDataset(jp, seq_len=T)
+    jlog = str(tmp_path / "jax.jsonl")
+    want = jgrid_sweep(jcfg, jds, points, score_start=start, score_end=end,
+                       logger=JMetricsLogger(jsonl_path=jlog, echo=False))
+
+    inits = {}
+
+    def jax_init(hidden, seed):
+        if (hidden, seed) not in inits:
+            c = dataclasses.replace(jcfg, model=dataclasses.replace(jcfg.model,
+                                                                    hidden_size=hidden))
+            ft = JFleetTrainer(c, jds, seeds=[seed], logger=JMetricsLogger(echo=False))
+            inits[hidden, seed] = flax_to_torch(junstack(ft.init_fleet_state().params, 0))
+        return inits[hidden, seed]
+
+    init = FleetTrainer.init_lane_state
+
+    def patched(self, i):
+        st = init(self, i)
+        st.model.load_state_dict(jax_init(self.model_cfg.hidden_size, self.seeds[i]))
+        return st
+
+    monkeypatch.setattr(FleetTrainer, "init_lane_state", patched)
+    log = str(tmp_path / "port.jsonl")
+    logger = MetricsLogger(jsonl_path=log, echo=False)
+    got = sweep.grid_sweep(_port(jcfg, tmp_path / "port"),
+                           PanelDataset(tp, seq_len=T, device="cpu"), points,
+                           score_start=start, score_end=end, logger=logger, device="cpu")
+    logger.finish()
+    assert list(got.index) == list(want.index)
+    assert got.attrs["summary"]["best_label"] == want.attrs["summary"]["best_label"]
+    np.testing.assert_allclose(got["best_val"], want["best_val"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got[["rank_ic", "rank_ic_ir"]], want[["rank_ic", "rank_ic_ir"]],
+                               rtol=1e-4, atol=1e-5)
+
+    def epochs(path):
+        with open(path) as fh:
+            return [e for e in map(json.loads, fh) if e["event"] == "fleet_epoch"]
+
+    got_e, want_e = epochs(log), epochs(jlog)
+    assert len(got_e) == len(want_e) == 2              # one epoch of each bucket
+    for g, w in zip(got_e, want_e):
+        for key in ("train_loss", "val_loss"):
+            np.testing.assert_allclose(g[key], w[key], rtol=LOSS_RTOL, err_msg=key)
+
+
+def test_cli_at_h96_on_the_cpu(panels, tmp_path):
+    """The experiment CLI takes --hidden_size 96 (and would on --device
+    cuda): it trains, scores and writes the CSV and its Rank-IC."""
+    jp, tp = panels
+    path = str(tmp_path / "panel.pkl")
+    jpanel_to_frame(jp).to_pickle(path)
+    d = [str(x.date()) for x in jp.dates]
+    argv = ["--dataset", path, "--num_latent", str(C), "--hidden_size", "96",
+            "--num_factor", str(K), "--num_portfolio", str(M), "--seq_len", str(T),
+            "--start_time", d[0], "--fit_end_time", d[24], "--val_start_time", d[25],
+            "--val_end_time", d[35], "--score_start", d[10], "--score_end", d[35],
+            "--num_epochs", "1", "--seed", "3", "--run_name", "wide",
+            "--save_dir", str(tmp_path / "models"), "--score_dir", str(tmp_path / "scores"),
+            "--metrics_jsonl", str(tmp_path / "run.jsonl"), "--device", "cpu"]
+    for device in ("cuda", "cpu"):
+        args = cli.build_parser().parse_args(argv[:-2] + ["--device", device])
+        assert cli._hidden_size(args) == 96 and hidden_refusal(96, device) is None
+    assert cli.main(argv) == 0
+    with open(tmp_path / "run.jsonl") as fh:
+        events = [json.loads(line) for line in fh]
+    assert [e["event"] for e in events].count("epoch") == 1
+    scores = [e for e in events if e["event"] == "scores"]
+    assert scores and np.isfinite(scores[0]["rank_ic"])
+    (csv_name,) = os.listdir(tmp_path / "scores")
+    with open(tmp_path / "scores" / csv_name) as fh:
+        assert fh.readline().strip() == "datetime,instrument,score,LABEL0"
+        assert len(fh.readlines()) > 0
+
+
+def test_exported_program_at_h96_scores_as_the_model(panels):
+    """`eval/export_aot.py` traces the registered ops (`gru_fwd`,
+    `attention_fwd`) at H = 96 through their fake functions, for the cuda
+    and the cpu platform; the program scores a day as `predict_panel` does."""
+    from factorvae_tpu_torch.eval.export_aot import export_prediction, load_exported
+    from factorvae_tpu_torch.eval.predict import predict_panel
+    from factorvae_tpu_torch.models.factorvae import load_model
+
+    _, tp = panels
+    cfg = tconfig.Config(model=tconfig.ModelConfig(num_features=C, hidden_size=96,
+                                                   num_factors=K, num_portfolios=M,
+                                                   seq_len=T))
+    ds = PanelDataset(tp, seq_len=T, device="cpu")
+    model = load_model(cfg, device="cpu")
+    cuda_blob = export_prediction(model, cfg, ds.n_max, platform="cuda")
+    art = load_exported(export_prediction(model, cfg, ds.n_max, platform="cpu"))
+    ops = {str(n.target) for n in art.program.graph.nodes if n.op == "call_function"}
+    assert {"factorvae_tpu_torch.gru_fwd.default",
+            "factorvae_tpu_torch.attention_fwd.default"} <= ops
+    day = 20
+    x, _, mask = ds.gather(torch.tensor([day]))
+    got = art.call(x, mask)
+    want = predict_panel(model, cfg, ds, np.array([day]), stochastic=False)
+    np.testing.assert_allclose(got.nan_to_num().numpy(), np.nan_to_num(want), **TOL)
+    assert torch.equal(load_exported(cuda_blob, device="cpu").call(x, mask).nan_to_num(),
+                       got.nan_to_num())
