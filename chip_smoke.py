@@ -451,6 +451,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2666,7 +2667,8 @@ def _device_split(torch, fn, reps: int = 3) -> dict:
                 continue
             ms = us / 1e3 / reps
             name = ev.key.lower()
-            kind = ("K1" if "gru_fwd_kernel" in name else "K4" if "attention_fwd_kernel" in name
+            kind = ("K1" if re.search(r"gru_fwd(_wide)?_kernel", name)
+                    else "K4" if "attention_fwd_kernel" in name
                     else "products" if any(k in name for k in ("gemm", "cutlass", "xmma",
                                                                 "sm90", "ampere"))
                     else "copies" if "memcpy" in name or "memset" in name else "other")
@@ -4304,8 +4306,8 @@ OBS_REPS = 3           # ABAB pairs of warm epochs, probes off and on
 # runs; the first one runs once per launch (the count held against the
 # wrapper's launch counter), the device time per launch sums them all.
 KERNEL_FUNCTIONS = {
-    "gru_fwd_residuals": (r"gru_fwd_kernel<[^,>]+,\s*true",),
-    "gru_fwd": (r"gru_fwd_kernel<[^,>]+,\s*false",),
+    "gru_fwd_residuals": (r"gru_fwd(?:_kernel<[^,>]+|_wide_kernel<[^>]*),\s*true",),
+    "gru_fwd": (r"gru_fwd(?:_kernel<[^,>]+|_wide_kernel<[^>]*),\s*false",),
     "gru_bwd": (r"gru_walk_kernel",),
     "gru_dwh": (r"gru_dwh_kernel", r"gru_dwh_reduce_kernel"),
     "attention_fwd": (r"attention_fwd_kernel",),
@@ -4321,8 +4323,6 @@ def _scalar_rel(a: float, b: float) -> float:
 def _kernel_rows(by_name) -> dict:
     """{wrapper: {"count", "device_us", "us_per_launch", "functions"}} of a
     trace summary's (name, us, count) rows."""
-    import re
-
     out = {}
     for wrapper, patterns in KERNEL_FUNCTIONS.items():
         first = [(n, us, c) for n, us, c in by_name if re.search(patterns[0], n)]
@@ -4337,21 +4337,33 @@ def _kernel_rows(by_name) -> dict:
     return out
 
 
+def _within(r: dict, calls) -> list:
+    """The calls that start in trace event r's span, in time order."""
+    return sorted((c for c in calls if r["ts"] <= c["ts"] <= r["ts"] + r["dur"]),
+                  key=lambda c: c["ts"])
+
+
 def _launch_accounting(log_dir: str, counted: dict, before: dict = None) -> dict:
     """How a capture saw each wrapper's launches. `counted` maps a wrapper to
     its launch counter's rise over the counted part of the capture, `before`
     to its launches earlier in the same capture (a warm-up). Per wrapper:
     `ranges`, its `launch_range`s on the host (the profiler's own host
-    events are not lost); `kernels`, the records of its first CUDA function
-    (`KERNEL_FUNCTIONS`) that start after its first counted range; `lost`,
-    the counted ranges whose first launch call has no kernel record (by
-    correlation id). `lost_total` counts every launch call of the capture
-    without a kernel record. CUPTI drops records in some captures (0 to 40
-    of ~25,500 in a flagship epoch's on an H100), and those of the first
-    launches after a capture starts (the daemon's capture starts with a
-    warm-up request)."""
-    import re
-
+    events are not lost), each holding the launch calls of its own thread
+    in its span, or of any thread where its own has none; `kernels`, the records of its first CUDA function
+    (`KERNEL_FUNCTIONS`) launched at or after the start of its first
+    counted range; `lost`, the counted ranges whose first launch call has no
+    kernel record (by correlation id). A record is placed on the host's
+    clock by its launch call (same correlation id), and by its own start
+    only where the capture holds no such call: a kernel record's start is
+    the device's clock converted to the host's, which can lead its launch
+    call (on an H100 the first gru_dwh kernel of an epoch's capture started
+    before its own range once), and can trail the next range's start.
+    `kernel_before_launch` counts the records that start before their
+    launch call, `min_launch_to_kernel_us` is the least gap. `lost_total`
+    counts every launch call of the capture without a kernel record. CUPTI
+    drops records in some captures (0 to 56 of ~25,500 in a flagship
+    epoch's on an H100), and those of the first launches after a capture
+    starts (the daemon's capture starts with a warm-up request)."""
     from factorvae_tpu_torch.utils.trace_summary import _load_events, find_trace_files
 
     before = before or {}
@@ -4369,9 +4381,14 @@ def _launch_accounting(log_dir: str, counted: dict, before: dict = None) -> dict
         if e.get("cat") in ("cuda_runtime", "cuda_driver") and "aunch" in e.get("name", ""):
             calls.setdefault((e.get("pid"), e.get("tid")), []).append(e)
     every = [c for cs in calls.values() for c in cs]
+    launched_at = {(c.get("args") or {}).get("correlation"): c["ts"] for c in every}
+    gaps = [e["ts"] - launched_at[c] for e in kernels
+            for c in [(e.get("args") or {}).get("correlation")] if c in launched_at]
     out = {"lost_total": sum((c.get("args") or {}).get("correlation") not in recorded
                              for c in every),
-           "launch_calls": len(every), "kernel_records": len(recorded)}
+           "launch_calls": len(every), "kernel_records": len(recorded),
+           "kernel_before_launch": sum(g < 0 for g in gaps),
+           "min_launch_to_kernel_us": min(gaps, default=None)}
     for name, want in counted.items():
         ranges = sorted((e for e in events
                          if e.get("cat") == "user_annotation" and e["name"] == name),
@@ -4381,21 +4398,24 @@ def _launch_accounting(log_dir: str, counted: dict, before: dict = None) -> dict
         lost = 0
         unrecorded = []
         for r in mine:
-            inside = sorted((c for c in calls.get((r.get("pid"), r.get("tid")), ())
-                             if r["ts"] <= c["ts"] <= r["ts"] + r["dur"]),
-                            key=lambda c: c["ts"])
+            # a capture started on another thread (the daemon's) books the
+            # launch calls under another thread id than the ranges
+            inside = (_within(r, calls.get((r.get("pid"), r.get("tid")), ()))
+                      or _within(r, every))
             corrs = [(c.get("args") or {}).get("correlation") for c in inside]
             lost += bool(inside) and corrs[0] not in recorded
             if not any(re.search(KERNEL_FUNCTIONS[name][0], k)
                        for c in corrs for k in by_corr.get(c, ())):
                 unrecorded.append({
-                    "kernel": KERNEL_FUNCTIONS[name][0].split("<")[0], "tid": r.get("tid"),
+                    "kernel": re.match(r"\w+", KERNEL_FUNCTIONS[name][0]).group(),
+                    "tid": r.get("tid"),
                     "launch_us": (inside[0]["ts"] if inside else r["ts"]) - t0,
                     "window_us": [0.0, window], "launch_calls": len(inside),
                     "correlations": corrs})
         out[name] = {"ranges": len(ranges), "counted_ranges": len(mine), "lost": int(lost),
-                     "kernels": sum(1 for e in kernels if e["ts"] >= since and re.search(
-                         KERNEL_FUNCTIONS[name][0], e["name"])),
+                     "kernels": sum(1 for e in kernels if launched_at.get(
+                         (e.get("args") or {}).get("correlation"), e["ts"]) >= since
+                         and re.search(KERNEL_FUNCTIONS[name][0], e["name"])),
                      "unrecorded": unrecorded}
     return out
 
@@ -4404,7 +4424,7 @@ def _check_counts(what: str, acct: dict, counted: dict, before: dict = None) -> 
     """Each wrapper's host ranges equal its launches in the capture, and its
     kernels after its first counted range, plus the records CUPTI lost in
     those ranges, equal its launch counter's rise. The capture's other lost
-    records (`lost_total`: 0 to 40 of ~25,500 in an epoch's, up to 44 of
+    records (`lost_total`: 0 to 56 of ~25,500 in an epoch's, up to 58 of
     512 in the daemon's on an H100) are reported, not held."""
     before = before or {}
     for name, want in counted.items():
@@ -4419,7 +4439,9 @@ def _check_counts(what: str, acct: dict, counted: dict, before: dict = None) -> 
                   f"{a['ranges']} (before {before.get(name, 0)}) vs its launch counter "
                   f"{want}; launches without a record (kernel, thread, launch time in "
                   f"the capture window, us): "
-                  f"{[(u['kernel'], u['tid'], round(u['launch_us'], 1), round(u['window_us'][1], 1)) for u in a.get('unrecorded', ())][:8]}")
+                  f"{[(u['kernel'], u['tid'], round(u['launch_us'], 1), round(u['window_us'][1], 1)) for u in a.get('unrecorded', ())][:8]}; "
+                  f"records that start before their launch call: "
+                  f"{acct.get('kernel_before_launch')}")
 
 
 def _obs_logger(path, on_event):

@@ -1,11 +1,12 @@
 // Device helpers, the step product and the cluster launch shared by the GRU
 // kernels (gru_fwd.cu, gru_bwd.cu).
 //
-// Both recurrence kernels take a tile of `R` rows (8 or 16) and split its
-// hidden units over a thread-block cluster of `c` CTAs (1, 2, 4 or 8): CTA
-// `rank` owns units [unit_begin(rank), unit_begin(rank + 1)), with their
-// three gate columns. Each step's product runs on the tensor cores
-// (`mma_product`, 3xTF32 at f32 accuracy), its operands in shared memory.
+// The walk (gru_bwd.cu) and the forward up to H = 64 (gru_fwd.cu) take a
+// tile of `R` rows (8 or 16) and split its hidden units over a thread-block
+// cluster of `c` CTAs (1, 2, 4 or 8): CTA `rank` owns units
+// [unit_begin(rank), unit_begin(rank + 1)), with their three gate columns.
+// Each step's product runs on the tensor cores (`mma_product`, 3xTF32 at
+// f32 accuracy), its operands in shared memory.
 //
 // Hidden sizes up to kMaxH = 256: a CTA owns at most kMaxUnits = 64 units,
 // so a wider H takes a wider cluster (H <= 128: c >= 2; H <= 256: c >= 4),
@@ -15,7 +16,11 @@
 // shared memory, whose size the launch rule (ops/kernels/gru.py) checks
 // against the card's per-block limit. At H = 256 a 4-CTA cluster's slices
 // (64 units x 3 gates x 256, ~200 KB) leave no room beside them, so the rule
-// takes 8 CTAs (a portable cluster size) there.
+// takes 8 CTAs (a portable cluster size) there. The forward above H = 64 is
+// a kernel of its own (gru_fwd.cu, "The wide forward"): persistent clusters
+// that keep their Wh slices for all their tiles, wider row tiles, its gates
+// on the accumulators and h' sent to the peers by bulk copies; it uses
+// `split_tf32_fast` and the mbarrier and bulk-copy helpers below.
 
 #pragma once
 
@@ -88,6 +93,13 @@ __device__ __forceinline__ void copy_f32(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
+// Four floats (16 bytes, both addresses 16-byte aligned) likewise, through
+// L2 only (.cg).
+__device__ __forceinline__ void copy_f32x4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -128,10 +140,84 @@ __device__ __forceinline__ void store_cluster(float* local, float v, int csize) 
   }
 }
 
+// An mbarrier in this CTA's shared memory (its shared-window address):
+// `mbar_init` (one thread, then a cluster barrier), each phase completed by
+// one arrival that expects `bytes` (`mbar_expect`) and by the bulk copies
+// that bring them (`bulk_copy_to`), waited on by its parity (`mbar_wait`).
+__device__ __forceinline__ void mbar_init(unsigned mbar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(mbar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned mbar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mbar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` completes; traps (an error the
+// launch's caller sees, not a hang) if that takes ~2^32 cycles.
+__device__ __forceinline__ void mbar_wait(unsigned mbar, unsigned parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from this
+// CTA's shared memory at `src` to the same offset in cluster rank `rank`'s,
+// completing `bytes` on that CTA's mbarrier at `mbar` (this CTA's address of
+// it). Shared writes before it need `fence.proxy.async.shared::cta` and a
+// barrier first.
+__device__ __forceinline__ void bulk_copy_to(const float* src, unsigned bytes, int rank,
+                                             unsigned mbar) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  unsigned dst, bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(s), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(bar) : "r"(mbar), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], "
+      "%2, [%3];\n" ::"r"(dst),
+      "r"(s), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // x = hi + lo, both TF32 (10-bit mantissas): 3xTF32 keeps f32 accuracy.
 __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// split_tf32's values at the full rate of integer and f32 ops (its
+// cvt.rna runs on a slower pipe): round to nearest, ties away from zero, by
+// adding half a TF32 ulp to the bits and dropping the low 13 (for every
+// finite x bitwise what cvt.rna gives). A NaN must come as `tf32_safe`
+// gives it: the device's own NaN (0x7fffffff) would carry into the sign
+// and round to -0.
+__device__ __forceinline__ void split_tf32_fast(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// x, but a NaN as 0x7fc00000, which split_tf32_fast keeps a NaN in hi (lo,
+// a NaN rounded to -0, does not matter then): the operands of the wide
+// forward's product pass through it once, where they are written to
+// shared memory, so that a NaN of Wh or h reaches the product as it does
+// through cvt.rna.
+__device__ __forceinline__ float tf32_safe(float x) {
+  return x != x ? __int_as_float(0x7fc00000) : x;
 }
 
 // c (16 x 8, f32) += a (16 x 8, tf32) . b (8 x 8, tf32)
@@ -254,19 +340,19 @@ __device__ __forceinline__ void mma_product(const float* __restrict__ A, int lda
   }
 }
 
-// Launch `kernel` on `blocks` x `lanes` CTAs of kThreads in clusters of
+// Launch `kernel` on `blocks` x `lanes` CTAs of `threads` in clusters of
 // `cluster` along x, with `smem` bytes of dynamic shared memory; returns the
 // cudaError_t (0 = ok) and leaves no error behind for the next launch. The
 // grid's y is the lane: a cluster never straddles two lanes.
 template <typename... Params, typename... Args>
-int launch_clustered(void (*kernel)(Params...), int blocks, int lanes, int cluster,
-                     int smem, cudaStream_t stream, Args... args) {
+int launch_clustered_threads(void (*kernel)(Params...), int threads, int blocks, int lanes,
+                             int cluster, int smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(blocks, lanes);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
@@ -283,6 +369,14 @@ int launch_clustered(void (*kernel)(Params...), int blocks, int lanes, int clust
     return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// `launch_clustered_threads` with kThreads a CTA.
+template <typename... Params, typename... Args>
+int launch_clustered(void (*kernel)(Params...), int blocks, int lanes, int cluster,
+                     int smem, cudaStream_t stream, Args... args) {
+  return launch_clustered_threads(kernel, kThreads, blocks, lanes, cluster, smem, stream,
+                                  args...);
 }
 
 // The host's check of a launch shape: 8- or 16-row tiles, 1 to kMaxCluster

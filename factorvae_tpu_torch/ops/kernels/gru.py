@@ -32,6 +32,10 @@ compute in float32 and return float32, as the Pallas kernels do. A float32
 input's gradient leaves `gru` unrounded, so a mixed training step feeds
 the bfloat16-valued float32 weights of `train/state.cast_compute`.
 
+The forward has a launch rule of its own (`fwd_launch_shape`): up to H =
+64 the walk's (`launch_shape`), above it that of the wide forward, whose
+persistent clusters keep their slices of Wh across row tiles.
+
 Lanes (the fleets of `train/fleet.py`): every wrapper also takes S models
 at once, each array with a leading lane axis (xi (S, N, T, 3H), w_h (S, H,
 3H), b_h (S, 3H), dh (S, N, H), ...), in one launch that counts once; the
@@ -56,6 +60,14 @@ CLUSTERS = (1, 2, 4, 8)  # CTAs per cluster the kernels take (8 only above H = 6
 MAX_UNITS = 64           # hidden units a CTA owns at most (`kMaxUnits`)
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use on an H100
 _THREADS = 192           # threads per CTA (`kThreads`)
+# The forward above H = 64 (csrc/gru_fwd.cu, "The wide forward"): row tiles
+# it is launched with, at most WIDE_UNITS units a CTA, and the fixed part
+# of a step's cost (the barriers, the gates, splitting Wh's fragments) in
+# rows of a tile, fit to the step times of scripts/torch_gru_fwd_probe.py
+# at H = 256 on an H100.
+FWD_ROWS = (64, 32, 16)
+WIDE_UNITS = 32
+STEP_FIXED_ROWS = 32
 
 
 def _mma_ld(k: int) -> int:
@@ -66,33 +78,48 @@ def _round16(x: int) -> int:
     return (x + 15) & ~15
 
 
+def fwd_smem_bytes(h_dim: int, rows: int, cluster: int) -> int:
+    """K1's dynamic shared memory at a launch shape (`gru_fwd_smem_bytes`
+    of csrc/gru_fwd.cu): up to H = 64 `fwd_smem_floats` (a CTA's Wh^T slice,
+    h, xi and the product's partial sums), above it `wide_smem_floats` (the
+    Wh slice in groups of 16 units, h^T of the tile and an mbarrier). A
+    copy of those layouts, so that the rule runs without a library; a cuda
+    test holds it to the library's at every shape."""
+    umax = -(-h_dim // cluster)
+    k = (h_dim + 7) & ~7
+    if h_dim > MAX_UNITS:
+        return 4 * (k * (48 * -(-umax // 16) + 8 + (rows | 8)) + 2)
+    nbuf = 2 if cluster > 1 else 1
+    return 4 * (nbuf * rows * _mma_ld(h_dim) + _round16(3 * umax) * _mma_ld(h_dim)
+                + rows * _THREADS + nbuf * rows * 3 * umax + 3 * umax)
+
+
 def smem_bytes(h_dim: int, rows: int, cluster: int) -> int:
     """The larger of the two recurrence kernels' dynamic shared memory at a
-    launch shape (`fwd_smem_floats` of csrc/gru_fwd.cu, `walk_smem_floats`
-    of csrc/gru_bwd.cu): a CTA's slice of Wh beside the full h or dg. A
-    copy of those layouts, so that the rule runs without a library; a cuda
-    test holds it to the libraries' `gru_fwd_smem_bytes` and
+    launch shape (`fwd_smem_bytes`, and `walk_smem_floats` of
+    csrc/gru_bwd.cu): a CTA's slice of Wh beside the full h or dg. A copy of
+    those layouts, so that the rule runs without a library; a cuda test
+    holds it to the libraries' `gru_fwd_smem_bytes` and
     `gru_walk_smem_bytes` at every shape."""
     umax = -(-h_dim // cluster)
     nbuf = 2 if cluster > 1 else 1
-    fwd = (nbuf * rows * _mma_ld(h_dim) + _round16(3 * umax) * _mma_ld(h_dim)
-           + rows * _THREADS + nbuf * rows * 3 * umax + 3 * umax)
     walk = (nbuf * rows * _mma_ld(3 * h_dim) + _round16(umax) * _mma_ld(3 * h_dim)
             + rows * _THREADS + rows * umax + nbuf * rows * 7 * umax)
-    return 4 * max(fwd, walk)
+    return max(fwd_smem_bytes(h_dim, rows, cluster), 4 * walk)
 
 
 def launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1,
                  smem_limit: int = SMEM_PER_BLOCK) -> tuple:
-    """(rows per tile, CTAs per cluster) of the GRU kernels for N rows of each
-    of `lanes` models on a card of `num_sms` SMs: the first of 16-row tiles
-    alone, 8-row tiles alone, then 16- and 8-row tiles split over 2, 4 and
-    (above H = 64) 8 CTAs, whose grid (tiles of each lane's rows, times the
-    lanes) has a CTA for every SM; else the widest split. A cluster never
-    has more CTAs than hidden units, a CTA never owns more than MAX_UNITS
-    of them, a shape whose shared memory exceeds `smem_limit` bytes is
-    skipped, and a tile never takes rows of two lanes. Up to H = 64 this is
-    the rule the kernels were tuned under (clusters of 1, 2 and 4)."""
+    """(rows per tile, CTAs per cluster) of the walk, and of K1 up to H = 64
+    (`fwd_launch_shape`), for N rows of each of `lanes` models on a card of
+    `num_sms` SMs: the first of 16-row tiles alone, 8-row tiles alone, then
+    16- and 8-row tiles split over 2, 4 and (above H = 64) 8 CTAs, whose
+    grid (tiles of each lane's rows, times the lanes) has a CTA for every
+    SM; else the widest split. A cluster never has more CTAs than hidden
+    units, a CTA never owns more than MAX_UNITS of them, a shape whose
+    shared memory exceeds `smem_limit` bytes is skipped, and a tile never
+    takes rows of two lanes. Up to H = 64 this is the rule the kernels were
+    tuned under (clusters of 1, 2 and 4)."""
     shape = None
     for c in CLUSTERS:
         if c > h_dim or (c > 4 and h_dim <= MAX_UNITS):
@@ -106,6 +133,67 @@ def launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1,
             if lanes * -(-n_rows // rows) * c >= num_sms:
                 return shape
     return shape
+
+
+def fwd_clusters(tiles: int, lanes: int, resident: int) -> int:
+    """Clusters K1 above H = 64 gives each of `lanes` lanes of `tiles` row
+    tiles, `resident` clusters fitting the card at once: an equal share of
+    them (at least one), never more than the tiles (`wide_clusters` of
+    csrc/gru_fwd.cu; the library takes `resident` from
+    cudaOccupancyMaxActiveClusters)."""
+    return min(tiles, max(1, resident // lanes))
+
+
+def fwd_resident(h_dim: int, rows: int, cluster: int, num_sms: int,
+                 smem_limit: int = SMEM_PER_BLOCK) -> int:
+    """Clusters of K1's wide forward resident at once on a card of `num_sms`
+    SMs if each SM holds as many CTAs as its shared memory allows: the
+    count without a library. The card's own (`gru_fwd_clusters`, from
+    cudaOccupancyMaxActiveClusters), which `_fwd_shape` gives the rule, is
+    at most this: a cluster's CTAs share a GPC (62 clusters of 4 at H = 128
+    on an H100 against 66 here)."""
+    return num_sms * (smem_limit // fwd_smem_bytes(h_dim, rows, cluster)) // cluster
+
+
+def fwd_tiles(cluster_index: int, clusters: int, tiles: int) -> range:
+    """The row tiles of one lane that its persistent cluster `cluster_index`
+    of `clusters` runs, in order: cluster_index, + clusters, + 2 clusters,
+    ... (`wide_tile` of csrc/gru_fwd.cu)."""
+    return range(cluster_index, tiles, clusters)
+
+
+def fwd_launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1,
+                     smem_limit: int = SMEM_PER_BLOCK, resident=None) -> tuple:
+    """(rows per tile, CTAs per cluster) of K1, both variants. Up to H = 64
+    `launch_shape`'s. Above it the wide forward's: the fewest CTAs that own
+    at most WIDE_UNITS units each (4 up to H = 128, 8 up to 256), and of
+    FWD_ROWS the tile whose rounds of persistent clusters (`fwd_clusters`,
+    with `resident(rows, cluster)` of them resident, by default
+    `fwd_resident`) cost least, a step of a tile costing its rows plus
+    STEP_FIXED_ROWS; a shape whose shared memory exceeds `smem_limit` bytes
+    is skipped. A tile never takes rows of two lanes."""
+    if h_dim <= MAX_UNITS:
+        return launch_shape(n_rows, h_dim, num_sms, lanes, smem_limit)
+    c = next((c for c in CLUSTERS if -(-h_dim // c) <= WIDE_UNITS), None)
+    if c is None:
+        return None
+    if resident is None:
+        def resident(rows, cluster):
+            return fwd_resident(h_dim, rows, cluster, num_sms, smem_limit)
+    best = None
+    for rows in FWD_ROWS:
+        if fwd_smem_bytes(h_dim, rows, c) > smem_limit:
+            continue
+        fit = max(1, resident(rows, c))
+        tiles = -(-n_rows // rows)
+        per_lane = fwd_clusters(tiles, lanes, fit)
+        # a cluster's tiles one after another, in waves if the lanes'
+        # clusters outnumber the resident ones
+        rounds = -(-tiles // per_lane) * -(-lanes * per_lane // fit)
+        cost = rounds * (rows + STEP_FIXED_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, (rows, c))
+    return best[1] if best else None
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,6 +210,24 @@ def _shape(xi: torch.Tensor) -> tuple:
     lanes = xi.shape[0] if xi.ndim == 4 else 1
     sms, smem = _card(xi.device.index)
     return launch_shape(xi.shape[-3], xi.shape[-1] // 3, sms, lanes, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, h_dim: int, rows: int, cluster: int) -> int:
+    """Clusters of K1's wide forward a card holds at once at a launch shape
+    (`gru_fwd_clusters` of a launch with more tiles than fit)."""
+    with torch.cuda.device(device_index):
+        return _lib("gru_fwd").gru_fwd_clusters(1 << 20, h_dim, rows, cluster, 1)
+
+
+def _fwd_shape(xi: torch.Tensor) -> tuple:
+    """`fwd_launch_shape` for xi as `_shape`, with the card's own count of
+    resident clusters."""
+    lanes = xi.shape[0] if xi.ndim == 4 else 1
+    h_dim = xi.shape[-1] // 3
+    sms, smem = _card(xi.device.index)
+    return fwd_launch_shape(xi.shape[-3], h_dim, sms, lanes, smem,
+                            functools.partial(_resident, xi.device.index, h_dim))
 
 
 def _gates(x: torch.Tensor, g: torch.Tensor, h_dim: int):
@@ -243,7 +349,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "gru_fwd": {"gru_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
                 "gru_fwd_max_hidden": ([], _I),
-                "gru_fwd_smem_bytes": ([_I] * 3, _I)},
+                "gru_fwd_smem_bytes": ([_I] * 3, _I),
+                "gru_fwd_clusters": ([_I] * 5, _I)},
     "gru_bwd": {"gru_walk": ([_P] * 7 + [_I] * 6 + [_P], _I),
                 "gru_dwh": ([_P] * 6 + [_L, _I, _I, _P], _I),
                 "gru_dwh_scratch_floats": ([_L, _I, _I], _L),
@@ -315,7 +422,7 @@ def gru_fwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor) -> torch.Ten
     _check("gru_fwd", xi, w_h, b_h)
     if xi.device.type == "cpu":
         return plain(gru_fwd_plain, xi.ndim == 4, xi, w_h, b_h)
-    out, _, _, launched = _fwd_launch("gru_fwd", xi, w_h, b_h, False, _shape(xi))
+    out, _, _, launched = _fwd_launch("gru_fwd", xi, w_h, b_h, False, _fwd_shape(xi))
     gru_fwd.launches += launched
     return out
 
@@ -360,7 +467,7 @@ def gru_fwd_residuals(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor):
     if xi.device.type == "cpu":
         return plain(gru_fwd_plain, xi.ndim == 4, xi, w_h, b_h, keep_residuals=True)
     out, hseq, gseq, launched = _fwd_launch("gru_fwd_residuals", xi, w_h, b_h, True,
-                                            _shape(xi))
+                                            _fwd_shape(xi))
     gru_fwd_residuals.launches += launched
     return out, hseq, gseq
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Digest and time the port's kernels at hidden sizes up to 64 on one GPU.
+"""Digest and time the port's kernels on one GPU.
 
     python3 scripts/torch_kernel_digest.py [--tree DIR] [--seed 0] [--out FILE]
 
@@ -10,9 +10,11 @@ each kernel (K1's serving and residual variants, the walk, dWh, K4, K5) runs
 on inputs made from --seed at the flagship widths (N = 304 with 300 stocks,
 T = 20, H = 64, K = 96; K1 also at a 32-day serving chunk; the walk also at
 T = 60, H = 60; K4 and K5 also at H = 37 and on a day with a NaN row, the
-exact path), and the line holds the sha256 of its outputs' bytes beside its
-`graph_ms` (the CUDA-event time of 20 replays of a CUDA graph of one call).
-Equal digests from two trees mean the two compute bitwise the same values.
+exact path), and K1's two variants at H = 128 and 256 at one day and at a
+32-day chunk (its wide instance); the line holds the sha256 of each call's
+outputs' bytes beside its `graph_ms` (the CUDA-event time of 20 replays of
+a CUDA graph of one call). Equal digests from two trees mean the two
+compute bitwise the same values.
 The library's full ptxas report (`-Xptxas -v`) for each kernel source goes
 to the --out file's directory. Prints one JSON line with the card's
 `nvidia-smi` name and power limit; exits 1 without a CUDA device.
@@ -28,7 +30,9 @@ import subprocess
 import sys
 
 
-def _ms(torch, fn, reps: int = 20) -> float:
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """CUDA-event milliseconds of one call of `fn`: the mean of `reps`
+    replays of a CUDA graph of it."""
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
@@ -53,28 +57,57 @@ def _digest(out) -> str:
     return h.hexdigest()[:16]
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def parse_args(doc: str, argv=None) -> argparse.Namespace:
+    """--tree (the checkout whose `factorvae_tpu_torch` is imported), --seed
+    and --out, as this script and scripts/torch_gru_fwd_probe.py take them."""
+    p = argparse.ArgumentParser(description=doc.split("\n")[0])
     p.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None, help="also append the JSON line here")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def use_tree(args, script: str):
+    """torch, with `args.tree` first on sys.path; None without a CUDA device
+    (after saying so on stderr)."""
     import torch
 
     if not torch.cuda.is_available():
-        print("torch_kernel_digest: no CUDA device", file=sys.stderr)
-        return 1
+        print(f"{script}: no CUDA device", file=sys.stderr)
+        return None
     sys.path.insert(0, os.path.abspath(args.tree))
+    return torch
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+def emit(out: dict, path) -> None:
+    """Print `out` as one JSON line, and append it to `path` if given."""
+    line = json.dumps(out)
+    print(line, flush=True)
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "a") as fh:
+            fh.write(line + "\n")
+
+
+def main(argv=None) -> int:
+    args = parse_args(__doc__, argv)
+    torch = use_tree(args, "torch_kernel_digest")
+    if torch is None:
+        return 1
     from factorvae_tpu_torch import _build
     from factorvae_tpu_torch.ops.kernels import attention as att
     from factorvae_tpu_torch.ops.kernels import gru
 
     torch.backends.cuda.matmul.allow_tf32 = False
     logs = _build.build()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip()
+    smi = nvidia_smi()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
     def rand(*shape, scale=1.0):
@@ -112,15 +145,17 @@ def main(argv=None) -> int:
         if label != "serve":
             calls[f"attention_bwd_{label}"] = lambda a=(latent, mask, *w, dctx), kp=keep: (
                 att.attention_bwd(*a, keep=kp))
+    # K1 above H = 64, drawn last so that the calls above keep their inputs
+    for h in (128, 256):
+        for label, n in (("day", 304), ("serve", 9728)):
+            a = (rand(n, 20, 3 * h), rand(h, 3 * h, scale=h ** -0.5), rand(3 * h, scale=0.1))
+            calls[f"gru_fwd_{label}_H{h}"] = lambda a=a: gru.gru_fwd(*a)
+            calls[f"gru_fwd_residuals_{label}_H{h}"] = lambda a=a: gru.gru_fwd_residuals(*a)
     out = {"tree": os.path.abspath(args.tree), "nvidia_smi": smi, "calls": {}}
     for name, fn in calls.items():
-        out["calls"][name] = {"digest": _digest(fn()), "graph_ms": _ms(torch, fn)}
-    line = json.dumps(out)
-    print(line, flush=True)
+        out["calls"][name] = {"digest": _digest(fn()), "graph_ms": graph_ms(torch, fn)}
+    emit(out, args.out)
     if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "a") as fh:
-            fh.write(line + "\n")
         tag = hashlib.sha256(out["tree"].encode()).hexdigest()[:6]
         for lib, log in logs.items():
             if not log:

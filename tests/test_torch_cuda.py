@@ -2,8 +2,9 @@
 
 Every test here needs a CUDA device and skips without one. Hidden sizes
 above 64 (up to 256, the kernels' wider instances) are cases of the same
-tests, and of `test_gru_wide_cluster_path_matches_plain` and
-`test_attention_takes_5000_rows_at_h256`. The file imports
+tests, and of `test_gru_wide_cluster_path_matches_plain`,
+`test_gru_wide_forward_matches_plain_at_every_tile` (K1's persistent wide
+kernel) and `test_attention_takes_5000_rows_at_h256`. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
 PyTorch, without the repo's conftest:
 
@@ -412,16 +413,25 @@ def _wide_shapes(h):
             and gru_module.smem_bytes(h, rows, c) <= gru_module.SMEM_PER_BLOCK]
 
 
+def _k1_shape(h, shape):
+    """K1's launch shape beside the walk's `shape`: the same, but that above
+    H = 64 K1's tiles are FWD_ROWS (16 rows for the walk's 8); a row's h
+    depends on neither its tile nor its cluster there."""
+    rows, c = shape
+    return shape if h <= gru_module.MAX_UNITS else (max(rows, min(gru_module.FWD_ROWS)), c)
+
+
 @pytest.mark.parametrize("h,shape", [pytest.param(h, s, id=f"H{h}-{s[0]}x{s[1]}")
                                      for h in (65, 96, 128, 200, 256) for s in _wide_shapes(h)])
 def test_gru_wide_cluster_path_matches_plain(dev, h, shape):
     """Above H = 64, every tile and cluster shape (clusters of 2 to 8) the
-    kernels take computes the plain function, forward (both variants), the
-    walk and dWh, and repeats bitwise."""
+    kernels take computes the plain function, forward (both variants, at
+    `_k1_shape`), the walk and dWh, and repeats bitwise."""
     xi, wh, bh, dh = _gru_inputs(dev, 333, 7, h, h + shape[1])
-    fwd = gru_module._fwd_launch("gru_fwd", xi, wh, bh, False, shape)[0]
+    k1 = _k1_shape(h, shape)
+    fwd = gru_module._fwd_launch("gru_fwd", xi, wh, bh, False, k1)[0]
     _close(fwd, gru_fwd_plain(xi, wh, bh))
-    res = gru_module._fwd_launch("gru_fwd_residuals", xi, wh, bh, True, shape)[:3]
+    res = gru_module._fwd_launch("gru_fwd_residuals", xi, wh, bh, True, k1)[:3]
     for g, w in zip(res, gru_fwd_plain(xi, wh, bh, keep_residuals=True)):
         _close(g, w)
     assert torch.equal(res[0], fwd)
@@ -449,6 +459,123 @@ def test_gru_smem_bytes_is_the_libraries_layout(dev):
                 want = max(fwd.gru_fwd_smem_bytes(h, rows, c),
                            bwd.gru_walk_smem_bytes(h, rows, c))
                 assert gru_module.smem_bytes(h, rows, c) == want, (h, rows, c)
+
+
+def test_gru_fwd_layout_and_clusters_are_the_librarys(dev):
+    """The forward's own rule reads `gru.fwd_smem_bytes`, a copy of K1's
+    layout: it equals the library's `gru_fwd_smem_bytes` at every hidden
+    size, cluster and tile K1 takes (FWD_ROWS above H = 64). Above H = 64
+    the rule weighs the card's own count of resident clusters
+    (`gru_fwd_clusters`, at most `fwd_resident`'s), and `fwd_clusters`
+    gives the library's count of persistent clusters for its shapes."""
+    from factorvae_tpu_torch.ops.kernels import MAX_HIDDEN
+
+    fwd = gru_module._lib("gru_fwd")
+    for h in range(1, MAX_HIDDEN + 1):
+        for c in (c for c in gru_module.CLUSTERS if c <= h):
+            for rows in (8, 16) if h <= 64 else gru_module.FWD_ROWS:
+                assert gru_module.fwd_smem_bytes(h, rows, c) == fwd.gru_fwd_smem_bytes(
+                    h, rows, c), (h, rows, c)
+    index = torch.cuda.current_device()
+    sms, smem = gru_module._card(index)
+
+    def resident(h, rows, c):
+        return fwd.gru_fwd_clusters(1 << 20, h, rows, c, 1)
+
+    for h in (65, 128, 256):
+        for n in (1, 304, 9728):
+            for lanes in (1, 2, 3, 40):
+                xi = torch.empty(1, device=dev).expand(lanes, n, 1, 3 * h)
+                rows, c = gru_module._fwd_shape(xi)
+                assert (rows, c) == gru_module.fwd_launch_shape(
+                    n, h, sms, lanes, smem, lambda r, c, h=h: resident(h, r, c))
+                for r in gru_module.FWD_ROWS:
+                    assert 1 <= gru_module._resident(index, h, r, c) == resident(h, r, c)
+                    assert resident(h, r, c) <= gru_module.fwd_resident(h, r, c, sms, smem)
+                got = fwd.gru_fwd_clusters(n, h, rows, c, lanes)
+                assert got == gru_module.fwd_clusters(-(-n // rows), lanes,
+                                                      resident(h, rows, c))
+
+
+@pytest.mark.parametrize("h", [128, 256])
+def test_gru_wide_forward_carries_nan_as_plain(dev, h):
+    """A NaN made on the device (0 * inf: 0x7fffffff, whose payload would
+    carry into the sign bit of a rounded TF32 split) reaches K1's product
+    as it reaches the plain version's. In one element of Wh: every unit of
+    every row's last h is NaN in both variants, as in the plain version.
+    In part of one row's xi at one step: both variants' h, hseq and gseq
+    are NaN where the plain version's are (that row's units at that step,
+    all of its g and h from the next), every other row finite and within
+    the tolerance. (With h = 0 the kernels skip step 0's product, where the
+    plain version's 0 . NaN is NaN, so Wh's case is held at the last h.)"""
+    xi, wh, bh, _ = _gru_inputs(dev, 304, 8, h, h)
+    nan = torch.zeros((), device=dev) * torch.full((), float("inf"), device=dev)
+    assert int(nan.view(torch.int32)) == 0x7FFFFFFF
+    bad_wh = wh.clone()
+    bad_wh[3, 5] = nan
+    assert bool(gru_fwd_plain(xi, bad_wh, bh).isnan().all())
+    assert bool(gru_fwd(xi, bad_wh, bh).isnan().all())
+    assert bool(gru_fwd_residuals(xi, bad_wh, bh)[0].isnan().all())
+    bad_xi = xi.clone()
+    bad_xi[2, 4, : h // 2] = nan
+    want = gru_fwd_plain(bad_xi, wh, bh, keep_residuals=True)
+    got = gru_fwd_residuals(bad_xi, wh, bh)
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
+        _close(g, w)
+    assert bool(want[2][2, 5].isnan().all())
+    served = gru_fwd(bad_xi, wh, bh)
+    assert torch.equal(served.isnan(), want[0].isnan())
+    assert torch.equal(served.nan_to_num(), got[0].nan_to_num())
+    assert want[0].isnan().any(dim=1).nonzero().flatten().tolist() == [2]
+
+
+@pytest.mark.parametrize("n", [1, 5, 304, 9728])
+@pytest.mark.parametrize("h", [65, 96, 128, 192, 256])
+def test_gru_wide_forward_matches_plain_at_every_tile(dev, h, n):
+    """Above H = 64 K1 is the persistent wide kernel. Through the wrappers
+    (the forward's own rule) both variants compute the plain function, their
+    h bitwise equal and bitwise on a repeat; launched with every row tile
+    at the rule's cluster, h is bitwise the wrappers' (a row's result does
+    not depend on its tile or on the cluster that ran it)."""
+    xi, wh, bh, _ = _gru_inputs(dev, n, 20, h, h + n)
+    before = gru_fwd.launches, gru_fwd_residuals.launches
+    got = gru_fwd(xi, wh, bh)
+    res = gru_fwd_residuals(xi, wh, bh)
+    assert (gru_fwd.launches, gru_fwd_residuals.launches) == (before[0] + 1, before[1] + 1)
+    _close(got, gru_fwd_plain(xi, wh, bh))
+    for g, w in zip(res, gru_fwd_plain(xi, wh, bh, keep_residuals=True)):
+        _close(g, w)
+    assert torch.equal(res[0], got)
+    assert torch.equal(gru_fwd(xi, wh, bh), got)
+    rows, cluster = gru_module._fwd_shape(xi)
+    assert rows in gru_module.FWD_ROWS
+    for tile in gru_module.FWD_ROWS:
+        assert torch.equal(
+            gru_module._fwd_launch("gru_fwd", xi, wh, bh, False, (tile, cluster))[0], got), tile
+
+
+@pytest.mark.parametrize("n", [5, 304])
+@pytest.mark.parametrize("h", [96, 256])
+def test_gru_wide_forward_lanes_are_each_lane_alone(dev, h, n):
+    """Three lanes in one launch of the wide forward, each variant at the
+    rule's shape for three lanes: the lane-axis plain values, and each lane
+    bitwise the one-lane launch at the rule's shape for one lane (another
+    tile at one day: a row's result does not depend on it)."""
+    from factorvae_tpu_torch.ops.kernels import per_lane
+
+    rng = np.random.default_rng(n + h)
+    xi, wh, bh = _to(dev, (rng.normal(size=(3, n, 20, 3 * h)) * 0.5).astype(np.float32),
+                     (rng.normal(size=(3, h, 3 * h)) * _wh_scale(h)).astype(np.float32),
+                     (rng.normal(size=(3, 3 * h)) * 0.1).astype(np.float32))
+    h3 = gru_fwd(xi, wh, bh)
+    r3 = gru_fwd_residuals(xi, wh, bh)
+    _close(h3, per_lane(gru_fwd_plain, xi, wh, bh))
+    assert torch.equal(r3[0], h3)
+    for s in range(3):
+        one = gru_fwd_residuals(xi[s], wh[s], bh[s])
+        assert all(torch.equal(a, b[s]) for a, b in zip(one, r3)), s
+        assert torch.equal(gru_fwd(xi[s], wh[s], bh[s]), h3[s]), s
 
 
 F64_DRIFT_MULTIPLE = 4
@@ -712,7 +839,7 @@ def test_entry_points_refuse_a_hidden_size_above_the_kernels(dev):
 def test_gru_lane_axis_is_each_lane_alone(dev, n, t, h, shape):
     """Three lanes of three weight sets in one launch of each GRU kernel:
     the lane-axis plain version's values, and each lane bitwise the
-    one-lane launch of the same launch shape."""
+    one-lane launch of the same launch shape (K1's at `_k1_shape`)."""
     from factorvae_tpu_torch.ops.kernels import per_lane
 
     rng = np.random.default_rng(n * t + h)
@@ -720,7 +847,7 @@ def test_gru_lane_axis_is_each_lane_alone(dev, n, t, h, shape):
                          (rng.normal(size=(3, h, 3 * h)) * _wh_scale(h)).astype(np.float32),
                          (rng.normal(size=(3, 3 * h)) * 0.1).astype(np.float32),
                          rng.normal(size=(3, n, h)).astype(np.float32))
-    h3, hseq, gseq, _ = gru_module._fwd_launch("gru_fwd", xi, wh, bh, True, shape)
+    h3, hseq, gseq, _ = gru_module._fwd_launch("gru_fwd", xi, wh, bh, True, _k1_shape(h, shape))
     _close(h3, per_lane(gru_fwd_plain, xi, wh, bh))
     dxi, dgn = gru_module._walk_launch(xi, wh, hseq, gseq, dh, shape)
     dwh, db = gru_dwh(hseq, dxi, dgn)
@@ -729,7 +856,8 @@ def test_gru_lane_axis_is_each_lane_alone(dev, n, t, h, shape):
     _close(dxi, want[0])
     for s in range(3):
         _close_sum(dwh[s], want[1][s])
-        one = gru_module._fwd_launch("gru_fwd", xi[s], wh[s], bh[s], True, shape)
+        one = gru_module._fwd_launch("gru_fwd", xi[s], wh[s], bh[s], True,
+                                     _k1_shape(h, shape))
         assert all(torch.equal(a, b[s]) for a, b in zip(one[:3], (h3, hseq, gseq)))
         walk = gru_module._walk_launch(xi[s], wh[s], hseq[s], gseq[s], dh[s], shape)
         assert torch.equal(walk[0], dxi[s]) and torch.equal(walk[1], dgn[s])

@@ -6,7 +6,9 @@ capture; the one-capture-per-process rule; a capture started on one thread
 recording another thread's ops (the daemon's case); the trainers'
 `PROFILE_REQUEST` hook and its `profile_capture` record; the daemon's
 `POST /profile` answers; anomaly mode as `debug_nans`. Captures on the
-card, where CUPTI adds the kernels, are checked by `chip_smoke.py`.
+card, where CUPTI adds the kernels, are checked by `chip_smoke.py`; its
+launch accounting, which books each kernel record to a wrapper's launch by
+correlation id, is held here on hand-written traces.
 """
 
 from __future__ import annotations
@@ -289,3 +291,57 @@ class TestDebugNans:
             _, out = Trainer(cfg, PanelDataset(tp, seq_len=T, device="cpu"),
                              device="cpu").fit()
         assert np.isfinite(out["history"][0]["train_loss"])
+
+
+def _launch(tid, ts, corr):
+    return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernelExC", "pid": 1,
+            "tid": tid, "ts": ts, "dur": 4, "args": {"correlation": corr}}
+
+
+def _kernel(name, ts, corr):
+    return {"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 7, "ts": ts,
+            "dur": 30, "args": {"correlation": corr}}
+
+
+def _range(tid, ts, dur=20):
+    return {"ph": "X", "cat": "user_annotation", "name": "gru_dwh", "pid": 1, "tid": tid,
+            "ts": ts, "dur": dur}
+
+
+@pytest.mark.parametrize("case", ["device_clock_leads", "device_clock_trails",
+                                  "record_dropped", "calls_on_another_thread"])
+def test_capture_books_each_kernel_by_its_launch_call(case, tmp_path):
+    """chip_smoke.py's launch accounting places a kernel record on the host's
+    clock by its launch call's correlation id, not by its own start (the
+    device's clock converted, which can lead or trail the host's): a record
+    that starts before its range counts for that range, a warm-up range's
+    record that starts after the counted range's start does not, and a
+    range whose record CUPTI dropped is `lost` and named in `unrecorded`,
+    also where the launch calls carry another thread id than the ranges
+    (a capture started on another thread, as the daemon's is)."""
+    from chip_smoke import _check_counts, _launch_accounting
+
+    dwh, reduce = "void gru_dwh_kernel<true>(float const*)", "void gru_dwh_reduce_kernel()"
+    before = {}
+    if case == "device_clock_leads":     # the kernel's start precedes its range's
+        ev = [_range(3, 100), _launch(3, 105, 7), _kernel(dwh, 98, 7),
+              _launch(3, 112, 8), _kernel(reduce, 130, 8)]
+        want = {"kernels": 1, "lost": 0, "unrecorded": 0, "before_launch": 1}
+    elif case == "device_clock_trails":  # the warm-up's kernel runs after the count starts
+        ev = [_range(3, 0), _launch(3, 2, 1), _kernel(dwh, 150, 1),
+              _range(3, 100), _launch(3, 105, 2), _kernel(dwh, 190, 2)]
+        before = {"gru_dwh": 1}
+        want = {"kernels": 1, "lost": 0, "unrecorded": 0, "before_launch": 0}
+    else:
+        t = 3 if case == "record_dropped" else 9
+        ev = [_range(3, 100), _launch(t, 105, 2), _kernel(dwh, 115, 2),
+              _range(3, 200), _launch(t, 205, 3)]
+        want = {"kernels": 1, "lost": 1, "unrecorded": 1, "before_launch": 0}
+    counted = {"gru_dwh": 2 if case in ("record_dropped", "calls_on_another_thread") else 1}
+    with open(tmp_path / "cap.pt.trace.json", "w") as fh:
+        json.dump({"traceEvents": ev}, fh)
+    acct = _launch_accounting(str(tmp_path), counted, before)
+    a = acct["gru_dwh"]
+    assert (a["kernels"], a["lost"], len(a["unrecorded"]), acct["kernel_before_launch"]) == (
+        want["kernels"], want["lost"], want["unrecorded"], want["before_launch"])
+    _check_counts(case, acct, counted, before)

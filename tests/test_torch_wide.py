@@ -7,9 +7,11 @@ interpret mode (K1; K2 at T <= 24 and K3's segmented kernel at T = 30; K4
 and K5 with a NaN day and a +inf day), the port's `Trainer` at H = 96
 against the JAX `Trainer`, `grid_sweep` over a hidden-size bucket {8, 72}
 against the JAX `grid_sweep`, the launch rule and the refusal at the new
-maximum, the CLI at H = 96, and an exported program at H = 96 (its
-registered ops traced through their fake functions). Inputs come from
-numpy.
+maximum, K1's own launch rule above H = 64 and its persistent clusters'
+tile assignment, the kernel names by which chip_smoke.py books K1's traced
+launches, the CLI at H = 96, and an exported program at H = 96
+(its registered ops traced through their fake functions). Inputs come
+from numpy.
 
 Tolerances are the repo's oracle ones: f32 at rtol 1e-5 / atol 1e-6; the
 GRU's weight gradients, summed over every row and step, at rtol 2e-5 /
@@ -48,7 +50,19 @@ from factorvae_tpu_torch.eval import sweep
 from factorvae_tpu_torch.ops.kernels import MAX_HIDDEN, hidden_refusal
 from factorvae_tpu_torch.ops.kernels import gru as gru_module
 from factorvae_tpu_torch.ops.kernels.attention import attention, attention_fwd
-from factorvae_tpu_torch.ops.kernels.gru import gru, gru_fwd, launch_shape, smem_bytes
+from factorvae_tpu_torch.ops.kernels.gru import (
+    FWD_ROWS,
+    WIDE_UNITS,
+    fwd_clusters,
+    fwd_launch_shape,
+    fwd_resident,
+    fwd_smem_bytes,
+    fwd_tiles,
+    gru,
+    gru_fwd,
+    launch_shape,
+    smem_bytes,
+)
 from factorvae_tpu_torch.params import flax_to_torch
 from factorvae_tpu_torch.train.fleet import FleetTrainer
 from factorvae_tpu_torch.train.trainer import Trainer
@@ -168,6 +182,112 @@ def test_launch_shape_rule_keeps_the_tuned_shapes_up_to_h64():
     assert launch_shape(304, 256, H100_SMS) == (8, 8)
     assert max(c for h in range(1, 65) for n in (1, 40, 304)
                for _, c in [launch_shape(n, h, H100_SMS)]) == 4
+
+
+FWD_WIDE = (65, 96, 128, 192, 256)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("n", [1, 5, 304, 9728])
+@pytest.mark.parametrize("h", FWD_WIDE)
+def test_forward_rule_at_wide_h(h, n, lanes):
+    """K1's own rule above H = 64: a tile of FWD_ROWS over a cluster whose
+    CTAs own at most WIDE_UNITS units, its forward layout within an H100's
+    block; the persistent clusters of each lane run every row of that lane
+    once, and no tile takes rows of two lanes."""
+    rows, c = fwd_launch_shape(n, h, H100_SMS, lanes)
+    assert rows in FWD_ROWS and c in gru_module.CLUSTERS
+    assert -(-h // c) <= WIDE_UNITS and c <= h
+    assert fwd_smem_bytes(h, rows, c) <= gru_module.SMEM_PER_BLOCK
+    tiles = -(-n // rows)
+    per_lane = fwd_clusters(tiles, lanes, fwd_resident(h, rows, c, H100_SMS))
+    assert 1 <= per_lane <= tiles
+    owner = {}
+    for lane in range(lanes):
+        for cl in range(per_lane):
+            for tile in fwd_tiles(cl, per_lane, tiles):
+                first, stop = tile * rows, min(n, (tile + 1) * rows)
+                assert 0 <= first < stop <= n          # inside its lane's rows
+                for r in range(lane * n + first, lane * n + stop):
+                    assert r not in owner
+                    owner[r] = (lane, tile)
+    assert sorted(owner) == list(range(lanes * n))
+
+
+def test_forward_rule_is_launch_shape_up_to_h64():
+    """Up to H = 64 the forward's rule returns the shapes the kernels were
+    tuned under, the walk's (`launch_shape`)."""
+    for h in range(1, 65):
+        for n in (1, 5, 40, 304, 1001, 9728):
+            for lanes in (1, 3, 8):
+                assert (fwd_launch_shape(n, h, H100_SMS, lanes)
+                        == launch_shape(n, h, H100_SMS, lanes)), (h, n, lanes)
+
+
+def test_forward_rule_weighs_the_resident_clusters_it_is_given():
+    """Above H = 64 the rule asks `resident` for each tile of FWD_ROWS at
+    its cluster (on the card the library's count, `_fwd_shape`), and
+    without it counts the CTAs an H100's shared memory holds: 2 a SM of 64
+    rows at H = 128 (66 clusters of 4), 1 at H = 256 (16 of 8). Few
+    resident clusters favour wide tiles (fewer rounds), many the narrowest
+    (every tile at once, the cheapest step)."""
+    assert fwd_resident(128, 64, 4, H100_SMS) == 66
+    assert fwd_resident(256, 64, 8, H100_SMS) == 16
+    asked = []
+
+    def one(rows, c):
+        asked.append((rows, c))
+        return 1
+
+    assert fwd_launch_shape(304, 128, H100_SMS, 1, resident=one) == (64, 4)
+    assert sorted(asked) == sorted((rows, 4) for rows in FWD_ROWS)
+    assert fwd_launch_shape(304, 128, H100_SMS, 1, resident=lambda r, c: 10 ** 6) == (16, 4)
+    assert fwd_launch_shape(304, 128, H100_SMS, 2, resident=lambda r, c: 0) == (64, 4)
+    assert (fwd_launch_shape(9728, 256, H100_SMS)
+            == fwd_launch_shape(9728, 256, H100_SMS, resident=lambda r, c: fwd_resident(
+                256, r, c, H100_SMS)))
+
+
+@pytest.mark.parametrize("name,wrapper", [
+    ("void (anonymous namespace)::gru_fwd_kernel<16, true, false>(float const*)",
+     "gru_fwd_residuals"),
+    ("void (anonymous namespace)::gru_fwd_kernel<8, false, true>(float const*)", "gru_fwd"),
+    ("void (anonymous namespace)::gru_fwd_wide_kernel<64, 4, true>(float const*)",
+     "gru_fwd_residuals"),
+    ("void (anonymous namespace)::gru_fwd_wide_kernel<16, 8, false>(float const*)",
+     "gru_fwd")])
+def test_trace_patterns_name_both_forward_kernels(name, wrapper):
+    """chip_smoke.py books a traced K1 launch to its wrapper by the kernel's
+    demangled name: the residual flag is the second template argument of
+    the kernel up to H = 64 and the last of the wide one, and each name
+    matches its wrapper's pattern and no other wrapper's."""
+    import re
+
+    from chip_smoke import KERNEL_FUNCTIONS
+
+    hits = [w for w, patterns in KERNEL_FUNCTIONS.items()
+            if any(re.search(p, name) for p in patterns)]
+    assert hits == [wrapper]
+
+
+@pytest.mark.parametrize("tiles,resident,lanes", [
+    (1, 16, 1), (5, 16, 1), (15, 16, 1), (16, 16, 1), (17, 16, 1), (152, 16, 1),
+    (153, 16, 1), (19, 33, 3), (304, 16, 40), (7, 1, 1)])
+def test_persistent_clusters_run_every_tile_once(tiles, resident, lanes):
+    """The persistent loop's assignment (`fwd_tiles`, mirrored by
+    `wide_tile` in csrc/gru_fwd.cu) at tile counts below, equal to and above
+    the clusters: every tile of a lane runs once, the clusters' rounds
+    differ by at most one, and with a ragged last tile (N = tiles * 64 - 3)
+    every row lies in exactly one tile."""
+    per = fwd_clusters(tiles, lanes, resident)
+    assert per == min(tiles, max(1, resident // lanes))
+    ran = [t for cl in range(per) for t in fwd_tiles(cl, per, tiles)]
+    assert sorted(ran) == list(range(tiles))
+    rounds = [len(fwd_tiles(cl, per, tiles)) for cl in range(per)]
+    assert max(rounds) == -(-tiles // per) and max(rounds) - min(rounds) <= 1
+    n, rows = tiles * 64 - 3, 64
+    covered = [r for t in ran for r in range(t * rows, min(n, (t + 1) * rows))]
+    assert sorted(covered) == list(range(n))
 
 
 def test_refusal_moves_to_the_new_maximum():
