@@ -393,9 +393,14 @@ named phases, and prints neither the kernels line nor the result):
               over 8 with an all-masked day and NaN, +inf and -inf days,
               which must be exactly the days of the exact path, with and
               without a keep-mask), bitwise repeats, within the K phases'
-              limits; their times beside the plain versions', cuDNN's
-              nn.GRU forward and backward at the same H, and the bounds.
-              Then the entry points at the flagship's widths
+              limits; the wide walk (persistent clusters) at every shape
+              it takes, one day and T = 60, each tile bitwise the rule's
+              pick at its cluster, two lanes each bitwise its one-lane
+              launch, a NaN in Wh, dh or a residual (and in hseq for dWh)
+              where the plain version has it; their times beside the plain
+              versions', cuDNN's nn.GRU forward and backward at the same
+              H, the walk alone and dWh beside torch.matmul(hseq^T, dg),
+              and the bounds. Then the entry points at the flagship's widths
               (C158/T20/K96/M128, a 60-day pickle of 300 stocks) at each
               H, every launch counter set to 0 just before each: (a) `cli
               --hidden_size H` trains one epoch (30 steps; K1's residual
@@ -724,8 +729,9 @@ def phase_k1(torch, seed: int) -> dict:
             "max_abs_err": max(max(v["max_abs_err"], *v["residual_errors"].values())
                                for v in cases.values()),
             "bitwise_repeat": True,
-            **{k: serving[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms", "flops",
-                                       "bytes", "bound_ms", "bound_by")},
+            **{k: serving[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                                       "library_graph_ms", "flops", "bytes", "bound_ms",
+                                       "bound_by")},
             "residuals_row": {"max_abs_err": max(max(v["residual_errors"].values())
                                                  for v in cases.values()),
                               "tolerance": K1_TOL,
@@ -733,6 +739,7 @@ def phase_k1(torch, seed: int) -> dict:
                               "graph_ms": day["residuals"]["graph_ms"],
                               "plain_ms": day["residuals"]["plain_ms"],
                               "library_ms": day["library_ms"],
+                              "library_graph_ms": day["library_graph_ms"],
                               "bound_ms": day["residuals"]["bound_ms"],
                               "bound_by": day["residuals"]["bound_by"]},
             "library": "torch.nn.GRU (cuDNN) over xi with an identity input "
@@ -1100,8 +1107,9 @@ def phase_k2(torch, seed: int) -> dict:
     return {"phase": "K2", "cases": cases, "tolerance": K2_TOL,
             "max_abs_err": max(max(c["errors"].values()) for c in cases.values()),
             "bitwise_repeat": True,
-            **{k: flagship[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms", "flops",
-                                        "bytes", "bound_ms", "bound_by")},
+            **{k: flagship[k] for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                                        "library_graph_ms", "flops", "bytes", "bound_ms",
+                                        "bound_by")},
             "dwh_row": {"max_abs_err": max(v for c in cases.values()
                                            for k, v in c["errors"].items()
                                            if k.startswith("dwh_kernel_")),
@@ -1117,13 +1125,16 @@ def _k2_timing(torch, g, n, t, h) -> dict:
     """At one (N, T, H): gru_bwd (its own residual forward, the walk, dWh),
     the plain version and cuDNN's GRU backward; the pair of the training
     path (residual forward + walk from its residuals) against cuDNN's
-    forward + backward; the dWh kernel; each with its bound."""
+    forward + backward; the walk alone, at its launch rule's shape; the dWh
+    kernel beside torch.matmul(hseq^T, dg); each with its bound."""
+    from factorvae_tpu_torch.ops.kernels import gru as m
     from factorvae_tpu_torch.ops.kernels.gru import (
         gru_bwd,
         gru_bwd_plain,
         gru_dwh,
         gru_dwh_plain,
         gru_fwd_residuals,
+        gru_walk_plain,
     )
 
     args = _gru_bwd_inputs(torch, g, n, t, h)
@@ -1166,8 +1177,18 @@ def _k2_timing(torch, g, n, t, h) -> dict:
     pair_bytes = n_bytes + 4.0 * (n * h + 2 * n * t * 4 * h)
     pair_b_ms, pair_b_by = gru_bound_ms(pair_bytes, product, 40.0 * n * t * h)
 
-    # the dWh kernel alone, on the residuals and a walk's outputs
+    # the walk alone, from the residuals: it reads xi, g, h_prev and dh and
+    # Wh, writes dxi and dg_n, and runs T - 1 products dg . Wh^T
     _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+    shape = m._walk_shape(xi)
+    walk_product = 2.0 * n * (t - 1) * h * 3 * h
+    walk_bytes = 4.0 * (n * t * 11 * h + n * h + 3 * h * h)
+    walk_b_ms, walk_b_by = gru_bound_ms(walk_bytes, walk_product, 30.0 * n * t * h)
+    walk = {**_timed(torch, lambda: m._walk_launch(xi, wh, hseq, gseq, dh, shape)),
+            "plain_ms": cuda_ms(torch, lambda: gru_walk_plain(xi, wh, hseq, gseq, dh)),
+            "launch_shape": list(shape), "flops": walk_product + 30.0 * n * t * h,
+            "bytes": walk_bytes, "bound_ms": walk_b_ms, "bound_by": walk_b_by}
+    # the dWh kernel alone, on the residuals and a walk's outputs
     dxi, _, _ = gru_bwd(*args, residuals=(hseq, gseq))
     dgn = torch.randn(n, t, h, device="cuda", generator=g) * 0.1
     dg = torch.cat([dxi[..., :2 * h], dgn], dim=-1).reshape(-1, 3 * h)
@@ -1186,10 +1207,13 @@ def _k2_timing(torch, g, n, t, h) -> dict:
                      "library": "torch.nn.GRU (cuDNN) forward + backward, as above",
                      "flops": pair_flops, "bytes": pair_bytes, "bound_ms": pair_b_ms,
                      "bound_by": pair_b_by},
+            "walk": walk,
             "dwh": {**_timed(torch, lambda: gru_dwh(hseq, dxi, dgn)),
                     "plain_ms": cuda_ms(torch, lambda: gru_dwh_plain(hseq, dxi, dgn)),
                     "library_ms": cuda_ms(torch, lambda: torch.matmul(hflat.T, dg)),
-                    "library": "torch.matmul(hseq^T, dg): dWh alone, without db",
+                    "library_graph_ms": graph_ms(torch, lambda: torch.matmul(hflat.T, dg),
+                                                 library=True)[0],
+                    "library": "torch.matmul(hseq^T, dg), TF32 off: dWh alone, without db",
                     "flops": dwh_flops, "bytes": dwh_bytes, "bound_ms": dwh_b_ms,
                     "bound_by": dwh_b_by}}
 
@@ -2654,7 +2678,8 @@ def _device_split(torch, fn, reps: int = 3) -> dict:
                 fn()
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-        parts = {"K1": 0.0, "K4": 0.0, "products": 0.0, "copies": 0.0, "other": 0.0}
+        parts = {"K1": 0.0, "K2/K3": 0.0, "K4": 0.0, "products": 0.0, "copies": 0.0,
+                 "other": 0.0}
         top = []
         for ev in prof.key_averages():
             # kernels and copies only: an operator's row repeats its kernels' time
@@ -2668,6 +2693,7 @@ def _device_split(torch, fn, reps: int = 3) -> dict:
             ms = us / 1e3 / reps
             name = ev.key.lower()
             kind = ("K1" if re.search(r"gru_fwd(_wide)?_kernel", name)
+                    else "K2/K3" if re.search(r"gru_(walk|dwh)(_wide|_reduce)?_kernel", name)
                     else "K4" if "attention_fwd_kernel" in name
                     else "products" if any(k in name for k in ("gemm", "cutlass", "xmma",
                                                                 "sm90", "ampere"))
@@ -4308,8 +4334,8 @@ OBS_REPS = 3           # ABAB pairs of warm epochs, probes off and on
 KERNEL_FUNCTIONS = {
     "gru_fwd_residuals": (r"gru_fwd(?:_kernel<[^,>]+|_wide_kernel<[^>]*),\s*true",),
     "gru_fwd": (r"gru_fwd(?:_kernel<[^,>]+|_wide_kernel<[^>]*),\s*false",),
-    "gru_bwd": (r"gru_walk_kernel",),
-    "gru_dwh": (r"gru_dwh_kernel", r"gru_dwh_reduce_kernel"),
+    "gru_bwd": (r"gru_walk(?:_wide)?_kernel",),
+    "gru_dwh": (r"gru_dwh(?:_wide)?_kernel", r"gru_dwh_reduce_kernel"),
     "attention_fwd": (r"attention_fwd_kernel",),
     "attention_bwd": (r"attention_bwd_head_kernel", r"attention_bwd_weights_kernel",
                       r"attention_bwd_latent_kernel"),
@@ -5934,6 +5960,7 @@ def _wide_kernels(torch, g, h: int) -> dict:
     k2 = {label: _k2_case(torch, _gru_bwd_inputs(torch, g, 304, t, h),
                           f"wide K2 H={h} {label}")
           for label, t in (("flagship_day", 20), ("T60", 60))}
+    walk_checks = _wide_walk_checks(torch, g, h)
     k4 = _k4_checks(torch, g, h, f"wide K4 H={h}")
     k5, _ = _k5_case(torch, g, 8, 304, 96, h, 300, f"wide K5 H={h} flagship_8_days")
     worst = {"K1": max(max(c["max_abs_err"], *c["residual_errors"].values())
@@ -5948,8 +5975,9 @@ def _wide_kernels(torch, g, h: int) -> dict:
     latent, mask, weights = k4["inputs"]
     k5_day = (*day, torch.randn(1, 96, h, device="cuda", generator=g) * 0.1,
               (torch.rand(1, 96, 304, device="cuda", generator=g) > 0.1).float() / 0.9)
+    worst["K2"] = max(worst["K2"], walk_checks["max_abs_err"])
     return {"errors": {"K1": k1, "K2": k2, "K4": k4["errors"], "K5": k5["errors"]},
-            "max_abs_err": worst,
+            "walk_checks": walk_checks, "max_abs_err": worst,
             "exact_path_days": {"K4": k4["exact_path_days"], "K5": k5["exact_path_days"]},
             "timing": {"K1": {label: _k1_timing(torch, k1_in[label], f"H={h} {label}")
                               for label in ("flagship", "flagship_day")},
@@ -5958,6 +5986,81 @@ def _wide_kernels(torch, g, h: int) -> dict:
                        "K4": {"flagship": _k4_timing(torch, latent, mask, weights),
                               "flagship_day": _k4_timing(torch, day[0], day[1], day[2:])},
                        "K5": {"flagship_day": _k5_timing(torch, *k5_day)}}}
+
+
+def _wide_walk_checks(torch, g, h: int) -> dict:
+    """The walk above H = 64 at one training day and at T = 60, launched at
+    every shape it takes (`walk_shapes`: each tile size at each cluster)
+    against its plain version: within K2_TOL, and at the rule's cluster
+    every tile bitwise the rule's pick (a row's result does not depend on
+    its tile or on the persistent clusters that ran it); two lanes each
+    bitwise its one-lane launch; a NaN in Wh, in dh or in a residual comes
+    out where the plain version's does (the walk, and dWh of a NaN in
+    hseq). Returns the errors and the shapes."""
+    from factorvae_tpu_torch.ops.kernels import gru as m
+
+    out, worst = {}, 0.0
+
+    def err_of(got, want):
+        return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    for label, t in (("flagship_day", 20), ("T60", 60)):
+        xi, wh, bh, dh = _gru_bwd_inputs(torch, g, 304, t, h)
+        _, hseq, gseq = m.gru_fwd_residuals(xi, wh, bh)
+        want = m.gru_walk_plain(xi, wh, hseq, gseq, dh)
+        picked = m._walk_shape(xi)
+        ref = m._walk_launch(xi, wh, hseq, gseq, dh, picked)
+        errs = {}
+        for shape in m.walk_shapes(h):
+            got = m._walk_launch(xi, wh, hseq, gseq, dh, shape)
+            errs["x".join(map(str, shape))] = err_of(got, want)
+            if shape[1] == picked[1]:
+                check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                      f"wide walk H={h} {label}: tile {shape} differs from the rule's {picked}")
+        check(max(errs.values()) <= K2_TOL, f"wide walk H={h} {label}: errors {errs}")
+        worst = max(worst, *errs.values())
+        out[label] = {"launch_shape": list(picked), "errors": errs}
+
+    # two lanes in one launch, each bitwise its one-lane launch
+    lanes = [_gru_bwd_inputs(torch, g, 304, 20, h) for _ in range(2)]
+    xi2, wh2, bh2, dh2 = (torch.stack(a) for a in zip(*lanes))
+    _, hseq2, gseq2 = m.gru_fwd_residuals(xi2, wh2, bh2)
+    two = m._walk_launch(xi2, wh2, hseq2, gseq2, dh2, m._walk_shape(xi2))
+    for i in range(2):
+        one = m._walk_launch(xi2[i], wh2[i], hseq2[i], gseq2[i], dh2[i],
+                             m._walk_shape(xi2[i]))
+        check(all(torch.equal(a[i], b) for a, b in zip(two, one)),
+              f"wide walk H={h}: lane {i} differs from its one-lane launch")
+    out["lanes"] = {"launch_shape": list(m._walk_shape(xi2)), "bitwise_one_lane": True}
+
+    # NaN in Wh, in dh and in a residual: the plain version's NaNs
+    xi, wh, bh, dh = _gru_bwd_inputs(torch, g, 304, 20, h)
+    _, hseq, gseq = m.gru_fwd_residuals(xi, wh, bh)
+    nan = torch.zeros((), device="cuda") * torch.full((), float("inf"), device="cuda")
+    cases = {"wh": (wh.clone(), dh, gseq), "dh": (wh, dh.clone(), gseq),
+             "gseq": (wh, dh, gseq.clone())}
+    cases["wh"][0][3, 5] = nan
+    cases["dh"][1][7, 2] = nan
+    cases["gseq"][2][9, 13, 4] = nan
+    nan_cells = {}
+    for key, (w_, d_, g_) in cases.items():
+        got = m._walk_launch(xi, w_, hseq, g_, d_, m._walk_shape(xi))
+        want = m.gru_walk_plain(xi, w_, hseq, g_, d_)
+        check(all(torch.equal(a.isnan(), b.isnan()) for a, b in zip(got, want)),
+              f"wide walk H={h}: a NaN in {key} is not where the plain version's is")
+        fin = err_of([a.nan_to_num() for a in got], [b.nan_to_num() for b in want])
+        check(fin <= K2_TOL, f"wide walk H={h}: NaN in {key}, finite values off by {fin}")
+        nan_cells[key] = int(got[0].isnan().sum())
+    bad_h = hseq.clone()
+    bad_h[11, 6, 9] = nan
+    dxi, dgn = m.gru_walk_plain(xi, wh, hseq, gseq, dh)
+    got, want = m.gru_dwh(bad_h, dxi, dgn), m.gru_dwh_plain(bad_h, dxi, dgn)
+    check(all(torch.equal(a.isnan(), b.isnan()) for a, b in zip(got, want)),
+          f"wide dWh H={h}: a NaN in hseq is not where the plain version's is")
+    out["nan"] = {"dxi_nan_cells": nan_cells, "dwh_nan_rows": int(
+        got[0].isnan().any(dim=1).sum())}
+    out["max_abs_err"] = worst
+    return out
 
 
 # The flagship's widths (the CLI's reference defaults) and panel
@@ -6198,6 +6301,12 @@ def _wide_rows(wide: dict) -> list:
                     "bound_ms", "bound_by")}
                 row["pair"] = {key: tm["pair"][key] for key in (
                     "graph_ms", "library_graph_ms", "bound_ms", "bound_by")}
+                row["walk"] = tm["walk"]
+                row["walk_t60"] = t60["walk"]
+                row["walk_checks"] = k["walk_checks"]
+            if name == "gru_dwh":
+                row["t60"] = {key: t["K3_T60"]["dwh"][key] for key in (
+                    "graph_ms", "library_graph_ms", "bound_ms", "bound_by")}
             rows.append(row)
     return rows
 
@@ -6313,7 +6422,8 @@ def main(argv=None) -> int:
                      "tolerance": ph["tolerance"],
                      "ms": ph["ms"], "graph_ms": ph.get("graph_ms"),
                      "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
-                     "bound_by": ph["bound_by"], "library_ms": ph["library_ms"]})
+                     "bound_by": ph["bound_by"], "library_ms": ph["library_ms"],
+                     "library_graph_ms": ph.get("library_graph_ms")})
     rows += _wide_rows(by["wide"])
     kernels = {"kernels": rows}
     emit(kernels)

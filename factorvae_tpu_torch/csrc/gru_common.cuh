@@ -3,29 +3,30 @@
 //
 // The walk (gru_bwd.cu) and the forward up to H = 64 (gru_fwd.cu) take a
 // tile of `R` rows (8 or 16) and split its hidden units over a thread-block
-// cluster of `c` CTAs (1, 2, 4 or 8): CTA `rank` owns units
+// cluster of `c` CTAs (1, 2 or 4): CTA `rank` owns units
 // [unit_begin(rank), unit_begin(rank + 1)), with their three gate columns.
 // Each step's product runs on the tensor cores (`mma_product`, 3xTF32 at
 // f32 accuracy), its operands in shared memory.
 //
-// Hidden sizes up to kMaxH = 256: a CTA owns at most kMaxUnits = 64 units,
-// so a wider H takes a wider cluster (H <= 128: c >= 2; H <= 256: c >= 4),
-// and the per-CTA code is the same at every H: its gate columns (3 x 64)
-// and units fit one pass of its kThreads threads. Only the operands grow:
-// the full h (or dg) a step's product reads and this CTA's slice of Wh, in
-// shared memory, whose size the launch rule (ops/kernels/gru.py) checks
-// against the card's per-block limit. At H = 256 a 4-CTA cluster's slices
-// (64 units x 3 gates x 256, ~200 KB) leave no room beside them, so the rule
-// takes 8 CTAs (a portable cluster size) there. The forward above H = 64 is
-// a kernel of its own (gru_fwd.cu, "The wide forward"): persistent clusters
-// that keep their Wh slices for all their tiles, wider row tiles, its gates
-// on the accumulators and h' sent to the peers by bulk copies; it uses
-// `split_tf32_fast` and the mbarrier and bulk-copy helpers below.
+// Hidden sizes up to kMaxH = 256. Above H = 64 the forward and the walk are
+// kernels of their own ("The wide forward" of gru_fwd.cu, "The wide walk"
+// of gru_bwd.cu): persistent clusters of 2 to 8 CTAs, as many as the card
+// holds at once (`resident_clusters`), each CTA owning at most 32 units
+// and keeping its slice of Wh for all the row tiles its cluster walks
+// (`wide_tile`). Both split their operands with integer ops
+// (`split_tf32_fast`, the operands made safe by `tf32_safe` first); the
+// forward sends h' to its peers with bulk copies on mbarriers (the helpers
+// below), the walk reads its peers' partial sums with DSMEM loads
+// (`load_cluster`).
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace gru {
 
@@ -104,6 +105,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// The cp.async copies issued since the last commit form one group; a wait
+// for `N` returns when at most N groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // A barrier over the cluster (every CTA's writes to its peers' shared memory
 // before it are visible after it), or over the CTA when the cluster is one.
 __device__ __forceinline__ void cluster_barrier(int csize) {
@@ -138,6 +150,17 @@ __device__ __forceinline__ void store_cluster(float* local, float v, int csize) 
     asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(a), "r"(q));
     asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
   }
+}
+
+// The float at `local`'s offset in the shared memory of cluster rank `rank`
+// (ld.shared::cluster at the address `mapa` gives).
+__device__ __forceinline__ float load_cluster(const float* local, int rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(local));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(a), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // An mbarrier in this CTA's shared memory (its shared-window address):
@@ -213,9 +236,9 @@ __device__ __forceinline__ void split_tf32_fast(float x, unsigned& hi, unsigned&
 
 // x, but a NaN as 0x7fc00000, which split_tf32_fast keeps a NaN in hi (lo,
 // a NaN rounded to -0, does not matter then): the operands of the wide
-// forward's product pass through it once, where they are written to
-// shared memory, so that a NaN of Wh or h reaches the product as it does
-// through cvt.rna.
+// kernels' products pass through it once, where they are written to
+// shared memory or split, so that a NaN of an operand reaches the product
+// as it does through cvt.rna.
 __device__ __forceinline__ float tf32_safe(float x) {
   return x != x ? __int_as_float(0x7fc00000) : x;
 }
@@ -388,6 +411,69 @@ inline bool valid_shape(int h, int rows, int cluster, int lanes) {
   return h > 0 && h <= kMaxH && (rows == 8 || rows == 16) && cluster >= 1 &&
          cluster <= kMaxCluster && cluster <= h &&
          (h + cluster - 1) / cluster <= kMaxUnits && lanes >= 1 && lanes <= kMaxLanes;
+}
+
+// ---- persistent clusters (the wide kernels) ---------------------------------
+
+// The k-th tile of cluster `cl` of `clusters`, or -1 past the last of
+// `tiles` (ops/kernels/gru.py `fwd_tiles`).
+__host__ __device__ __forceinline__ int wide_tile(int cl, int k, int clusters, int tiles) {
+  const int tile = cl + k * clusters;
+  return tile < tiles ? tile : -1;
+}
+
+// Clusters a wide launch gives each of `lanes` lanes of `tiles` tiles: as
+// many as the card holds resident at once, shared among the lanes (at least
+// one a lane), never more than the tiles (`fwd_clusters` of
+// ops/kernels/gru.py, which takes `resident` from the card's SMs).
+inline int wide_clusters(int tiles, int lanes, int resident) {
+  int per = resident / lanes;
+  if (per < 1) per = 1;
+  return per < tiles ? per : tiles;
+}
+
+// Clusters of `cluster` CTAs of `kernel` with `smem` bytes each that the
+// card holds resident at once (cudaOccupancyMaxActiveClusters), cached per
+// device, kernel, cluster and size; 0 if the query fails.
+template <typename... Params>
+int resident_clusters(void (*kernel)(Params...), int threads, int cluster, int smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, int>, int> cache;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  const auto key = std::make_tuple(dev, (const void*)kernel, cluster, smem);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = cache.find(key);
+    if (it != cache.end()) return it->second;
+  }
+  int n = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  cache[key] = n;
+  return n;
 }
 
 }  // namespace gru

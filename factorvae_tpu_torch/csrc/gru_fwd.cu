@@ -87,9 +87,6 @@
 // slice, the 3xTF32 split kept) is the next step there, untried.
 
 #include <cstdint>
-#include <map>
-#include <mutex>
-#include <tuple>
 
 #include "gru_common.cuh"
 
@@ -263,8 +260,8 @@ int launch(const float* xi, const float* wh, const float* bh, float* h_out,
 // ---- The wide forward (64 < H <= 256) ----------------------------------------
 //
 // Persistent clusters: a lane's row tiles go to `clusters` clusters, tile
-// cl, cl + clusters, cl + 2 clusters, ... to cluster cl (`wide_tile`, a
-// copy of ops/kernels/gru.py `fwd_tiles`); each CTA stages its slice of Wh
+// cl, cl + clusters, cl + 2 clusters, ... to cluster cl (`wide_tile` of
+// gru_common.cuh, a copy of ops/kernels/gru.py `fwd_tiles`); each CTA stages its slice of Wh
 // (K-major, 16-byte copies where aligned) and its b once and keeps them for
 // all its tiles. A CTA owns un <= 64 units in groups of 16; its Wh columns
 // are laid out group by group, [r | z | n] of the group's 16 units, so one
@@ -327,13 +324,6 @@ inline bool valid_wide_shape(int h, int rows, int cluster, int lanes) {
   const int warps = wide_warps(h, rows);
   const int blocks = rows >= 32 ? warps / 2 : rows / 8;
   return umax <= kMaxUnits && wide_groups(umax) * blocks <= warps;
-}
-
-// The k-th tile of cluster `cl` of `clusters`, or -1 past the last of
-// `tiles`.
-__host__ __device__ __forceinline__ int wide_tile(int cl, int k, int clusters, int tiles) {
-  const int tile = cl + k * clusters;
-  return tile < tiles ? tile : -1;
 }
 
 template <int R, int W, bool kResiduals>
@@ -554,60 +544,6 @@ gru_fwd_wide_kernel(const float* __restrict__ xi, const float* __restrict__ wh,
       }
   }
   cluster_barrier(csize);   // no CTA exits while a peer may still copy from or into it
-}
-
-// Clusters a wide launch gives each of `lanes` lanes of `tiles` tiles: as
-// many as the card holds resident at once, shared among the lanes (at least
-// one a lane), never more than the tiles (`fwd_clusters` of
-// ops/kernels/gru.py, which takes `resident` from the card's SMs).
-inline int wide_clusters(int tiles, int lanes, int resident) {
-  int per = resident / lanes;
-  if (per < 1) per = 1;
-  return per < tiles ? per : tiles;
-}
-
-// Clusters of `cluster` CTAs of `kernel` with `smem` bytes each that the
-// card holds resident at once (cudaOccupancyMaxActiveClusters), cached per
-// device, kernel, cluster and size; 0 if the query fails.
-template <typename... Params>
-int resident_clusters(void (*kernel)(Params...), int threads, int cluster, int smem) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, const void*, int, int>, int> cache;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  const auto key = std::make_tuple(dev, (const void*)kernel, cluster, smem);
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    const auto it = cache.find(key);
-    if (it != cache.end()) return it->second;
-  }
-  int n = 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster, 1);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  }
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  std::lock_guard<std::mutex> lock(mu);
-  cache[key] = n;
-  return n;
 }
 
 template <int R, int W, bool kResiduals>

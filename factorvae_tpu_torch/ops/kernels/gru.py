@@ -17,7 +17,8 @@ Wrappers, each with its own launch count:
 - `gru_bwd`: the walk back through time (dxi, and dg_n, the one block where
   dg differs from dxi), then `gru_dwh`; without residuals it first runs
   `gru_fwd_residuals`.
-- `gru_dwh`: dWh and db, summed over every row and step.
+- `gru_dwh`: dWh and db, summed over every row and step (on the tensor
+  cores above H = 64).
 
 `gru_fwd_op` is `gru_fwd` registered as the op
 `factorvae_tpu_torch::gru_fwd` (`torch.library.custom_op`), which
@@ -32,9 +33,11 @@ compute in float32 and return float32, as the Pallas kernels do. A float32
 input's gradient leaves `gru` unrounded, so a mixed training step feeds
 the bfloat16-valued float32 weights of `train/state.cast_compute`.
 
-The forward has a launch rule of its own (`fwd_launch_shape`): up to H =
-64 the walk's (`launch_shape`), above it that of the wide forward, whose
-persistent clusters keep their slices of Wh across row tiles.
+Up to H = 64 both recurrence kernels launch at the shapes of one rule
+(`launch_shape`). Above it each has its own: `fwd_launch_shape` for the
+wide forward and `walk_launch_shape` for the wide walk, both persistent
+clusters that keep their slices of Wh across row tiles, both weighing the
+clusters the card holds at once.
 
 Lanes (the fleets of `train/fleet.py`): every wrapper also takes S models
 at once, each array with a leading lane axis (xi (S, N, T, 3H), w_h (S, H,
@@ -55,7 +58,7 @@ import torch
 from factorvae_tpu_torch import _build
 from factorvae_tpu_torch.ops.kernels import lane_major, launch_range, plain, upcast
 
-TILE_ROWS = (16, 8)      # rows per tile the kernels take, preferred first
+TILE_ROWS = (16, 8)      # rows per tile the kernels take up to H = 64, preferred first
 CLUSTERS = (1, 2, 4, 8)  # CTAs per cluster the kernels take (8 only above H = 64)
 MAX_UNITS = 64           # hidden units a CTA owns at most (`kMaxUnits`)
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may use on an H100
@@ -68,6 +71,12 @@ _THREADS = 192           # threads per CTA (`kThreads`)
 FWD_ROWS = (64, 32, 16)
 WIDE_UNITS = 32
 STEP_FIXED_ROWS = 32
+# The walk above H = 64 (csrc/gru_bwd.cu, "The wide walk"): its row tiles,
+# and the fixed part of its step's cost in rows of a tile (the gates, the
+# barriers, the DSMEM sum), fit to scripts/torch_gru_walk_probe.py's tile
+# times at H = 128 and 256 on an H100.
+WALK_ROWS = (32, 24, 16)
+WALK_STEP_FIXED_ROWS = 48
 
 
 def _mma_ld(k: int) -> int:
@@ -94,38 +103,52 @@ def fwd_smem_bytes(h_dim: int, rows: int, cluster: int) -> int:
                 + rows * _THREADS + nbuf * rows * 3 * umax + 3 * umax)
 
 
+def walk_smem_bytes(h_dim: int, rows: int, cluster: int) -> int:
+    """The walk's dynamic shared memory at a launch shape
+    (`gru_walk_smem_bytes` of csrc/gru_bwd.cu): up to H = 64
+    `walk_smem_floats` (a CTA's rows of Wh beside the full dg), above it
+    `walk_wide_smem_floats` (P^T, the tile's rows' partial dh_prev of every
+    unit; the Wh slice of the CTA's gate columns; dg's two TF32 halves,
+    interleaved). A copy of those layouts; a cuda test holds it to
+    the library's at every shape."""
+    umax = -(-h_dim // cluster)
+    if h_dim > MAX_UNITS:
+        k8 = (3 * umax + 7) & ~7
+        ldw = ((k8 + 7) & ~15) + 8
+        ldx = ((2 * k8 + 15) & ~31) + 16
+        return 4 * (rows * (_round16(h_dim) + 4 + ldx) + _round16(h_dim) * ldw)
+    nbuf = 2 if cluster > 1 else 1
+    return 4 * (nbuf * rows * _mma_ld(3 * h_dim) + _round16(umax) * _mma_ld(3 * h_dim)
+                + rows * _THREADS + rows * umax + nbuf * rows * 7 * umax)
+
+
 def smem_bytes(h_dim: int, rows: int, cluster: int) -> int:
     """The larger of the two recurrence kernels' dynamic shared memory at a
-    launch shape (`fwd_smem_bytes`, and `walk_smem_floats` of
-    csrc/gru_bwd.cu): a CTA's slice of Wh beside the full h or dg. A copy of
-    those layouts, so that the rule runs without a library; a cuda test
-    holds it to the libraries' `gru_fwd_smem_bytes` and
-    `gru_walk_smem_bytes` at every shape."""
-    umax = -(-h_dim // cluster)
-    nbuf = 2 if cluster > 1 else 1
-    walk = (nbuf * rows * _mma_ld(3 * h_dim) + _round16(umax) * _mma_ld(3 * h_dim)
-            + rows * _THREADS + rows * umax + nbuf * rows * 7 * umax)
-    return max(fwd_smem_bytes(h_dim, rows, cluster), 4 * walk)
+    shape of `launch_shape`, up to H = 64 (`fwd_smem_bytes`,
+    `walk_smem_bytes`): a CTA's slice of Wh beside the full h or dg."""
+    if h_dim > MAX_UNITS:
+        raise ValueError(f"smem_bytes: the shared rule ends at H = {MAX_UNITS}; got {h_dim}")
+    return max(fwd_smem_bytes(h_dim, rows, cluster), walk_smem_bytes(h_dim, rows, cluster))
 
 
 def launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1,
                  smem_limit: int = SMEM_PER_BLOCK) -> tuple:
-    """(rows per tile, CTAs per cluster) of the walk, and of K1 up to H = 64
-    (`fwd_launch_shape`), for N rows of each of `lanes` models on a card of
-    `num_sms` SMs: the first of 16-row tiles alone, 8-row tiles alone, then
-    16- and 8-row tiles split over 2, 4 and (above H = 64) 8 CTAs, whose
-    grid (tiles of each lane's rows, times the lanes) has a CTA for every
-    SM; else the widest split. A cluster never has more CTAs than hidden
-    units, a CTA never owns more than MAX_UNITS of them, a shape whose
-    shared memory exceeds `smem_limit` bytes is skipped, and a tile never
-    takes rows of two lanes. Up to H = 64 this is the rule the kernels were
-    tuned under (clusters of 1, 2 and 4)."""
+    """(rows per tile, CTAs per cluster) of both recurrence kernels up to H
+    = 64 (`fwd_launch_shape`, `walk_launch_shape`), for N rows of each of
+    `lanes` models on a card of `num_sms` SMs: the first of 16-row tiles
+    alone, 8-row tiles alone, then 16- and 8-row tiles split over 2 and 4
+    CTAs, whose grid (tiles of each lane's rows, times the lanes) has a CTA
+    for every SM; else the widest split. A cluster never has more CTAs than
+    hidden units, a shape whose shared memory exceeds `smem_limit` bytes is
+    skipped, and a tile never takes rows of two lanes. This is the rule the
+    kernels were tuned under; above H = 64 each kernel has its own."""
+    if h_dim > MAX_UNITS:
+        raise ValueError(f"launch_shape: the shared rule ends at H = {MAX_UNITS}; got "
+                         f"{h_dim} (fwd_launch_shape, walk_launch_shape)")
     shape = None
     for c in CLUSTERS:
-        if c > h_dim or (c > 4 and h_dim <= MAX_UNITS):
+        if c > h_dim or c > 4:
             break
-        if -(-h_dim // c) > MAX_UNITS:
-            continue
         for rows in TILE_ROWS:
             if smem_bytes(h_dim, rows, c) > smem_limit:
                 continue
@@ -136,11 +159,11 @@ def launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1,
 
 
 def fwd_clusters(tiles: int, lanes: int, resident: int) -> int:
-    """Clusters K1 above H = 64 gives each of `lanes` lanes of `tiles` row
-    tiles, `resident` clusters fitting the card at once: an equal share of
-    them (at least one), never more than the tiles (`wide_clusters` of
-    csrc/gru_fwd.cu; the library takes `resident` from
-    cudaOccupancyMaxActiveClusters)."""
+    """Clusters K1 and the walk above H = 64 give each of `lanes` lanes of
+    `tiles` row tiles, `resident` clusters fitting the card at once: an
+    equal share of them (at least one), never more than the tiles
+    (`wide_clusters` of csrc/gru_common.cuh; the library takes `resident`
+    from cudaOccupancyMaxActiveClusters)."""
     return min(tiles, max(1, resident // lanes))
 
 
@@ -158,7 +181,8 @@ def fwd_resident(h_dim: int, rows: int, cluster: int, num_sms: int,
 def fwd_tiles(cluster_index: int, clusters: int, tiles: int) -> range:
     """The row tiles of one lane that its persistent cluster `cluster_index`
     of `clusters` runs, in order: cluster_index, + clusters, + 2 clusters,
-    ... (`wide_tile` of csrc/gru_fwd.cu)."""
+    ... (`wide_tile` of csrc/gru_common.cuh, K1's and the walk's above H =
+    64)."""
     return range(cluster_index, tiles, clusters)
 
 
@@ -184,13 +208,68 @@ def fwd_launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1,
     for rows in FWD_ROWS:
         if fwd_smem_bytes(h_dim, rows, c) > smem_limit:
             continue
-        fit = max(1, resident(rows, c))
-        tiles = -(-n_rows // rows)
-        per_lane = fwd_clusters(tiles, lanes, fit)
-        # a cluster's tiles one after another, in waves if the lanes'
-        # clusters outnumber the resident ones
-        rounds = -(-tiles // per_lane) * -(-lanes * per_lane // fit)
-        cost = rounds * (rows + STEP_FIXED_ROWS)
+        cost = _rounds_cost(n_rows, rows, lanes, max(1, resident(rows, c)), STEP_FIXED_ROWS)
+        if best is None or cost < best[0]:
+            best = (cost, (rows, c))
+    return best[1] if best else None
+
+
+def _rounds_cost(n_rows: int, rows: int, lanes: int, fit: int, fixed_rows: int) -> int:
+    """The cost of a persistent launch of `rows`-row tiles with `fit`
+    clusters resident: its rounds of tiles (a cluster's tiles one after
+    another, in waves if the lanes' clusters outnumber the resident ones)
+    times a step's cost, the tile's rows plus `fixed_rows`."""
+    tiles = -(-n_rows // rows)
+    per_lane = fwd_clusters(tiles, lanes, fit)
+    return -(-tiles // per_lane) * -(-lanes * per_lane // fit) * (rows + fixed_rows)
+
+
+def walk_shapes(h_dim: int, smem_limit: int = SMEM_PER_BLOCK) -> list:
+    """Every (rows, cluster) the walk takes at hidden size h_dim within
+    `smem_limit` bytes: up to H = 64 TILE_ROWS over clusters of 1, 2 and 4
+    (`launch_shape`'s shapes); above it WALK_ROWS over clusters whose CTAs
+    own at most WIDE_UNITS units (`valid_walk_wide_shape` of
+    csrc/gru_bwd.cu)."""
+    if h_dim <= MAX_UNITS:
+        return [(rows, c) for c in CLUSTERS if c <= min(h_dim, 4) for rows in TILE_ROWS
+                if smem_bytes(h_dim, rows, c) <= smem_limit]
+    return [(rows, c) for c in CLUSTERS if 2 <= c <= h_dim and -(-h_dim // c) <= WIDE_UNITS
+            for rows in WALK_ROWS if walk_smem_bytes(h_dim, rows, c) <= smem_limit]
+
+
+def walk_resident(h_dim: int, rows: int, cluster: int, num_sms: int,
+                  smem_limit: int = SMEM_PER_BLOCK) -> int:
+    """Clusters of the wide walk resident at once on a card of `num_sms` SMs
+    if each SM holds as many CTAs as its shared memory allows: the count
+    without a library (the card's own, `gru_walk_clusters`, is at most
+    this)."""
+    return num_sms * (smem_limit // walk_smem_bytes(h_dim, rows, cluster)) // cluster
+
+
+def walk_launch_shape(n_rows: int, h_dim: int, num_sms: int, lanes: int = 1,
+                      smem_limit: int = SMEM_PER_BLOCK, resident=None) -> tuple:
+    """(rows per tile, CTAs per cluster) of the walk. Up to H = 64
+    `launch_shape`'s. Above it the wide walk's: the fewest CTAs that own at
+    most WIDE_UNITS units each (4 up to H = 128, 8 up to 256), and of
+    WALK_ROWS the tile whose rounds of persistent clusters (`fwd_clusters`,
+    with `resident(rows, cluster)` of them resident, by default
+    `walk_resident`) cost least, a step of a tile costing its rows plus
+    WALK_STEP_FIXED_ROWS; a shape whose shared memory exceeds `smem_limit`
+    bytes is skipped. A tile never takes rows of two lanes."""
+    if h_dim <= MAX_UNITS:
+        return launch_shape(n_rows, h_dim, num_sms, lanes, smem_limit)
+    c = next((c for c in CLUSTERS if -(-h_dim // c) <= WIDE_UNITS), None)
+    if c is None:
+        return None
+    if resident is None:
+        def resident(rows, cluster):
+            return walk_resident(h_dim, rows, cluster, num_sms, smem_limit)
+    best = None
+    for rows in WALK_ROWS:
+        if walk_smem_bytes(h_dim, rows, c) > smem_limit:
+            continue
+        cost = _rounds_cost(n_rows, rows, lanes, max(1, resident(rows, c)),
+                            WALK_STEP_FIXED_ROWS)
         if best is None or cost < best[0]:
             best = (cost, (rows, c))
     return best[1] if best else None
@@ -204,12 +283,15 @@ def _card(device_index: int) -> tuple:
             getattr(props, "shared_memory_per_block_optin", SMEM_PER_BLOCK))
 
 
+def _lanes_of(xi: torch.Tensor) -> int:
+    return xi.shape[0] if xi.ndim == 4 else 1
+
+
 def _shape(xi: torch.Tensor) -> tuple:
     """`launch_shape` for xi (N, T, 3H), or lane-axis xi (S, N, T, 3H), on
-    the card that holds it."""
-    lanes = xi.shape[0] if xi.ndim == 4 else 1
+    the card that holds it (H <= 64)."""
     sms, smem = _card(xi.device.index)
-    return launch_shape(xi.shape[-3], xi.shape[-1] // 3, sms, lanes, smem)
+    return launch_shape(xi.shape[-3], xi.shape[-1] // 3, sms, _lanes_of(xi), smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -223,11 +305,27 @@ def _resident(device_index: int, h_dim: int, rows: int, cluster: int) -> int:
 def _fwd_shape(xi: torch.Tensor) -> tuple:
     """`fwd_launch_shape` for xi as `_shape`, with the card's own count of
     resident clusters."""
-    lanes = xi.shape[0] if xi.ndim == 4 else 1
     h_dim = xi.shape[-1] // 3
     sms, smem = _card(xi.device.index)
-    return fwd_launch_shape(xi.shape[-3], h_dim, sms, lanes, smem,
+    return fwd_launch_shape(xi.shape[-3], h_dim, sms, _lanes_of(xi), smem,
                             functools.partial(_resident, xi.device.index, h_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_resident(device_index: int, h_dim: int, rows: int, cluster: int) -> int:
+    """Clusters of the wide walk a card holds at once at a launch shape
+    (`gru_walk_clusters` of a launch with more tiles than fit)."""
+    with torch.cuda.device(device_index):
+        return _lib("gru_bwd").gru_walk_clusters(1 << 20, h_dim, rows, cluster, 1)
+
+
+def _walk_shape(xi: torch.Tensor) -> tuple:
+    """`walk_launch_shape` for xi as `_shape`, with the card's own count of
+    resident clusters."""
+    h_dim = xi.shape[-1] // 3
+    sms, smem = _card(xi.device.index)
+    return walk_launch_shape(xi.shape[-3], h_dim, sms, _lanes_of(xi), smem,
+                             functools.partial(_walk_resident, xi.device.index, h_dim))
 
 
 def _gates(x: torch.Tensor, g: torch.Tensor, h_dim: int):
@@ -355,7 +453,8 @@ _SIGNATURES = {
                 "gru_dwh": ([_P] * 6 + [_L, _I, _I, _P], _I),
                 "gru_dwh_scratch_floats": ([_L, _I, _I], _L),
                 "gru_bwd_max_hidden": ([], _I),
-                "gru_walk_smem_bytes": ([_I] * 3, _I)},
+                "gru_walk_smem_bytes": ([_I] * 3, _I),
+                "gru_walk_clusters": ([_I] * 5, _I)},
 }
 
 
@@ -565,7 +664,7 @@ def gru_bwd(xi: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor, dh: torch.Te
         _, hseq, gseq = gru_fwd_residuals(xi, w_h, b_h)
     else:
         hseq, gseq = residuals
-    dxi, dgn = _walk_launch(xi, w_h, hseq, gseq, dh, _shape(xi))
+    dxi, dgn = _walk_launch(xi, w_h, hseq, gseq, dh, _walk_shape(xi))
     gru_bwd.launches += 1
     return (dxi, *gru_dwh(hseq, dxi, dgn))
 

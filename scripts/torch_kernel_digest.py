@@ -10,11 +10,12 @@ each kernel (K1's serving and residual variants, the walk, dWh, K4, K5) runs
 on inputs made from --seed at the flagship widths (N = 304 with 300 stocks,
 T = 20, H = 64, K = 96; K1 also at a 32-day serving chunk; the walk also at
 T = 60, H = 60; K4 and K5 also at H = 37 and on a day with a NaN row, the
-exact path), and K1's two variants at H = 128 and 256 at one day and at a
-32-day chunk (its wide instance); the line holds the sha256 of each call's
-outputs' bytes beside its `graph_ms` (the CUDA-event time of 20 replays of
-a CUDA graph of one call). Equal digests from two trees mean the two
-compute bitwise the same values.
+exact path), K1's two variants at H = 128 and 256 at one day and at a
+32-day chunk (its wide instance), and the walk and dWh at H = 128 and 256
+at one day and at T = 60 (dWh on the plain walk's outputs); the line holds
+the sha256 of each call's outputs' bytes beside its `graph_ms` (the
+CUDA-event time of 20 replays of a CUDA graph of one call). Equal digests
+from two trees mean the two compute bitwise the same values.
 The library's full ptxas report (`-Xptxas -v`) for each kernel source goes
 to the --out file's directory. Prints one JSON line with the card's
 `nvidia-smi` name and power limit; exits 1 without a CUDA device.
@@ -151,6 +152,20 @@ def main(argv=None) -> int:
             a = (rand(n, 20, 3 * h), rand(h, 3 * h, scale=h ** -0.5), rand(3 * h, scale=0.1))
             calls[f"gru_fwd_{label}_H{h}"] = lambda a=a: gru.gru_fwd(*a)
             calls[f"gru_fwd_residuals_{label}_H{h}"] = lambda a=a: gru.gru_fwd_residuals(*a)
+    # the walk and dWh above H = 64, drawn after the rest: the walk from
+    # K1's residuals at the tree's walk shape, dWh on the plain walk's
+    # outputs (so that its digest moves only with the dWh kernel)
+    walk_shape = getattr(gru, "_walk_shape", None) or gru._shape
+    for h in (128, 256):
+        for label, t in (("day", 20), ("T60", 60)):
+            xi, wh = rand(304, t, 3 * h), rand(h, 3 * h, scale=h ** -0.5)
+            bh = rand(3 * h, scale=0.1)
+            dh = rand(304, h, scale=0.1)
+            _, hseq, gseq = gru.gru_fwd_residuals(xi, wh, bh)
+            plain = gru.gru_walk_plain(xi, wh, hseq, gseq, dh)
+            calls[f"gru_walk_{label}_H{h}"] = lambda a=(xi, wh, hseq, gseq, dh): (
+                gru._walk_launch(*a, walk_shape(a[0])))
+            calls[f"gru_dwh_{label}_H{h}"] = lambda a=(hseq, *plain): gru.gru_dwh(*a)
     out = {"tree": os.path.abspath(args.tree), "nvidia_smi": smi, "calls": {}}
     for name, fn in calls.items():
         out["calls"][name] = {"digest": _digest(fn()), "graph_ms": graph_ms(torch, fn)}

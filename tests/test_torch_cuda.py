@@ -4,7 +4,9 @@ Every test here needs a CUDA device and skips without one. Hidden sizes
 above 64 (up to 256, the kernels' wider instances) are cases of the same
 tests, and of `test_gru_wide_cluster_path_matches_plain`,
 `test_gru_wide_forward_matches_plain_at_every_tile` (K1's persistent wide
-kernel) and `test_attention_takes_5000_rows_at_h256`. The file imports
+kernel), the `test_gru_wide_walk_*` and `test_gru_wide_dwh_*` tests (the
+persistent wide walk and the tensor-core dWh) and
+`test_attention_takes_5000_rows_at_h256`. The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
 PyTorch, without the repo's conftest:
 
@@ -405,27 +407,22 @@ def test_gru_cluster_path_matches_plain(dev, n, t, h, shape):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-def _wide_shapes(h):
-    """Every (rows, cluster) the GRU kernels take at a hidden size h: at most
-    gru.MAX_UNITS units a CTA, within an H100 block's shared memory."""
-    return [(rows, c) for c in gru_module.CLUSTERS for rows in gru_module.TILE_ROWS
-            if c <= h and -(-h // c) <= gru_module.MAX_UNITS
-            and gru_module.smem_bytes(h, rows, c) <= gru_module.SMEM_PER_BLOCK]
-
-
 def _k1_shape(h, shape):
     """K1's launch shape beside the walk's `shape`: the same, but that above
-    H = 64 K1's tiles are FWD_ROWS (16 rows for the walk's 8); a row's h
-    depends on neither its tile nor its cluster there."""
+    H = 64 K1 has no 24-row tile (FWD_ROWS) and takes 16 rows there; a
+    row's h depends on neither its tile nor its cluster."""
     rows, c = shape
-    return shape if h <= gru_module.MAX_UNITS else (max(rows, min(gru_module.FWD_ROWS)), c)
+    if h <= gru_module.MAX_UNITS or rows in gru_module.FWD_ROWS:
+        return shape
+    return (min(gru_module.FWD_ROWS), c)
 
 
 @pytest.mark.parametrize("h,shape", [pytest.param(h, s, id=f"H{h}-{s[0]}x{s[1]}")
-                                     for h in (65, 96, 128, 200, 256) for s in _wide_shapes(h)])
+                                     for h in (65, 96, 128, 200, 256)
+                                     for s in gru_module.walk_shapes(h)])
 def test_gru_wide_cluster_path_matches_plain(dev, h, shape):
-    """Above H = 64, every tile and cluster shape (clusters of 2 to 8) the
-    kernels take computes the plain function, forward (both variants, at
+    """Above H = 64, every tile and cluster shape the wide walk takes
+    (`walk_shapes`) computes the plain function, forward (both variants, at
     `_k1_shape`), the walk and dWh, and repeats bitwise."""
     xi, wh, bh, dh = _gru_inputs(dev, 333, 7, h, h + shape[1])
     k1 = _k1_shape(h, shape)
@@ -448,17 +445,170 @@ def test_gru_wide_cluster_path_matches_plain(dev, h, shape):
 
 def test_gru_smem_bytes_is_the_libraries_layout(dev):
     """`gru.smem_bytes`, the copy of the recurrence kernels' shared memory
-    layouts that the launch rule reads, equals the libraries' own at every
-    hidden size, tile and cluster."""
+    layouts that the shared rule reads up to H = 64, equals the libraries'
+    own at every hidden size, tile and cluster there; `gru.walk_smem_bytes`,
+    the walk's copy, equals `gru_walk_smem_bytes` at every shape the walk
+    takes up to H = 256 (the wide walk's layout above 64)."""
     from factorvae_tpu_torch.ops.kernels import MAX_HIDDEN
 
     fwd, bwd = gru_module._lib("gru_fwd"), gru_module._lib("gru_bwd")
-    for h in range(1, MAX_HIDDEN + 1):
+    for h in range(1, gru_module.MAX_UNITS + 1):
         for c in (c for c in gru_module.CLUSTERS if c <= h):
             for rows in gru_module.TILE_ROWS:
                 want = max(fwd.gru_fwd_smem_bytes(h, rows, c),
                            bwd.gru_walk_smem_bytes(h, rows, c))
                 assert gru_module.smem_bytes(h, rows, c) == want, (h, rows, c)
+    for h in range(gru_module.MAX_UNITS + 1, MAX_HIDDEN + 1):
+        for c in (c for c in gru_module.CLUSTERS if 2 <= c <= h):
+            for rows in gru_module.WALK_ROWS:
+                assert gru_module.walk_smem_bytes(h, rows, c) == bwd.gru_walk_smem_bytes(
+                    h, rows, c), (h, rows, c)
+
+
+def test_gru_walk_layout_and_clusters_are_the_librarys(dev):
+    """Above H = 64 the walk's rule weighs the card's own count of resident
+    clusters (`gru_walk_clusters`, at most `walk_resident`'s), `_walk_shape`
+    is `walk_launch_shape` given that count, the library refuses every
+    shape outside `walk_shapes` (0 clusters) and takes every one inside it,
+    and `fwd_clusters` gives its count of persistent clusters."""
+    bwd = gru_module._lib("gru_bwd")
+    index = torch.cuda.current_device()
+    sms, smem = gru_module._card(index)
+
+    def resident(h, rows, c):
+        return bwd.gru_walk_clusters(1 << 20, h, rows, c, 1)
+
+    for h in (65, 96, 128, 200, 256):
+        shapes = gru_module.walk_shapes(h, smem)
+        for c in gru_module.CLUSTERS:
+            for rows in (8, 16, 24, 32, 64):
+                taken = resident(h, rows, c)
+                assert (taken > 0) == ((rows, c) in shapes), (h, rows, c)
+                if taken:
+                    assert taken <= gru_module.walk_resident(h, rows, c, sms, smem)
+                    assert gru_module._walk_resident(index, h, rows, c) == taken
+        for n in (1, 304, 2432, 9728):
+            for lanes in (1, 2, 3, 40):
+                xi = torch.empty(1, device=dev).expand(lanes, n, 1, 3 * h)
+                rows, c = gru_module._walk_shape(xi)
+                assert (rows, c) in shapes
+                assert (rows, c) == gru_module.walk_launch_shape(
+                    n, h, sms, lanes, smem, lambda r, c, h=h: resident(h, r, c))
+                assert bwd.gru_walk_clusters(n, h, rows, c, lanes) == gru_module.fwd_clusters(
+                    -(-n // rows), lanes, resident(h, rows, c))
+    assert bwd.gru_walk_clusters(304, 64, 16, 4, 1) == 0     # up to 64: no wide walk
+
+
+WIDE_WALK_H = (65, 96, 128, 200, 256)
+
+
+@pytest.mark.parametrize("t", [1, 20, 60])
+@pytest.mark.parametrize("h", WIDE_WALK_H)
+def test_gru_wide_walk_matches_plain_at_every_tile(dev, h, t):
+    """Above H = 64 the walk is the persistent wide kernel. Launched at every
+    shape it takes (`walk_shapes`: each tile of WALK_ROWS at each cluster,
+    the units split unevenly at H = 65 and 200), it computes the plain
+    walk; at the rule's cluster every tile is bitwise the rule's pick (a
+    row's result depends on neither its tile nor the clusters that ran it),
+    and the wrapper's launch repeats bitwise."""
+    xi, wh, bh, dh = _gru_inputs(dev, 333, t, h, h + t)
+    _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+    want = gru_walk_plain(xi, wh, hseq, gseq, dh)
+    picked = gru_module._walk_shape(xi)
+    before = gru_bwd.launches
+    got = gru_bwd(xi, wh, bh, dh, residuals=(hseq, gseq))
+    assert gru_bwd.launches == before + 1
+    ref = gru_module._walk_launch(xi, wh, hseq, gseq, dh, picked)
+    assert torch.equal(got[0], ref[0])
+    assert all(torch.equal(a, b) for a, b in zip(
+        gru_bwd(xi, wh, bh, dh, residuals=(hseq, gseq)), got))
+    for shape in gru_module.walk_shapes(h):
+        walk = gru_module._walk_launch(xi, wh, hseq, gseq, dh, shape)
+        for g, w in zip(walk, want):
+            _close(g, w)
+        if shape[1] == picked[1]:
+            assert all(torch.equal(a, b) for a, b in zip(walk, ref)), shape
+
+
+@pytest.mark.parametrize("n", [5, 304])
+@pytest.mark.parametrize("h", [96, 256])
+def test_gru_wide_walk_lanes_are_each_lane_alone(dev, h, n):
+    """Three lanes in one launch of the wide walk at the rule's shape for
+    three lanes: the lane-axis plain values, and each lane bitwise its
+    one-lane launch at the rule's shape for one lane; dWh of the three
+    lanes likewise."""
+    from factorvae_tpu_torch.ops.kernels import per_lane
+
+    rng = np.random.default_rng(n + h + 1)
+    xi, wh, bh, dh = _to(dev, (rng.normal(size=(3, n, 20, 3 * h)) * 0.5).astype(np.float32),
+                         (rng.normal(size=(3, h, 3 * h)) * _wh_scale(h)).astype(np.float32),
+                         (rng.normal(size=(3, 3 * h)) * 0.1).astype(np.float32),
+                         rng.normal(size=(3, n, h)).astype(np.float32))
+    _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+    three = gru_module._walk_launch(xi, wh, hseq, gseq, dh, gru_module._walk_shape(xi))
+    for g, w in zip(three, per_lane(gru_walk_plain, xi, wh, hseq, gseq, dh)):
+        _close(g, w)
+    dw3 = gru_dwh(hseq, *three)
+    for s in range(3):
+        one = gru_module._walk_launch(xi[s], wh[s], hseq[s], gseq[s], dh[s],
+                                      gru_module._walk_shape(xi[s]))
+        assert all(torch.equal(a, b[s]) for a, b in zip(one, three)), s
+        assert all(torch.equal(a, b[s]) for a, b in zip(gru_dwh(hseq[s], *one), dw3)), s
+
+
+@pytest.mark.parametrize("h", [128, 256])
+def test_gru_wide_walk_carries_nan_as_plain(dev, h):
+    """A NaN made on the device (0 * inf, 0x7fffffff) in one element of Wh,
+    of dh or of a residual (g, h_prev) comes out of the wide walk where it
+    comes out of the plain version, every other value within the tolerance;
+    a NaN in hseq reaches dWh's row where the plain dWh has it."""
+    xi, wh, bh, dh = _gru_inputs(dev, 304, 8, h, h + 3)
+    _, hseq, gseq = gru_fwd_residuals(xi, wh, bh)
+    nan = torch.zeros((), device=dev) * torch.full((), float("inf"), device=dev)
+    assert int(nan.view(torch.int32)) == 0x7FFFFFFF
+    for where in ("wh", "dh", "gseq", "hseq"):
+        a = {"wh": wh.clone(), "dh": dh.clone(), "gseq": gseq.clone(), "hseq": hseq.clone()}
+        index = {"wh": (3, 5), "dh": (7, 2), "gseq": (9, 4, 2 * h + 1), "hseq": (11, 5, 6)}
+        a[where][index[where]] = nan
+        shape = gru_module._walk_shape(xi)
+        got = gru_module._walk_launch(xi, a["wh"], a["hseq"], a["gseq"], a["dh"], shape)
+        want = gru_walk_plain(xi, a["wh"], a["hseq"], a["gseq"], a["dh"])
+        for g, w in zip(got, want):
+            assert torch.equal(g.isnan(), w.isnan()), where
+            assert bool(w.isnan().any()), where
+            _close(g.nan_to_num(), w.nan_to_num())
+    bad = hseq.clone()
+    bad[11, 5, 6] = nan
+    dxi, dgn = gru_walk_plain(xi, wh, hseq, gseq, dh)
+    got, want = gru_dwh(bad, dxi, dgn), gru_dwh_plain(bad, dxi, dgn)
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
+    assert got[0][6].isnan().all() and not got[0][:6].isnan().any()
+
+
+@pytest.mark.parametrize("n,t,h", [(333, 7, 65), (304, 20, 96), (37, 5, 200), (304, 60, 256),
+                                   (2432, 20, 128)],
+                         ids=["ragged_H65", "day_H96", "short_H200", "T60_H256",
+                              "eight_days_H128"])
+def test_gru_wide_dwh_matches_plain_and_repeats_bitwise(dev, n, t, h):
+    """dWh and db above H = 64 on the tensor cores: the plain values (N*T
+    rows not a multiple of the 32 staged a pass, H not a multiple of its 64
+    x 192 tile), bitwise on a repeat, and two lanes each bitwise its
+    one-lane launch."""
+    rng = np.random.default_rng(n + t + h)
+    hseq, dxi, dgn = _to(dev, rng.normal(size=(2, n, t, h)).astype(np.float32),
+                         (rng.normal(size=(2, n, t, 3 * h)) * 0.1).astype(np.float32),
+                         (rng.normal(size=(2, n, t, h)) * 0.1).astype(np.float32))
+    before = gru_dwh.launches
+    got = gru_dwh(hseq[0], dxi[0], dgn[0])
+    assert gru_dwh.launches == before + 1
+    for g, w in zip(got, gru_dwh_plain(hseq[0], dxi[0], dgn[0])):
+        _close_sum(g, w)
+    assert all(torch.equal(a, b) for a, b in zip(gru_dwh(hseq[0], dxi[0], dgn[0]), got))
+    two = gru_dwh(hseq, dxi, dgn)
+    assert all(torch.equal(a[0], b) for a, b in zip(two, got))
+    one = gru_dwh(hseq[1], dxi[1], dgn[1])
+    assert all(torch.equal(a[1], b) for a, b in zip(two, one))
 
 
 def test_gru_fwd_layout_and_clusters_are_the_librarys(dev):
@@ -832,8 +982,8 @@ def test_entry_points_refuse_a_hidden_size_above_the_kernels(dev):
 
 
 @pytest.mark.parametrize("n,t,h,shape", [(304, 20, 64, (8, 1)), (37, 30, 8, (16, 2)),
-                                         (40, 6, 12, (8, 4)), (304, 9, 96, (8, 4)),
-                                         (304, 9, 256, (8, 8))],
+                                         (40, 6, 12, (8, 4)), (304, 9, 96, (16, 4)),
+                                         (304, 9, 256, (32, 8))],
                          ids=["one_day", "T30_cluster2", "ragged_cluster4", "H96_cluster4",
                               "H256_cluster8"])
 def test_gru_lane_axis_is_each_lane_alone(dev, n, t, h, shape):
@@ -1105,6 +1255,20 @@ def test_a_capture_names_every_kernel_by_its_cuda_function(dev, tmp_path):
     host = {name for name, _, _ in s["host_by_name"]}
     assert {"gru_fwd", "gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_fwd",
             "attention_bwd"} <= host
+    # above H = 64: the wide walk and the tensor-core dWh
+    hw = 96
+    xw, ww, bw = _to(dev, rng.normal(size=(n, t, 3 * hw)).astype(np.float32),
+                     (rng.normal(size=(hw, 3 * hw)) * hw ** -0.5).astype(np.float32),
+                     (rng.normal(size=(3 * hw,)) * 0.1).astype(np.float32))
+    _, hseq, gseq = gru_fwd_residuals(xw, ww, bw)
+    wide_dir = tmp_path / "wide"
+    with trace(str(wide_dir)):
+        gru_fwd(xw, ww, bw)           # a capture's first launch may go unrecorded
+        gru_bwd(xw, ww, bw, torch.ones((n, hw), device=dev), residuals=(hseq, gseq))
+    by = [(name, count) for name, _, count in summarize_trace(str(wide_dir), top=10000)[
+        "by_name"]]
+    assert count(r"gru_walk_wide_kernel") == count(r"gru_dwh_wide_kernel") == 1
+    assert count(r"gru_walk_kernel") == count(r"gru_dwh_kernel") == 0
 
 
 _BUILD_INTO = """

@@ -7,11 +7,11 @@ interpret mode (K1; K2 at T <= 24 and K3's segmented kernel at T = 30; K4
 and K5 with a NaN day and a +inf day), the port's `Trainer` at H = 96
 against the JAX `Trainer`, `grid_sweep` over a hidden-size bucket {8, 72}
 against the JAX `grid_sweep`, the launch rule and the refusal at the new
-maximum, K1's own launch rule above H = 64 and its persistent clusters'
-tile assignment, the kernel names by which chip_smoke.py books K1's traced
-launches, the CLI at H = 96, and an exported program at H = 96
-(its registered ops traced through their fake functions). Inputs come
-from numpy.
+maximum, K1's and the walk's own launch rules above H = 64 and their
+persistent clusters' tile assignment, the kernel names by which
+chip_smoke.py books the GRU kernels' traced launches, the CLI at H = 96,
+and an exported program at H = 96 (its registered ops traced through
+their fake functions). Inputs come from numpy.
 
 Tolerances are the repo's oracle ones: f32 at rtol 1e-5 / atol 1e-6; the
 GRU's weight gradients, summed over every row and step, at rtol 2e-5 /
@@ -52,6 +52,7 @@ from factorvae_tpu_torch.ops.kernels import gru as gru_module
 from factorvae_tpu_torch.ops.kernels.attention import attention, attention_fwd
 from factorvae_tpu_torch.ops.kernels.gru import (
     FWD_ROWS,
+    WALK_ROWS,
     WIDE_UNITS,
     fwd_clusters,
     fwd_launch_shape,
@@ -62,6 +63,10 @@ from factorvae_tpu_torch.ops.kernels.gru import (
     gru_fwd,
     launch_shape,
     smem_bytes,
+    walk_launch_shape,
+    walk_resident,
+    walk_shapes,
+    walk_smem_bytes,
 )
 from factorvae_tpu_torch.params import flax_to_torch
 from factorvae_tpu_torch.train.fleet import FleetTrainer
@@ -163,25 +168,79 @@ def test_attention_plain_matches_pallas_at_wide_h(h):
 @pytest.mark.parametrize("h", [65, 96, 128, 129, 200, 256])
 @pytest.mark.parametrize("n,lanes", [(1, 1), (304, 1), (304, 4), (2432, 1), (9728, 1)])
 def test_launch_shape_rule_at_wide_h(n, lanes, h):
-    """Above H = 64 a CTA owns at most 64 units (so at least H / 64 CTAs a
-    cluster, up to 8), the shape's shared memory fits an H100's block, and
-    one flagship training day or more has a CTA for every SM."""
-    rows, cluster = launch_shape(n, h, H100_SMS, lanes)
-    assert rows in gru_module.TILE_ROWS and cluster in gru_module.CLUSTERS
-    assert -(-h // cluster) <= gru_module.MAX_UNITS and cluster <= h
-    assert smem_bytes(h, rows, cluster) <= gru_module.SMEM_PER_BLOCK
-    if n >= 304:
-        assert lanes * -(-n // rows) * cluster >= H100_SMS
+    """Above H = 64 the walk's own rule: a tile of WALK_ROWS over a cluster
+    whose CTAs own at most WIDE_UNITS units (4 CTAs up to H = 128, 8 above),
+    a shape `walk_shapes` lists, its wide layout within an H100's block;
+    the shared rule of H <= 64 refuses the width."""
+    rows, cluster = walk_launch_shape(n, h, H100_SMS, lanes)
+    assert rows in WALK_ROWS and cluster == (4 if h <= 128 else 8)
+    assert -(-h // cluster) <= WIDE_UNITS and (rows, cluster) in walk_shapes(h)
+    assert walk_smem_bytes(h, rows, cluster) <= gru_module.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="walk_launch_shape"):
+        launch_shape(n, h, H100_SMS, lanes)
 
 
 def test_launch_shape_rule_keeps_the_tuned_shapes_up_to_h64():
-    """The <= 64 class picks what it did before clusters of 8 existed."""
+    """The <= 64 class picks what it did before clusters of 8 existed, and
+    ends there: above it each kernel has its own rule."""
     assert launch_shape(304, 64, H100_SMS) == (8, 4)
     assert launch_shape(9728, 64, H100_SMS) == (16, 1)
     assert launch_shape(5, 64, H100_SMS) == (8, 4)
-    assert launch_shape(304, 256, H100_SMS) == (8, 8)
+    with pytest.raises(ValueError):
+        smem_bytes(65, 16, 4)
     assert max(c for h in range(1, 65) for n in (1, 40, 304)
                for _, c in [launch_shape(n, h, H100_SMS)]) == 4
+
+
+def test_walk_rule_is_launch_shape_up_to_h64():
+    """Up to H = 64 the walk's rule returns the shapes the kernels were
+    tuned under (`launch_shape`, K1's too), and `walk_shapes` lists every
+    shape that rule can pick."""
+    for h in range(1, 65):
+        shapes = walk_shapes(h)
+        for n in (1, 5, 40, 304, 1001, 9728):
+            for lanes in (1, 3, 8):
+                got = walk_launch_shape(n, h, H100_SMS, lanes)
+                assert got == launch_shape(n, h, H100_SMS, lanes), (h, n, lanes)
+                assert got in shapes
+
+
+WALK_WIDE = (65, 96, 128, 200, 256)
+
+
+@pytest.mark.parametrize("h", WALK_WIDE)
+def test_walk_rule_fits_a_block_at_wide_h(h):
+    """Above H = 64, for 1 to 40 lanes and N from one row to a 32-day chunk,
+    the walk's rule picks a shape whose wide layout (the Python copy of
+    `walk_wide_smem_floats`) fits 227 KB, with at least one cluster
+    resident; at H = 256 that admits 32-row tiles (the layout of the walk
+    up to H = 64, taken there, fitted only 8-row ones)."""
+    for lanes in range(1, 41):
+        for n in (1, 304, 2432, 9728):
+            rows, c = walk_launch_shape(n, h, H100_SMS, lanes)
+            assert walk_smem_bytes(h, rows, c) <= gru_module.SMEM_PER_BLOCK == 232_448
+            assert walk_resident(h, rows, c, H100_SMS) >= 1
+    assert (32, 8) in walk_shapes(256) and walk_smem_bytes(256, 32, 8) == 166_400
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 40])
+@pytest.mark.parametrize("n", [1, 5, 304, 2432, 9728])
+@pytest.mark.parametrize("h", [96, 256])
+def test_walk_persistent_clusters_run_every_tile_once(h, n, lanes):
+    """The wide walk's persistent loop (`wide_tile` over `fwd_clusters` of
+    the resident clusters) at the rule's shape: every row of every lane in
+    exactly one tile of one cluster of that lane."""
+    rows, c = walk_launch_shape(n, h, H100_SMS, lanes)
+    tiles = -(-n // rows)
+    per_lane = fwd_clusters(tiles, lanes, walk_resident(h, rows, c, H100_SMS))
+    owner = {}
+    for lane in range(lanes):
+        for cl in range(per_lane):
+            for tile in fwd_tiles(cl, per_lane, tiles):
+                for r in range(tile * rows, min(n, (tile + 1) * rows)):
+                    assert (lane, r) not in owner
+                    owner[(lane, r)] = cl
+    assert len(owner) == lanes * n
 
 
 FWD_WIDE = (65, 96, 128, 192, 256)
@@ -268,6 +327,30 @@ def test_trace_patterns_name_both_forward_kernels(name, wrapper):
     hits = [w for w, patterns in KERNEL_FUNCTIONS.items()
             if any(re.search(p, name) for p in patterns)]
     assert hits == [wrapper]
+
+
+@pytest.mark.parametrize("name,wrapper", [
+    ("void (anonymous namespace)::gru_walk_kernel<8, true>(float const*)", "gru_bwd"),
+    ("void (anonymous namespace)::gru_walk_wide_kernel<32, 2>(float const*)", "gru_bwd"),
+    ("void (anonymous namespace)::gru_walk_wide_kernel<16, 1>(float const*)", "gru_bwd"),
+    ("(anonymous namespace)::gru_dwh_kernel(float const*, float const*)", "gru_dwh"),
+    ("(anonymous namespace)::gru_dwh_wide_kernel(float const*, float const*)", "gru_dwh"),
+    ("(anonymous namespace)::gru_dwh_reduce_kernel(float const*, int)", "gru_dwh")])
+def test_trace_patterns_name_the_backward_kernels(name, wrapper):
+    """chip_smoke.py books a traced walk or dWh launch to its wrapper by the
+    kernel's demangled name, up to H = 64 and above it (the wide walk, the
+    tensor-core dWh): each name matches its wrapper's patterns and no other
+    wrapper's, and the first pattern, which counts launches, matches the
+    walk and dWh kernels but not dWh's reduce."""
+    import re
+
+    from chip_smoke import KERNEL_FUNCTIONS
+
+    hits = [w for w, patterns in KERNEL_FUNCTIONS.items()
+            if any(re.search(p, name) for p in patterns)]
+    assert hits == [wrapper]
+    first = bool(re.search(KERNEL_FUNCTIONS[wrapper][0], name))
+    assert first == ("reduce" not in name)
 
 
 @pytest.mark.parametrize("tiles,resident,lanes", [
