@@ -2694,7 +2694,7 @@ def _device_split(torch, fn, reps: int = 3) -> dict:
             name = ev.key.lower()
             kind = ("K1" if re.search(r"gru_fwd(_wide)?_kernel", name)
                     else "K2/K3" if re.search(r"gru_(walk|dwh)(_wide|_reduce)?_kernel", name)
-                    else "K4" if "attention_fwd_kernel" in name
+                    else "K4" if re.search(r"attention_fwd_(wide_|prep_|ctx_)?kernel", name)
                     else "products" if any(k in name for k in ("gemm", "cutlass", "xmma",
                                                                 "sm90", "ampere"))
                     else "copies" if "memcpy" in name or "memset" in name else "other")
@@ -4336,9 +4336,10 @@ KERNEL_FUNCTIONS = {
     "gru_fwd": (r"gru_fwd(?:_kernel<[^,>]+|_wide_kernel<[^>]*),\s*false",),
     "gru_bwd": (r"gru_walk(?:_wide)?_kernel",),
     "gru_dwh": (r"gru_dwh(?:_wide)?_kernel", r"gru_dwh_reduce_kernel"),
-    "attention_fwd": (r"attention_fwd_kernel",),
-    "attention_bwd": (r"attention_bwd_head_kernel", r"attention_bwd_weights_kernel",
-                      r"attention_bwd_latent_kernel"),
+    "attention_fwd": (r"attention_fwd(?:_wide)?_kernel", r"attention_fwd_prep_kernel",
+                      r"attention_fwd_ctx_kernel"),
+    "attention_bwd": (r"attention_bwd_head(?:_wide)?_kernel", r"attention_bwd_prep_kernel",
+                      r"attention_bwd_weights_kernel", r"attention_bwd_latent(?:_wide)?_kernel"),
 }
 
 
@@ -5941,6 +5942,7 @@ def phase_mesh(torch, seed: int, counters, card: str) -> dict:
 
 
 WIDE_HIDDEN = (128, 256)
+WIDE_ODD_H = 200            # the wide attention kernels' uneven slices (52, 52, 52, 44)
 WIDE_DAYS = 60              # 30 train + 10 validation + 20 scored days
 WIDE_GRID_HIDDEN = (64, 128, 256)
 WIDE_GRID_LR = (1e-4, 3e-4)
@@ -5963,13 +5965,19 @@ def _wide_kernels(torch, g, h: int) -> dict:
     walk_checks = _wide_walk_checks(torch, g, h)
     k4 = _k4_checks(torch, g, h, f"wide K4 H={h}")
     k5, _ = _k5_case(torch, g, 8, 304, 96, h, 300, f"wide K5 H={h} flagship_8_days")
+    attention_checks = _wide_attention_checks(torch, g, h, lanes=h == max(WIDE_HIDDEN))
     worst = {"K1": max(max(c["max_abs_err"], *c["residual_errors"].values())
                        for c in k1.values()),
              "K2": max(v for e in k2.values() for key, v in e.items()
                        if not key.startswith("dwh_")),
              "dWh": max(v for e in k2.values() for key, v in e.items()
                         if key.startswith("dwh_")),
-             "K4": max(k4["errors"].values()), "K5": max(k5["errors"].values())}
+             "K4": max(*k4["errors"].values(), *(e for key, e in
+                                                  attention_checks["errors"].items()
+                                                  if key.startswith("K4"))),
+             "K5": max(*k5["errors"].values(), *(e for key, e in
+                                                 attention_checks["errors"].items()
+                                                 if key.startswith("K5")))}
 
     day = _k4_inputs(torch, g, 1, 304, 96, h, 300)
     latent, mask, weights = k4["inputs"]
@@ -5977,7 +5985,8 @@ def _wide_kernels(torch, g, h: int) -> dict:
               (torch.rand(1, 96, 304, device="cuda", generator=g) > 0.1).float() / 0.9)
     worst["K2"] = max(worst["K2"], walk_checks["max_abs_err"])
     return {"errors": {"K1": k1, "K2": k2, "K4": k4["errors"], "K5": k5["errors"]},
-            "walk_checks": walk_checks, "max_abs_err": worst,
+            "walk_checks": walk_checks, "attention_checks": attention_checks,
+            "max_abs_err": worst,
             "exact_path_days": {"K4": k4["exact_path_days"], "K5": k5["exact_path_days"]},
             "timing": {"K1": {label: _k1_timing(torch, k1_in[label], f"H={h} {label}")
                               for label in ("flagship", "flagship_day")},
@@ -5986,6 +5995,70 @@ def _wide_kernels(torch, g, h: int) -> dict:
                        "K4": {"flagship": _k4_timing(torch, latent, mask, weights),
                               "flagship_day": _k4_timing(torch, day[0], day[1], day[2:])},
                        "K5": {"flagship_day": _k5_timing(torch, *k5_day)}}}
+
+
+def _wide_attention_checks(torch, g, h: int, lanes: bool) -> dict:
+    """K4 and K5 above H = 64 beside `_k4_checks`' 32-day chunk and
+    `_k5_case`'s 8 poisoned days: K4 at one day and at 8 days, K5 at one day
+    and at a 32-day chunk, each without and with a keep-mask against its
+    plain version (K4_TOL, K5_TOL), bitwise on a repeat and at every
+    heads-per-cluster size (the rule's pick among them); with `lanes`, two
+    lanes of 2 days in one launch, each bitwise its one-lane launch, forward
+    and backward. Returns the errors and the sizes compared."""
+    from factorvae_tpu_torch.ops.kernels import attention as m
+
+    names = ("dlatent", "dquery", "dWk", "dbk", "dWv", "dbv")
+    n, k, n_real = 304, 96, 300
+    sizes = [x for x in m.GROUPS if x * n <= m.MAX_GROUP_ROWS]
+    errs, groups = {}, {}
+    for label, (kind, b) in {"K4_day": ("fwd", 1), "K4_8_days": ("fwd", 8),
+                             "K5_day": ("bwd", 1), "K5_32_days": ("bwd", 32)}.items():
+        latent, mask, *w = _k4_inputs(torch, g, b, n, k, h, n_real)
+        keep = (torch.rand(b, k, n, device="cuda", generator=g) > 0.1).float() / 0.9
+        dctx = torch.randn(b, k, h, device="cuda", generator=g) * 0.1
+        groups[label] = m._group(latent, k)
+        for kp_label, kp in (("", None), ("keep_", keep)):
+            if kind == "fwd":
+                got = m.attention_fwd(latent, mask, *w, keep=kp)
+                want = m.attention_fwd_plain(latent, mask, *w, keep=kp)
+                errs[f"{label}_{kp_label}ctx"] = float((got - want).abs().max())
+                runs = [m.attention_fwd(latent, mask, *w, keep=kp)]
+                runs += [m._fwd_launch(latent, mask, *w, kp, x)[0] for x in sizes]
+                same = all(torch.equal(r, got) for r in runs)
+            else:
+                got = m.attention_bwd(latent, mask, *w, dctx, keep=kp)
+                want = m.attention_bwd_plain(latent, mask, *w, dctx, keep=kp)
+                for name, e in _grad_errors(got, want, names).items():
+                    errs[f"{label}_{kp_label}{name}"] = e
+                runs = [m.attention_bwd(latent, mask, *w, dctx, keep=kp)]
+                runs += [m._bwd_launch(latent, mask, *w, dctx, kp, x)[0] for x in sizes]
+                same = all(all(torch.equal(a, c) for a, c in zip(r, got)) for r in runs)
+            check(same, f"wide attention H={h} {label} {kp_label or 'no keep'}: a repeat or "
+                        f"another heads-per-cluster size is not bitwise the rule's launch")
+        torch.cuda.synchronize()
+    out = {"errors": errs, "heads_per_cta": groups, "sizes_bitwise": sizes,
+           "max_abs_err": max(errs.values())}
+    check(max(e for key, e in errs.items() if key.startswith("K4")) <= K4_TOL,
+          f"wide K4 H={h}: errors {errs} > {K4_TOL}")
+    check(max(e for key, e in errs.items() if key.startswith("K5")) <= K5_TOL,
+          f"wide K5 H={h}: errors {errs} > {K5_TOL}")
+    if lanes:
+        two = [_k4_inputs(torch, g, 2, n, k, h, n_real) for _ in range(2)]
+        lat2, mask2, *w2 = (torch.stack(a) for a in zip(*two))
+        keep2 = (torch.rand(2, 2, k, n, device="cuda", generator=g) > 0.1).float() / 0.9
+        dctx2 = torch.randn(2, 2, k, h, device="cuda", generator=g) * 0.1
+        ctx2, _, _ = m._fwd_launch(lat2, mask2, *w2, keep2, m._group(lat2, k))
+        grads2, _, _ = m._bwd_launch(lat2, mask2, *w2, dctx2, keep2, m._group(lat2, k))
+        for i in range(2):
+            one = (lat2[i], mask2[i], *(x[i] for x in w2))
+            ctx1 = m._fwd_launch(*one, keep2[i], m._group(lat2[i], k))[0]
+            grads1 = m._bwd_launch(*one, dctx2[i], keep2[i], m._group(lat2[i], k))[0]
+            check(torch.equal(ctx1, ctx2[i]) and all(torch.equal(a, c[i])
+                                                     for a, c in zip(grads1, grads2)),
+                  f"wide attention H={h}: lane {i} differs from its one-lane launch")
+        out["lanes"] = {"lanes": 2, "days": 2, "heads_per_cta": m._group(lat2, k),
+                        "bitwise_one_lane": True}
+    return out
 
 
 def _wide_walk_checks(torch, g, h: int) -> dict:
@@ -6196,13 +6269,21 @@ def phase_wide(torch, seed: int, counters, card: str) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(seed + 17)
     kernels = {str(h): _wide_kernels(torch, g, h) for h in WIDE_HIDDEN}
+    odd = WIDE_ODD_H
+    k4_odd = _k4_checks(torch, g, odd, f"wide K4 H={odd}")
+    k5_odd, _ = _k5_case(torch, g, 8, 304, 96, odd, 300, f"wide K5 H={odd} flagship_8_days")
+    odd_attention = {"K4_chunk": {key: k4_odd[key] for key in ("errors", "exact_path_days",
+                                                               "group")},
+                     "K5_8_days": k5_odd,
+                     **_wide_attention_checks(torch, g, odd, lanes=False)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as root:
         paths = _wide_paths(torch, seed, counters, root)
     grid = paths.pop("grid")
     return {"phase": "wide", "card": card, "hidden": list(WIDE_HIDDEN),
             "config": "flagship C158/T20/K96/M128, 300 stocks padded to 304, f32, at "
                       "hidden_size 128 and 256",
-            "kernels": kernels, "paths": paths, "grid": grid}
+            "kernels": kernels, f"attention_H{odd}": odd_attention, "paths": paths,
+            "grid": grid}
 
 
 def _collect_fleet_check(router_url: str) -> dict:

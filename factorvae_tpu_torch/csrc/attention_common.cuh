@@ -1,10 +1,12 @@
 // Device code shared by the K-head attention forward (K4, attention_fwd.cu)
 // and backward (K5, attention_bwd.cu).
 //
-// A CTA takes one day and a group of G consecutive heads. It compacts the
-// day's valid rows into a list, stages them in shared memory when they fit
-// (else it reads them from device memory through the list), and notes
-// whether any element of a valid row is non-finite.
+// Up to H = 64 (the S = 1 and S = 2 instances, S the columns of H a lane
+// owns where a warp spans H): a CTA takes one day and a group of G
+// consecutive heads. It compacts the day's valid rows into a list, stages
+// them in shared memory when they fit (else it reads them from device
+// memory through the list), and notes whether any element of a valid row
+// is non-finite.
 //
 // The fold path, for a day whose valid rows are finite: per head
 //
@@ -21,20 +23,46 @@
 // the same function: with L_n = (+inf, 0, ...) the key row is +-inf by the
 // sign of Wk[0, j] and key . q is NaN (the head is guarded), while
 // L_n . u = +inf * u_0 is -inf where u_0 < 0, which the ReLU turns into 0.
+// Above H = 64 the exact path does not stage a head's Wk and Wv whole (2 x
+// 256 x 257 floats, 526 KB, at H = 256): it streams them through shared
+// memory kChunk columns at a time (`stage_chunk`, `head_softmax_streamed`),
+// a lane per column of the chunk, and sums each score and each da over the
+// chunks in order.
 //
-// Hidden sizes: the kernels are templated on S, the columns of H a lane
-// owns where a warp spans H: S = 1 (H <= 32), 2 (H <= 64), 4 (H <= 128) and
-// 8 (H <= 256), one instance per class, picked per launch. The S <= 2
-// instances are the tuned code, unchanged. Above H = 64 the exact path no
-// longer stages a head's Wk and Wv whole (2 x 256 x 257 floats, 526 KB, at
-// H = 256): it streams them through shared memory kChunk columns at a time
-// (`stage_chunk`, `head_softmax_streamed`), a lane per column of the chunk,
-// and sums each score and each da over the chunks in order.
+// Above H = 64 (the S = 4 and S = 8 instances, H <= 128 and <= 256) the
+// fold path is "the wide design" at the end of this file. Its CTAs once
+// formed u, c (and K5's w = Wv . dctx) per (day, head), reading every head's
+// Wk and Wv once per day, 1.6 GB at a 32-day chunk of H = 256, and read the
+// day's rows (304 x 257 floats, which do not fit a block) through the row
+// list in one 256-long chain per thread. Now:
+//
+//   - `prep_rows`: u and c per (lane, head), and K5's w and cw per (lane,
+//     day, head), once per launch, a warp a few weight rows read along the
+//     row (float4 where H is a multiple of 4). K4 and K5 call this one
+//     function, so K5's scores and weights stay bitwise K4's.
+//   - A cluster of wide_cluster(H) CTAs (2 up to H = 128, 4 above) per (day,
+//     group of G heads): rank r stages its slice of at most 64 columns of
+//     the day's valid rows (`stage_slice`: 16-byte cp.async, 304 x 68
+//     floats, 83 KB at H = 256; read through the row list when N is too
+//     large), forms its partial scores L . u (and K5's partial da = L . w)
+//     over its columns (`slice_dots`), and reads its peers' partials through
+//     DSMEM, summed in rank order (`cluster_sum`), so every CTA holds the
+//     same scores and softmax (`wide_softmax`). After that each works on
+//     its own columns: K4's P = a^T L, K5's lz and la
+//     (`slice_column_sums`). The exact path deals the group's heads to the
+//     cluster's ranks.
+//   - No sum depends on G, on the lane count or on the grid: a score is the
+//     partials of the slices (fixed by H) in rank order, a column sum's
+//     rows run in kSumSlices fixed runs.
+//
+// What bounds the wide kernels is in attention_fwd.cu and attention_bwd.cu.
 
 #pragma once
 
 #include <cfloat>
 #include <cuda_runtime.h>
+
+#include "cluster.cuh"
 
 namespace attn {
 
@@ -774,6 +802,624 @@ __device__ bool head_softmax_streamed(const float* lat, const int* idx_s, int nv
     sc_s[r] = sc;
   }
   return finish_softmax(warp_max(mx), __any_sync(0xffffffffu, bad), nv, sc_s, a_s);
+}
+
+// ---------------------------------------------------------------------------
+// The wide design (H > 64): weight work once per launch, the day's rows
+// staged across a cluster
+// ---------------------------------------------------------------------------
+
+// Phase marks of the wide day kernels, for scripts/torch_attention_phases.py,
+// which defines them before this header; nothing otherwise.
+#ifndef ATTN_PHASE
+#define ATTN_PHASE_START
+#define ATTN_PHASE(i)
+#endif
+
+constexpr int kPrepRows = 4;     // weight rows a warp of the prep kernels takes at once
+constexpr int kSumSlices = 4;    // fixed runs of rows of a wide column sum
+constexpr int kCtxCols = 32;     // columns of a tile of K4's context kernel
+constexpr int kCtxDays = 8;      // days it takes at once
+constexpr int kCtxParts = kThreads / kCtxCols;   // fixed runs of i of a context sum
+constexpr int kLatRows = 16;     // stocks of a tile of K5's wide latent kernel
+constexpr int kLatCols = 32;     // columns of that tile
+constexpr int kLatHeads = 32;    // heads it stages at once
+
+// The CTAs of a day's cluster: 2 up to H = 128, 4 above, CTA `rank` owning
+// columns [slice_begin(rank), slice_begin(rank + 1)) of the hidden units,
+// at most 64. A function of H alone, so the partial sums a score is made
+// of are the same at every group size and lane count.
+__host__ __device__ __forceinline__ int wide_cluster(int h) { return h <= 128 ? 2 : 4; }
+
+__host__ __device__ __forceinline__ int slice_width(int h) {
+  const int c = wide_cluster(h);
+  return round4((h + c - 1) / c);
+}
+
+__host__ __device__ __forceinline__ int slice_begin(int rank, int h) {
+  const int c0 = rank * slice_width(h);
+  return c0 < h ? c0 : h;
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Offsets, in floats, into a wide day CTA's dynamic shared memory for n
+// rows, hidden size h and groups of g heads; the exact path's arrays
+// (`layout`) share the space after the row list.
+struct WideLayout {
+  int ldn, gp, gt;         // as in Layout
+  int sw, ld;              // slice width; row stride of the staged slice (sw + 4 where
+                           // H is a multiple of 4, read as float4; else sw + 1, odd)
+  int idx;                 // (n) valid rows, as ints
+  int rows;                // (n, ld) the slice of the valid rows, when staged
+  int v, v2;               // (sw, gp): u's slice; the backward: w's slice
+  int cv, cv2;             // (gp): c; the backward: cw
+  int p, p2;               // (g, ldn): partial scores; the backward: partial da
+  int sc, a, d;            // (g, ldn): scores, weights (the forward: = sc), da / dz
+  int at, dt;              // the backward: (n, gt) a and dz, transposed
+  int kp;                  // (g, ldn): the keep-mask of the valid rows, in list order
+                           // (with a keep-mask)
+  int sa, ok, flag;        // (gp) sum of a; (gp ints) the head is not guarded; this
+                           // CTA's slice holds a non-finite valid element
+  int part;                // (4 kSumSlices sw quads, twice for the backward) a column
+                           // sum's partial sums (the forward: over p)
+  int total;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int n, int h, int g, bool staged, bool bwd,
+                                                  bool keep) {
+  WideLayout L;
+  L.ldn = round4(n);
+  L.gp = round4(g);
+  L.gt = g == 1 ? 1 : L.gp == 4 ? 4 : L.gp + 4;
+  L.sw = slice_width(h);
+  L.ld = L.sw + ((h & 3) == 0 ? 4 : 1);
+  const int part = (bwd ? 8 : 4) * kSumSlices * L.sw * (L.gp >> 2);
+  int o = 0;
+  L.idx = o;
+  o += L.ldn;
+  L.rows = o;
+  if (staged) o += round4(n * L.ld);
+  L.v = L.v2 = o;
+  o += L.sw * L.gp;
+  if (bwd) {
+    L.v2 = o;
+    o += L.sw * L.gp;
+  }
+  L.cv = L.cv2 = o;
+  o += L.gp;
+  if (bwd) {
+    L.cv2 = o;
+    o += L.gp;
+  }
+  // the forward's column sums reuse the partial scores' space (the peers
+  // read it only before the second cluster barrier); the backward's have
+  // their own
+  L.p = L.p2 = L.part = o;
+  o += bwd || g * L.ldn >= part ? g * L.ldn : part;
+  if (bwd) {
+    L.p2 = o;
+    o += g * L.ldn;
+  }
+  L.sc = L.a = o;
+  o += g * L.ldn;
+  L.d = o;
+  if (bwd) {
+    L.a = o;
+    o += g * L.ldn;
+    L.d = o;
+    o += g * L.ldn;
+  }
+  L.at = L.dt = o;          // the forward's column sums read a from sc: no at
+  if (bwd) {
+    o += round4(n * L.gt);
+    L.dt = o;
+    o += round4(n * L.gt);
+  }
+  L.kp = o;
+  if (keep) o += g * L.ldn;
+  L.sa = o;
+  o += L.gp;
+  L.ok = o;
+  o += L.gp;
+  L.flag = o;
+  o += 4;
+  if (bwd) {
+    L.part = o;
+    o += part;
+  }
+  const int exact = layout(n, h, g, false, bwd).total;
+  L.total = o > exact ? o : exact;
+  return L;
+}
+
+// plan_smem for the wide day kernels.
+inline int plan_wide_smem(int n, int h, int g, bool bwd, bool keep, int* staged) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  for (int s = 1; s >= 0; --s) {
+    const long long bytes =
+        (long long)sizeof(float) * wide_layout(n, h, g, s, bwd, keep).total;
+    if (bytes + kSmemSlack <= limit) {
+      *staged = s;
+      return (int)bytes;
+    }
+  }
+  return -1;
+}
+
+// A lane's part of a weight row times a vector, one fmaf chain: columns j =
+// lane + 32 s in s order (any H), or, where H is a multiple of 4, the four
+// columns 128 f + 4 lane + (0..3) of its float4 f, in f order.
+template <int S>
+__device__ __forceinline__ float lane_dot(const float (&m)[S], const float (&x)[S],
+                                          const bool (&on)[S]) {
+  float part = on[0] ? fmaf(m[0], x[0], 0.0f) : 0.0f;
+#pragma unroll
+  for (int s = 1; s < S; ++s)
+    if (on[s]) part = fmaf(m[s], x[s], part);
+  return part;
+}
+
+template <int F>
+__device__ __forceinline__ float lane_dot4(const float4 (&m)[F], const float4 (&x)[F],
+                                           const bool (&on)[F]) {
+  float part = 0.0f;
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+    if (on[f]) {
+      part = fmaf(m[f].x, x[f].x, part);
+      part = fmaf(m[f].y, x[f].y, part);
+      part = fmaf(m[f].z, x[f].z, part);
+      part = fmaf(m[f].w, x[f].w, part);
+    }
+  return part;
+}
+
+// The lane's share of row `row` (< h: of mat, = h: the bias) of head `head`
+// times the vector x, `lane_dot` or `lane_dot4` (F = S / 4 float4 a lane),
+// then the warp's butterfly sum: one summation order per H, whatever the
+// grid.
+template <int S>
+struct PrepRow {
+  static constexpr int F = S / 4;
+  bool vec4;                // H is a multiple of 4: float4 reads
+  bool on[S];
+  bool on4[F];
+  int jc[S];
+  int j4[F];
+
+  __device__ __forceinline__ PrepRow(int h, int lane) : vec4((h & 3) == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int j = lane + 32 * s;
+      on[s] = j < h;
+      jc[s] = on[s] ? j : 0;
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int j = 128 * f + 4 * lane;
+      on4[f] = j < h;
+      j4[f] = on4[f] ? j : 0;
+    }
+  }
+};
+
+// The weight products no day changes, once per launch, for the rows o <
+// K (H + 1) of one lane's heads (head k = o / (H + 1), row i = o % (H + 1)):
+//
+//   u[k H + i] = Wk[k, i, :] . q[k] (i < H),   c[k] = bk[k] . q[k] (i = H),
+//
+// and with wv (the backward), for each day b < B:
+//
+//   w[(b K + k) w_ld + i] = Wv[k, i, :] . dctx[b, k],   cw[b K + k] = bv[k] . dctx[b, k].
+//
+// A warp takes kPrepRows rows at once (every row's load, Wk's and Wv's, in
+// flight before the first sum) and reads each vector at its use; the sums
+// are PrepRow's.
+// K4's and K5's prep kernels call this one function, so K5's scores and
+// softmax weights are bitwise K4's.
+template <int S>
+__device__ __forceinline__ void prep_rows(const float* __restrict__ q,
+                                          const float* __restrict__ wk,
+                                          const float* __restrict__ bk,
+                                          const float* __restrict__ wv,
+                                          const float* __restrict__ bv,
+                                          const float* __restrict__ dctx, float* u, float* c,
+                                          float* w, int w_ld, float* cw, int b_days,
+                                          int k_heads, int h) {
+  constexpr int F = S / 4;
+  const int lane = threadIdx.x & 31;
+  const int rows = k_heads * (h + 1);
+  const int o0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kPrepRows;
+  if (o0 >= rows) return;
+  const PrepRow<S> pr(h, lane);
+  int head[kPrepRows], row[kPrepRows];
+#pragma unroll
+  for (int r = 0; r < kPrepRows; ++r) {
+    const int o = min(o0 + r, rows - 1);
+    head[r] = o / (h + 1);
+    row[r] = o - head[r] * (h + 1);
+  }
+  // Wk's rows (a head's bias as its row h) and, for the backward, Wv's
+  // loaded, then u and c, then w and cw day by day
+  auto run = [&](auto& mk, auto& mv, auto load, auto dot, auto vecload) {
+    load(wk, bk, mk);
+    if (wv != nullptr) load(wv, bv, mv);
+#pragma unroll
+    for (int r = 0; r < kPrepRows; ++r) {
+      const float acc = warp_sum(dot(mk[r], vecload(q + (size_t)head[r] * h)));
+      if (lane == 0 && o0 + r < rows) {
+        if (row[r] < h) u[(size_t)head[r] * h + row[r]] = acc;
+        else c[head[r]] = acc;
+      }
+    }
+    if (wv == nullptr) return;
+    for (int b = 0; b < b_days; ++b) {
+#pragma unroll
+      for (int r = 0; r < kPrepRows; ++r) {
+        const size_t bkr = (size_t)b * k_heads + head[r];
+        const float acc = warp_sum(dot(mv[r], vecload(dctx + bkr * h)));
+        if (lane == 0 && o0 + r < rows) {
+          if (row[r] < h) w[bkr * w_ld + row[r]] = acc;
+          else cw[bkr] = acc;
+        }
+      }
+    }
+  };
+  auto row_ptr = [&](const float* mat, const float* bias, int r) {
+    return row[r] < h ? mat + ((size_t)head[r] * h + row[r]) * h : bias + (size_t)head[r] * h;
+  };
+  if (pr.vec4) {
+    struct V { float4 v[F]; };
+    V mk[kPrepRows], mv[kPrepRows];
+    run(mk, mv,
+        [&](const float* mat, const float* bias, V (&m)[kPrepRows]) {
+#pragma unroll
+          for (int r = 0; r < kPrepRows; ++r) {
+            const float* mp = row_ptr(mat, bias, r);
+#pragma unroll
+            for (int f = 0; f < F; ++f)
+              m[r].v[f] = __ldg(reinterpret_cast<const float4*>(mp + pr.j4[f]));
+          }
+        },
+        [&](const V& m, const V& x) { return lane_dot4<F>(m.v, x.v, pr.on4); },
+        [&](const float* xp) {
+          V x;
+#pragma unroll
+          for (int f = 0; f < F; ++f) x.v[f] = __ldg(reinterpret_cast<const float4*>(xp + pr.j4[f]));
+          return x;
+        });
+  } else {
+    struct V { float v[S]; };
+    V mk[kPrepRows], mv[kPrepRows];
+    run(mk, mv,
+        [&](const float* mat, const float* bias, V (&m)[kPrepRows]) {
+#pragma unroll
+          for (int r = 0; r < kPrepRows; ++r) {
+            const float* mp = row_ptr(mat, bias, r);
+#pragma unroll
+            for (int s = 0; s < S; ++s) m[r].v[s] = __ldg(mp + pr.jc[s]);
+          }
+        },
+        [&](const V& m, const V& x) { return lane_dot<S>(m.v, x.v, pr.on); },
+        [&](const float* xp) {
+          V x;
+#pragma unroll
+          for (int s = 0; s < S; ++s) x.v[s] = __ldg(xp + pr.jc[s]);
+          return x;
+        });
+  }
+}
+
+// Grid of the prep kernels: blocks of kWarps warps of kPrepRows rows.
+__host__ __device__ __forceinline__ int prep_blocks(int k_heads, int h) {
+  const int per = kWarps * kPrepRows;
+  return (k_heads * (h + 1) + per - 1) / per;
+}
+
+// Columns [c0, c0 + cw) of the day's nv valid rows into rows_s (row r at
+// r * ld) when staged, and whether any of those elements is non-finite, on
+// every thread. Staged, H a multiple of 4: a 16-byte cp.async per four
+// columns (every copy in flight at once, no register held), then the check
+// on the copies; otherwise each thread loads kStageBatch elements before it
+// checks (and stores) them. With keep, the keep-mask of the G heads' valid
+// rows too (4-byte cp.async), in list order: kp_s[g ldn + r] = keep[g n +
+// idx[r]]. Every thread calls it after compact_rows; ends with a barrier.
+__device__ __forceinline__ bool stage_slice(const float* lat, const int* idx, int nv, int h,
+                                            int c0, int cw, int ld, bool staged,
+                                            float* rows_s, const float* keep, int G, int n,
+                                            int ldn, float* kp_s) {
+  int bad = 0;
+  const bool copies = staged && (h & 3) == 0;
+  const int q4 = cw >> 2;
+  if (copies)
+    for (int e = threadIdx.x; e < nv * q4; e += kThreads) {
+      const int r = e / q4;
+      const int c = (e - r * q4) << 2;
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(rows_s + r * ld + c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(lat + (size_t)idx[r] * h + c0 + c) : "memory");
+    }
+  if (keep)
+    for (int e = threadIdx.x; e < G * nv; e += kThreads) {
+      const int g = e / nv;
+      const int r = e - g * nv;
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(kp_s + g * ldn + r));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                   "l"(keep + (size_t)g * n + idx[r]) : "memory");
+    }
+  if (copies) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    for (int e = threadIdx.x; e < nv * q4; e += kThreads) {   // each thread its own copies
+      const int r = e / q4;
+      const float4 v = *reinterpret_cast<const float4*>(rows_s + r * ld + ((e - r * q4) << 2));
+      bad |= !isfinite(v.x) || !isfinite(v.y) || !isfinite(v.z) || !isfinite(v.w);
+    }
+    return __syncthreads_or(bad) != 0;
+  }
+  const int total = nv * cw;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kStageBatch * kThreads) {
+    float v[kStageBatch];
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int e = min(e0 + k * kThreads, total - 1);
+      const int r = e / cw;
+      v[k] = __ldg(lat + (size_t)idx[r] * h + c0 + (e - r * cw));
+    }
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int e = e0 + k * kThreads;
+      if (e < total) {
+        const int r = e / cw;
+        bad |= !isfinite(v[k]);
+        if (staged) rows_s[r * ld + (e - r * cw)] = v[k];
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  return __syncthreads_or(bad) != 0;
+}
+
+// The partial sums of a CTA's column slice: p[g ldn + r] = sum over c < cw
+// of row(r)[c] v[c gp + g] for r < nv, g < G, one fmaf chain in c order,
+// four heads a thread; with kTwo the same of v2 into p2 from the same row
+// reads. v, v2: (cw, gp) in shared memory. vec4 (H a multiple of 4, so
+// every row and cw are): the row read four columns at a time. Ends with
+// __syncthreads.
+template <bool kTwo>
+__device__ __forceinline__ void slice_dots(const Rows& rows, int nv, int cw, const float* v,
+                                           const float* v2, int G, int gp, float* p,
+                                           float* p2, int ldn, bool vec4) {
+  const int quads = gp >> 2;
+  for (int t = threadIdx.x; t < nv * quads; t += kThreads) {
+    const int r = t % nv;
+    const int g0 = (t / nv) * 4;
+    const float* x = rows.row(r);
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, b[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    auto step = [&](float l, int c) {
+      const float4 vv = *reinterpret_cast<const float4*>(v + c * gp + g0);
+      a[0] = fmaf(l, vv.x, a[0]);
+      a[1] = fmaf(l, vv.y, a[1]);
+      a[2] = fmaf(l, vv.z, a[2]);
+      a[3] = fmaf(l, vv.w, a[3]);
+      if constexpr (kTwo) {
+        const float4 ww = *reinterpret_cast<const float4*>(v2 + c * gp + g0);
+        b[0] = fmaf(l, ww.x, b[0]);
+        b[1] = fmaf(l, ww.y, b[1]);
+        b[2] = fmaf(l, ww.z, b[2]);
+        b[3] = fmaf(l, ww.w, b[3]);
+      }
+    };
+    if (vec4) {             // four columns a read; the same chain in c order
+#pragma unroll 2
+      for (int c = 0; c < cw; c += 4) {
+        const float4 l = *reinterpret_cast<const float4*>(x + c);
+        step(l.x, c);
+        step(l.y, c + 1);
+        step(l.z, c + 2);
+        step(l.w, c + 3);
+      }
+    } else {
+#pragma unroll 4
+      for (int c = 0; c < cw; ++c) step(x[c], c);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (g0 + k >= G) break;
+      p[(g0 + k) * ldn + r] = a[k];
+      if constexpr (kTwo) p2[(g0 + k) * ldn + r] = b[k];
+    }
+  }
+  __syncthreads();
+}
+
+// out[g ldn + r] = (p_0 + p_1 + ... + p_{cs-1})[g ldn + r] + cv[g] for r <
+// nv, g < G: the partial sums of the cluster's ranks in rank order (DSMEM
+// loads), then the bias term. Call between two cluster barriers.
+__device__ __forceinline__ void cluster_sum(const float* p, const float* cv, float* out,
+                                            int nv, int G, int ldn, int cs) {
+  for (int t = threadIdx.x; t < G * nv; t += kThreads) {
+    const int g = t / nv;
+    const int e = g * ldn + t - g * nv;
+    float acc = load_cluster(p + e, 0);
+    for (int q = 1; q < cs; ++q) acc += load_cluster(p + e, q);
+    out[e] = acc + cv[g];
+  }
+}
+
+// out[g ostride + c] = sum over r < nv of coef[r rs + g gs] row(r)[c] for c
+// < cw, g < G: the rows cut into kSumSlices fixed runs of ceil(nv /
+// kSumSlices), each an fmaf chain, the runs summed in order (an order no
+// group size, cluster or lane count changes). part: 4 kSumSlices cw
+// ceil(G / 4) floats of shared memory; out in device or shared memory.
+// Ends with __syncthreads.
+__device__ __forceinline__ void slice_column_sums(const Rows& rows, int nv, int cw,
+                                                  const float* coef, int rs, int gs, int G,
+                                                  float* part, float* out, int ostride) {
+  const int pairs = cw * ((G + 3) >> 2);
+  const int chunk = (nv + kSumSlices - 1) / kSumSlices;
+  for (int t = threadIdx.x; t < pairs * kSumSlices; t += kThreads) {
+    const int pair = t % pairs;
+    const int sl = t / pairs;
+    const int g0 = (pair / cw) * 4;
+    const int c = pair - (g0 >> 2) * cw;
+    const int r1 = min(nv, (sl + 1) * chunk);
+    const int gn = min(4, G - g0);
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int r = sl * chunk; r < r1; ++r) {
+      const float l = rows.row(r)[c];
+      const float* cf = coef + r * rs + g0 * gs;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < gn) a[k] = fmaf(cf[k * gs], l, a[k]);
+    }
+    float* pt = part + 4 * t;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) pt[k] = a[k];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < pairs * 4; e += kThreads) {
+    const int pair = e >> 2;
+    const int k = e & 3;
+    const int g0 = (pair / cw) * 4;
+    if (g0 + k >= G) continue;
+    float acc = part[e];
+    for (int sl = 1; sl < kSumSlices; ++sl) acc += part[4 * (sl * pairs + pair) + k];
+    out[(g0 + k) * ostride + pair - (g0 >> 2) * cw] = acc;
+  }
+  __syncthreads();
+}
+
+// fold_softmax with the keep-mask in list order (kp_s[g ldn + r], or null):
+// for each head g < G (warp g % kWarps) over the nv valid rows,
+//   r = relu(s / sqrt(H + 1e-6) * keep) in place in sc (a ReLU that keeps NaN),
+//   ok[g] = no r is non-finite (the guard) and nv > 0,
+//   a = softmax(r) into a (may alias sc; a guarded head's a is left unset)
+//       and, unless a_t is null, into a_t[r * gt + g] (zero for a guarded
+//       head),
+//   sa[g] = sum a, 0 if !ok[g].
+// Ends with __syncthreads.
+__device__ __forceinline__ void wide_softmax(float* sc, float* a, int ldn, float* a_t,
+                                             int gt, int nv, const float* kp_s, int G,
+                                             float scale, int* ok, float* sa) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int g = warp; g < G; g += kWarps) {
+    float* s = sc + g * ldn;
+    float* ag = a + g * ldn;
+    const float* kp = kp_s ? kp_s + g * ldn : nullptr;
+    float mx = kNegInf;
+    int bad = 0;
+#pragma unroll 4
+    for (int r = lane; r < nv; r += 32) {
+      float v = s[r] / scale;
+      if (kp) v = v * kp[r];
+      v = isnan(v) ? v : fmaxf(v, 0.0f);
+      if (!isfinite(v)) bad = 1;
+      else mx = fmaxf(mx, v);
+      s[r] = v;
+    }
+    mx = warp_max(mx);
+    const bool good = !__any_sync(0xffffffffu, bad) && nv > 0;
+    float tot = 0.0f;
+    if (good) {
+      float sum = 0.0f;
+      for (int r = lane; r < nv; r += 32) {
+        const float e = expf(s[r] - mx);
+        ag[r] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int r = lane; r < nv; r += 32) {
+        const float w = ag[r] / sum;
+        ag[r] = w;
+        if (a_t) a_t[r * gt + g] = w;
+        tot += w;
+      }
+      tot = warp_sum(tot);
+    } else if (a_t) {
+      for (int r = lane; r < nv; r += 32) a_t[r * gt + g] = 0.0f;
+    }
+    if (lane == 0) {
+      ok[g] = good;
+      sa[g] = tot;
+    }
+  }
+  __syncthreads();
+}
+
+// Two slice_column_sums from one pass over the rows: out1 of coef1_t and
+// out2 of coef2_t, each summed as slice_column_sums sums (so each is
+// bitwise what slice_column_sums gives). part: 8 kSumSlices cw ceil(G / 4)
+// floats. Ends with __syncthreads.
+__device__ __forceinline__ void slice_column_sums2(const Rows& rows, int nv, int cw,
+                                                   const float* coef1_t, const float* coef2_t,
+                                                   int gt, int G, float* part, float* out1,
+                                                   float* out2, int ostride) {
+  const int pairs = cw * ((G + 3) >> 2);
+  const int chunk = (nv + kSumSlices - 1) / kSumSlices;
+  for (int t = threadIdx.x; t < pairs * kSumSlices; t += kThreads) {
+    const int pair = t % pairs;
+    const int sl = t / pairs;
+    const int g0 = (pair / cw) * 4;
+    const int c = pair - (g0 >> 2) * cw;
+    const int r1 = min(nv, (sl + 1) * chunk);
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f}, b[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int r = sl * chunk; r < r1; ++r) {
+      const float l = rows.row(r)[c];
+      const float4 c1 = gt == 1 ? float4{coef1_t[r], 0.0f, 0.0f, 0.0f}
+                               : *reinterpret_cast<const float4*>(coef1_t + r * gt + g0);
+      const float4 c2 = gt == 1 ? float4{coef2_t[r], 0.0f, 0.0f, 0.0f}
+                               : *reinterpret_cast<const float4*>(coef2_t + r * gt + g0);
+      a[0] = fmaf(c1.x, l, a[0]);
+      a[1] = fmaf(c1.y, l, a[1]);
+      a[2] = fmaf(c1.z, l, a[2]);
+      a[3] = fmaf(c1.w, l, a[3]);
+      b[0] = fmaf(c2.x, l, b[0]);
+      b[1] = fmaf(c2.y, l, b[1]);
+      b[2] = fmaf(c2.z, l, b[2]);
+      b[3] = fmaf(c2.w, l, b[3]);
+    }
+    float* pt = part + 8 * t;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      pt[k] = a[k];
+      pt[4 + k] = b[k];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < pairs * 8; e += kThreads) {
+    const int pair = e >> 3;
+    const int k = e & 7;
+    const int g0 = (pair / cw) * 4;
+    if (g0 + (k & 3) >= G) continue;
+    float acc = part[e];
+    for (int sl = 1; sl < kSumSlices; ++sl) acc += part[8 * (sl * pairs + pair) + k];
+    (k < 4 ? out1 : out2)[(g0 + (k & 3)) * ostride + pair - (g0 >> 2) * cw] = acc;
+  }
+  __syncthreads();
+}
+
+// A wide day CTA's slice of u (and of w) and c (and cw) for its G heads
+// into shared memory: v[c gp + g] = u[(head0 + g) u_ld + c0 + c], zero for
+// g >= G and c >= cw. Every thread calls it; a barrier follows before use.
+__device__ __forceinline__ void stage_vectors_slice(const float* u, int u_ld, const float* cu,
+                                                    int head0, int G, int gp, int sw, int c0,
+                                                    int cw, float* v, float* cv) {
+  for (int e = threadIdx.x; e < sw * gp; e += kThreads) {
+    const int c = e / gp;
+    const int g = e - c * gp;
+    v[e] = g < G && c < cw ? u[(size_t)(head0 + g) * u_ld + c0 + c] : 0.0f;
+  }
+  for (int g = threadIdx.x; g < gp; g += kThreads) cv[g] = g < G ? cu[head0 + g] : 0.0f;
 }
 
 }  // namespace attn

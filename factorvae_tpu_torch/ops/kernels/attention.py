@@ -8,12 +8,19 @@ K4, `csrc/attention_fwd.cu`) and `_bwd_kernel` of
 `csrc/attention_bwd.cu`), which the JAX predictor reaches through the custom
 VJP `fused_attention` and vmaps over days. These kernels take the day axis
 directly. Each source's header comment says what bounds the kernel on an
-H100 and how the design meets it: one CTA per (day, group of heads), the
-key and value products folded into the scores L . (Wk . q) and the context
-(a^T L) . Wv on a day whose valid latent rows are finite, the products as
-written on a day that has a non-finite one (the exact path); the backward
-recomputes the forward's scores and softmax with the forward's own device
-code. `launch_group` picks the heads per CTA from the card's SM count.
+H100 and how the design meets it: the key and value products folded into
+the scores L . (Wk . q) and the context (a^T L) . Wv on a day whose valid
+latent rows are finite, the products as written on a day that has a
+non-finite one (the exact path); the backward recomputes the forward's
+scores and softmax with the forward's own device code. Up to H = 64 one
+CTA per (day, group of heads), the heads per CTA from `launch_group`.
+Above H = 64 (the wide design, `WIDE_MIN_H`) the weight work that no day
+changes (u = Wk q, c = bk q; K5's w = Wv dctx) runs once per launch in a
+prep kernel, a cluster of `wide_cluster(h)` CTAs per (day, group of heads)
+holds the day's rows in column slices and sums its partial scores in rank
+order through DSMEM, K4's context is one kernel over every day of a head
+(Wv read once per launch), and `wide_launch_group` picks the heads per
+cluster. Neither rule changes a result: no sum depends on the group size.
 
 `attention_fwd_op` is `attention_fwd` without a keep-mask registered as the
 op `factorvae_tpu_torch::attention_fwd` (`torch.library.custom_op`), which
@@ -177,17 +184,52 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+WIDE_MIN_H = 65              # the wide kernels take H from here to 256
+
+
+def wide_cluster(h: int) -> int:
+    """CTAs of a wide day cluster (`wide_cluster` of attention_common.cuh):
+    2 up to H = 128, 4 above, each holding a column slice of the day's
+    rows. A function of H alone: the partial sums a score is made of do not
+    depend on the group size the rule picks."""
+    return 2 if h <= 128 else 4
+
+
+def wide_launch_group(b_days: int, k_heads: int, n: int, h: int, num_sms: int) -> int:
+    """Heads per cluster of the wide attention kernels (H > 64) for B days
+    of N stocks and K heads on a card of `num_sms` SMs: the largest of
+    GROUPS whose grid of B * ceil(K / G) clusters of `wide_cluster(h)` CTAs
+    has a CTA for every SM and whose per-head row arrays stay small (G * N
+    <= MAX_GROUP_ROWS); else 1, the widest grid. A cluster
+    reads its slices of the day's rows from L2 once for its G heads, so the
+    rule takes the fewest clusters that still fill the card: at one
+    flagship day 2 heads a cluster at H = 256 (192 CTAs) and 1 at H = 128
+    (192 CTAs), 8 at 8 days and at a 32-day chunk."""
+    ctas = wide_cluster(h)
+    for g in GROUPS:
+        if (g <= k_heads and g * n <= MAX_GROUP_ROWS
+                and b_days * -(-k_heads // g) * ctas >= num_sms):
+            return g
+    return 1
+
+
 def _group(latent: torch.Tensor, k_heads: int) -> int:
-    """`launch_group` for latent (B, N, H), or lane-axis latent (S, B, N, H),
-    on the card that holds it: the rule sees the S * B days of the launch,
-    and a CTA never takes two lanes' days."""
+    """`launch_group` (`wide_launch_group` above H = 64) for latent (B, N,
+    H), or lane-axis latent (S, B, N, H), on the card that holds it: the
+    rule sees the S * B days of the launch, and a CTA never takes two lanes'
+    days."""
     days = latent.shape[0] * (latent.shape[1] if latent.ndim == 4 else 1)
-    return launch_group(days, k_heads, latent.shape[-2], _num_sms(latent.device.index))
+    n, h = latent.shape[-2:]
+    sms = _num_sms(latent.device.index)
+    if h >= WIDE_MIN_H:
+        return wide_launch_group(days, k_heads, n, h, sms)
+    return launch_group(days, k_heads, n, sms)
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "attention_fwd": {"attention_fwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    "attention_fwd": {"attention_fwd": ([_P] * 11 + [_I] * 6 + [_P], _I),
+                      "attention_fwd_scratch_floats": ([_I] * 5, _L),
                       "attention_fwd_max_hidden": ([], _I)},
     "attention_bwd": {"attention_bwd": ([_P] * 17 + [_I] * 6 + [_P], _I),
                       "attention_bwd_scratch_floats": ([_I] * 5, _L),
@@ -241,11 +283,14 @@ def _fwd_launch(latent, mask, query, w_key, b_key, w_val, b_val, keep, group: in
     if s == 0 or b == 0 or k == 0 or n == 0:
         return out.zero_(), days, False
     ptrs, _alive = _pointers(latent, mask, keep, (query, w_key, b_key, w_val, b_val))
+    floats = lib.attention_fwd_scratch_floats(b, n, k, h, s) if h >= WIDE_MIN_H else 0
+    scratch = torch.empty(floats, dtype=torch.float32, device=latent.device) if floats else None
     with torch.cuda.device(latent.device):
         stream = torch.cuda.current_stream().cuda_stream
         with launch_range("attention_fwd"):
             err = lib.attention_fwd(*ptrs, out.data_ptr(),
                                     days.data_ptr() if exact else None,
+                                    scratch.data_ptr() if floats else None,
                                     b, n, k, h, group, s, stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd launch failed at S={s}, B={b}, N={n}, K={k}, "

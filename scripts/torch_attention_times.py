@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels (K4 forward, K5 backward) on one GPU.
 
-    python3 scripts/torch_attention_times.py [--tree DIR] [--groups] [--profile] [--out FILE]
+    python3 scripts/torch_attention_times.py [--tree DIR] [--hidden 64,128,256] [--groups]
+        [--profile] [--out FILE]
 
 Imports `factorvae_tpu_torch` from DIR (default: this checkout), so two trees
 (a parent commit unpacked with `git archive`, and this one) can be timed in
 turns on one card in one call: parent, change, change, parent. Inputs are the
-flagship widths (N = 304 with 300 stocks, ~5 % of them missing, K = 96, H =
-64) made from --seed: K4 at a 32-day serving chunk and at one training day,
-K5 at one and at 8 training days with a keep-mask. Each time is `graph_ms`,
+flagship widths (N = 304 with 300 stocks, ~5 % of them missing, K = 96) at
+each hidden size of --hidden (default 64), made from --seed: K4 at a 32-day
+serving chunk and at one training day, K5 at one and at 8 training days with
+a keep-mask. A shape's key is its label at H = 64 (`K4_serve`) and the label
+with `_H<h>` above (`K4_serve_H256`). Each time is `graph_ms`,
 the CUDA-event time of 20 replays of a CUDA graph of one call, and `ms`, 20
 calls from Python. With --groups, and a tree whose wrappers take a heads-per-
 CTA override (`_fwd_launch` / `_bwd_launch`), every size of its GROUPS is
@@ -85,9 +88,33 @@ def _inputs(torch, gen, b, n=304, k=96, h=64, n_real=300):
     return latent, mask, weights, keep, dctx
 
 
+def _time_shape(torch, mod, gen, kind: str, b: int, h: int, groups, profile: bool) -> dict:
+    latent, mask, weights, keep, dctx = _inputs(torch, gen, b, h=h)
+    if kind == "fwd":
+        def call(g=None):
+            if g is None:
+                return mod.attention_fwd(latent, mask, *weights)
+            return mod._fwd_launch(latent, mask, *weights, None, g)
+    else:
+        def call(g=None):
+            if g is None:
+                return mod.attention_bwd(latent, mask, *weights, dctx, keep=keep)
+            return mod._bwd_launch(latent, mask, *weights, dctx, keep, g)
+    row = {"graph_ms": _ms(torch, call, True), "ms": _ms(torch, call, False)}
+    if hasattr(mod, "_group"):
+        row["heads_per_cta"] = mod._group(latent, weights[0].shape[0])
+    if profile:
+        row["kernels_us"] = _kernel_us(torch, call)
+    if groups:
+        row["by_group_graph_ms"] = {str(g): _ms(torch, lambda g=g: call(g), True)
+                                    for g in groups}
+    return row
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    p.add_argument("--hidden", default="64", help="comma-separated hidden sizes")
     p.add_argument("--groups", action="store_true")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--seed", type=int, default=0)
@@ -111,27 +138,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     groups = getattr(mod, "GROUPS", ()) if args.groups else ()
     out = {"tree": os.path.abspath(args.tree), "nvidia_smi": smi, "times": {}}
-    for label, (kind, b) in SHAPES.items():
-        latent, mask, weights, keep, dctx = _inputs(torch, gen, b)
-        if kind == "fwd":
-            def call(g=None):
-                if g is None:
-                    return mod.attention_fwd(latent, mask, *weights)
-                return mod._fwd_launch(latent, mask, *weights, None, g)
-        else:
-            def call(g=None):
-                if g is None:
-                    return mod.attention_bwd(latent, mask, *weights, dctx, keep=keep)
-                return mod._bwd_launch(latent, mask, *weights, dctx, keep, g)
-        row = {"graph_ms": _ms(torch, call, True), "ms": _ms(torch, call, False)}
-        if hasattr(mod, "_group"):
-            row["heads_per_cta"] = mod._group(latent, weights[0].shape[0])
-        if args.profile:
-            row["kernels_us"] = _kernel_us(torch, call)
-        if groups:
-            row["by_group_graph_ms"] = {str(g): _ms(torch, lambda g=g: call(g), True)
-                                        for g in groups}
-        out["times"][label] = row
+    for h in (int(x) for x in args.hidden.split(",")):
+        for label, (kind, b) in SHAPES.items():
+            key = label if h == 64 else f"{label}_H{h}"
+            out["times"][key] = _time_shape(torch, mod, gen, kind, b, h, groups, args.profile)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:

@@ -11,8 +11,10 @@ on inputs made from --seed at the flagship widths (N = 304 with 300 stocks,
 T = 20, H = 64, K = 96; K1 also at a 32-day serving chunk; the walk also at
 T = 60, H = 60; K4 and K5 also at H = 37 and on a day with a NaN row, the
 exact path), K1's two variants at H = 128 and 256 at one day and at a
-32-day chunk (its wide instance), and the walk and dWh at H = 128 and 256
-at one day and at T = 60 (dWh on the plain walk's outputs); the line holds
+32-day chunk (its wide instance), the walk and dWh at H = 128 and 256 at
+one day and at T = 60 (dWh on the plain walk's outputs), and K4 and K5 at H
+= 128 and 256 (K4 at one day and at a 32-day chunk, K5 at one and at 8
+days, both on 2 days with a NaN row: the wide exact path); the line holds
 the sha256 of each call's outputs' bytes beside its `graph_ms` (the
 CUDA-event time of 20 replays of a CUDA graph of one call). Equal digests
 from two trees mean the two compute bitwise the same values.
@@ -166,6 +168,27 @@ def main(argv=None) -> int:
             calls[f"gru_walk_{label}_H{h}"] = lambda a=(xi, wh, hseq, gseq, dh): (
                 gru._walk_launch(*a, walk_shape(a[0])))
             calls[f"gru_dwh_{label}_H{h}"] = lambda a=(hseq, *plain): gru.gru_dwh(*a)
+    # K4 and K5 above H = 64, drawn after the rest
+    for h in (128, 256):
+        for label, (b, nan) in (("day", (1, False)), ("serve", (32, False)),
+                                ("8_days", (8, False)), ("nan_day", (2, True))):
+            latent = rand(b, 304, h)
+            mask = torch.zeros(b, 304, dtype=torch.bool, device="cuda")
+            mask[:, :300] = torch.rand(b, 300, device="cuda", generator=gen) > 0.05
+            if nan:
+                latent[1, 5, 2] = float("nan")
+                mask[1, 5] = True
+            w = (torch.randn(96, h, device="cuda", generator=gen),
+                 rand(96, h, h, scale=h ** -0.5), rand(96, h, scale=h ** -0.5),
+                 rand(96, h, h, scale=h ** -0.5), rand(96, h, scale=h ** -0.5))
+            keep = (torch.rand(b, 96, 304, device="cuda", generator=gen) > 0.1).float() / 0.9
+            dctx = rand(b, 96, h, scale=0.1)
+            if label != "8_days":
+                calls[f"attention_fwd_{label}_H{h}"] = lambda a=(latent, mask, *w): (
+                    att.attention_fwd(*a))
+            if label != "serve":
+                calls[f"attention_bwd_{label}_H{h}"] = lambda a=(latent, mask, *w, dctx), \
+                    kp=keep: att.attention_bwd(*a, keep=kp)
     out = {"tree": os.path.abspath(args.tree), "nvidia_smi": smi, "calls": {}}
     for name, fn in calls.items():
         out["calls"][name] = {"digest": _digest(fn()), "graph_ms": graph_ms(torch, fn)}

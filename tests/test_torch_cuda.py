@@ -5,8 +5,9 @@ above 64 (up to 256, the kernels' wider instances) are cases of the same
 tests, and of `test_gru_wide_cluster_path_matches_plain`,
 `test_gru_wide_forward_matches_plain_at_every_tile` (K1's persistent wide
 kernel), the `test_gru_wide_walk_*` and `test_gru_wide_dwh_*` tests (the
-persistent wide walk and the tensor-core dWh) and
-`test_attention_takes_5000_rows_at_h256`. The file imports
+persistent wide walk and the tensor-core dWh),
+`test_attention_takes_5000_rows_at_h256` and the `test_wide_attention_*`
+tests (the wide attention kernels' sums at every group size). The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
 PyTorch, without the repo's conftest:
 
@@ -898,6 +899,41 @@ def test_attention_rule_fills_the_card(dev):
         assert g > 1 and b * -(-96 // g) >= min(96, sms)
     latent = torch.empty(32, 304, 64, device=dev)
     assert attention_module._group(latent, 96) == launch_group(32, 96, 304, sms)
+
+
+@pytest.mark.parametrize("b,n,k,h", [(1, 304, 96, 256), (8, 304, 96, 128), (3, 304, 12, 200),
+                                     (2, 70, 6, 96), (2, 70, 6, 65)],
+                         ids=["one_day_H256", "8_days_H128", "H200", "H96", "H65"])
+def test_wide_attention_is_bitwise_across_group_sizes(dev, b, n, k, h):
+    """Above H = 64 no sum depends on the heads per cluster: K4's context and
+    K5's six gradients are bitwise equal at every group size of GROUPS the
+    layout takes, with and without the keep-mask, and a repeated launch of
+    each gives the same bits; the values are the plain version's."""
+    args, keep, dctx, _ = _attention_case(dev, b, n, k, h, b + n + k + h, False)
+    sizes = [g for g in GROUPS if g * n <= MAX_GROUP_ROWS]
+    for kp in (None, keep):
+        ctx = [attention_module._fwd_launch(*args, kp, g)[0] for g in sizes]
+        grads = [attention_module._bwd_launch(*args, dctx, kp, g)[0] for g in sizes]
+        _close(ctx[0], attention_fwd_plain(*args, keep=kp))
+        want = attention_bwd_plain(*args, dctx, keep=kp)
+        _close(grads[0][0], want[0])
+        for got, w in zip(grads[0][1:], want[1:]):
+            _close_sum(got, w)
+        again = attention_module._fwd_launch(*args, kp, sizes[0])[0]
+        assert all(torch.equal(c, ctx[0]) for c in ctx[1:] + [again])
+        assert all(torch.equal(x, y) for g in grads[1:] for x, y in zip(g, grads[0]))
+
+
+def test_wide_attention_rule_gives_more_ctas_than_heads(dev):
+    """At one flagship day the wide rule's grid has more CTAs than the 96
+    heads (clusters of `wide_cluster(h)` CTAs), and `_group` is the rule
+    on the card's SM count."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for h in (128, 256):
+        g = attention_module.wide_launch_group(1, 96, 304, h, sms)
+        assert -(-96 // g) * attention_module.wide_cluster(h) > 96
+        latent = torch.empty(1, 304, h, device=dev)
+        assert attention_module._group(latent, 96) == g
 
 
 # ---------------------------------------------------------------------------

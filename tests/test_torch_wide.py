@@ -8,8 +8,9 @@ and K5 with a NaN day and a +inf day), the port's `Trainer` at H = 96
 against the JAX `Trainer`, `grid_sweep` over a hidden-size bucket {8, 72}
 against the JAX `grid_sweep`, the launch rule and the refusal at the new
 maximum, K1's and the walk's own launch rules above H = 64 and their
-persistent clusters' tile assignment, the kernel names by which
-chip_smoke.py books the GRU kernels' traced launches, the CLI at H = 96,
+persistent clusters' tile assignment, the attention kernels' wide rule,
+the kernel names by which chip_smoke.py books the GRU and attention
+kernels' traced launches, the CLI at H = 96,
 and an exported program at H = 96 (its registered ops traced through
 their fake functions). Inputs come from numpy.
 
@@ -49,7 +50,14 @@ from factorvae_tpu_torch.data.panel import Panel
 from factorvae_tpu_torch.eval import sweep
 from factorvae_tpu_torch.ops.kernels import MAX_HIDDEN, hidden_refusal
 from factorvae_tpu_torch.ops.kernels import gru as gru_module
-from factorvae_tpu_torch.ops.kernels.attention import attention, attention_fwd
+from factorvae_tpu_torch.ops.kernels.attention import (
+    GROUPS,
+    MAX_GROUP_ROWS,
+    attention,
+    attention_fwd,
+    wide_cluster,
+    wide_launch_group,
+)
 from factorvae_tpu_torch.ops.kernels.gru import (
     FWD_ROWS,
     WALK_ROWS,
@@ -351,6 +359,74 @@ def test_trace_patterns_name_the_backward_kernels(name, wrapper):
     assert hits == [wrapper]
     first = bool(re.search(KERNEL_FUNCTIONS[wrapper][0], name))
     assert first == ("reduce" not in name)
+
+
+@pytest.mark.parametrize("name,wrapper", [
+    ("void (anonymous namespace)::attention_fwd_kernel<2>(float const*)", "attention_fwd"),
+    ("void (anonymous namespace)::attention_fwd_wide_kernel<8>(float const*)", "attention_fwd"),
+    ("void (anonymous namespace)::attention_fwd_prep_kernel<4>(float const*)", "attention_fwd"),
+    ("(anonymous namespace)::attention_fwd_ctx_kernel(float const*, int)", "attention_fwd"),
+    ("void (anonymous namespace)::attention_bwd_head_kernel<2>(float const*)", "attention_bwd"),
+    ("void (anonymous namespace)::attention_bwd_head_wide_kernel<8>(float const*)",
+     "attention_bwd"),
+    ("void (anonymous namespace)::attention_bwd_prep_kernel<8>(float const*)", "attention_bwd"),
+    ("(anonymous namespace)::attention_bwd_weights_kernel(float const*, int)", "attention_bwd"),
+    ("void (anonymous namespace)::attention_bwd_latent_kernel<64>(float const*)",
+     "attention_bwd"),
+    ("(anonymous namespace)::attention_bwd_latent_wide_kernel(float const*, int)",
+     "attention_bwd")])
+def test_trace_patterns_name_the_attention_kernels(name, wrapper):
+    """chip_smoke.py books a traced K4 or K5 launch to its wrapper by the
+    kernel's demangled name, up to H = 64 and above it (the prep kernels,
+    the wide day kernels, K4's context kernel, K5's wide latent pass): each
+    name matches its wrapper's patterns and no other wrapper's, and the
+    first pattern, which counts launches, matches exactly the one kernel
+    each launch runs once (the day kernel), not the others."""
+    import re
+
+    from chip_smoke import KERNEL_FUNCTIONS
+
+    hits = [w for w, patterns in KERNEL_FUNCTIONS.items()
+            if any(re.search(p, name) for p in patterns)]
+    assert hits == [wrapper]
+    first = bool(re.search(KERNEL_FUNCTIONS[wrapper][0], name))
+    assert first == any(day in name for day in ("attention_fwd_kernel",
+                                                "attention_fwd_wide_kernel",
+                                                "attention_bwd_head_kernel",
+                                                "attention_bwd_head_wide_kernel"))
+
+
+@pytest.mark.parametrize("h", [65, 96, 128, 129, 200, 256])
+@pytest.mark.parametrize("b", [1, 2, 8, 32])
+def test_wide_attention_rule(b, h):
+    """Above H = 64 the attention kernels' own rule: clusters of 2 CTAs up
+    to H = 128 and 4 above (a function of H alone), and the largest group of
+    GROUPS whose grid has a CTA for every SM with G * N <= MAX_GROUP_ROWS,
+    else one head a cluster."""
+    n, k = 304, 96
+    ctas = wide_cluster(h)
+    assert ctas == (2 if h <= 128 else 4)
+    g = wide_launch_group(b, k, n, h, H100_SMS)
+
+    def fills(x):
+        return b * -(-k // x) * ctas >= H100_SMS
+
+    assert g in GROUPS and g * n <= MAX_GROUP_ROWS
+    assert g == 1 or fills(g)
+    assert not any(fills(x) for x in GROUPS if x > g and x * n <= MAX_GROUP_ROWS)
+
+
+def test_wide_attention_rule_at_the_flagship_shapes():
+    """At one training day 2 heads a cluster at H = 256 and 1 at H = 128,
+    192 CTAs each (more than the 96 heads), groups of 8 at 8 days and at a
+    32-day serving chunk; a pure function of (days, K, N, H, SMs)."""
+    assert [wide_launch_group(b, 96, 304, 256, H100_SMS) for b in (1, 8, 32)] == [2, 8, 8]
+    assert [wide_launch_group(b, 96, 304, 128, H100_SMS) for b in (1, 8, 32)] == [1, 8, 8]
+    for h in (128, 256):
+        g = wide_launch_group(1, 96, 304, h, H100_SMS)
+        assert -(-96 // g) * wide_cluster(h) > 96
+    assert wide_launch_group(32, 96, 70, 256, 16) == 16
+    assert wide_launch_group(1, 4, 5200, 256, H100_SMS) == 1
 
 
 @pytest.mark.parametrize("tiles,resident,lanes", [
