@@ -105,7 +105,13 @@ named phases, and prints neither the kernels line nor the result):
               once per validation batch and scoring chunk, K4 once per
               forward and K5 once per train step; (c) the serving variant
               and K4 only. The CSV has one row per valid (day, stock) and
-              the RankIC is finite. Epoch, scoring and CSV times.
+              the RankIC is finite. Epoch, scoring and CSV times. The
+              native panel ops' counters (`native.call_counts()`) are set to
+              0 just before (a): its panel build and its fill maps must be
+              served by the native pass (native above 0, numpy at 0); then
+              the pickle's `build_panel` and the padded panel's
+              `compute_fill_maps` with the native pass and with
+              FACTORVAE_NATIVE=0, bitwise equal, each timed.
 11. fleet  -- fleets of models at flagship width, f32, S = 4 lanes: (a)
               K1 (both variants), the walk and dWh at one training day and
               at T = 60 / H = 60 (K3's case), K4 and K5 at one training day
@@ -292,7 +298,13 @@ named phases, and prints neither the kernels line nor the result):
               serving and K4 rows, and the kernels after the warm-up counted
               equal to the launch counters (as in (b)), and whether the tick
               thread's
-              CPU rows were captured.
+              CPU rows were captured; (e) the perf ledger
+              (`obs/ledger.py`) on a temp history: two rows of (a)'s warm
+              epochs (probes off, train windows/s) made on the card, with a
+              CPU-rig row between them, then `ledger.check`: the card's
+              latest row compared with the card's first (history 2, one
+              other-rig row skipped), both rows naming the card and its
+              power limit as nvidia-smi gives them.
 18. remat  -- rematerialized training at flagship width on the 80-day
               panel: (a) one step from the same init under train.remat
               "none", "dots" and "full" at days_per_step 1 and 8 (the
@@ -339,7 +351,8 @@ named phases, and prints neither the kernels line nor the result):
               of a run given the same knobs as flags; (c) `cli
               --compile_cache DIR` in two fresh processes: the first compiles
               the four libraries into DIR, the second loads all four as
-              compile_cached and compiles none; (d) `serve --precision plan`
+              compile_cached and compiles none; DIR then holds those four
+              and the native panel ops' library (outside the counts); (d) `serve --precision plan`
               (HTTP, --scheduler) against the row with a bfloat16 serve
               block: admitted at bfloat16, the tick and batch the row's, and
               the fleet's SLO and hedge the row's; (e) flagship scores at the
@@ -1769,10 +1782,49 @@ def _csv_scores(path):
     return rows[0], np.array([float(r[2]) for r in rows[1:]], np.float32)
 
 
+def _native_vs_numpy(pkl: str, pad_multiple: int) -> dict:
+    """The pickle's panel build and the padded panel's fill maps with the
+    native panel ops and with FACTORVAE_NATIVE=0: bitwise equal, each timed
+    (host seconds)."""
+    from factorvae_tpu_torch import native
+    from factorvae_tpu_torch.data.panel import build_panel, load_frame
+    from factorvae_tpu_torch.data.windows import compute_fill_maps
+
+    df = load_frame(pkl)
+    out, got = {}, {}
+    for path in ("native", "numpy"):
+        if path == "numpy":
+            os.environ[native.ENV] = "0"
+        try:
+            native.reset_call_counts()
+            t0 = time.perf_counter()
+            panel = build_panel(df)
+            t1 = time.perf_counter()
+            n_max = -(-panel.num_instruments // pad_multiple) * pad_multiple
+            valid = np.zeros((panel.num_days, n_max), bool)
+            valid[:, :panel.num_instruments] = panel.valid
+            t2 = time.perf_counter()
+            maps = compute_fill_maps(valid)
+            t3 = time.perf_counter()
+        finally:
+            os.environ.pop(native.ENV, None)
+        counts = native.call_counts()
+        check(all(counts[op][path] == 1 and sum(counts[op].values()) == 1
+                  for op in native.OPS), f"cli: the {path} panel ops ran {counts}")
+        got[path] = (panel.values, panel.valid, *maps)
+        out[path] = {"build_panel_s": t1 - t0, "fill_maps_s": t3 - t2}
+    same = [a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+            for a, b in zip(got["native"], got["numpy"])]
+    check(all(same), f"cli: native vs numpy panel ops not bitwise (values, valid, "
+                     f"last_valid, next_valid): {same}")
+    return {**out, "bitwise": True, "rows": int(got["native"][1].sum()),
+            "dense_shape": list(got["native"][0].shape)}
+
+
 def phase_cli(torch, seed: int, counters, card: str) -> dict:
     import tempfile
 
-    from factorvae_tpu_torch import cli
+    from factorvae_tpu_torch import cli, native
     from factorvae_tpu_torch.chaos import ChaosPlan, Fault
     from factorvae_tpu_torch.data.panel import panel_to_frame
     from factorvae_tpu_torch.data.synthetic import synthetic_panel_dense
@@ -1798,8 +1850,14 @@ def phase_cli(torch, seed: int, counters, card: str) -> dict:
                        "--metrics_jsonl", f"{root}/{out}/run.jsonl", *extra]
 
     train_names = ("gru_fwd_residuals", "gru_bwd", "gru_dwh", "attention_bwd")
-    # (a) three epochs, then score, export and backtest
+    # (a) three epochs, then score, export and backtest; the native panel
+    # ops must serve its panel build and its fill maps
+    native.reset_call_counts()
     a = _cli_drive(torch, cli, counters, argv("a", "--num_epochs", "3", "--backtest"))
+    native_counts = native.call_counts()
+    check(all(native_counts[op]["native"] > 0 and native_counts[op]["numpy"] == 0
+              for op in native.OPS),
+          f"cli (a): the native panel ops did not serve the run: {native_counts}")
     la = a["launches"]
     epochs = _of(a, "epoch")
     check([e["epoch"] for e in epochs] == [0, 1, 2], f"cli (a): epochs {epochs}")
@@ -1902,6 +1960,7 @@ def phase_cli(torch, seed: int, counters, card: str) -> dict:
     _, csv_f = _csv_scores(scores_f["path"])
     check(np.isfinite(scores_f["rank_ic"]) and len(csv_f) == valid_rows
           and bool(np.isfinite(csv_f).all()), f"cli (f): scores {scores_f}")
+    panel_ops = _native_vs_numpy(pkl, cfg.data.pad_multiple)
     work.cleanup()
 
     windows = int(panel.valid[:50].sum())
@@ -1934,7 +1993,8 @@ def phase_cli(torch, seed: int, counters, card: str) -> dict:
                 "loss_scale_floor_steps")}, "rank_ic": scores_f["rank_ic"],
                 "score_s": scores_f["score_s"], "windows": scores_f["windows"]},
             "walls_s": {"a": a["wall_s"], "b": b["wall_s"], "c": c["wall_s"],
-                        "d_cpu": cpu["wall_s"], "e": e["wall_s"], "f": f["wall_s"]}}
+                        "d_cpu": cpu["wall_s"], "e": e["wall_s"], "f": f["wall_s"]},
+            "native_panel_ops": {"a_call_counts": native_counts, **panel_ops}}
 
 
 # ---- fleets: the kernels' lane axis, FleetTrainer, the CLI's fleets ---------
@@ -4496,6 +4556,44 @@ def _probe_step(torch, trainer_cls, cfg, ds, weights) -> dict:
     return {k: float(v) for k, v in aux.items()}
 
 
+def _ledger_check(root: str, card: str, windows: int, epoch_s: list) -> dict:
+    """obs (e): two rows made on the card (train windows/s of two warm
+    epochs) with a CPU-rig row between them in a temp history; the report
+    must compare the card's rows and skip the CPU's, and the card's rows
+    must name the card and its power limit."""
+    import torch
+
+    from factorvae_tpu_torch.obs import ledger
+
+    path = os.path.join(root, "bench_history.jsonl")
+    metric = "obs_epoch_train_windows_per_s"
+    rig = ledger.this_rig()
+    cpu_rig = {**rig, "platform": "cpu", "device": None, "device_count": 0}
+    cpu_rig.pop("power_limit", None)
+    for k, run_meta in ((0, None), (None, cpu_rig), (1, None)):
+        value = windows / epoch_s[k] if k is not None else 1.0
+        check(ledger.append_row({"metric": metric, "value": value, "unit": "windows/s",
+                                 "platform": "cuda" if run_meta is None else "cpu"},
+                                path=path, run_meta=run_meta) == path,
+              "obs (e): a ledger row was not written")
+    rows = ledger.load_history(path)
+    ok, report = ledger.check(path)
+    (entry,) = report["metrics"]
+    card_rows = [r["run_meta"] for r in rows if r["platform"] == "cuda"]
+    power = card.rsplit(",", 1)[-1].strip()
+    check(len(rows) == 3 and entry["history"] == 2 and entry["other_rig_skipped"] == 1
+          and entry.get("trailing_median") == round(windows / epoch_s[0], 3)
+          and entry["status"] != "no_comparable_history",
+          f"obs (e): the ledger's report {report}")
+    check(all(m["device"] == torch.cuda.get_device_name(0) and m["power_limit"] == power
+              for m in card_rows),
+          f"obs (e): the card's rows name {[(m['device'], m['power_limit']) for m in card_rows]}"
+          f", not {card}")
+    return {"ok": ok, "entry": entry, "rig": {"device": card_rows[0]["device"],
+                                             "power_limit": card_rows[0]["power_limit"]},
+            "report": ledger.format_report(report).splitlines()}
+
+
 def phase_obs(torch, seed: int, counters, card: str) -> dict:
     """The run observatory at flagship width on the 80-day panel (see the
     module docstring, phase 18)."""
@@ -4651,6 +4749,7 @@ def phase_obs(torch, seed: int, counters, card: str) -> dict:
                         "loss_rel_err": loss_err, "limits": OBS_LANE_RTOL,
                         "probes": {k: frec[k] for k in TRAIN_PROBE_KEYS}}}
     print(f"[obs] (a) done at {time.perf_counter() - t_phase:.1f}s", file=sys.stderr)
+    ledger_out = _ledger_check(root, card, int(panel.valid[:50].sum()), walls["off"][:2])
 
     # (b) the trainer's on-demand capture: a PROFILE_REQUEST before epoch 1
     # of a run with a metrics stream. The counters go to 0 when epoch 0's
@@ -4818,7 +4917,7 @@ def phase_obs(torch, seed: int, counters, card: str) -> dict:
             "config": "flagship C158/T20/H64/K96/M128, f32, 80 days x 300 stocks, "
                       "days_per_step=1",
             "launches": launches, "probes": probes, "profiler": profiler, "cli": cli_out,
-            "daemon": daemon_out,
+            "daemon": daemon_out, "ledger": ledger_out,
             # K1's serving variant from the daemon's capture (one-day and
             # 32-day chunks), every other kernel from the training epoch's
             "profiler_us_per_launch": {k: v["us_per_launch"] or drows.get(k, {}).get(
@@ -5298,9 +5397,13 @@ def phase_plan(torch, seed: int, counters, card: str) -> dict:
                           "compile_cache": [e["dir"] for e in events
                                             if e["event"] == "compile_cache"]})
     libs = sorted(f for f in os.listdir(cache) if f.endswith(".so"))
+    # the kernels' four libraries, and the native panel ops' one (built
+    # into the same directory, outside the compile counts)
+    kernel_libs = [f for f in libs if not f.startswith("libpanelops-")]
     check(proc_runs[0]["compile"] == 4 and proc_runs[0]["compile_cached"] == 0
           and proc_runs[1]["compile"] == 0 and proc_runs[1]["compile_cached"] == 4
-          and len(libs) == 4 and all(p["compile_cache"] == [cache] for p in proc_runs),
+          and len(kernel_libs) == 4 and len(libs) == 5
+          and all(p["compile_cache"] == [cache] for p in proc_runs),
           f"plan (c): {proc_runs}, libraries {libs}")
 
     # (d) serve --precision plan against a row with a bf16 serve block

@@ -6,6 +6,10 @@
     dates:  (D,) numpy datetime64[D]
     instruments: (I,) str
 
+`build_panel`'s scatter is the native pass where it builds
+(`native.scatter_panel`), numpy otherwise, bitwise the same; of two rows
+with one (datetime, instrument) the later one in index order stays.
+
 pandas is imported only by `load_frame`, `build_panel` and `panel_to_frame`,
 which read and write the reference's pickle schema; the scoring path never
 needs it.
@@ -17,6 +21,8 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+
+from factorvae_tpu_torch import native
 
 
 def to_day(d) -> np.datetime64:
@@ -75,6 +81,22 @@ def load_frame(path: str, select_feature: Optional[Sequence[str]] = None,
     return df
 
 
+def _scatter_numpy(data, rows, cols, d_total, n_inst):
+    """`native.scatter_panel`'s numpy version."""
+    values = np.full((n_inst, d_total, data.shape[1]), np.nan, np.float32)
+    key = cols * d_total + rows
+    seen = np.zeros(n_inst * d_total, bool)
+    seen[key] = True
+    if int(seen.sum()) < len(key):
+        # a repeated (datetime, instrument): numpy leaves the winner
+        # unspecified; keep the later row, as the native pass does
+        last = len(key) - 1 - np.unique(key[::-1], return_index=True)[1]
+        values[cols[last], rows[last]] = data[last]
+    else:
+        values[cols, rows] = data
+    return values
+
+
 def build_panel(df) -> Panel:
     """Densify a MultiIndex (datetime, instrument) frame to a Panel."""
     if list(df.index.names) != ["datetime", "instrument"]:
@@ -82,12 +104,13 @@ def build_panel(df) -> Panel:
     df = df.sort_index()
     dates = df.index.get_level_values(0).unique().sort_values()
     instruments = df.index.get_level_values(1).unique().sort_values()
-    rows = dates.get_indexer(df.index.get_level_values(0))
-    cols = instruments.get_indexer(df.index.get_level_values(1))
-    values = np.full((len(instruments), len(dates), df.shape[1]), np.nan, np.float32)
-    values[cols, rows] = df.to_numpy(dtype=np.float32)
-    valid = np.zeros((len(dates), len(instruments)), bool)
+    d, i = len(dates), len(instruments)
+    rows = dates.get_indexer(df.index.get_level_values(0)).astype(np.int64)
+    cols = instruments.get_indexer(df.index.get_level_values(1)).astype(np.int64)
+    data = df.to_numpy(dtype=np.float32)
+    valid = np.zeros((d, i), bool)
     valid[rows, cols] = True
+    values = native.scatter_panel(data, rows, cols, d, i, fallback=_scatter_numpy)
     return Panel(values=values, valid=valid,
                  dates=np.asarray(dates.values, dtype="datetime64[D]"),
                  instruments=np.asarray(instruments))

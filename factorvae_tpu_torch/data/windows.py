@@ -10,7 +10,8 @@ host,
     next_valid[d, i] = earliest day  >= d with a row ( D if none)
 
 drive the gather, which runs on the device over the resident panel.
-Integer selection only: the windows are bitwise the JAX package's.
+Integer selection only: the windows are bitwise the JAX package's. The
+maps come from the native pass where it builds (`native.fill_maps`).
 
 The host twins (`fill_indices_host`, `window_fill_indices_np`,
 `gather_days_host`, `chunk_mini_panel`) are numpy, bitwise the JAX ones: the
@@ -23,9 +24,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from factorvae_tpu_torch import native
+
 
 def compute_fill_maps(valid: np.ndarray):
-    """valid (D, I) bool -> (last_valid, next_valid), both (D, I) int32."""
+    """valid (D, I) bool -> (last_valid, next_valid), both (D, I) int32.
+
+    The native pass (`factorvae_tpu_torch/native`) serves when it is
+    available, numpy otherwise; the two are bitwise equal."""
+    return native.fill_maps(valid, fallback=_fill_maps_numpy)
+
+
+def _fill_maps_numpy(valid: np.ndarray):
     valid = np.asarray(valid, bool)
     d = valid.shape[0]
     idx = np.arange(d, dtype=np.int32)[:, None]

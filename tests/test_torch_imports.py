@@ -233,7 +233,8 @@ assert {"factorvae_tpu_torch.parallel", "factorvae_tpu_torch.parallel.mesh",
         "factorvae_tpu_torch.parallel.compose", "factorvae_tpu_torch.parallel.multihost",
         "factorvae_tpu_torch.parallel.partition", "factorvae_tpu_torch.parallel.sharding",
         "factorvae_tpu_torch.parallel.collective_ops", "factorvae_tpu_torch.parallel.ring",
-        "factorvae_tpu_torch.obs.comms"} <= set(names)
+        "factorvae_tpu_torch.obs.comms", "factorvae_tpu_torch.native",
+        "factorvae_tpu_torch.obs.ledger"} <= set(names)
 
 def banned(mod):
     top = mod.split(".")[0]

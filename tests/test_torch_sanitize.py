@@ -11,7 +11,8 @@ and the races its static half (graftlint JGL009-011) found in the port.
   from several client threads; the locks made at import (`_build`'s
   counter lock, `utils/profiling`'s capture lock) come in through
   `adopt`. The recorded held-while-acquiring graph must be acyclic, and a
-  seeded inversion must fail with the report.
+  seeded inversion must fail with the report. The native panel ops' lock
+  under the daemon's tick lock: an append beside ticks and fill maps.
 - The repaired sites: the autoscaler's loop joined on `stop`, the
   checkpoint drain at exit surfacing a failed write, the build counters
   and `Checkpointer.manifest_seconds` under their locks.
@@ -257,6 +258,51 @@ class TestPortLockSet:
         edges = rec.edges()
         assert edges, "the composition recorded no nesting"
         assert any("daemon.py" in a and "registry.py" in b for a, b in edges), sorted(edges)
+
+    def test_native_lock_under_the_daemon_is_acyclic(self, tmp_path):
+        """The native panel ops' lock (`native._LOCK`, made at import) under
+        the daemon's tick lock: an append (`extend_dataset` recomputes the
+        fill maps) while client threads tick and another thread builds
+        fill maps of its own."""
+        from factorvae_tpu_torch import native
+        from factorvae_tpu_torch.data.loader import PanelDataset
+        from factorvae_tpu_torch.data.synthetic import synthetic_panel
+        from factorvae_tpu_torch.data.windows import compute_fill_maps
+        from factorvae_tpu_torch.models.factorvae import load_model
+        from factorvae_tpu_torch.serve.daemon import ScoringDaemon, TickScheduler
+        from factorvae_tpu_torch.serve.registry import ModelRegistry
+
+        panel = synthetic_panel(num_days=14, num_instruments=6, num_features=C,
+                                missing_prob=0.1, seed=3)
+        history, piece = (panel.date_slice(None, str(panel.dates[11])),
+                          panel.date_slice(str(panel.dates[12]), None))
+        cfg = _config(tmp_path)
+        rec = LockOrderRecorder(only=("factorvae_tpu_torch/",))
+        with rec:
+            rec.adopt(native, "_LOCK")
+            daemon = ScoringDaemon(ModelRegistry(device="cpu"),
+                                   PanelDataset(history, seq_len=T, device="cpu"))
+            daemon.registry.register_params(load_model(cfg, device="cpu"), cfg, alias="m0")
+            sched = TickScheduler(daemon, tick_ms=1.0)
+            try:
+                answers = []
+                threads = [threading.Thread(target=lambda i=i: answers.extend(
+                    sched.submit([{"id": i, "model": "m0", "day": 8 + i % 4}])))
+                    for i in range(4)]
+                threads.append(threading.Thread(
+                    target=lambda: [compute_fill_maps(panel.valid) for _ in range(5)]))
+                for t in threads:
+                    t.start()
+                assert daemon.extend_dataset(piece)
+                for t in threads:
+                    t.join(60)
+                assert len(answers) == 4 and all(r["ok"] for r in answers)
+                assert len(daemon.dataset.dates) == 14
+            finally:
+                sched.close()
+        rec.check()
+        assert any("daemon.py" in a and "native" in b for a, b in rec.edges()), \
+            sorted(rec.edges())
 
     def test_seeded_inversion_fails_loudly(self):
         rec = LockOrderRecorder(only=("factorvae_tpu_torch/",))
